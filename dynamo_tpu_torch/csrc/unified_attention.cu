@@ -1,0 +1,87 @@
+// Unified ragged paged attention: any mix of prefill segments and decode
+// tokens in one launch, reading K/V straight from the paged cache.
+//
+// Replaces the TPU kernel dynamo_tpu/ops/pallas_unified.py
+// (_unified_kernel, launched by ragged_paged_attention), float cache
+// without the window / sink / softcap row attributes.
+//
+// Semantics: row r owns query tokens q[q_starts[r] : q_starts[r] + q_lens[r]],
+// its newest tokens, at the tail of its context: token i sits at position
+// seq_lens[r] - q_lens[r] + i and sees the row's keys < position + 1. Rows
+// with q_len == 0 or seq_len == 0 write nothing; the wrapper zeroes the
+// output, so tokens outside every segment read back zero. (The TPU kernel
+// kept one output block resident across rows and merged clamped tiles with
+// a read-modify-write; here each block writes only its own member rows.)
+//
+// Bound on this card: bytes for decode rows (each reads its pages once for
+// G heads), operations for long prefill segments (as flash_extend.cu). One
+// block per (q tile, kv head, row) with the shared tile body of
+// attn_common.cuh; the grid's q-tile extent comes from the host's bound on
+// q_lens, and blocks past their row's segment exit at once. Pages past
+// ceil(seq_len / block_size) are never read.
+
+#include "attn_common.cuh"
+
+namespace dtt {
+
+// row offsets of one sequence's keys in the paged cache
+struct PagedRows {
+  const int* table;
+  int bs, kvh, kh;
+  __device__ long operator()(int kpos) const {
+    const long page = table[kpos / bs];
+    return ((page * bs + kpos % bs) * kvh + kh) * HEAD_DIM;
+  }
+};
+
+__global__ void __launch_bounds__(NTHREADS)
+unified_kernel(const __nv_bfloat16* __restrict__ q,
+               const __nv_bfloat16* __restrict__ kc,
+               const __nv_bfloat16* __restrict__ vc,
+               const int* __restrict__ tables, const int* __restrict__ q_starts,
+               const int* __restrict__ q_lens, const int* __restrict__ seq_lens,
+               __nv_bfloat16* __restrict__ out, int Tq, int h, int kvh, int bs,
+               int max_blocks) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  TileSmem& sm = *reinterpret_cast<TileSmem*>(smem_raw);
+  const int G = h / kvh, TQ = TM / G;
+  const int qt = blockIdx.x, kh = blockIdx.y, r = blockIdx.z;
+  const int q_start = q_starts[r], q_len = q_lens[r], seq_len = seq_lens[r];
+  const int t0 = qt * TQ;
+  if (q_len <= 0 || seq_len <= 0 || t0 >= q_len) return;  // block-uniform
+  // clamp to the packed buffer so a malformed row cannot write out of bounds
+  const int ntok = min(min(TQ, q_len - t0), Tq - (q_start + t0));
+  if (ntok <= 0) return;
+  const PagedRows rows{tables + (long)r * max_blocks, bs, kvh, kh};
+  tile_attention(sm, q, out, kc, vc, rows, h, kh, G, (long)q_start + t0, ntok,
+                 seq_len - q_len + t0, seq_len);
+}
+
+}  // namespace dtt
+
+// q [Tq, h, 128] bf16; k/v cache [num_blocks, bs, kvh, 128] bf16;
+// tables [R, max_blocks], q_starts/q_lens/seq_lens [R] int32;
+// max_q_len >= every q_lens[r] -> out [Tq, h, 128] bf16 (member rows only;
+// the caller zeroes it). Returns cudaGetLastError() after the launch.
+extern "C" int dtt_unified(const void* q, const void* kc, const void* vc,
+                           const void* tables, const void* q_starts,
+                           const void* q_lens, const void* seq_lens, void* out,
+                           int Tq, int h, int kvh, int bs, int R, int max_blocks,
+                           int max_q_len, void* stream) {
+  using namespace dtt;
+  if (R <= 0 || max_q_len <= 0 || Tq <= 0) return 0;
+  if (kvh <= 0 || h % kvh || TM % (h / kvh)) return (int)cudaErrorInvalidValue;
+  const int smem = (int)sizeof(TileSmem);
+  cudaError_t err = cudaFuncSetAttribute(
+      unified_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int TQ = TM / (h / kvh);
+  const dim3 grid((max_q_len + TQ - 1) / TQ, kvh, R);
+  unified_kernel<<<grid, NTHREADS, smem, reinterpret_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(kc),
+      static_cast<const __nv_bfloat16*>(vc), static_cast<const int*>(tables),
+      static_cast<const int*>(q_starts), static_cast<const int*>(q_lens),
+      static_cast<const int*>(seq_lens), static_cast<__nv_bfloat16*>(out), Tq, h,
+      kvh, bs, max_blocks);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,150 @@
+"""Host-side physical KV block allocator with content-addressed prefix cache.
+
+The device cache is ``[num_blocks, block_size, kv_heads, head_dim]`` per layer
+(ops/attention.py layout); this allocator owns which physical block holds
+which sequence-hash, mirrored after the reference's block pool + reuse logic
+(lib/llm/src/block_manager/pool/) at G1 scope. Block 0 is reserved as scratch
+for padding writes and never allocated.
+
+Emits stored/removed events (sequence-hash space) for the KV router feed.
+"""
+
+from __future__ import annotations
+
+from collections import OrderedDict
+from typing import Dict, List, Tuple
+
+from ..tokens import SequenceHash
+
+
+class OutOfBlocks(Exception):
+    pass
+
+
+class BlockAllocator:
+    SCRATCH = 0
+
+    def __init__(self, num_blocks: int, block_size: int):
+        if num_blocks < 2:
+            raise ValueError("need at least 2 blocks (block 0 is scratch)")
+        self.num_blocks = num_blocks
+        self.block_size = block_size
+        self._free: List[int] = list(range(num_blocks - 1, 0, -1))  # pop() -> low ids first
+        # committed content: seq_hash -> block id (active or cached)
+        self._by_hash: Dict[SequenceHash, int] = {}
+        self._refcount: Dict[int, int] = {}            # block id -> active refs
+        self._hash_of: Dict[int, SequenceHash] = {}    # block id -> seq_hash
+        # LRU of unpinned cached blocks (block ids), eviction order = insertion
+        self._lru: OrderedDict[int, None] = OrderedDict()
+        self.events_stored: List[List[SequenceHash]] = []
+        self.events_removed: List[List[SequenceHash]] = []
+
+    # -- introspection -------------------------------------------------------
+    @property
+    def free_blocks(self) -> int:
+        return len(self._free) + len(self._lru)
+
+    @property
+    def active_blocks(self) -> int:
+        return sum(1 for rc in self._refcount.values() if rc > 0)
+
+    @property
+    def cached_blocks(self) -> int:
+        return len(self._lru)
+
+    # -- prefix cache --------------------------------------------------------
+    def match_prefix(self, hashes: List[SequenceHash]) -> List[int]:
+        """Longest cached prefix; returns (unpinned) block ids, no state change."""
+        out: List[int] = []
+        for h in hashes:
+            bid = self._by_hash.get(h)
+            if bid is None:
+                break
+            out.append(bid)
+        return out
+
+    def acquire_prefix(self, hashes: List[SequenceHash]) -> List[int]:
+        """Pin the longest cached prefix for a request; returns its block ids."""
+        ids = self.match_prefix(hashes)
+        for bid in ids:
+            self._pin(bid)
+        return ids
+
+    def _pin(self, bid: int) -> None:
+        rc = self._refcount.get(bid, 0)
+        if rc == 0:
+            self._lru.pop(bid, None)
+        self._refcount[bid] = rc + 1
+
+    # -- allocation ----------------------------------------------------------
+    def allocate(self, n: int) -> List[int]:
+        """Grab n fresh blocks (evicting cached LRU if needed); pinned, no
+        content hash yet (assign via commit)."""
+        out: List[int] = []
+        try:
+            for _ in range(n):
+                out.append(self._pop_free())
+        except OutOfBlocks:
+            for bid in out:  # roll back partial allocation
+                self._free.append(bid)
+            raise
+        for bid in out:
+            self._refcount[bid] = 1
+        return out
+
+    def _pop_free(self) -> int:
+        if self._free:
+            return self._free.pop()
+        if self._lru:
+            victim, _ = self._lru.popitem(last=False)  # evict oldest
+            h = self._hash_of.pop(victim, None)
+            if h is not None:
+                del self._by_hash[h]
+                self.events_removed.append([h])
+            self._refcount.pop(victim, None)
+            return victim
+        raise OutOfBlocks(f"no free blocks ({self.num_blocks} total)")
+
+    def can_allocate(self, n: int) -> bool:
+        return self.free_blocks >= n
+
+    # -- content commit / release -------------------------------------------
+    def commit(self, bid: int, seq_hash: SequenceHash) -> None:
+        """Blocks become content-addressed once sealed (full of tokens)."""
+        existing = self._by_hash.get(seq_hash)
+        if existing is not None and existing != bid:
+            # duplicate content: keep both physical blocks but hash points at
+            # the original; this block stays anonymous (freed on release)
+            return
+        self._by_hash[seq_hash] = bid
+        self._hash_of[bid] = seq_hash
+        self.events_stored.append([seq_hash])
+
+    def release(self, block_ids: List[int]) -> None:
+        """Unpin a request's blocks; sealed ones become evictable cache,
+        anonymous ones return to the free list."""
+        for bid in block_ids:
+            rc = self._refcount.get(bid, 0)
+            if rc > 1:
+                self._refcount[bid] = rc - 1
+                continue
+            self._refcount.pop(bid, None)
+            if bid in self._hash_of:
+                self._lru[bid] = None
+                self._lru.move_to_end(bid)
+            else:
+                self._free.append(bid)
+
+    def drain_events(self) -> Tuple[List[List[SequenceHash]], List[List[SequenceHash]]]:
+        stored, self.events_stored = self.events_stored, []
+        removed, self.events_removed = self.events_removed, []
+        return stored, removed
+
+    def clear(self) -> None:
+        """Drop the whole prefix cache (router gets a CLEARED event upstream)."""
+        for bid in list(self._lru):
+            h = self._hash_of.pop(bid, None)
+            if h is not None:
+                self._by_hash.pop(h, None)
+            self._free.append(bid)
+        self._lru.clear()

@@ -1,0 +1,734 @@
+"""TorchEngine: continuous-batching paged-KV serving engine on PyTorch/CUDA.
+
+Counterpart of the reference's engine/engine.py ``TpuEngine``, for the
+llama family on one GPU:
+
+- the paged KV cache lives on the device as ``[num_blocks, block_size,
+  kv_heads, head_dim]`` per layer; block 0 is scratch;
+- device-side prefix-cache reuse: the host ``BlockAllocator``
+  content-addresses sealed blocks by chained sequence hash; admission pins
+  the longest cached prefix and prefill feeds only the uncached suffix;
+- chunked, bucketed prefill: one bounded chunk per loop tick (so resident
+  decodes keep moving), padded to a bucket with the reference's conventions
+  (pad positions at ``max_context - 1``, pad rows writing scratch block 0);
+- one decode step per tick for every resident sequence;
+- the fused mixed step: when a prefill chunk and resident decodes coexist,
+  ONE forward serves both, with the chunk as row 0 and the decode slots as
+  rows 1..B of one unified ragged attention launch;
+- sampling on the device (only token ids, logprobs and top-logprob rows
+  come back to the host).
+
+Attention runs through the wrappers of the hand-written CUDA kernels
+(ops/cuda_attention, cuda_prefill, cuda_unified): on CUDA tensors they
+launch the kernels, on CPU tensors (``device="cpu"``, how the tests hold
+this engine to ``TpuEngine``) they run the plain PyTorch versions.
+
+Device work runs on a single executor thread so the asyncio loop that
+streams results never blocks behind the GPU.
+
+Not in this slice (ROADMAP.md): multi-step decode horizons and CUDA graphs,
+spec decode, LoRA, guided decoding, logits processors, vision, embeddings,
+int8 KV, KVBM offload, disaggregated transfer, parallelism, and the
+KV-event / metrics / tracing / SLO hooks. A request that asks for one of
+those is refused with ``UnsupportedRequestError``.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import dataclasses
+import logging
+from concurrent.futures import ThreadPoolExecutor
+from typing import Any, AsyncIterator, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..llm.protocols.common import (
+    FINISH_CANCELLED,
+    FINISH_ERROR,
+    FINISH_LENGTH,
+    FINISH_STOP,
+    BackendOutput,
+    PreprocessedRequest,
+)
+from ..models import llama
+from ..ops import attention as att
+from ..ops import cuda_attention, cuda_prefill, cuda_unified
+from ..runtime.engine import Context
+from ..tokens import TokenBlockSequence
+from .allocator import BlockAllocator, OutOfBlocks
+from .sampling import (
+    TOP_LOGPROBS_K,
+    apply_penalties,
+    gumbel_noise,
+    logprobs_of,
+    sample_tokens,
+    top_logprobs,
+    update_counts,
+)
+
+log = logging.getLogger("dynamo_tpu_torch.engine")
+
+
+class UnsupportedRequestError(ValueError):
+    """The request asks for a feature this engine does not have."""
+
+
+@dataclasses.dataclass
+class TorchEngineConfig:
+    model: llama.LlamaConfig
+    num_blocks: int = 512
+    block_size: int = 16
+    max_batch_size: int = 8
+    # prompts longer than the largest bucket prefill in chunks of it
+    max_context: int = 2048
+    prefill_buckets: Tuple[int, ...] = (64, 128, 256, 512, 1024, 2048)
+    seed: int = 0
+    # None = cuda (raises without a GPU); "cpu" runs the plain ops
+    device: Optional[str] = None
+
+    def __post_init__(self):
+        bad = [b for b in self.prefill_buckets if b % self.block_size]
+        if bad:
+            raise ValueError(
+                f"prefill_buckets {bad} not multiples of block_size {self.block_size}"
+            )
+
+    @property
+    def prefill_chunk(self) -> int:
+        """Largest single prefill dispatch; longer prompts chunk at this."""
+        return self.prefill_buckets[-1]
+
+    @property
+    def max_blocks_per_seq(self) -> int:
+        return (self.max_context + self.block_size - 1) // self.block_size
+
+
+@dataclasses.dataclass
+class _Seq:
+    req: PreprocessedRequest
+    context: Context
+    out_queue: asyncio.Queue
+    seq: TokenBlockSequence               # prompt + generated
+    slot: int = -1
+    block_ids: List[int] = dataclasses.field(default_factory=list)
+    produced: int = 0
+    last_token: int = 0
+    cached_tokens: int = 0
+    prefill_pos: int = 0                  # prompt tokens whose KV is written
+    commit_upto: int = 0                  # prompt blocks content-addressed so far
+    prefilled: bool = False               # first token sampled -> decode eligible
+    counting: bool = False                # keeps output_counts (penalties)
+    done: bool = False
+
+
+# (sequence, token, logprob, top-logprob ids or None, top-logprob values or None)
+Accepted = Tuple[_Seq, int, float, Optional[List[int]], Optional[List[float]]]
+
+
+def _has_penalties(s) -> bool:
+    return (
+        s.presence_penalty != 0.0
+        or s.frequency_penalty != 0.0
+        or s.repetition_penalty != 1.0
+    )
+
+
+class TorchEngine:
+    """AsyncEngine serving PreprocessedRequests with a llama-family model."""
+
+    def __init__(self, config: TorchEngineConfig, params: Optional[llama.Params] = None):
+        self.cfg = config
+        self.mcfg = mcfg = config.model
+        self.device = resolve_device(config.device)
+        self.allocator = BlockAllocator(config.num_blocks, config.block_size)
+        self._host_rng = np.random.default_rng(config.seed)
+        dev = self.device
+        if params is None:
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(config.seed)
+            params = llama.init_params(mcfg, gen, dev)
+        self.params = params
+        shape = (config.num_blocks, config.block_size, mcfg.num_kv_heads, mcfg.head_dim)
+        self.k_caches = [torch.zeros(shape, dtype=mcfg.dtype, device=dev)
+                         for _ in range(mcfg.num_layers)]
+        self.v_caches = [torch.zeros(shape, dtype=mcfg.dtype, device=dev)
+                         for _ in range(mcfg.num_layers)]
+
+        # --- slot state (the decode batch is fixed-width) ---
+        B, V = config.max_batch_size, mcfg.vocab_size
+        self._slots: List[Optional[_Seq]] = [None] * B
+        self._tokens = np.zeros(B, np.int64)
+        self._block_tables = np.zeros((B, config.max_blocks_per_seq), np.int32)
+        self._temps = np.zeros(B, np.float32)
+        self._top_ks = np.zeros(B, np.int64)
+        self._top_ps = np.ones(B, np.float32)
+        self._min_ps = np.zeros(B, np.float32)
+        self._pres = np.zeros(B, np.float32)
+        self._freqs = np.zeros(B, np.float32)
+        self._reps = np.ones(B, np.float32)
+        self._lp_ns = np.zeros(B, np.int32)    # requested top-logprobs per slot
+        self._seeds = np.zeros(B, np.uint64)
+        # penalty state tables (see engine/sampling.py)
+        self.output_counts = torch.zeros((B, V), dtype=torch.int32, device=dev)
+        self.prompt_masks = torch.zeros((B, V), dtype=torch.int8, device=dev)
+        self._slot_dirty = np.zeros(B, bool)   # slot's penalty rows need reset
+
+        self._waiting: List[_Seq] = []
+        self._prefill_rr = 0  # round-robin cursor over prefilling sequences
+        self._loop_task: Optional[asyncio.Task] = None
+        self._wake = asyncio.Event()
+        # dispatches run so far, by kind ("prefill" | "decode" | "mixed")
+        self.step_counts: Dict[str, int] = {"prefill": 0, "decode": 0, "mixed": 0}
+        self._executor = ThreadPoolExecutor(max_workers=1, thread_name_prefix="torch-step")
+
+    # ------------------------------------------------------------ requests
+    def _check_request(self, req: PreprocessedRequest) -> List[int]:
+        """Refuse what this engine cannot serve as asked; returns the prompt
+        (token_ids + prior_token_ids, as the reference)."""
+        ann = req.annotations or {}
+        for key in ("lora", "logits_processors", "images", "disagg"):
+            if ann.get(key):
+                raise UnsupportedRequestError(f"this engine does not support {key!r}")
+        if ann.get("op") == "embed":
+            raise UnsupportedRequestError("this engine does not serve embeddings")
+        if req.sampling.guided is not None:
+            raise UnsupportedRequestError("this engine has no guided decoding")
+        if req.kv_transfer:
+            raise UnsupportedRequestError("this engine has no KV transfer")
+        prompt = list(req.token_ids) + list(req.prior_token_ids)
+        if not prompt:
+            raise ValueError("empty prompt")
+        if min(prompt) < 0 or max(prompt) >= self.mcfg.vocab_size:
+            raise ValueError(f"prompt token ids outside the vocab of {self.mcfg.vocab_size}")
+        if len(prompt) >= self.cfg.max_context:
+            raise ValueError(
+                f"prompt {len(prompt)} tokens exceeds engine max_context "
+                f"{self.cfg.max_context}"
+            )
+        if len(prompt) // self.cfg.block_size + 2 > self.cfg.num_blocks:
+            raise ValueError(
+                f"prompt {len(prompt)} tokens cannot fit the KV pool "
+                f"({self.cfg.num_blocks} blocks x {self.cfg.block_size})"
+            )
+        return prompt
+
+    async def generate(self, request: Any, context: Context) -> AsyncIterator[BackendOutput]:
+        req = request if isinstance(request, PreprocessedRequest) else (
+            PreprocessedRequest.from_obj(request)
+        )
+        prompt = self._check_request(req)
+        self._ensure_loop()
+        st = _Seq(
+            req=req, context=context, out_queue=asyncio.Queue(),
+            seq=TokenBlockSequence(prompt, self.cfg.block_size),
+            last_token=prompt[-1],
+        )
+        self._waiting.append(st)
+        self._wake.set()
+        while True:
+            item = await st.out_queue.get()
+            yield item
+            if item.finish_reason is not None:
+                return
+
+    def _ensure_loop(self) -> None:
+        if self._loop_task is None or self._loop_task.done():
+            self._loop_task = asyncio.get_running_loop().create_task(self._loop())
+
+    def stop(self) -> None:
+        if self._loop_task is not None:
+            self._loop_task.cancel()
+        self._executor.shutdown(wait=False)
+
+    # ------------------------------------------------------------ step loop
+    async def _loop(self) -> None:
+        loop = asyncio.get_running_loop()
+        try:
+            while True:
+                if not self._waiting and all(s is None for s in self._slots):
+                    self._wake.clear()
+                    await self._wake.wait()
+                self._admit_cancelled()
+                self._try_admit()
+                # chunked prefill: ONE bounded chunk per tick, round-robin
+                # over prefilling sequences
+                prefilling = [
+                    s for s in self._slots
+                    if s is not None and not s.done and not s.prefilled
+                ]
+                did_mixed = False
+                if prefilling:
+                    pick = prefilling[self._prefill_rr % len(prefilling)]
+                    self._prefill_rr += 1
+                    if pick.context.is_stopped():
+                        pick.done = True
+                        pick.out_queue.put_nowait(BackendOutput(
+                            finish_reason=FINISH_CANCELLED,
+                            cumulative_tokens=pick.produced,
+                        ))
+                    else:
+                        snap = self._decode_snapshot()
+                        if (any(s is not None for s in snap)
+                                and self._book_decode_blocks(snap, 1)):
+                            results, first = await loop.run_in_executor(
+                                self._executor, self._run_mixed_step, pick, snap
+                            )
+                            did_mixed = True
+                            for acc in results:
+                                self._accept_token(*acc)
+                        else:
+                            first = await loop.run_in_executor(
+                                self._executor, self._run_prefill_chunk, pick
+                            )
+                        self._commit_prefilled_blocks(pick)
+                        if first is not None:
+                            pick.prefilled = True
+                            self._accept_token(*first)
+                snap = self._decode_snapshot()
+                if not did_mixed and any(s is not None for s in snap):
+                    results = await loop.run_in_executor(
+                        self._executor, self._run_decode, snap
+                    )
+                    for acc in results:
+                        self._accept_token(*acc)
+                self._reap_finished()
+                await asyncio.sleep(0)
+        except Exception:
+            log.exception("engine loop crashed")
+            for st in list(self._waiting) + [s for s in self._slots if s]:
+                st.done = True
+                st.out_queue.put_nowait(BackendOutput(
+                    finish_reason=FINISH_ERROR, cumulative_tokens=st.produced,
+                ))
+                if st.block_ids:
+                    self.allocator.release(st.block_ids)
+            self._waiting = []
+            self._slots = [None] * self.cfg.max_batch_size
+
+    def _admit_cancelled(self) -> None:
+        keep = []
+        for st in self._waiting:
+            if st.context.is_stopped():
+                st.out_queue.put_nowait(
+                    BackendOutput(finish_reason=FINISH_CANCELLED, cumulative_tokens=0)
+                )
+            else:
+                keep.append(st)
+        self._waiting = keep
+
+    def _free_slot(self) -> int:
+        for i, s in enumerate(self._slots):
+            if s is None:
+                return i
+        return -1
+
+    def _try_admit(self) -> None:
+        still: List[_Seq] = []
+        bs = self.cfg.block_size
+        for st in self._waiting:
+            slot = self._free_slot()
+            if slot < 0:
+                still.append(st)
+                continue
+            prompt_len = len(st.seq)
+            hashes = st.seq.sequence_hashes()
+            # reuse at most the blocks strictly before the last prompt token,
+            # so prefill always has >= 1 token to produce logits from
+            reusable = min(len(hashes), (prompt_len - 1) // bs)
+            prefix_ids = self.allocator.acquire_prefix(hashes[:reusable])
+            blocks_needed = (prompt_len + bs - 1) // bs - len(prefix_ids)
+            try:
+                new_ids = self.allocator.allocate(blocks_needed)
+            except OutOfBlocks:
+                self.allocator.release(prefix_ids)
+                still.append(st)
+                continue
+            st.block_ids = prefix_ids + new_ids
+            st.cached_tokens = len(prefix_ids) * bs
+            # prompt blocks become content-addressed only as their chunks'
+            # KV is written (_commit_prefilled_blocks)
+            st.commit_upto = len(prefix_ids)
+            st.prefill_pos = st.cached_tokens
+            st.slot = slot
+            self._slots[slot] = st
+            self._block_tables[slot].fill(0)
+            self._block_tables[slot, : len(st.block_ids)] = st.block_ids
+            s = st.req.sampling
+            self._temps[slot] = s.temperature
+            self._top_ks[slot] = s.top_k
+            self._top_ps[slot] = s.top_p
+            self._min_ps[slot] = s.min_p
+            self._pres[slot] = s.presence_penalty
+            self._freqs[slot] = s.frequency_penalty
+            self._reps[slot] = s.repetition_penalty
+            self._lp_ns[slot] = min(max(s.logprobs, 0), TOP_LOGPROBS_K)
+            self._seeds[slot] = (
+                s.seed if s.seed is not None else self._host_rng.integers(1 << 32)
+            )
+            # penalty tables: reset the slot's rows when this request uses
+            # penalties or a prior occupant left them dirty
+            st.counting = _has_penalties(s)
+            if st.counting or self._slot_dirty[slot]:
+                row = torch.zeros(self.mcfg.vocab_size, dtype=torch.int8)
+                if st.counting:
+                    row[torch.as_tensor(st.seq.tokens(), dtype=torch.long)] = 1
+                self.prompt_masks[slot] = row.to(self.device)
+                self.output_counts[slot] = 0
+            # counts accumulate for every active slot while anyone counts: a
+            # slot that shared a batch with a counting request holds stale
+            # counts the next occupant must not inherit
+            self._slot_dirty[slot] = st.counting or any(
+                o is not None and o.counting for o in self._slots if o is not st
+            )
+            if st.counting:
+                for j, other in enumerate(self._slots):
+                    if other is not None and other is not st:
+                        self._slot_dirty[j] = True
+        self._waiting = still
+
+    def _bucket(self, n: int) -> int:
+        for b in self.cfg.prefill_buckets:
+            if n <= b:
+                return b
+        raise ValueError(
+            f"prefill of {n} tokens exceeds largest bucket {self.cfg.prefill_buckets[-1]}"
+        )
+
+    def _commit_prefilled_blocks(self, st: _Seq) -> None:
+        """Content-address the prompt blocks whose KV the last chunk wrote:
+        only written blocks ever become matchable."""
+        hashes = st.seq.sequence_hashes()
+        upto = min(st.prefill_pos // self.cfg.block_size, len(hashes))
+        for i in range(st.commit_upto, upto):
+            self.allocator.commit(st.block_ids[i], hashes[i])
+        st.commit_upto = max(st.commit_upto, upto)
+
+    def _decode_snapshot(self) -> List[Optional[_Seq]]:
+        return [
+            st if (st is not None and not st.done and st.prefilled) else None
+            for st in self._slots
+        ]
+
+    def _book_decode_blocks(self, seqs: List[Optional[_Seq]], extra_tokens: int) -> bool:
+        """Give every active sequence in ``seqs`` pages for ``extra_tokens``
+        more decode tokens; all-or-nothing (what one call took is given back
+        on failure)."""
+        bs = self.cfg.block_size
+        granted: List[Tuple[_Seq, int]] = []
+        ok = True
+        for st in seqs:
+            if st is None:
+                continue
+            L = len(st.seq)
+            if L + extra_tokens >= self.cfg.max_context:
+                ok = False
+                break
+            extra = (L + extra_tokens) // bs + 1 - len(st.block_ids)
+            if extra > 0:
+                try:
+                    new_ids = self.allocator.allocate(extra)
+                except OutOfBlocks:
+                    ok = False
+                    break
+                base = len(st.block_ids)
+                st.block_ids.extend(new_ids)
+                self._block_tables[st.slot, base:base + extra] = new_ids
+                granted.append((st, extra))
+        if not ok:
+            for st, count in granted:
+                taken = st.block_ids[-count:]
+                del st.block_ids[-count:]
+                self._block_tables[st.slot, len(st.block_ids):len(st.block_ids) + count] = 0
+                self.allocator.release(taken)
+        return ok
+
+    # ------------------------------------------------ device work (executor)
+    def _t(self, arr, dtype=None) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(arr), dtype=dtype, device=self.device)
+
+    def _chunk_arrays(self, token_ids: List[int], start: int, chunk_len: int,
+                      block_ids: List[int]):
+        """One prefill chunk's padded host arrays: (tokens [S_pad], positions
+        [S_pad], new_block_ids [S_pad // bs]). Pad positions pin to
+        max_context - 1, pad rows write scratch block 0."""
+        bs = self.cfg.block_size
+        S_pad = self._bucket(chunk_len)
+        tokens = np.zeros(S_pad, np.int64)
+        tokens[:chunk_len] = token_ids[start:start + chunk_len]
+        positions = np.full(S_pad, self.cfg.max_context - 1, np.int64)
+        positions[:chunk_len] = np.arange(start, start + chunk_len)
+        new_block_ids = np.zeros(S_pad // bs, np.int64)
+        real = block_ids[start // bs:][: S_pad // bs]
+        new_block_ids[: len(real)] = real
+        return tokens, positions, new_block_ids
+
+    def _next_chunk(self, st: _Seq):
+        prompt = st.seq.tokens()
+        start = st.prefill_pos
+        remaining = len(prompt) - start
+        is_final = remaining <= self.cfg.prefill_chunk
+        chunk_len = remaining if is_final else self.cfg.prefill_chunk
+        arrays = self._chunk_arrays(prompt, start, chunk_len, st.block_ids)
+        return start, chunk_len, is_final, arrays
+
+    def _chunk_table(self, st: _Seq, total_len: int) -> torch.Tensor:
+        """The sequence's block table cut to the pages holding keys <
+        total_len (the attention never reads past them)."""
+        n = -(-total_len // self.cfg.block_size)
+        return self._t(self._block_tables[st.slot, :n], torch.int32)
+
+    @torch.inference_mode()
+    def _run_prefill_chunk(self, st: _Seq) -> Optional[Accepted]:
+        """Prefill ONE bounded chunk of st's prompt; the final chunk also
+        samples the first token (returned), earlier ones return None."""
+        start, chunk_len, is_final, (tokens, positions, new_ids) = self._next_chunk(st)
+        total_len = start + chunk_len
+        table = self._chunk_table(st, total_len)
+        new_ids_t = self._t(new_ids)
+
+        def attend(q, k_new, v_new, layer_idx):
+            kc, vc = self.k_caches[layer_idx], self.v_caches[layer_idx]
+            att.write_prefill_kv(kc, vc, k_new, v_new, new_ids_t)
+            k_ctx, v_ctx = att.gather_kv(kc, vc, table)
+            return cuda_prefill.flash_extend_attention(q, k_ctx, v_ctx, start, total_len)
+
+        hidden = llama.forward(
+            self.params, self.mcfg, self._t(tokens), self._t(positions), attend
+        )
+        self.step_counts["prefill"] += 1
+        st.prefill_pos = total_len
+        if not is_final:
+            return None
+        return self._first_token(st, hidden[chunk_len - 1:chunk_len])
+
+    def _first_token(self, st: _Seq, hidden: torch.Tensor) -> Accepted:
+        """Sample a prefill's first generated token from its last position
+        (step 0 of the request's seeded stream)."""
+        slot, s = st.slot, st.req.sampling
+        logits = llama.lm_logits(self.params, self.mcfg, hidden)      # [1, V]
+        pen = logits
+        if st.counting:
+            pen = apply_penalties(
+                logits, torch.zeros_like(logits, dtype=torch.int32),
+                self.prompt_masks[slot][None], self._t([s.presence_penalty]),
+                self._t([s.frequency_penalty]), self._t([s.repetition_penalty]),
+            )
+        gumbel = None
+        if s.temperature > 0.0:
+            gumbel = gumbel_noise(
+                [int(self._seeds[slot])], [0], self.mcfg.vocab_size, self.device
+            )
+        tok = sample_tokens(
+            pen, self._t([s.temperature]), self._t([s.top_k]), self._t([s.top_p]),
+            self._t([s.min_p]), gumbel,
+        )
+        if st.counting:
+            # the first generated token enters the output counts, or the
+            # first decode step's penalties would miss it
+            self.output_counts[slot, tok[0]] += 1
+        lp = logprobs_of(logits, tok)
+        tlp_ids = tlp_vals = None
+        if self._lp_ns[slot] > 0:
+            vals, ids = top_logprobs(logits)
+            tlp_ids, tlp_vals = ids[0].tolist(), vals[0].tolist()
+        return st, int(tok[0]), float(lp[0]), tlp_ids, tlp_vals
+
+    def _decode_dispatch_arrays(self, seqs: List[Optional[_Seq]]):
+        """Per-slot host arrays of ONE decode step over ``seqs`` (shared by
+        the split decode and the fused mixed step); refreshes self._tokens.
+        Returns (positions, seq_lens, write_blocks, write_offsets, steps)."""
+        bs = self.cfg.block_size
+        B = self.cfg.max_batch_size
+        positions = np.zeros(B, np.int64)
+        seq_lens = np.zeros(B, np.int32)
+        write_blocks = np.zeros(B, np.int64)
+        write_offsets = np.zeros(B, np.int64)
+        steps = np.zeros(B, np.int64)
+        for i, st in enumerate(seqs):
+            if st is None:
+                continue
+            L = len(st.seq)                    # includes the token being fed
+            positions[i] = L - 1
+            seq_lens[i] = L
+            self._tokens[i] = st.last_token
+            write_blocks[i] = st.block_ids[(L - 1) // bs]
+            write_offsets[i] = (L - 1) % bs
+            steps[i] = st.produced
+        return positions, seq_lens, write_blocks, write_offsets, steps
+
+    def _decode_epilogue(self, hidden: torch.Tensor, seqs: List[Optional[_Seq]],
+                         seq_lens: np.ndarray, steps: np.ndarray) -> List[Accepted]:
+        """Sample one token for every active row of a decode step."""
+        logits = llama.lm_logits(self.params, self.mcfg, hidden)      # [B, V]
+        active = seq_lens > 0
+        pen = logits
+        if any(st is not None and st.counting for st in seqs):
+            pen = apply_penalties(
+                logits, self.output_counts, self.prompt_masks,
+                self._t(self._pres), self._t(self._freqs), self._t(self._reps),
+            )
+        sampled = active & (self._temps > 0.0)
+        gumbel = None
+        if sampled.any():
+            gumbel = gumbel_noise(
+                [int(x) for x in self._seeds], steps.tolist(),
+                self.mcfg.vocab_size, self.device, rows=sampled.tolist(),
+            )
+        toks = sample_tokens(
+            pen, self._t(self._temps), self._t(self._top_ks),
+            self._t(self._top_ps), self._t(self._min_ps), gumbel,
+        )
+        if any(st is not None and st.counting for st in self._slots):
+            update_counts(self.output_counts, toks, self._t(active))
+        lps = logprobs_of(logits, toks)
+        want = (self._lp_ns > 0) & active
+        tlp_ids = tlp_vals = None
+        if want.any():
+            vals, ids = top_logprobs(logits)
+            tlp_ids, tlp_vals = ids.tolist(), vals.tolist()
+        toks_l, lps_l = toks.tolist(), lps.tolist()
+        out: List[Accepted] = []
+        for i, st in enumerate(seqs):
+            if st is None:
+                continue
+            if want[i]:
+                out.append((st, toks_l[i], lps_l[i], tlp_ids[i], tlp_vals[i]))
+            else:
+                out.append((st, toks_l[i], lps_l[i], None, None))
+        return out
+
+    @torch.inference_mode()
+    def _run_decode(self, seqs: List[Optional[_Seq]]) -> List[Accepted]:
+        positions, seq_lens, write_blocks, write_offsets, steps = (
+            self._decode_dispatch_arrays(seqs)
+        )
+        tables = self._t(self._block_tables)
+        lens_t = self._t(seq_lens)
+        wb, wo = self._t(write_blocks), self._t(write_offsets)
+
+        def attend(q, k_new, v_new, layer_idx):
+            kc, vc = self.k_caches[layer_idx], self.v_caches[layer_idx]
+            att.write_decode_kv(kc, vc, k_new[:, 0], v_new[:, 0], wb, wo)
+            return cuda_attention.paged_decode_attention(
+                q[:, 0], kc, vc, tables, lens_t
+            )[:, None]
+
+        hidden = llama.forward(
+            self.params, self.mcfg, self._t(self._tokens)[:, None],
+            self._t(positions)[:, None], attend,
+        )                                                   # [B, 1, H]
+        self.step_counts["decode"] += 1
+        return self._decode_epilogue(hidden[:, 0], seqs, seq_lens, steps)
+
+    @torch.inference_mode()
+    def _run_mixed_step(self, st: _Seq, seqs: List[Optional[_Seq]]):
+        """ONE fused forward: st's next prefill chunk (row 0 of the unified
+        launch) and one decode step for the ``seqs`` snapshot (rows 1..B).
+        The packed token buffer is [S_pad + B]: the chunk's bucketed tokens,
+        then one decode token per slot. Returns (decode acceptances, the
+        chunk's first-token acceptance or None)."""
+        start, chunk_len, is_final, (c_tokens, c_positions, c_new_ids) = self._next_chunk(st)
+        total_len = start + chunk_len
+        positions, seq_lens, write_blocks, write_offsets, steps = (
+            self._decode_dispatch_arrays(seqs)
+        )
+        S_pad, B = len(c_tokens), self.cfg.max_batch_size
+        chunk_table = np.zeros((1, self._block_tables.shape[1]), np.int32)
+        chunk_table[0] = self._block_tables[st.slot]
+        tables = self._t(np.concatenate([chunk_table, self._block_tables]))
+        q_starts = self._t(np.concatenate([[0], S_pad + np.arange(B)]), torch.int32)
+        q_lens = self._t(np.concatenate([[chunk_len], seq_lens > 0]), torch.int32)
+        row_lens = self._t(np.concatenate([[total_len], seq_lens]), torch.int32)
+        c_new_ids_t = self._t(c_new_ids)
+        wb, wo = self._t(write_blocks), self._t(write_offsets)
+
+        def attend(q, k_new, v_new, layer_idx):
+            kc, vc = self.k_caches[layer_idx], self.v_caches[layer_idx]
+            att.write_prefill_kv(kc, vc, k_new[:S_pad], v_new[:S_pad], c_new_ids_t)
+            att.write_decode_kv(kc, vc, k_new[S_pad:], v_new[S_pad:], wb, wo)
+            return cuda_unified.ragged_paged_attention(
+                q, kc, vc, tables, q_starts, q_lens, row_lens, max_q_len=chunk_len
+            )
+
+        tokens = self._t(np.concatenate([c_tokens, self._tokens]))
+        pos = self._t(np.concatenate([c_positions, positions]))
+        hidden = llama.forward(self.params, self.mcfg, tokens, pos, attend)
+        self.step_counts["mixed"] += 1
+        st.prefill_pos = total_len
+        results = self._decode_epilogue(hidden[S_pad:], seqs, seq_lens, steps)
+        first = None
+        if is_final:
+            first = self._first_token(st, hidden[chunk_len - 1:chunk_len])
+        return results, first
+
+    # ------------------------------------------------ host-side bookkeeping
+    def _accept_token(self, st: _Seq, tok: int, logprob: float,
+                      tlp_ids: Optional[List[int]] = None,
+                      tlp_vals: Optional[List[float]] = None) -> None:
+        """Apply one sampled token to its sequence and stream it (or the
+        finish) as ONE BackendOutput."""
+        if st.done:
+            return
+        first = st.produced == 0
+        st.produced += 1
+        stop = st.req.stop
+        finish: Optional[str] = None
+        emit: List[int] = []
+        if tok in stop.stop_token_ids and st.produced > stop.min_tokens:
+            finish = FINISH_STOP   # the stop token is not emitted
+        else:
+            emit = [tok]
+            if stop.max_tokens is not None and st.produced >= stop.max_tokens:
+                finish = FINISH_LENGTH
+            elif st.context.is_stopped():
+                finish = FINISH_CANCELLED
+            elif len(st.seq) + 1 >= self.cfg.max_context:
+                finish = FINISH_LENGTH
+            else:
+                L_before = len(st.seq)
+                sealed = st.seq.append(tok)
+                st.last_token = tok
+                if sealed is not None:
+                    self.allocator.commit(
+                        st.block_ids[sealed.position], sealed.sequence_hash
+                    )
+                # a block must exist for the NEXT token's write position
+                if (L_before + 1) // self.cfg.block_size + 1 > len(st.block_ids):
+                    try:
+                        (new_id,) = self.allocator.allocate(1)
+                    except OutOfBlocks:
+                        finish = FINISH_LENGTH   # out of KV memory: end gracefully
+                    else:
+                        st.block_ids.append(new_id)
+                        self._block_tables[st.slot, len(st.block_ids) - 1] = new_id
+        tlp = None
+        n_tlp = min(st.req.sampling.logprobs, TOP_LOGPROBS_K)
+        if emit and n_tlp > 0 and tlp_ids is not None:
+            tlp = [{int(i): float(v) for i, v in zip(tlp_ids[:n_tlp], tlp_vals[:n_tlp])}]
+        ann: Dict[str, Any] = {}
+        if first:
+            ann = {"cached_tokens": st.cached_tokens,
+                   "input_tokens": len(st.req.token_ids)}
+        st.out_queue.put_nowait(BackendOutput(
+            token_ids=emit, finish_reason=finish, cumulative_tokens=st.produced,
+            logprobs=[logprob] if emit else None, top_logprobs=tlp,
+            annotations=ann,
+        ))
+        if finish is not None:
+            st.done = True
+
+    def _reap_finished(self) -> None:
+        for i, st in enumerate(self._slots):
+            if st is None:
+                continue
+            if st.done or st.context.is_killed():
+                self.allocator.release(st.block_ids)
+                self._slots[i] = None
+                if not st.done:
+                    st.done = True
+                    st.out_queue.put_nowait(BackendOutput(
+                        finish_reason=FINISH_CANCELLED, cumulative_tokens=st.produced,
+                    ))

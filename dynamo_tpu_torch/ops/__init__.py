@@ -1,0 +1,2 @@
+"""Attention ops: plain PyTorch versions (attention.py) and the CUDA kernel
+wrappers (cuda_attention, cuda_prefill, cuda_unified) built from csrc/."""

@@ -1,0 +1,175 @@
+"""Builds the CUDA kernels of csrc/ at first use and binds them with ctypes.
+
+Each ``csrc/*.cu`` compiles with ``nvcc`` into its own shared library with a
+plain C interface (no PyTorch headers: seconds per file instead of minutes),
+for Hopper only (``sm_90a``). All sources build in parallel, one ``nvcc``
+each, into ``dynamo_tpu_torch/_build/<hash>/``, where the hash covers every
+source and header and the flags, so an edited source rebuilds and an
+unchanged checkout reuses its libraries. Only the CUDA toolkit is needed
+(``$CUDA_HOME/bin/nvcc``, default ``/usr/local/cuda``).
+
+Nothing here runs at import: the tests import every module on machines
+without ``nvcc`` or a GPU.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from typing import Dict, List, Sequence
+
+import torch
+
+PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(PKG, "csrc")
+BUILD_ROOT = os.path.join(PKG, "_build")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def _sources() -> List[str]:
+    return sorted(f for f in os.listdir(CSRC) if f.endswith(".cu"))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in sorted(os.listdir(CSRC)):
+        if name.endswith((".cu", ".cuh")):
+            h.update(name.encode())
+            with open(os.path.join(CSRC, name), "rb") as f:
+                h.update(f.read())
+    return h.hexdigest()[:16]
+
+
+def build_dir() -> str:
+    return os.path.join(BUILD_ROOT, source_hash())
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    path = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(path):
+        return path
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (set CUDA_HOME); the CUDA kernels build on the "
+            "GPU machine only"
+        )
+    return found
+
+
+def build_all() -> str:
+    """Compile every csrc/*.cu that is missing from the build directory,
+    all in parallel; returns the directory. Raises with the compiler's
+    output if any source fails."""
+    out_dir = build_dir()
+    todo = [
+        s for s in _sources()
+        if not os.path.exists(os.path.join(out_dir, _lib_name(s)))
+    ]
+    if not todo:
+        return out_dir
+    os.makedirs(out_dir, exist_ok=True)
+    nvcc = _nvcc()
+    procs = []
+    for src in todo:
+        # build into a temporary name, then rename: concurrent builders of
+        # the same hash never load a half-written library
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+        os.close(fd)
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, src)]
+        procs.append((src, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        )))
+    failed = []
+    for src, tmp, proc in procs:
+        log, _ = proc.communicate()
+        with open(os.path.join(out_dir, _lib_name(src) + ".log"), "w") as f:
+            f.write(log)
+        if proc.returncode != 0:
+            failed.append(f"--- {src} (exit {proc.returncode})\n{log}")
+            os.unlink(tmp)
+        else:
+            os.replace(tmp, os.path.join(out_dir, _lib_name(src)))
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return out_dir
+
+
+def _lib_name(source: str) -> str:
+    return "lib" + os.path.splitext(source)[0] + ".so"
+
+
+def load(source: str) -> ctypes.CDLL:
+    with _lock:
+        lib = _libs.get(source)
+        if lib is None:
+            lib = ctypes.CDLL(os.path.join(build_all(), _lib_name(source)))
+            _libs[source] = lib
+        return lib
+
+
+class Kernel:
+    """One C entry point of one csrc source, with its launch count.
+
+    ``launch`` passes tensors as device pointers, ints as C ints, appends the
+    current CUDA stream, and raises when the entry point reports a CUDA
+    error. ``launches`` counts the launches that succeeded; whoever wants to
+    see which kernels a run went through sets it to 0 before and reads it
+    after."""
+
+    def __init__(self, source: str, entry: str, n_ptrs: int, n_ints: int):
+        self.source = source
+        self.entry = entry
+        self.n_ptrs = n_ptrs
+        self.n_ints = n_ints
+        self.launches = 0
+        self._fn = None
+
+    def _bind(self):
+        if self._fn is None:
+            fn = getattr(load(self.source), self.entry)
+            fn.argtypes = (
+                [ctypes.c_void_p] * self.n_ptrs
+                + [ctypes.c_int] * self.n_ints
+                + [ctypes.c_void_p]
+            )
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        return self._fn
+
+    def launch(self, tensors: Sequence[torch.Tensor], ints: Sequence[int]) -> None:
+        if len(tensors) != self.n_ptrs or len(ints) != self.n_ints:
+            raise TypeError(f"{self.entry}: wrong argument count")
+        fn = self._bind()
+        stream = torch.cuda.current_stream(tensors[0].device).cuda_stream
+        err = fn(*[t.data_ptr() for t in tensors], *[int(i) for i in ints], stream)
+        if err != 0:
+            raise RuntimeError(f"{self.entry}: CUDA error {err}")
+        self.launches += 1
+
+
+def check_cuda_tensor(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int) -> None:
+    """Device, type, rank, contiguity and 16-byte alignment: what every
+    kernel of csrc/ assumes of its tensor arguments."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name}: expected {ndim} dims, got shape {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: data must be 16-byte aligned")

@@ -1,0 +1,206 @@
+"""Attention ops for paged-KV serving: plain PyTorch versions.
+
+Counterpart of the reference package's ops/attention.py, and the numerics
+reference of the port's CUDA kernels (ops/cuda_attention, cuda_prefill,
+cuda_unified): each kernel wrapper runs these on CPU tensors, the CPU tests
+hold them to their JAX twins, and the GPU smoke script holds each kernel to
+them on the card.
+
+Layouts are the reference's at every public function:
+
+- the paged KV cache of one layer is ``[num_blocks, block_size, kv_heads,
+  head_dim]``; block 0 is reserved as scratch (padding writes land there);
+- GQA grouping maps query heads ``[i*g, (i+1)*g)`` to KV head ``i``;
+- masked scores are ``NEG_INF = -1e30`` and the softmax runs in float32.
+
+The write ops update the cache IN PLACE (the JAX versions return new
+arrays) and return the same tensors, so a call site reads the same in both
+packages. This slice covers the float cache: the ``window``, ``sinks`` and
+``softcap`` arguments (gpt-oss/gemma) and the int8 cache arrive with the
+slices that need them, and a call that passes one raises
+``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Tuple, Union
+
+import torch
+
+NEG_INF = -1e30
+
+IntLike = Union[int, torch.Tensor]
+
+
+def _reject_extras(window=None, sinks=None, softcap=None) -> None:
+    if window is not None or sinks is not None or softcap is not None:
+        raise NotImplementedError(
+            "sliding-window, attention-sink and softcap attention are not "
+            "ported yet (they come with the gpt-oss/gemma slice)"
+        )
+
+
+def _gqa_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """q [S,h,d] x k [T,kvh,d] -> scores [S,h,T] (f32) with GQA grouping."""
+    S, h, d = q.shape
+    T, kvh, _ = k.shape
+    g = h // kvh
+    qg = q.reshape(S, kvh, g, d).float()
+    return torch.einsum("skgd,tkd->skgt", qg, k.float()).reshape(S, h, T)
+
+
+def _gqa_values(weights: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """weights [S,h,T] x v [T,kvh,d] -> out [S,h,d] (f32)."""
+    S, h, T = weights.shape
+    _, kvh, d = v.shape
+    g = h // kvh
+    wg = weights.reshape(S, kvh, g, T)
+    return torch.einsum("skgt,tkd->skgd", wg, v.float()).reshape(S, h, d)
+
+
+def _scale(d: int) -> float:
+    return 1.0 / math.sqrt(d)
+
+
+def causal_attention(q, k, v, window=None, sinks=None, softcap=None):
+    """Plain causal self-attention over one contiguous sequence.
+    q,k,v: [S, heads/kv_heads, head_dim] -> [S, heads, head_dim]."""
+    _reject_extras(window, sinks, softcap)
+    S = q.shape[0]
+    scores = _gqa_scores(q, k) * _scale(q.shape[-1])
+    idx = torch.arange(S, device=q.device)
+    causal = idx[None, :] <= idx[:, None]
+    scores = torch.where(causal[:, None, :], scores, NEG_INF)
+    return _gqa_values(torch.softmax(scores, dim=-1), v).to(q.dtype)
+
+
+def extend_attention(
+    q: torch.Tensor,            # [S_new, h, d] queries of the new suffix
+    k_ctx: torch.Tensor,        # [T_max, kvh, d] gathered context incl. new keys
+    v_ctx: torch.Tensor,        # [T_max, kvh, d]
+    q_positions: torch.Tensor,  # [S_new] absolute positions of the queries
+    total_len: IntLike,         # valid length of the context
+    window=None, sinks=None, softcap=None,
+) -> torch.Tensor:
+    """Prefix-extend attention: new tokens attend causally over (cached
+    prefix + themselves); key j is visible to a query at position p iff
+    ``j < min(p + 1, total_len)``."""
+    _reject_extras(window, sinks, softcap)
+    T = k_ctx.shape[0]
+    scores = _gqa_scores(q, k_ctx) * _scale(q.shape[-1])     # [S,h,T]
+    key_pos = torch.arange(T, device=q.device)
+    lim = torch.clamp(q_positions.to(q.device).long() + 1, max=int(total_len))
+    valid = key_pos[None, :] < lim[:, None]
+    scores = torch.where(valid[:, None, :], scores, NEG_INF)
+    return _gqa_values(torch.softmax(scores, dim=-1), v_ctx).to(q.dtype)
+
+
+def gather_kv(
+    k_cache: torch.Tensor,      # [num_blocks, block_size, kvh, d]
+    v_cache: torch.Tensor,
+    block_table: torch.Tensor,  # [max_blocks] int (padded with 0)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One sequence's pages as contiguous [max_blocks*bs, kvh, d]."""
+    bs = k_cache.shape[1]
+    mb = block_table.shape[0]
+    idx = block_table.long()
+    k = k_cache[idx].reshape(mb * bs, *k_cache.shape[2:])
+    v = v_cache[idx].reshape(mb * bs, *v_cache.shape[2:])
+    return k, v
+
+
+def paged_decode_attention(
+    q: torch.Tensor,             # [B, h, d] one query token per sequence
+    k_cache: torch.Tensor,       # [num_blocks, bs, kvh, d]
+    v_cache: torch.Tensor,
+    block_tables: torch.Tensor,  # [B, max_blocks] int
+    seq_lens: torch.Tensor,      # [B] context length incl. the current token
+    window=None, sinks=None, softcap=None,
+) -> torch.Tensor:
+    """Paged decode attention, batched: each query attends over its own
+    pages, keys ``< seq_lens[b]``. Gathers every row's whole table."""
+    _reject_extras(window, sinks, softcap)
+    B, h, d = q.shape
+    _, bs, kvh, _ = k_cache.shape
+    mb = block_tables.shape[1]
+    idx = block_tables.long()
+    k = k_cache[idx].reshape(B, mb * bs, kvh, d).float()
+    v = v_cache[idx].reshape(B, mb * bs, kvh, d).float()
+    g = h // kvh
+    qg = q.reshape(B, kvh, g, d).float()
+    scores = torch.einsum("bkgd,btkd->bkgt", qg, k) * _scale(d)
+    key_pos = torch.arange(mb * bs, device=q.device)
+    valid = key_pos[None, :] < seq_lens.to(q.device).long()[:, None]   # [B, T]
+    scores = torch.where(valid[:, None, None, :], scores, NEG_INF)
+    weights = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgt,btkd->bkgd", weights, v)
+    return out.reshape(B, h, d).to(q.dtype)
+
+
+def write_prefill_kv(
+    k_cache: torch.Tensor,       # [num_blocks, bs, kvh, d]
+    v_cache: torch.Tensor,
+    k_new: torch.Tensor,         # [S_pad, kvh, d] (S_pad a multiple of bs)
+    v_new: torch.Tensor,
+    block_ids: torch.Tensor,     # [S_pad // bs] destination blocks of the span
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Scatter a contiguous span of new KV into its pages, in place. The
+    caller pads S to a block multiple; padding blocks point at scratch
+    block 0, where duplicate writes are harmless."""
+    bs = k_cache.shape[1]
+    S = k_new.shape[0]
+    idx = block_ids.long()
+    k_cache[idx] = k_new.reshape(S // bs, bs, *k_new.shape[1:]).to(k_cache.dtype)
+    v_cache[idx] = v_new.reshape(S // bs, bs, *v_new.shape[1:]).to(v_cache.dtype)
+    return k_cache, v_cache
+
+
+def write_decode_kv(
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    k_new: torch.Tensor,         # [B, kvh, d]
+    v_new: torch.Tensor,
+    block_ids: torch.Tensor,     # [B] destination block of each row's position
+    offsets: torch.Tensor,       # [B] offset within the block
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Scatter one token per sequence into its page slot, in place.
+    Inactive rows all target scratch block 0."""
+    b, o = block_ids.long(), offsets.long()
+    k_cache[b, o] = k_new.to(k_cache.dtype)
+    v_cache[b, o] = v_new.to(v_cache.dtype)
+    return k_cache, v_cache
+
+
+def ragged_paged_attention(
+    q: torch.Tensor,             # [Tq, h, d] densely packed ragged queries
+    k_cache: torch.Tensor,       # [num_blocks, bs, kvh, d]
+    v_cache: torch.Tensor,
+    block_tables: torch.Tensor,  # [R, max_blocks] int
+    q_starts: torch.Tensor,      # [R] offset of row r's segment in q
+    q_lens: torch.Tensor,        # [R] segment length (0 = empty row)
+    seq_lens: torch.Tensor,      # [R] context length incl. the row's new tokens
+    window=None, sinks=None, softcap=None, windows=None,
+) -> torch.Tensor:
+    """Unified ragged paged attention: row r owns the query tokens
+    ``q[q_starts[r] : q_starts[r]+q_lens[r]]``, its new tokens at the TAIL
+    of its context (token i of the segment sits at absolute position
+    ``seq_lens[r] - q_lens[r] + i``), and attends causally over its own
+    pages. Segments are disjoint; tokens outside every segment, and rows
+    with ``q_len == 0`` or ``seq_len == 0``, return ZEROS.
+
+    Same semantics as the reference twin, computed row by row over each
+    row's own segment instead of masking the whole packed buffer per row."""
+    _reject_extras(window, sinks, softcap)
+    if windows is not None:
+        _reject_extras(window=windows)
+    out = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    rows = zip(q_starts.tolist(), q_lens.tolist(), seq_lens.tolist())
+    for r, (qs, ql, sl) in enumerate(rows):
+        if ql <= 0 or sl <= 0:
+            continue
+        k, v = gather_kv(k_cache, v_cache, block_tables[r])
+        pos = torch.arange(sl - ql, sl, device=q.device)
+        seg = extend_attention(q[qs:qs + ql].float(), k, v, pos, sl)
+        out[qs:qs + ql] += seg
+    return out.to(q.dtype)

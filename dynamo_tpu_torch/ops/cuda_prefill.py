@@ -1,0 +1,58 @@
+"""Flash prefix-extend attention on the GPU: counterpart of the reference's
+ops/pallas_prefill.py (``flash_extend_attention``).
+
+The kernel is ``csrc/flash_extend.cu`` (one block per (q tile, kv head),
+online softmax over the gathered context, KV tiles past the tile's causal
+limit skipped). It takes any ``S`` and ``T``: there are no tile-multiple
+constraints, so the engine runs it for every prefill chunk. On CPU tensors
+this wrapper runs the plain version; on CUDA tensors it launches the kernel
+or raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import attention as att
+from ._build import Kernel, check_cuda_tensor
+
+KERNEL = Kernel("flash_extend.cu", "dtt_flash_extend", n_ptrs=4, n_ints=5)
+
+
+def flash_extend_reference(
+    q: torch.Tensor, k_ctx: torch.Tensor, v_ctx: torch.Tensor,
+    q_start: int, total_len: int,
+) -> torch.Tensor:
+    """The plain version: ``ops.attention.extend_attention`` with the
+    chunk's contiguous positions ``q_start + i``."""
+    pos = q_start + torch.arange(q.shape[0], device=q.device)
+    return att.extend_attention(q, k_ctx, v_ctx, pos, total_len)
+
+
+def flash_extend_attention(
+    q: torch.Tensor,        # [S, h, 128] bf16 queries of one chunk
+    k_ctx: torch.Tensor,    # [T, kvh, 128] bf16 gathered context
+    v_ctx: torch.Tensor,
+    q_start: int,           # absolute position of q row 0 (rows are contiguous)
+    total_len: int,         # valid context length, <= T
+) -> torch.Tensor:
+    """Same semantics as ``ops.attention.extend_attention`` for contiguous
+    query positions ``q_start + i``: key j is visible to row i iff
+    ``j < min(q_start + i + 1, total_len)``."""
+    if q.device.type == "cpu":
+        return flash_extend_reference(q, k_ctx, v_ctx, q_start, total_len)
+    check_cuda_tensor("q", q, torch.bfloat16, 3)
+    check_cuda_tensor("k_ctx", k_ctx, torch.bfloat16, 3)
+    check_cuda_tensor("v_ctx", v_ctx, torch.bfloat16, 3)
+    S, h, d = q.shape
+    T, kvh, dk = k_ctx.shape
+    if d != 128 or dk != 128 or v_ctx.shape != k_ctx.shape:
+        raise ValueError("the flash-extend kernel takes head_dim 128 and equal K/V")
+    if h % kvh or 64 % (h // kvh):
+        raise ValueError(f"{h} heads over {kvh} kv heads: group size must divide 64")
+    if not 0 <= int(total_len) <= T:
+        raise ValueError(f"total_len {total_len} outside the context of {T} keys")
+    out = torch.empty_like(q)
+    if S:
+        KERNEL.launch([q, k_ctx, v_ctx, out], [S, h, kvh, int(q_start), int(total_len)])
+    return out

@@ -1,0 +1,65 @@
+"""Unified ragged paged attention on the GPU: counterpart of the reference's
+ops/pallas_unified.py (``ragged_paged_attention``).
+
+The kernel is ``csrc/unified_attention.cu``: one launch serves any mix of
+prefill segments and decode tokens, each row attending over its own pages
+with its segment at the tail of its context. One block per (q tile, kv head,
+row); blocks past their row's segment exit at once. On CPU tensors this
+wrapper runs the plain version, ``ops.attention.ragged_paged_attention``;
+on CUDA tensors it launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from . import attention as att
+from ._build import Kernel, check_cuda_tensor
+
+KERNEL = Kernel("unified_attention.cu", "dtt_unified", n_ptrs=8, n_ints=7)
+
+
+def ragged_paged_attention(
+    q: torch.Tensor,             # [Tq, h, 128] bf16 packed ragged queries
+    k_cache: torch.Tensor,       # [num_blocks, bs, kvh, 128] bf16
+    v_cache: torch.Tensor,
+    block_tables: torch.Tensor,  # [R, max_blocks] int32
+    q_starts: torch.Tensor,      # [R] int32
+    q_lens: torch.Tensor,        # [R] int32 (0 = empty row)
+    seq_lens: torch.Tensor,      # [R] int32
+    *,
+    max_q_len: Optional[int] = None,
+) -> torch.Tensor:
+    """Same semantics as ``ops.attention.ragged_paged_attention``.
+    ``max_q_len`` is a host-side bound on every ``q_lens[r]`` that sizes
+    the launch grid (default ``Tq``, always safe); the caller knows it
+    without reading the device."""
+    if q.device.type == "cpu":
+        return att.ragged_paged_attention(
+            q, k_cache, v_cache, block_tables, q_starts, q_lens, seq_lens
+        )
+    check_cuda_tensor("q", q, torch.bfloat16, 3)
+    check_cuda_tensor("k_cache", k_cache, torch.bfloat16, 4)
+    check_cuda_tensor("v_cache", v_cache, torch.bfloat16, 4)
+    check_cuda_tensor("block_tables", block_tables, torch.int32, 2)
+    for name, t in (("q_starts", q_starts), ("q_lens", q_lens), ("seq_lens", seq_lens)):
+        check_cuda_tensor(name, t, torch.int32, 1)
+    Tq, h, d = q.shape
+    _, bs, kvh, dk = k_cache.shape
+    R = block_tables.shape[0]
+    if d != 128 or dk != 128 or v_cache.shape != k_cache.shape:
+        raise ValueError("the unified kernel takes head_dim 128 and equal K/V caches")
+    if h % kvh or 64 % (h // kvh):
+        raise ValueError(f"{h} heads over {kvh} kv heads: group size must divide 64")
+    if not q_starts.shape[0] == q_lens.shape[0] == seq_lens.shape[0] == R:
+        raise ValueError("q_starts / q_lens / seq_lens need one entry per table row")
+    bound = Tq if max_q_len is None else min(int(max_q_len), Tq)
+    out = torch.zeros_like(q)
+    if R and bound > 0 and Tq:
+        KERNEL.launch(
+            [q, k_cache, v_cache, block_tables, q_starts, q_lens, seq_lens, out],
+            [Tq, h, kvh, bs, R, block_tables.shape[1], bound],
+        )
+    return out

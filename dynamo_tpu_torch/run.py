@@ -1,0 +1,108 @@
+"""python -m dynamo_tpu_torch.run — drive TorchEngine in one process.
+
+Counterpart of the reference's ``python -m dynamo_tpu.run`` for the port's
+first slice: the engine runs in-process behind the byte tokenizer (the
+distributed runtime, preprocessor and HTTP frontend are later slices).
+
+    python -m dynamo_tpu_torch.run in=text:"hello world" out=llama3-8b
+    python -m dynamo_tpu_torch.run in=batch:prompts.txt out=llama3-8b --max-tokens 32
+    python -m dynamo_tpu_torch.run in=text:hi out=tiny --device cpu
+
+``out=`` names a preset (random weights from ``--seed``). Serves on the
+GPU by default; ``--device cpu`` runs the plain PyTorch path on the CPU.
+``batch:`` reads one prompt per line and prints one JSON line per prompt.
+"""
+
+from __future__ import annotations
+
+import argparse
+import asyncio
+import json
+import sys
+from typing import List, Optional
+
+from .engine.engine import TorchEngine, TorchEngineConfig
+from .llm.protocols.common import PreprocessedRequest, SamplingOptions, StopConditions
+from .llm.tokenizer import ByteTokenizer, DecodeStream
+from .models.llama import PRESETS
+from .runtime.engine import Context
+
+
+def build_engine(preset: str, device: Optional[str], max_context: int, seed: int) -> TorchEngine:
+    if preset not in PRESETS:
+        raise SystemExit(f"unknown preset {preset!r} (one of {', '.join(PRESETS)})")
+    buckets = tuple(b for b in (64, 128, 256, 512, 1024, 2048) if b < max_context)
+    cfg = TorchEngineConfig(
+        model=PRESETS[preset](), max_context=max_context, seed=seed, device=device,
+        num_blocks=max(512, (max_context // 16) * 16),
+        prefill_buckets=buckets + (max_context,),
+    )
+    return TorchEngine(cfg)
+
+
+async def generate_text(engine: TorchEngine, tok: ByteTokenizer, prompt: str,
+                        rid: str, max_tokens: int, temperature: float, out=None) -> str:
+    """Stream one completion; with ``out`` the text deltas are written as
+    they arrive. Returns the whole text."""
+    req = PreprocessedRequest(
+        request_id=rid, model="run", token_ids=[tok.BOS] + tok.encode(prompt),
+        stop=StopConditions(max_tokens=max_tokens, stop_token_ids=[tok.EOS]),
+        sampling=SamplingOptions(temperature=temperature),
+    )
+    stream = DecodeStream(tok)
+    parts: List[str] = []
+    async for item in engine.generate(req, Context(rid)):
+        delta = stream.step(item.token_ids)
+        if delta:
+            parts.append(delta)
+            if out is not None:
+                out.write(delta)
+                out.flush()
+    parts.append(stream.flush())
+    return "".join(parts)
+
+
+async def run(args) -> None:
+    kind, _, val = args.input.partition(":")
+    if kind not in ("text", "batch"):
+        raise SystemExit(f"unknown input {args.input!r} (text:<prompt> | batch:<file>)")
+    engine = build_engine(args.out, args.device, args.max_context, args.seed)
+    tok = ByteTokenizer()
+    try:
+        if kind == "text":
+            await generate_text(engine, tok, val, "text", args.max_tokens,
+                                args.temperature, out=sys.stdout)
+            print()
+        else:
+            with open(val) as f:
+                prompts = [line.rstrip("\n") for line in f if line.strip()]
+            for n, prompt in enumerate(prompts):
+                text = await generate_text(engine, tok, prompt, f"batch-{n}",
+                                           args.max_tokens, args.temperature)
+                print(json.dumps({"index": n, "prompt": prompt, "text": text}))
+    finally:
+        engine.stop()
+
+
+def main(argv: Optional[List[str]] = None) -> None:
+    p = argparse.ArgumentParser(
+        "dynamo_tpu_torch.run",
+        usage="python -m dynamo_tpu_torch.run in=<input> out=<preset> [options]",
+    )
+    p.add_argument("io", nargs=2, metavar="in=|out=",
+                   help="in=text:<prompt>|batch:<file>  out=<preset>")
+    p.add_argument("--device", default=None, help="default: cuda; 'cpu' for the CPU")
+    p.add_argument("--max-tokens", type=int, default=64)
+    p.add_argument("--max-context", type=int, default=2048)
+    p.add_argument("--temperature", type=float, default=0.0)
+    p.add_argument("--seed", type=int, default=0, help="random-weight seed")
+    args = p.parse_args(argv)
+    spec = dict(part.partition("=")[::2] for part in args.io)
+    if "in" not in spec or "out" not in spec:
+        p.error("need both in=<input> and out=<preset>")
+    args.input, args.out = spec["in"], spec["out"]
+    asyncio.run(run(args))
+
+
+if __name__ == "__main__":
+    main()

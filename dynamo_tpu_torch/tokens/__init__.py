@@ -1,0 +1,26 @@
+"""Token sequences and content-addressed KV block hashing.
+
+Analog of the reference's tokens crate (lib/tokens/src/blocks.rs:35-59,
+lib/tokens/src/lib.rs): a prompt's token ids are chunked into fixed-size
+blocks; each block gets a *sequence hash* chained from its parent so that two
+requests sharing a prefix produce identical hash chains — the foundation of
+prefix-aware KV routing and block reuse.
+"""
+
+from .blocks import (
+    BlockHash,
+    SequenceHash,
+    TokenBlock,
+    TokenBlockSequence,
+    compute_block_hash,
+    compute_sequence_hashes,
+)
+
+__all__ = [
+    "BlockHash",
+    "SequenceHash",
+    "TokenBlock",
+    "TokenBlockSequence",
+    "compute_block_hash",
+    "compute_sequence_hashes",
+]
