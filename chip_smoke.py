@@ -9,19 +9,27 @@ Phases, in order; any failure raises and the exit code is not 0:
 1. environment: the card's name and power limit (nvidia-smi), torch and
    CUDA versions; builds every kernel of dynamo_tpu_torch/csrc from source.
 2. kernels: each CUDA kernel against its plain PyTorch version at
-   Llama-3-8B attention shapes in bf16 (32 q heads, 8 kv heads, head_dim
-   128, block 16) on ragged rows; times kernel, plain version, a PyTorch
-   library call doing the same work (scaled_dot_product_attention over the
-   gathered KV; the port never calls it) and the card's bound.
+   Llama-3-8B attention shapes (32 q heads, 8 kv heads, head_dim 128, block
+   16) on ragged rows, the attention kernels on a bf16 and on an int8 cache;
+   times kernel, plain version, a PyTorch library call doing the same work
+   (scaled_dot_product_attention over the gathered, dequantized KV; the
+   port never calls it) and the card's bound. The block-copy kernels
+   (gather, scatter, copy) must be bit-exact on bf16 pages and on the int8
+   pair, against index_select / index_copy_ as the library yardstick.
 3. model: a 2-layer model at full Llama-3-8B width runs a prefill, decode
    steps and a ragged 2-token step through the model's attend hook, once
-   with the kernels and once with the plain ops; the logits must agree,
-   and three deliberately wrong attentions must not, on each of 3 seeds.
+   with the kernels and once with the plain ops, on bf16 and on int8
+   caches; the logits must agree, and three deliberately wrong attentions
+   must not, on each of 3 seeds.
 4. serving: TorchEngine on the llama3-8b preset at full depth (32 layers,
    random bf16 weights from a seed) serves staggered concurrent requests;
    every request must finish with its token count, and the decode,
    flash-extend and unified kernels and the fused mixed step must all have
-   run during it.
+   run during it. Then the same engine with the int8 KV cache and a KVBM
+   host tier serves three waves (first, churn, repeat): the repeats
+   onboard their evicted prefixes from the host tier; the int8 attention
+   kernels and the gather and scatter kernels must all have run, and an
+   onboarded block must re-encode bit-exactly to its stored bytes.
 5. report: one JSON line with every kernel's numbers, the nvidia-smi line,
    and last the device line ``{"ok": true, "device": {...}}``.
 
@@ -94,14 +102,16 @@ class Timer:
         self.torch = torch
         self.flush = torch.empty(96 << 20, dtype=torch.uint8, device="cuda")
 
-    def __call__(self, fn, reps: int = 15, warmup: int = 2) -> float:
+    def __call__(self, fn, reps: int = 15, warmup: int = 2, busy: int = 200_000) -> float:
+        """``busy``: GPU cycles to wait before the call; raise it for a call
+        whose host work before its launch outlasts the default."""
         torch = self.torch
         for _ in range(warmup):
             fn()
         times = []
         for _ in range(reps):
             self.flush.zero_()
-            torch.cuda._sleep(200_000)
+            torch.cuda._sleep(busy)
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
@@ -139,9 +149,17 @@ def compare(torch, got, want, name: str) -> float:
 
 
 # ------------------------------------------------------------- phase 2
-def paged_case(torch, gen, lens, num_blocks, kvh=KVH):
+def quantized(torch, cache):
+    """A bf16 paged cache [nb, BS, kvh, D] quantized to the int8 format
+    (ops/quant.quantize_blocks: int8 pages + f32 [nb, kvh] scales)."""
+    from dynamo_tpu_torch.ops.quant import QuantizedKV, quantize_blocks
+
+    return QuantizedKV(*quantize_blocks(cache))
+
+
+def paged_case(torch, gen, lens, num_blocks, kvh=KVH, int8=False):
     """Random bf16 paged cache with each row on scrambled distinct pages
-    (table padding -> scratch block 0)."""
+    (table padding -> scratch block 0); ``int8`` quantizes it."""
     dev = "cuda"
     kc = torch.randn(num_blocks, BS, kvh, D, generator=gen, device=dev).to(torch.bfloat16)
     vc = torch.randn(num_blocks, BS, kvh, D, generator=gen, device=dev).to(torch.bfloat16)
@@ -151,7 +169,17 @@ def paged_case(torch, gen, lens, num_blocks, kvh=KVH):
     for r, n in enumerate(lens):
         for j in range(-(-n // BS)):
             tables[r, j] = free.pop()
+    if int8:
+        kc, vc = quantized(torch, kc), quantized(torch, vc)
     return kc, vc, torch.as_tensor(tables, device=dev)
+
+
+def kv_bytes(n_keys, kvh, int8):
+    """Bytes of n_keys K and V rows of kvh heads: bf16 rows, or int8 rows
+    plus the scale rows of their ceil(n / BS) pages (f32 per kv head)."""
+    if int8:
+        return 2 * (n_keys * kvh * D + 4 * -(-n_keys // BS) * kvh)
+    return 2 * 2 * n_keys * kvh * D
 
 
 def expand_kv(torch, kc, vc, table, T):
@@ -159,24 +187,25 @@ def expand_kv(torch, kc, vc, table, T):
     (the library yardstick's input)."""
     from dynamo_tpu_torch.ops import attention as att
 
-    k, v = att.gather_kv(kc, vc, table)
+    k, v = att.gather_kv(kc, vc, table)   # an int8 cache dequantizes (f32)
     g = H // KVH
-    return (k[:T].repeat_interleave(g, dim=1).transpose(0, 1),
-            v[:T].repeat_interleave(g, dim=1).transpose(0, 1))
+    return (k[:T].to(torch.bfloat16).repeat_interleave(g, dim=1).transpose(0, 1),
+            v[:T].to(torch.bfloat16).repeat_interleave(g, dim=1).transpose(0, 1))
 
 
-def check_decode(torch, gen, timer):
+def check_decode(torch, gen, timer, int8=False):
     from dynamo_tpu_torch.ops import attention as att
     from dynamo_tpu_torch.ops import cuda_attention
 
     lens = [1, 17, 250, 999, 2100, 513, 77, 1500]
-    kc, vc, tables = paged_case(torch, gen, lens, num_blocks=512)
+    kc, vc, tables = paged_case(torch, gen, lens, num_blocks=512, int8=int8)
     B = len(lens)
     q = torch.randn(B, H, D, generator=gen, device="cuda").to(torch.bfloat16)
     seq_lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
     args = (q, kc, vc, tables, seq_lens)
+    name = "decode int8" if int8 else "decode"
     err = compare(torch, cuda_attention.paged_decode_attention(*args),
-                  att.paged_decode_attention(*args), "decode")
+                  att.paged_decode_attention(*args), name)
     T = max(lens)
     ks, vs = zip(*(expand_kv(torch, kc, vc, tables[r], T) for r in range(B)))
     kl, vl = torch.stack(ks), torch.stack(vs)                  # [B, H, T, D]
@@ -185,16 +214,17 @@ def check_decode(torch, gen, timer):
     sdpa = torch.nn.functional.scaled_dot_product_attention
     n_keys = sum(lens)
     b, by = bound(
-        2 * (2 * B * H * D                      # q in, out
-             + 2 * n_keys * KVH * D)            # K and V rows needed
+        2 * 2 * B * H * D                       # q in, out
+        + sum(kv_bytes(n, KVH, int8) for n in lens)   # K and V rows needed
         + 4 * (B + sum(-(-n // BS) for n in lens)),
         4 * n_keys * H * D,
     )
     return {
-        "name": "paged_decode_attention", "route": "cuda",
+        "name": "paged_decode_attention" + ("_int8" if int8 else ""), "route": "cuda",
         "source": "dynamo_tpu_torch/csrc/decode_attention.cu",
         "replaces": "dynamo_tpu/ops/pallas_attention.py:36",
-        "shape": f"B={B} lens={lens} h={H} kvh={KVH} d={D} bs={BS} bf16",
+        "shape": f"B={B} lens={lens} h={H} kvh={KVH} d={D} bs={BS} "
+                 + ("int8 cache + f32 scales" if int8 else "bf16"),
         "max_abs_err": err,
         "ms": timer(lambda: cuda_attention.paged_decode_attention(*args)),
         "plain_ms": timer(lambda: att.paged_decode_attention(*args)),
@@ -203,7 +233,18 @@ def check_decode(torch, gen, timer):
     }
 
 
-def check_flash(torch, gen, timer):
+def int8_context(torch, k):
+    """A bf16 context [T, KVH, D] quantized per BS-row block, in the form
+    ops.attention.gather_kv_quant hands the flash-extend kernel: int8 rows
+    and f32 per-position scales [T, KVH]."""
+    from dynamo_tpu_torch.ops.quant import quantize_blocks
+
+    T = k.shape[0]
+    q, s = quantize_blocks(k.reshape(T // BS, BS, *k.shape[1:]))
+    return q.reshape(k.shape), s[:, None, :].expand(T // BS, BS, k.shape[1]).reshape(T, -1)
+
+
+def check_flash(torch, gen, timer, int8=False):
     from dynamo_tpu_torch.ops import cuda_prefill
 
     def case(S, start, total):
@@ -211,40 +252,52 @@ def check_flash(torch, gen, timer):
         q = torch.randn(S, H, D, generator=gen, device="cuda").to(torch.bfloat16)
         k = torch.randn(T, KVH, D, generator=gen, device="cuda").to(torch.bfloat16)
         v = torch.randn(T, KVH, D, generator=gen, device="cuda").to(torch.bfloat16)
-        return q, k, v, start, total
+        if not int8:
+            return (q, k, v, start, total), {}
+        (kq, ks), (vq, vs) = int8_context(torch, k), int8_context(torch, v)
+        return (q, kq, vq, start, total), {"k_scales": ks, "v_scales": vs}
 
+    def run(c, kernel):
+        fn = (cuda_prefill.flash_extend_attention if kernel
+              else cuda_prefill.flash_extend_reference)
+        return fn(*c[0], **c[1])
+
+    tag = " int8" if int8 else ""
     # a ragged continuation chunk (952 real rows in a 1024 bucket over a
     # 2048-token prefix), checked only, then the full first chunk, timed
     cont = case(1024, 2048, 3000)
-    err = compare(torch, cuda_prefill.flash_extend_attention(*cont),
-                  cuda_prefill.flash_extend_reference(*cont), "flash_extend continuation")
+    err = compare(torch, run(cont, True), run(cont, False), "flash_extend continuation" + tag)
     S = 2048
     first = case(S, 0, S)
-    err = max(err, compare(torch, cuda_prefill.flash_extend_attention(*first),
-                           cuda_prefill.flash_extend_reference(*first), "flash_extend"))
-    q, k, v, _, _ = first
+    err = max(err, compare(torch, run(first, True), run(first, False), "flash_extend" + tag))
+    q, k, v, _, _ = first[0]
+    if int8:   # the library call takes the dequantized context
+        k = (k.float() * first[1]["k_scales"][..., None]).to(torch.bfloat16)
+        v = (v.float() * first[1]["v_scales"][..., None]).to(torch.bfloat16)
     g = H // KVH
     ql = q.transpose(0, 1)[None].contiguous()
     kl = k.repeat_interleave(g, dim=1).transpose(0, 1)[None].contiguous()
     vl = v.repeat_interleave(g, dim=1).transpose(0, 1)[None].contiguous()
     sdpa = torch.nn.functional.scaled_dot_product_attention
     pairs = S * (S + 1) // 2
-    b, by = bound(2 * (2 * S * H * D + 2 * S * KVH * D), 4 * pairs * H * D)
+    ctx_bytes = 2 * S * KVH * (D + 4) if int8 else 2 * 2 * S * KVH * D
+    b, by = bound(2 * 2 * S * H * D + ctx_bytes, 4 * pairs * H * D)
     return {
-        "name": "flash_extend_attention", "route": "cuda",
+        "name": "flash_extend_attention" + ("_int8" if int8 else ""), "route": "cuda",
         "source": "dynamo_tpu_torch/csrc/flash_extend.cu",
         "replaces": "dynamo_tpu/ops/pallas_prefill.py:44",
-        "shape": f"S={S} start=0 total={S} h={H} kvh={KVH} d={D} bf16 "
-                 "(also checked: S=1024 start=2048 total=3000)",
+        "shape": f"S={S} start=0 total={S} h={H} kvh={KVH} d={D} "
+                 + ("int8 context + f32 per-position scales " if int8 else "bf16 ")
+                 + "(also checked: S=1024 start=2048 total=3000)",
         "max_abs_err": err,
-        "ms": timer(lambda: cuda_prefill.flash_extend_attention(*first)),
-        "plain_ms": timer(lambda: cuda_prefill.flash_extend_reference(*first), reps=5),
+        "ms": timer(lambda: run(first, True)),
+        "plain_ms": timer(lambda: run(first, False), reps=5),
         "library_ms": timer(lambda: sdpa(ql, kl, vl, is_causal=True)),
         "bound_ms": b, "bound_by": by,
     }
 
 
-def check_unified(torch, gen, timer):
+def check_unified(torch, gen, timer, int8=False):
     from dynamo_tpu_torch.ops import attention as att
     from dynamo_tpu_torch.ops import cuda_unified
 
@@ -252,7 +305,8 @@ def check_unified(torch, gen, timer):
     # prefix, decode rows (one past 2,000 tokens), an empty row; 5-token
     # gaps between segments
     rows = [(437, 1637), (1, 2100), (1, 17), (0, 300), (1, 999), (1, 250), (1, 1)]
-    kc, vc, tables = paged_case(torch, gen, [sl for _, sl in rows], num_blocks=512)
+    kc, vc, tables = paged_case(torch, gen, [sl for _, sl in rows], num_blocks=512,
+                                int8=int8)
     starts, pos = [], 0
     for ql, _ in rows:
         starts.append(pos)
@@ -266,7 +320,7 @@ def check_unified(torch, gen, timer):
     args = (q, kc, vc, tables, q_starts, q_lens, seq_lens)
     max_q = max(ql for ql, _ in rows)
     err = compare(torch, cuda_unified.ragged_paged_attention(*args, max_q_len=max_q),
-                  att.ragged_paged_attention(*args), "unified")
+                  att.ragged_paged_attention(*args), "unified int8" if int8 else "unified")
     # library yardstick: one masked SDPA over the rows padded to a batch
     R, T = len(rows), max(sl for _, sl in rows)
     qp = torch.zeros(R, H, max_q, D, dtype=torch.bfloat16, device="cuda")
@@ -285,16 +339,17 @@ def check_unified(torch, gen, timer):
     pairs = sum(sum(sl - ql + i + 1 for i in range(ql)) for ql, sl in live)
     b, by = bound(
         2 * (sum(ql for ql, _ in live) * H * D          # member queries in
-             + Tq * H * D                               # packed output
-             + 2 * sum(sl for _, sl in live) * KVH * D)  # K and V rows needed
+             + Tq * H * D)                              # packed output
+        + sum(kv_bytes(sl, KVH, int8) for _, sl in live)   # K and V rows needed
         + 4 * (3 * R + sum(-(-sl // BS) for _, sl in live)),
         4 * pairs * H * D,
     )
     return {
-        "name": "ragged_paged_attention", "route": "cuda",
+        "name": "ragged_paged_attention" + ("_int8" if int8 else ""), "route": "cuda",
         "source": "dynamo_tpu_torch/csrc/unified_attention.cu",
         "replaces": "dynamo_tpu/ops/pallas_unified.py:93",
-        "shape": f"rows(q_len,seq_len)={rows} Tq={Tq} h={H} kvh={KVH} d={D} bs={BS} bf16",
+        "shape": f"rows(q_len,seq_len)={rows} Tq={Tq} h={H} kvh={KVH} d={D} bs={BS} "
+                 + ("int8 cache + f32 scales" if int8 else "bf16"),
         "max_abs_err": err,
         "ms": timer(lambda: cuda_unified.ragged_paged_attention(*args, max_q_len=max_q)),
         "plain_ms": timer(lambda: att.ragged_paged_attention(*args), reps=5),
@@ -312,37 +367,167 @@ def check_group_sizes(torch, gen) -> float:
 
     kvh, worst = 2, 0.0
     i32 = dict(dtype=torch.int32, device="cuda")
-    for g in (1, 2, 8):
+    for g, int8 in ((1, False), (2, False), (8, False), (1, True), (2, True), (8, True)):
         h = kvh * g
         lens = [1, 40, 333]
-        kc, vc, tables = paged_case(torch, gen, lens, num_blocks=64, kvh=kvh)
+        kc, vc, tables = paged_case(torch, gen, lens, num_blocks=64, kvh=kvh, int8=int8)
+        tag = f"G={g}" + (" int8" if int8 else "")
         q = torch.randn(len(lens), h, D, generator=gen, device="cuda").to(torch.bfloat16)
         args = (q, kc, vc, tables, torch.tensor(lens, **i32))
         worst = max(worst, compare(torch, cuda_attention.paged_decode_attention(*args),
-                                   att.paged_decode_attention(*args), f"decode G={g}"))
+                                   att.paged_decode_attention(*args), f"decode {tag}"))
         qf = torch.randn(77, h, D, generator=gen, device="cuda").to(torch.bfloat16)
         kf = torch.randn(160, kvh, D, generator=gen, device="cuda").to(torch.bfloat16)
         vf = torch.randn(160, kvh, D, generator=gen, device="cuda").to(torch.bfloat16)
+        scales = {}
+        if int8:
+            (kf, ks), (vf, vs) = int8_context(torch, kf), int8_context(torch, vf)
+            scales = {"k_scales": ks, "v_scales": vs}
         fargs = (qf, kf, vf, 70, 147)
-        worst = max(worst, compare(torch, cuda_prefill.flash_extend_attention(*fargs),
-                                   cuda_prefill.flash_extend_reference(*fargs),
-                                   f"flash_extend G={g}"))
+        worst = max(worst, compare(torch, cuda_prefill.flash_extend_attention(*fargs, **scales),
+                                   cuda_prefill.flash_extend_reference(*fargs, **scales),
+                                   f"flash_extend {tag}"))
         qu = torch.randn(50, h, D, generator=gen, device="cuda").to(torch.bfloat16)
         uargs = (qu, kc, vc, tables, torch.tensor([0, 40, 45], **i32),
                  torch.tensor([1, 3, 5], **i32), torch.tensor(lens, **i32))
         worst = max(worst, compare(torch, cuda_unified.ragged_paged_attention(*uargs),
-                                   att.ragged_paged_attention(*uargs), f"unified G={g}"))
+                                   att.ragged_paged_attention(*uargs), f"unified {tag}"))
     return worst
 
 
+# block-copy checks: a Llama-3-8B layer cache of this many pages, moved M
+# pages at a time for each M (random distinct ids); the last M is timed
+COPY_PAGES = 2048
+COPY_MS = (1, 37, 256)
+
+
+def check_block_copy(torch, gen, timer):
+    """gather / scatter / copy against their plain versions, BIT-exact, on
+    a [2048, 16, 8, 128] bf16 layer cache and on its int8 pair (payload +
+    [2048, 8] f32 scales) at M = 1, 37 and 256. Times (M = 256) are taken
+    on the int8 pair, the form the int8 + KVBM serving path moves (one
+    launch for the payload, one for the scales); the bf16 page times ride
+    along under ``bf16_ms``."""
+    from dynamo_tpu_torch.ops import block_copy as bc
+    from dynamo_tpu_torch.ops.quant import QuantizedKV
+
+    dev = "cuda"
+    bf16 = torch.randn(COPY_PAGES, BS, KVH, D, generator=gen, device=dev).to(torch.bfloat16)
+    pair = quantized(torch, bf16)
+    rng = np.random.default_rng(5)
+
+    def ids(*arrays, device=dev):
+        return [torch.as_tensor(a.astype(np.int32), device=device) for a in arrays]
+
+    def exact(got, want, name):
+        if got.dtype != want.dtype or got.shape != want.shape or not torch.equal(got, want):
+            raise AssertionError(f"{name}: kernel result is not bit-equal to its plain version")
+
+    def parts(cache):
+        return [cache] if isinstance(cache, torch.Tensor) else [cache.data, cache.scale]
+
+    for M in COPY_MS:
+        perm = rng.permutation(COPY_PAGES)
+        # copy_blocks checks src/dst disjointness on the host: CPU ids
+        (take,), (src, dst) = ids(perm[:M]), ids(perm[M:2 * M], perm[2 * M:3 * M], device="cpu")
+        for label, cache in (("bf16", bf16), ("int8 payload+scales", pair)):
+            for c in parts(cache):
+                tag = f"M={M} {label} {tuple(c.shape)}"
+                exact(bc.gather_blocks(c, take), bc.gather_blocks_ref(c, take), "gather " + tag)
+                blocks = torch.randn(M, *c.shape[1:], generator=gen, device=dev).to(c.dtype)
+                exact(bc.scatter_blocks(c.clone(), take, blocks),
+                      bc.scatter_blocks_ref(c.clone(), take, blocks), "scatter " + tag)
+                exact(bc.copy_blocks(c.clone(), src, dst),
+                      bc.copy_blocks_ref(c.clone(), src, dst), "copy " + tag)
+    M = COPY_MS[-1]
+    perm = rng.permutation(COPY_PAGES)
+    (take,), (src, dst) = ids(perm[:M]), ids(perm[M:2 * M], perm[2 * M:3 * M], device="cpu")
+    pages = bc.gather_blocks_quant(pair, take)
+    bf16_pages = bc.gather_blocks(bf16, take)
+    # each page read once and written once (int8 pages + their scale rows),
+    # the int32 ids read once per array (copy reads two id lists)
+    moved = 2 * M * (BS * KVH * D + 4 * KVH)
+    b, by = bound(moved + 2 * 4 * M, 0)
+    b_copy, _ = bound(moved + 2 * 2 * 4 * M, 0)
+    common = {"route": "cuda", "source": "dynamo_tpu_torch/csrc/block_copy.cu",
+              "bound_ms": b, "bound_by": by, "max_abs_err": 0.0,
+              "shape": f"M={M} of {COPY_PAGES} pages: int8 [{BS},{KVH},{D}] + f32 [{KVH}] "
+                       f"(one launch each); also bit-checked at M={list(COPY_MS)} on "
+                       "bf16 pages and on the int8 pair"}
+
+    # copy_blocks checks src/dst disjointness on the host and uploads the
+    # ids before it launches: keep the GPU busy long enough to cover that
+    slow_host = 2_000_000
+
+    def copy_pair(c):
+        bc.copy_blocks(c.data, src, dst)
+        bc.copy_blocks(c.scale, src, dst)
+
+    def copy_ref(c):
+        bc.copy_blocks_ref(c.data, src, dst)
+        bc.copy_blocks_ref(c.scale, src, dst)
+
+    work = QuantizedKV(pair.data.clone(), pair.scale.clone())
+    # PyTorch's index ops take int64 ids
+    take_l, src_l, dst_l = take.long(), src.to(dev).long(), dst.to(dev).long()
+    return [
+        dict(common, name="gather_blocks", replaces="dynamo_tpu/ops/block_copy.py:30",
+             ms=timer(lambda: bc.gather_blocks_quant(pair, take)),
+             plain_ms=timer(lambda: (bc.gather_blocks_ref(pair.data, take),
+                                     bc.gather_blocks_ref(pair.scale, take))),
+             library_ms=timer(lambda: (torch.index_select(pair.data, 0, take_l),
+                                       torch.index_select(pair.scale, 0, take_l))),
+             library="torch.index_select (payload, scales)",
+             bf16_ms=timer(lambda: bc.gather_blocks(bf16, take))),
+        dict(common, name="scatter_blocks", replaces="dynamo_tpu/ops/block_copy.py:65",
+             ms=timer(lambda: bc.scatter_blocks_quant(work, take, pages)),
+             plain_ms=timer(lambda: (bc.scatter_blocks_ref(work.data, take, pages.data),
+                                     bc.scatter_blocks_ref(work.scale, take, pages.scale))),
+             library_ms=timer(lambda: (work.data.index_copy_(0, take_l, pages.data),
+                                       work.scale.index_copy_(0, take_l, pages.scale))),
+             library="Tensor.index_copy_ (payload, scales)",
+             bf16_ms=timer(lambda: bc.scatter_blocks(bf16, take, bf16_pages))),
+        dict(common, name="copy_blocks", replaces="dynamo_tpu/ops/block_copy.py:110",
+             bound_ms=b_copy,
+             ms=timer(lambda: copy_pair(work), busy=slow_host),
+             plain_ms=timer(lambda: copy_ref(work), busy=slow_host),
+             library_ms=timer(lambda: (
+                 work.data.index_copy_(0, dst_l, work.data.index_select(0, src_l)),
+                 work.scale.index_copy_(0, dst_l, work.scale.index_select(0, src_l)))),
+             library="Tensor.index_copy_ of index_select (payload, scales)",
+             bf16_ms=timer(lambda: bc.copy_blocks(bf16, src, dst), busy=slow_host)),
+    ]
+
+
+def time_kv_writes(torch, gen, timer) -> dict:
+    """One layer's decode KV write (ops.attention.write_decode_kv, plain
+    PyTorch, no kernel of its own) for a batch of 8 rows on a Llama-3-8B
+    layer cache, bf16 against int8 (the int8 write re-quantizes each row's
+    whole block): a layer cost the int8 decode step pays 32 times."""
+    from dynamo_tpu_torch.ops import attention as att
+
+    B, nb = 8, 512
+    kc, vc, _ = paged_case(torch, gen, [1], num_blocks=nb)
+    qk, qv = quantized(torch, kc), quantized(torch, vc)
+    k = torch.randn(B, KVH, D, generator=gen, device="cuda").to(torch.bfloat16)
+    v = torch.randn(B, KVH, D, generator=gen, device="cuda").to(torch.bfloat16)
+    blocks = torch.arange(1, B + 1, device="cuda") * 7
+    offs = torch.arange(B, device="cuda") % BS + 1
+    return {"bf16_ms": timer(lambda: att.write_decode_kv(kc, vc, k, v, blocks, offs)),
+            "int8_ms": timer(lambda: att.write_decode_kv(qk, qv, k, v, blocks, offs))}
+
+
 # ------------------------------------------------------------- phase 3
-def attention_paths(torch, table):
+def attention_paths(torch, table, int8=False):
     """The model check's attention paths by name, each a (prefill, decode,
     ragged) triple of ``(q, k_cache, v_cache, total_len) -> out`` on one
     sequence whose pages are ``table``: the kernels, the plain versions,
-    and the deliberately wrong attentions the check must tell apart."""
+    and the deliberately wrong attentions the check must tell apart. With
+    ``int8`` the caches are ``QuantizedKV`` and the kernels are the int8
+    forms (the plain versions read the dequantized cache)."""
     from dynamo_tpu_torch.ops import attention as att
     from dynamo_tpu_torch.ops import cuda_attention, cuda_prefill, cuda_unified
+    from dynamo_tpu_torch.ops.quant import QuantizedKV
 
     i32 = dict(dtype=torch.int32, device=table.device)
 
@@ -365,9 +550,21 @@ def attention_paths(torch, table):
     def plain_ragged(q, kc, vc, total):
         return att.ragged_paged_attention(*ragged_args(q, kc, vc, total))
 
+    def kernel_prefill(q, kc, vc, total):
+        if not int8:
+            return cuda_prefill.flash_extend_attention(q, *ctx(kc, vc, total), 0, total)
+        kq, vq, ks, vs = att.gather_kv_quant(kc, vc, table[: -(-total // BS)])
+        return cuda_prefill.flash_extend_attention(q, kq, vq, 0, total,
+                                                   k_scales=ks, v_scales=vs)
+
+    def roll(c):
+        if int8:
+            return QuantizedKV(c.data.roll(1, dims=2), c.scale.roll(1, dims=1))
+        return c.roll(1, dims=2)
+
     def rotated(fn):
         # query-head group i reads kv head i+1: a wrong GQA map
-        return lambda q, kc, vc, total: fn(q, kc.roll(1, dims=2), vc.roll(1, dims=2), total)
+        return lambda q, kc, vc, total: fn(q, roll(kc), roll(vc), total)
 
     def no_mask(q, kc, vc, total):
         # every query sees all `total` keys
@@ -375,8 +572,7 @@ def attention_paths(torch, table):
 
     return {
         "kernels": (
-            lambda q, kc, vc, total: cuda_prefill.flash_extend_attention(
-                q, *ctx(kc, vc, total), 0, total),
+            kernel_prefill,
             lambda q, kc, vc, total: cuda_attention.paged_decode_attention(
                 q.reshape(1, H, D), kc, vc, table[None], one(total)).reshape(q.shape),
             lambda q, kc, vc, total: cuda_unified.ragged_paged_attention(
@@ -400,11 +596,15 @@ MODEL_MUTANTS = ("mutant: no causal mask", "mutant: each query's own key dropped
                  "mutant: kv heads rotated")
 
 
-def model_logits(torch, cfg, params, paths, prompt, extra):
+def model_logits(torch, cfg, params, paths, prompt, extra, int8=False):
     """Last-position logits [1, V] (f32) of a prefill, 3 decode steps and a
-    2-token ragged step, through each path's attention, per path."""
+    2-token ragged step, through each path's attention, per path. With
+    ``int8`` the caches are int8 and written as the engine writes them:
+    the prefill quantizes whole blocks (pad rows zero), later tokens
+    requantize their block one row at a time."""
     from dynamo_tpu_torch.models import llama
     from dynamo_tpu_torch.ops import attention as att
+    from dynamo_tpu_torch.ops.quant import QuantizedKV
 
     dev = params["embed"].device
     nb = 48
@@ -413,16 +613,36 @@ def model_logits(torch, cfg, params, paths, prompt, extra):
     logits = {}
     for name, (prefill, decode, ragged) in paths(table).items():
         shape = (nb, BS, cfg.num_kv_heads, cfg.head_dim)
-        kcs = [torch.zeros(shape, dtype=cfg.dtype, device=dev) for _ in range(cfg.num_layers)]
-        vcs = [torch.zeros(shape, dtype=cfg.dtype, device=dev) for _ in range(cfg.num_layers)]
+
+        def cache():
+            if int8:
+                return QuantizedKV(torch.zeros(shape, dtype=torch.int8, device=dev),
+                                   torch.zeros(shape[0], shape[2], device=dev))
+            return torch.zeros(shape, dtype=cfg.dtype, device=dev)
+
+        kcs = [cache() for _ in range(cfg.num_layers)]
+        vcs = [cache() for _ in range(cfg.num_layers)]
 
         def run(tokens, start, attn):
             pos = torch.arange(start, start + len(tokens), device=dev)
             blocks, offs = table[pos // BS], pos % BS
 
+            def write_int8(kc, vc, k, v):
+                if start == 0:
+                    pad = -len(tokens) % BS
+                    k, v = (torch.cat([x, x.new_zeros(pad, *x.shape[1:])]) for x in (k, v))
+                    att.write_prefill_kv(kc, vc, k, v, table[: k.shape[0] // BS])
+                    return
+                for j in range(len(tokens)):
+                    att.write_decode_kv(kc, vc, k[j:j + 1], v[j:j + 1],
+                                        blocks[j:j + 1], offs[j:j + 1])
+
             def attend(q, k, v, i):
-                att.write_decode_kv(kcs[i], vcs[i], k.reshape(-1, *k.shape[-2:]),
-                                    v.reshape(-1, *v.shape[-2:]), blocks, offs)
+                k, v = k.reshape(-1, *k.shape[-2:]), v.reshape(-1, *v.shape[-2:])
+                if int8:
+                    write_int8(kcs[i], vcs[i], k, v)
+                else:
+                    att.write_decode_kv(kcs[i], vcs[i], k, v, blocks, offs)
                 return attn(q, kcs[i], vcs[i], start + len(tokens))
 
             hidden = llama.forward(params, cfg, torch.as_tensor(tokens, device=dev), pos, attend)
@@ -436,11 +656,12 @@ def model_logits(torch, cfg, params, paths, prompt, extra):
     return logits
 
 
-def model_check(torch):
+def model_check(torch, int8=False):
     """A 2-layer model at full Llama-3-8B width, per seed in MODEL_SEEDS:
     the kernel path's logits against the plain path's at every step, and
-    the same reading for each mutant. Returns (worst kernel reading, least
-    reading of each mutant over the seeds, max |logit|)."""
+    the same reading for each mutant; ``int8`` runs it on int8 caches.
+    Returns (worst kernel reading, least reading of each mutant over the
+    seeds, max |logit|)."""
     from dynamo_tpu_torch.models import llama
 
     dev = torch.device("cuda")
@@ -452,8 +673,8 @@ def model_check(torch):
         rng = np.random.default_rng(100 + seed)
         prompt = rng.integers(0, cfg.vocab_size, size=300)
         extra = rng.integers(0, cfg.vocab_size, size=5)   # 3 decode tokens + a 2-token step
-        logits = model_logits(torch, cfg, params, lambda t: attention_paths(torch, t),
-                              prompt, extra)
+        logits = model_logits(torch, cfg, params, lambda t: attention_paths(torch, t, int8),
+                              prompt, extra, int8)
         plain = logits.pop("plain")
         spread = max(spread, max(b.abs().max().item() for b in plain))
         for name, got in logits.items():
@@ -463,21 +684,45 @@ def model_check(torch):
             readings.setdefault(name, []).append(rel)
         del params, logits, plain
         torch.cuda.empty_cache()
+    tag = "model int8" if int8 else "model"
     for name, rels in readings.items():
-        log(f"model: {name}: relative L2 of last-position logits vs plain, worst "
+        log(f"{tag}: {name}: relative L2 of last-position logits vs plain, worst "
             f"step per seed {MODEL_SEEDS}: " + ", ".join(f"{r:.4g}" for r in rels))
     worst = max(readings["kernels"])
     if worst > MODEL_REL_TOL:
-        raise AssertionError(f"model: kernel logits differ from plain by {worst:.4g} "
+        raise AssertionError(f"{tag}: kernel logits differ from plain by {worst:.4g} "
                              f"relative L2 (limit {MODEL_REL_TOL})")
     for name in MODEL_MUTANTS:
         if min(readings[name]) <= MODEL_REL_TOL:
-            raise AssertionError(f"model: the check cannot tell {name} from the plain "
+            raise AssertionError(f"{tag}: the check cannot tell {name} from the plain "
                                  f"path ({min(readings[name]):.4g} <= {MODEL_REL_TOL})")
     return worst, {n: min(r) for n, r in readings.items() if n != "kernels"}, spread
 
 
 # ------------------------------------------------------------- phase 4
+def kernel_counters() -> dict:
+    """Every kernel wrapper's launch counter, by the report's short name."""
+    from dynamo_tpu_torch.ops import block_copy as bc
+    from dynamo_tpu_torch.ops import cuda_attention, cuda_prefill, cuda_unified
+
+    return {
+        "decode": cuda_attention.KERNEL, "flash_extend": cuda_prefill.KERNEL,
+        "unified": cuda_unified.KERNEL, "decode_int8": cuda_attention.KERNEL_INT8,
+        "flash_extend_int8": cuda_prefill.KERNEL_INT8,
+        "unified_int8": cuda_unified.KERNEL_INT8, "gather": bc.GATHER,
+        "scatter": bc.SCATTER, "copy": bc.COPY,
+    }
+
+
+def reset_launches() -> None:
+    for k in kernel_counters().values():
+        k.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: k.launches for name, k in kernel_counters().items()}
+
+
 def device_time_by_kind(prof) -> dict:
     """Summed kernel time (ms) from a CUDA-activity profile, by kind."""
     kinds = {"decode_kernel": "paged_decode_kernel", "flash_kernel": "flash_extend_kernel",
@@ -508,7 +753,6 @@ async def serve(torch, profile: bool = False):
     )
     from dynamo_tpu_torch.llm.tokenizer import ByteTokenizer
     from dynamo_tpu_torch.models.llama import LlamaConfig
-    from dynamo_tpu_torch.ops import cuda_attention, cuda_prefill, cuda_unified
     from dynamo_tpu_torch.runtime import Context
 
     mcfg = LlamaConfig.llama3_8b()
@@ -531,9 +775,6 @@ async def serve(torch, profile: bool = False):
         prompts.append(tok.encode(text)[:n])
     max_tokens = 32
     sampled = 3   # one seeded sampled request; the rest are greedy
-    kernels = (cuda_attention.KERNEL, cuda_prefill.KERNEL, cuda_unified.KERNEL)
-    for k in kernels:
-        k.launches = 0
     stats = []
 
     async def one(i, prompt):
@@ -559,6 +800,7 @@ async def serve(torch, profile: bool = False):
     if profile:
         prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
         prof.__enter__()
+    reset_launches()
     t0 = time.perf_counter()
     try:
         await asyncio.gather(*(one(i, p) for i, p in enumerate(prompts)))
@@ -568,16 +810,15 @@ async def serve(torch, profile: bool = False):
         if prof is not None:
             prof.__exit__(None, None, None)
     wall = time.perf_counter() - t0
-    launches = [k.launches for k in kernels]
+    launches = read_launches()
     for s in sorted(stats, key=lambda s: s["i"]):
         if len(s["tokens"]) != max_tokens or s["finish"] != "length":
             raise AssertionError(f"request {s['i']}: {len(s['tokens'])} tokens, "
                                  f"finish {s['finish']!r}; expected {max_tokens}, 'length'")
         if not all(0 <= t < mcfg.vocab_size for t in s["tokens"]):
             raise AssertionError(f"request {s['i']}: token id outside the vocab")
-    names = ("decode", "flash_extend", "unified")
-    for name, n in zip(names, launches):
-        if n <= 0:
+    for name in ("decode", "flash_extend", "unified"):
+        if launches[name] <= 0:
             raise AssertionError(f"the {name} kernel never launched while serving")
     if engine.step_counts["mixed"] <= 0:
         raise AssertionError(f"no fused mixed step ran: {engine.step_counts}")
@@ -596,7 +837,169 @@ async def serve(torch, profile: bool = False):
         "ttft_s_median": statistics.median(ttft), "ttft_s_max": ttft[-1],
         "itl_s_median": statistics.median(itl), "itl_s_max": itl[-1],
         "steps": dict(engine.step_counts),
-        "launches": dict(zip(names, launches)),
+        "launches": launches,
+    }
+
+
+# int8 + KVBM serving: a device pool small enough that the churn wave evicts
+# the first wave's prompt blocks, a G2 host tier large enough to hold every
+# block both waves offload, and a third wave repeating three first-wave
+# prompts, which then onboard from G2
+KVBM_DEVICE_BLOCKS = 512
+KVBM_HOST_BLOCKS = 2048
+KVBM_FIRST = (2600, 1100, 3000)
+KVBM_CHURN = (1600,) * 6
+
+
+class ErrorLog:
+    """Counts ERROR records of the port's loggers (an onboard or offload
+    failure is logged, and any such record fails the run)."""
+
+    def __init__(self):
+        import logging
+
+        self.records = []
+        handler = logging.Handler(level=logging.ERROR)
+        handler.emit = self.records.append
+        self.logger = logging.getLogger("dynamo_tpu_torch")
+        self.logger.addHandler(handler)
+        self.handler = handler
+
+    def close(self):
+        self.logger.removeHandler(self.handler)
+
+
+async def serve_kvbm(torch):
+    """TorchEngine(kv_dtype="int8", kvbm=KvbmTiers(...)) on the llama3-8b
+    preset at 32 layers: first wave, churn wave, repeat wave. Hard checks:
+    token counts and finish reasons, every int8 attention kernel and the
+    gather and scatter kernels launched, blocks onboarded and cached tokens
+    on every repeat, an onboarded device block re-encoding bit-exactly to
+    its stored G2 bytes, and no onboard or offload error. Unprofiled."""
+    from dynamo_tpu_torch.engine.engine import TorchEngine, TorchEngineConfig
+    from dynamo_tpu_torch.kvbm.layout import QuantizedBlockCodec, block_shape_for
+    from dynamo_tpu_torch.kvbm.pool import KvbmTiers
+    from dynamo_tpu_torch.llm.protocols.common import (
+        PreprocessedRequest, SamplingOptions, StopConditions,
+    )
+    from dynamo_tpu_torch.llm.tokenizer import ByteTokenizer
+    from dynamo_tpu_torch.models.llama import LlamaConfig
+    from dynamo_tpu_torch.runtime import Context
+    from dynamo_tpu_torch.tokens import compute_sequence_hashes
+
+    mcfg = LlamaConfig.llama3_8b()
+    cfg = TorchEngineConfig(model=mcfg, num_blocks=KVBM_DEVICE_BLOCKS, block_size=BS,
+                            max_batch_size=8, max_context=4096, seed=0, kv_dtype="int8")
+    codec = QuantizedBlockCodec(block_shape_for(mcfg, BS, "int8"))
+    kvbm = KvbmTiers(codec.nbytes, host_capacity_bytes=KVBM_HOST_BLOCKS * codec.nbytes)
+    t0 = time.perf_counter()
+    engine = TorchEngine(cfg, kvbm=kvbm)
+    torch.cuda.synchronize()
+    log(f"serving int8+kvbm: llama3-8b preset, {mcfg.num_layers} layers, int8 KV "
+        f"({KVBM_DEVICE_BLOCKS} device blocks), G2 host tier of {KVBM_HOST_BLOCKS} "
+        f"blocks x {codec.nbytes} B, ready in {time.perf_counter() - t0:.1f} s")
+    tok = ByteTokenizer()
+    rng = np.random.default_rng(4)
+    words = [bytes(rng.integers(97, 123, size=rng.integers(2, 9))).decode()
+             for _ in range(4000)]
+
+    def prompt(n):
+        text = " ".join(words[int(i)] for i in rng.integers(0, len(words), size=n))
+        return tok.encode(text)[:n]
+
+    first = [prompt(n) for n in KVBM_FIRST]
+    churn = [prompt(n) for n in KVBM_CHURN]
+    max_tokens = 32
+    stats = []
+
+    async def one(tag, i, toks):
+        await asyncio.sleep(0.25 * i)
+        req = PreprocessedRequest(request_id=f"{tag}{i}", model="llama3-8b", token_ids=toks,
+                                  sampling=SamplingOptions(temperature=0.0),
+                                  stop=StopConditions(max_tokens=max_tokens))
+        t_sub = time.perf_counter()
+        stamps, out_toks, finish, cached = [], [], None, None
+        async for out in engine.generate(req, Context()):
+            if out.token_ids:
+                stamps.append(time.perf_counter())
+                out_toks.extend(out.token_ids)
+            if "cached_tokens" in (out.annotations or {}):
+                cached = out.annotations["cached_tokens"]
+            finish = out.finish_reason or finish
+        stats.append({"wave": tag, "i": i, "prompt": len(toks), "tokens": out_toks,
+                      "finish": finish, "cached": cached,
+                      "ttft_s": stamps[0] - t_sub if stamps else None,
+                      "itl_s": ((stamps[-1] - stamps[0]) / (len(stamps) - 1)
+                                if len(stamps) > 1 else None)})
+
+    async def wave(tag, prompts):
+        await asyncio.gather(*(one(tag, i, p) for i, p in enumerate(prompts)))
+        await engine.flush_offload()
+
+    errors = ErrorLog()
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        await wave("first", first)
+        await wave("churn", churn)
+        hashes = [compute_sequence_hashes(p, BS)[: (len(p) - 1) // BS] for p in first]
+        resident = [len(engine.allocator.match_prefix(h)) for h in hashes]
+        await wave("repeat", first)
+    finally:
+        engine.stop()
+        torch.cuda.synchronize()
+        errors.close()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    kstats = kvbm.stats()
+    by = {(s["wave"], s["i"]): s for s in stats}
+    for s in stats:
+        if len(s["tokens"]) != max_tokens or s["finish"] != "length":
+            raise AssertionError(f"int8+kvbm {s['wave']} {s['i']}: {len(s['tokens'])} "
+                                 f"tokens, finish {s['finish']!r}")
+    for name in ("decode_int8", "flash_extend_int8", "unified_int8", "gather", "scatter"):
+        if launches[name] <= 0:
+            raise AssertionError(f"int8+kvbm: the {name} kernel never launched: {launches}")
+    if errors.records or engine.offload_errors or kstats["errors"]:
+        raise AssertionError(
+            f"int8+kvbm: {len(errors.records)} error records, {engine.offload_errors} offload "
+            f"errors, {kstats['errors']} tier errors: "
+            + "; ".join(r.getMessage() for r in errors.records[:3]))
+    if kstats["onboarded"] <= 0:
+        raise AssertionError(f"int8+kvbm: no block onboarded from the tiers: {kstats}")
+    for i in range(len(first)):
+        if not by[("repeat", i)]["cached"]:
+            raise AssertionError(f"int8+kvbm: repeat {i} reused no cached tokens")
+    # an onboarded block (the first that was not on the device before the
+    # repeat wave) re-encodes bit-exactly to its stored G2 bytes
+    h = hashes[0][resident[0]]
+    stored = kvbm.host.get(h)
+    (bid,) = engine.allocator.match_prefix([h])
+    pay = np.empty(codec.payload_shape, np.int8)
+    scl = np.empty(codec.scales_shape, np.float32)
+    for li, (kc, vc) in enumerate(zip(engine.k_caches, engine.v_caches)):
+        pay[li, 0], pay[li, 1] = kc.data[bid].cpu().numpy(), vc.data[bid].cpu().numpy()
+        scl[li, 0], scl[li, 1] = kc.scale[bid].cpu().numpy(), vc.scale[bid].cpu().numpy()
+    if stored is None or not np.array_equal(codec.encode(pay, scl), stored):
+        raise AssertionError("int8+kvbm: an onboarded block differs from its stored G2 bytes")
+    same = sum(by[("repeat", i)]["tokens"] == by[("first", i)]["tokens"]
+               for i in range(len(first)))
+    ttft = sorted(s["ttft_s"] for s in stats)
+    itl = sorted(s["itl_s"] for s in stats)
+    return {
+        "requests": len(stats), "waves": {"first": list(KVBM_FIRST),
+                                          "churn": list(KVBM_CHURN), "repeat": list(KVBM_FIRST)},
+        "max_tokens": max_tokens, "wall_s": wall,
+        "output_tok_s": sum(len(s["tokens"]) for s in stats) / wall,
+        "ttft_s_median": statistics.median(ttft), "ttft_s_max": ttft[-1],
+        "itl_s_median": statistics.median(itl), "itl_s_max": itl[-1],
+        "repeat_ttft_s": [by[("repeat", i)]["ttft_s"] for i in range(len(first))],
+        "first_ttft_s": [by[("first", i)]["ttft_s"] for i in range(len(first))],
+        "repeat_cached_tokens": [by[("repeat", i)]["cached"] for i in range(len(first))],
+        "resident_blocks_before_repeat": resident,
+        "repeats_streaming_the_same_greedy_tokens": f"{same} of {len(first)}",
+        "kvbm": kstats, "steps": dict(engine.step_counts), "launches": launches,
+        "onboarded_block_bit_exact": True,
     }
 
 
@@ -642,9 +1045,11 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     timer = Timer(torch)
     if "kernels" in phases:
-        for check in (check_decode, check_flash, check_unified):
+        for check, int8 in ((check_decode, False), (check_flash, False),
+                            (check_unified, False), (check_decode, True),
+                            (check_flash, True), (check_unified, True)):
             t0 = time.perf_counter()
-            r = check(torch, gen, timer)
+            r = check(torch, gen, timer, int8=int8)
             results[r["name"]] = r
             log(f"kernel {r['name']}: max abs err {r['max_abs_err']:.3g} "
                 f"(atol {KERNEL_ATOL}, rtol {KERNEL_RTOL}, row {KERNEL_ROW_REL}); "
@@ -653,18 +1058,31 @@ def main() -> int:
                 f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) "
                 f"[{time.perf_counter() - t0:.1f} s]")
         worst = check_group_sizes(torch, gen)
-        log(f"kernels at 1, 2 and 8 query heads per kv head: max abs err "
-            f"{worst:.3g} (atol {KERNEL_ATOL}, rtol {KERNEL_RTOL}, row {KERNEL_ROW_REL})")
+        log(f"kernels at 1, 2 and 8 query heads per kv head, bf16 and int8: max abs "
+            f"err {worst:.3g} (atol {KERNEL_ATOL}, rtol {KERNEL_RTOL}, row {KERNEL_ROW_REL})")
+        t0 = time.perf_counter()
+        for r in check_block_copy(torch, gen, timer):
+            results[r["name"]] = r
+            log(f"kernel {r['name']}: bit-exact at M={list(COPY_MS)}; {r['ms']:.4f} ms "
+                f"kernel, {r['plain_ms']:.4f} ms plain, {r['library_ms']:.4f} ms library "
+                f"({r['library']}), bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+                f"bf16 pages {r['bf16_ms']:.4f} ms")
+        log(f"block copy checks [{time.perf_counter() - t0:.1f} s]")
+        writes = time_kv_writes(torch, gen, timer)
+        log(f"decode KV write of one layer, 8 rows (plain PyTorch): "
+            f"{writes['bf16_ms']:.4f} ms bf16, {writes['int8_ms']:.4f} ms int8")
     del timer
     torch.cuda.empty_cache()
     if "model" in phases:
-        t0 = time.perf_counter()
-        worst, mutants, spread = model_check(torch)
-        log(f"model: 2-layer llama3-8b width, prefill 300 + 3 decode + a 2-token "
-            f"ragged step, {len(MODEL_SEEDS)} seeds: kernels vs plain logits relative "
-            f"L2 {worst:.4g} at worst (limit {MODEL_REL_TOL}); mutants at least "
-            + ", ".join(f"{n[8:]} {r:.4g}" for n, r in mutants.items())
-            + f"; max |logit| {spread:.3g} [{time.perf_counter() - t0:.1f} s]")
+        for int8 in (False, True):
+            t0 = time.perf_counter()
+            worst, mutants, spread = model_check(torch, int8)
+            log(f"model{' int8' if int8 else ''}: 2-layer llama3-8b width, prefill 300 + "
+                f"3 decode + a 2-token ragged step, {len(MODEL_SEEDS)} seeds: kernels vs "
+                f"plain logits relative L2 {worst:.4g} at worst (limit {MODEL_REL_TOL}); "
+                "mutants at least "
+                + ", ".join(f"{n[8:]} {r:.4g}" for n, r in mutants.items())
+                + f"; max |logit| {spread:.3g} [{time.perf_counter() - t0:.1f} s]")
     serving = None
     if "serve" in phases:
         serving = asyncio.run(serve(torch))
@@ -680,14 +1098,39 @@ def main() -> int:
         # of the wall the device is busy at all
         breakdown = asyncio.run(serve(torch, profile=True))
         log("serving profile: " + json.dumps(breakdown))
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the int8 KV cache with KVBM offload and onboard, unprofiled
+        kvbm_run = asyncio.run(serve_kvbm(torch))
+        log("serving int8+kvbm: " + json.dumps(kvbm_run))
+        log(f"serving int8+kvbm on {smi}: {kvbm_run['requests']} requests, "
+            f"{kvbm_run['output_tok_s']:.1f} output tok/s, TTFT median "
+            f"{kvbm_run['ttft_s_median'] * 1e3:.0f} ms, ITL median "
+            f"{kvbm_run['itl_s_median'] * 1e3:.1f} ms; {kvbm_run['kvbm']['offloaded']} "
+            f"blocks offloaded, {kvbm_run['kvbm']['onboarded']} onboarded; repeats "
+            f"streaming their first run's greedy tokens: "
+            f"{kvbm_run['repeats_streaming_the_same_greedy_tokens']} (a finding, not "
+            f"a gate); float run: {serving['output_tok_s']:.1f} tok/s, TTFT median "
+            f"{serving['ttft_s_median'] * 1e3:.0f} ms, ITL median "
+            f"{serving['itl_s_median'] * 1e3:.1f} ms")
     if phases != {"kernels", "model", "serve"}:
         log("partial run (--phases): no report")
         return 1
+    # launches: each kernel's count from the serving run of its path (the
+    # float run for the float kernels, the int8 + KVBM run for the rest;
+    # no engine path calls copy_blocks, as in the reference)
     kernels = []
-    for name, key in (("paged_decode_attention", "decode"),
-                      ("flash_extend_attention", "flash_extend"),
-                      ("ragged_paged_attention", "unified")):
-        r = dict(results[name], launches=serving["launches"][key])
+    for name, key, run in (
+            ("paged_decode_attention", "decode", serving),
+            ("flash_extend_attention", "flash_extend", serving),
+            ("ragged_paged_attention", "unified", serving),
+            ("paged_decode_attention_int8", "decode_int8", kvbm_run),
+            ("flash_extend_attention_int8", "flash_extend_int8", kvbm_run),
+            ("ragged_paged_attention_int8", "unified_int8", kvbm_run),
+            ("gather_blocks", "gather", kvbm_run),
+            ("scatter_blocks", "scatter", kvbm_run),
+            ("copy_blocks", "copy", kvbm_run)):
+        r = dict(results[name], launches=run["launches"][key])
         r["max_err"], r["kernel_ms"] = r["max_abs_err"], r["ms"]
         kernels.append(r)
     print(json.dumps({"kernels": kernels}), flush=True)

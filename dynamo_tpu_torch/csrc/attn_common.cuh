@@ -1,6 +1,7 @@
 // Shared pieces of the port's attention kernels (decode_attention.cu,
-// flash_extend.cu, unified_attention.cu): bf16 <-> f32 helpers and the
-// tile-attention body that the flash-extend and unified kernels share.
+// flash_extend.cu, unified_attention.cu): bf16/int8 -> f32 helpers and the
+// tile-attention body that the flash-extend and unified kernels share, with
+// its key-row loaders for the bf16 and the int8 (payload + f32 scale) KV.
 //
 // Numerics (the reference kernels' and ops/attention.py's): scale 1/sqrt(d)
 // applied to q, float32 scores / running max m / running sum l /
@@ -33,6 +34,23 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float* out) {
   for (int i = 0; i < 8; ++i) out[i] = __bfloat162float(h[i]);
 }
 
+// 8 int8 packed in two words (dims in byte order) -> 8 floats
+__device__ __forceinline__ void unpack8_i8(uint2 raw, float* out) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    out[i] = (float)(int8_t)(raw.x >> (8 * i));
+    out[4 + i] = (float)(int8_t)(raw.y >> (8 * i));
+  }
+}
+
+// 8 consecutive int8 (one 8-byte load) times a scale -> 8 floats: the
+// dequantization of ops/quant.py, float(q) * scale, in the same f32 product
+__device__ __forceinline__ void load8_i8(const int8_t* p, float scale, float* out) {
+  unpack8_i8(*reinterpret_cast<const uint2*>(p), out);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) out[i] *= scale;
+}
+
 // 8 floats -> 8 consecutive bf16 (one 16-byte store)
 __device__ __forceinline__ void store8(__nv_bfloat16* p, const float* in) {
   uint4 raw;
@@ -48,11 +66,43 @@ __device__ __forceinline__ void store8(__nv_bfloat16* p, const float* in) {
 //
 // Rows are token-major: row r is token r / G, query head kh*G + r % G, so a
 // tile holds TQ = TM / G consecutive query tokens with all G heads that
-// share kv head kh (GQA). The key rows come from a KeyRows functor:
-// rows(kpos) returns the element offset of key kpos's [HEAD_DIM] row for
-// this kv head, in both the K and the V buffer (the flash-extend kernel
-// reads a gathered contiguous context, the unified kernel reads pages).
+// share kv head kh (GQA). The key rows come from a loader functor:
+// kv.load(kpos, c, kf, vf) writes dims c..c+7 of key kpos's K and V rows
+// (this kv head) as floats. The flash-extend kernel reads a gathered
+// contiguous context, the unified kernel reads pages through a block
+// table; each in bf16, or in int8 scaled by an f32 scale (dequantized on
+// the way into shared memory, so the tile body is the same for both).
 // ---------------------------------------------------------------------------
+
+// bf16 key rows at kbuf/vbuf + rows(kpos)
+template <class Rows>
+struct Bf16KV {
+  const __nv_bfloat16* k;
+  const __nv_bfloat16* v;
+  Rows rows;
+  __device__ void load(int kpos, int c, float* kf, float* vf) const {
+    const long off = rows(kpos) + c;
+    load8(k + off, kf);
+    load8(v + off, vf);
+  }
+};
+
+// int8 key rows at k/v + rows(kpos), times the f32 scales at
+// ks/vs[rows.scale(kpos)]
+template <class Rows>
+struct Int8KV {
+  const int8_t* k;
+  const int8_t* v;
+  const float* ks;
+  const float* vs;
+  Rows rows;
+  __device__ void load(int kpos, int c, float* kf, float* vf) const {
+    const long off = rows(kpos) + c;
+    const long si = rows.scale(kpos);
+    load8_i8(k + off, ks[si], kf);
+    load8_i8(v + off, vs[si], vf);
+  }
+};
 
 constexpr int TM = 64;        // query-head rows per block
 constexpr int TN = 32;        // keys per step
@@ -73,13 +123,11 @@ struct TileSmem {
 // q, out: [*, h, HEAD_DIM] bf16, token rows tok0 .. tok0+ntok-1 of this tile.
 // Query token t of the tile sits at absolute position pos0 + t and sees
 // keys < min(pos0 + t + 1, total).
-template <class KeyRows>
+template <class KV>
 __device__ void tile_attention(TileSmem& sm, const __nv_bfloat16* __restrict__ q,
-                               __nv_bfloat16* __restrict__ out,
-                               const __nv_bfloat16* __restrict__ kbuf,
-                               const __nv_bfloat16* __restrict__ vbuf,
-                               KeyRows rows, int h, int kh, int G, long tok0,
-                               int ntok, int pos0, int total) {
+                               __nv_bfloat16* __restrict__ out, const KV kv,
+                               int h, int kh, int G, long tok0, int ntok,
+                               int pos0, int total) {
   const int tid = threadIdx.x;
   const int nrows = ntok * G;  // valid rows: r < nrows
   const float scale = 1.0f / sqrtf((float)HEAD_DIM);
@@ -129,9 +177,7 @@ __device__ void tile_attention(TileSmem& sm, const __nv_bfloat16* __restrict__ q
       const int kpos = base + j;
       float kf[8], vf[8];
       if (kpos < hi) {
-        const long off = rows(kpos);
-        load8(kbuf + off + c, kf);
-        load8(vbuf + off + c, vf);
+        kv.load(kpos, c, kf, vf);
       } else {
 #pragma unroll
         for (int e = 0; e < 8; ++e) kf[e] = vf[e] = 0.f;

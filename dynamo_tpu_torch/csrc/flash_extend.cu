@@ -2,7 +2,10 @@
 // context.
 //
 // Replaces the TPU kernel dynamo_tpu/ops/pallas_prefill.py
-// (_prefill_kernel, launched by flash_extend_attention), float context only.
+// (_prefill_kernel, launched by flash_extend_attention): the bf16 context,
+// and the int8 context with per-position f32 scales [T, kvh] (the
+// reference's k_scales/v_scales, ops/attention.gather_kv_quant), which is
+// dequantized on its way into shared memory and halves the context bytes.
 //
 // Semantics: query row i of the chunk sits at absolute position start + i
 // (the engine's chunks are contiguous) and sees context keys
@@ -27,18 +30,19 @@
 
 namespace dtt {
 
-// row offsets of the gathered context [T, kvh, HEAD_DIM]
+// row offsets of the gathered context [T, kvh, HEAD_DIM]; its scales are
+// [T, kvh]
 struct ContextRows {
   int kvh, kh;
   __device__ long operator()(int kpos) const {
     return ((long)kpos * kvh + kh) * HEAD_DIM;
   }
+  __device__ long scale(int kpos) const { return (long)kpos * kvh + kh; }
 };
 
+template <class KV>
 __global__ void __launch_bounds__(NTHREADS)
-flash_extend_kernel(const __nv_bfloat16* __restrict__ q,
-                    const __nv_bfloat16* __restrict__ k,
-                    const __nv_bfloat16* __restrict__ v,
+flash_extend_kernel(const __nv_bfloat16* __restrict__ q, const KV kv,
                     __nv_bfloat16* __restrict__ out, int S, int h, int kvh,
                     int start, int total_len) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -47,8 +51,26 @@ flash_extend_kernel(const __nv_bfloat16* __restrict__ q,
   const int qt = blockIdx.x, kh = blockIdx.y;
   const int tok0 = qt * TQ;
   const int ntok = min(TQ, S - tok0);
-  tile_attention(sm, q, out, k, v, ContextRows{kvh, kh}, h, kh, G, tok0, ntok,
-                 start + tok0, total_len);
+  KV rows_of_kh = kv;
+  rows_of_kh.rows.kh = kh;
+  tile_attention(sm, q, out, rows_of_kh, h, kh, G, tok0, ntok, start + tok0,
+                 total_len);
+}
+
+template <class KV>
+int launch_flash(const void* q, const KV& kv, void* out, int S, int h, int kvh,
+                 int start, int total_len, void* stream) {
+  if (S <= 0) return 0;
+  const int smem = (int)sizeof(TileSmem);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_extend_kernel<KV>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int TQ = TM / (h / kvh);
+  const dim3 grid((S + TQ - 1) / TQ, kvh);
+  flash_extend_kernel<KV><<<grid, NTHREADS, smem, reinterpret_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(q), kv, static_cast<__nv_bfloat16*>(out), S,
+      h, kvh, start, total_len);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace dtt
@@ -60,17 +82,23 @@ extern "C" int dtt_flash_extend(const void* q, const void* k, const void* v,
                                 void* out, int S, int h, int kvh, int start,
                                 int total_len, void* stream) {
   using namespace dtt;
-  if (S <= 0) return 0;
   if (kvh <= 0 || h % kvh || TM % (h / kvh)) return (int)cudaErrorInvalidValue;
-  const int smem = (int)sizeof(TileSmem);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_extend_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int TQ = TM / (h / kvh);
-  const dim3 grid((S + TQ - 1) / TQ, kvh);
-  flash_extend_kernel<<<grid, NTHREADS, smem, reinterpret_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), S,
-      h, kvh, start, total_len);
-  return (int)cudaGetLastError();
+  const Bf16KV<ContextRows> kv{static_cast<const __nv_bfloat16*>(k),
+                               static_cast<const __nv_bfloat16*>(v), {kvh, 0}};
+  return launch_flash(q, kv, out, S, h, kvh, start, total_len, stream);
+}
+
+// As dtt_flash_extend with an int8 context k/v [T, kvh, 128] and its f32
+// per-position scales ks/vs [T, kvh].
+extern "C" int dtt_flash_extend_i8(const void* q, const void* k, const void* v,
+                                   const void* ks, const void* vs, void* out,
+                                   int S, int h, int kvh, int start,
+                                   int total_len, void* stream) {
+  using namespace dtt;
+  if (kvh <= 0 || h % kvh || TM % (h / kvh)) return (int)cudaErrorInvalidValue;
+  const Int8KV<ContextRows> kv{static_cast<const int8_t*>(k),
+                               static_cast<const int8_t*>(v),
+                               static_cast<const float*>(ks),
+                               static_cast<const float*>(vs), {kvh, 0}};
+  return launch_flash(q, kv, out, S, h, kvh, start, total_len, stream);
 }

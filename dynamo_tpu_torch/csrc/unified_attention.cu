@@ -2,8 +2,10 @@
 // tokens in one launch, reading K/V straight from the paged cache.
 //
 // Replaces the TPU kernel dynamo_tpu/ops/pallas_unified.py
-// (_unified_kernel, launched by ragged_paged_attention), float cache
-// without the window / sink / softcap row attributes.
+// (_unified_kernel, launched by ragged_paged_attention) without the
+// window / sink / softcap row attributes: the bf16 cache, and the int8
+// cache (int8 pages plus f32 [num_blocks, kvh] scale rows read through the
+// same block table, dequantized on the way into shared memory).
 //
 // Semantics: row r owns query tokens q[q_starts[r] : q_starts[r] + q_lens[r]],
 // its newest tokens, at the tail of its context: token i sits at position
@@ -24,7 +26,8 @@
 
 namespace dtt {
 
-// row offsets of one sequence's keys in the paged cache
+// row offsets of one sequence's keys in the paged cache; the scale of a key
+// is its page's row of the [num_blocks, kvh] scales
 struct PagedRows {
   const int* table;
   int bs, kvh, kh;
@@ -32,12 +35,14 @@ struct PagedRows {
     const long page = table[kpos / bs];
     return ((page * bs + kpos % bs) * kvh + kh) * HEAD_DIM;
   }
+  __device__ long scale(int kpos) const {
+    return (long)table[kpos / bs] * kvh + kh;
+  }
 };
 
+template <class KV>
 __global__ void __launch_bounds__(NTHREADS)
-unified_kernel(const __nv_bfloat16* __restrict__ q,
-               const __nv_bfloat16* __restrict__ kc,
-               const __nv_bfloat16* __restrict__ vc,
+unified_kernel(const __nv_bfloat16* __restrict__ q, const KV kv,
                const int* __restrict__ tables, const int* __restrict__ q_starts,
                const int* __restrict__ q_lens, const int* __restrict__ seq_lens,
                __nv_bfloat16* __restrict__ out, int Tq, int h, int kvh, int bs,
@@ -52,9 +57,31 @@ unified_kernel(const __nv_bfloat16* __restrict__ q,
   // clamp to the packed buffer so a malformed row cannot write out of bounds
   const int ntok = min(min(TQ, q_len - t0), Tq - (q_start + t0));
   if (ntok <= 0) return;
-  const PagedRows rows{tables + (long)r * max_blocks, bs, kvh, kh};
-  tile_attention(sm, q, out, kc, vc, rows, h, kh, G, (long)q_start + t0, ntok,
+  KV row_kv = kv;
+  row_kv.rows = PagedRows{tables + (long)r * max_blocks, bs, kvh, kh};
+  tile_attention(sm, q, out, row_kv, h, kh, G, (long)q_start + t0, ntok,
                  seq_len - q_len + t0, seq_len);
+}
+
+template <class KV>
+int launch_unified(const void* q, const KV& kv, const void* tables,
+                   const void* q_starts, const void* q_lens, const void* seq_lens,
+                   void* out, int Tq, int h, int kvh, int bs, int R,
+                   int max_blocks, int max_q_len, void* stream) {
+  if (R <= 0 || max_q_len <= 0 || Tq <= 0) return 0;
+  if (kvh <= 0 || h % kvh || TM % (h / kvh)) return (int)cudaErrorInvalidValue;
+  const int smem = (int)sizeof(TileSmem);
+  cudaError_t err = cudaFuncSetAttribute(
+      unified_kernel<KV>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int TQ = TM / (h / kvh);
+  const dim3 grid((max_q_len + TQ - 1) / TQ, kvh, R);
+  unified_kernel<KV><<<grid, NTHREADS, smem, reinterpret_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(q), kv, static_cast<const int*>(tables),
+      static_cast<const int*>(q_starts), static_cast<const int*>(q_lens),
+      static_cast<const int*>(seq_lens), static_cast<__nv_bfloat16*>(out), Tq, h,
+      kvh, bs, max_blocks);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace dtt
@@ -69,19 +96,25 @@ extern "C" int dtt_unified(const void* q, const void* kc, const void* vc,
                            int Tq, int h, int kvh, int bs, int R, int max_blocks,
                            int max_q_len, void* stream) {
   using namespace dtt;
-  if (R <= 0 || max_q_len <= 0 || Tq <= 0) return 0;
-  if (kvh <= 0 || h % kvh || TM % (h / kvh)) return (int)cudaErrorInvalidValue;
-  const int smem = (int)sizeof(TileSmem);
-  cudaError_t err = cudaFuncSetAttribute(
-      unified_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int TQ = TM / (h / kvh);
-  const dim3 grid((max_q_len + TQ - 1) / TQ, kvh, R);
-  unified_kernel<<<grid, NTHREADS, smem, reinterpret_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(kc),
-      static_cast<const __nv_bfloat16*>(vc), static_cast<const int*>(tables),
-      static_cast<const int*>(q_starts), static_cast<const int*>(q_lens),
-      static_cast<const int*>(seq_lens), static_cast<__nv_bfloat16*>(out), Tq, h,
-      kvh, bs, max_blocks);
-  return (int)cudaGetLastError();
+  const Bf16KV<PagedRows> kv{static_cast<const __nv_bfloat16*>(kc),
+                             static_cast<const __nv_bfloat16*>(vc), {}};
+  return launch_unified(q, kv, tables, q_starts, q_lens, seq_lens, out, Tq, h,
+                        kvh, bs, R, max_blocks, max_q_len, stream);
+}
+
+// As dtt_unified with an int8 cache kc/vc [num_blocks, bs, kvh, 128] and
+// its f32 scale rows ks/vs [num_blocks, kvh].
+extern "C" int dtt_unified_i8(const void* q, const void* kc, const void* vc,
+                              const void* ks, const void* vs, const void* tables,
+                              const void* q_starts, const void* q_lens,
+                              const void* seq_lens, void* out, int Tq, int h,
+                              int kvh, int bs, int R, int max_blocks,
+                              int max_q_len, void* stream) {
+  using namespace dtt;
+  const Int8KV<PagedRows> kv{static_cast<const int8_t*>(kc),
+                             static_cast<const int8_t*>(vc),
+                             static_cast<const float*>(ks),
+                             static_cast<const float*>(vs), {}};
+  return launch_unified(q, kv, tables, q_starts, q_lens, seq_lens, out, Tq, h,
+                        kvh, bs, R, max_blocks, max_q_len, stream);
 }

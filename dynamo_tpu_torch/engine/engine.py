@@ -16,7 +16,15 @@ llama family on one GPU:
   ONE forward serves both, with the chunk as row 0 and the decode slots as
   rows 1..B of one unified ragged attention launch;
 - sampling on the device (only token ids, logprobs and top-logprob rows
-  come back to the host).
+  come back to the host);
+- the int8 paged cache (``kv_dtype="int8"``, ops/quant.py): int8 pages plus
+  f32 ``[num_blocks, kv_heads]`` scale rows per layer, quantized on write,
+  read by the int8 forms of the three attention kernels;
+- KVBM (``kvbm=KvbmTiers(...)``, kvbm/pool.py): sealed blocks are gathered
+  off the device by the block-copy kernel and written through to the host
+  (G2) and disk (G3) tiers on an offload thread; a prompt whose prefix
+  missed the device cache onboards it from the tiers before admission, by
+  the block-copy kernel's scatter.
 
 Attention runs through the wrappers of the hand-written CUDA kernels
 (ops/cuda_attention, cuda_prefill, cuda_unified): on CUDA tensors they
@@ -28,7 +36,7 @@ streams results never blocks behind the GPU.
 
 Not in this slice (ROADMAP.md): multi-step decode horizons and CUDA graphs,
 spec decode, LoRA, guided decoding, logits processors, vision, embeddings,
-int8 KV, KVBM offload, disaggregated transfer, parallelism, and the
+the G4 remote KVBM tier, disaggregated transfer, parallelism, and the
 KV-event / metrics / tracing / SLO hooks. A request that asks for one of
 those is refused with ``UnsupportedRequestError``.
 """
@@ -53,9 +61,18 @@ from ..llm.protocols.common import (
     BackendOutput,
     PreprocessedRequest,
 )
+from ..kvbm.layout import (
+    QuantizedBlockCodec,
+    block_shape_for,
+    from_host,
+    storage_dtype,
+    to_host,
+)
 from ..models import llama
 from ..ops import attention as att
+from ..ops import block_copy as bc
 from ..ops import cuda_attention, cuda_prefill, cuda_unified
+from ..ops.quant import QuantizedKV, resolve_kv_dtype
 from ..runtime.engine import Context
 from ..tokens import TokenBlockSequence
 from .allocator import BlockAllocator, OutOfBlocks
@@ -88,6 +105,10 @@ class TorchEngineConfig:
     seed: int = 0
     # None = cuda (raises without a GPU); "cpu" runs the plain ops
     device: Optional[str] = None
+    # paged-KV storage: "model" (the model dtype), "int8" (int8 pages plus
+    # per-block-per-kv-head f32 scales, ops/quant.py), or "auto" (the
+    # DTPU_KV_DTYPE env, default "model"), as the reference resolves it
+    kv_dtype: str = "auto"
 
     def __post_init__(self):
         bad = [b for b in self.prefill_buckets if b % self.block_size]
@@ -95,6 +116,11 @@ class TorchEngineConfig:
             raise ValueError(
                 f"prefill_buckets {bad} not multiples of block_size {self.block_size}"
             )
+        self.kv_dtype = resolve_kv_dtype(self.kv_dtype)
+
+    @property
+    def kv_quantized(self) -> bool:
+        return self.kv_dtype == "int8"
 
     @property
     def prefill_chunk(self) -> int:
@@ -118,6 +144,7 @@ class _Seq:
     last_token: int = 0
     cached_tokens: int = 0
     prefill_pos: int = 0                  # prompt tokens whose KV is written
+    kv_written: int = 0                   # leading tokens whose KV a decode wrote
     commit_upto: int = 0                  # prompt blocks content-addressed so far
     prefilled: bool = False               # first token sampled -> decode eligible
     counting: bool = False                # keeps output_counts (penalties)
@@ -139,10 +166,12 @@ def _has_penalties(s) -> bool:
 class TorchEngine:
     """AsyncEngine serving PreprocessedRequests with a llama-family model."""
 
-    def __init__(self, config: TorchEngineConfig, params: Optional[llama.Params] = None):
+    def __init__(self, config: TorchEngineConfig, params: Optional[llama.Params] = None,
+                 kvbm=None):
         self.cfg = config
         self.mcfg = mcfg = config.model
         self.device = resolve_device(config.device)
+        self.kv_quantized = config.kv_quantized
         self.allocator = BlockAllocator(config.num_blocks, config.block_size)
         self._host_rng = np.random.default_rng(config.seed)
         dev = self.device
@@ -151,11 +180,8 @@ class TorchEngine:
             gen.manual_seed(config.seed)
             params = llama.init_params(mcfg, gen, dev)
         self.params = params
-        shape = (config.num_blocks, config.block_size, mcfg.num_kv_heads, mcfg.head_dim)
-        self.k_caches = [torch.zeros(shape, dtype=mcfg.dtype, device=dev)
-                         for _ in range(mcfg.num_layers)]
-        self.v_caches = [torch.zeros(shape, dtype=mcfg.dtype, device=dev)
-                         for _ in range(mcfg.num_layers)]
+        self.k_caches = self._init_caches()
+        self.v_caches = self._init_caches()
 
         # --- slot state (the decode batch is fixed-width) ---
         B, V = config.max_batch_size, mcfg.vocab_size
@@ -170,7 +196,7 @@ class TorchEngine:
         self._freqs = np.zeros(B, np.float32)
         self._reps = np.ones(B, np.float32)
         self._lp_ns = np.zeros(B, np.int32)    # requested top-logprobs per slot
-        self._seeds = np.zeros(B, np.uint64)
+        self._seeds = np.zeros(B, np.uint32)   # the reference's uint32 seeds
         # penalty state tables (see engine/sampling.py)
         self.output_counts = torch.zeros((B, V), dtype=torch.int32, device=dev)
         self.prompt_masks = torch.zeros((B, V), dtype=torch.int8, device=dev)
@@ -180,9 +206,46 @@ class TorchEngine:
         self._prefill_rr = 0  # round-robin cursor over prefilling sequences
         self._loop_task: Optional[asyncio.Task] = None
         self._wake = asyncio.Event()
+        self._idle = True   # the loop is parked with no request to serve
         # dispatches run so far, by kind ("prefill" | "decode" | "mixed")
         self.step_counts: Dict[str, int] = {"prefill": 0, "decode": 0, "mixed": 0}
         self._executor = ThreadPoolExecutor(max_workers=1, thread_name_prefix="torch-step")
+
+        # --- KVBM (kvbm/pool.py): sealed blocks write through to host/disk ---
+        self.kvbm = kvbm
+        # (block id, sequence hash, priority) whose KV is written and that
+        # wait for the next offload batch: 0 = prompt blocks (highest reuse
+        # odds), 1 = decode-sealed blocks
+        self._offload_pending: List[Tuple[int, int, int]] = []
+        # decode-sealed blocks whose last row the next step writes:
+        # (sequence, block index, block id, sequence hash)
+        self._sealed_unwritten: List[Tuple[_Seq, int, int, int]] = []
+        # errors of the offload thread (device-to-host copy, encoding); the
+        # gather kernels run on the step executor and raise into the loop
+        self.offload_errors = 0
+        self._offload_executor = ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="torch-offload"
+        )
+        self._offload_stream = (
+            torch.cuda.Stream(device=dev) if dev.type == "cuda" else None
+        )
+        self._codec = (
+            QuantizedBlockCodec(block_shape_for(mcfg, config.block_size, "int8"))
+            if self.kv_quantized else None
+        )
+
+    def _init_caches(self) -> list:
+        """One zeroed paged cache per layer: raw model-dtype tensors, or
+        ``QuantizedKV`` (int8 payload + f32 [num_blocks, kv_heads] scales)."""
+        c, m = self.cfg, self.mcfg
+        shape = (c.num_blocks, c.block_size, m.num_kv_heads, m.head_dim)
+        if self.kv_quantized:
+            return [QuantizedKV(torch.zeros(shape, dtype=torch.int8, device=self.device),
+                                torch.zeros((c.num_blocks, m.num_kv_heads),
+                                            dtype=torch.float32, device=self.device))
+                    for _ in range(m.num_layers)]
+        return [torch.zeros(shape, dtype=m.dtype, device=self.device)
+                for _ in range(m.num_layers)]
 
     # ------------------------------------------------------------ requests
     def _check_request(self, req: PreprocessedRequest) -> List[int]:
@@ -198,6 +261,9 @@ class TorchEngine:
             raise UnsupportedRequestError("this engine has no guided decoding")
         if req.kv_transfer:
             raise UnsupportedRequestError("this engine has no KV transfer")
+        seed = req.sampling.seed
+        if seed is not None and not 0 <= seed < 1 << 32:
+            raise ValueError(f"seed {seed} outside [0, 2**32): seeds key as uint32")
         prompt = list(req.token_ids) + list(req.prior_token_ids)
         if not prompt:
             raise ValueError("empty prompt")
@@ -226,7 +292,12 @@ class TorchEngine:
             seq=TokenBlockSequence(prompt, self.cfg.block_size),
             last_token=prompt[-1],
         )
+        if self.kvbm is not None:
+            # a tier miss or a foreign block format is a miss; a kernel or
+            # device error raises to the caller (no silent recompute)
+            await self._onboard_from_kvbm(st)
         self._waiting.append(st)
+        self._idle = False
         self._wake.set()
         while True:
             item = await st.out_queue.get()
@@ -242,6 +313,7 @@ class TorchEngine:
         if self._loop_task is not None:
             self._loop_task.cancel()
         self._executor.shutdown(wait=False)
+        self._offload_executor.shutdown(wait=False)
 
     # ------------------------------------------------------------ step loop
     async def _loop(self) -> None:
@@ -250,7 +322,9 @@ class TorchEngine:
             while True:
                 if not self._waiting and all(s is None for s in self._slots):
                     self._wake.clear()
+                    self._idle = True
                     await self._wake.wait()
+                    self._idle = False
                 self._admit_cancelled()
                 self._try_admit()
                 # chunked prefill: ONE bounded chunk per tick, round-robin
@@ -295,6 +369,8 @@ class TorchEngine:
                     for acc in results:
                         self._accept_token(*acc)
                 self._reap_finished()
+                if self.kvbm is not None:
+                    await self._offload_ready_blocks()
                 await asyncio.sleep(0)
         except Exception:
             log.exception("engine loop crashed")
@@ -404,6 +480,8 @@ class TorchEngine:
         upto = min(st.prefill_pos // self.cfg.block_size, len(hashes))
         for i in range(st.commit_upto, upto):
             self.allocator.commit(st.block_ids[i], hashes[i])
+            if self.kvbm is not None:
+                self._offload_pending.append((st.block_ids[i], hashes[i], 0))
         st.commit_upto = max(st.commit_upto, upto)
 
     def _decode_snapshot(self) -> List[Optional[_Seq]]:
@@ -489,9 +567,17 @@ class TorchEngine:
         table = self._chunk_table(st, total_len)
         new_ids_t = self._t(new_ids)
 
+        pad = self._pad_rows(chunk_len, len(tokens))
+
         def attend(q, k_new, v_new, layer_idx):
             kc, vc = self.k_caches[layer_idx], self.v_caches[layer_idx]
-            att.write_prefill_kv(kc, vc, k_new, v_new, new_ids_t)
+            att.write_prefill_kv(kc, vc, *pad(k_new, v_new), new_ids_t)
+            if self.kv_quantized:
+                # raw int8 context + per-position scales: the kernel
+                # dequantizes in registers (half the context bytes of bf16)
+                kq, vq, ks, vs = att.gather_kv_quant(kc, vc, table)
+                return cuda_prefill.flash_extend_attention(
+                    q, kq, vq, start, total_len, k_scales=ks, v_scales=vs)
             k_ctx, v_ctx = att.gather_kv(kc, vc, table)
             return cuda_prefill.flash_extend_attention(q, k_ctx, v_ctx, start, total_len)
 
@@ -503,6 +589,17 @@ class TorchEngine:
         if not is_final:
             return None
         return self._first_token(st, hidden[chunk_len - 1:chunk_len])
+
+    def _pad_rows(self, chunk_len: int, S_pad: int):
+        """(k, v) -> (k, v) for the chunk's KV write. An int8 cache zeroes
+        the bucket-padding rows first: they share the chunk's last block
+        with real rows, and their activations would enter the per-block
+        quantization amax and coarsen the real tokens' scale. Pad rows are
+        never attended, so zeros are safe (and exact for the amax)."""
+        if not self.kv_quantized or chunk_len == S_pad:
+            return lambda k, v: (k, v)
+        valid = (torch.arange(S_pad, device=self.device) < chunk_len)[:, None, None]
+        return lambda k, v: (torch.where(valid, k, 0.0), torch.where(valid, v, 0.0))
 
     def _first_token(self, st: _Seq, hidden: torch.Tensor) -> Accepted:
         """Sample a prefill's first generated token from its last position
@@ -553,6 +650,7 @@ class TorchEngine:
             L = len(st.seq)                    # includes the token being fed
             positions[i] = L - 1
             seq_lens[i] = L
+            st.kv_written = L
             self._tokens[i] = st.last_token
             write_blocks[i] = st.block_ids[(L - 1) // bs]
             write_offsets[i] = (L - 1) % bs
@@ -645,9 +743,11 @@ class TorchEngine:
         c_new_ids_t = self._t(c_new_ids)
         wb, wo = self._t(write_blocks), self._t(write_offsets)
 
+        pad = self._pad_rows(chunk_len, S_pad)
+
         def attend(q, k_new, v_new, layer_idx):
             kc, vc = self.k_caches[layer_idx], self.v_caches[layer_idx]
-            att.write_prefill_kv(kc, vc, k_new[:S_pad], v_new[:S_pad], c_new_ids_t)
+            att.write_prefill_kv(kc, vc, *pad(k_new[:S_pad], v_new[:S_pad]), c_new_ids_t)
             att.write_decode_kv(kc, vc, k_new[S_pad:], v_new[S_pad:], wb, wo)
             return cuda_unified.ragged_paged_attention(
                 q, kc, vc, tables, q_starts, q_lens, row_lens, max_q_len=chunk_len
@@ -663,6 +763,175 @@ class TorchEngine:
         if is_final:
             first = self._first_token(st, hidden[chunk_len - 1:chunk_len])
         return results, first
+
+    # ------------------------------------------------- KVBM offload/onboard
+    async def _offload_ready_blocks(self) -> None:
+        """Loop thread, at the end of a tick: gather every block whose KV is
+        written and that awaits offload. The gathers go through the step
+        executor, so they are enqueued on the device in order before any
+        later step could evict and rewrite those pages; only the copy to
+        the host runs on the offload thread."""
+        bs = self.cfg.block_size
+        waiting = []
+        for entry in self._sealed_unwritten:
+            st, idx, bid, h = entry
+            if st.kv_written >= (idx + 1) * bs:
+                self._offload_pending.append((bid, h, 1))
+            elif not st.done:
+                waiting.append(entry)
+        self._sealed_unwritten = waiting
+        if not self._offload_pending:
+            return
+        pending, self._offload_pending = self._offload_pending, []
+        loop = asyncio.get_running_loop()
+        gathered, ready = await loop.run_in_executor(
+            self._executor, self._enqueue_offload_gather, pending
+        )
+        self._offload_executor.submit(self._offload_fetch, pending, gathered, ready)
+
+    async def flush_offload(self, timeout_s: float = 30.0) -> None:
+        """With KVBM: wait until the step loop is idle and every block it
+        offloaded has reached the tiers (tests, benchmarks, shutdown)."""
+        loop = asyncio.get_running_loop()
+        deadline = loop.time() + timeout_s
+        while self._loop_task is not None and not self._loop_task.done() and (
+                not self._idle) and loop.time() < deadline:
+            await asyncio.sleep(0.005)
+        done = self._offload_executor.submit(lambda: None)
+        await loop.run_in_executor(None, done.result, timeout_s)
+        await loop.run_in_executor(None, self.kvbm.flush, timeout_s)
+
+    @torch.inference_mode()
+    def _enqueue_offload_gather(self, pending: List[Tuple[int, int, int]]):
+        """Step executor: launch the page gathers of the pending blocks into
+        fresh buffers, one per layer and K/V (and scales), on the step's
+        stream; returns (per-layer (k, v) pages, an event recorded after
+        them, or None on the CPU)."""
+        ids = self._t([bid for bid, _, _ in pending], torch.int32)
+        gathered = []
+        for kc, vc in zip(self.k_caches, self.v_caches):
+            if self.kv_quantized:
+                gathered.append((bc.gather_blocks_quant(kc, ids),
+                                 bc.gather_blocks_quant(vc, ids)))
+            else:
+                gathered.append((bc.gather_blocks(kc, ids), bc.gather_blocks(vc, ids)))
+        ready = None
+        if self.device.type == "cuda":
+            ready = torch.cuda.Event()
+            ready.record()
+        return gathered, ready
+
+    def _offload_fetch(self, pending, gathered, ready) -> None:
+        """Offload thread: wait for the gathers (on a side stream, so the
+        copy overlaps later steps), stack them into [n, L, 2, ...], copy to
+        fresh host memory and hand each block to the KVBM priority queue.
+        The tier bytes are the storage format (kvbm/layout): the int8 codec
+        buffer, or model-dtype pages (bf16 as bit patterns)."""
+        try:
+            with torch.inference_mode(), torch.cuda.stream(self._offload_stream):
+                if ready is not None:
+                    self._offload_stream.wait_event(ready)
+
+                def stack(parts):   # per layer (k, v) -> [n, L, 2, ...] on the host
+                    return torch.stack([torch.stack(kv, 1) for kv in parts], 1).cpu()
+
+                if self.kv_quantized:
+                    pay = stack([(k.data, v.data) for k, v in gathered]).numpy()
+                    scl = stack([(k.scale, v.scale) for k, v in gathered]).numpy()
+                    blocks = [self._codec.encode(pay[i], scl[i]) for i in range(len(pending))]
+                else:
+                    arr = to_host(stack(gathered))
+                    blocks = [arr[i].copy() for i in range(len(pending))]
+            for (_, h, prio), block in zip(pending, blocks):
+                self.kvbm.offload(h, block, priority=prio)
+        except Exception:
+            self.offload_errors += 1
+            log.exception("kv offload of %d blocks failed", len(pending))
+
+    @torch.inference_mode()
+    def _scatter_blocks(self, local_ids: List[int], arr) -> None:
+        """Step executor: scatter host blocks into device pages (no
+        allocator access here: the allocator lives on the loop thread).
+
+        ``arr`` is model-dtype pages [n, L, 2, bs, kvh, d] (host storage
+        form, kvbm/layout) or, for an int8 cache, a (payload int8 [n, L, 2,
+        bs, kvh, d], scales f32 [n, L, 2, kvh]) pair that scatters straight
+        into the quantized cache, bit-exactly."""
+        ids = self._t(local_ids, torch.int32)
+
+        def per_layer(a):
+            # [n, L, 2, ...] host -> [L, 2, n, ...] contiguous on the device
+            t = from_host(a).to(self.device)
+            return t.movedim(0, 2).contiguous()
+
+        if self.kv_quantized:
+            pay, scl = (per_layer(a) for a in arr)
+            for li in range(pay.shape[0]):
+                bc.scatter_blocks_quant(self.k_caches[li], ids, QuantizedKV(pay[li, 0], scl[li, 0]))
+                bc.scatter_blocks_quant(self.v_caches[li], ids, QuantizedKV(pay[li, 1], scl[li, 1]))
+            return
+        pages = per_layer(arr)
+        for li in range(pages.shape[0]):
+            bc.scatter_blocks(self.k_caches[li], ids, pages[li, 0])
+            bc.scatter_blocks(self.v_caches[li], ids, pages[li, 1])
+
+    async def import_blocks(self, hashes: List[int], arr) -> int:
+        """Import [n, L, 2, bs, kvh, d] pages (or an int8 (payload, scales)
+        pair, see _scatter_blocks) as content-addressed cached pages; returns
+        the number imported (0 when the pool has no room). Allocator changes
+        stay on the loop thread; only the scatter runs on the executor."""
+        n = (arr[0] if isinstance(arr, tuple) else arr).shape[0]
+        try:
+            local_ids = self.allocator.allocate(n)
+        except OutOfBlocks:
+            log.warning("no room to import %d blocks; skipping", n)
+            return 0
+        loop = asyncio.get_running_loop()
+        try:
+            await loop.run_in_executor(self._executor, self._scatter_blocks, local_ids, arr)
+        except BaseException:
+            self.allocator.release(local_ids)
+            raise
+        for bid, h in zip(local_ids, hashes):
+            self.allocator.commit(bid, h)
+        self.allocator.release(local_ids)
+        return n
+
+    async def _onboard_from_kvbm(self, st: _Seq) -> None:
+        """Pull a host/disk-cached prefix into device pages before
+        admission (blocks strictly before the last prompt token, as
+        admission reuses)."""
+        bs = self.cfg.block_size
+        hashes = st.seq.sequence_hashes()[: (len(st.seq) - 1) // bs]
+        have = len(self.allocator.match_prefix(hashes))
+        loop = asyncio.get_running_loop()
+        n = await loop.run_in_executor(None, self.kvbm.match_prefix, hashes[have:])
+        if n == 0:
+            return
+        want = hashes[have:have + n]
+        arr = await loop.run_in_executor(None, self.kvbm.load_prefix, want)
+        if arr is None:
+            return
+        # format guard: the disk tier survives restarts, so blocks written
+        # under another kv_dtype or model shape can come back under the same
+        # content hashes; they are a miss, never imported
+        if self.kv_quantized:
+            if arr.dtype != np.uint8 or arr.ndim != 2 or arr.shape[1] != self._codec.nbytes:
+                log.warning("kvbm blocks are not this engine's int8 codec format "
+                            "(%s %s); skipping onboard", arr.dtype, arr.shape)
+                return
+            arr = self._codec.decode_many(arr)
+        else:
+            m = self.mcfg
+            expect = (m.num_layers, 2, self.cfg.block_size, m.num_kv_heads, m.head_dim)
+            if arr.ndim != 6 or arr.shape[1:] != expect or arr.dtype != storage_dtype(m.dtype):
+                log.warning("kvbm blocks do not match this engine's KV layout "
+                            "(%s %s vs %s); skipping onboard", arr.dtype,
+                            arr.shape[1:], expect)
+                return
+        got = await self.import_blocks(list(want), arr)
+        if got:
+            log.debug("onboarded %d blocks from kvbm for %s", got, st.req.request_id[:8])
 
     # ------------------------------------------------ host-side bookkeeping
     def _accept_token(self, st: _Seq, tok: int, logprob: float,
@@ -695,6 +964,13 @@ class TorchEngine:
                     self.allocator.commit(
                         st.block_ids[sealed.position], sealed.sequence_hash
                     )
+                    if self.kvbm is not None:
+                        # the block's last row (this token) is written by
+                        # the next step: offload it after that step
+                        self._sealed_unwritten.append((
+                            st, sealed.position, st.block_ids[sealed.position],
+                            sealed.sequence_hash,
+                        ))
                 # a block must exist for the NEXT token's write position
                 if (L_before + 1) // self.cfg.block_size + 1 > len(st.block_ids):
                     try:

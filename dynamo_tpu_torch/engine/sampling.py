@@ -10,12 +10,13 @@ Counterpart of the reference's engine/sampling.py with the same semantics
 
 Greedy rows take ``argmax`` (first index among ties, as ``jnp.argmax``), so
 greedy matches the reference exactly. Sampled rows take
-``argmax(logits / T + gumbel)``. The Gumbel noise comes from a per-row
-``torch.Generator`` seeded from ``(seed, step)`` alone
-(``gumbel_noise``), so a seeded request reproduces its own stream whatever
-else is in the batch; the noise can also be passed in, which is how the
-tests feed both packages the same numbers. The bits differ from JAX's
-threefry keys for the same seed (a recorded divergence of the port).
+``argmax(logits / T + gumbel)``. The Gumbel noise is JAX's default PRNG
+written out as tensor code (``gumbel_noise``): threefry-2x32 keyed by
+``fold_in(PRNGKey(seed), step)``, JAX's partitionable 32-bit
+``random_bits``, ``uniform(tiny, 1)`` and ``-log(-log(u))``. Row b of the
+noise therefore equals ``jax.random.gumbel(fold_in(PRNGKey(seeds[b]),
+steps[b]), (V,))``, and a seeded request streams the tokens it streams on
+the reference engine, whatever else is in the batch.
 """
 
 from __future__ import annotations
@@ -29,9 +30,6 @@ NEG_INF = -1e30
 # top-N logprob rows returned when any request asks for them (OpenAI allows
 # top_logprobs up to 20)
 TOP_LOGPROBS_K = 20
-
-_MASK64 = (1 << 64) - 1
-
 
 def apply_penalties(
     logits: torch.Tensor,          # [B, V] float32
@@ -80,32 +78,55 @@ def mask_topk_topp(
     return torch.where(logits >= cutoff, logits, NEG_INF)
 
 
-def row_seed(seed: int, step: int) -> int:
-    """Generator seed of one row at one step: a 64-bit mix of (seed, step)
-    (splitmix64 finalizer), independent of batch position and history."""
-    z = (int(seed) * 0x9E3779B97F4A7C15 + int(step) + 1) & _MASK64
-    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
-    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
-    return (z ^ (z >> 31)) & ((1 << 63) - 1)
+# threefry-2x32 on int64 tensors holding uint32 values (torch's uint32
+# arithmetic is incomplete): every sum and shift is masked back to 32 bits
+_M32 = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def threefry2x32(k0, k1, x0, x1):
+    """JAX's threefry2x32 hash (20 rounds) of the counter pair (x0, x1)
+    under the key (k0, k1); broadcasting int64 tensors of uint32 values."""
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0 = (x0 + ks[0]) & _M32
+    x1 = (x1 + ks[1]) & _M32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & _M32
+            x1 = (((x1 << r) | (x1 >> (32 - r))) & _M32) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _M32
+        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & _M32
+    return x0, x1
 
 
 def gumbel_noise(
     seeds: Sequence[int], steps: Sequence[int], vocab: int, device,
     rows: Optional[Sequence[bool]] = None,
 ) -> torch.Tensor:
-    """[B, V] float32 Gumbel(0, 1) noise, row b drawn from a generator
-    seeded by ``row_seed(seeds[b], steps[b])``. Rows with ``rows[b]`` False
-    (greedy rows) stay zero and draw nothing."""
+    """[B, V] float32 Gumbel(0, 1) noise: row b is
+    ``jax.random.gumbel(fold_in(PRNGKey(seeds[b]), steps[b]), (V,))``
+    (uint32 seeds and steps, as the reference keys them). Rows with
+    ``rows[b]`` False (greedy rows) stay zero and draw nothing."""
     device = torch.device(device)
     out = torch.zeros((len(seeds), vocab), dtype=torch.float32, device=device)
+    pick = [b for b in range(len(seeds)) if rows is None or rows[b]]
+    if not pick:
+        return out
+    i64 = dict(dtype=torch.int64, device=device)
+    seed = torch.tensor([int(seeds[b]) & _M32 for b in pick], **i64)[:, None]
+    step = torch.tensor([int(steps[b]) & _M32 for b in pick], **i64)[:, None]
+    # PRNGKey(seed) = (0, seed); fold_in(key, step) = threefry(key, (0, step))
+    k0, k1 = threefry2x32(torch.zeros_like(seed), seed, torch.zeros_like(step), step)
+    # random_bits (partitionable): element i hashes the counter (0, i)
+    count = torch.arange(vocab, **i64)[None, :]
+    b0, b1 = threefry2x32(k0, k1, torch.zeros_like(count), count)
+    bits = b0 ^ b1
+    # uniform(minval=tiny, maxval=1): 23 mantissa bits under exponent 0 give
+    # [1, 2); minus 1, times (1 - tiny) == 1.0 in f32, plus tiny, floored
+    mant = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
     tiny = torch.finfo(torch.float32).tiny
-    for b, (seed, step) in enumerate(zip(seeds, steps)):
-        if rows is not None and not rows[b]:
-            continue
-        gen = torch.Generator(device=device)
-        gen.manual_seed(row_seed(seed, step))
-        u = torch.rand(vocab, generator=gen, device=device).clamp_(min=tiny)
-        out[b] = -torch.log(-torch.log(u).clamp_(max=-tiny))
+    u = torch.clamp((mant - 1.0) + tiny, min=tiny)
+    out[pick] = -torch.log(-torch.log(u))
     return out
 
 

@@ -6,10 +6,14 @@ online softmax over the gathered context, KV tiles past the tile's causal
 limit skipped). It takes any ``S`` and ``T``: there are no tile-multiple
 constraints, so the engine runs it for every prefill chunk. On CPU tensors
 this wrapper runs the plain version; on CUDA tensors it launches the kernel
-or raises.
+or raises. With ``k_scales``/``v_scales`` the context is int8 (a
+quantized cache gathered raw by ``ops.attention.gather_kv_quant``) and
+``KERNEL_INT8`` dequantizes it on its way into shared memory.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -17,35 +21,55 @@ from . import attention as att
 from ._build import Kernel, check_cuda_tensor
 
 KERNEL = Kernel("flash_extend.cu", "dtt_flash_extend", n_ptrs=4, n_ints=5)
+KERNEL_INT8 = Kernel("flash_extend.cu", "dtt_flash_extend_i8", n_ptrs=6, n_ints=5)
 
 
 def flash_extend_reference(
     q: torch.Tensor, k_ctx: torch.Tensor, v_ctx: torch.Tensor,
     q_start: int, total_len: int,
+    k_scales: Optional[torch.Tensor] = None,
+    v_scales: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """The plain version: ``ops.attention.extend_attention`` with the
-    chunk's contiguous positions ``q_start + i``."""
+    chunk's contiguous positions ``q_start + i``; an int8 context is
+    dequantized first (``float(q) * scale``, as ``gather_kv`` does)."""
+    if k_scales is not None:
+        k_ctx = k_ctx.float() * k_scales[..., None]
+        v_ctx = v_ctx.float() * v_scales[..., None]
     pos = q_start + torch.arange(q.shape[0], device=q.device)
     return att.extend_attention(q, k_ctx, v_ctx, pos, total_len)
 
 
 def flash_extend_attention(
     q: torch.Tensor,        # [S, h, 128] bf16 queries of one chunk
-    k_ctx: torch.Tensor,    # [T, kvh, 128] bf16 gathered context
+    k_ctx: torch.Tensor,    # [T, kvh, 128] bf16 gathered context, or int8
     v_ctx: torch.Tensor,
     q_start: int,           # absolute position of q row 0 (rows are contiguous)
     total_len: int,         # valid context length, <= T
+    *,
+    k_scales: Optional[torch.Tensor] = None,  # [T, kvh] f32: the context is int8
+    v_scales: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Same semantics as ``ops.attention.extend_attention`` for contiguous
     query positions ``q_start + i``: key j is visible to row i iff
     ``j < min(q_start + i + 1, total_len)``."""
     if q.device.type == "cpu":
-        return flash_extend_reference(q, k_ctx, v_ctx, q_start, total_len)
+        return flash_extend_reference(q, k_ctx, v_ctx, q_start, total_len,
+                                      k_scales, v_scales)
+    quantized = k_scales is not None
+    if quantized != (v_scales is not None):
+        raise ValueError("pass both k_scales and v_scales, or neither")
+    ctx_dtype = torch.int8 if quantized else torch.bfloat16
     check_cuda_tensor("q", q, torch.bfloat16, 3)
-    check_cuda_tensor("k_ctx", k_ctx, torch.bfloat16, 3)
-    check_cuda_tensor("v_ctx", v_ctx, torch.bfloat16, 3)
+    check_cuda_tensor("k_ctx", k_ctx, ctx_dtype, 3)
+    check_cuda_tensor("v_ctx", v_ctx, ctx_dtype, 3)
     S, h, d = q.shape
     T, kvh, dk = k_ctx.shape
+    if quantized:
+        for name, sc in (("k_scales", k_scales), ("v_scales", v_scales)):
+            check_cuda_tensor(name, sc, torch.float32, 2)
+            if tuple(sc.shape) != (T, kvh):
+                raise ValueError(f"{name} must be [T, kv_heads] = {(T, kvh)}")
     if d != 128 or dk != 128 or v_ctx.shape != k_ctx.shape:
         raise ValueError("the flash-extend kernel takes head_dim 128 and equal K/V")
     if h % kvh or 64 % (h // kvh):
@@ -54,5 +78,9 @@ def flash_extend_attention(
         raise ValueError(f"total_len {total_len} outside the context of {T} keys")
     out = torch.empty_like(q)
     if S:
-        KERNEL.launch([q, k_ctx, v_ctx, out], [S, h, kvh, int(q_start), int(total_len)])
+        ints = [S, h, kvh, int(q_start), int(total_len)]
+        if quantized:
+            KERNEL_INT8.launch([q, k_ctx, v_ctx, k_scales, v_scales, out], ints)
+        else:
+            KERNEL.launch([q, k_ctx, v_ctx, out], ints)
     return out

@@ -4,9 +4,11 @@ ops/pallas_unified.py (``ragged_paged_attention``).
 The kernel is ``csrc/unified_attention.cu``: one launch serves any mix of
 prefill segments and decode tokens, each row attending over its own pages
 with its segment at the tail of its context. One block per (q tile, kv head,
-row); blocks past their row's segment exit at once. On CPU tensors this
-wrapper runs the plain version, ``ops.attention.ragged_paged_attention``;
-on CUDA tensors it launches the kernel or raises.
+row); blocks past their row's segment exit at once. ``KERNEL`` reads a
+bf16 cache, ``KERNEL_INT8`` an int8 ``QuantizedKV`` one (int8 pages plus
+f32 scale rows through the same block table). On CPU tensors this wrapper
+runs the plain version, ``ops.attention.ragged_paged_attention``; on CUDA
+tensors it launches a kernel or raises.
 """
 
 from __future__ import annotations
@@ -17,14 +19,17 @@ import torch
 
 from . import attention as att
 from ._build import Kernel, check_cuda_tensor
+from .cuda_attention import check_caches
+from .quant import is_quantized
 
 KERNEL = Kernel("unified_attention.cu", "dtt_unified", n_ptrs=8, n_ints=7)
+KERNEL_INT8 = Kernel("unified_attention.cu", "dtt_unified_i8", n_ptrs=10, n_ints=7)
 
 
 def ragged_paged_attention(
     q: torch.Tensor,             # [Tq, h, 128] bf16 packed ragged queries
-    k_cache: torch.Tensor,       # [num_blocks, bs, kvh, 128] bf16
-    v_cache: torch.Tensor,
+    k_cache,                     # [num_blocks, bs, kvh, 128] bf16, or QuantizedKV
+    v_cache,
     block_tables: torch.Tensor,  # [R, max_blocks] int32
     q_starts: torch.Tensor,      # [R] int32
     q_lens: torch.Tensor,        # [R] int32 (0 = empty row)
@@ -41,8 +46,7 @@ def ragged_paged_attention(
             q, k_cache, v_cache, block_tables, q_starts, q_lens, seq_lens
         )
     check_cuda_tensor("q", q, torch.bfloat16, 3)
-    check_cuda_tensor("k_cache", k_cache, torch.bfloat16, 4)
-    check_cuda_tensor("v_cache", v_cache, torch.bfloat16, 4)
+    caches = check_caches(k_cache, v_cache)
     check_cuda_tensor("block_tables", block_tables, torch.int32, 2)
     for name, t in (("q_starts", q_starts), ("q_lens", q_lens), ("seq_lens", seq_lens)):
         check_cuda_tensor(name, t, torch.int32, 1)
@@ -58,8 +62,8 @@ def ragged_paged_attention(
     bound = Tq if max_q_len is None else min(int(max_q_len), Tq)
     out = torch.zeros_like(q)
     if R and bound > 0 and Tq:
-        KERNEL.launch(
-            [q, k_cache, v_cache, block_tables, q_starts, q_lens, seq_lens, out],
+        (KERNEL_INT8 if is_quantized(k_cache) else KERNEL).launch(
+            [q, *caches, block_tables, q_starts, q_lens, seq_lens, out],
             [Tq, h, kvh, bs, R, block_tables.shape[1], bound],
         )
     return out

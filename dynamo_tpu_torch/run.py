@@ -7,6 +7,13 @@ distributed runtime, preprocessor and HTTP frontend are later slices).
     python -m dynamo_tpu_torch.run in=text:"hello world" out=llama3-8b
     python -m dynamo_tpu_torch.run in=batch:prompts.txt out=llama3-8b --max-tokens 32
     python -m dynamo_tpu_torch.run in=text:hi out=tiny --device cpu
+    python -m dynamo_tpu_torch.run in=batch:prompts.txt out=llama3-8b \
+        --kv-dtype int8 --kvbm-host-gb 4
+
+``--kv-dtype int8`` stores the paged KV cache as int8 with per-block
+scales; ``--kvbm-host-gb`` / ``--kvbm-disk-gb`` write sealed KV blocks
+through to a host-memory (G2) and a disk (G3) tier and onboard a cached
+prefix from them, as the reference's worker flags of the same names do.
 
 ``out=`` names a preset (random weights from ``--seed``). Serves on the
 GPU by default; ``--device cpu`` runs the plain PyTorch path on the CPU.
@@ -22,22 +29,35 @@ import sys
 from typing import List, Optional
 
 from .engine.engine import TorchEngine, TorchEngineConfig
+from .kvbm.layout import kv_bytes_per_token
+from .kvbm.pool import KvbmTiers
 from .llm.protocols.common import PreprocessedRequest, SamplingOptions, StopConditions
 from .llm.tokenizer import ByteTokenizer, DecodeStream
 from .models.llama import PRESETS
 from .runtime.engine import Context
 
 
-def build_engine(preset: str, device: Optional[str], max_context: int, seed: int) -> TorchEngine:
+def build_engine(preset: str, device: Optional[str], max_context: int, seed: int,
+                 kv_dtype: str = "auto", kvbm_host_gb: float = 0.0,
+                 kvbm_disk_gb: float = 0.0,
+                 kvbm_disk_path: Optional[str] = None) -> TorchEngine:
     if preset not in PRESETS:
         raise SystemExit(f"unknown preset {preset!r} (one of {', '.join(PRESETS)})")
     buckets = tuple(b for b in (64, 128, 256, 512, 1024, 2048) if b < max_context)
     cfg = TorchEngineConfig(
         model=PRESETS[preset](), max_context=max_context, seed=seed, device=device,
         num_blocks=max(512, (max_context // 16) * 16),
-        prefill_buckets=buckets + (max_context,),
+        prefill_buckets=buckets + (max_context,), kv_dtype=kv_dtype,
     )
-    return TorchEngine(cfg)
+    kvbm = None
+    if kvbm_host_gb > 0 or kvbm_disk_gb > 0:
+        # tiers sized in stored bytes per block (model dtype or int8 codec)
+        block_nbytes = int(kv_bytes_per_token(cfg.model, cfg.block_size, cfg.kv_dtype)
+                           * cfg.block_size)
+        kvbm = KvbmTiers(block_nbytes, host_capacity_bytes=int(kvbm_host_gb * (1 << 30)),
+                         disk_capacity_bytes=int(kvbm_disk_gb * (1 << 30)),
+                         disk_path=kvbm_disk_path)
+    return TorchEngine(cfg, kvbm=kvbm)
 
 
 async def generate_text(engine: TorchEngine, tok: ByteTokenizer, prompt: str,
@@ -66,7 +86,9 @@ async def run(args) -> None:
     kind, _, val = args.input.partition(":")
     if kind not in ("text", "batch"):
         raise SystemExit(f"unknown input {args.input!r} (text:<prompt> | batch:<file>)")
-    engine = build_engine(args.out, args.device, args.max_context, args.seed)
+    engine = build_engine(args.out, args.device, args.max_context, args.seed,
+                          args.kv_dtype, args.kvbm_host_gb, args.kvbm_disk_gb,
+                          args.kvbm_disk_path)
     tok = ByteTokenizer()
     try:
         if kind == "text":
@@ -96,6 +118,17 @@ def main(argv: Optional[List[str]] = None) -> None:
     p.add_argument("--max-context", type=int, default=2048)
     p.add_argument("--temperature", type=float, default=0.0)
     p.add_argument("--seed", type=int, default=0, help="random-weight seed")
+    p.add_argument("--kv-dtype", default="auto", choices=("auto", "model", "int8"),
+                   help="paged-KV storage: int8 = int8 pages with per-block "
+                        "scales; auto defers to DTPU_KV_DTYPE (default: the "
+                        "model dtype)")
+    p.add_argument("--kvbm-host-gb", type=float, default=0.0,
+                   help="host memory KV tier size (G2); 0 with --kvbm-disk-gb "
+                        "0 disables KVBM")
+    p.add_argument("--kvbm-disk-gb", type=float, default=0.0,
+                   help="disk KV tier size (G3)")
+    p.add_argument("--kvbm-disk-path", default=None,
+                   help="G3 spill directory (default: <tmpdir>/dtpu_kvbm)")
     args = p.parse_args(argv)
     spec = dict(part.partition("=")[::2] for part in args.io)
     if "in" not in spec or "out" not in spec:

@@ -241,7 +241,7 @@ async def test_cancelled_request_finishes_and_frees_its_blocks():
 
 async def test_seeded_sampled_stream_reproduces():
     """A seeded sampled request yields the same stream alone and beside
-    other requests (per-row generators keyed by (seed, step))."""
+    other requests (per-row noise keyed by (seed, step))."""
     engine = _tiny_engine()
 
     async def run(rid, tokens, temp, seed):

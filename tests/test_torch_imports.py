@@ -73,3 +73,15 @@ def test_importing_every_module_loads_neither_jax_nor_the_reference():
     )
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip() == "[]", r.stdout
+
+
+def test_the_walk_covers_every_module_of_the_port():
+    """Both checks above walk the package; the modules of each slice must be
+    in that walk (slice 2: int8 KV, block copy, KVBM)."""
+    mods = set(_modules())
+    assert {
+        "dynamo_tpu_torch.ops.quant", "dynamo_tpu_torch.ops.block_copy",
+        "dynamo_tpu_torch.kvbm", "dynamo_tpu_torch.kvbm.layout",
+        "dynamo_tpu_torch.kvbm.pool", "dynamo_tpu_torch.engine.engine",
+        "dynamo_tpu_torch.engine.sampling", "dynamo_tpu_torch.run", "chip_smoke",
+    } <= mods

@@ -2,10 +2,11 @@
 package's engine/sampling.py on the same float32 logits.
 
 Greedy, penalties, masks and logprobs must agree to float32 rounding
-(tolerance 1e-5 on values; token ids exactly). Sampled paths are compared
-with the SAME Gumbel noise fed to both: the JAX side's noise draw is
-replaced for the test, since the port's seeded generator does not reproduce
-JAX's threefry bits.
+(tolerance 1e-5 on values; token ids exactly). The port's seeded Gumbel
+noise is JAX's (threefry keyed by fold_in(PRNGKey(seed), step)), held to
+``jax.random.gumbel`` row by row at 1e-6 (the two logs round apart by an
+ulp or so). The sampled paths are compared with the SAME noise fed to
+both, so that their masking and argmax are tested apart from the noise.
 """
 
 import jax
@@ -175,3 +176,17 @@ def test_gumbel_noise_has_the_gumbel_distribution():
     g = ts.gumbel_noise(list(range(8)), [0] * 8, 20000, "cpu")
     assert abs(g.mean().item() - 0.5772) < 0.02
     assert abs(g.var().item() - np.pi ** 2 / 6) < 0.05
+
+
+@pytest.mark.parametrize("seeds,steps", [
+    ([7, 0, 4294967295, 123456789], [3, 0, 17, 1000]),
+    ([2**32 + 5, 1], [0, 2**31 - 1]),     # seeds and steps key as uint32
+])
+def test_gumbel_noise_is_jax_threefry_gumbel(seeds, steps):
+    """Row b equals jax.random.gumbel(fold_in(PRNGKey(uint32(seed)), step))."""
+    vocab = 1000
+    got = ts.gumbel_noise(seeds, steps, vocab, "cpu").numpy()
+    for b, (seed, step) in enumerate(zip(seeds, steps)):
+        key = jax.random.fold_in(jax.random.PRNGKey(np.uint32(seed % 2**32)), np.int32(step))
+        want = np.asarray(jax.random.gumbel(key, (vocab,), jnp.float32))
+        np.testing.assert_allclose(got[b], want, rtol=1e-6, atol=1e-6)
