@@ -10,7 +10,9 @@ Phases, in order; any failure raises and the exit code is not 0:
    CUDA versions; builds every kernel of dynamo_tpu_torch/csrc from source.
 2. kernels: each CUDA kernel against its plain PyTorch version at
    Llama-3-8B attention shapes (32 q heads, 8 kv heads, head_dim 128, block
-   16) on ragged rows, the attention kernels on a bf16 and on an int8 cache;
+   16) on ragged rows, the attention kernels on a bf16 and on an int8 cache,
+   and the unified kernel at Gemma shapes (8 q heads, 4 kv heads, head_dim
+   256) with per-row sliding windows, a softcap and sinks;
    times kernel, plain version, a PyTorch library call doing the same work
    (scaled_dot_product_attention over the gathered, dequantized KV; the
    port never calls it) and the card's bound. The block-copy kernels
@@ -20,7 +22,10 @@ Phases, in order; any failure raises and the exit code is not 0:
    steps and a ragged 2-token step through the model's attend hook, once
    with the kernels and once with the plain ops, on bf16 and on int8
    caches; the logits must agree, and three deliberately wrong attentions
-   must not, on each of 3 seeds.
+   must not, on each of 3 seeds. The same for gemma2-2b (2 layers) and
+   gemma3-4b (6 layers) at full width through the unified kernel, with
+   the window dropped, one page too wide, or the softcap dropped as the
+   wrong attentions.
 4. serving: TorchEngine on the llama3-8b preset at full depth (32 layers,
    random bf16 weights from a seed) serves staggered concurrent requests;
    every request must finish with its token count, and the decode,
@@ -29,7 +34,11 @@ Phases, in order; any failure raises and the exit code is not 0:
    host tier serves three waves (first, churn, repeat): the repeats
    onboard their evicted prefixes from the host tier; the int8 attention
    kernels and the gather and scatter kernels must all have run, and an
-   onboarded block must re-encode bit-exactly to its stored bytes.
+   onboarded block must re-encode bit-exactly to its stored bytes. Then
+   gemma2-2b at full depth (26 layers, max_context 8192) serves 8
+   staggered prompts of up to 8000 tokens on a bf16 cache and 3 on an int8
+   cache: every request finishes, the unified kernel served windowed
+   launches and neither the decode nor the flash-extend kernel ran.
 5. report: one JSON line with every kernel's numbers, the nvidia-smi line,
    and last the device line ``{"ok": true, "device": {...}}``.
 
@@ -157,12 +166,12 @@ def quantized(torch, cache):
     return QuantizedKV(*quantize_blocks(cache))
 
 
-def paged_case(torch, gen, lens, num_blocks, kvh=KVH, int8=False):
+def paged_case(torch, gen, lens, num_blocks, kvh=KVH, int8=False, d=D):
     """Random bf16 paged cache with each row on scrambled distinct pages
     (table padding -> scratch block 0); ``int8`` quantizes it."""
     dev = "cuda"
-    kc = torch.randn(num_blocks, BS, kvh, D, generator=gen, device=dev).to(torch.bfloat16)
-    vc = torch.randn(num_blocks, BS, kvh, D, generator=gen, device=dev).to(torch.bfloat16)
+    kc = torch.randn(num_blocks, BS, kvh, d, generator=gen, device=dev).to(torch.bfloat16)
+    vc = torch.randn(num_blocks, BS, kvh, d, generator=gen, device=dev).to(torch.bfloat16)
     mb = max(-(-n // BS) for n in lens) + 4
     tables = np.zeros((len(lens), mb), np.int32)
     free = list(np.random.default_rng(0).permutation(np.arange(1, num_blocks)))
@@ -174,21 +183,21 @@ def paged_case(torch, gen, lens, num_blocks, kvh=KVH, int8=False):
     return kc, vc, torch.as_tensor(tables, device=dev)
 
 
-def kv_bytes(n_keys, kvh, int8):
+def kv_bytes(n_keys, kvh, int8, d=D):
     """Bytes of n_keys K and V rows of kvh heads: bf16 rows, or int8 rows
     plus the scale rows of their ceil(n / BS) pages (f32 per kv head)."""
     if int8:
-        return 2 * (n_keys * kvh * D + 4 * -(-n_keys // BS) * kvh)
-    return 2 * 2 * n_keys * kvh * D
+        return 2 * (n_keys * kvh * d + 4 * -(-n_keys // BS) * kvh)
+    return 2 * 2 * n_keys * kvh * d
 
 
-def expand_kv(torch, kc, vc, table, T):
-    """Gathered [T, H, D] K/V of one row with kv heads repeated to q heads
+def expand_kv(torch, kc, vc, table, T, h=H):
+    """Gathered [T, h, d] K/V of one row with kv heads repeated to q heads
     (the library yardstick's input)."""
     from dynamo_tpu_torch.ops import attention as att
 
     k, v = att.gather_kv(kc, vc, table)   # an int8 cache dequantizes (f32)
-    g = H // KVH
+    g = h // k.shape[1]
     return (k[:T].to(torch.bfloat16).repeat_interleave(g, dim=1).transpose(0, 1),
             v[:T].to(torch.bfloat16).repeat_interleave(g, dim=1).transpose(0, 1))
 
@@ -355,6 +364,284 @@ def check_unified(torch, gen, timer, int8=False):
         "plain_ms": timer(lambda: att.ragged_paged_attention(*args), reps=5),
         "library_ms": timer(lambda: sdpa(qp, kp, vp, attn_mask=mask)),
         "bound_ms": b, "bound_by": by,
+    }
+
+
+# Gemma attention shapes (gemma2-2b and gemma3-4b): 8 query heads over 4 kv
+# heads, head_dim 256, block 16
+GH, GKVH, GD = 8, 4, 256
+# gemma3's sliding window; contexts up to ~5 windows long, so windowed rows
+# skip pages
+GEMMA_WINDOW = 1024
+# (q_len, seq_len, window): windowed prefill segments over long prefixes,
+# windowed decode rows several windows long and exactly w, w + 1 and w + bs
+# long, full rows (window 0) and an empty row in one launch
+GEMMA_ROWS = [(700, 3100, 1024), (1, 5000, 1024), (1, 1024, 1024), (1, 1025, 1024),
+              (1, 1040, 1024), (0, 300, 1024), (1, 17, 1024), (1, 4100, 0),
+              (300, 1200, 0), (1, 3000, 1024)]
+GEMMA_SOFTCAP = 50.0
+# the Gemma serving run's prompt lengths (serve_gemma)
+GEMMA_PROMPTS = (300, 1500, 2600, 4100, 5200, 6000, 7000, 8000)
+# a decode-only batch: those 8 rows at their 16th output token, through a
+# gemma2 sliding layer (window 4096, softcap): each row fills G = 2 of the
+# tile's 64 query rows
+GEMMA_DECODE_ROWS = [(1, n + 16, 4096) for n in GEMMA_PROMPTS]
+# each case one launch over its rows (default GEMMA_ROWS): which attributes
+# it carries
+GEMMA_CASES = {
+    "window": dict(window=True),
+    "full": dict(),
+    "softcap": dict(softcap=True),
+    "sinks": dict(sinks=True),
+    "window+softcap+sinks": dict(window=True, softcap=True, sinks=True),
+    "decode batch, window+softcap": dict(window=True, softcap=True, rows=GEMMA_DECODE_ROWS),
+}
+
+
+def visible_pairs(ql, sl, w):
+    """(query, key) pairs a row's segment scores: token p = sl - ql + i sees
+    keys max(p - w + 1, 0) .. p (w <= 0: from 0)."""
+    n = 0
+    for p in range(sl - ql, sl):
+        n += p + 1 - (max(p - w + 1, 0) if w > 0 else 0)
+    return n
+
+
+def live_pages(ql, sl, w):
+    """Pages of a row the kernel must read: from the first page the row's
+    earliest query sees (ops/costs.py unified_attention_bytes) to
+    ceil(seq_len / BS)."""
+    first = max(sl - ql - w + 1, 0) // BS if w > 0 else 0
+    return -(-sl // BS) - first
+
+
+# planted keys at each windowed decode row's window edge (plant_window_edges)
+EDGE_K_SCALE = 0.15
+EDGE_V = (6.0, -3.0)
+
+
+def plant_window_edges(torch, kc, vc, tables, q, starts, rows):
+    """At each windowed decode row's window edge, whose query sits at
+    p = seq_len - 1: a key at p - w (the last one the window drops) and
+    one at p - w + 1 (the first it keeps), each EDGE_K_SCALE x the sum of
+    its kv head's queries (score ~38 against ~16 at most for the random
+    keys, and still the largest after a softcap of 50), with values
+    EDGE_V. Taking or dropping either moves the row's output by O(1), so
+    a window bound one key off fails the kernel's compare. In place on a
+    bf16 cache [nb, BS, kvh, d]. Returns (query token, whether key p - w
+    exists) per planted row."""
+    kvh, d = kc.shape[2], kc.shape[3]
+    edges = []
+    for r, (ql, sl, w) in enumerate(rows):
+        if ql != 1 or w <= 0 or sl < w:   # no key at the window's edge
+            continue
+        tok = starts[r]
+        k = EDGE_K_SCALE * q[tok].float().reshape(kvh, -1, d).sum(1)
+        for j, val in zip((sl - 1 - w, sl - w), EDGE_V):
+            if j >= 0:
+                page, off = int(tables[r, j // BS]), j % BS
+                kc[page, off] = k.to(kc.dtype)
+                vc[page, off] = val
+        edges.append((tok, sl - 1 - w >= 0))
+    return edges
+
+
+def edge_gap(torch, args, kw, want, edges) -> float:
+    """Least relative L2 distance, over the planted tokens' (token, head)
+    rows, between ``want`` (the plain output at the rows' windows) and the
+    plain output at windows one key narrower, and one key wider where a
+    key below the bound exists: what a one-key error at the edge costs."""
+    from dynamo_tpu_torch.ops import attention as att
+
+    gaps = []
+    for step in (-1, 1):
+        other = att.ragged_paged_attention(
+            *args, **dict(kw, windows=kw["windows"] + step)).float()
+        for tok, below in edges:
+            if step > 0 and not below:
+                continue
+            a = want[tok].float()
+            gaps.append(((a - other[tok]).norm(dim=-1) / a.norm(dim=-1)).min().item())
+    return min(gaps)
+
+
+def gemma_library_call(torch, q, kc, vc, tables, starts, rows, windowed, softcap, sinks,
+                       flex):
+    """One PyTorch call computing the same function as a GEMMA_CASES case,
+    on the same KV gathered (an int8 cache dequantized) into a padded batch
+    [R, h, Tp, d] whose key T (one past the longest row) is zero and whose
+    length Tp is a multiple of 16 (an unaligned mask would be copied on
+    every call); padding query rows see key 0.
+    No softcap or sinks: scaled_dot_product_attention with the boolean
+    causal (and window) mask. Sinks: the same call with a float mask whose
+    entry at the zero key is the head's sink logit, so the sink enters the
+    denominator only. Softcap (and sinks): ``flex`` (compiled
+    flex_attention) with a score_mod taking cap * tanh(s / cap) and
+    returning the sink at the zero key, under a block mask of the same
+    visibility. Returns (call, packed output of a call's result)."""
+    from torch.nn.attention.flex_attention import create_block_mask
+
+    dev = q.device
+    R, T = len(rows), max(sl for _, sl, _ in rows)
+    max_q = max(ql for ql, _, _ in rows)
+    h, d = q.shape[1], q.shape[2]
+    Tp = -(-(T + 1) // 16) * 16
+    qp = torch.zeros(R, h, max_q, d, dtype=torch.bfloat16, device=dev)
+    kp = torch.zeros(R, h, Tp, d, dtype=torch.bfloat16, device=dev)
+    vp = torch.zeros_like(kp)
+    for r, (ql, sl, _) in enumerate(rows):
+        kp[r, :, :sl], vp[r, :, :sl] = expand_kv(torch, kc, vc, tables[r], sl, h=h)
+        qp[r, :, :ql] = q[starts[r]:starts[r] + ql].transpose(0, 1)
+    i64 = dict(dtype=torch.long, device=dev)
+    q_len = torch.tensor([ql for ql, _, _ in rows], **i64)
+    q_off = torch.tensor([sl - ql for ql, sl, _ in rows], **i64)
+    # no window: a bound past every key
+    lo = torch.tensor([w if windowed and w > 0 else Tp for _, _, w in rows], **i64)
+
+    def visible(b, q_idx, kv_idx):
+        p = q_off[b] + q_idx
+        vis = (kv_idx <= p) & (kv_idx > p - lo[b])
+        return torch.where(q_idx >= q_len[b], kv_idx == 0, vis)
+
+    def unpack(out):
+        packed = torch.zeros_like(q)
+        for r, (ql, _, _) in enumerate(rows):
+            packed[starts[r]:starts[r] + ql] = out[r, :, :ql].transpose(0, 1)
+        return packed
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    if not softcap:
+        b, qi, ki = (torch.arange(n, device=dev) for n in (R, max_q, Tp))
+        vis = visible(b[:, None, None], qi[None, :, None], ki[None, None, :])[:, None]
+        if sinks is None:
+            return (lambda: sdpa(qp, kp, vp, attn_mask=vis)), unpack
+        mask = torch.zeros(R, h, max_q, Tp, dtype=torch.bfloat16, device=dev)
+        mask.masked_fill_(~vis, float("-inf"))
+        mask[..., T] = sinks[None, :, None].to(torch.bfloat16)
+        return (lambda: sdpa(qp, kp, vp, attn_mask=mask)), unpack
+
+    def mask_mod(b, hh, q_idx, kv_idx):
+        vis = visible(b, q_idx, kv_idx)
+        return vis | (kv_idx == T) if sinks is not None else vis
+
+    def score_mod(score, b, hh, q_idx, kv_idx):
+        capped = softcap * torch.tanh(score / softcap)
+        return capped if sinks is None else torch.where(kv_idx == T, sinks[hh], capped)
+
+    block_mask = create_block_mask(mask_mod, R, None, max_q, Tp, device=dev)
+    return (lambda: flex(qp, kp, vp, score_mod=score_mod, block_mask=block_mask)), unpack
+
+
+def check_unified_attrs(torch, gen, timer, int8=False, flex=None):
+    """The unified kernel with its row attributes at Gemma shapes, one
+    launch per GEMMA_CASES entry over its rows, each against its plain
+    version, timed with its bound and its library yardstick
+    (gemma_library_call; ``flex``: the compiled flex_attention it uses).
+    Queries are scaled by 4 so scores reach the softcap's range
+    (~N(0, 16)); sinks are N(10, 4) logits, so their mass counts against
+    rows' largest scores. Each windowed decode row carries planted keys at
+    its window's edge (plant_window_edges); each windowed case asserts that
+    a one-key error there costs at least 10 x KERNEL_ROW_REL."""
+    from dynamo_tpu_torch.ops import attention as att
+    from dynamo_tpu_torch.ops import cuda_unified
+
+    i32 = dict(dtype=torch.int32, device="cuda")
+    sinks = 10 + 2 * torch.randn(GH, generator=gen, device="cuda")
+    made = {}
+
+    def inputs(rows):
+        """Random paged K/V with planted window edges and packed queries
+        for ``rows`` (segments 5 padding tokens apart), made once per row
+        set."""
+        key = id(rows)
+        if key not in made:
+            pages = sum(-(-sl // BS) for _, sl, _ in rows)
+            kc, vc, tables = paged_case(torch, gen, [sl for _, sl, _ in rows],
+                                        num_blocks=pages + 64, kvh=GKVH, d=GD)
+            starts, pos = [], 0
+            for ql, _, _ in rows:
+                starts.append(pos)
+                pos += ql + 5
+            q = (4 * torch.randn(pos, GH, GD, generator=gen, device="cuda")).to(torch.bfloat16)
+            edges = plant_window_edges(torch, kc, vc, tables, q, starts, rows)
+            if int8:
+                kc, vc = quantized(torch, kc), quantized(torch, vc)
+            made[key] = (starts, pos, edges, (
+                q, kc, vc, tables, torch.tensor(starts, **i32),
+                torch.tensor([ql for ql, _, _ in rows], **i32),
+                torch.tensor([sl for _, sl, _ in rows], **i32)),
+                torch.tensor([w for _, _, w in rows], **i32))
+        return made[key]
+
+    tag = " int8" if int8 else ""
+    cases, worst = {}, 0.0
+    for name, attrs in GEMMA_CASES.items():
+        rows = attrs.get("rows", GEMMA_ROWS)
+        starts, Tq, edges, args, windows = inputs(rows)
+        q, kc, vc, tables = args[:4]
+        max_q = max(ql for ql, _, _ in rows)
+        R = len(rows)
+        live = [(ql, sl, w) for ql, sl, w in rows if ql > 0 and sl > 0]
+        kw = {}
+        if attrs.get("window"):
+            kw["windows"] = windows
+        if attrs.get("softcap"):
+            kw["softcap"] = GEMMA_SOFTCAP
+        if attrs.get("sinks"):
+            kw["sinks"] = sinks
+        plain = att.ragged_paged_attention(*args, **kw)
+        err = compare(torch, cuda_unified.ragged_paged_attention(*args, max_q_len=max_q, **kw),
+                      plain, f"unified gemma {name}{tag}")
+        worst = max(worst, err)
+        gap = None
+        if "windows" in kw:
+            gap = edge_gap(torch, args, kw, plain, edges)
+            if gap < 10 * KERNEL_ROW_REL:
+                raise AssertionError(f"unified gemma {name}{tag}: a one-key window error moves "
+                                     f"the planted rows by only {gap:.3g}")
+        wins = [w if attrs.get("window") else 0 for _, _, w in live]
+        pairs = sum(visible_pairs(ql, sl, w) for (ql, sl, _), w in zip(live, wins))
+        pages = sum(live_pages(ql, sl, w) for (ql, sl, _), w in zip(live, wins))
+        kv_moved = (2 * pages * BS * GKVH * GD * (1 if int8 else 2)
+                    + (2 * 4 * pages * GKVH if int8 else 0))
+        b, by = bound(
+            2 * (sum(ql for ql, _, _ in live) * GH * GD + Tq * GH * GD)   # queries in, out
+            + kv_moved + 4 * (4 * R + pages) + (4 * GH if "sinks" in kw else 0),
+            4 * pairs * GH * GD,
+        )
+        library, unpack = gemma_library_call(
+            torch, q, kc, vc, tables, starts, rows, "windows" in kw, kw.get("softcap"),
+            kw.get("sinks"), flex)
+        lib_err = (unpack(library()).float() - plain.float()).abs().max().item()
+        cases[name] = {
+            "rows": rows, "max_abs_err": err, "window_edge_gap": gap,
+            "ms": timer(lambda: cuda_unified.ragged_paged_attention(
+                *args, max_q_len=max_q, **kw)),
+            "plain_ms": timer(lambda: att.ragged_paged_attention(*args, **kw), reps=5),
+            "library_ms": timer(library), "library": "flex_attention (compiled)"
+            if kw.get("softcap") else "scaled_dot_product_attention",
+            "library_max_abs_err": lib_err, "bound_ms": b, "bound_by": by,
+        }
+        del library, unpack
+        log(f"  unified gemma{tag} {name}: max abs err {err:.3g}"
+            + (f", window-edge gap {gap:.3g}" if gap is not None else "")
+            + f"; {cases[name]['ms']:.4f} ms kernel, {cases[name]['plain_ms']:.4f} ms plain, "
+            f"{cases[name]['library_ms']:.4f} ms library ({cases[name]['library']}, max abs "
+            f"err {lib_err:.3g}), bound {b:.4f} ms ({by})")
+    main = cases["window"]
+    return {
+        "name": "ragged_paged_attention_gemma" + ("_int8" if int8 else ""), "route": "cuda",
+        "source": "dynamo_tpu_torch/csrc/unified_attention.cu",
+        "replaces": "dynamo_tpu/ops/pallas_unified.py:93",
+        "shape": f"rows(q_len,seq_len,window)={GEMMA_ROWS} h={GH} kvh={GKVH} d={GD} "
+                 f"bs={BS} " + ("int8 cache + f32 scales" if int8 else "bf16")
+                 + "; top-level numbers: the per-row windows case (library: SDPA with "
+                   "the window mask); every case under 'cases' (library: SDPA, with the "
+                   "sinks as a float mask over a zero key; compiled flex_attention where "
+                   "a softcap is on)",
+        "max_abs_err": worst, "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "library_ms": main["library_ms"], "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"], "cases": cases,
     }
 
 
@@ -598,17 +885,20 @@ MODEL_MUTANTS = ("mutant: no causal mask", "mutant: each query's own key dropped
 
 def model_logits(torch, cfg, params, paths, prompt, extra, int8=False):
     """Last-position logits [1, V] (f32) of a prefill, 3 decode steps and a
-    2-token ragged step, through each path's attention, per path. With
-    ``int8`` the caches are int8 and written as the engine writes them:
-    the prefill quantizes whole blocks (pad rows zero), later tokens
-    requantize their block one row at a time."""
-    from dynamo_tpu_torch.models import llama
+    2-token ragged step, through each path's attention, per path; the
+    model's layers hand their attention attributes (gemma: window,
+    softcap) to the path. With ``int8`` the caches are int8 and written as
+    the engine writes them: the prefill quantizes whole blocks (pad rows
+    zero), later tokens requantize their block one row at a time."""
+    from dynamo_tpu_torch.models import registry
     from dynamo_tpu_torch.ops import attention as att
     from dynamo_tpu_torch.ops.quant import QuantizedKV
 
+    forward, lm_logits = registry.forward_fn(cfg), registry.lm_logits_fn(cfg)
     dev = params["embed"].device
-    nb = 48
-    table = torch.arange(3, 3 + 32, dtype=torch.int32, device=dev)
+    pages = -(-(len(prompt) + len(extra)) // BS) + 1
+    nb = pages + 3
+    table = torch.arange(3, 3 + pages, dtype=torch.int32, device=dev)
     n = len(prompt)
     logits = {}
     for name, (prefill, decode, ragged) in paths(table).items():
@@ -637,16 +927,16 @@ def model_logits(torch, cfg, params, paths, prompt, extra, int8=False):
                     att.write_decode_kv(kc, vc, k[j:j + 1], v[j:j + 1],
                                         blocks[j:j + 1], offs[j:j + 1])
 
-            def attend(q, k, v, i):
+            def attend(q, k, v, i, **attrs):
                 k, v = k.reshape(-1, *k.shape[-2:]), v.reshape(-1, *v.shape[-2:])
                 if int8:
                     write_int8(kcs[i], vcs[i], k, v)
                 else:
                     att.write_decode_kv(kcs[i], vcs[i], k, v, blocks, offs)
-                return attn(q, kcs[i], vcs[i], start + len(tokens))
+                return attn(q, kcs[i], vcs[i], start + len(tokens), **attrs)
 
-            hidden = llama.forward(params, cfg, torch.as_tensor(tokens, device=dev), pos, attend)
-            return llama.lm_logits(params, cfg, hidden.reshape(-1, cfg.hidden_size)[-1:]).float()
+            hidden = forward(params, cfg, torch.as_tensor(tokens, device=dev), pos, attend)
+            return lm_logits(params, cfg, hidden.reshape(-1, cfg.hidden_size)[-1:]).float()
 
         with torch.inference_mode():
             out = [run(prompt, 0, prefill)]
@@ -656,47 +946,130 @@ def model_logits(torch, cfg, params, paths, prompt, extra, int8=False):
     return logits
 
 
-def model_check(torch, int8=False):
-    """A 2-layer model at full Llama-3-8B width, per seed in MODEL_SEEDS:
-    the kernel path's logits against the plain path's at every step, and
-    the same reading for each mutant; ``int8`` runs it on int8 caches.
-    Returns (worst kernel reading, least reading of each mutant over the
-    seeds, max |logit|)."""
-    from dynamo_tpu_torch.models import llama
+def model_check(torch, tag, cfg, prompt_len, seed_base, weight_sets, paths, int8=False):
+    """``cfg`` at full width and its configured depth, per seed in
+    MODEL_SEEDS: the kernel path's logits against the plain path's at every
+    step, and the same reading for each mutant. ``weight_sets``: (q/k
+    projection scale, the mutants read on those weights) pairs; the kernel
+    path is read on every set. ``paths(table, mutants)`` gives the
+    attention paths; ``int8`` runs on int8 caches. Every mutant's reading
+    must exceed MODEL_REL_TOL on every seed. Returns (worst kernel reading,
+    least reading of each mutant over the seeds, max |logit|)."""
+    from dynamo_tpu_torch.models import registry
 
     dev = torch.device("cuda")
-    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(), num_layers=2)
     readings: dict = {}
     spread = 0.0
     for seed in MODEL_SEEDS:
-        params = llama.init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
-        rng = np.random.default_rng(100 + seed)
-        prompt = rng.integers(0, cfg.vocab_size, size=300)
+        rng = np.random.default_rng(seed_base + seed)
+        prompt = rng.integers(0, cfg.vocab_size, size=prompt_len)
         extra = rng.integers(0, cfg.vocab_size, size=5)   # 3 decode tokens + a 2-token step
-        logits = model_logits(torch, cfg, params, lambda t: attention_paths(torch, t, int8),
-                              prompt, extra, int8)
-        plain = logits.pop("plain")
-        spread = max(spread, max(b.abs().max().item() for b in plain))
-        for name, got in logits.items():
-            if name == "kernels" and not all(torch.isfinite(a).all() for a in got):
-                raise AssertionError(f"model seed {seed}: kernel logits not finite")
-            rel = max(((a - b).norm() / b.norm()).item() for a, b in zip(got, plain))
-            readings.setdefault(name, []).append(rel)
-        del params, logits, plain
-        torch.cuda.empty_cache()
-    tag = "model int8" if int8 else "model"
+        for qk, mutants in weight_sets:
+            params = registry.init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+            for lp in params["layers"] if qk != 1.0 else ():
+                if cfg.qk_norm:   # q/k are normed per head (gemma): scale the norm's 1 + w
+                    lp["q_norm"] += qk - 1.0
+                    lp["k_norm"] += qk - 1.0
+                else:
+                    lp["wq"] *= qk
+                    lp["wk"] *= qk
+            logits = model_logits(torch, cfg, params, lambda t: paths(t, mutants),
+                                  prompt, extra, int8)
+            plain = logits.pop("plain")
+            spread = max(spread, max(b.abs().max().item() for b in plain))
+            for name, got in logits.items():
+                if name == "kernels" and not all(torch.isfinite(a).all() for a in got):
+                    raise AssertionError(f"{tag} seed {seed}: kernel logits not finite")
+                rel = max(((a - b).norm() / b.norm()).item() for a, b in zip(got, plain))
+                readings.setdefault(name, []).append(rel)
+            del params, logits, plain
+            torch.cuda.empty_cache()
     for name, rels in readings.items():
-        log(f"{tag}: {name}: relative L2 of last-position logits vs plain, worst "
-            f"step per seed {MODEL_SEEDS}: " + ", ".join(f"{r:.4g}" for r in rels))
+        log(f"{tag}: {name}: relative L2 of last-position logits vs plain, worst step per "
+            f"seed {MODEL_SEEDS}" + (" and weight set" if len(weight_sets) > 1 else "")
+            + ": " + ", ".join(f"{r:.4g}" for r in rels))
     worst = max(readings["kernels"])
     if worst > MODEL_REL_TOL:
         raise AssertionError(f"{tag}: kernel logits differ from plain by {worst:.4g} "
                              f"relative L2 (limit {MODEL_REL_TOL})")
-    for name in MODEL_MUTANTS:
-        if min(readings[name]) <= MODEL_REL_TOL:
+    for name in readings:
+        if name != "kernels" and min(readings[name]) <= MODEL_REL_TOL:
             raise AssertionError(f"{tag}: the check cannot tell {name} from the plain "
                                  f"path ({min(readings[name]):.4g} <= {MODEL_REL_TOL})")
     return worst, {n: min(r) for n, r in readings.items() if n != "kernels"}, spread
+
+
+def gemma_attention_paths(torch, table, mutants):
+    """The Gemma model check's attention paths: every step (prefill,
+    decode, ragged) is one row of the unified kernel, as the engine serves
+    a Gemma layer, or of its plain version, with the layer's window and
+    softcap; ``mutants`` names the wrong attentions to add (GEMMA_MUTANTS)."""
+    from dynamo_tpu_torch.ops import attention as att
+    from dynamo_tpu_torch.ops import cuda_unified
+
+    i32 = dict(dtype=torch.int32, device=table.device)
+
+    def row(q, kc, vc, total):
+        one = [torch.tensor([n], **i32) for n in (0, q.shape[0], total)]
+        return (q, kc, vc, table[None], *one)
+
+    def kernel(q, kc, vc, total, window=None, **attrs):
+        if window:   # the kernel's form: an [R] windows array
+            attrs["windows"] = torch.tensor([window], **i32)
+        return cuda_unified.ragged_paged_attention(*row(q, kc, vc, total),
+                                                   max_q_len=q.shape[0], **attrs)
+
+    def plain(q, kc, vc, total, **attrs):
+        return att.ragged_paged_attention(*row(q, kc, vc, total), **attrs)
+
+    def wrong(change):
+        fn = lambda q, kc, vc, total, **attrs: plain(q, kc, vc, total, **change(attrs))
+        return (fn, fn, fn)
+
+    paths = {"kernels": (kernel,) * 3, "plain": (plain,) * 3}
+    for name in mutants:
+        paths[name] = wrong(GEMMA_MUTANTS[name])
+    return paths
+
+
+def _drop(key):
+    return lambda attrs: dict(attrs, **{key: None})
+
+
+def _window_plus_page(attrs):
+    w = attrs.get("window")
+    return dict(attrs, window=None if w is None else w + BS)
+
+
+# the wrong Gemma attentions the model check must catch
+GEMMA_MUTANTS = {
+    "mutant: window dropped": _drop("window"),
+    "mutant: window one page too wide": _window_plus_page,
+    "mutant: softcap dropped": _drop("softcap"),
+}
+# (preset, layers, prompt tokens): gemma2-2b's first two layers (sliding,
+# full) over a prompt 1.5 windows long; gemma3-4b's first six (five sliding,
+# one full) over a prompt ~2 windows long
+GEMMA_MODEL_CHECKS = (("gemma2_2b", 2, 6000), ("gemma3_4b", 6, 2000))
+# q/k projection scale of the softcap mutant's weights: at the published
+# init the attention logits are ~N(0, 1), where a cap of 50 changes nothing
+# measurable; x2 on both makes them ~N(0, 16), where it bends the largest
+GEMMA_SHARP_QK = 2.0
+
+
+def gemma_model_check(torch, preset, num_layers, prompt_len):
+    """model_check for ``preset`` cut to ``num_layers``. Weights at the
+    published init scale (attention broad: a window edge moves the output
+    most) carry the window mutants; with a softcap, the same weights with
+    q/k projections x GEMMA_SHARP_QK carry the softcap mutant."""
+    from dynamo_tpu_torch.models import gemma
+
+    cfg = dataclasses.replace(getattr(gemma.GemmaConfig, preset)(), num_layers=num_layers)
+    sets = [(1.0, ("mutant: window dropped", "mutant: window one page too wide"))]
+    if cfg.attn_logit_softcap:
+        sets.append((GEMMA_SHARP_QK, ("mutant: softcap dropped",)))
+    return model_check(torch, f"model {preset} x{num_layers} layers", cfg, prompt_len, 200,
+                       sets, lambda t, mutants: gemma_attention_paths(torch, t, mutants))
 
 
 # ------------------------------------------------------------- phase 4
@@ -715,12 +1088,19 @@ def kernel_counters() -> dict:
 
 
 def reset_launches() -> None:
+    from dynamo_tpu_torch.ops import cuda_unified
+
     for k in kernel_counters().values():
         k.launches = 0
+    cuda_unified.windowed_launches = 0
 
 
 def read_launches() -> dict:
-    return {name: k.launches for name, k in kernel_counters().items()}
+    from dynamo_tpu_torch.ops import cuda_unified
+
+    out = {name: k.launches for name, k in kernel_counters().items()}
+    out["unified_windowed"] = cuda_unified.windowed_launches
+    return out
 
 
 def device_time_by_kind(prof) -> dict:
@@ -1003,6 +1383,119 @@ async def serve_kvbm(torch):
     }
 
 
+# Gemma serving: gemma2-2b at full depth and max_context 8192, prompts up to
+# ~2 windows long; the int8 run is shorter (its kernel's path check)
+GEMMA_INT8_PROMPTS = (4100, 1500, 300)
+GEMMA_BLOCKS = 4096
+
+
+async def serve_gemma(torch, int8=False, profile=False):
+    """TorchEngine on the gemma2-2b preset (26 layers, random bf16 weights
+    from seed 0, max_context 8192, batch 8): staggered requests 0.25 s
+    apart, one seeded sampled and the rest greedy. Hard checks: token
+    counts and finish reasons, fused mixed steps ran, the unified kernel
+    (the int8 form with ``int8``) served windowed launches, and neither
+    the decode nor the flash-extend kernel launched (every Gemma layer goes
+    through the unified kernel). ``profile``: under torch.profiler (CUDA
+    activity), returning the device time by kernel kind instead."""
+    from dynamo_tpu_torch.engine.engine import TorchEngine, TorchEngineConfig
+    from dynamo_tpu_torch.llm.protocols.common import (
+        PreprocessedRequest, SamplingOptions, StopConditions,
+    )
+    from dynamo_tpu_torch.llm.tokenizer import ByteTokenizer
+    from dynamo_tpu_torch.models.gemma import GemmaConfig
+    from dynamo_tpu_torch.runtime import Context
+
+    mcfg = GemmaConfig.gemma2_2b()
+    cfg = TorchEngineConfig(model=mcfg, num_blocks=GEMMA_BLOCKS, block_size=BS,
+                            max_batch_size=8, max_context=8192, seed=0,
+                            kv_dtype="int8" if int8 else "model")
+    t0 = time.perf_counter()
+    engine = TorchEngine(cfg)
+    torch.cuda.synchronize()
+    tag = "gemma int8" if int8 else "gemma"
+    log(f"serving {tag}: gemma2-2b preset, {mcfg.num_layers} layers, random bf16 weights "
+        f"(seed 0), {GEMMA_BLOCKS} device blocks, ready in {time.perf_counter() - t0:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
+    tok = ByteTokenizer()
+    rng = np.random.default_rng(6)
+    words = [bytes(rng.integers(97, 123, size=rng.integers(2, 9))).decode()
+             for _ in range(4000)]
+    lens = GEMMA_INT8_PROMPTS if int8 else GEMMA_PROMPTS
+    prompts = []
+    for n in lens:
+        text = " ".join(words[int(i)] for i in rng.integers(0, len(words), size=n))
+        prompts.append(tok.encode(text)[:n])
+    max_tokens = 16 if int8 else 32
+    sampled = 2   # one seeded sampled request; the rest are greedy
+    stats = []
+
+    async def one(i, prompt):
+        await asyncio.sleep(0.25 * i)
+        samp = (SamplingOptions(temperature=0.8, top_p=0.95, seed=11) if i == sampled
+                else SamplingOptions(temperature=0.0))
+        req = PreprocessedRequest(request_id=f"g{i}", model="gemma2-2b", token_ids=prompt,
+                                  sampling=samp, stop=StopConditions(max_tokens=max_tokens))
+        t_sub = time.perf_counter()
+        stamps, toks, finish = [], [], None
+        async for out in engine.generate(req, Context()):
+            if out.token_ids:
+                stamps.append(time.perf_counter())
+                toks.extend(out.token_ids)
+            finish = out.finish_reason or finish
+        stats.append({"i": i, "tokens": toks, "finish": finish,
+                      "ttft_s": stamps[0] - t_sub if stamps else None,
+                      "itl_s": ((stamps[-1] - stamps[0]) / (len(stamps) - 1)
+                                if len(stamps) > 1 else None)})
+
+    prof = None
+    if profile:
+        prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+        prof.__enter__()
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        await asyncio.gather(*(one(i, p) for i, p in enumerate(prompts)))
+    finally:
+        engine.stop()
+        torch.cuda.synchronize()
+        if prof is not None:
+            prof.__exit__(None, None, None)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    for s in stats:
+        if len(s["tokens"]) != max_tokens or s["finish"] != "length":
+            raise AssertionError(f"{tag} request {s['i']}: {len(s['tokens'])} tokens, "
+                                 f"finish {s['finish']!r}; expected {max_tokens}, 'length'")
+        if not all(0 <= t < mcfg.vocab_size for t in s["tokens"]):
+            raise AssertionError(f"{tag} request {s['i']}: token id outside the vocab")
+    unified = "unified_int8" if int8 else "unified"
+    if launches[unified] <= 0 or launches["unified_windowed"] <= 0:
+        raise AssertionError(f"{tag}: the {unified} kernel served no windowed launch: {launches}")
+    split = [n for n in ("decode", "flash_extend", "decode_int8", "flash_extend_int8")
+             if launches[n]]
+    if split:
+        raise AssertionError(f"{tag}: Gemma layers went through {split}: {launches}")
+    if engine.step_counts["mixed"] <= 0:
+        raise AssertionError(f"{tag}: no fused mixed step ran: {engine.step_counts}")
+    if prof is not None:
+        by_kind = device_time_by_kind(prof)
+        busy_ms = sum(v for k, v in by_kind.items() if k not in ("kernels", "top"))
+        return {"wall_s": wall, "device_busy_ms": busy_ms,
+                "busy_share": busy_ms / (wall * 1e3), "device_ms": by_kind,
+                "steps": dict(engine.step_counts)}
+    ttft = sorted(s["ttft_s"] for s in stats)
+    itl = sorted(s["itl_s"] for s in stats)
+    n_out = sum(len(s["tokens"]) for s in stats)
+    return {
+        "requests": len(stats), "prompt_tokens": list(lens), "max_tokens": max_tokens,
+        "wall_s": wall, "output_tok_s": n_out / wall,
+        "ttft_s_median": statistics.median(ttft), "ttft_s_max": ttft[-1],
+        "itl_s_median": statistics.median(itl), "itl_s_max": itl[-1],
+        "steps": dict(engine.step_counts), "launches": launches,
+    }
+
+
 # ------------------------------------------------------------------ main
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -1057,6 +1550,18 @@ def main() -> int:
                 f"{r['plain_ms']:.4f} ms plain, {r['library_ms']:.4f} ms library, "
                 f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) "
                 f"[{time.perf_counter() - t0:.1f} s]")
+        from torch.nn.attention.flex_attention import flex_attention
+
+        # the yardstick of the softcap cases: one compile per case and form
+        torch._dynamo.config.recompile_limit = 64
+        flex = torch.compile(flex_attention, fullgraph=True)
+        for int8 in (False, True):
+            t0 = time.perf_counter()
+            r = check_unified_attrs(torch, gen, timer, int8=int8, flex=flex)
+            results[r["name"]] = r
+            log(f"kernel {r['name']}: max abs err {r['max_abs_err']:.3g} over "
+                f"{len(r['cases'])} cases (atol {KERNEL_ATOL}, rtol {KERNEL_RTOL}, row "
+                f"{KERNEL_ROW_REL}) [{time.perf_counter() - t0:.1f} s]")
         worst = check_group_sizes(torch, gen)
         log(f"kernels at 1, 2 and 8 query heads per kv head, bf16 and int8: max abs "
             f"err {worst:.3g} (atol {KERNEL_ATOL}, rtol {KERNEL_RTOL}, row {KERNEL_ROW_REL})")
@@ -1074,15 +1579,30 @@ def main() -> int:
     del timer
     torch.cuda.empty_cache()
     if "model" in phases:
+        from dynamo_tpu_torch.models.llama import LlamaConfig
+
         for int8 in (False, True):
             t0 = time.perf_counter()
-            worst, mutants, spread = model_check(torch, int8)
+            cfg = dataclasses.replace(LlamaConfig.llama3_8b(), num_layers=2)
+            worst, mutants, spread = model_check(
+                torch, "model int8" if int8 else "model", cfg, 300, 100,
+                [(1.0, MODEL_MUTANTS)], lambda t, _: attention_paths(torch, t, int8), int8)
             log(f"model{' int8' if int8 else ''}: 2-layer llama3-8b width, prefill 300 + "
                 f"3 decode + a 2-token ragged step, {len(MODEL_SEEDS)} seeds: kernels vs "
                 f"plain logits relative L2 {worst:.4g} at worst (limit {MODEL_REL_TOL}); "
                 "mutants at least "
                 + ", ".join(f"{n[8:]} {r:.4g}" for n, r in mutants.items())
                 + f"; max |logit| {spread:.3g} [{time.perf_counter() - t0:.1f} s]")
+        for preset, layers, prompt_len in GEMMA_MODEL_CHECKS:
+            t0 = time.perf_counter()
+            worst, mutants, spread = gemma_model_check(torch, preset, layers, prompt_len)
+            log(f"model {preset}: {layers} layers at full width, prefill {prompt_len} + 3 "
+                f"decode + a 2-token ragged step, {len(MODEL_SEEDS)} seeds: kernels vs plain "
+                f"logits relative L2 {worst:.4g} at worst (limit {MODEL_REL_TOL}); mutants "
+                "at least " + ", ".join(f"{n[8:]} {r:.4g}" for n, r in mutants.items())
+                + f"; max |logit| {spread:.3g} [{time.perf_counter() - t0:.1f} s]")
+            gc.collect()
+            torch.cuda.empty_cache()
     serving = None
     if "serve" in phases:
         serving = asyncio.run(serve(torch))
@@ -1113,6 +1633,28 @@ def main() -> int:
             f"a gate); float run: {serving['output_tok_s']:.1f} tok/s, TTFT median "
             f"{serving['ttft_s_median'] * 1e3:.0f} ms, ITL median "
             f"{serving['itl_s_median'] * 1e3:.1f} ms")
+        gc.collect()
+        torch.cuda.empty_cache()
+        # Gemma: every attention call through the unified kernel, windows
+        # and softcap per layer; bf16, then a short int8 run
+        gemma_runs = {}
+        for int8 in (False, True):
+            run = asyncio.run(serve_gemma(torch, int8=int8))
+            gemma_runs["int8" if int8 else "bf16"] = run
+            tag = "gemma int8" if int8 else "gemma"
+            log(f"serving {tag}: " + json.dumps(run))
+            log(f"serving {tag} on {smi}: {run['requests']} requests, "
+                f"{run['output_tok_s']:.1f} output tok/s, TTFT median "
+                f"{run['ttft_s_median'] * 1e3:.0f} ms (max {run['ttft_s_max'] * 1e3:.0f}), "
+                f"ITL median {run['itl_s_median'] * 1e3:.1f} ms; unified launches "
+                f"{run['launches']['unified_int8' if int8 else 'unified']}, windowed "
+                f"{run['launches']['unified_windowed']}; steps {run['steps']}")
+            gc.collect()
+            torch.cuda.empty_cache()
+        # the bf16 Gemma traffic again on a fresh engine under torch.profiler
+        log("serving gemma profile: " + json.dumps(asyncio.run(serve_gemma(torch, profile=True))))
+        gc.collect()
+        torch.cuda.empty_cache()
     if phases != {"kernels", "model", "serve"}:
         log("partial run (--phases): no report")
         return 1
@@ -1129,7 +1671,9 @@ def main() -> int:
             ("ragged_paged_attention_int8", "unified_int8", kvbm_run),
             ("gather_blocks", "gather", kvbm_run),
             ("scatter_blocks", "scatter", kvbm_run),
-            ("copy_blocks", "copy", kvbm_run)):
+            ("copy_blocks", "copy", kvbm_run),
+            ("ragged_paged_attention_gemma", "unified", gemma_runs["bf16"]),
+            ("ragged_paged_attention_gemma_int8", "unified_int8", gemma_runs["int8"])):
         r = dict(results[name], launches=run["launches"][key])
         r["max_err"], r["kernel_ms"] = r["max_abs_err"], r["ms"]
         kernels.append(r)

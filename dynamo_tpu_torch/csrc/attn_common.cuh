@@ -7,7 +7,9 @@
 // applied to q, float32 scores / running max m / running sum l /
 // accumulator, masked keys at NEG_INF = -1e30 with their weight forced to 0,
 // output acc / max(l, 1e-30) in q's dtype (bf16). bf16 converts only through
-// the intrinsics.
+// the intrinsics. The tile body takes head_dim 128 and 256 (a template
+// parameter) and the unified kernel's row attributes (RowAttrs): a sliding
+// window, per-head sink logits and a logit softcap.
 //
 // The TPU kernels carried online-softmax state across sequential grid
 // steps; on the GPU blocks run in parallel in no order, so each block walks
@@ -24,7 +26,6 @@
 namespace dtt {
 
 constexpr float NEG_INF = -1e30f;
-constexpr int HEAD_DIM = 128;  // the only head size these kernels take
 
 // 8 consecutive bf16 (one 16-byte load) -> 8 floats
 __device__ __forceinline__ void load8(const __nv_bfloat16* p, float* out) {
@@ -62,7 +63,7 @@ __device__ __forceinline__ void store8(__nv_bfloat16* p, const float* in) {
 
 // ---------------------------------------------------------------------------
 // Tile attention: one block computes TM query-head rows of ONE kv head
-// against the keys [0, hi) of one sequence, TN keys per step.
+// against the keys [klo, hi) of one sequence, TN keys per step.
 //
 // Rows are token-major: row r is token r / G, query head kh*G + r % G, so a
 // tile holds TQ = TM / G consecutive query tokens with all G heads that
@@ -104,41 +105,59 @@ struct Int8KV {
   }
 };
 
+// The optional attributes of a tile's rows (ops/pallas_unified.py):
+//   window > 0: a query at position p sees keys j with p - window < j
+//     (<= 0: full attention);
+//   sinks != nullptr: per-query-head sink logits [h], folded into the
+//     softmax denominator by seeding the state with a virtual zero-value
+//     key (m = sink, l = 1, acc = 0);
+//   softcap > 0: scores become softcap * tanh(s / softcap), after the
+//     scale and before the mask.
+struct RowAttrs {
+  int window;
+  const float* sinks;
+  float softcap;
+};
+
 constexpr int TM = 64;        // query-head rows per block
 constexpr int TN = 32;        // keys per step
 constexpr int NTHREADS = 256;
-constexpr int KSTRIDE = HEAD_DIM + 1;  // padded: conflict-free column reads
 
+// D = 128: 75 KB, two blocks per SM; D = 256: 141 KB, one block per SM
+template <int D>
 struct TileSmem {
-  float q[TM][HEAD_DIM];    // scaled queries
-  float k[TN][KSTRIDE];
-  float v[TN][HEAD_DIM];
+  float q[TM][D];           // scaled queries
+  float k[TN][D + 1];       // padded: conflict-free column reads
+  float v[TN][D];
   float p[TM][TN + 1];      // scores, then probabilities
   float m[TM];              // running max
   float l[TM];              // running sum
   float alpha[TM];          // this step's rescale of l and the accumulator
-  int lim[TM];              // keys < lim[r] are visible to row r
+  int lo[TM];               // keys >= lo[r] ...
+  int lim[TM];              // ... and < lim[r] are visible to row r
 };
 
-// q, out: [*, h, HEAD_DIM] bf16, token rows tok0 .. tok0+ntok-1 of this tile.
+// q, out: [*, h, D] bf16, token rows tok0 .. tok0+ntok-1 of this tile.
 // Query token t of the tile sits at absolute position pos0 + t and sees
-// keys < min(pos0 + t + 1, total).
-template <class KV>
-__device__ void tile_attention(TileSmem& sm, const __nv_bfloat16* __restrict__ q,
+// keys < min(pos0 + t + 1, total), and with a window keys > pos0 + t - w.
+template <int D, class KV>
+__device__ void tile_attention(TileSmem<D>& sm, const __nv_bfloat16* __restrict__ q,
                                __nv_bfloat16* __restrict__ out, const KV kv,
                                int h, int kh, int G, long tok0, int ntok,
-                               int pos0, int total) {
+                               int pos0, int total, const RowAttrs at) {
+  static_assert(D % 128 == 0, "the tile body takes head_dim 128 or 256");
+  constexpr int NG = D / 128;   // groups of 8 output dims per thread
   const int tid = threadIdx.x;
   const int nrows = ntok * G;  // valid rows: r < nrows
-  const float scale = 1.0f / sqrtf((float)HEAD_DIM);
+  const float scale = 1.0f / sqrtf((float)D);
 
   // queries -> shared (f32, scaled); invalid rows are zero
-  for (int idx = tid; idx < TM * (HEAD_DIM / 8); idx += NTHREADS) {
-    const int r = idx / (HEAD_DIM / 8), c = (idx % (HEAD_DIM / 8)) * 8;
+  for (int idx = tid; idx < TM * (D / 8); idx += NTHREADS) {
+    const int r = idx / (D / 8), c = (idx % (D / 8)) * 8;
     float f[8];
     if (r < nrows) {
       const long row = (tok0 + r / G) * h + (long)kh * G + r % G;
-      load8(q + row * HEAD_DIM + c, f);
+      load8(q + row * D + c, f);
 #pragma unroll
       for (int e = 0; e < 8; ++e) f[e] *= scale;
     } else {
@@ -150,33 +169,45 @@ __device__ void tile_attention(TileSmem& sm, const __nv_bfloat16* __restrict__ q
     dst[1] = make_float4(f[4], f[5], f[6], f[7]);
   }
   if (tid < TM) {
-    sm.m[tid] = NEG_INF;
-    sm.l[tid] = 0.f;
+    const bool valid = tid < nrows;
     const int pos = pos0 + tid / G;
-    sm.lim[tid] = tid < nrows ? min(pos + 1, total) : 0;
+    sm.lim[tid] = valid ? min(pos + 1, total) : 0;
+    sm.lo[tid] = valid && at.window > 0 ? max(pos - at.window + 1, 0) : 0;
+    // the sink is the QUERY head's (kh * G + r % G), not the kv head's
+    const bool sink = valid && at.sinks != nullptr;
+    sm.m[tid] = sink ? at.sinks[kh * G + tid % G] : NEG_INF;
+    sm.l[tid] = sink ? 1.f : 0.f;
   }
-  // highest key any valid row sees (the causal tile skip)
+  // highest key any valid row sees (the causal tile skip), and the lowest:
+  // the earliest query (token 0, at pos0) sees no key below klo, so the
+  // steps start at the step holding klo and keys a window aged out are
+  // never read (the reference's page skip)
   const int hi = min(pos0 + ntok, total);
+  const int klo = at.window > 0 ? max(pos0 - at.window + 1, 0) : 0;
+  const float cap = at.softcap;
 
   // S = Q K^T: thread (ty, tx) owns rows ty*4..+3, key columns tx*2..+1
-  // O += P V:  thread (ty, tx) owns rows ty*4..+3, dims tx*8..+7
+  // O += P V:  thread (ty, tx) owns rows ty*4..+3, dims g*128 + tx*8..+7
   const int ty = tid / 16, tx = tid % 16;
   const bool busy = ty * 4 < nrows;  // some owned row is valid
-  float acc[4][8];
+  float acc[4][NG][8];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int c = 0; c < 8; ++c) acc[i][c] = 0.f;
+    for (int g = 0; g < NG; ++g)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) acc[i][g][c] = 0.f;
 
-  for (int base = 0; base < hi; base += TN) {
+  for (int base = klo - klo % TN; base < hi; base += TN) {
     __syncthreads();  // previous step done with k/v/p (and q/m/l/lim written)
-    // K/V rows of this step -> shared (f32); keys >= hi are zero: they are
-    // never read from memory, and zero V keeps 0 * garbage out of the sums
-    for (int idx = tid; idx < TN * (HEAD_DIM / 8); idx += NTHREADS) {
-      const int j = idx / (HEAD_DIM / 8), c = (idx % (HEAD_DIM / 8)) * 8;
+    // K/V rows of this step -> shared (f32); keys outside [klo, hi) are
+    // zero: they are never read from memory, and zero V keeps
+    // 0 * garbage out of the sums
+    for (int idx = tid; idx < TN * (D / 8); idx += NTHREADS) {
+      const int j = idx / (D / 8), c = (idx % (D / 8)) * 8;
       const int kpos = base + j;
       float kf[8], vf[8];
-      if (kpos < hi) {
+      if (kpos >= klo && kpos < hi) {
         kv.load(kpos, c, kf, vf);
       } else {
 #pragma unroll
@@ -195,7 +226,7 @@ __device__ void tile_attention(TileSmem& sm, const __nv_bfloat16* __restrict__ q
 #pragma unroll
       for (int i = 0; i < 4; ++i) s[i][0] = s[i][1] = 0.f;
 #pragma unroll 8
-      for (int d = 0; d < HEAD_DIM; ++d) {
+      for (int d = 0; d < D; ++d) {
         const float k0 = sm.k[tx * 2][d], k1 = sm.k[tx * 2 + 1][d];
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
@@ -210,7 +241,10 @@ __device__ void tile_attention(TileSmem& sm, const __nv_bfloat16* __restrict__ q
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
           const int kpos = base + tx * 2 + j;
-          sm.p[r][tx * 2 + j] = kpos < sm.lim[r] ? s[i][j] : NEG_INF;
+          const float sc = cap > 0.f ? cap * tanhf(s[i][j] / cap) : s[i][j];
+          // per-row bounds: keys below a row's own window inside the
+          // first step are masked here, not read as live
+          sm.p[r][tx * 2 + j] = kpos >= sm.lo[r] && kpos < sm.lim[r] ? sc : NEG_INF;
         }
       }
     }
@@ -233,7 +267,8 @@ __device__ void tile_attention(TileSmem& sm, const __nv_bfloat16* __restrict__ q
       float sum = 0.f;
 #pragma unroll
       for (int e = 0; e < 8; ++e) {
-        // masked keys weigh exactly 0 (exp(NEG_INF - NEG_INF) would be 1)
+        // masked keys weigh exactly 0 (exp(NEG_INF - NEG_INF) would be 1,
+        // and with a sink m starts above NEG_INF, not at it)
         const float pe = sv[e] > 0.5f * NEG_INF ? __expf(sv[e] - m_new) : 0.f;
         sm.p[r][part * 8 + e] = pe;
         sum += pe;
@@ -254,18 +289,24 @@ __device__ void tile_attention(TileSmem& sm, const __nv_bfloat16* __restrict__ q
       for (int i = 0; i < 4; ++i) {
         const float a = sm.alpha[ty * 4 + i];
 #pragma unroll
-        for (int c = 0; c < 8; ++c) acc[i][c] *= a;
+        for (int g = 0; g < NG; ++g)
+#pragma unroll
+          for (int c = 0; c < 8; ++c) acc[i][g][c] *= a;
       }
 #pragma unroll 4
       for (int j = 0; j < TN; ++j) {
-        const float4 v0 = *reinterpret_cast<const float4*>(&sm.v[j][tx * 8]);
-        const float4 v1 = *reinterpret_cast<const float4*>(&sm.v[j][tx * 8 + 4]);
-        const float vv[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float pj = sm.p[ty * 4 + i][j];
+        for (int g = 0; g < NG; ++g) {
+          const float* vr = &sm.v[j][g * 128 + tx * 8];
+          const float4 v0 = *reinterpret_cast<const float4*>(vr);
+          const float4 v1 = *reinterpret_cast<const float4*>(vr + 4);
+          const float vv[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
 #pragma unroll
-          for (int c = 0; c < 8; ++c) acc[i][c] = fmaf(pj, vv[c], acc[i][c]);
+          for (int i = 0; i < 4; ++i) {
+            const float pj = sm.p[ty * 4 + i][j];
+#pragma unroll
+            for (int c = 0; c < 8; ++c) acc[i][g][c] = fmaf(pj, vv[c], acc[i][g][c]);
+          }
         }
       }
     }
@@ -278,11 +319,14 @@ __device__ void tile_attention(TileSmem& sm, const __nv_bfloat16* __restrict__ q
     const int r = ty * 4 + i;
     if (r < nrows) {
       const float inv = 1.0f / fmaxf(sm.l[r], 1e-30f);
-      float o[8];
-#pragma unroll
-      for (int c = 0; c < 8; ++c) o[c] = acc[i][c] * inv;
       const long row = (tok0 + r / G) * h + (long)kh * G + r % G;
-      store8(out + row * HEAD_DIM + tx * 8, o);
+#pragma unroll
+      for (int g = 0; g < NG; ++g) {
+        float o[8];
+#pragma unroll
+        for (int c = 0; c < 8; ++c) o[c] = acc[i][g][c] * inv;
+        store8(out + row * D + g * 128 + tx * 8, o);
+      }
     }
   }
 }

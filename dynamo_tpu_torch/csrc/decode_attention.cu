@@ -40,6 +40,7 @@
 
 namespace dtt {
 
+constexpr int HEAD_DIM = 128;  // the only head size this kernel takes
 constexpr int DEC_WARPS = 8;
 constexpr int DEC_KB = 4;  // keys per half-warp per iteration (bf16)
 constexpr int I8_KB = 8;   // keys per half-warp per iteration (int8)

@@ -30,12 +30,14 @@
 
 namespace dtt {
 
-// row offsets of the gathered context [T, kvh, HEAD_DIM]; its scales are
+constexpr int FLASH_D = 128;  // the only head size this kernel takes
+
+// row offsets of the gathered context [T, kvh, FLASH_D]; its scales are
 // [T, kvh]
 struct ContextRows {
   int kvh, kh;
   __device__ long operator()(int kpos) const {
-    return ((long)kpos * kvh + kh) * HEAD_DIM;
+    return ((long)kpos * kvh + kh) * FLASH_D;
   }
   __device__ long scale(int kpos) const { return (long)kpos * kvh + kh; }
 };
@@ -46,22 +48,22 @@ flash_extend_kernel(const __nv_bfloat16* __restrict__ q, const KV kv,
                     __nv_bfloat16* __restrict__ out, int S, int h, int kvh,
                     int start, int total_len) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  TileSmem& sm = *reinterpret_cast<TileSmem*>(smem_raw);
+  TileSmem<FLASH_D>& sm = *reinterpret_cast<TileSmem<FLASH_D>*>(smem_raw);
   const int G = h / kvh, TQ = TM / G;
   const int qt = blockIdx.x, kh = blockIdx.y;
   const int tok0 = qt * TQ;
   const int ntok = min(TQ, S - tok0);
   KV rows_of_kh = kv;
   rows_of_kh.rows.kh = kh;
-  tile_attention(sm, q, out, rows_of_kh, h, kh, G, tok0, ntok, start + tok0,
-                 total_len);
+  tile_attention<FLASH_D>(sm, q, out, rows_of_kh, h, kh, G, tok0, ntok,
+                          start + tok0, total_len, RowAttrs{0, nullptr, 0.f});
 }
 
 template <class KV>
 int launch_flash(const void* q, const KV& kv, void* out, int S, int h, int kvh,
                  int start, int total_len, void* stream) {
   if (S <= 0) return 0;
-  const int smem = (int)sizeof(TileSmem);
+  const int smem = (int)sizeof(TileSmem<FLASH_D>);
   cudaError_t err = cudaFuncSetAttribute(
       flash_extend_kernel<KV>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;

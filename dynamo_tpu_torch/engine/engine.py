@@ -1,7 +1,8 @@
 """TorchEngine: continuous-batching paged-KV serving engine on PyTorch/CUDA.
 
 Counterpart of the reference's engine/engine.py ``TpuEngine``, for the
-llama family on one GPU:
+llama and gemma families on one GPU (models/registry.py picks the family's
+functions):
 
 - the paged KV cache lives on the device as ``[num_blocks, block_size,
   kv_heads, head_dim]`` per layer; block 0 is scratch;
@@ -29,7 +30,12 @@ llama family on one GPU:
 Attention runs through the wrappers of the hand-written CUDA kernels
 (ops/cuda_attention, cuda_prefill, cuda_unified): on CUDA tensors they
 launch the kernels, on CPU tensors (``device="cpu"``, how the tests hold
-this engine to ``TpuEngine``) they run the plain PyTorch versions.
+this engine to ``TpuEngine``) they run the plain PyTorch versions. A layer
+that passes attention attributes (gemma's sliding window and softcap) is
+served by the unified kernel in every step kind, as the reference routes
+any call with a non-empty ``extra``: a decode step as ``q_len = 1`` rows, a
+prefill chunk as one ragged row, and the mixed step as it is. The llama
+family keeps its decode and flash-extend kernels.
 
 Device work runs on a single executor thread so the asyncio loop that
 streams results never blocks behind the GPU.
@@ -68,7 +74,7 @@ from ..kvbm.layout import (
     storage_dtype,
     to_host,
 )
-from ..models import llama
+from ..models import llama, registry
 from ..ops import attention as att
 from ..ops import block_copy as bc
 from ..ops import cuda_attention, cuda_prefill, cuda_unified
@@ -163,8 +169,36 @@ def _has_penalties(s) -> bool:
     )
 
 
+class _UnifiedRows:
+    """One step's arguments of the unified kernel, each moved to the
+    device on first use: the row arrays (q_starts, q_lens, seq_lens), and
+    one [R] windows array per distinct window a layer asks for."""
+
+    def __init__(self, to_device, q_starts, q_lens, seq_lens):
+        self._t = to_device
+        self._host = (q_starts, q_lens, seq_lens)
+        self._rows = None
+        self._windows = {}
+
+    def rows(self) -> List[torch.Tensor]:
+        if self._rows is None:
+            self._rows = [self._t(a, torch.int32) for a in self._host]
+        return self._rows
+
+    def attrs(self, window: Optional[int] = None, **extra) -> dict:
+        """A layer's attention attributes as the kernel takes them: its
+        sliding window (None: full) as an [R] windows array."""
+        if window:
+            if window not in self._windows:
+                R = len(self._host[0])
+                self._windows[window] = self._t(np.full(R, window), torch.int32)
+            extra["windows"] = self._windows[window]
+        return extra
+
+
 class TorchEngine:
-    """AsyncEngine serving PreprocessedRequests with a llama-family model."""
+    """AsyncEngine serving PreprocessedRequests with a llama- or
+    gemma-family model."""
 
     def __init__(self, config: TorchEngineConfig, params: Optional[llama.Params] = None,
                  kvbm=None):
@@ -178,8 +212,10 @@ class TorchEngine:
         if params is None:
             gen = torch.Generator(device=dev)
             gen.manual_seed(config.seed)
-            params = llama.init_params(mcfg, gen, dev)
+            params = registry.init_params(mcfg, gen, dev)
         self.params = params
+        self._forward = registry.forward_fn(mcfg)
+        self._lm_logits = registry.lm_logits_fn(mcfg)
         self.k_caches = self._init_caches()
         self.v_caches = self._init_caches()
 
@@ -568,10 +604,17 @@ class TorchEngine:
         new_ids_t = self._t(new_ids)
 
         pad = self._pad_rows(chunk_len, len(tokens))
+        # for layers with attention attributes: the chunk as ONE ragged row
+        # of the unified kernel, its segment at the tail of a total_len context
+        unified = _UnifiedRows(self._t, [0], [chunk_len], [total_len])
 
-        def attend(q, k_new, v_new, layer_idx):
+        def attend(q, k_new, v_new, layer_idx, **extra):
             kc, vc = self.k_caches[layer_idx], self.v_caches[layer_idx]
             att.write_prefill_kv(kc, vc, *pad(k_new, v_new), new_ids_t)
+            if extra:
+                return cuda_unified.ragged_paged_attention(
+                    q, kc, vc, table[None], *unified.rows(), max_q_len=chunk_len,
+                    **unified.attrs(**extra))
             if self.kv_quantized:
                 # raw int8 context + per-position scales: the kernel
                 # dequantizes in registers (half the context bytes of bf16)
@@ -581,7 +624,7 @@ class TorchEngine:
             k_ctx, v_ctx = att.gather_kv(kc, vc, table)
             return cuda_prefill.flash_extend_attention(q, k_ctx, v_ctx, start, total_len)
 
-        hidden = llama.forward(
+        hidden = self._forward(
             self.params, self.mcfg, self._t(tokens), self._t(positions), attend
         )
         self.step_counts["prefill"] += 1
@@ -605,7 +648,7 @@ class TorchEngine:
         """Sample a prefill's first generated token from its last position
         (step 0 of the request's seeded stream)."""
         slot, s = st.slot, st.req.sampling
-        logits = llama.lm_logits(self.params, self.mcfg, hidden)      # [1, V]
+        logits = self._lm_logits(self.params, self.mcfg, hidden)      # [1, V]
         pen = logits
         if st.counting:
             pen = apply_penalties(
@@ -660,7 +703,7 @@ class TorchEngine:
     def _decode_epilogue(self, hidden: torch.Tensor, seqs: List[Optional[_Seq]],
                          seq_lens: np.ndarray, steps: np.ndarray) -> List[Accepted]:
         """Sample one token for every active row of a decode step."""
-        logits = llama.lm_logits(self.params, self.mcfg, hidden)      # [B, V]
+        logits = self._lm_logits(self.params, self.mcfg, hidden)      # [B, V]
         active = seq_lens > 0
         pen = logits
         if any(st is not None and st.counting for st in seqs):
@@ -706,15 +749,22 @@ class TorchEngine:
         tables = self._t(self._block_tables)
         lens_t = self._t(seq_lens)
         wb, wo = self._t(write_blocks), self._t(write_offsets)
+        # for layers with attention attributes: the decode batch as q_len = 1
+        # rows of the unified kernel (inactive slots: q_len 0)
+        unified = _UnifiedRows(self._t, np.arange(len(seq_lens)), seq_lens > 0, seq_lens)
 
-        def attend(q, k_new, v_new, layer_idx):
+        def attend(q, k_new, v_new, layer_idx, **extra):
             kc, vc = self.k_caches[layer_idx], self.v_caches[layer_idx]
             att.write_decode_kv(kc, vc, k_new[:, 0], v_new[:, 0], wb, wo)
+            if extra:
+                return cuda_unified.ragged_paged_attention(
+                    q[:, 0], kc, vc, tables, *unified.rows(), max_q_len=1,
+                    **unified.attrs(**extra))[:, None]
             return cuda_attention.paged_decode_attention(
                 q[:, 0], kc, vc, tables, lens_t
             )[:, None]
 
-        hidden = llama.forward(
+        hidden = self._forward(
             self.params, self.mcfg, self._t(self._tokens)[:, None],
             self._t(positions)[:, None], attend,
         )                                                   # [B, 1, H]
@@ -737,25 +787,27 @@ class TorchEngine:
         chunk_table = np.zeros((1, self._block_tables.shape[1]), np.int32)
         chunk_table[0] = self._block_tables[st.slot]
         tables = self._t(np.concatenate([chunk_table, self._block_tables]))
-        q_starts = self._t(np.concatenate([[0], S_pad + np.arange(B)]), torch.int32)
-        q_lens = self._t(np.concatenate([[chunk_len], seq_lens > 0]), torch.int32)
-        row_lens = self._t(np.concatenate([[total_len], seq_lens]), torch.int32)
+        unified = _UnifiedRows(self._t, np.concatenate([[0], S_pad + np.arange(B)]),
+                               np.concatenate([[chunk_len], seq_lens > 0]),
+                               np.concatenate([[total_len], seq_lens]))
         c_new_ids_t = self._t(c_new_ids)
         wb, wo = self._t(write_blocks), self._t(write_offsets)
 
         pad = self._pad_rows(chunk_len, S_pad)
 
-        def attend(q, k_new, v_new, layer_idx):
+        def attend(q, k_new, v_new, layer_idx, **extra):
+            # extra: the layer's attention attributes (gemma), if any
             kc, vc = self.k_caches[layer_idx], self.v_caches[layer_idx]
             att.write_prefill_kv(kc, vc, *pad(k_new[:S_pad], v_new[:S_pad]), c_new_ids_t)
             att.write_decode_kv(kc, vc, k_new[S_pad:], v_new[S_pad:], wb, wo)
             return cuda_unified.ragged_paged_attention(
-                q, kc, vc, tables, q_starts, q_lens, row_lens, max_q_len=chunk_len
+                q, kc, vc, tables, *unified.rows(), max_q_len=chunk_len,
+                **unified.attrs(**extra),
             )
 
         tokens = self._t(np.concatenate([c_tokens, self._tokens]))
         pos = self._t(np.concatenate([c_positions, positions]))
-        hidden = llama.forward(self.params, self.mcfg, tokens, pos, attend)
+        hidden = self._forward(self.params, self.mcfg, tokens, pos, attend)
         self.step_counts["mixed"] += 1
         st.prefill_pos = total_len
         results = self._decode_epilogue(hidden[S_pad:], seqs, seq_lens, steps)

@@ -15,13 +15,10 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
+from ..models import registry
 from ..models.llama import LlamaConfig, Params
 
 _TOP = ("embed", "final_norm", "lm_head")
-_LAYER = (
-    "wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "attn_norm",
-    "mlp_norm", "bq", "bk", "bv", "q_norm", "k_norm",
-)
 
 
 def _tensor(arr: Any, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
@@ -37,8 +34,9 @@ def params_from_numpy(
     tree: Dict[str, Any], cfg: LlamaConfig, device: DeviceLike = None
 ) -> Params:
     """Reference pytree of numpy arrays -> port params on ``device`` in
-    ``cfg.dtype``. Unknown keys raise: a parameter this port does not use
-    must not be dropped silently."""
+    ``cfg.dtype``. Each family has its own layer keys (gemma: the sandwich
+    norms). Unknown keys raise: a parameter this port does not use must not
+    be dropped silently."""
     device = resolve_device(device)
     unknown = set(tree) - set(_TOP) - {"layers"}
     if unknown:
@@ -50,9 +48,10 @@ def params_from_numpy(
     out: Params = {
         name: _tensor(tree[name], cfg.dtype, device) for name in _TOP if name in tree
     }
+    layer_keys = set(registry.layer_keys(cfg))
     layers = []
     for i, lp in enumerate(tree["layers"]):
-        bad = set(lp) - set(_LAYER)
+        bad = set(lp) - layer_keys
         if bad:
             raise ValueError(f"layer {i}: unknown parameters {sorted(bad)}")
         layers.append({name: _tensor(w, cfg.dtype, device) for name, w in lp.items()})

@@ -28,6 +28,12 @@ from ..device import DeviceLike, resolve_device
 
 Params = Dict[str, Any]
 
+# the per-layer parameter names (engine/weights.py refuses any other)
+LAYER_KEYS = (
+    "wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "attn_norm",
+    "mlp_norm", "bq", "bk", "bv", "q_norm", "k_norm",
+)
+
 
 @dataclasses.dataclass(frozen=True)
 class LlamaConfig:
@@ -192,8 +198,10 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     return torch.cat([out1, out2], dim=-1).to(x.dtype)
 
 
-# attend(q, k_new, v_new, layer_idx) -> attention output [..., n_heads, head_dim]
-AttendFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, int], torch.Tensor]
+# attend(q, k_new, v_new, layer_idx, **extra) -> attention output
+# [..., n_heads, head_dim]; ``extra`` carries a family's attention attributes
+# (gemma: window, softcap), llama passes none
+AttendFn = Callable[..., torch.Tensor]
 
 
 def layer_forward(

@@ -21,7 +21,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
@@ -123,17 +123,20 @@ def load(source: str) -> ctypes.CDLL:
 class Kernel:
     """One C entry point of one csrc source, with its launch count.
 
-    ``launch`` passes tensors as device pointers, ints as C ints, appends the
-    current CUDA stream, and raises when the entry point reports a CUDA
+    ``launch`` passes tensors as device pointers (None as a null pointer,
+    for an optional argument), ints as C ints, floats as C floats, appends
+    the current CUDA stream, and raises when the entry point reports a CUDA
     error. ``launches`` counts the launches that succeeded; whoever wants to
     see which kernels a run went through sets it to 0 before and reads it
     after."""
 
-    def __init__(self, source: str, entry: str, n_ptrs: int, n_ints: int):
+    def __init__(self, source: str, entry: str, n_ptrs: int, n_ints: int,
+                 n_floats: int = 0):
         self.source = source
         self.entry = entry
         self.n_ptrs = n_ptrs
         self.n_ints = n_ints
+        self.n_floats = n_floats
         self.launches = 0
         self._fn = None
 
@@ -143,18 +146,22 @@ class Kernel:
             fn.argtypes = (
                 [ctypes.c_void_p] * self.n_ptrs
                 + [ctypes.c_int] * self.n_ints
+                + [ctypes.c_float] * self.n_floats
                 + [ctypes.c_void_p]
             )
             fn.restype = ctypes.c_int
             self._fn = fn
         return self._fn
 
-    def launch(self, tensors: Sequence[torch.Tensor], ints: Sequence[int]) -> None:
-        if len(tensors) != self.n_ptrs or len(ints) != self.n_ints:
+    def launch(self, tensors: Sequence[Optional[torch.Tensor]], ints: Sequence[int],
+               floats: Sequence[float] = ()) -> None:
+        if (len(tensors) != self.n_ptrs or len(ints) != self.n_ints
+                or len(floats) != self.n_floats):
             raise TypeError(f"{self.entry}: wrong argument count")
         fn = self._bind()
         stream = torch.cuda.current_stream(tensors[0].device).cuda_stream
-        err = fn(*[t.data_ptr() for t in tensors], *[int(i) for i in ints], stream)
+        ptrs = [None if t is None else t.data_ptr() for t in tensors]
+        err = fn(*ptrs, *[int(i) for i in ints], *[float(x) for x in floats], stream)
         if err != 0:
             raise RuntimeError(f"{self.entry}: CUDA error {err}")
         self.launches += 1

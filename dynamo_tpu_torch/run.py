@@ -1,12 +1,14 @@
 """python -m dynamo_tpu_torch.run — drive TorchEngine in one process.
 
-Counterpart of the reference's ``python -m dynamo_tpu.run`` for the port's
-first slice: the engine runs in-process behind the byte tokenizer (the
-distributed runtime, preprocessor and HTTP frontend are later slices).
+Counterpart of the reference's ``python -m dynamo_tpu.run``: the engine
+runs in-process behind the byte tokenizer (the distributed runtime,
+preprocessor and HTTP frontend are later slices).
 
     python -m dynamo_tpu_torch.run in=text:"hello world" out=llama3-8b
     python -m dynamo_tpu_torch.run in=batch:prompts.txt out=llama3-8b --max-tokens 32
+    python -m dynamo_tpu_torch.run in=text:hi out=gemma2-2b --max-context 8192
     python -m dynamo_tpu_torch.run in=text:hi out=tiny --device cpu
+    python -m dynamo_tpu_torch.run in=text:hi out=tiny-gemma3 --device cpu
     python -m dynamo_tpu_torch.run in=batch:prompts.txt out=llama3-8b \
         --kv-dtype int8 --kvbm-host-gb 4
 
@@ -15,8 +17,11 @@ scales; ``--kvbm-host-gb`` / ``--kvbm-disk-gb`` write sealed KV blocks
 through to a host-memory (G2) and a disk (G3) tier and onboard a cached
 prefix from them, as the reference's worker flags of the same names do.
 
-``out=`` names a preset (random weights from ``--seed``). Serves on the
-GPU by default; ``--device cpu`` runs the plain PyTorch path on the CPU.
+``out=`` names a preset of either family (llama: tiny, qwen3-0.6b,
+llama3-8b, llama3-70b; gemma: tiny-gemma2, tiny-gemma3, gemma2-2b,
+gemma3-4b), with random weights from ``--seed``; ``--max-context`` goes up
+to the model's ``max_position``. Serves on the GPU by default; ``--device
+cpu`` runs the plain PyTorch path on the CPU.
 ``batch:`` reads one prompt per line and prints one JSON line per prompt.
 """
 
@@ -33,7 +38,7 @@ from .kvbm.layout import kv_bytes_per_token
 from .kvbm.pool import KvbmTiers
 from .llm.protocols.common import PreprocessedRequest, SamplingOptions, StopConditions
 from .llm.tokenizer import ByteTokenizer, DecodeStream
-from .models.llama import PRESETS
+from .models.registry import PRESETS
 from .runtime.engine import Context
 
 
@@ -43,9 +48,13 @@ def build_engine(preset: str, device: Optional[str], max_context: int, seed: int
                  kvbm_disk_path: Optional[str] = None) -> TorchEngine:
     if preset not in PRESETS:
         raise SystemExit(f"unknown preset {preset!r} (one of {', '.join(PRESETS)})")
+    model = PRESETS[preset]()
+    if max_context > model.max_position:
+        raise SystemExit(f"--max-context {max_context} exceeds {preset}'s max_position "
+                         f"{model.max_position}")
     buckets = tuple(b for b in (64, 128, 256, 512, 1024, 2048) if b < max_context)
     cfg = TorchEngineConfig(
-        model=PRESETS[preset](), max_context=max_context, seed=seed, device=device,
+        model=model, max_context=max_context, seed=seed, device=device,
         num_blocks=max(512, (max_context // 16) * 16),
         prefill_buckets=buckets + (max_context,), kv_dtype=kv_dtype,
     )

@@ -162,20 +162,119 @@ def test_ragged_paged_attention_matches_jax(case):
     _close(got, want, REF_TOL)
 
 
-def test_unported_extras_raise():
-    """window/sinks/softcap come with a later slice: refused, never ignored."""
-    q = torch.zeros(4, 2, 8)
-    k = torch.zeros(4, 1, 8)
-    with pytest.raises(NotImplementedError):
-        tatt.causal_attention(q, k, k, window=2)
-    with pytest.raises(NotImplementedError):
-        tatt.extend_attention(q, k, k, torch.arange(4), 4, softcap=30.0)
-    with pytest.raises(NotImplementedError):
-        tatt.paged_decode_attention(
-            q, torch.zeros(2, 4, 1, 8), torch.zeros(2, 4, 1, 8),
-            torch.zeros(4, 1, dtype=torch.int32), torch.ones(4, dtype=torch.int32),
-            sinks=torch.zeros(2),
-        )
+# ------------------------------------------ window / sinks / softcap
+# The attention attributes of the gemma and gpt-oss families, each alone and
+# all at once, on every plain op against its JAX twin.
+ATTRS = {
+    "window": dict(window=7),
+    "sinks": dict(sinks=True),
+    "softcap": dict(softcap=5.0),
+    "all": dict(window=5, sinks=True, softcap=5.0),
+}
+
+
+def _attrs(name, rng, h, jax_side):
+    """The attribute kwargs of ATTRS[name] for one side: sinks [h] made
+    with numpy from ``rng``, as a jax or a torch array."""
+    kw = dict(ATTRS[name])
+    if kw.pop("sinks", False):
+        sinks = rng.standard_normal(h).astype(np.float32)
+        kw["sinks"] = jnp.asarray(sinks) if jax_side else _t(sinks)
+    return kw
+
+
+@pytest.mark.parametrize("name", sorted(ATTRS))
+def test_causal_attention_attributes_match_jax(name):
+    rng = np.random.default_rng(20)
+    q = 2 * rng.standard_normal((14, 4, 8)).astype(np.float32)
+    k = 2 * rng.standard_normal((14, 2, 8)).astype(np.float32)
+    v = rng.standard_normal((14, 2, 8)).astype(np.float32)
+    jkw = _attrs(name, np.random.default_rng(1), 4, True)
+    tkw = _attrs(name, np.random.default_rng(1), 4, False)
+    want = jatt.causal_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), **jkw)
+    _close(tatt.causal_attention(_t(q), _t(k), _t(v), **tkw), want, REF_TOL)
+
+
+@pytest.mark.parametrize("name", sorted(ATTRS))
+def test_extend_attention_attributes_match_jax(name):
+    """A continuation chunk over a prefix longer than the window, with the
+    context padded past total_len."""
+    rng = np.random.default_rng(21)
+    start, total, T, h, kvh, d = 17, 30, 40, 8, 2, 16
+    q = 2 * rng.standard_normal((total - start, h, d)).astype(np.float32)
+    k = 2 * rng.standard_normal((T, kvh, d)).astype(np.float32)
+    v = rng.standard_normal((T, kvh, d)).astype(np.float32)
+    pos = np.arange(start, total, dtype=np.int32)
+    jkw = _attrs(name, np.random.default_rng(2), h, True)
+    tkw = _attrs(name, np.random.default_rng(2), h, False)
+    want = jatt.extend_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                 jnp.asarray(pos), jnp.int32(total), **jkw)
+    got = tatt.extend_attention(_t(q), _t(k), _t(v), _t(pos), total, **tkw)
+    _close(got, want, REF_TOL)
+
+
+@pytest.mark.parametrize("name", sorted(ATTRS))
+def test_paged_decode_attributes_match_jax(name):
+    """Windowed rows gather only the trailing pages: rows shorter than the
+    window, rows exactly w, w+1 and w+bs long, and rows several windows
+    long (pages skipped)."""
+    rng = np.random.default_rng(22)
+    w = ATTRS[name].get("window", 0)
+    lens = [1, 3, 33, 47] + ([w, w + 1, w + 8] if w else [9])
+    q, kc, vc, tables, sl = _paged_case(rng, lens, 8, 2, 16, 8, 48, 7)
+    jkw = _attrs(name, np.random.default_rng(3), 8, True)
+    tkw = _attrs(name, np.random.default_rng(3), 8, False)
+    want = jatt.paged_decode_attention(*map(jnp.asarray, (q, kc, vc, tables, sl)), **jkw)
+    got = tatt.paged_decode_attention(*map(_t, (q, kc, vc, tables, sl)), **tkw)
+    _close(got, want, REF_TOL)
+
+
+@pytest.mark.parametrize("name", sorted(ATTRS))
+@pytest.mark.parametrize("per_row", [False, True], ids=["scalar", "per_row"])
+def test_ragged_attributes_match_jax(name, per_row):
+    """The scalar window (a model layer's form) and the per-row windows
+    array (the kernel's form), on prefill segments and decode rows past
+    the window."""
+    rng = np.random.default_rng(23)
+    rows = [(13, 29), (1, 9), (0, 5), (1, 40), (4, 21), (1, 1)]
+    args = _ragged_case(rng, rows)
+    jkw = _attrs(name, np.random.default_rng(4), 8, True)
+    tkw = _attrs(name, np.random.default_rng(4), 8, False)
+    if per_row and "window" in jkw:
+        w = jkw.pop("window")
+        tkw.pop("window")
+        wins = np.asarray([w, 0, w, w + 3, 0, w], np.int32)
+        jkw["windows"], tkw["windows"] = jnp.asarray(wins), _t(wins)
+    want = jatt.ragged_paged_attention(*map(jnp.asarray, args), **jkw)
+    got = tatt.ragged_paged_attention(*map(_t, args), **tkw)
+    _close(got, want, REF_TOL)
+
+
+@pytest.mark.parametrize("w", [8, 9, 16])
+def test_window_edges_match_jax(w):
+    """Off-by-one at the window edge: with bs 8, rows whose context is
+    exactly w, w + 1 and w + bs long, decode rows and prefill segments,
+    key j visible iff p - w < j <= p."""
+    rng = np.random.default_rng(24)
+    rows = [(1, w), (1, w + 1), (1, w + 8), (w, w), (3, w + 1), (5, w + 8)]
+    args = _ragged_case(rng, rows)
+    want = jatt.ragged_paged_attention(*map(jnp.asarray, args), window=w)
+    got = tatt.ragged_paged_attention(*map(_t, args), window=w)
+    _close(got, want, REF_TOL)
+    full = tatt.ragged_paged_attention(*map(_t, args))
+    assert not torch.allclose(got, full), "the window must cut some row"
+
+
+def test_head_dim_256_plain_matches_jax():
+    """Gemma's head_dim (256) with all three attributes on the plain ops."""
+    rng = np.random.default_rng(25)
+    args = _ragged_case(rng, [(9, 40), (1, 33), (1, 12)], h=8, kvh=4, d=256,
+                        bs=16, num_blocks=16, max_blocks=3)
+    sinks = rng.standard_normal(8).astype(np.float32)
+    kw = dict(window=17, softcap=50.0)
+    want = jatt.ragged_paged_attention(*map(jnp.asarray, args), sinks=jnp.asarray(sinks), **kw)
+    got = tatt.ragged_paged_attention(*map(_t, args), sinks=_t(sinks), **kw)
+    _close(got, want, REF_TOL)
 
 
 # ------------------------------------------- kernel plain versions vs Pallas
@@ -218,6 +317,76 @@ def test_unified_plain_matches_pallas_interpret(case):
     )
     got = cuda_unified.ragged_paged_attention(*map(_t, args))
     _close(got, want, KERNEL_TOL)
+
+
+# the attribute row mixes of tests/test_unified_attention.py (ATTR_CASES)
+UNIFIED_ATTR_CASES = {
+    "windowed_rows": dict(rows=[(12, 36), (1, 33), (0, 0), (1, 9)], windows=[7, 16, 0, 0]),
+    "sink_rows": dict(rows=[(8, 24), (1, 17), (1, 5)], sinks=True),
+    "softcap_rows": dict(rows=[(8, 24), (1, 17), (1, 5)], softcap=30.0),
+    "window_sink_softcap": dict(rows=[(12, 20), (1, 33), (0, 0), (1, 9)],
+                                windows=[6, 12, 0, 5], sinks=True, softcap=50.0),
+    "verify_rows": dict(rows=[(4, 12), (4, 21), (0, 0), (1, 33)]),
+    "verify_windowed": dict(rows=[(4, 36), (4, 21), (1, 17)], windows=[9, 0, 11]),
+}
+# bf16 outputs: the two sides round float32 results that differ in the
+# last float32 bits to bf16 (8 significant bits): one bf16 step is 2^-8
+# relative, so up to ~4e-3 on outputs of magnitude ~1
+BF16_TOL = 8e-3
+
+
+@pytest.mark.parametrize("case", sorted(UNIFIED_ATTR_CASES))
+@pytest.mark.parametrize("kind", ["float32", "bf16", "int8"])
+def test_unified_attributes_plain_matches_pallas_interpret(case, kind):
+    """The unified wrapper's plain version with windows / sinks / softcap
+    against the Pallas kernel in interpret mode, on float32, bf16 and
+    int8 caches."""
+    from dynamo_tpu.ops.quant import QuantizedKV as JQuantizedKV
+    from dynamo_tpu.ops.quant import quantize_blocks as jquantize
+    from dynamo_tpu_torch.ops.quant import QuantizedKV, quantize_blocks
+
+    spec = UNIFIED_ATTR_CASES[case]
+    rng = np.random.default_rng(10)
+    q, kc, vc, tables, starts, qlens, lens = _ragged_case(
+        rng, spec["rows"], h=8, kvh=4, d=32, bs=8, num_blocks=64, max_blocks=8)
+    jkw, tkw = {}, {}
+    if "windows" in spec:
+        wins = np.asarray(spec["windows"], np.int32)
+        jkw["windows"], tkw["windows"] = jnp.asarray(wins), _t(wins)
+    if spec.get("sinks"):
+        sinks = rng.standard_normal(8).astype(np.float32)
+        jkw["sinks"], tkw["sinks"] = jnp.asarray(sinks), _t(sinks)
+    if spec.get("softcap"):
+        jkw["softcap"] = tkw["softcap"] = spec["softcap"]
+    meta = (tables, starts, qlens, lens)
+    if kind == "bf16":
+        jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (q, kc, vc))
+        tq, tk, tv = (_t(a).to(torch.bfloat16) for a in (q, kc, vc))
+    elif kind == "int8":
+        jq, tq = jnp.asarray(q), _t(q)
+        jk, jv = (JQuantizedKV(*jquantize(jnp.asarray(a))) for a in (kc, vc))
+        tk, tv = (QuantizedKV(*quantize_blocks(_t(a))) for a in (kc, vc))
+    else:
+        jq, jk, jv = map(jnp.asarray, (q, kc, vc))
+        tq, tk, tv = map(_t, (q, kc, vc))
+    want = pun.ragged_paged_attention(jq, jk, jv, *map(jnp.asarray, meta), **jkw,
+                                      q_seg=4, chunk_tokens=16, interpret=True)
+    got = cuda_unified.ragged_paged_attention(tq, tk, tv, *map(_t, meta), **tkw)
+    _close(got.float(), np.asarray(want.astype(jnp.float32)),
+           BF16_TOL if kind == "bf16" else KERNEL_TOL)
+
+
+def test_unified_wrapper_softcap_zero_is_off():
+    """The wrapper's softcap 0 means no cap (the kernel's convention), and
+    its per-row windows array equals the plain op's scalar window of the
+    same bound."""
+    rng = np.random.default_rng(11)
+    args = [_t(a) for a in _ragged_case(rng, [(6, 20), (1, 17)])]
+    plain = tatt.ragged_paged_attention(*args)
+    assert torch.equal(cuda_unified.ragged_paged_attention(*args, softcap=0.0), plain)
+    wins = torch.tensor([5, 5], dtype=torch.int32)
+    assert torch.equal(tatt.ragged_paged_attention(*args, window=5),
+                       cuda_unified.ragged_paged_attention(*args, windows=wins))
 
 
 def test_kernel_argument_check_refuses_host_tensors():

@@ -77,11 +77,13 @@ def test_importing_every_module_loads_neither_jax_nor_the_reference():
 
 def test_the_walk_covers_every_module_of_the_port():
     """Both checks above walk the package; the modules of each slice must be
-    in that walk (slice 2: int8 KV, block copy, KVBM)."""
+    in that walk (slice 2: int8 KV, block copy, KVBM; slice 3: the gemma
+    family and the model registry)."""
     mods = set(_modules())
     assert {
         "dynamo_tpu_torch.ops.quant", "dynamo_tpu_torch.ops.block_copy",
         "dynamo_tpu_torch.kvbm", "dynamo_tpu_torch.kvbm.layout",
         "dynamo_tpu_torch.kvbm.pool", "dynamo_tpu_torch.engine.engine",
         "dynamo_tpu_torch.engine.sampling", "dynamo_tpu_torch.run", "chip_smoke",
+        "dynamo_tpu_torch.models.gemma", "dynamo_tpu_torch.models.registry",
     } <= mods
