@@ -15,7 +15,15 @@ Phases, in order; any failure raises and the exit code is not 0:
    256) with per-row sliding windows, a softcap and sinks;
    times kernel, plain version, a PyTorch library call doing the same work
    (scaled_dot_product_attention over the gathered, dequantized KV; the
-   port never calls it) and the card's bound. The block-copy kernels
+   port never calls it) and the card's bound; the unified kernel's
+   split-K merge kernel against its plain version on partials shaped like
+   a Gemma decode batch (and against a mutant that counts the sink once
+   per split, which must fail), and one Gemma case whose short rows end in
+   a split that some of their tokens never reach, with sinks on; each
+   Gemma case reads the split counts the kernel wrote and holds them to
+   the plain split plan. The build's SASS must hold
+   tensor-core instructions (HGMMA or HMMA, cuobjdump) in the
+   flash-extend and unified kernels. The block-copy kernels
    (gather, scatter, copy) must be bit-exact on bf16 pages and on the int8
    pair, against index_select / index_copy_ as the library yardstick.
 3. model: a 2-layer model at full Llama-3-8B width runs a prefill, decode
@@ -38,7 +46,8 @@ Phases, in order; any failure raises and the exit code is not 0:
    gemma2-2b at full depth (26 layers, max_context 8192) serves 8
    staggered prompts of up to 8000 tokens on a bf16 cache and 3 on an int8
    cache: every request finishes, the unified kernel served windowed
-   launches and neither the decode nor the flash-extend kernel ran.
+   launches, split rows (by the kernel's own count, in the profiled
+   runs) and neither the decode nor the flash-extend kernel ran.
 5. report: one JSON line with every kernel's numbers, the nvidia-smi line,
    and last the device line ``{"ok": true, "device": {...}}``.
 
@@ -155,6 +164,34 @@ def compare(torch, got, want, name: str) -> float:
             f"worst row relative L2 {worst_row:.4g} (limit {KERNEL_ROW_REL})"
         )
     return err.max().item()
+
+
+# the libraries whose SASS must hold tensor-core instructions
+TENSOR_CORE_LIBS = ("libflash_extend.so", "libunified_attention.so")
+
+
+def tensor_core_instructions(out_dir: str) -> dict:
+    """Counts HGMMA (wgmma) and HMMA (mma.sync) instructions in the SASS of
+    the flash-extend and unified libraries (cuobjdump -sass) and fails if a
+    library has none. Where the toolkit has no cuobjdump it says so."""
+    import shutil
+
+    tool = os.path.join(os.environ.get("CUDA_HOME") or "/usr/local/cuda", "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        tool = shutil.which("cuobjdump")
+    if tool is None:
+        log("SASS check: no cuobjdump in this CUDA toolkit; tensor-core instructions not counted")
+        return {}
+    counts = {}
+    for lib in TENSOR_CORE_LIBS:
+        sass = subprocess.run([tool, "-sass", os.path.join(out_dir, lib)], capture_output=True,
+                              text=True, timeout=300, check=True).stdout
+        counts[lib] = {op: sum(1 for l in sass.splitlines() if op + "." in l or op + " " in l)
+                       for op in ("HGMMA", "HMMA")}
+        log(f"SASS {lib}: {counts[lib]['HGMMA']} HGMMA, {counts[lib]['HMMA']} HMMA")
+        if not sum(counts[lib].values()):
+            raise AssertionError(f"{lib}: no tensor-core instruction in its SASS")
+    return counts
 
 
 # ------------------------------------------------------------- phase 2
@@ -328,7 +365,8 @@ def check_unified(torch, gen, timer, int8=False):
     seq_lens = torch.tensor([sl for _, sl in rows], **i32)
     args = (q, kc, vc, tables, q_starts, q_lens, seq_lens)
     max_q = max(ql for ql, _ in rows)
-    err = compare(torch, cuda_unified.ragged_paged_attention(*args, max_q_len=max_q),
+    bounds = dict(max_q_len=max_q, max_seq_len=max(sl for _, sl in rows))
+    err = compare(torch, cuda_unified.ragged_paged_attention(*args, **bounds),
                   att.ragged_paged_attention(*args), "unified int8" if int8 else "unified")
     # library yardstick: one masked SDPA over the rows padded to a batch
     R, T = len(rows), max(sl for _, sl in rows)
@@ -360,7 +398,7 @@ def check_unified(torch, gen, timer, int8=False):
         "shape": f"rows(q_len,seq_len)={rows} Tq={Tq} h={H} kvh={KVH} d={D} bs={BS} "
                  + ("int8 cache + f32 scales" if int8 else "bf16"),
         "max_abs_err": err,
-        "ms": timer(lambda: cuda_unified.ragged_paged_attention(*args, max_q_len=max_q)),
+        "ms": timer(lambda: cuda_unified.ragged_paged_attention(*args, **bounds)),
         "plain_ms": timer(lambda: att.ragged_paged_attention(*args), reps=5),
         "library_ms": timer(lambda: sdpa(qp, kp, vp, attn_mask=mask)),
         "bound_ms": b, "bound_by": by,
@@ -386,6 +424,17 @@ GEMMA_PROMPTS = (300, 1500, 2600, 4100, 5200, 6000, 7000, 8000)
 # gemma2 sliding layer (window 4096, softcap): each row fills G = 2 of the
 # tile's 64 query rows
 GEMMA_DECODE_ROWS = [(1, n + 16, 4096) for n in GEMMA_PROMPTS]
+# short rows at the kernel's own split size (SPLIT_KEYS = 512): the two
+# 32-token rows, one windowed and one full, end in a split of 7 and of 10
+# keys that starts after the positions of their first 25 and 22 tokens
+# (those see no key there: l = 0, which the merge must weigh 0); a
+# windowed decode row with planted window edges in 3 splits, a 5-token
+# full row in 2, and a windowed segment that fits one split; sinks on, so
+# a sink counted once per split would show. No 512-key split of a row of
+# at most 64 / G = 32 tokens can lie wholly below a token's window: every
+# token's window starts inside the row's first split.
+GEMMA_SPLIT_ROWS = [(32, 3015, 1000), (32, 1034, 0), (20, 2000, 100), (1, 2500, 1024),
+                    (5, 700, 0)]
 # each case one launch over its rows (default GEMMA_ROWS): which attributes
 # it carries
 GEMMA_CASES = {
@@ -395,6 +444,8 @@ GEMMA_CASES = {
     "sinks": dict(sinks=True),
     "window+softcap+sinks": dict(window=True, softcap=True, sinks=True),
     "decode batch, window+softcap": dict(window=True, softcap=True, rows=GEMMA_DECODE_ROWS),
+    "short rows, splits some tokens never reach, window+sinks": dict(
+        window=True, sinks=True, rows=GEMMA_SPLIT_ROWS),
 }
 
 
@@ -590,9 +641,41 @@ def check_unified_attrs(torch, gen, timer, int8=False, flex=None):
         if attrs.get("sinks"):
             kw["sinks"] = sinks
         plain = att.ragged_paged_attention(*args, **kw)
-        err = compare(torch, cuda_unified.ragged_paged_attention(*args, max_q_len=max_q, **kw),
-                      plain, f"unified gemma {name}{tag}")
+        bounds = dict(max_q_len=max_q, max_seq_len=max(sl for _, sl, _ in rows))
+        # the launch logs its grid and the split count per row that the
+        # kernel itself wrote; those must follow the plain split plan
+        cuda_unified.split_log = []
+        try:
+            got = cuda_unified.ragged_paged_attention(*args, **bounds, **kw)
+            (grid, n_dev), = cuda_unified.split_log
+        finally:
+            cuda_unified.split_log = None
+        err = compare(torch, got, plain, f"unified gemma {name}{tag}")
         worst = max(worst, err)
+        n_kernel = n_dev.tolist() if n_dev is not None else [0] * R
+        S, QS = cuda_unified.split_shape(GH, GKVH, max_q, bounds["max_seq_len"])
+        n_plain = [att.split_plan(ql, sl, w if "windows" in kw else 0,
+                                  cuda_unified.SPLIT_KEYS, cuda_unified.KEY_STEP, S)[2]
+                   if S > 1 and 0 < ql <= QS and sl > 0 else 0 for ql, sl, w in rows]
+        if n_kernel != n_plain:
+            raise AssertionError(f"unified gemma {name}{tag}: the kernel split its rows "
+                                 f"{n_kernel}, the plain split plan {n_plain}")
+        tq = att.TILE_ROWS // (GH // GKVH)
+        blocks = GKVH * sum(n if n >= 2 else -(-ql // tq) for (ql, sl, _), n
+                            in zip(rows, n_kernel) if ql > 0 and sl > 0)
+        unreached = None
+        if rows is GEMMA_SPLIT_ROWS:
+            # (row, split, token) triples where the token sees none of the
+            # split's keys (l = 0 for every head), from the plain partials
+            _, _, l, n = att.attention_partials(
+                *args, split_keys=cuda_unified.SPLIT_KEYS, align=cuda_unified.KEY_STEP,
+                windows=kw.get("windows"), max_splits=S)
+            unreached = sum(int((l[r, :c, :ql] == 0).all(-1).sum())
+                            for r, (c, (ql, _, _)) in enumerate(zip(n.tolist(), rows)) if c)
+            if not unreached:
+                raise AssertionError(f"unified gemma {name}: no token misses a whole split")
+            log(f"  unified gemma{tag} {name}: {unreached} (row, split, token) triples "
+                "whose split holds no key the token sees")
         gap = None
         if "windows" in kw:
             gap = edge_gap(torch, args, kw, plain, edges)
@@ -615,8 +698,9 @@ def check_unified_attrs(torch, gen, timer, int8=False, flex=None):
         lib_err = (unpack(library()).float() - plain.float()).abs().max().item()
         cases[name] = {
             "rows": rows, "max_abs_err": err, "window_edge_gap": gap,
-            "ms": timer(lambda: cuda_unified.ragged_paged_attention(
-                *args, max_q_len=max_q, **kw)),
+            "grid": grid, "splits_per_row": n_kernel, "working_blocks": blocks,
+            "tokens_missing_a_split": unreached,
+            "ms": timer(lambda: cuda_unified.ragged_paged_attention(*args, **bounds, **kw)),
             "plain_ms": timer(lambda: att.ragged_paged_attention(*args, **kw), reps=5),
             "library_ms": timer(library), "library": "flex_attention (compiled)"
             if kw.get("softcap") else "scaled_dot_product_attention",
@@ -627,7 +711,13 @@ def check_unified_attrs(torch, gen, timer, int8=False, flex=None):
             + (f", window-edge gap {gap:.3g}" if gap is not None else "")
             + f"; {cases[name]['ms']:.4f} ms kernel, {cases[name]['plain_ms']:.4f} ms plain, "
             f"{cases[name]['library_ms']:.4f} ms library ({cases[name]['library']}, max abs "
-            f"err {lib_err:.3g}), bound {b:.4f} ms ({by})")
+            f"err {lib_err:.3g}), bound {b:.4f} ms ({by}); grid {grid}, splits per row "
+            f"{n_kernel} (the kernel's count), {blocks} working blocks")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    decode = cases["decode batch, window+softcap"]
+    if decode["working_blocks"] < sms:
+        raise AssertionError(f"the Gemma decode batch runs {decode['working_blocks']} working "
+                             f"blocks on {sms} SMs")
     main = cases["window"]
     return {
         "name": "ragged_paged_attention_gemma" + ("_int8" if int8 else ""), "route": "cuda",
@@ -642,6 +732,69 @@ def check_unified_attrs(torch, gen, timer, int8=False, flex=None):
         "max_abs_err": worst, "ms": main["ms"], "plain_ms": main["plain_ms"],
         "library_ms": main["library_ms"], "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"], "cases": cases,
+    }
+
+
+def check_merge(torch, gen, timer):
+    """The split-K merge kernel against its plain version on partial states
+    shaped as the Gemma decode batch leaves them (GEMMA_DECODE_ROWS through
+    the split plan: 8 rows, up to 16 splits of one token, 8 heads, d 256).
+    Each head's split maxima m lie near one level (c_h + N(0, 1)), each
+    split's sum l in [1, 9] (at least 1: the split's own largest key),
+    every split row's second split is empty (l = 0, m = NEG_INF), and the
+    sinks sit near the rows' largest m (c_h + 1.5 + N(0, 1)) so that their
+    mass counts: the plain merge with the sink counted once per split (a
+    mutant) must fail the compare against the kernel."""
+    from dynamo_tpu_torch.ops import attention as att
+    from dynamo_tpu_torch.ops import cuda_unified
+
+    rows = GEMMA_DECODE_ROWS
+    R, dev = len(rows), "cuda"
+    S, QS = cuda_unified.split_shape(GH, GKVH, 1, max(sl for _, sl, _ in rows))
+    n = [att.split_plan(ql, sl, w, cuda_unified.SPLIT_KEYS, cuda_unified.KEY_STEP, S)[2]
+         for ql, sl, w in rows]
+    level = 4 * torch.randn(GH, generator=gen, device=dev)
+    m = level + torch.randn(R, S, QS, GH, generator=gen, device=dev)
+    l = 1 + 8 * torch.rand(R, S, QS, GH, generator=gen, device=dev)
+    acc = torch.randn(R, S, QS, GH, GD, generator=gen, device=dev) * l[..., None]
+    l[:, 1], m[:, 1], acc[:, 1] = 0.0, att.NEG_INF, 0.0
+    i32 = dict(dtype=torch.int32, device=dev)
+    meta = (torch.tensor(n, **i32), torch.arange(R, **i32), torch.ones(R, **i32))
+    args = (acc, m, l, *meta)
+    sinks = level + 1.5 + torch.randn(GH, generator=gen, device=dev)
+    out = torch.zeros(R, GH, GD, dtype=torch.bfloat16, device=dev)
+    got = cuda_unified.merge_attention_partials(*args, out.clone(), sinks)
+    err = compare(torch, got, att.merge_attention_partials(*args, out.clone(), sinks), "merge")
+    # the mutant: every live split seeded with the sink (l_s + exp(sink - m_s))
+    per_split = torch.where(l > 0, l + torch.exp(sinks - m), l)
+    wrong = att.merge_attention_partials(acc, m, per_split, *meta, out.clone())
+    split = [r for r, c in enumerate(n) if c >= 2]
+    moved = ((wrong[split].float() - got[split].float()).norm(dim=-1)
+             / got[split].float().norm(dim=-1))
+    gap = [moved.min().item(), moved.max().item()]
+    try:
+        compare(torch, got, wrong, "merge against its sink-per-split mutant")
+    except AssertionError:
+        pass
+    else:
+        raise AssertionError("merge: a sink counted once per split passes the compare")
+    # bytes: m and l of every split of a split row, the accumulator of the
+    # splits that saw a key (the kernel skips the rest), the output rows,
+    # the row metadata and the sinks
+    live = sum(int((l[r, :n[r]] > 0).sum()) for r in split)
+    b, by = bound(sum(n[r] for r in split) * QS * GH * 8 + live * GD * 4
+                  + len(split) * QS * GH * GD * 2 + 4 * 3 * R + 4 * GH, 0)
+    return {
+        "name": "merge_attention_partials", "route": "cuda",
+        "source": "dynamo_tpu_torch/csrc/unified_attention.cu",
+        "replaces": "dynamo_tpu/ops/pallas_unified.py:93",
+        "serves": "split-K of the unified kernel (kernel 3): merges its partial states",
+        "shape": f"partials of GEMMA_DECODE_ROWS: R={R} S={S} QS={QS} h={GH} d={GD}, "
+                 f"splits per row {n}, sinks on, one empty split per split row",
+        "max_abs_err": err, "sink_per_split_row_gap": gap,
+        "ms": timer(lambda: cuda_unified.merge_attention_partials(*args, out, sinks)),
+        "plain_ms": timer(lambda: att.merge_attention_partials(*args, out, sinks), reps=5),
+        "library_ms": None, "bound_ms": b, "bound_by": by,
     }
 
 
@@ -1083,7 +1236,7 @@ def kernel_counters() -> dict:
         "unified": cuda_unified.KERNEL, "decode_int8": cuda_attention.KERNEL_INT8,
         "flash_extend_int8": cuda_prefill.KERNEL_INT8,
         "unified_int8": cuda_unified.KERNEL_INT8, "gather": bc.GATHER,
-        "scatter": bc.SCATTER, "copy": bc.COPY,
+        "scatter": bc.SCATTER, "copy": bc.COPY, "merge": cuda_unified.MERGE,
     }
 
 
@@ -1106,7 +1259,7 @@ def read_launches() -> dict:
 def device_time_by_kind(prof) -> dict:
     """Summed kernel time (ms) from a CUDA-activity profile, by kind."""
     kinds = {"decode_kernel": "paged_decode_kernel", "flash_kernel": "flash_extend_kernel",
-             "unified_kernel": "unified_kernel"}
+             "unified_kernel": "unified_kernel", "merge_kernel": "merge_kernel"}
     gemm_tags = ("gemm", "nvjet", "xmma", "cutlass", "cublas")
     out = dict.fromkeys(list(kinds) + ["gemm", "other"], 0.0)
     n, top = 0, []
@@ -1397,13 +1550,16 @@ async def serve_gemma(torch, int8=False, profile=False):
     (the int8 form with ``int8``) served windowed launches, and neither
     the decode nor the flash-extend kernel launched (every Gemma layer goes
     through the unified kernel). ``profile``: under torch.profiler (CUDA
-    activity), returning the device time by kernel kind instead."""
+    activity), returning the device time by kernel kind instead, and the
+    rows the kernel split by its own count (it must split some: decode
+    rows of thousands of keys)."""
     from dynamo_tpu_torch.engine.engine import TorchEngine, TorchEngineConfig
     from dynamo_tpu_torch.llm.protocols.common import (
         PreprocessedRequest, SamplingOptions, StopConditions,
     )
     from dynamo_tpu_torch.llm.tokenizer import ByteTokenizer
     from dynamo_tpu_torch.models.gemma import GemmaConfig
+    from dynamo_tpu_torch.ops import cuda_unified
     from dynamo_tpu_torch.runtime import Context
 
     mcfg = GemmaConfig.gemma2_2b()
@@ -1453,6 +1609,9 @@ async def serve_gemma(torch, int8=False, profile=False):
         prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
         prof.__enter__()
     reset_launches()
+    # the kernel's own split counts of every launch: logging them costs
+    # host time, so only the profiled runs (which report device time) do
+    cuda_unified.split_log = [] if prof is not None else None
     t0 = time.perf_counter()
     try:
         await asyncio.gather(*(one(i, p) for i, p in enumerate(prompts)))
@@ -1461,6 +1620,7 @@ async def serve_gemma(torch, int8=False, profile=False):
         torch.cuda.synchronize()
         if prof is not None:
             prof.__exit__(None, None, None)
+        split_log, cuda_unified.split_log = cuda_unified.split_log, None
     wall = time.perf_counter() - t0
     launches = read_launches()
     for s in stats:
@@ -1472,6 +1632,14 @@ async def serve_gemma(torch, int8=False, profile=False):
     unified = "unified_int8" if int8 else "unified"
     if launches[unified] <= 0 or launches["unified_windowed"] <= 0:
         raise AssertionError(f"{tag}: the {unified} kernel served no windowed launch: {launches}")
+    split_rows = split_launches = None
+    if split_log is not None:
+        counts = [(n >= 2).sum() for _, n in split_log if n is not None]
+        per_launch = torch.stack(counts).tolist() if counts else []
+        split_rows, split_launches = sum(per_launch), sum(1 for c in per_launch if c)
+        if not split_rows:
+            raise AssertionError(f"{tag}: the kernel split no row (decode rows of up to "
+                                 f"{max(lens)} keys) in {len(split_log)} launches")
     split = [n for n in ("decode", "flash_extend", "decode_int8", "flash_extend_int8")
              if launches[n]]
     if split:
@@ -1483,7 +1651,8 @@ async def serve_gemma(torch, int8=False, profile=False):
         busy_ms = sum(v for k, v in by_kind.items() if k not in ("kernels", "top"))
         return {"wall_s": wall, "device_busy_ms": busy_ms,
                 "busy_share": busy_ms / (wall * 1e3), "device_ms": by_kind,
-                "steps": dict(engine.step_counts)}
+                "steps": dict(engine.step_counts), "launches": launches,
+                "split_rows": split_rows, "launches_with_split_rows": split_launches}
     ttft = sorted(s["ttft_s"] for s in stats)
     itl = sorted(s["itl_s"] for s in stats)
     n_out = sum(len(s["tokens"]) for s in stats)
@@ -1533,6 +1702,7 @@ def main() -> int:
             with open(os.path.join(out_dir, name)) as f:
                 regs = [l.strip() for l in f if "registers" in l or "spill" in l]
             log(f"  {name[:-4]}: " + " | ".join(regs))
+    tensor_core_instructions(out_dir)
 
     results = {}
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1562,6 +1732,14 @@ def main() -> int:
             log(f"kernel {r['name']}: max abs err {r['max_abs_err']:.3g} over "
                 f"{len(r['cases'])} cases (atol {KERNEL_ATOL}, rtol {KERNEL_RTOL}, row "
                 f"{KERNEL_ROW_REL}) [{time.perf_counter() - t0:.1f} s]")
+        r = check_merge(torch, gen, timer)
+        results[r["name"]] = r
+        log(f"kernel {r['name']}: max abs err {r['max_abs_err']:.3g} (atol {KERNEL_ATOL}, "
+            f"rtol {KERNEL_RTOL}, row {KERNEL_ROW_REL}); {r['ms']:.4f} ms kernel, "
+            f"{r['plain_ms']:.4f} ms plain, bound {r['bound_ms']:.4f} ms ({r['bound_by']}); "
+            "the sink counted once per split moves the split rows by "
+            f"{r['sink_per_split_row_gap'][0]:.3g}-{r['sink_per_split_row_gap'][1]:.3g} "
+            "(relative L2) and fails the compare")
         worst = check_group_sizes(torch, gen)
         log(f"kernels at 1, 2 and 8 query heads per kv head, bf16 and int8: max abs "
             f"err {worst:.3g} (atol {KERNEL_ATOL}, rtol {KERNEL_RTOL}, row {KERNEL_ROW_REL})")
@@ -1651,16 +1829,23 @@ def main() -> int:
                 f"{run['launches']['unified_windowed']}; steps {run['steps']}")
             gc.collect()
             torch.cuda.empty_cache()
-        # the bf16 Gemma traffic again on a fresh engine under torch.profiler
-        log("serving gemma profile: " + json.dumps(asyncio.run(serve_gemma(torch, profile=True))))
-        gc.collect()
-        torch.cuda.empty_cache()
+        # each Gemma traffic again on a fresh engine under torch.profiler
+        for int8 in (False, True):
+            tag = "gemma int8" if int8 else "gemma"
+            prof = asyncio.run(serve_gemma(torch, int8=int8, profile=True))
+            log(f"serving {tag} profile: " + json.dumps(prof))
+            log(f"serving {tag} profile: {prof['launches_with_split_rows']} of "
+                f"{prof['launches']['unified_int8' if int8 else 'unified']} unified launches "
+                f"split rows ({prof['split_rows']} rows split, by the kernel's count)")
+            gc.collect()
+            torch.cuda.empty_cache()
     if phases != {"kernels", "model", "serve"}:
         log("partial run (--phases): no report")
         return 1
     # launches: each kernel's count from the serving run of its path (the
-    # float run for the float kernels, the int8 + KVBM run for the rest;
-    # no engine path calls copy_blocks, as in the reference)
+    # float run for the float kernels, the int8 + KVBM run for the rest,
+    # the Gemma run for the merge; no engine path calls copy_blocks, as in
+    # the reference)
     kernels = []
     for name, key, run in (
             ("paged_decode_attention", "decode", serving),
@@ -1673,7 +1858,8 @@ def main() -> int:
             ("scatter_blocks", "scatter", kvbm_run),
             ("copy_blocks", "copy", kvbm_run),
             ("ragged_paged_attention_gemma", "unified", gemma_runs["bf16"]),
-            ("ragged_paged_attention_gemma_int8", "unified_int8", gemma_runs["int8"])):
+            ("ragged_paged_attention_gemma_int8", "unified_int8", gemma_runs["int8"]),
+            ("merge_attention_partials", "merge", gemma_runs["bf16"])):
         r = dict(results[name], launches=run["launches"][key])
         r["max_err"], r["kernel_ms"] = r["max_abs_err"], r["ms"]
         kernels.append(r)

@@ -172,13 +172,16 @@ def _has_penalties(s) -> bool:
 class _UnifiedRows:
     """One step's arguments of the unified kernel, each moved to the
     device on first use: the row arrays (q_starts, q_lens, seq_lens), and
-    one [R] windows array per distinct window a layer asks for."""
+    one [R] windows array per distinct window a layer asks for; and
+    ``max_seq_len``, the host's bound on seq_lens that sizes the kernel's
+    split-K grid."""
 
     def __init__(self, to_device, q_starts, q_lens, seq_lens):
         self._t = to_device
         self._host = (q_starts, q_lens, seq_lens)
         self._rows = None
         self._windows = {}
+        self.max_seq_len = int(np.max(seq_lens, initial=0))
 
     def rows(self) -> List[torch.Tensor]:
         if self._rows is None:
@@ -614,7 +617,7 @@ class TorchEngine:
             if extra:
                 return cuda_unified.ragged_paged_attention(
                     q, kc, vc, table[None], *unified.rows(), max_q_len=chunk_len,
-                    **unified.attrs(**extra))
+                    max_seq_len=unified.max_seq_len, **unified.attrs(**extra))
             if self.kv_quantized:
                 # raw int8 context + per-position scales: the kernel
                 # dequantizes in registers (half the context bytes of bf16)
@@ -759,7 +762,7 @@ class TorchEngine:
             if extra:
                 return cuda_unified.ragged_paged_attention(
                     q[:, 0], kc, vc, tables, *unified.rows(), max_q_len=1,
-                    **unified.attrs(**extra))[:, None]
+                    max_seq_len=unified.max_seq_len, **unified.attrs(**extra))[:, None]
             return cuda_attention.paged_decode_attention(
                 q[:, 0], kc, vc, tables, lens_t
             )[:, None]
@@ -802,7 +805,7 @@ class TorchEngine:
             att.write_decode_kv(kc, vc, k_new[S_pad:], v_new[S_pad:], wb, wo)
             return cuda_unified.ragged_paged_attention(
                 q, kc, vc, tables, *unified.rows(), max_q_len=chunk_len,
-                **unified.attrs(**extra),
+                max_seq_len=unified.max_seq_len, **unified.attrs(**extra),
             )
 
         tokens = self._t(np.concatenate([c_tokens, self._tokens]))

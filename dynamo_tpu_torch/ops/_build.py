@@ -21,7 +21,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Union
 
 import torch
 
@@ -124,7 +124,8 @@ class Kernel:
     """One C entry point of one csrc source, with its launch count.
 
     ``launch`` passes tensors as device pointers (None as a null pointer,
-    for an optional argument), ints as C ints, floats as C floats, appends
+    for an optional argument; an int as a device address inside a tensor
+    the caller holds; the first must be a tensor), ints as C ints, floats as C floats, appends
     the current CUDA stream, and raises when the entry point reports a CUDA
     error. ``launches`` counts the launches that succeeded; whoever wants to
     see which kernels a run went through sets it to 0 before and reads it
@@ -153,14 +154,14 @@ class Kernel:
             self._fn = fn
         return self._fn
 
-    def launch(self, tensors: Sequence[Optional[torch.Tensor]], ints: Sequence[int],
+    def launch(self, tensors: Sequence[Union[torch.Tensor, int, None]], ints: Sequence[int],
                floats: Sequence[float] = ()) -> None:
         if (len(tensors) != self.n_ptrs or len(ints) != self.n_ints
                 or len(floats) != self.n_floats):
             raise TypeError(f"{self.entry}: wrong argument count")
         fn = self._bind()
         stream = torch.cuda.current_stream(tensors[0].device).cuda_stream
-        ptrs = [None if t is None else t.data_ptr() for t in tensors]
+        ptrs = [t if t is None or isinstance(t, int) else t.data_ptr() for t in tensors]
         err = fn(*ptrs, *[int(i) for i in ints], *[float(x) for x in floats], stream)
         if err != 0:
             raise RuntimeError(f"{self.entry}: CUDA error {err}")

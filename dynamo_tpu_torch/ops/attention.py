@@ -324,15 +324,25 @@ def ragged_paged_attention(
 
     Same semantics as the reference twin, computed row by row over each
     row's own segment instead of masking the whole packed buffer per row."""
-    R = q_starts.shape[0]
+    wins = _row_windows(q_starts.shape[0], window, windows)
+    return _ragged_rows(q, k_cache, v_cache, block_tables, q_starts, q_lens, seq_lens,
+                        wins, sinks, softcap).to(q.dtype)
+
+
+def _row_windows(R: int, window: Optional[int], windows: Optional[torch.Tensor]):
+    """Per-row windows as host ints (<= 0: full attention)."""
     if windows is not None:
-        wins = windows.tolist()
-    else:
-        wins = [0 if window is None else int(window)] * R
+        return windows.tolist()
+    return [0 if window is None else int(window)] * R
+
+
+def _ragged_rows(q, k_cache, v_cache, block_tables, q_starts, q_lens, seq_lens, wins,
+                 sinks, softcap, skip=()):
+    """ragged_paged_attention's rows in float32, rows in ``skip`` left zero."""
     out = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     rows = zip(q_starts.tolist(), q_lens.tolist(), seq_lens.tolist(), wins)
     for r, (qs, ql, sl, w) in enumerate(rows):
-        if ql <= 0 or sl <= 0:
+        if ql <= 0 or sl <= 0 or r in skip:
             continue
         k, v = gather_kv(k_cache, v_cache, block_tables[r])
         pos = torch.arange(sl - ql, sl, device=q.device)
@@ -340,4 +350,144 @@ def ragged_paged_attention(
                                window=w if w > 0 else None, sinks=sinks,
                                softcap=softcap)
         out[qs:qs + ql] += seg
+    return out
+
+
+# ---------------------------------------------------------------- split-K
+# The unified kernel (csrc/unified_attention.cu) cuts the keys of a row
+# that fits one q tile (q_len <= TILE_ROWS // G tokens: decode rows, short
+# segments) into splits, computes each split's partial softmax state in its
+# own block and merges the partials in a second kernel. These are the plain
+# versions of both steps, and of the two together.
+
+TILE_ROWS = 64      # query-head rows of one kernel tile (G heads x TILE_ROWS // G tokens)
+SPLIT_PAGES = 32    # pages of 16 keys per split: the kernel's SPLIT_KEYS = 512
+
+
+def split_plan(q_len: int, seq_len: int, window: int, split_keys: int, align: int,
+               max_splits: Optional[int] = None) -> Tuple[int, int, int]:
+    """How a one-tile row's keys are split: (first, split, n). The live
+    keys are [first, seq_len), ``first`` being the first key the row's
+    earliest token sees (window <= 0: 0) floored to ``align``; split s
+    covers [first + s * split, first + (s + 1) * split). ``split`` is
+    ``split_keys``, or longer where the range would need more than
+    ``max_splits`` splits (rounded up to ``align``); ``n`` is the number of
+    splits, 0 where one would do (the row is then not split)."""
+    lo = max(seq_len - q_len - window + 1, 0) if window > 0 else 0
+    first = lo - lo % align
+    span = seq_len - first
+    split = split_keys
+    if max_splits:
+        split = max(split, -(-(-(-span // max_splits)) // align) * align)
+    n = -(-span // split)
+    return first, split, n if n >= 2 else 0
+
+
+def attention_partials(
+    q: torch.Tensor, k_cache, v_cache, block_tables: torch.Tensor,
+    q_starts: torch.Tensor, q_lens: torch.Tensor, seq_lens: torch.Tensor,
+    *, split_keys: int, align: int, windows: Optional[torch.Tensor] = None,
+    softcap: Optional[float] = None, max_splits: Optional[int] = None,
+):
+    """The partial softmax states of ragged_paged_attention's split rows:
+    rows of ``0 < q_len <= TILE_ROWS // G`` tokens whose keys span two or
+    more splits (split_plan). Returns (acc [R, S, QS, h, d] unnormalized
+    sum of p * v, m [R, S, QS, h] the split's row max over its visible
+    keys, l [R, S, QS, h] its sum of exp(s - m), n_splits [R] int32, 0 for
+    rows not split), QS = TILE_ROWS // G, all float32. A split that sees no
+    key of a row has m = NEG_INF, l = 0, acc = 0 there; sinks are no
+    split's (the merge counts them once)."""
+    R = q_starts.shape[0]
+    _, h, d = q.shape
+    G = h // k_cache.shape[2]
+    QS = TILE_ROWS // G
+    wins = _row_windows(R, None, windows)
+    rows = list(zip(q_starts.tolist(), q_lens.tolist(), seq_lens.tolist(), wins))
+    plans = [split_plan(ql, sl, w, split_keys, align, max_splits)
+             if 0 < ql <= QS and sl > 0 else (0, 0, 0) for _, ql, sl, w in rows]
+    S = max([1] + [n for _, _, n in plans])
+    acc = torch.zeros(R, S, QS, h, d, dtype=torch.float32, device=q.device)
+    m = torch.full((R, S, QS, h), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros(R, S, QS, h, dtype=torch.float32, device=q.device)
+    for r, ((qs, ql, sl, w), (first, split, n)) in enumerate(zip(rows, plans)):
+        if not n:
+            continue
+        k, v = gather_kv(k_cache, v_cache, block_tables[r])
+        scores = _softcap(_gqa_scores(q[qs:qs + ql].float(), k) * _scale(d), softcap)
+        key_pos = torch.arange(k.shape[0], device=q.device)
+        pos = torch.arange(sl - ql, sl, device=q.device)
+        visible = key_pos[None, :] <= pos[:, None]                        # [ql, T]
+        if w > 0:
+            visible &= key_pos[None, :] > pos[:, None] - w
+        for s in range(n):
+            a, b = first + s * split, min(first + (s + 1) * split, sl)
+            vis = (visible & (key_pos >= a) & (key_pos < b))[:, None, :]  # [ql, 1, T]
+            sc = torch.where(vis, scores, NEG_INF)
+            mx = sc.amax(dim=-1)                                          # [ql, h]
+            p = torch.where(vis, torch.exp(sc - mx[..., None]), 0.0)
+            acc[r, s, :ql] = _gqa_values(p, v)
+            m[r, s, :ql] = mx
+            l[r, s, :ql] = p.sum(dim=-1)
+    return acc, m, l, torch.tensor([n for _, _, n in plans], dtype=torch.int32,
+                                   device=q.device)
+
+
+def merge_attention_partials(
+    acc: torch.Tensor,       # [R, S, QS, h, d] f32
+    m: torch.Tensor,         # [R, S, QS, h]
+    l: torch.Tensor,         # [R, S, QS, h]
+    n_splits: torch.Tensor,  # [R] int (< 2: the row is not split)
+    q_starts: torch.Tensor,  # [R]
+    q_lens: torch.Tensor,    # [R]
+    out: torch.Tensor,       # [Tq, h, d], written in place at the split rows' tokens
+    sinks: Optional[torch.Tensor] = None,   # [h] f32
+) -> torch.Tensor:
+    """Each split row's tokens from its partial states, taken in split
+    order: M = max(sink, m_s over splits with l_s > 0), out = sum_s
+    exp(m_s - M) acc_s / max(exp(sink - M) + sum_s exp(m_s - M) l_s, 1e-30).
+    The sink enters once; a split that saw no key (l_s = 0) weighs 0.
+    Returns ``out``."""
+    sk = None if sinks is None else sinks.to(device=acc.device, dtype=torch.float32)
+    rows = zip(n_splits.tolist(), q_starts.tolist(), q_lens.tolist())
+    for r, (n, qs, ql) in enumerate(rows):
+        if n < 2:
+            continue
+        live = l[r, :n, :ql] > 0                                          # [n, ql, h]
+        ms = torch.where(live, m[r, :n, :ql], NEG_INF)
+        M = ms.amax(dim=0)
+        if sk is not None:
+            M = torch.maximum(M, sk)
+        L = torch.exp(sk - M) if sk is not None else torch.zeros_like(M)
+        o = torch.zeros(acc.shape[2:], dtype=torch.float32, device=acc.device)[:ql]
+        for s in range(n):
+            w = torch.where(live[s], torch.exp(ms[s] - M), 0.0)
+            L = L + l[r, s, :ql] * w
+            o = o + w[..., None] * acc[r, s, :ql]
+        out[qs:qs + ql] = (o / torch.clamp(L, min=1e-30)[..., None]).to(out.dtype)
+    return out
+
+
+def split_ragged_paged_attention(
+    q: torch.Tensor, k_cache, v_cache, block_tables: torch.Tensor,
+    q_starts: torch.Tensor, q_lens: torch.Tensor, seq_lens: torch.Tensor,
+    *, window: Optional[int] = None, windows: Optional[torch.Tensor] = None,
+    sinks: Optional[torch.Tensor] = None, softcap: Optional[float] = None,
+    split_pages: int = SPLIT_PAGES,
+) -> torch.Tensor:
+    """ragged_paged_attention computed as the unified kernel does with
+    split-K: one-tile rows whose keys span more than ``split_pages`` pages
+    go through attention_partials (splits of ``split_pages`` pages, from
+    the page holding the row's first live key) and
+    merge_attention_partials; every other row directly. The same function
+    as ragged_paged_attention."""
+    R = q_starts.shape[0]
+    bs = k_cache.shape[1]
+    wins = torch.tensor(_row_windows(R, window, windows), dtype=torch.int32)
+    acc, m, l, n = attention_partials(
+        q, k_cache, v_cache, block_tables, q_starts, q_lens, seq_lens,
+        split_keys=split_pages * bs, align=bs, windows=wins, softcap=softcap)
+    split = {r for r, c in enumerate(n.tolist()) if c >= 2}
+    out = _ragged_rows(q, k_cache, v_cache, block_tables, q_starts, q_lens, seq_lens,
+                       wins.tolist(), sinks, softcap, skip=split)
+    merge_attention_partials(acc, m, l, n, q_starts, q_lens, out, sinks)
     return out.to(q.dtype)

@@ -2,13 +2,15 @@
 ops/pallas_prefill.py (``flash_extend_attention``).
 
 The kernel is ``csrc/flash_extend.cu`` (one block per (q tile, kv head),
-online softmax over the gathered context, KV tiles past the tile's causal
-limit skipped). It takes any ``S`` and ``T``: there are no tile-multiple
+S and P.V on the tensor cores with the online softmax in registers over a
+cp.async ring of context tiles, tiles past the tile's causal limit
+skipped). It takes any ``S`` and ``T``: there are no tile-multiple
 constraints, so the engine runs it for every prefill chunk. On CPU tensors
 this wrapper runs the plain version; on CUDA tensors it launches the kernel
 or raises. With ``k_scales``/``v_scales`` the context is int8 (a
-quantized cache gathered raw by ``ops.attention.gather_kv_quant``) and
-``KERNEL_INT8`` dequantizes it on its way into shared memory.
+quantized cache gathered raw by ``ops.attention.gather_kv_quant``):
+``KERNEL_INT8`` copies the int8 rows, converts them to bf16 exactly and
+applies the scales to the f32 score and probability columns.
 """
 
 from __future__ import annotations
