@@ -23,8 +23,16 @@ Phases, in order; any failure raises and the exit code is not 0:
    Gemma case reads the split counts the kernel wrote and holds them to
    the plain split plan. The build's SASS must hold
    tensor-core instructions (HGMMA or HMMA, cuobjdump) in the
-   flash-extend and unified kernels. The block-copy kernels
-   (gather, scatter, copy) must be bit-exact on bf16 pages and on the int8
+   decode, flash-extend and unified kernels. The decode kernel runs the check
+   batch, 8 rows at llama serving's 4096-key limit and one such row alone,
+   each against its plain version (and the plain split form), with the
+   split counts the kernel wrote held to the plain split plan, at least
+   one working block per SM on the first two, a plain merge that drops
+   each row's last split failing the compare, and SDPA and the unified
+   kernel (as q_len = 1 rows) timed on the same rows. The page-copy
+   kernel (gather, scatter, copy, the int8 pair in one launch, and the
+   layer-batched gather_layers / scatter_layers over 32 Llama-3-8B layer
+   caches in one launch) must be bit-exact on bf16 pages and on the int8
    pair, against index_select / index_copy_ as the library yardstick.
 3. model: a 2-layer model at full Llama-3-8B width runs a prefill, decode
    steps and a ragged 2-token step through the model's attend hook, once
@@ -41,8 +49,10 @@ Phases, in order; any failure raises and the exit code is not 0:
    run during it. Then the same engine with the int8 KV cache and a KVBM
    host tier serves three waves (first, churn, repeat): the repeats
    onboard their evicted prefixes from the host tier; the int8 attention
-   kernels and the gather and scatter kernels must all have run, and an
-   onboarded block must re-encode bit-exactly to its stored bytes. Then
+   kernels and the layer-batched gather and scatter must all have run,
+   one gather launch per offload batch and one scatter launch per
+   onboard, and an onboarded block must re-encode bit-exactly to its
+   stored bytes. Then
    gemma2-2b at full depth (26 layers, max_context 8192) serves 8
    staggered prompts of up to 8000 tokens on a bf16 cache and 3 on an int8
    cache: every request finishes, the unified kernel served windowed
@@ -167,13 +177,13 @@ def compare(torch, got, want, name: str) -> float:
 
 
 # the libraries whose SASS must hold tensor-core instructions
-TENSOR_CORE_LIBS = ("libflash_extend.so", "libunified_attention.so")
+TENSOR_CORE_LIBS = ("libdecode_attention.so", "libflash_extend.so", "libunified_attention.so")
 
 
 def tensor_core_instructions(out_dir: str) -> dict:
     """Counts HGMMA (wgmma) and HMMA (mma.sync) instructions in the SASS of
-    the flash-extend and unified libraries (cuobjdump -sass) and fails if a
-    library has none. Where the toolkit has no cuobjdump it says so."""
+    the decode, flash-extend and unified libraries (cuobjdump -sass) and
+    fails if a library has none. Where the toolkit has no cuobjdump it says so."""
     import shutil
 
     tool = os.path.join(os.environ.get("CUDA_HOME") or "/usr/local/cuda", "bin", "cuobjdump")
@@ -239,25 +249,79 @@ def expand_kv(torch, kc, vc, table, T, h=H):
             v[:T].to(torch.bfloat16).repeat_interleave(g, dim=1).transpose(0, 1))
 
 
-def check_decode(torch, gen, timer, int8=False):
-    from dynamo_tpu_torch.ops import attention as att
-    from dynamo_tpu_torch.ops import cuda_attention
+# decode kernel cases: the check batch (the lens of every earlier timing), rows at
+# llama serving's 4096-key limit, and one such row alone
+DECODE_CASES = {
+    "check batch": [1, 17, 250, 999, 2100, 513, 77, 1500],
+    "long rows": [3000, 4096, 3500, 3900, 3100, 4000, 3300, 3700],
+    "one long row": [4096],
+}
+# the cases whose split-K must reach the SM count in working blocks
+DECODE_FILL = ("check batch", "long rows")
 
-    lens = [1, 17, 250, 999, 2100, 513, 77, 1500]
-    kc, vc, tables = paged_case(torch, gen, lens, num_blocks=512, int8=int8)
+
+def decode_case(torch, gen, timer, lens, int8, sms):
+    """One decode case: the kernel against its plain version (and the plain
+    split form), the split counts the kernel wrote against att.split_plan,
+    the drop-last-split mutant of the plain merge (must fail the compare),
+    and the times of the kernel, the plain version, SDPA and the unified
+    kernel on the same rows as q_len = 1 rows."""
+    from dynamo_tpu_torch.ops import attention as att
+    from dynamo_tpu_torch.ops import cuda_attention, cuda_unified
+
+    pages = sum(-(-n // BS) for n in lens)
+    kc, vc, tables = paged_case(torch, gen, lens, num_blocks=pages + 64, int8=int8)
     B = len(lens)
     q = torch.randn(B, H, D, generator=gen, device="cuda").to(torch.bfloat16)
-    seq_lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    i32 = dict(dtype=torch.int32, device="cuda")
+    seq_lens = torch.tensor(lens, **i32)
     args = (q, kc, vc, tables, seq_lens)
-    name = "decode int8" if int8 else "decode"
-    err = compare(torch, cuda_attention.paged_decode_attention(*args),
-                  att.paged_decode_attention(*args), name)
+    bound_kw = dict(max_seq_len=max(lens))
+    tag = f"decode{' int8' if int8 else ''} {lens if B < 9 else B}"
+    cuda_attention.split_log = []
+    try:
+        got = cuda_attention.paged_decode_attention(*args, **bound_kw)
+        (grid, n_dev), = cuda_attention.split_log
+    finally:
+        cuda_attention.split_log = None
+    err = compare(torch, got, att.paged_decode_attention(*args), tag)
+    S = cuda_attention.split_extent(max(lens))
+    compare(torch, got, att.split_paged_decode_attention(
+        *args, split_keys=cuda_attention.DEC_SPLIT_KEYS, max_splits=S), tag + " (plain split)")
+    n_kernel = n_dev.tolist()
+    n_plain = [att.split_plan(1, n, 0, cuda_attention.DEC_SPLIT_KEYS, BS, S)[2] if S > 1
+               else 0 for n in lens]
+    if n_kernel != n_plain:
+        raise AssertionError(f"{tag}: the kernel split its rows {n_kernel}, the plain split "
+                             f"plan {n_plain}")
+    blocks = KVH * sum(max(n, 1) for n in n_kernel)
+    # the mutant: the plain merge without each split row's last split
+    starts = torch.arange(B, dtype=torch.int32)
+    ones = torch.ones(B, dtype=torch.int32)
+    acc, m, l, n = att.attention_partials(
+        q, kc, vc, tables, starts, ones, seq_lens.cpu(),
+        split_keys=cuda_attention.DEC_SPLIT_KEYS, align=BS, max_splits=S)
+    for r, c in enumerate(n.tolist()):
+        if c >= 2:
+            l[r, c - 1] = 0.0
+    if not any(c >= 2 for c in n.tolist()):
+        raise AssertionError(f"{tag}: no row is split")
+    wrong = att.merge_attention_partials(acc, m, l, n, starts, ones, got.clone())
+    try:
+        compare(torch, got, wrong, tag + " against its drop-last-split mutant")
+    except AssertionError:
+        pass
+    else:
+        raise AssertionError(f"{tag}: a merge without the last split passes the compare")
+    del acc, m, l, wrong
     T = max(lens)
     ks, vs = zip(*(expand_kv(torch, kc, vc, tables[r], T) for r in range(B)))
     kl, vl = torch.stack(ks), torch.stack(vs)                  # [B, H, T, D]
+    del ks, vs
     mask = (torch.arange(T, device="cuda")[None, :] < seq_lens[:, None])[:, None, None, :]
     ql = q[:, :, None, :]
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    uargs = (q, kc, vc, tables, torch.arange(B, **i32), torch.ones(B, **i32), seq_lens)
     n_keys = sum(lens)
     b, by = bound(
         2 * 2 * B * H * D                       # q in, out
@@ -265,17 +329,48 @@ def check_decode(torch, gen, timer, int8=False):
         + 4 * (B + sum(-(-n // BS) for n in lens)),
         4 * n_keys * H * D,
     )
+    ms = timer(lambda: cuda_attention.paged_decode_attention(*args, **bound_kw))
+    out = {
+        "lens": lens, "max_abs_err": err, "grid": grid, "splits_per_row": n_kernel,
+        "working_blocks": blocks, "drop_last_split_mutant_fails": True,
+        "ms": ms,
+        "plain_ms": timer(lambda: att.paged_decode_attention(*args), reps=5),
+        "library_ms": timer(lambda: sdpa(ql, kl, vl, attn_mask=mask)),
+        "unified_ms": timer(lambda: cuda_unified.ragged_paged_attention(
+            *uargs, max_q_len=1, **bound_kw)),
+        "bound_ms": b, "bound_by": by, "achieved_tb_s": b / ms * HBM_BYTES_S / 1e12,
+    }
+    log(f"  {tag}: max abs err {err:.3g}; {ms:.4f} ms kernel, {out['plain_ms']:.4f} ms "
+        f"plain, {out['library_ms']:.4f} ms SDPA, {out['unified_ms']:.4f} ms unified "
+        f"(q_len 1 rows), bound {b:.4f} ms ({by}), {out['achieved_tb_s']:.2f} TB/s; grid "
+        f"{grid}, splits per row {n_kernel} (the kernel's count), {blocks} working blocks "
+        f"on {sms} SMs")
+    return out
+
+
+def check_decode(torch, gen, timer, int8=False):
+    """The decode kernel on each DECODE_CASES case; the top-level numbers
+    are the check batch's (the shapes every earlier run timed)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    cases = {name: decode_case(torch, gen, timer, lens, int8, sms)
+             for name, lens in DECODE_CASES.items()}
+    for name in DECODE_FILL:
+        if cases[name]["working_blocks"] < sms:
+            raise AssertionError(f"decode {name}: {cases[name]['working_blocks']} working "
+                                 f"blocks on {sms} SMs")
+    main = cases["check batch"]
     return {
         "name": "paged_decode_attention" + ("_int8" if int8 else ""), "route": "cuda",
         "source": "dynamo_tpu_torch/csrc/decode_attention.cu",
         "replaces": "dynamo_tpu/ops/pallas_attention.py:36",
-        "shape": f"B={B} lens={lens} h={H} kvh={KVH} d={D} bs={BS} "
-                 + ("int8 cache + f32 scales" if int8 else "bf16"),
-        "max_abs_err": err,
-        "ms": timer(lambda: cuda_attention.paged_decode_attention(*args)),
-        "plain_ms": timer(lambda: att.paged_decode_attention(*args)),
-        "library_ms": timer(lambda: sdpa(ql, kl, vl, attn_mask=mask)),
-        "bound_ms": b, "bound_by": by,
+        "shape": f"B={len(main['lens'])} lens={main['lens']} h={H} kvh={KVH} d={D} bs={BS} "
+                 + ("int8 cache + f32 scales" if int8 else "bf16")
+                 + "; top-level numbers: the check batch; every case under 'cases' "
+                   "(library: SDPA over the gathered KV; unified_ms: the unified kernel "
+                   "on the same rows as q_len = 1 rows)",
+        **{k: main[k] for k in ("max_abs_err", "ms", "plain_ms", "library_ms", "unified_ms",
+                                "bound_ms", "bound_by")},
+        "cases": cases,
     }
 
 
@@ -844,10 +939,10 @@ COPY_MS = (1, 37, 256)
 def check_block_copy(torch, gen, timer):
     """gather / scatter / copy against their plain versions, BIT-exact, on
     a [2048, 16, 8, 128] bf16 layer cache and on its int8 pair (payload +
-    [2048, 8] f32 scales) at M = 1, 37 and 256. Times (M = 256) are taken
-    on the int8 pair, the form the int8 + KVBM serving path moves (one
-    launch for the payload, one for the scales); the bf16 page times ride
-    along under ``bf16_ms``."""
+    [2048, 8] f32 scales, each alone and as the pair wrappers move them) at
+    M = 1, 37 and 256. Times (M = 256) are taken on the int8 pair, which
+    the pair wrappers move in ONE launch (asserted); the bf16 page times
+    ride along under ``bf16_ms``."""
     from dynamo_tpu_torch.ops import block_copy as bc
     from dynamo_tpu_torch.ops.quant import QuantizedKV
 
@@ -879,10 +974,27 @@ def check_block_copy(torch, gen, timer):
                       bc.scatter_blocks_ref(c.clone(), take, blocks), "scatter " + tag)
                 exact(bc.copy_blocks(c.clone(), src, dst),
                       bc.copy_blocks_ref(c.clone(), src, dst), "copy " + tag)
+        tag = f"M={M} int8 pair"
+        got = bc.gather_blocks_quant(pair, take)
+        exact(got.data, bc.gather_blocks_ref(pair.data, take), "gather_blocks_quant " + tag)
+        exact(got.scale, bc.gather_blocks_ref(pair.scale, take), "gather_blocks_quant " + tag)
+        blocks = QuantizedKV(torch.randint(-127, 128, got.data.shape, generator=gen, device=dev,
+                                           dtype=torch.int8),
+                             torch.rand(got.scale.shape, generator=gen, device=dev))
+        work = QuantizedKV(pair.data.clone(), pair.scale.clone())
+        bc.scatter_blocks_quant(work, take, blocks)
+        exact(work.data, bc.scatter_blocks_ref(pair.data.clone(), take, blocks.data),
+              "scatter_blocks_quant " + tag)
+        exact(work.scale, bc.scatter_blocks_ref(pair.scale.clone(), take, blocks.scale),
+              "scatter_blocks_quant " + tag)
     M = COPY_MS[-1]
     perm = rng.permutation(COPY_PAGES)
     (take,), (src, dst) = ids(perm[:M]), ids(perm[M:2 * M], perm[2 * M:3 * M], device="cpu")
+    before = (bc.GATHER.launches, bc.SCATTER.launches)
     pages = bc.gather_blocks_quant(pair, take)
+    bc.scatter_blocks_quant(QuantizedKV(pair.data.clone(), pair.scale.clone()), take, pages)
+    if (bc.GATHER.launches - before[0], bc.SCATTER.launches - before[1]) != (1, 1):
+        raise AssertionError("the int8 pair's gather and scatter must be one launch each")
     bf16_pages = bc.gather_blocks(bf16, take)
     # each page read once and written once (int8 pages + their scale rows),
     # the int32 ids read once per array (copy reads two id lists)
@@ -892,8 +1004,8 @@ def check_block_copy(torch, gen, timer):
     common = {"route": "cuda", "source": "dynamo_tpu_torch/csrc/block_copy.cu",
               "bound_ms": b, "bound_by": by, "max_abs_err": 0.0,
               "shape": f"M={M} of {COPY_PAGES} pages: int8 [{BS},{KVH},{D}] + f32 [{KVH}] "
-                       f"(one launch each); also bit-checked at M={list(COPY_MS)} on "
-                       "bf16 pages and on the int8 pair"}
+                       f"(payload and scales in one launch); also bit-checked at "
+                       f"M={list(COPY_MS)} on bf16 pages and on the int8 pair"}
 
     # copy_blocks checks src/dst disjointness on the host and uploads the
     # ids before it launches: keep the GPU busy long enough to cover that
@@ -937,6 +1049,94 @@ def check_block_copy(torch, gen, timer):
              library="Tensor.index_copy_ of index_select (payload, scales)",
              bf16_ms=timer(lambda: bc.copy_blocks(bf16, src, dst), busy=slow_host)),
     ]
+
+
+# layer-batched page moves: 32 Llama-3-8B layer caches of the int8 + KVBM
+# serving run's device pool, moved LAYER_MS pages at a time
+LAYER_PAGES = 512
+LAYER_MS = (8, 256)
+
+
+def check_layer_moves(torch, gen, timer):
+    """gather_layers / scatter_layers (every layer's K and V pages, and the
+    int8 scale rows, in ONE launch, in the [n, L, 2, ...] host layout)
+    against their plain versions, BIT-exact, on 32 Llama-3-8B layer caches
+    of LAYER_PAGES pages, bf16 and the int8 pair, at each LAYER_MS;
+    timed at each M with their byte bound. One launch per call is
+    asserted. No single PyTorch call does the same move: library_ms null."""
+    from dynamo_tpu_torch.ops import block_copy as bc
+    from dynamo_tpu_torch.ops.quant import QuantizedKV
+
+    dev, L = "cuda", 32
+    rng = np.random.default_rng(9)
+    bf16 = [[torch.randn(LAYER_PAGES, BS, KVH, D, generator=gen, device=dev).to(torch.bfloat16)
+             for _ in range(L)] for _ in range(2)]
+    int8 = [[quantized(torch, c) for c in kv] for kv in bf16]
+
+    def exact(got, want, name):
+        for g, w in (zip([got.data, got.scale], [want.data, want.scale])
+                     if isinstance(got, QuantizedKV) else [(got, want)]):
+            if g.dtype != w.dtype or g.shape != w.shape or not torch.equal(g, w):
+                raise AssertionError(f"{name}: kernel result is not bit-equal to its plain "
+                                     "version")
+
+    def clone(caches):
+        return [c.clone() if isinstance(c, torch.Tensor)
+                else QuantizedKV(c.data.clone(), c.scale.clone()) for c in caches]
+
+    out = {}
+    for label, (kcs, vcs) in (("bf16", bf16), ("int8 pair", int8)):
+        for M in LAYER_MS:
+            ids = torch.as_tensor(rng.permutation(LAYER_PAGES)[:M].astype(np.int32), device=dev)
+            tag = f"M={M} {label}, {L} layers"
+            launches = (bc.GATHER.launches, bc.SCATTER.launches)
+            got = bc.gather_layers(kcs, vcs, ids)
+            exact(got, bc.gather_layers_ref(kcs, vcs, ids), "gather_layers " + tag)
+            # scatter pages other than the gathered ones' own, into clones
+            pages = bc.gather_layers_ref(kcs, vcs, ids.flip(0))
+            k2, v2, k3, v3 = clone(kcs), clone(vcs), clone(kcs), clone(vcs)
+            bc.scatter_layers(k2, v2, ids, pages)
+            bc.scatter_layers_ref(k3, v3, ids, pages)
+            for a, b in zip(k2 + v2, k3 + v3):
+                exact(a, b, "scatter_layers " + tag)
+            del k2, v2, k3, v3
+            if (bc.GATHER.launches - launches[0],
+                    bc.SCATTER.launches - launches[1]) != (1, 1):
+                raise AssertionError(f"{tag}: gather_layers / scatter_layers must be one "
+                                     "launch each")
+            page = BS * KVH * D * (1 if label == "int8 pair" else 2)
+            page += 4 * KVH if label == "int8 pair" else 0
+            b, by = bound(2 * M * L * 2 * page + 4 * M, 0)
+            for name, fn, ref in (
+                    ("gather_layers", lambda: bc.gather_layers(kcs, vcs, ids),
+                     lambda: bc.gather_layers_ref(kcs, vcs, ids)),
+                    ("scatter_layers", lambda: bc.scatter_layers(kcs, vcs, ids, got),
+                     lambda: bc.scatter_layers_ref(kcs, vcs, ids, got))):
+                r = out.setdefault((name, label), {"cases": {}})
+                # (the busy wait covers the host's work before the launch)
+                r["cases"][M] = {"ms": timer(fn, busy=2_000_000),
+                                 "plain_ms": timer(ref, reps=5, busy=2_000_000),
+                                 "bound_ms": b, "bound_by": by}
+                c = r["cases"][M]
+                log(f"  {name} {tag}: bit-exact, one launch; {c['ms']:.4f} ms kernel, "
+                    f"{c['plain_ms']:.4f} ms plain, bound {b:.4f} ms ({by}), "
+                    f"{b / c['ms'] * HBM_BYTES_S / 1e12:.2f} TB/s")
+    results = []
+    for name, line in (("gather_layers", 30), ("scatter_layers", 65)):
+        main = out[(name, "int8 pair")]["cases"][LAYER_MS[-1]]
+        results.append({
+            "name": name, "route": "cuda", "source": "dynamo_tpu_torch/csrc/block_copy.cu",
+            "replaces": f"dynamo_tpu/ops/block_copy.py:{line}",
+            "shape": f"{L} layers x K/V of [{LAYER_PAGES}, {BS}, {KVH}, {D}]; top-level: the "
+                     f"int8 pair (payload + f32 [{KVH}] scales) at M={LAYER_MS[-1]}, one "
+                     "launch; every (form, M) under 'cases'",
+            "max_abs_err": 0.0, "library_ms": None,
+            "library": "none (no single PyTorch call moves every layer's pages)",
+            **main,
+            "cases": {f"{label} M={M}": c for (n, label), r in out.items() if n == name
+                      for M, c in r["cases"].items()},
+        })
+    return results
 
 
 def time_kv_writes(torch, gen, timer) -> dict:
@@ -1014,7 +1214,8 @@ def attention_paths(torch, table, int8=False):
         "kernels": (
             kernel_prefill,
             lambda q, kc, vc, total: cuda_attention.paged_decode_attention(
-                q.reshape(1, H, D), kc, vc, table[None], one(total)).reshape(q.shape),
+                q.reshape(1, H, D), kc, vc, table[None], one(total),
+                max_seq_len=total).reshape(q.shape),
             lambda q, kc, vc, total: cuda_unified.ragged_paged_attention(
                 *ragged_args(q, kc, vc, total), max_q_len=q.shape[0]),
         ),
@@ -1360,7 +1561,7 @@ async def serve(torch, profile: bool = False):
         busy_ms = sum(v for k, v in by_kind.items() if k not in ("kernels", "top"))
         return {"wall_s": wall, "device_busy_ms": busy_ms,
                 "busy_share": busy_ms / (wall * 1e3), "device_ms": by_kind,
-                "steps": dict(engine.step_counts)}
+                "steps": dict(engine.step_counts), "launches": launches}
     ttft = sorted(s["ttft_s"] for s in stats)
     itl = sorted(s["itl_s"] for s in stats)
     n_out = sum(len(s["tokens"]) for s in stats)
@@ -1469,6 +1670,18 @@ async def serve_kvbm(torch):
         await asyncio.gather(*(one(tag, i, p) for i, p in enumerate(prompts)))
         await engine.flush_offload()
 
+    # offload batches and onboard calls, counted around the engine's own
+    # methods: each must be one launch of the page-copy kernel
+    calls = {"offload_batches": 0, "onboards": 0}
+
+    def counted(key, fn):
+        def call(*a, **k):
+            calls[key] += 1
+            return fn(*a, **k)
+        return call
+
+    engine._enqueue_offload_gather = counted("offload_batches", engine._enqueue_offload_gather)
+    engine._scatter_blocks = counted("onboards", engine._scatter_blocks)
     errors = ErrorLog()
     reset_launches()
     t0 = time.perf_counter()
@@ -1493,6 +1706,11 @@ async def serve_kvbm(torch):
     for name in ("decode_int8", "flash_extend_int8", "unified_int8", "gather", "scatter"):
         if launches[name] <= 0:
             raise AssertionError(f"int8+kvbm: the {name} kernel never launched: {launches}")
+    if (launches["gather"], launches["scatter"]) != (calls["offload_batches"], calls["onboards"]):
+        raise AssertionError(f"int8+kvbm: {launches['gather']} gather launches for "
+                             f"{calls['offload_batches']} offload batches, "
+                             f"{launches['scatter']} scatter launches for "
+                             f"{calls['onboards']} onboards")
     if errors.records or engine.offload_errors or kstats["errors"]:
         raise AssertionError(
             f"int8+kvbm: {len(errors.records)} error records, {engine.offload_errors} offload "
@@ -1532,7 +1750,7 @@ async def serve_kvbm(torch):
         "resident_blocks_before_repeat": resident,
         "repeats_streaming_the_same_greedy_tokens": f"{same} of {len(first)}",
         "kvbm": kstats, "steps": dict(engine.step_counts), "launches": launches,
-        "onboarded_block_bit_exact": True,
+        **calls, "onboarded_block_bit_exact": True,
     }
 
 
@@ -1750,6 +1968,8 @@ def main() -> int:
                 f"kernel, {r['plain_ms']:.4f} ms plain, {r['library_ms']:.4f} ms library "
                 f"({r['library']}), bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
                 f"bf16 pages {r['bf16_ms']:.4f} ms")
+        for r in check_layer_moves(torch, gen, timer):
+            results[r["name"]] = r
         log(f"block copy checks [{time.perf_counter() - t0:.1f} s]")
         writes = time_kv_writes(torch, gen, timer)
         log(f"decode KV write of one layer, 8 rows (plain PyTorch): "
@@ -1796,6 +2016,9 @@ def main() -> int:
         # of the wall the device is busy at all
         breakdown = asyncio.run(serve(torch, profile=True))
         log("serving profile: " + json.dumps(breakdown))
+        log(f"serving profile: decode kernel {breakdown['device_ms']['decode_kernel']:.1f} ms "
+            f"of {breakdown['device_busy_ms']:.1f} ms device time, "
+            f"{breakdown['launches']['decode']} launches")
         gc.collect()
         torch.cuda.empty_cache()
         # the int8 KV cache with KVBM offload and onboard, unprofiled
@@ -1844,8 +2067,11 @@ def main() -> int:
         return 1
     # launches: each kernel's count from the serving run of its path (the
     # float run for the float kernels, the int8 + KVBM run for the rest,
-    # the Gemma run for the merge; no engine path calls copy_blocks, as in
-    # the reference)
+    # the Gemma run for the merge). The page-copy kernel counts its
+    # launches by move: while serving, every gather and scatter is the
+    # engine's layer-batched one (gather_layers / scatter_layers), so the
+    # gather rows (gather_blocks, gather_layers) show the same count, and
+    # the scatter rows too; no engine path copies pages, as in the reference
     kernels = []
     for name, key, run in (
             ("paged_decode_attention", "decode", serving),
@@ -1857,6 +2083,8 @@ def main() -> int:
             ("gather_blocks", "gather", kvbm_run),
             ("scatter_blocks", "scatter", kvbm_run),
             ("copy_blocks", "copy", kvbm_run),
+            ("gather_layers", "gather", kvbm_run),
+            ("scatter_layers", "scatter", kvbm_run),
             ("ragged_paged_attention_gemma", "unified", gemma_runs["bf16"]),
             ("ragged_paged_attention_gemma_int8", "unified_int8", gemma_runs["int8"]),
             ("merge_attention_partials", "merge", gemma_runs["bf16"])):

@@ -1,5 +1,6 @@
 // Shared pieces of the port's attention kernels (decode_attention.cu,
-// flash_extend.cu, unified_attention.cu): bf16/int8 helpers, the Hopper
+// flash_extend.cu, unified_attention.cu): bf16/int8 helpers (the exact
+// int8 conversion serves the decode kernel too), the Hopper
 // primitives (cp.async, wgmma, 128-byte-swizzled shared tiles), and the
 // tile-attention body that the flash-extend and unified kernels share.
 //
@@ -46,23 +47,6 @@
 namespace dtt {
 
 constexpr float NEG_INF = -1e30f;
-
-// 8 consecutive bf16 (one 16-byte load) -> 8 floats
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* out) {
-  uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) out[i] = __bfloat162float(h[i]);
-}
-
-// 8 int8 packed in two words (dims in byte order) -> 8 floats
-__device__ __forceinline__ void unpack8_i8(uint2 raw, float* out) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    out[i] = (float)(int8_t)(raw.x >> (8 * i));
-    out[4 + i] = (float)(int8_t)(raw.y >> (8 * i));
-  }
-}
 
 // 8 floats -> 8 consecutive bf16 (one 16-byte store)
 __device__ __forceinline__ void store8(__nv_bfloat16* p, const float* in) {
@@ -130,6 +114,12 @@ __device__ __forceinline__ void cp_async_commit() {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's committed cp.async groups are pending
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
 // this thread's shared-memory writes -> visible to the tensor cores' reads

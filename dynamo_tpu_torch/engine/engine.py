@@ -22,10 +22,11 @@ functions):
   f32 ``[num_blocks, kv_heads]`` scale rows per layer, quantized on write,
   read by the int8 forms of the three attention kernels;
 - KVBM (``kvbm=KvbmTiers(...)``, kvbm/pool.py): sealed blocks are gathered
-  off the device by the block-copy kernel and written through to the host
-  (G2) and disk (G3) tiers on an offload thread; a prompt whose prefix
-  missed the device cache onboards it from the tiers before admission, by
-  the block-copy kernel's scatter.
+  off the device by the block-copy kernel, one launch per offload batch
+  for every layer, and written through to the host (G2) and disk (G3)
+  tiers on an offload thread; a prompt whose prefix missed the device
+  cache onboards it from the tiers before admission, by one scatter
+  launch of the block-copy kernel.
 
 Attention runs through the wrappers of the hand-written CUDA kernels
 (ops/cuda_attention, cuda_prefill, cuda_unified): on CUDA tensors they
@@ -753,7 +754,8 @@ class TorchEngine:
         lens_t = self._t(seq_lens)
         wb, wo = self._t(write_blocks), self._t(write_offsets)
         # for layers with attention attributes: the decode batch as q_len = 1
-        # rows of the unified kernel (inactive slots: q_len 0)
+        # rows of the unified kernel (inactive slots: q_len 0); its
+        # max_seq_len also sizes the decode kernel's split grid
         unified = _UnifiedRows(self._t, np.arange(len(seq_lens)), seq_lens > 0, seq_lens)
 
         def attend(q, k_new, v_new, layer_idx, **extra):
@@ -764,7 +766,7 @@ class TorchEngine:
                     q[:, 0], kc, vc, tables, *unified.rows(), max_q_len=1,
                     max_seq_len=unified.max_seq_len, **unified.attrs(**extra))[:, None]
             return cuda_attention.paged_decode_attention(
-                q[:, 0], kc, vc, tables, lens_t
+                q[:, 0], kc, vc, tables, lens_t, max_seq_len=unified.max_seq_len
             )[:, None]
 
         hidden = self._forward(
@@ -858,18 +860,14 @@ class TorchEngine:
 
     @torch.inference_mode()
     def _enqueue_offload_gather(self, pending: List[Tuple[int, int, int]]):
-        """Step executor: launch the page gathers of the pending blocks into
-        fresh buffers, one per layer and K/V (and scales), on the step's
-        stream; returns (per-layer (k, v) pages, an event recorded after
-        them, or None on the CPU)."""
+        """Step executor: launch ONE page gather of the pending blocks, every
+        layer's K and V (and scale rows) at once, into a fresh buffer in the
+        host storage layout [n, L, 2, ...] (block_copy.gather_layers), on the
+        step's stream; returns (the buffer, or for an int8 cache a
+        (payload, scales) QuantizedKV, and an event recorded after it, or
+        None on the CPU)."""
         ids = self._t([bid for bid, _, _ in pending], torch.int32)
-        gathered = []
-        for kc, vc in zip(self.k_caches, self.v_caches):
-            if self.kv_quantized:
-                gathered.append((bc.gather_blocks_quant(kc, ids),
-                                 bc.gather_blocks_quant(vc, ids)))
-            else:
-                gathered.append((bc.gather_blocks(kc, ids), bc.gather_blocks(vc, ids)))
+        gathered = bc.gather_layers(self.k_caches, self.v_caches, ids)
         ready = None
         if self.device.type == "cuda":
             ready = torch.cuda.Event()
@@ -877,25 +875,21 @@ class TorchEngine:
         return gathered, ready
 
     def _offload_fetch(self, pending, gathered, ready) -> None:
-        """Offload thread: wait for the gathers (on a side stream, so the
-        copy overlaps later steps), stack them into [n, L, 2, ...], copy to
-        fresh host memory and hand each block to the KVBM priority queue.
-        The tier bytes are the storage format (kvbm/layout): the int8 codec
-        buffer, or model-dtype pages (bf16 as bit patterns)."""
+        """Offload thread: wait for the gather (on a side stream, so the
+        copy overlaps later steps), copy its buffer to fresh host memory and
+        hand each block to the KVBM priority queue. The tier bytes are the
+        storage format (kvbm/layout): the int8 codec buffer, or model-dtype
+        pages (bf16 as bit patterns)."""
         try:
             with torch.inference_mode(), torch.cuda.stream(self._offload_stream):
                 if ready is not None:
                     self._offload_stream.wait_event(ready)
-
-                def stack(parts):   # per layer (k, v) -> [n, L, 2, ...] on the host
-                    return torch.stack([torch.stack(kv, 1) for kv in parts], 1).cpu()
-
                 if self.kv_quantized:
-                    pay = stack([(k.data, v.data) for k, v in gathered]).numpy()
-                    scl = stack([(k.scale, v.scale) for k, v in gathered]).numpy()
+                    pay = gathered.data.cpu().numpy()
+                    scl = gathered.scale.cpu().numpy()
                     blocks = [self._codec.encode(pay[i], scl[i]) for i in range(len(pending))]
                 else:
-                    arr = to_host(stack(gathered))
+                    arr = to_host(gathered.cpu())
                     blocks = [arr[i].copy() for i in range(len(pending))]
             for (_, h, prio), block in zip(pending, blocks):
                 self.kvbm.offload(h, block, priority=prio)
@@ -905,30 +899,20 @@ class TorchEngine:
 
     @torch.inference_mode()
     def _scatter_blocks(self, local_ids: List[int], arr) -> None:
-        """Step executor: scatter host blocks into device pages (no
-        allocator access here: the allocator lives on the loop thread).
+        """Step executor: upload host blocks and scatter them into device
+        pages with ONE launch (block_copy.scatter_layers; no allocator
+        access here: the allocator lives on the loop thread).
 
         ``arr`` is model-dtype pages [n, L, 2, bs, kvh, d] (host storage
         form, kvbm/layout) or, for an int8 cache, a (payload int8 [n, L, 2,
         bs, kvh, d], scales f32 [n, L, 2, kvh]) pair that scatters straight
         into the quantized cache, bit-exactly."""
         ids = self._t(local_ids, torch.int32)
-
-        def per_layer(a):
-            # [n, L, 2, ...] host -> [L, 2, n, ...] contiguous on the device
-            t = from_host(a).to(self.device)
-            return t.movedim(0, 2).contiguous()
-
         if self.kv_quantized:
-            pay, scl = (per_layer(a) for a in arr)
-            for li in range(pay.shape[0]):
-                bc.scatter_blocks_quant(self.k_caches[li], ids, QuantizedKV(pay[li, 0], scl[li, 0]))
-                bc.scatter_blocks_quant(self.v_caches[li], ids, QuantizedKV(pay[li, 1], scl[li, 1]))
-            return
-        pages = per_layer(arr)
-        for li in range(pages.shape[0]):
-            bc.scatter_blocks(self.k_caches[li], ids, pages[li, 0])
-            bc.scatter_blocks(self.v_caches[li], ids, pages[li, 1])
+            pages = QuantizedKV(*(from_host(a).to(self.device) for a in arr))
+        else:
+            pages = from_host(arr).to(self.device)
+        bc.scatter_layers(self.k_caches, self.v_caches, ids, pages)
 
     async def import_blocks(self, hashes: List[int], arr) -> int:
         """Import [n, L, 2, bs, kvh, d] pages (or an int8 (payload, scales)

@@ -124,10 +124,11 @@ class Kernel:
     """One C entry point of one csrc source, with its launch count.
 
     ``launch`` passes tensors as device pointers (None as a null pointer,
-    for an optional argument; an int as a device address inside a tensor
-    the caller holds; the first must be a tensor), ints as C ints, floats as C floats, appends
-    the current CUDA stream, and raises when the entry point reports a CUDA
-    error. ``launches`` counts the launches that succeeded; whoever wants to
+    for an optional argument; an int as an address the caller keeps valid:
+    inside a tensor it holds, or a host array the entry point reads during
+    the call; at least one must be a tensor), ints as C ints, floats as C
+    floats, appends the current CUDA stream of the first tensor's device,
+    and raises when the entry point reports a CUDA error. ``launches`` counts the launches that succeeded; whoever wants to
     see which kernels a run went through sets it to 0 before and reads it
     after."""
 
@@ -160,7 +161,8 @@ class Kernel:
                 or len(floats) != self.n_floats):
             raise TypeError(f"{self.entry}: wrong argument count")
         fn = self._bind()
-        stream = torch.cuda.current_stream(tensors[0].device).cuda_stream
+        device = next(t.device for t in tensors if isinstance(t, torch.Tensor))
+        stream = torch.cuda.current_stream(device).cuda_stream
         ptrs = [t if t is None or isinstance(t, int) else t.data_ptr() for t in tensors]
         err = fn(*ptrs, *[int(i) for i in ints], *[float(x) for x in floats], stream)
         if err != 0:

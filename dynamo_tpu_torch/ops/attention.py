@@ -491,3 +491,29 @@ def split_ragged_paged_attention(
                        wins.tolist(), sinks, softcap, skip=split)
     merge_attention_partials(acc, m, l, n, q_starts, q_lens, out, sinks)
     return out.to(q.dtype)
+
+
+def split_paged_decode_attention(
+    q: torch.Tensor, k_cache, v_cache, block_tables: torch.Tensor,
+    seq_lens: torch.Tensor, *, split_keys: int, max_splits: Optional[int] = None,
+) -> torch.Tensor:
+    """paged_decode_attention computed as the decode kernel
+    (csrc/decode_attention.cu) does with split-K: each row's keys are cut
+    from key 0 into splits of ``split_keys`` keys (split_plan with the
+    page size as the alignment; longer splits where a row would need more
+    than ``max_splits``), each split's partial state comes from
+    attention_partials (the decode rows as ``q_len = 1`` rows), and
+    merge_attention_partials combines them in split order. Rows that fit
+    one split go straight through paged_decode_attention. The same
+    function as paged_decode_attention for rows with ``seq_len > 0``."""
+    B = q.shape[0]
+    bs = k_cache.shape[1]
+    lens = seq_lens.to(torch.int32)
+    starts = torch.arange(B, dtype=torch.int32)
+    ones = (lens.cpu() > 0).to(torch.int32)
+    acc, m, l, n = attention_partials(
+        q, k_cache, v_cache, block_tables, starts, ones, lens.cpu(),
+        split_keys=split_keys, align=bs, max_splits=max_splits)
+    out = paged_decode_attention(q, k_cache, v_cache, block_tables, seq_lens).float()
+    merge_attention_partials(acc, m, l, n, starts, ones, out)
+    return out.to(q.dtype)

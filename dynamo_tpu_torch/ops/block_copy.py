@@ -1,27 +1,118 @@
 """Batched KV page moves on the GPU: counterpart of the reference's
-ops/block_copy.py (``gather_blocks``, ``scatter_blocks``, ``copy_blocks``
-and the int8 pair wrappers).
+ops/block_copy.py (``gather_blocks``, ``scatter_blocks``, ``copy_blocks``,
+the int8 pair wrappers, and the TPU kernels ``_gather_kernel`` :30,
+``_scatter_kernel`` :65 and ``_copy_kernel`` :110).
 
-The kernel is ``csrc/block_copy.cu``: one page copy with an optional index
-map on each side serves all three moves, on a cache of any dtype (bf16
-pages, int8 payload, f32 scale rows). On CPU tensors each wrapper runs its
-plain version (``*_blocks_ref``); on CUDA tensors it launches the kernel or
+The kernel is ``csrc/block_copy.cu``: one page-move kernel over a
+descriptor table, each entry one array (its bases, page strides, page
+bytes, and which side the ids index), the work flattened over (page,
+entry, 4 KiB chunk) with one warp per chunk and 8 16-byte loads per lane in
+flight. Bytes bound it on the H100, and a small move its launch, so every
+move here is ONE launch:
+
+- ``gather_blocks`` / ``scatter_blocks`` / ``copy_blocks`` on one array of
+  any dtype, and the ``*_quant`` pair wrappers, which move an int8
+  payload and its f32 scale rows together (table entries passed by value);
+- ``gather_layers`` / ``scatter_layers``: every layer's K and V pages (and
+  scale rows) of an engine's caches at once, in the stacked host-storage
+  layout ``[n, L, 2, bs, kvh, d]`` (int8: payload plus ``[n, L, 2, kvh]``
+  scales) that the KVBM offload copies to the host and the onboard reads
+  back. Their table is built once per set of caches (``layer_moves``, pure
+  Python) and kept on the device; only the ids and the stacked buffer
+  change per call.
+
+Each has a plain version beside it (``*_ref``). On CPU tensors each
+wrapper runs its plain version; on CUDA tensors it launches the kernel or
 raises. The reference donates the cache buffer to its scatter and copy;
 here they write the cache tensor IN PLACE and return it.
-
-Used by the engine's KVBM offload (gather) and onboard (scatter).
 """
 
 from __future__ import annotations
 
+import dataclasses
+from typing import Dict, List, Sequence, Tuple, Union
+
+import numpy as np
 import torch
 
 from ._build import Kernel, check_cuda_tensor
-from .quant import QuantizedKV
+from .quant import QuantizedKV, is_quantized
 
-GATHER = Kernel("block_copy.cu", "dtt_gather_blocks", n_ptrs=3, n_ints=3)
-SCATTER = Kernel("block_copy.cu", "dtt_scatter_blocks", n_ptrs=3, n_ints=3)
-COPY = Kernel("block_copy.cu", "dtt_copy_blocks", n_ptrs=3, n_ints=3)
+# one C entry, counted by the move it makes: gather (gather_blocks, the
+# pair's, gather_layers), scatter (likewise) and copy
+GATHER = Kernel("block_copy.cu", "dtt_page_moves", n_ptrs=6, n_ints=3)
+SCATTER = Kernel("block_copy.cu", "dtt_page_moves", n_ptrs=6, n_ints=3)
+COPY = Kernel("block_copy.cu", "dtt_page_moves", n_ptrs=6, n_ints=3)
+
+# csrc/block_copy.cu's PageMove, 64 bytes
+MOVE_DTYPE = np.dtype([
+    ("src", "<i8"), ("dst", "<i8"), ("src_stride", "<i8"), ("dst_stride", "<i8"),
+    ("page_bytes", "<i8"), ("w0", "<i8"), ("src_limit", "<i4"), ("dst_limit", "<i4"),
+    ("flags", "<i4"), ("nchunk", "<i4"),
+])
+CHUNK_BYTES = 4096   # bytes per warp item (the kernel's CHUNK)
+SRC_IDS, DST_IDS = 1, 2
+
+
+def rel_src(buffer: int) -> int:
+    """Flag: the source side is an offset into launch buffer 1 or 2."""
+    return buffer << 2
+
+
+def rel_dst(buffer: int) -> int:
+    """Flag: the destination side is an offset into launch buffer 1 or 2."""
+    return buffer << 4
+
+
+@dataclasses.dataclass(frozen=True)
+class Move:
+    """One array of a page move: page m of the destination (``dst`` +
+    index * ``dst_stride``) gets page m of the source; the side whose flag
+    is set is indexed by the launch's ids (outside ``[0, limit)``: nothing
+    moves, a gather leaves zeros)."""
+    src: int
+    dst: int
+    src_stride: int
+    dst_stride: int
+    page_bytes: int
+    src_limit: int
+    dst_limit: int
+    flags: int
+
+
+def move_table(moves: Sequence[Move]) -> Tuple[np.ndarray, int]:
+    """The kernel's descriptor table for ``moves`` and W, the items (4 KiB
+    chunks) of one page index over all entries."""
+    table = np.zeros(len(moves), MOVE_DTYPE)
+    w = 0
+    for i, mv in enumerate(moves):
+        n = -(-mv.page_bytes // CHUNK_BYTES)
+        table[i] = (mv.src, mv.dst, mv.src_stride, mv.dst_stride, mv.page_bytes, w,
+                    mv.src_limit, mv.dst_limit, mv.flags, n)
+        w += n
+    return table, w
+
+
+def layer_moves(arrays: Sequence[Tuple[int, int]], num_blocks: int, gather: bool,
+                buffer: int) -> List[Move]:
+    """The moves between per-layer caches and one stacked buffer (launch
+    buffer ``buffer``, 1 or 2): ``arrays`` is [(address, page bytes)] in
+    stacked order (layer 0 K, layer 0 V, layer 1 K, ...), and page m of
+    array i sits at byte ``m * row + i * page`` of the buffer, ``row`` the
+    sum of the pages: the layout of a contiguous ``[n, L, 2, *page]``
+    tensor. ``gather``: cache pages ids[m] -> buffer; else buffer -> cache
+    pages ids[m]."""
+    row = sum(pb for _, pb in arrays)
+    moves, off = [], 0
+    for addr, pb in arrays:
+        if gather:
+            moves.append(Move(addr, off, pb, row, pb, num_blocks, 0,
+                              SRC_IDS | rel_dst(buffer)))
+        else:
+            moves.append(Move(off, addr, row, pb, pb, 0, num_blocks,
+                              DST_IDS | rel_src(buffer)))
+        off += pb
+    return moves
 
 
 # ----------------------------------------------------------- plain versions
@@ -41,16 +132,53 @@ def copy_blocks_ref(cache: torch.Tensor, src_ids: torch.Tensor,
     return cache
 
 
+Caches = Sequence[Union[torch.Tensor, QuantizedKV]]
+Pages = Union[torch.Tensor, QuantizedKV]
+
+
+def _groups(k_caches: Caches, v_caches: Caches) -> List[List[torch.Tensor]]:
+    """The arrays of a set of layer caches in stacked order, one list per
+    stacked buffer: [[k0, v0, k1, v1, ...]], or for int8 the payloads and
+    the scale rows."""
+    pairs = list(zip(k_caches, v_caches))
+    if pairs and is_quantized(pairs[0][0]):
+        return [[c.data for kv in pairs for c in kv], [c.scale for kv in pairs for c in kv]]
+    return [[c for kv in pairs for c in kv]]
+
+
+def _split(pages: Pages, quantized: bool) -> List[torch.Tensor]:
+    if not quantized:
+        return [pages]
+    data, scale = (pages.data, pages.scale) if isinstance(pages, QuantizedKV) else pages
+    return [data, scale]
+
+
+def gather_layers_ref(k_caches: Caches, v_caches: Caches, ids: torch.Tensor) -> Pages:
+    """Pages ``ids`` of every layer stacked as ``[n, L, 2, ...]`` (per-layer
+    ``cache[ids]`` and ``torch.stack``); for int8 caches a QuantizedKV of
+    the payload ``[n, L, 2, bs, kvh, d]`` and scales ``[n, L, 2, kvh]``."""
+    out = [torch.stack([gather_blocks_ref(c, ids) for c in grp], 1).unflatten(1, (-1, 2))
+           for grp in _groups(k_caches, v_caches)]
+    return QuantizedKV(*out) if len(out) == 2 else out[0]
+
+
+def scatter_layers_ref(k_caches: Caches, v_caches: Caches, ids: torch.Tensor,
+                       pages: Pages) -> None:
+    """``cache[ids] = pages[:, layer, k-or-v]`` for every layer, in place:
+    the inverse of gather_layers_ref."""
+    groups = _groups(k_caches, v_caches)
+    for grp, stacked in zip(groups, _split(pages, len(groups) == 2)):
+        for i, c in enumerate(grp):
+            scatter_blocks_ref(c, ids, stacked[:, i // 2, i % 2])
+
+
 # ----------------------------------------------------------------- wrappers
 def _page_bytes(cache: torch.Tensor) -> int:
     if cache.device.type != "cuda":
         raise ValueError(f"cache: expected a CUDA tensor, got {cache.device}")
     if not cache.is_contiguous() or cache.dim() < 1:
         raise ValueError("cache: must be contiguous with a leading block dim")
-    n = cache[0].numel() * cache.element_size() if cache.shape[0] else 0
-    if n >= 1 << 31:
-        raise ValueError(f"a page of {n} bytes is past the kernel's int range")
-    return n
+    return cache[0].numel() * cache.element_size() if cache.shape[0] else 0
 
 
 def _check_ids(name: str, ids: torch.Tensor) -> None:
@@ -63,18 +191,41 @@ def _check_pages(cache: torch.Tensor, blocks: torch.Tensor, M: int) -> None:
             f"blocks {blocks.dtype} {tuple(blocks.shape)} are not {M} pages of "
             f"{cache.dtype} {tuple(cache.shape[1:])}"
         )
+    if not blocks.is_contiguous() or blocks.device != cache.device:
+        raise ValueError("blocks: must be contiguous on the cache's device")
+
+
+def _launch(kernel: Kernel, src_ids, dst_ids, moves: List[Move], M: int) -> None:
+    """One launch of ``moves`` (at most 4, the kernel's MAX_INLINE, passed by
+    value)."""
+    moves = [mv for mv in moves if mv.page_bytes]
+    if not M or not moves:
+        return
+    table, W = move_table(moves)
+    # the entry point copies the host table into the launch's parameters
+    kernel.launch([src_ids, dst_ids, None, table.ctypes.data, None, None],
+                  [len(moves), W, M])
+
+
+def _gather_moves(cache: torch.Tensor, out: torch.Tensor) -> Move:
+    page = _page_bytes(cache)
+    return Move(cache.data_ptr(), out.data_ptr(), page, page, page, cache.shape[0], 0, SRC_IDS)
+
+
+def _scatter_moves(cache: torch.Tensor, blocks: torch.Tensor) -> Move:
+    page = _page_bytes(cache)
+    return Move(blocks.data_ptr(), cache.data_ptr(), page, page, page, 0, cache.shape[0],
+                DST_IDS)
 
 
 def gather_blocks(cache: torch.Tensor, block_ids: torch.Tensor) -> torch.Tensor:
     """Pages ``cache[block_ids]`` as a fresh contiguous [M, ...] tensor."""
     if cache.device.type == "cpu":
         return gather_blocks_ref(cache, block_ids)
-    page = _page_bytes(cache)
     _check_ids("block_ids", block_ids)
-    M = block_ids.shape[0]
-    out = torch.empty((M, *cache.shape[1:]), dtype=cache.dtype, device=cache.device)
-    if M and page:
-        GATHER.launch([cache, block_ids, out], [M, page, cache.shape[0]])
+    out = torch.empty((block_ids.shape[0], *cache.shape[1:]), dtype=cache.dtype,
+                      device=cache.device)
+    _launch(GATHER, block_ids, None, [_gather_moves(cache, out)], block_ids.shape[0])
     return out
 
 
@@ -83,14 +234,9 @@ def scatter_blocks(cache: torch.Tensor, block_ids: torch.Tensor,
     """``cache[block_ids] = blocks`` in place; returns ``cache``."""
     if cache.device.type == "cpu":
         return scatter_blocks_ref(cache, block_ids, blocks)
-    page = _page_bytes(cache)
     _check_ids("block_ids", block_ids)
-    M = block_ids.shape[0]
-    _check_pages(cache, blocks, M)
-    if not blocks.is_contiguous() or blocks.device != cache.device:
-        raise ValueError("blocks: must be contiguous on the cache's device")
-    if M and page:
-        SCATTER.launch([cache, block_ids, blocks], [M, page, cache.shape[0]])
+    _check_pages(cache, blocks, block_ids.shape[0])
+    _launch(SCATTER, None, block_ids, [_scatter_moves(cache, blocks)], block_ids.shape[0])
     return cache
 
 
@@ -121,25 +267,114 @@ def copy_blocks(cache: torch.Tensor, src_ids: torch.Tensor,
     src_ids, dst_ids = (_upload(i, cache.device) for i in (src_ids, dst_ids))
     _check_ids("src_ids", src_ids)
     _check_ids("dst_ids", dst_ids)
-    M = src_ids.shape[0]
-    if M and page:
-        COPY.launch([cache, src_ids, dst_ids], [M, page, cache.shape[0]])
+    nb = cache.shape[0]
+    _launch(COPY, src_ids, dst_ids,
+            [Move(cache.data_ptr(), cache.data_ptr(), page, page, page, nb, nb,
+                  SRC_IDS | DST_IDS)], src_ids.shape[0])
     return cache
 
 
 # -- quantized caches (ops/quant.QuantizedKV) --------------------------------
-# A quantized page move is two moves, the int8 payload and its f32 scale row,
-# that MUST travel together (a payload under the wrong scale is silent
-# corruption, not an error).
+# A quantized page move is two arrays, the int8 payload and its f32 scale
+# row, that MUST travel together (a payload under the wrong scale is silent
+# corruption, not an error): one launch moves both.
 def gather_blocks_quant(cache: QuantizedKV, block_ids: torch.Tensor) -> QuantizedKV:
     """QuantizedKV pages -> (payload [M, bs, kvh, d] int8, scales [M, kvh])."""
-    return QuantizedKV(gather_blocks(cache.data, block_ids),
-                       gather_blocks(cache.scale, block_ids))
+    if cache.data.device.type == "cpu":
+        return QuantizedKV(gather_blocks_ref(cache.data, block_ids),
+                           gather_blocks_ref(cache.scale, block_ids))
+    _check_ids("block_ids", block_ids)
+    M = block_ids.shape[0]
+    out = QuantizedKV(*(torch.empty((M, *c.shape[1:]), dtype=c.dtype, device=c.device)
+                        for c in (cache.data, cache.scale)))
+    _launch(GATHER, block_ids, None, [_gather_moves(cache.data, out.data),
+                                      _gather_moves(cache.scale, out.scale)], M)
+    return out
 
 
 def scatter_blocks_quant(cache: QuantizedKV, block_ids: torch.Tensor,
                          blocks: QuantizedKV) -> QuantizedKV:
     """Scatter (payload, scales) pages into a QuantizedKV cache in place."""
-    scatter_blocks(cache.data, block_ids, blocks.data)
-    scatter_blocks(cache.scale, block_ids, blocks.scale)
+    if cache.data.device.type == "cpu":
+        scatter_blocks_ref(cache.data, block_ids, blocks.data)
+        scatter_blocks_ref(cache.scale, block_ids, blocks.scale)
+        return cache
+    _check_ids("block_ids", block_ids)
+    M = block_ids.shape[0]
+    _check_pages(cache.data, blocks.data, M)
+    _check_pages(cache.scale, blocks.scale, M)
+    _launch(SCATTER, None, block_ids, [_scatter_moves(cache.data, blocks.data),
+                                       _scatter_moves(cache.scale, blocks.scale)], M)
     return cache
+
+
+# -- every layer at once (the engine's KVBM offload and onboard) -------------
+# (gather, device, each group's page shape, the arrays' addresses) ->
+# (device table, entries, W); an engine's caches never move, so its two
+# tables are built once and a call only reads the arrays' addresses
+_layer_tables: Dict[tuple, Tuple[torch.Tensor, int, int]] = {}
+
+
+def _layer_table(groups: List[List[torch.Tensor]], gather: bool):
+    key = (gather, str(groups[0][0].device), tuple(g[0].shape for g in groups),
+           tuple(c.data_ptr() for grp in groups for c in grp))
+    hit = _layer_tables.get(key)
+    if hit is None:
+        moves = []
+        for i, grp in enumerate(groups):
+            if any(c.shape != grp[0].shape or c.dtype != grp[0].dtype for c in grp):
+                raise ValueError("every layer cache must have one shape and dtype")
+            moves += layer_moves([(c.data_ptr(), _page_bytes(c)) for c in grp],
+                                 grp[0].shape[0], gather, i + 1)
+        table, W = move_table(moves)
+        dev = torch.from_numpy(table.view(np.uint8)).to(groups[0][0].device)
+        if len(_layer_tables) >= 16:   # caches of engines long gone
+            _layer_tables.clear()
+        hit = _layer_tables[key] = (dev, len(moves), W)
+    return hit
+
+
+def _stacked_shape(c: torch.Tensor, n: int, L: int) -> tuple:
+    return (n, L, 2, *c.shape[1:])
+
+
+def gather_layers(k_caches: Caches, v_caches: Caches, ids: torch.Tensor) -> Pages:
+    """Pages ``ids`` of every layer's K and V cache in ONE launch, stacked
+    as the host storage layout ``[n, L, 2, bs, kvh, d]``; for int8 caches a
+    QuantizedKV of that payload and the scales ``[n, L, 2, kvh]``. Plain
+    version: gather_layers_ref."""
+    groups = _groups(k_caches, v_caches)
+    if groups[0][0].device.type == "cpu":
+        return gather_layers_ref(k_caches, v_caches, ids)
+    _check_ids("ids", ids)
+    n, L = ids.shape[0], len(k_caches)
+    bufs = [torch.empty(_stacked_shape(g[0], n, L), dtype=g[0].dtype, device=g[0].device)
+            for g in groups]
+    if n:
+        table, count, W = _layer_table(groups, gather=True)
+        GATHER.launch([ids, None, table, None, *bufs, *[None] * (2 - len(bufs))],
+                      [count, W, n])
+    return QuantizedKV(*bufs) if len(bufs) == 2 else bufs[0]
+
+
+def scatter_layers(k_caches: Caches, v_caches: Caches, ids: torch.Tensor,
+                   pages: Pages) -> None:
+    """``cache[ids] = pages[:, layer, k-or-v]`` for every layer's K and V
+    cache in ONE launch, in place; ``pages`` in gather_layers' layout, on
+    the caches' device. Plain version: scatter_layers_ref."""
+    groups = _groups(k_caches, v_caches)
+    if groups[0][0].device.type == "cpu":
+        return scatter_layers_ref(k_caches, v_caches, ids, pages)
+    _check_ids("ids", ids)
+    bufs = _split(pages, len(groups) == 2)
+    n, L = ids.shape[0], len(k_caches)
+    for g, b in zip(groups, bufs):
+        want = _stacked_shape(g[0], n, L)
+        if b.dtype != g[0].dtype or tuple(b.shape) != want:
+            raise ValueError(f"pages {b.dtype} {tuple(b.shape)} are not {g[0].dtype} {want}")
+        if not b.is_contiguous() or b.device != g[0].device:
+            raise ValueError("pages: must be contiguous on the caches' device")
+    if n:
+        table, count, W = _layer_table(groups, gather=False)
+        SCATTER.launch([None, ids, table, None, *bufs, *[None] * (2 - len(bufs))],
+                       [count, W, n])

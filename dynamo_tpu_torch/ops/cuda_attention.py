@@ -1,15 +1,35 @@
 """Paged decode attention on the GPU: counterpart of the reference's
-ops/pallas_attention.py (``paged_decode_attention``).
+ops/pallas_attention.py (``paged_decode_attention``, the TPU kernel
+``_decode_kernel`` at :36).
 
-The kernels are in ``csrc/decode_attention.cu`` (one block per (sequence,
-kv head), online softmax over the sequence's real pages only): ``KERNEL``
-for a bf16 cache, ``KERNEL_INT8`` for an int8 ``QuantizedKV`` cache (int8
-pages plus f32 scale rows, dequantized in registers). On CPU tensors this
-wrapper runs the plain version, ``ops.attention.paged_decode_attention``;
-on CUDA tensors it launches a kernel or raises.
+The kernels are in ``csrc/decode_attention.cu``: ``KERNEL`` for a bf16
+cache, ``KERNEL_INT8`` for an int8 ``QuantizedKV`` cache (int8 pages plus
+f32 scale rows, converted to bf16 exactly in shared memory, the scales
+applied to the score and probability columns). Bytes bound them on the H100 (~4 * G flops
+per byte read), so the design keeps the card's loads in flight: split-K
+over the context, grid (split, kv head, row), each row cut from key 0 into
+``DEC_SPLIT_KEYS``-key splits (``ops.attention.split_plan``); each block
+streams its keys through a ``cp.async`` ring of 64-key tiles, computes the
+scores and P.V on the tensor cores (``mma.sync``, the G heads padded to 16
+rows) and updates its softmax once per tile; the last split block of each
+(row, kv head) to finish merges the row's splits in split order in the
+same launch.
+
+``max_seq_len``, a host bound on ``seq_lens``, sizes the grid's split
+extent (a low bound only lengthens a row's splits). The split scratch and
+the merge counters are one buffer per device, kept by this module and
+grown on demand (``_scratch``). When ``split_log`` is a list, each launch
+appends its grid and a device copy of the split counts the kernel wrote.
+
+On CPU tensors this wrapper runs the plain version,
+``ops.attention.paged_decode_attention`` (``max_seq_len`` is taken and
+ignored); its split form is ``ops.attention.split_paged_decode_attention``.
+On CUDA tensors it launches a kernel or raises.
 """
 
 from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -17,10 +37,41 @@ from . import attention as att
 from ._build import Kernel, check_cuda_tensor
 from .quant import is_quantized
 
-KERNEL = Kernel("decode_attention.cu", "dtt_paged_decode", n_ptrs=6, n_ints=5)
-KERNEL_INT8 = Kernel("decode_attention.cu", "dtt_paged_decode_i8", n_ptrs=8, n_ints=5)
+KERNEL = Kernel("decode_attention.cu", "dtt_paged_decode", n_ptrs=9, n_ints=6)
+KERNEL_INT8 = Kernel("decode_attention.cu", "dtt_paged_decode_i8", n_ptrs=11, n_ints=6)
 # query heads per kv head the kernel is instantiated for
 GROUP_SIZES = (1, 2, 4, 8)
+HEAD_DIM = 128
+# the kernel's DEC_SPLIT_KEYS (csrc/decode_attention.cu): keys per split
+DEC_SPLIT_KEYS = 256
+
+# when a list, each launch appends (grid, n_splits): its (S, kvh, B) grid
+# and a device copy of the [B] int32 split counts the kernel wrote (0 = not
+# split). The GPU smoke script reads it to show what split-K did.
+split_log = None
+
+# device -> (int32 buffer, counter words): [counters | n_splits | partials]
+_scratch: Dict[torch.device, Tuple[torch.Tensor, int]] = {}
+
+
+def split_extent(max_seq_len: int) -> int:
+    """S, the grid's split extent for rows of at most ``max_seq_len`` keys
+    (1: no row is split)."""
+    return max(1, -(-int(max_seq_len) // DEC_SPLIT_KEYS))
+
+
+def _scratch_for(device: torch.device, counters: int, words: int) -> Tuple[int, int]:
+    """Addresses of the counters and of the rest (n_splits, then the
+    partials) in this device's scratch buffer, grown (and zeroed) when a
+    launch needs more. The counters must be 0 before a launch; the kernel
+    leaves them 0."""
+    buf, have = _scratch.get(device, (None, 0))
+    if buf is None or have < counters or buf.numel() - have < words:
+        have = max(have, -(-counters // 4) * 4)
+        size = max(words, 0 if buf is None else buf.numel() - have)
+        buf = torch.zeros(have + size, dtype=torch.int32, device=device)
+        _scratch[device] = (buf, have)
+    return buf.data_ptr(), buf.data_ptr() + 4 * have
 
 
 def paged_decode_attention(
@@ -29,9 +80,13 @@ def paged_decode_attention(
     v_cache,                     # (int8 pages + f32 [num_blocks, kvh] scales)
     block_tables: torch.Tensor,  # [B, max_blocks] int32
     seq_lens: torch.Tensor,      # [B] int32
+    *,
+    max_seq_len: Optional[int] = None,
 ) -> torch.Tensor:
     """Same semantics as ``ops.attention.paged_decode_attention`` for rows
-    with ``seq_lens > 0``; a row with ``seq_len == 0`` reads back zeros."""
+    with ``seq_lens > 0``; a row with ``seq_len == 0`` reads back zeros.
+    ``max_seq_len``: a host bound on every ``seq_lens[b]`` that sizes the
+    split grid (default ``max_blocks * block_size``, always safe)."""
     if q.device.type == "cpu":
         return att.paged_decode_attention(q, k_cache, v_cache, block_tables, seq_lens)
     check_cuda_tensor("q", q, torch.bfloat16, 3)
@@ -41,18 +96,29 @@ def paged_decode_attention(
     check_cuda_tensor("seq_lens", seq_lens, torch.int32, 1)
     B, h, d = q.shape
     _, bs, kvh, dk = k_cache.shape
-    if d != 128 or dk != 128 or v_cache.shape != k_cache.shape:
+    if d != HEAD_DIM or dk != HEAD_DIM or v_cache.shape != k_cache.shape:
         raise ValueError("the decode kernel takes head_dim 128 and equal K/V caches")
     if h % kvh or h // kvh not in GROUP_SIZES:
         raise ValueError(f"{h} heads over {kvh} kv heads: group size not in {GROUP_SIZES}")
     if block_tables.shape[0] != B or seq_lens.shape[0] != B:
         raise ValueError("block_tables / seq_lens must have one row per query")
+    max_blocks = block_tables.shape[1]
+    bound = max_blocks * bs if max_seq_len is None else min(int(max_seq_len), max_blocks * bs)
+    S = split_extent(bound)
     out = torch.empty_like(q)
     if B:
+        # partials: acc [B, kvh, S, G, 128], m and l [B, kvh, S, G] f32
+        rows = B * kvh * S * (h // kvh)
+        n_words = -(-B // 4) * 4
+        counts, n_splits = _scratch_for(q.device, B * kvh, n_words + rows * (HEAD_DIM + 2))
+        part = n_splits + 4 * n_words
         (KERNEL_INT8 if quantized else KERNEL).launch(
-            [q, *caches, block_tables, seq_lens, out],
-            [B, h, kvh, bs, block_tables.shape[1]],
+            [q, *caches, block_tables, seq_lens, out, part, n_splits, counts],
+            [B, h, kvh, bs, max_blocks, S],
         )
+        if split_log is not None:
+            buf, have = _scratch[q.device]
+            split_log.append(((S, kvh, B), buf[have:have + B].clone()))
     return out
 
 
