@@ -42,7 +42,9 @@ Phases, in order; any failure raises and the exit code is not 0:
    gemma3-4b (6 layers) at full width through the unified kernel, with
    the window dropped, one page too wide, or the softcap dropped as the
    wrong attentions.
-4. serving: TorchEngine on the llama3-8b preset at full depth (32 layers,
+4. serving (each engine with its defaults: the auto-tuned decode horizon,
+   each horizon one CUDA-graph replay, and launches counted through the
+   replays): TorchEngine on the llama3-8b preset at full depth (32 layers,
    random bf16 weights from a seed) serves staggered concurrent requests;
    every request must finish with its token count, and the decode,
    flash-extend and unified kernels and the fused mixed step must all have
@@ -58,7 +60,22 @@ Phases, in order; any failure raises and the exit code is not 0:
    cache: every request finishes, the unified kernel served windowed
    launches, split rows (by the kernel's own count, in the profiled
    runs) and neither the decode nor the flash-extend kernel ran.
-5. report: one JSON line with every kernel's numbers, the nvidia-smi line,
+5. horizon: the decode horizon. For llama3-8b on a bf16 and an int8 cache
+   and gemma2-2b on bf16, one horizon of 8 steps from a random state run
+   eagerly on cloned caches and its captured graph replayed on the
+   originals must agree bit for bit (packed tokens and logprobs, carry,
+   output counts, every K/V page but scratch block 0). Then llama3-8b at 32
+   layers serves 8 prompts of 128 tokens queued at once, 256 output tokens
+   each (one seeded sampled request), four times on one set of weights:
+   (a) one eager decode step per tick, (b) eager horizons of 8, (c)
+   graphed horizons of 8 with two in flight, (d) the auto-tuned schedule
+   with graphs; (b)-(d) carry a stop token that one greedy request's (a)
+   stream samples mid-horizon, and must stream exactly (a)'s tokens, cut at
+   the stop. Prints each run's ITL, TTFT, tok/s and wall, captures,
+   capture seconds, pool bytes, replays and launches through replays; (d)
+   again under the profiler for the device-busy share; and the device time
+   per step, inside a graph, of the Gumbel draw and the KV writes.
+6. report: one JSON line with every kernel's numbers, the nvidia-smi line,
    and last the device line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without printing a result when no CUDA device is present or
@@ -1441,24 +1458,31 @@ def kernel_counters() -> dict:
     }
 
 
-def reset_launches() -> None:
+def launch_counters() -> dict:
+    """kernel_counters, and the unified kernel's windowed launches."""
     from dynamo_tpu_torch.ops import cuda_unified
 
-    for k in kernel_counters().values():
-        k.launches = 0
-    cuda_unified.windowed_launches = 0
+    return {**kernel_counters(), "unified_windowed": cuda_unified.WINDOWED}
+
+
+def reset_launches() -> None:
+    for k in launch_counters().values():
+        k.launches = k.replayed = 0
 
 
 def read_launches() -> dict:
-    from dynamo_tpu_torch.ops import cuda_unified
-
-    out = {name: k.launches for name, k in kernel_counters().items()}
-    out["unified_windowed"] = cuda_unified.windowed_launches
+    """Launches by kernel since reset_launches, CUDA-graph replays
+    included (each replay counts the launches its capture recorded), and
+    under "replayed" the share of them that replays made."""
+    counters = launch_counters()
+    out = {name: k.launches for name, k in counters.items()}
+    out["replayed"] = {name: k.replayed for name, k in counters.items()}
     return out
 
 
-def device_time_by_kind(prof) -> dict:
-    """Summed kernel time (ms) from a CUDA-activity profile, by kind."""
+def device_time_by_kind(prof, n_top: int = 10) -> dict:
+    """Summed kernel time (ms) from a CUDA-activity profile, by kind, and
+    the ``n_top`` kernels by time."""
     kinds = {"decode_kernel": "paged_decode_kernel", "flash_kernel": "flash_extend_kernel",
              "unified_kernel": "unified_kernel", "merge_kernel": "merge_kernel"}
     gemm_tags = ("gemm", "nvjet", "xmma", "cutlass", "cublas")
@@ -1476,7 +1500,7 @@ def device_time_by_kind(prof) -> dict:
             kind = "gemm" if any(g in name.lower() for g in gemm_tags) else "other"
         out[kind] += t
     out["kernels"] = n
-    out["top"] = [[name, round(t, 3), c] for t, c, name in sorted(top, reverse=True)[:10]]
+    out["top"] = [[name, round(t, 3), c] for t, c, name in sorted(top, reverse=True)[:n_top]]
     return out
 
 
@@ -1509,6 +1533,8 @@ async def serve(torch, profile: bool = False):
         prompts.append(tok.encode(text)[:n])
     max_tokens = 32
     sampled = 3   # one seeded sampled request; the rest are greedy
+    # ITL is the mean gap between a request's tokens: (last arrival - first)
+    # over tokens - 1, since one output carries a whole horizon's tokens
     stats = []
 
     async def one(i, prompt):
@@ -1527,7 +1553,7 @@ async def serve(torch, profile: bool = False):
             finish = out.finish_reason or finish
         stats.append({"i": i, "prompt": len(prompt), "tokens": toks, "finish": finish,
                       "ttft_s": stamps[0] - t_sub if stamps else None,
-                      "itl_s": ((stamps[-1] - stamps[0]) / (len(stamps) - 1)
+                      "itl_s": ((stamps[-1] - stamps[0]) / (len(toks) - 1)
                                 if len(stamps) > 1 else None)})
 
     prof = None
@@ -1561,7 +1587,7 @@ async def serve(torch, profile: bool = False):
         busy_ms = sum(v for k, v in by_kind.items() if k not in ("kernels", "top"))
         return {"wall_s": wall, "device_busy_ms": busy_ms,
                 "busy_share": busy_ms / (wall * 1e3), "device_ms": by_kind,
-                "steps": dict(engine.step_counts), "launches": launches}
+                "steps": dict(engine.step_counts), **horizon_report(engine), "launches": launches}
     ttft = sorted(s["ttft_s"] for s in stats)
     itl = sorted(s["itl_s"] for s in stats)
     n_out = sum(len(s["tokens"]) for s in stats)
@@ -1570,7 +1596,7 @@ async def serve(torch, profile: bool = False):
         "wall_s": wall, "output_tok_s": n_out / wall,
         "ttft_s_median": statistics.median(ttft), "ttft_s_max": ttft[-1],
         "itl_s_median": statistics.median(itl), "itl_s_max": itl[-1],
-        "steps": dict(engine.step_counts),
+        "steps": dict(engine.step_counts), **horizon_report(engine),
         "launches": launches,
     }
 
@@ -1663,7 +1689,7 @@ async def serve_kvbm(torch):
         stats.append({"wave": tag, "i": i, "prompt": len(toks), "tokens": out_toks,
                       "finish": finish, "cached": cached,
                       "ttft_s": stamps[0] - t_sub if stamps else None,
-                      "itl_s": ((stamps[-1] - stamps[0]) / (len(stamps) - 1)
+                      "itl_s": ((stamps[-1] - stamps[0]) / (len(out_toks) - 1)
                                 if len(stamps) > 1 else None)})
 
     async def wave(tag, prompts):
@@ -1749,7 +1775,7 @@ async def serve_kvbm(torch):
         "repeat_cached_tokens": [by[("repeat", i)]["cached"] for i in range(len(first))],
         "resident_blocks_before_repeat": resident,
         "repeats_streaming_the_same_greedy_tokens": f"{same} of {len(first)}",
-        "kvbm": kstats, "steps": dict(engine.step_counts), "launches": launches,
+        "kvbm": kstats, "steps": dict(engine.step_counts), **horizon_report(engine), "launches": launches,
         **calls, "onboarded_block_bit_exact": True,
     }
 
@@ -1819,7 +1845,7 @@ async def serve_gemma(torch, int8=False, profile=False):
             finish = out.finish_reason or finish
         stats.append({"i": i, "tokens": toks, "finish": finish,
                       "ttft_s": stamps[0] - t_sub if stamps else None,
-                      "itl_s": ((stamps[-1] - stamps[0]) / (len(stamps) - 1)
+                      "itl_s": ((stamps[-1] - stamps[0]) / (len(toks) - 1)
                                 if len(stamps) > 1 else None)})
 
     prof = None
@@ -1869,7 +1895,7 @@ async def serve_gemma(torch, int8=False, profile=False):
         busy_ms = sum(v for k, v in by_kind.items() if k not in ("kernels", "top"))
         return {"wall_s": wall, "device_busy_ms": busy_ms,
                 "busy_share": busy_ms / (wall * 1e3), "device_ms": by_kind,
-                "steps": dict(engine.step_counts), "launches": launches,
+                "steps": dict(engine.step_counts), **horizon_report(engine), "launches": launches,
                 "split_rows": split_rows, "launches_with_split_rows": split_launches}
     ttft = sorted(s["ttft_s"] for s in stats)
     itl = sorted(s["itl_s"] for s in stats)
@@ -1879,16 +1905,446 @@ async def serve_gemma(torch, int8=False, profile=False):
         "wall_s": wall, "output_tok_s": n_out / wall,
         "ttft_s_median": statistics.median(ttft), "ttft_s_max": ttft[-1],
         "itl_s_median": statistics.median(itl), "itl_s_max": itl[-1],
-        "steps": dict(engine.step_counts), "launches": launches,
+        "steps": dict(engine.step_counts), **horizon_report(engine), "launches": launches,
     }
+
+
+# ------------------------------------------------------------- phase 5
+def horizon_report(engine) -> dict:
+    """An engine's decode schedule (and the measurements behind an
+    auto-tuned one) and its horizon graphs: count, capture seconds, pool
+    bytes, replays."""
+    c = engine.cfg
+    return {"schedule": {"decode_steps": c.decode_steps, "decode_pipeline": c.decode_pipeline,
+                         "cuda_graphs": c.cuda_graphs, **engine.schedule},
+            "horizon": engine.horizon_stats()}
+
+
+# decode-heavy traffic: 8 prompts of 128 tokens queued before the first
+# tick, 256 output tokens each, on llama3-8b at 32 layers (full width and
+# depth, random bf16 weights from seed 0), max_context 4096, 2048 blocks
+HZ_PROMPTS, HZ_PROMPT_LEN, HZ_TOKENS = 8, 128, 256
+HZ_SAMPLED = 3     # T 0.8, top-p 0.95, seed 7; the rest greedy
+HZ_STEPS = 8
+
+
+def horizon_prompts():
+    from dynamo_tpu_torch.llm.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer()
+    rng = np.random.default_rng(8)
+    words = [bytes(rng.integers(97, 123, size=rng.integers(2, 9))).decode()
+             for _ in range(4000)]
+    out = []
+    for _ in range(HZ_PROMPTS):
+        text = " ".join(words[int(i)] for i in rng.integers(0, len(words), size=HZ_PROMPT_LEN))
+        out.append(tok.encode(text)[:HZ_PROMPT_LEN])
+    return out
+
+
+async def serve_decode_heavy(torch, params, prompts, stop=None, profile=False, **knobs):
+    """Serve the decode-heavy traffic once on a fresh engine over
+    ``params``; ``stop``: pick_stop's (request, index, token). ``knobs``: the
+    engine's decode_steps / decode_pipeline / cuda_graphs. Returns each
+    request's tokens, finish and the sizes of its output chunks (one per
+    horizon), TTFT / ITL / tok/s / wall, the tokens each request had when
+    the last prompt's prefill ended (``pre``: horizons start there), and
+    the engine's steps, horizon report and launches (replays counted)."""
+    from dynamo_tpu_torch.engine.engine import TorchEngine, TorchEngineConfig
+    from dynamo_tpu_torch.llm.protocols.common import (
+        PreprocessedRequest, SamplingOptions, StopConditions,
+    )
+    from dynamo_tpu_torch.models.llama import LlamaConfig
+    from dynamo_tpu_torch.runtime import Context
+
+    mcfg = LlamaConfig.llama3_8b()
+    cfg = TorchEngineConfig(model=mcfg, num_blocks=2048, block_size=BS, max_batch_size=8,
+                            max_context=4096, seed=0, **knobs)
+    t0 = time.perf_counter()
+    engine = TorchEngine(cfg, params=params)
+    torch.cuda.synchronize()
+    ready_s = time.perf_counter() - t0
+    pre = {}
+    accept = engine._accept_tokens
+
+    def accept_and_mark(st, *a, **k):
+        accept(st, *a, **k)
+        live = [x for x in engine._slots if x is not None]
+        if not pre and len(live) == HZ_PROMPTS and all(x.prefilled for x in live):
+            pre.update({x.req.request_id: x.produced for x in live})
+
+    engine._accept_tokens = accept_and_mark
+    stats = []
+
+    async def one(i, prompt):
+        samp = (SamplingOptions(temperature=0.8, top_p=0.95, seed=7) if i == HZ_SAMPLED
+                else SamplingOptions(temperature=0.0))
+        ids = [stop[2]] if stop is not None and stop[0] == i else []
+        req = PreprocessedRequest(request_id=f"h{i}", model="llama3-8b", token_ids=prompt,
+                                  sampling=samp, stop=StopConditions(max_tokens=HZ_TOKENS,
+                                                                     stop_token_ids=ids))
+        t_sub = time.perf_counter()
+        stamps, toks, chunks, finish = [], [], [], None
+        async for out in engine.generate(req, Context()):
+            if out.token_ids:
+                stamps.append(time.perf_counter())
+                toks.extend(out.token_ids)
+            chunks.append(len(out.token_ids))
+            finish = out.finish_reason or finish
+        stats.append({"i": i, "tokens": toks, "finish": finish, "chunks": chunks,
+                      "ttft_s": stamps[0] - t_sub if stamps else None,
+                      "itl_s": ((stamps[-1] - stamps[0]) / (len(toks) - 1)
+                                if len(toks) > 1 else None)})
+
+    prof = None
+    if profile:
+        prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+        prof.__enter__()
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        await asyncio.gather(*(one(i, p) for i, p in enumerate(prompts)))
+    finally:
+        engine.stop()
+        torch.cuda.synchronize()
+        if prof is not None:
+            prof.__exit__(None, None, None)
+    wall = time.perf_counter() - t0
+    stats.sort(key=lambda x: x["i"])
+    ttft = sorted(x["ttft_s"] for x in stats)
+    itl = sorted(x["itl_s"] for x in stats)
+    out = {"ready_s": ready_s, "wall_s": wall,
+           "output_tok_s": sum(len(x["tokens"]) for x in stats) / wall,
+           "ttft_s_median": statistics.median(ttft), "ttft_s_max": ttft[-1],
+           "itl_s_median": statistics.median(itl), "itl_s_max": itl[-1],
+           "pre": [pre.get(f"h{i}") for i in range(HZ_PROMPTS)],
+           "steps": dict(engine.step_counts), **horizon_report(engine),
+           "launches": read_launches(), "requests": stats}
+    if prof is not None:
+        by_kind = device_time_by_kind(prof, n_top=25)
+        busy_ms = sum(v for k, v in by_kind.items() if k not in ("kernels", "top"))
+        out.update(device_busy_ms=busy_ms, device_ms=by_kind)
+    return out, engine
+
+
+def pick_stop(free: dict):
+    """(request, index, token): a greedy request's token whose first
+    appearance in the free run falls mid-horizon (neither first nor last
+    of its horizon of HZ_STEPS), after at least one whole horizon."""
+    for r in free["requests"]:
+        if r["i"] == HZ_SAMPLED:
+            continue
+        toks, pre = r["tokens"], free["pre"][r["i"]]
+        for j in range(pre + HZ_STEPS, len(toks) - 1):
+            if 0 < (j - pre) % HZ_STEPS < HZ_STEPS - 1 and toks[j] not in toks[:j]:
+                return r["i"], j, toks[j]
+    raise AssertionError("horizon: no greedy request samples a new token mid-horizon")
+
+
+def check_same_streams(tag: str, run: dict, free: dict, stop) -> None:
+    """``run`` streams the free run's tokens: every request its 256, the
+    stopped one its tokens before the stop token, finishing "stop" with
+    the stop inside a horizon."""
+    i_stop, j, _ = stop
+    pre = free["pre"]
+    if run["pre"] != pre:
+        raise AssertionError(f"{tag}: prefill phase ended at {run['pre']}, free run at {pre}")
+    for r, f in zip(run["requests"], free["requests"]):
+        want, finish = (f["tokens"][:j], "stop") if r["i"] == i_stop else (f["tokens"], "length")
+        if r["tokens"] != want or r["finish"] != finish:
+            first = next((n for n, (a, b) in enumerate(zip(r["tokens"], want)) if a != b),
+                         min(len(r["tokens"]), len(want)))
+            raise AssertionError(
+                f"{tag}: request {r['i']} streamed {len(r['tokens'])} tokens ({r['finish']}), "
+                f"expected {len(want)} ({finish}) of the one-step eager run; first "
+                f"difference at token {first}")
+    last = [c for c in run["requests"][i_stop]["chunks"] if c][-1]
+    if run["steps"]["horizon"] and not 0 < last < HZ_STEPS - 1:
+        raise AssertionError(f"{tag}: the stop did not fall inside a horizon ({last} "
+                             f"tokens in the last chunk)")
+
+
+def random_horizon_state(torch, engine, lens, seed):
+    """Random caches (every page), random output counts and prompt masks,
+    and a horizon state over ``lens`` (0: an inactive row) with distinct
+    pages per row, row 2 sampled with top-p and row 5 penalized."""
+    hz, c = engine._horizon, engine.cfg
+    hs = hz.state
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for cache in engine.k_caches + engine.v_caches:
+        if hasattr(cache, "scale"):
+            cache.data.copy_(torch.randint(-127, 128, cache.data.shape, generator=gen,
+                                           device="cuda", dtype=torch.int8))
+            cache.scale.copy_(torch.rand(cache.scale.shape, generator=gen, device="cuda") / 50)
+        else:
+            cache.normal_(generator=gen)
+    B = c.max_batch_size
+    n = c.decode_steps
+    tables = torch.zeros(B, c.max_blocks_per_seq, dtype=torch.int32)
+    nxt = 1
+    for r, L in enumerate(lens):
+        if L:
+            k = -(-(L + n) // c.block_size)
+            tables[r, :k] = torch.arange(nxt, nxt + k, dtype=torch.int32)
+            nxt += k
+    lens_t = torch.tensor(lens, dtype=torch.int32)
+    active = lens_t > 0
+    vals = {"tokens": torch.randint(0, engine.mcfg.vocab_size, (B,)), "seq_lens": lens_t,
+            "steps": torch.arange(B) * 3, "tables": tables, "active": active,
+            "count_rows": active, "sample_rows": active & (torch.arange(B) == 2),
+            "seeds": torch.arange(B) + 11,
+            "temps": torch.where(torch.arange(B) == 2, 0.8, 0.0),
+            "top_ks": torch.zeros(B, dtype=torch.int64),
+            "top_ps": torch.where(torch.arange(B) == 2, 0.95, 1.0),
+            "min_ps": torch.zeros(B), "freqs": torch.zeros(B),
+            "pres": torch.where(torch.arange(B) == 5, 0.5, 0.0),
+            "reps": torch.where(torch.arange(B) == 5, 1.2, 1.0)}
+    for name, v in vals.items():
+        getattr(hs, name).copy_(v)
+    engine.output_counts.copy_(torch.randint(0, 3, engine.output_counts.shape, generator=gen,
+                                             device="cuda", dtype=torch.int32))
+    engine.prompt_masks.copy_(torch.randint(0, 2, engine.prompt_masks.shape, generator=gen,
+                                            device="cuda", dtype=torch.int8))
+    return hz.key(max(lens) + n - 1, True)
+
+
+def cache_arrays(caches):
+    return [t for c in caches for t in ((c.data, c.scale) if hasattr(c, "scale") else (c,))]
+
+
+def graph_equals_eager(torch, engine, tag: str, lens) -> dict:
+    """From one random state: the horizon body run eagerly on cloned
+    caches and output counts, then the captured graph replayed on the
+    originals. The packed results, the carry, the output counts and every
+    K/V page but scratch block 0 (which every inactive row writes, in an
+    order that decides its contents) must be bit-identical."""
+    hz = engine._horizon
+    hs = hz.state
+    key = random_horizon_state(torch, engine, lens, seed=9)
+    carry0 = hs.carry.dev.clone()
+    orig = (engine.k_caches, engine.v_caches, engine.output_counts)
+
+    def clone(c):
+        return type(c)(c.data.clone(), c.scale.clone()) if hasattr(c, "scale") else c.clone()
+
+    engine.k_caches = [clone(c) for c in orig[0]]
+    engine.v_caches = [clone(c) for c in orig[1]]
+    engine.output_counts = orig[2].clone()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine._decode_multi(hs, *key)
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    eager = (hs.packed.clone(), hs.carry.dev.clone(), engine.output_counts,
+             cache_arrays(engine.k_caches + engine.v_caches))
+    engine.k_caches, engine.v_caches, engine.output_counts = orig
+    hs.carry.dev.copy_(carry0)
+    graph, _ = hz.graphs[key]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    graph.replay()
+    torch.cuda.synchronize()
+    replay_s = time.perf_counter() - t0
+    graphed = (hs.packed, hs.carry.dev, engine.output_counts,
+               cache_arrays(engine.k_caches + engine.v_caches))
+    for name, a, b in (("packed tokens and logprobs", eager[0], graphed[0]),
+                       ("carry", eager[1], graphed[1]), ("output counts", eager[2], graphed[2])):
+        if not torch.equal(a, b):
+            raise AssertionError(f"horizon {tag}: graph replay's {name} differ from the "
+                                 "eager horizon's")
+    pages = 0
+    for a, b in zip(eager[3], graphed[3]):
+        if not torch.equal(a[1:], b[1:]):
+            raise AssertionError(f"horizon {tag}: a K/V page differs between the graph "
+                                 "replay and the eager horizon")
+        pages += a.shape[0] - 1
+    if not torch.isfinite(hs.packed[:, :, 1][:, hs.active]).all():
+        raise AssertionError(f"horizon {tag}: logprobs not finite")
+    return {"key": list(key), "lens": list(lens), "steps": hs.packed.shape[0],
+            "eager_s": eager_s, "replay_s": replay_s, "pages_compared": pages,
+            "cache_arrays": len(eager[3]), "bit_identical": True}
+
+
+def graph_ms(torch, fn, reps: int = 50) -> float:
+    """Milliseconds per replay of ``fn`` captured as a CUDA graph (the
+    device time of that work inside a graph), CUDA events over ``reps``."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        fn()
+    graph.replay()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        graph.replay()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def time_step_parts(torch, mcfg) -> dict:
+    """Device ms per decode step inside a graph, at the decode-heavy
+    traffic's batch of 8: the Gumbel draw over [8, vocab] (every sampled
+    step), and every layer's K and V decode write (the plain-PyTorch
+    write, no kernel of its own) on bf16 and on int8 caches."""
+    from dynamo_tpu_torch.engine.sampling import gumbel_noise_tensor
+    from dynamo_tpu_torch.ops import attention as att
+    from dynamo_tpu_torch.ops.quant import QuantizedKV
+
+    B, L, nb = 8, mcfg.num_layers, 64
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    seeds = torch.arange(B, device="cuda") + 7
+    steps = torch.arange(B, device="cuda") * 5
+    rows = torch.ones(B, dtype=torch.bool, device="cuda")
+    shape = (nb, BS, mcfg.num_kv_heads, mcfg.head_dim)
+    bf16 = [torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(2 * L)]
+    int8 = [QuantizedKV(torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                                      dtype=torch.int8),
+                        torch.rand(shape[0], shape[2], generator=gen, device="cuda") / 50)
+            for _ in range(2 * L)]
+    k = torch.randn(B, mcfg.num_kv_heads, mcfg.head_dim, generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    blocks = torch.arange(1, B + 1, device="cuda") * 5
+    offs = torch.arange(B, device="cuda") % BS + 1
+
+    def writes(caches):
+        for li in range(L):
+            att.write_decode_kv(caches[2 * li], caches[2 * li + 1], k, k, blocks, offs)
+
+    return {"gumbel_ms": graph_ms(torch, lambda: gumbel_noise_tensor(
+                seeds, steps, mcfg.vocab_size, rows=rows)),
+            "kv_write_bf16_ms": graph_ms(torch, lambda: writes(bf16)),
+            "kv_write_int8_ms": graph_ms(torch, lambda: writes(int8)),
+            "layers": L, "batch": B}
+
+
+def horizon_phase(torch, smi: str) -> dict:
+    """The decode horizon on the card: graph equals eager bit for bit
+    (llama bf16, llama int8, gemma2-2b), the decode-heavy traffic served
+    four ways on one set of weights -- (a) one eager step per tick, (b) an
+    eager horizon of 8, (c) graphed horizons of 8 two in flight, (d) the
+    auto-tuned schedule with graphs -- (b)-(d) streaming exactly (a)'s
+    tokens, (d) again under the profiler, and the per-step device time of
+    the Gumbel draw and the KV writes inside a graph."""
+    from dynamo_tpu_torch.engine.engine import TorchEngine, TorchEngineConfig
+    from dynamo_tpu_torch.models import registry
+    from dynamo_tpu_torch.models.gemma import GemmaConfig
+    from dynamo_tpu_torch.models.llama import LlamaConfig
+
+    out = {}
+    mcfg = LlamaConfig.llama3_8b()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = registry.init_params(mcfg, gen, "cuda")
+    prompts = horizon_prompts()
+    runs = {}
+    free, eng = asyncio.run(serve_decode_heavy(torch, params, prompts, decode_steps=1,
+                                               decode_pipeline=1))
+    del eng
+    stop = pick_stop(free)
+    out["stop"] = {"request": stop[0], "index": stop[1], "token": stop[2],
+                   "horizon_offset": (stop[1] - free["pre"][stop[0]]) % HZ_STEPS}
+    for s in free["requests"]:
+        if len(s["tokens"]) != HZ_TOKENS or s["finish"] != "length":
+            raise AssertionError(f"horizon (a): request {s['i']}: {len(s['tokens'])} tokens, "
+                                 f"{s['finish']!r}")
+    runs["a"] = free
+    plans = (("b", dict(decode_steps=HZ_STEPS, decode_pipeline=1, cuda_graphs=False)),
+             ("c", dict(decode_steps=HZ_STEPS, decode_pipeline=2)),
+             ("d", {}))
+    for tag, knobs in plans:
+        gc.collect()
+        torch.cuda.empty_cache()
+        run, eng = asyncio.run(serve_decode_heavy(torch, params, prompts, stop=stop, **knobs))
+        check_same_streams(f"horizon ({tag})", run, free, stop)
+        if run["steps"]["horizon"] <= 0:
+            raise AssertionError(f"horizon ({tag}): no horizon ran: {run['steps']}")
+        for name in ("decode", "unified", "flash_extend"):
+            if run["launches"][name] <= 0:
+                raise AssertionError(f"horizon ({tag}): the {name} kernel never launched")
+        if knobs.get("cuda_graphs", True):
+            if run["horizon"]["replays"] != run["steps"]["horizon"]:
+                raise AssertionError(f"horizon ({tag}): {run['horizon']} replays for "
+                                     f"{run['steps']['horizon']} horizons")
+            if run["launches"]["replayed"]["decode"] <= 0:
+                raise AssertionError(f"horizon ({tag}): no decode launch came from a replay")
+        runs[tag] = run
+        if tag == "c":
+            out["graph_equals_eager"] = {"llama3-8b bf16": graph_equals_eager(
+                torch, eng, "llama bf16", [300, 1000, 2500, 4096 - HZ_STEPS, 64, 0, 1800, 17])}
+        del eng
+    for tag, run in runs.items():
+        log(f"horizon ({tag}) on {smi}: schedule {run['schedule']}; "
+            f"{run['output_tok_s']:.1f} tok/s, wall {run['wall_s']:.2f} s, TTFT median "
+            f"{run['ttft_s_median'] * 1e3:.0f} ms (max {run['ttft_s_max'] * 1e3:.0f}), ITL "
+            f"median {run['itl_s_median'] * 1e3:.2f} ms (max {run['itl_s_max'] * 1e3:.2f}); "
+            f"steps {run['steps']}; graphs {run['horizon']}; launches {run['launches']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    prof, eng = asyncio.run(serve_decode_heavy(torch, params, prompts, stop=stop,
+                                               profile=True))
+    del eng
+    # busy share: the profiled rerun's device time over the unprofiled
+    # run's wall (the profiler's own host work stretches the profiled wall)
+    prof["busy_share"] = prof["device_busy_ms"] / (runs["d"]["wall_s"] * 1e3)
+    steps_run = prof["steps"]["horizon"] * prof["schedule"]["decode_steps"] + sum(
+        prof["steps"][k] for k in ("prefill", "decode", "mixed"))
+    log(f"horizon (d) profiled on {smi}: device busy {prof['device_busy_ms']:.1f} ms, "
+        f"{prof['busy_share']:.1%} of the unprofiled (d) wall of "
+        f"{runs['d']['wall_s'] * 1e3:.1f} ms (profiled wall {prof['wall_s'] * 1e3:.1f} ms); "
+        f"{prof['device_ms']['kernels']} kernels over {steps_run} forward passes "
+        f"({prof['device_ms']['kernels'] / steps_run:.0f} each), "
+        f"{prof['device_busy_ms'] / steps_run:.3f} device ms each; device ms "
+        + json.dumps(prof["device_ms"]))
+    out["runs"] = {tag: {k: v for k, v in run.items() if k != "requests"}
+                   for tag, run in runs.items()}
+    out["profiled_d"] = {k: v for k, v in prof.items() if k != "requests"}
+    # graph against eager on the other caches and family
+    gc.collect()
+    torch.cuda.empty_cache()
+    for tag, mk in (
+            ("llama3-8b int8", lambda: TorchEngine(TorchEngineConfig(
+                model=mcfg, num_blocks=2048, block_size=BS, max_batch_size=8, max_context=4096,
+                kv_dtype="int8", decode_steps=HZ_STEPS, decode_pipeline=1), params=params)),
+            ("gemma2-2b bf16", lambda: TorchEngine(TorchEngineConfig(
+                model=GemmaConfig.gemma2_2b(), num_blocks=2048, block_size=BS,
+                max_batch_size=8, max_context=8192, decode_steps=HZ_STEPS,
+                decode_pipeline=1)))):
+        eng = mk()
+        lens = ([300, 1000, 2500, 4096 - HZ_STEPS, 64, 0, 1800, 17] if "llama" in tag
+                else [300, 5000, 2500, 8192 - HZ_STEPS, 64, 0, 4500, 17])
+        out["graph_equals_eager"][tag] = {**graph_equals_eager(torch, eng, tag, lens),
+                                          **horizon_report(eng)}
+        eng.stop()
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    for tag, r in out["graph_equals_eager"].items():
+        log(f"horizon graph = eager, {tag}: bit-identical over {r['steps']} steps at key "
+            f"{r['key']} ({r['pages_compared']} pages x {r['cache_arrays']} cache arrays); "
+            f"eager {r['eager_s'] * 1e3:.1f} ms, replay {r['replay_s'] * 1e3:.1f} ms")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["step_parts"] = time_step_parts(torch, mcfg)
+    p = out["step_parts"]
+    log(f"horizon step parts inside a graph on {smi}, batch 8: Gumbel draw over "
+        f"{mcfg.vocab_size} {p['gumbel_ms']:.4f} ms; K and V decode writes of "
+        f"{p['layers']} layers {p['kv_write_bf16_ms']:.4f} ms bf16, "
+        f"{p['kv_write_int8_ms']:.4f} ms int8")
+    return out
 
 
 # ------------------------------------------------------------------ main
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="kernels,model,serve",
-                    help="comma list of kernels,model,serve (environment and "
-                         "build always run; the report needs all three)")
+    ap.add_argument("--phases", default="kernels,model,serve,horizon",
+                    help="comma list of kernels,model,serve,horizon (environment "
+                         "and build always run; the report needs all four)")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
 
@@ -2062,7 +2518,14 @@ def main() -> int:
                 f"split rows ({prof['split_rows']} rows split, by the kernel's count)")
             gc.collect()
             torch.cuda.empty_cache()
-    if phases != {"kernels", "model", "serve"}:
+    if "horizon" in phases:
+        t0 = time.perf_counter()
+        hz = horizon_phase(torch, smi)
+        log("horizon: " + json.dumps(hz))
+        log(f"horizon phase [{time.perf_counter() - t0:.1f} s]")
+        gc.collect()
+        torch.cuda.empty_cache()
+    if phases != {"kernels", "model", "serve", "horizon"}:
         log("partial run (--phases): no report")
         return 1
     # launches: each kernel's count from the serving run of its path (the

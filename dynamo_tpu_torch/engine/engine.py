@@ -12,7 +12,16 @@ functions):
 - chunked, bucketed prefill: one bounded chunk per loop tick (so resident
   decodes keep moving), padded to a bucket with the reference's conventions
   (pad positions at ``max_context - 1``, pad rows writing scratch block 0);
-- one decode step per tick for every resident sequence;
+- the decode horizon (``decode_steps`` > 1, ``_decode_multi``): several
+  decode steps per dispatch on device tensors only, each step's sampled
+  token fed back on the device, the results read back once per horizon as
+  one packed ``[N, B, 2 + 2K]`` array; up to ``decode_pipeline`` horizons
+  in flight, each chained on the last one's device carry; stop conditions
+  applied on the host afterwards (the tokens after a stop are a discarded
+  speculative tail). On CUDA each horizon is one replay of a CUDA graph
+  captured at engine start (engine/graphs.py). ``autotune_decode_schedule``
+  picks both knobs when they are None. A tick with requests waiting, or
+  with no pages to book a horizon, runs ONE eager decode step instead;
 - the fused mixed step: when a prefill chunk and resident decodes coexist,
   ONE forward serves both, with the chunk as row 0 and the decode slots as
   rows 1..B of one unified ragged attention launch;
@@ -39,13 +48,14 @@ prefill chunk as one ragged row, and the mixed step as it is. The llama
 family keeps its decode and flash-extend kernels.
 
 Device work runs on a single executor thread so the asyncio loop that
-streams results never blocks behind the GPU.
+streams results never blocks behind the GPU; a horizon's readback waits on
+a fetch thread.
 
-Not in this slice (ROADMAP.md): multi-step decode horizons and CUDA graphs,
-spec decode, LoRA, guided decoding, logits processors, vision, embeddings,
-the G4 remote KVBM tier, disaggregated transfer, parallelism, and the
-KV-event / metrics / tracing / SLO hooks. A request that asks for one of
-those is refused with ``UnsupportedRequestError``.
+Not in this slice (ROADMAP.md): spec decode, LoRA, guided decoding, logits
+processors, vision, embeddings, the G4 remote KVBM tier, disaggregated
+transfer, parallelism, and the KV-event / metrics / tracing / SLO hooks. A
+request that asks for one of those is refused with
+``UnsupportedRequestError``.
 """
 
 from __future__ import annotations
@@ -53,8 +63,10 @@ from __future__ import annotations
 import asyncio
 import dataclasses
 import logging
+import time
+from collections import deque
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, AsyncIterator, Dict, List, Optional, Tuple
+from typing import Any, AsyncIterator, Deque, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -83,10 +95,12 @@ from ..ops.quant import QuantizedKV, resolve_kv_dtype
 from ..runtime.engine import Context
 from ..tokens import TokenBlockSequence
 from .allocator import BlockAllocator, OutOfBlocks
+from .graphs import HorizonGraphs, HorizonState, seq_len_buckets
 from .sampling import (
     TOP_LOGPROBS_K,
     apply_penalties,
     gumbel_noise,
+    gumbel_noise_tensor,
     logprobs_of,
     sample_tokens,
     top_logprobs,
@@ -116,6 +130,16 @@ class TorchEngineConfig:
     # per-block-per-kv-head f32 scales, ops/quant.py), or "auto" (the
     # DTPU_KV_DTYPE env, default "model"), as the reference resolves it
     kv_dtype: str = "auto"
+    # decode horizon: decode iterations per dispatch (1: one eager step per
+    # tick), and horizons in flight, each chained on the last one's device
+    # carry. None = auto-tune both at startup (autotune_decode_schedule),
+    # as the reference does.
+    decode_steps: Optional[int] = None
+    decode_pipeline: Optional[int] = None
+    # on CUDA each horizon replays a CUDA graph captured at engine start;
+    # False runs the same horizon body eagerly on the card (to compare the
+    # two). The CPU always runs it eagerly.
+    cuda_graphs: bool = True
 
     def __post_init__(self):
         bad = [b for b in self.prefill_buckets if b % self.block_size]
@@ -123,6 +147,9 @@ class TorchEngineConfig:
             raise ValueError(
                 f"prefill_buckets {bad} not multiples of block_size {self.block_size}"
             )
+        for name in ("decode_steps", "decode_pipeline"):
+            if getattr(self, name) is not None and getattr(self, name) < 1:
+                raise ValueError(f"{name} must be >= 1 (or None to auto-tune)")
         self.kv_dtype = resolve_kv_dtype(self.kv_dtype)
 
     @property
@@ -168,6 +195,89 @@ def _has_penalties(s) -> bool:
         or s.frequency_penalty != 0.0
         or s.repetition_penalty != 1.0
     )
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def measure_device_rtt(device, tries: int = 3) -> float:
+    """Median launch -> readback round trip of a trivial op: the op, then a
+    real copy of its result to the host (``.cpu()``), as the reference
+    probes with ``np.asarray``."""
+    x = torch.zeros(8, dtype=torch.float32, device=device)
+    (x + 1).cpu()   # warm the op
+    samples = []
+    for _ in range(tries):
+        t0 = time.perf_counter()
+        (x + 1).cpu()
+        samples.append(time.perf_counter() - t0)
+    samples.sort()
+    return samples[len(samples) // 2]
+
+
+def measure_copy_rate(device, tries: int = 3) -> float:
+    """Bytes per second the device reads and writes in a device-to-device
+    copy, best of ``tries`` after a warm-up: the rate a decode step reads
+    the weights at (256 MiB copied on CUDA, 32 MiB elsewhere)."""
+    device = torch.device(device)
+    nbytes = 1 << 28 if device.type == "cuda" else 1 << 25
+    src = torch.ones(nbytes, dtype=torch.uint8, device=device)
+    dst = torch.empty_like(src)
+    dst.copy_(src)
+    _sync(device)
+    best = float("inf")
+    for _ in range(tries):
+        t0 = time.perf_counter()
+        dst.copy_(src)
+        _sync(device)
+        best = min(best, time.perf_counter() - t0)
+    return 2 * nbytes / best
+
+
+def param_bytes(params) -> int:
+    """Bytes of every tensor in a parameter tree (dicts and lists)."""
+    if isinstance(params, torch.Tensor):
+        return params.numel() * params.element_size()
+    items = params.values() if isinstance(params, dict) else params
+    return sum(param_bytes(p) for p in items)
+
+
+def autotune_decode_schedule(params, device) -> Tuple[Tuple[int, int], dict]:
+    """((decode_steps, decode_pipeline), the measurements): the reference's
+    rule with this device's own numbers. A decode step reads every weight
+    once, so t_step = weight bytes / the device's measured copy rate; the
+    horizon is the power of two in [8, 64] nearest above RTT / t_step
+    steps, so that its compute covers a readback's round trip; and a
+    second horizon is kept in flight when the round trip is longer than
+    two steps. (The reference's 816 GB/s and 0.45 are TPU calibrations and
+    no prior here.)"""
+    rate = measure_copy_rate(device)
+    t_step = max(param_bytes(params) / rate, 1e-6)
+    rtt = measure_device_rtt(device)
+    steps = 8
+    while steps < 64 and steps < rtt / t_step:
+        steps *= 2
+    pipeline = 2 if rtt > 2 * t_step else 1
+    log.info("decode schedule auto-tuned: rtt=%.3fms copy rate=%.0f GB/s t_step~%.3fms "
+             "-> steps=%d pipeline=%d", rtt * 1e3, rate / 1e9, t_step * 1e3, steps, pipeline)
+    return (steps, pipeline), {"rtt_s": rtt, "copy_bytes_s": rate, "t_step_s": t_step}
+
+
+@dataclasses.dataclass
+class _Chain:
+    """A decode horizon in flight: the host slot its packed [N, B, 2+2K]
+    results are copied to and the event after that copy, the sequence
+    snapshot taken at dispatch (results are never applied to a sequence
+    admitted into a recycled slot later), the device carry's seq_lens
+    after it (host mirror: what the next chained horizon starts from), and
+    the fetch thread's future."""
+    seqs: List[Optional["_Seq"]]
+    host: torch.Tensor
+    event: Any
+    lens_after: np.ndarray
+    fetch: Any = None
 
 
 class _UnifiedRows:
@@ -222,6 +332,15 @@ class TorchEngine:
         self._lm_logits = registry.lm_logits_fn(mcfg)
         self.k_caches = self._init_caches()
         self.v_caches = self._init_caches()
+        # the decode schedule (both knobs size the horizon's buffers and
+        # graphs); the measurements behind an auto-tuned one
+        self.schedule: Dict[str, Any] = {}
+        if config.decode_steps is None or config.decode_pipeline is None:
+            (steps, pipeline), self.schedule = autotune_decode_schedule(params, dev)
+            if config.decode_steps is None:
+                config.decode_steps = steps
+            if config.decode_pipeline is None:
+                config.decode_pipeline = pipeline
 
         # --- slot state (the decode batch is fixed-width) ---
         B, V = config.max_batch_size, mcfg.vocab_size
@@ -247,9 +366,16 @@ class TorchEngine:
         self._loop_task: Optional[asyncio.Task] = None
         self._wake = asyncio.Event()
         self._idle = True   # the loop is parked with no request to serve
-        # dispatches run so far, by kind ("prefill" | "decode" | "mixed")
-        self.step_counts: Dict[str, int] = {"prefill": 0, "decode": 0, "mixed": 0}
+        # dispatches run so far, by kind ("prefill" | "decode" | "mixed" |
+        # "horizon": one multi-step decode dispatch)
+        self.step_counts: Dict[str, int] = {"prefill": 0, "decode": 0, "mixed": 0,
+                                            "horizon": 0}
         self._executor = ThreadPoolExecutor(max_workers=1, thread_name_prefix="torch-step")
+        # horizons in flight, oldest first; their readbacks wait on the
+        # fetch thread so the step thread keeps dispatching
+        self._chains: Deque[_Chain] = deque()
+        self._fetch_executor = ThreadPoolExecutor(max_workers=1,
+                                                  thread_name_prefix="torch-fetch")
 
         # --- KVBM (kvbm/pool.py): sealed blocks write through to host/disk ---
         self.kvbm = kvbm
@@ -257,8 +383,10 @@ class TorchEngine:
         # wait for the next offload batch: 0 = prompt blocks (highest reuse
         # odds), 1 = decode-sealed blocks
         self._offload_pending: List[Tuple[int, int, int]] = []
-        # decode-sealed blocks whose last row the next step writes:
-        # (sequence, block index, block id, sequence hash)
+        # decode-sealed blocks whose last row is not written yet: (sequence,
+        # block index, block id, sequence hash). A block enters the prefix
+        # cache (and the offload queue) only once a step has written it
+        # (_commit_written_blocks)
         self._sealed_unwritten: List[Tuple[_Seq, int, int, int]] = []
         # errors of the offload thread (device-to-host copy, encoding); the
         # gather kernels run on the step executor and raise into the loop
@@ -273,6 +401,36 @@ class TorchEngine:
             QuantizedBlockCodec(block_shape_for(mcfg, config.block_size, "int8"))
             if self.kv_quantized else None
         )
+        self._horizon: Optional[HorizonGraphs] = None
+        if config.decode_steps > 1:
+            self._horizon = self._build_horizon()
+
+    def _build_horizon(self) -> HorizonGraphs:
+        """The horizon's static buffers, and on CUDA (unless ``cuda_graphs``
+        is off) its graphs, captured now, before any traffic."""
+        c, m = self.cfg, self.mcfg
+        window_for = getattr(m, "window_for_layer", None)
+        windows = sorted({w for w in map(window_for, range(m.num_layers)) if w}
+                         if window_for else set())
+        state = HorizonState(c.max_batch_size, c.max_blocks_per_seq, c.decode_steps,
+                             m.vocab_size, TOP_LOGPROBS_K, self.device, windows,
+                             slots=c.decode_pipeline)
+        capture = self.device.type == "cuda" and c.cuda_graphs
+        graphs = HorizonGraphs(
+            self._decode_multi, state,
+            seq_len_buckets(c.max_context, cuda_attention.DEC_SPLIT_KEYS), self.device,
+            capture, reserve=lambda: cuda_attention.reserve(
+                self.device, c.max_batch_size, m.num_heads, m.num_kv_heads, c.max_context))
+        if capture:
+            graphs.capture_all()
+            log.info("decode horizon: %d CUDA graphs of %d steps captured in %.2f s, "
+                     "pool %.1f MiB", len(graphs.graphs), c.decode_steps, graphs.capture_s,
+                     graphs.pool_bytes / 2**20)
+        return graphs
+
+    def horizon_stats(self) -> dict:
+        """Graphs, capture seconds, pool bytes and replays of the horizon."""
+        return self._horizon.stats() if self._horizon is not None else {}
 
     def _init_caches(self) -> list:
         """One zeroed paged cache per layer: raw model-dtype tensors, or
@@ -353,6 +511,7 @@ class TorchEngine:
         if self._loop_task is not None:
             self._loop_task.cancel()
         self._executor.shutdown(wait=False)
+        self._fetch_executor.shutdown(wait=False)
         self._offload_executor.shutdown(wait=False)
 
     # ------------------------------------------------------------ step loop
@@ -360,7 +519,8 @@ class TorchEngine:
         loop = asyncio.get_running_loop()
         try:
             while True:
-                if not self._waiting and all(s is None for s in self._slots):
+                if (not self._waiting and not self._chains
+                        and all(s is None for s in self._slots)):
                     self._wake.clear()
                     self._idle = True
                     await self._wake.wait()
@@ -374,6 +534,7 @@ class TorchEngine:
                     if s is not None and not s.done and not s.prefilled
                 ]
                 did_mixed = False
+                mixed_blocked = False
                 if prefilling:
                     pick = prefilling[self._prefill_rr % len(prefilling)]
                     self._prefill_rr += 1
@@ -384,11 +545,23 @@ class TorchEngine:
                             cumulative_tokens=pick.produced,
                         ))
                     else:
-                        snap = self._decode_snapshot()
-                        if (any(s is not None for s in snap)
-                                and self._book_decode_blocks(snap, 1)):
+                        # the fused mixed step, when decode rows are resident
+                        # and no horizon is in flight (its carry would
+                        # predate the fused step's cache writes)
+                        mixed_seqs = None
+                        if not self._chains:
+                            snap = self._decode_snapshot()
+                            if any(s is not None for s in snap):
+                                if self._book_decode_blocks(snap, 1):
+                                    mixed_seqs = snap
+                                else:
+                                    # no pages: this chunk runs split, and
+                                    # horizons go on rather than wait for a
+                                    # fused step that cannot book
+                                    mixed_blocked = True
+                        if mixed_seqs is not None:
                             results, first = await loop.run_in_executor(
-                                self._executor, self._run_mixed_step, pick, snap
+                                self._executor, self._run_mixed_step, pick, mixed_seqs
                             )
                             did_mixed = True
                             for acc in results:
@@ -401,10 +574,40 @@ class TorchEngine:
                         if first is not None:
                             pick.prefilled = True
                             self._accept_token(*first)
-                snap = self._decode_snapshot()
-                if not did_mixed and any(s is not None for s in snap):
+                has_active = any(s is not None for s in self._decode_snapshot())
+                # top up the horizon pipeline before fetching the oldest
+                # results, so that the readback overlaps the horizons in
+                # flight. While a prefill that the mixed step could carry is
+                # in progress, no horizon is dispatched: the chains in
+                # flight drain, then each tick runs one fused step. (A
+                # prefill's first token is applied at once here, so a
+                # prefill that just ended no longer holds horizons back.)
+                prefilling = [s for s in prefilling if not s.done and not s.prefilled]
+                mixed_wait = bool(prefilling) and has_active and not mixed_blocked
+                while (
+                    has_active
+                    and not self._waiting
+                    and not did_mixed
+                    and not mixed_wait
+                    and len(self._chains) < self.cfg.decode_pipeline
+                    and (not self._chains or self._can_chain(self._chains[-1]))
+                    and self._prepare_horizon(depth=len(self._chains) + 1)
+                ):
+                    prev = self._chains[-1] if self._chains else None
+                    chain = await loop.run_in_executor(
+                        self._executor, self._dispatch_horizon, prev, self._decode_snapshot()
+                    )
+                    chain.fetch = self._fetch_executor.submit(
+                        HorizonGraphs.fetch, chain.host, chain.event
+                    )
+                    self._chains.append(chain)
+                if self._chains:
+                    chain = self._chains.popleft()
+                    packed = await asyncio.wrap_future(chain.fetch)
+                    self._apply_packed(chain, packed)
+                elif has_active and not did_mixed:
                     results = await loop.run_in_executor(
-                        self._executor, self._run_decode, snap
+                        self._executor, self._run_decode, self._decode_snapshot()
                     )
                     for acc in results:
                         self._accept_token(*acc)
@@ -423,6 +626,8 @@ class TorchEngine:
                     self.allocator.release(st.block_ids)
             self._waiting = []
             self._slots = [None] * self.cfg.max_batch_size
+            self._chains.clear()
+            self._sealed_unwritten = []
 
     def _admit_cancelled(self) -> None:
         keep = []
@@ -538,7 +743,7 @@ class TorchEngine:
         granted: List[Tuple[_Seq, int]] = []
         ok = True
         for st in seqs:
-            if st is None:
+            if st is None or st.done or not st.prefilled:
                 continue
             L = len(st.seq)
             if L + extra_tokens >= self.cfg.max_context:
@@ -562,6 +767,27 @@ class TorchEngine:
                 self._block_tables[st.slot, len(st.block_ids):len(st.block_ids) + count] = 0
                 self.allocator.release(taken)
         return ok
+
+    def _prepare_horizon(self, depth: int = 1) -> bool:
+        """Book pages so that every decoding sequence can absorb ``depth``
+        more horizons (depth 2 when dispatching on top of one in flight).
+        False: no horizon this tick (decode_steps 1, too few pages, or a
+        sequence within reach of max_context); the loop runs one step."""
+        n = self.cfg.decode_steps
+        if n <= 1:
+            return False
+        return self._book_decode_blocks(self._slots, depth * n)
+
+    def _can_chain(self, chain: _Chain) -> bool:
+        """A horizon may start from ``chain``'s device carry only if every
+        decoding slot holds the sequence it held at that dispatch: a
+        sequence admitted into a recycled slot would decode from a stale
+        carry."""
+        for i, st in enumerate(self._slots):
+            if (st is not None and not st.done and st.prefilled
+                    and chain.seqs[i] is not st):
+                return False
+        return True
 
     # ------------------------------------------------ device work (executor)
     def _t(self, arr, dtype=None) -> torch.Tensor:
@@ -667,7 +893,7 @@ class TorchEngine:
             )
         tok = sample_tokens(
             pen, self._t([s.temperature]), self._t([s.top_k]), self._t([s.top_p]),
-            self._t([s.min_p]), gumbel,
+            self._t([s.min_p]), gumbel, filtered=s.top_k > 0 or s.top_p < 1.0,
         )
         if st.counting:
             # the first generated token enters the output counts, or the
@@ -725,6 +951,7 @@ class TorchEngine:
         toks = sample_tokens(
             pen, self._t(self._temps), self._t(self._top_ks),
             self._t(self._top_ps), self._t(self._min_ps), gumbel,
+            filtered=bool(np.any((self._top_ks > 0) | (self._top_ps < 1.0))),
         )
         if any(st is not None and st.counting for st in self._slots):
             update_counts(self.output_counts, toks, self._t(active))
@@ -821,6 +1048,130 @@ class TorchEngine:
             first = self._first_token(st, hidden[chunk_len - 1:chunk_len])
         return results, first
 
+    # ------------------------------------------------ decode horizon
+    def _dispatch_horizon(self, chain: Optional[_Chain],
+                          seqs: List[Optional[_Seq]]) -> _Chain:
+        """Step executor: stage the horizon's inputs and run it (one graph
+        replay on CUDA) over the loop-thread ``seqs`` snapshot. With
+        ``chain``, the carry (tokens, seq_lens, steps) is the one that
+        horizon leaves in the static buffers; without, it is written from
+        the host state. Every dispatch stages the block tables (booked
+        pages) and the active rows."""
+        hz, c = self._horizon, self.cfg
+        hs = hz.state
+        slot = hz.next_slot()
+        active = np.array([st is not None for st in seqs])
+        if chain is None:
+            carry = hs.carry.host_views[slot]
+            carry["tokens"][:] = 0
+            carry["seq_lens"][:] = 0
+            carry["steps"][:] = 0
+            for i, st in enumerate(seqs):
+                if st is not None:
+                    carry["tokens"][i] = st.last_token
+                    carry["seq_lens"][i] = len(st.seq)
+                    carry["steps"][i] = st.produced
+            lens = carry["seq_lens"].copy()
+            hs.carry.upload(slot)
+        else:
+            lens = chain.lens_after
+        counting = any(o is not None and o.counting for o in self._slots)
+        inp = hs.inputs.host_views[slot]
+        inp["tables"][:] = self._block_tables
+        inp["active"][:] = active
+        inp["count_rows"][:] = active & counting
+        inp["sample_rows"][:] = active & (self._temps > 0.0)
+        inp["seeds"][:] = self._seeds
+        for name, arr in (("temps", self._temps), ("top_ks", self._top_ks),
+                          ("top_ps", self._top_ps), ("min_ps", self._min_ps),
+                          ("pres", self._pres), ("freqs", self._freqs),
+                          ("reps", self._reps)):
+            inp[name][:] = arr
+        hs.inputs.upload(slot)
+        n = c.decode_steps
+        max_seq_len = int(lens[active].max()) + n - 1
+        host, event = hz.run(slot, max_seq_len, bool(inp["sample_rows"].any()))
+        self.step_counts["horizon"] += 1
+        return _Chain(seqs=list(seqs), host=host, event=event,
+                      lens_after=lens + n * active.astype(np.int32))
+
+    @torch.inference_mode()
+    def _decode_multi(self, hs: HorizonState, max_seq_len: int, sampled: bool) -> None:
+        """The horizon body: ``decode_steps`` decode iterations on device
+        tensors only (no readback, no host-to-device copy: it is what the
+        CUDA graphs capture). Each step takes its positions from the carry
+        ``seq_lens``, its write pages from the block tables (inactive rows
+        write scratch block 0), writes the fed tokens' KV, attends (the
+        decode kernel, or the unified kernel's q_len = 1 rows for layers
+        with attention attributes), applies the penalties (exact no-ops at
+        their defaults), samples at ``steps + s``, updates the output counts
+        and writes its row of ``hs.packed``; its samples are the next step's
+        tokens. The carry is written back in place. ``max_seq_len``, a
+        bound on every row's length in the horizon, sizes the split grids;
+        ``sampled``: whether any row samples (else no Gumbel draw)."""
+        bs = self.cfg.block_size
+        n = hs.packed.shape[0]
+        V = self.mcfg.vocab_size
+        active = hs.active
+        act = active.to(torch.int32)
+        tokens, seq_lens = hs.tokens, hs.seq_lens
+        for s in range(n):
+            positions = torch.clamp(seq_lens - 1, min=0)
+            page = torch.gather(hs.tables, 1, (positions // bs).long()[:, None])[:, 0]
+            wb = torch.where(active, page, 0)
+            wo = torch.where(active, positions % bs, 0)
+
+            def attend(q, k_new, v_new, layer_idx, **extra):
+                kc, vc = self.k_caches[layer_idx], self.v_caches[layer_idx]
+                att.write_decode_kv(kc, vc, k_new[:, 0], v_new[:, 0], wb, wo)
+                if extra:
+                    return cuda_unified.ragged_paged_attention(
+                        q[:, 0], kc, vc, hs.tables, hs.q_starts, act, seq_lens, max_q_len=1,
+                        max_seq_len=max_seq_len, **hs.attrs(**extra))[:, None]
+                return cuda_attention.paged_decode_attention(
+                    q[:, 0], kc, vc, hs.tables, seq_lens, max_seq_len=max_seq_len)[:, None]
+
+            hidden = self._forward(self.params, self.mcfg, tokens[:, None],
+                                   positions[:, None], attend)
+            logits = self._lm_logits(self.params, self.mcfg, hidden[:, 0])
+            pen = apply_penalties(logits, self.output_counts, self.prompt_masks,
+                                  hs.pres, hs.freqs, hs.reps)
+            gumbel = None
+            if sampled:
+                gumbel = gumbel_noise_tensor(hs.seeds, hs.steps + s, V, rows=hs.sample_rows)
+            toks = sample_tokens(pen, hs.temps, hs.top_ks, hs.top_ps, hs.min_ps, gumbel)
+            update_counts(self.output_counts, toks, hs.count_rows)
+            vals, ids = top_logprobs(logits)
+            hs.packed[s].copy_(torch.cat(
+                [toks[:, None].float(), logprobs_of(logits, toks)[:, None], ids.float(), vals],
+                dim=1))
+            tokens = toks
+            seq_lens = seq_lens + act
+        hs.tokens.copy_(tokens)
+        hs.seq_lens.copy_(seq_lens)
+        hs.steps.add_(act * n)
+
+    def _apply_packed(self, chain: _Chain, packed: np.ndarray) -> None:
+        """Apply one fetched horizon [N, B, 2+2K]: each snapshot sequence's
+        tokens go through stop handling in order (the tail after a finish
+        is discarded) and leave as ONE BackendOutput. The horizon wrote
+        the KV of every token it fed: all but its last sample's."""
+        K = TOP_LOGPROBS_K
+        n = packed.shape[0]
+        toks = packed[:, :, 0].astype(np.int64)
+        lps = packed[:, :, 1]
+        tlp_ids = packed[:, :, 2:2 + K].astype(np.int64)
+        tlp_vals = packed[:, :, 2 + K:]
+        for i, st in enumerate(chain.seqs):
+            if st is None or st.done:
+                continue
+            L = len(st.seq)
+            want = st.req.sampling.logprobs > 0
+            self._accept_tokens(st, toks[:, i].tolist(), lps[:, i].tolist(),
+                                tlp_ids[:, i] if want else None,
+                                tlp_vals[:, i] if want else None)
+            st.kv_written = max(st.kv_written, min(len(st.seq), L + n - 1))
+
     # ------------------------------------------------- KVBM offload/onboard
     async def _offload_ready_blocks(self) -> None:
         """Loop thread, at the end of a tick: gather every block whose KV is
@@ -828,15 +1179,6 @@ class TorchEngine:
         executor, so they are enqueued on the device in order before any
         later step could evict and rewrite those pages; only the copy to
         the host runs on the offload thread."""
-        bs = self.cfg.block_size
-        waiting = []
-        for entry in self._sealed_unwritten:
-            st, idx, bid, h = entry
-            if st.kv_written >= (idx + 1) * bs:
-                self._offload_pending.append((bid, h, 1))
-            elif not st.done:
-                waiting.append(entry)
-        self._sealed_unwritten = waiting
         if not self._offload_pending:
             return
         pending, self._offload_pending = self._offload_pending, []
@@ -976,19 +1318,36 @@ class TorchEngine:
     def _accept_token(self, st: _Seq, tok: int, logprob: float,
                       tlp_ids: Optional[List[int]] = None,
                       tlp_vals: Optional[List[float]] = None) -> None:
-        """Apply one sampled token to its sequence and stream it (or the
-        finish) as ONE BackendOutput."""
+        """Apply one sampled token (a prefill's, a decode step's)."""
+        self._accept_tokens(st, [tok], [logprob],
+                            None if tlp_ids is None else [tlp_ids],
+                            None if tlp_vals is None else [tlp_vals])
+
+    def _accept_tokens(self, st: _Seq, toks: List[int], logprobs: List[float],
+                       tlp_ids=None, tlp_vals=None) -> None:
+        """Apply a run of sampled tokens (a horizon's, or one) to their
+        sequence in order and stream what survives, or the finish, as ONE
+        BackendOutput; the tokens after a finish are the discarded
+        speculative tail. ``tlp_ids`` / ``tlp_vals``: [n, K] top logprobs."""
         if st.done:
             return
         first = st.produced == 0
-        st.produced += 1
         stop = st.req.stop
-        finish: Optional[str] = None
+        n_tlp = min(st.req.sampling.logprobs, TOP_LOGPROBS_K)
+        tlp = [] if n_tlp > 0 and tlp_ids is not None else None
         emit: List[int] = []
-        if tok in stop.stop_token_ids and st.produced > stop.min_tokens:
-            finish = FINISH_STOP   # the stop token is not emitted
-        else:
-            emit = [tok]
+        emit_lps: List[float] = []
+        finish: Optional[str] = None
+        for n, tok in enumerate(toks):
+            st.produced += 1
+            if tok in stop.stop_token_ids and st.produced > stop.min_tokens:
+                finish = FINISH_STOP   # the stop token is not emitted
+                break
+            emit.append(tok)
+            emit_lps.append(logprobs[n])
+            if tlp is not None:
+                tlp.append({int(i): float(v)
+                            for i, v in zip(tlp_ids[n][:n_tlp], tlp_vals[n][:n_tlp])})
             if stop.max_tokens is not None and st.produced >= stop.max_tokens:
                 finish = FINISH_LENGTH
             elif st.context.is_stopped():
@@ -1000,16 +1359,13 @@ class TorchEngine:
                 sealed = st.seq.append(tok)
                 st.last_token = tok
                 if sealed is not None:
-                    self.allocator.commit(
-                        st.block_ids[sealed.position], sealed.sequence_hash
-                    )
-                    if self.kvbm is not None:
-                        # the block's last row (this token) is written by
-                        # the next step: offload it after that step
-                        self._sealed_unwritten.append((
-                            st, sealed.position, st.block_ids[sealed.position],
-                            sealed.sequence_hash,
-                        ))
+                    # its last row (this token) is written by a later step:
+                    # it enters the prefix cache, and the offload queue,
+                    # once that step ran (_commit_written_blocks)
+                    self._sealed_unwritten.append((
+                        st, sealed.position, st.block_ids[sealed.position],
+                        sealed.sequence_hash,
+                    ))
                 # a block must exist for the NEXT token's write position
                 if (L_before + 1) // self.cfg.block_size + 1 > len(st.block_ids):
                     try:
@@ -1019,29 +1375,49 @@ class TorchEngine:
                     else:
                         st.block_ids.append(new_id)
                         self._block_tables[st.slot, len(st.block_ids) - 1] = new_id
-        tlp = None
-        n_tlp = min(st.req.sampling.logprobs, TOP_LOGPROBS_K)
-        if emit and n_tlp > 0 and tlp_ids is not None:
-            tlp = [{int(i): float(v) for i, v in zip(tlp_ids[:n_tlp], tlp_vals[:n_tlp])}]
+            if finish is not None:
+                break
         ann: Dict[str, Any] = {}
         if first:
             ann = {"cached_tokens": st.cached_tokens,
                    "input_tokens": len(st.req.token_ids)}
         st.out_queue.put_nowait(BackendOutput(
             token_ids=emit, finish_reason=finish, cumulative_tokens=st.produced,
-            logprobs=[logprob] if emit else None, top_logprobs=tlp,
+            logprobs=emit_lps if emit else None, top_logprobs=tlp if tlp else None,
             annotations=ann,
         ))
         if finish is not None:
             st.done = True
 
+    def _commit_written_blocks(self) -> None:
+        """Content-address the decode-sealed blocks whose last row a step
+        has written (and queue them for offload). Until then the device
+        prefix cache must not serve them: a prefill that matched one would
+        attend over an unwritten row. (The reference commits at sealing.)
+        A sequence that finished before the write drops its entries."""
+        bs = self.cfg.block_size
+        waiting = []
+        for entry in self._sealed_unwritten:
+            st, idx, bid, h = entry
+            if st.kv_written >= (idx + 1) * bs:
+                self.allocator.commit(bid, h)
+                if self.kvbm is not None:
+                    self._offload_pending.append((bid, h, 1))
+            elif not st.done:
+                waiting.append(entry)
+        self._sealed_unwritten = waiting
+
     def _reap_finished(self) -> None:
+        # commit what is written before any block goes back to the pool
+        self._commit_written_blocks()
         for i, st in enumerate(self._slots):
             if st is None:
                 continue
             if st.done or st.context.is_killed():
                 self.allocator.release(st.block_ids)
                 self._slots[i] = None
+                self._sealed_unwritten = [e for e in self._sealed_unwritten
+                                          if e[0] is not st]
                 if not st.done:
                     st.done = True
                     st.out_queue.put_nowait(BackendOutput(

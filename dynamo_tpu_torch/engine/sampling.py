@@ -99,6 +99,22 @@ def threefry2x32(k0, k1, x0, x1):
     return x0, x1
 
 
+def _gumbel_rows(seed: torch.Tensor, step: torch.Tensor, vocab: int) -> torch.Tensor:
+    """[R, V] Gumbel noise for [R, 1] int64 seeds and steps (uint32 values)."""
+    # PRNGKey(seed) = (0, seed); fold_in(key, step) = threefry(key, (0, step))
+    k0, k1 = threefry2x32(torch.zeros_like(seed), seed, torch.zeros_like(step), step)
+    # random_bits (partitionable): element i hashes the counter (0, i)
+    count = torch.arange(vocab, dtype=torch.int64, device=seed.device)[None, :]
+    b0, b1 = threefry2x32(k0, k1, torch.zeros_like(count), count)
+    bits = b0 ^ b1
+    # uniform(minval=tiny, maxval=1): 23 mantissa bits under exponent 0 give
+    # [1, 2); minus 1, times (1 - tiny) == 1.0 in f32, plus tiny, floored
+    mant = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
+    tiny = torch.finfo(torch.float32).tiny
+    u = torch.clamp((mant - 1.0) + tiny, min=tiny)
+    return -torch.log(-torch.log(u))
+
+
 def gumbel_noise(
     seeds: Sequence[int], steps: Sequence[int], vocab: int, device,
     rows: Optional[Sequence[bool]] = None,
@@ -115,19 +131,23 @@ def gumbel_noise(
     i64 = dict(dtype=torch.int64, device=device)
     seed = torch.tensor([int(seeds[b]) & _M32 for b in pick], **i64)[:, None]
     step = torch.tensor([int(steps[b]) & _M32 for b in pick], **i64)[:, None]
-    # PRNGKey(seed) = (0, seed); fold_in(key, step) = threefry(key, (0, step))
-    k0, k1 = threefry2x32(torch.zeros_like(seed), seed, torch.zeros_like(step), step)
-    # random_bits (partitionable): element i hashes the counter (0, i)
-    count = torch.arange(vocab, **i64)[None, :]
-    b0, b1 = threefry2x32(k0, k1, torch.zeros_like(count), count)
-    bits = b0 ^ b1
-    # uniform(minval=tiny, maxval=1): 23 mantissa bits under exponent 0 give
-    # [1, 2); minus 1, times (1 - tiny) == 1.0 in f32, plus tiny, floored
-    mant = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
-    tiny = torch.finfo(torch.float32).tiny
-    u = torch.clamp((mant - 1.0) + tiny, min=tiny)
-    out[pick] = -torch.log(-torch.log(u))
+    out[pick] = _gumbel_rows(seed, step, vocab)
     return out
+
+
+def gumbel_noise_tensor(
+    seeds: torch.Tensor, steps: torch.Tensor, vocab: int,
+    rows: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """``gumbel_noise`` from device tensors, with no host round-trip (the
+    decode horizon's form): ``seeds`` [B] int64 holding uint32 values,
+    ``steps`` [B] int64, ``rows`` [B] bool. Every row draws (static
+    shapes); rows with ``rows[b]`` False are zeroed by a ``where``. Row b
+    equals ``gumbel_noise``'s bit for bit."""
+    noise = _gumbel_rows((seeds & _M32)[:, None], (steps & _M32)[:, None], vocab)
+    if rows is None:
+        return noise
+    return torch.where(rows[:, None], noise, 0.0)
 
 
 def sample_tokens(
@@ -137,15 +157,20 @@ def sample_tokens(
     top_p: torch.Tensor,           # [B] float, >=1 => disabled
     min_p: Optional[torch.Tensor] = None,   # [B] float, <=0 => disabled
     gumbel: Optional[torch.Tensor] = None,  # [B, V] noise for sampled rows
+    filtered: bool = True,
 ) -> torch.Tensor:
     """Sampled token ids [B] (int64). ``gumbel`` is required as soon as any
-    row samples (temperature > 0); callers draw it with ``gumbel_noise``."""
+    row samples (temperature > 0); callers draw it with ``gumbel_noise``.
+    ``filtered``: whether any row may use top-k or top-p, which the caller
+    knows from its host arrays (the sort is skipped when it is False; a
+    row whose filters are disabled passes ``mask_topk_topp`` unchanged, so
+    True is always right)."""
     greedy = torch.argmax(logits, dim=-1)
     if gumbel is None:
         return greedy
     temp_safe = torch.clamp(temperature, min=1e-6)[:, None]
     l = logits
-    if bool(((top_k > 0) | (top_p < 1.0)).any()):
+    if filtered:
         l = mask_topk_topp(l, temp_safe, top_k, top_p)
     if min_p is not None:
         # p_i/p_max >= min_p  <=>  l_i >= l_max + temp*ln(min_p)
@@ -177,9 +202,10 @@ def update_counts(
     tokens: torch.Tensor,          # [B] sampled this step
     active: torch.Tensor,          # [B] bool
 ) -> torch.Tensor:
-    """Add the sampled tokens into the per-slot output counts (in place)."""
-    rows = torch.arange(output_counts.shape[0], device=output_counts.device)
-    output_counts.index_put_(
-        (rows, tokens.long()), active.to(output_counts.dtype), accumulate=True
-    )
+    """Add the sampled tokens into the per-slot output counts (in place;
+    one scatter-add into the flat rows, which a CUDA graph can capture)."""
+    B, V = output_counts.shape
+    rows = torch.arange(B, device=output_counts.device)
+    output_counts.view(-1).scatter_add_(0, rows * V + tokens.long(),
+                                        active.to(output_counts.dtype))
     return output_counts

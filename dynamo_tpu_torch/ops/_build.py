@@ -14,6 +14,7 @@ without ``nvcc`` or a GPU.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -21,7 +22,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
-from typing import Dict, List, Optional, Sequence, Union
+from typing import Dict, Iterator, List, Sequence, Union
 
 import torch
 
@@ -120,7 +121,48 @@ def load(source: str) -> ctypes.CDLL:
         return lib
 
 
-class Kernel:
+# every launch counter (each Kernel is one), so that a graph capture can
+# record what it launched
+_counters: List["LaunchCounter"] = []
+
+
+class LaunchCounter:
+    """A count of launches. ``launches`` counts them all; ``replayed``
+    the share that CUDA-graph replays made (``add_replayed``), since a
+    replay runs the captured launches without calling any wrapper."""
+
+    def __init__(self):
+        self.launches = 0
+        self.replayed = 0
+        _counters.append(self)
+
+
+@contextlib.contextmanager
+def recording_launches() -> Iterator[Dict[LaunchCounter, int]]:
+    """Around a CUDA-graph capture: yields a dict that holds, on exit, the
+    launches each counter was asked for inside the block, and takes them
+    back out of the counts (a capture runs nothing; each replay adds them
+    with ``add_replayed``)."""
+    before = [(c, c.launches) for c in _counters]
+    recorded: Dict[LaunchCounter, int] = {}
+    try:
+        yield recorded
+    finally:
+        for c, n in before:
+            if c.launches != n:
+                recorded[c] = c.launches - n
+                c.launches = n
+
+
+def add_replayed(recorded: Dict[LaunchCounter, int], replays: int = 1) -> None:
+    """Count ``replays`` replays of a graph whose capture recorded
+    ``recorded``."""
+    for c, n in recorded.items():
+        c.launches += n * replays
+        c.replayed += n * replays
+
+
+class Kernel(LaunchCounter):
     """One C entry point of one csrc source, with its launch count.
 
     ``launch`` passes tensors as device pointers (None as a null pointer,
@@ -130,16 +172,17 @@ class Kernel:
     floats, appends the current CUDA stream of the first tensor's device,
     and raises when the entry point reports a CUDA error. ``launches`` counts the launches that succeeded; whoever wants to
     see which kernels a run went through sets it to 0 before and reads it
-    after."""
+    after. Launches inside a CUDA-graph capture are recorded instead
+    (``recording_launches``) and counted once per replay."""
 
     def __init__(self, source: str, entry: str, n_ptrs: int, n_ints: int,
                  n_floats: int = 0):
+        super().__init__()
         self.source = source
         self.entry = entry
         self.n_ptrs = n_ptrs
         self.n_ints = n_ints
         self.n_floats = n_floats
-        self.launches = 0
         self._fn = None
 
     def _bind(self):

@@ -309,15 +309,23 @@ def scatter_blocks_quant(cache: QuantizedKV, block_ids: torch.Tensor,
 
 
 # -- every layer at once (the engine's KVBM offload and onboard) -------------
-# (gather, device, each group's page shape, the arrays' addresses) ->
-# (device table, entries, W); an engine's caches never move, so its two
-# tables are built once and a call only reads the arrays' addresses
+# layer_table_key -> (device table, entries, W); an engine's caches never
+# move, so its two tables are built once and a call only reads the arrays'
+# addresses
 _layer_tables: Dict[tuple, Tuple[torch.Tensor, int, int]] = {}
 
 
+def layer_table_key(groups: List[List[torch.Tensor]], gather: bool) -> tuple:
+    """What a cached layer table depends on: the direction, the device,
+    each group's page shape AND dtype (the table holds page byte counts),
+    and the arrays' addresses."""
+    return (gather, str(groups[0][0].device),
+            tuple((tuple(g[0].shape), g[0].dtype) for g in groups),
+            tuple(c.data_ptr() for grp in groups for c in grp))
+
+
 def _layer_table(groups: List[List[torch.Tensor]], gather: bool):
-    key = (gather, str(groups[0][0].device), tuple(g[0].shape for g in groups),
-           tuple(c.data_ptr() for grp in groups for c in grp))
+    key = layer_table_key(groups, gather)
     hit = _layer_tables.get(key)
     if hit is None:
         moves = []

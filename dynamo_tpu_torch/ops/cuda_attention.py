@@ -17,9 +17,13 @@ same launch.
 
 ``max_seq_len``, a host bound on ``seq_lens``, sizes the grid's split
 extent (a low bound only lengthens a row's splits). The split scratch and
-the merge counters are one buffer per device, kept by this module and
-grown on demand (``_scratch``). When ``split_log`` is a list, each launch
-appends its grid and a device copy of the split counts the kernel wrote.
+the merge counters are one buffer per (device, stream), kept by this
+module and grown on demand (``_scratch``): launches on one stream run in
+order, so each finds the counters at 0. A CUDA graph keeps the address
+its capture saw, so ``reserve`` sizes the capturing stream's buffer before
+a capture, and a launch that would grow it during one raises. When
+``split_log`` is a list, each launch outside a capture appends its grid
+and a device copy of the split counts the kernel wrote.
 
 On CPU tensors this wrapper runs the plain version,
 ``ops.attention.paged_decode_attention`` (``max_seq_len`` is taken and
@@ -50,8 +54,8 @@ DEC_SPLIT_KEYS = 256
 # split). The GPU smoke script reads it to show what split-K did.
 split_log = None
 
-# device -> (int32 buffer, counter words): [counters | n_splits | partials]
-_scratch: Dict[torch.device, Tuple[torch.Tensor, int]] = {}
+# (device, stream) -> (int32 buffer, counter words): [counters | n_splits | partials]
+_scratch: Dict[Tuple[torch.device, int], Tuple[torch.Tensor, int]] = {}
 
 
 def split_extent(max_seq_len: int) -> int:
@@ -60,18 +64,50 @@ def split_extent(max_seq_len: int) -> int:
     return max(1, -(-int(max_seq_len) // DEC_SPLIT_KEYS))
 
 
-def _scratch_for(device: torch.device, counters: int, words: int) -> Tuple[int, int]:
+def scratch_words(batch: int, heads: int, kv_heads: int, max_seq_len: int) -> Tuple[int, int]:
+    """(counter words, other words) a launch of ``batch`` rows needs: the
+    per-(row, kv head) counters, then n_splits (padded to 16 bytes) and
+    the partials acc [B, kvh, S, G, 128], m and l [B, kvh, S, G] f32."""
+    rows = batch * heads * split_extent(max_seq_len)
+    return batch * kv_heads, -(-batch // 4) * 4 + rows * (HEAD_DIM + 2)
+
+
+def stream_key(device: torch.device) -> int:
+    """The scratch key of the current stream (0 off CUDA)."""
+    return torch.cuda.current_stream(device).cuda_stream if device.type == "cuda" else 0
+
+
+def _scratch_for(device: torch.device, stream: int, counters: int, words: int,
+                 capturing: bool = False) -> Tuple[int, int]:
     """Addresses of the counters and of the rest (n_splits, then the
-    partials) in this device's scratch buffer, grown (and zeroed) when a
-    launch needs more. The counters must be 0 before a launch; the kernel
-    leaves them 0."""
-    buf, have = _scratch.get(device, (None, 0))
+    partials) in the scratch buffer of (``device``, ``stream``), grown (and
+    zeroed) when a launch needs more. The counters must be 0 before a
+    launch; the kernel leaves them 0. Growing frees the old buffer, which a
+    captured graph would go on writing: under a capture (``capturing``)
+    it raises instead."""
+    buf, have = _scratch.get((device, stream), (None, 0))
     if buf is None or have < counters or buf.numel() - have < words:
+        if capturing:
+            raise RuntimeError(
+                f"decode scratch of stream {stream:#x} would grow during a CUDA-graph "
+                f"capture ({counters} counters, {words} words needed): reserve() it first")
         have = max(have, -(-counters // 4) * 4)
         size = max(words, 0 if buf is None else buf.numel() - have)
         buf = torch.zeros(have + size, dtype=torch.int32, device=device)
-        _scratch[device] = (buf, have)
+        _scratch[(device, stream)] = (buf, have)
     return buf.data_ptr(), buf.data_ptr() + 4 * have
+
+
+def reserve(device, batch: int, heads: int, kv_heads: int, max_seq_len: int) -> None:
+    """Size the current stream's scratch for every launch of at most
+    ``batch`` rows bounded by ``max_seq_len`` keys (before a capture)."""
+    device = torch.device(device)
+    _scratch_for(device, stream_key(device),
+                 *scratch_words(batch, heads, kv_heads, max_seq_len))
+
+
+def _capturing(device: torch.device) -> bool:
+    return device.type == "cuda" and torch.cuda.is_current_stream_capturing()
 
 
 def paged_decode_attention(
@@ -107,17 +143,16 @@ def paged_decode_attention(
     S = split_extent(bound)
     out = torch.empty_like(q)
     if B:
-        # partials: acc [B, kvh, S, G, 128], m and l [B, kvh, S, G] f32
-        rows = B * kvh * S * (h // kvh)
-        n_words = -(-B // 4) * 4
-        counts, n_splits = _scratch_for(q.device, B * kvh, n_words + rows * (HEAD_DIM + 2))
-        part = n_splits + 4 * n_words
+        stream, capturing = stream_key(q.device), _capturing(q.device)
+        counts, n_splits = _scratch_for(q.device, stream, *scratch_words(B, h, kvh, bound),
+                                        capturing=capturing)
+        part = n_splits + 4 * (-(-B // 4) * 4)
         (KERNEL_INT8 if quantized else KERNEL).launch(
             [q, *caches, block_tables, seq_lens, out, part, n_splits, counts],
             [B, h, kvh, bs, max_blocks, S],
         )
-        if split_log is not None:
-            buf, have = _scratch[q.device]
+        if split_log is not None and not capturing:
+            buf, have = _scratch[(q.device, stream)]
             split_log.append(((S, kvh, B), buf[have:have + B].clone()))
     return out
 

@@ -29,8 +29,8 @@ from typing import Optional
 import torch
 
 from . import attention as att
-from ._build import Kernel, check_cuda_tensor
-from .cuda_attention import check_caches
+from ._build import Kernel, LaunchCounter, check_cuda_tensor
+from .cuda_attention import _capturing, check_caches
 from .quant import is_quantized
 
 KERNEL = Kernel("unified_attention.cu", "dtt_unified", n_ptrs=14, n_ints=10, n_floats=1)
@@ -45,8 +45,9 @@ KEY_STEP = 64   # keys per step of the tile body (csrc/attn_common.cuh TN)
 
 # launches (of either kernel) that carried a sliding window: the serving
 # check reads it to show that windowed rows went through the kernel
-windowed_launches = 0
-# when a list, each launch appends (grid, n_splits): its grid and the
+WINDOWED = LaunchCounter()
+# when a list, each launch outside a CUDA-graph capture appends (grid,
+# n_splits): its grid and the
 # kernel's own split count per row (a device copy of the [R] int32 counts
 # it wrote, 0 = not split; None when the launch had no split extent). The
 # GPU smoke script reads it to show what split-K did.
@@ -80,7 +81,6 @@ def ragged_paged_attention(
             q, k_cache, v_cache, block_tables, q_starts, q_lens, seq_lens,
             windows=windows, sinks=sinks, softcap=softcap,
         )
-    global windowed_launches
     check_cuda_tensor("q", q, torch.bfloat16, 3)
     caches = check_caches(k_cache, v_cache)
     check_cuda_tensor("block_tables", block_tables, torch.int32, 2)
@@ -114,7 +114,11 @@ def ragged_paged_attention(
         scratch = [None] * 4
         if S > 1:
             # one buffer, passed by address (this runs once per layer):
-            # acc [R, S, QS, h, d], m and l [R, S, QS, h] f32, n_splits [R] int32
+            # acc [R, S, QS, h, d], m and l [R, S, QS, h] f32, n_splits [R]
+            # int32. Under a CUDA-graph capture it comes from the graph's
+            # private pool, which keeps it for the graph's life, so the
+            # addresses baked into the captured launches stay valid on
+            # every replay.
             n = R * S * QS * h
             part = torch.empty(n * (d + 2) + R, dtype=torch.float32, device=q.device)
             base = part.data_ptr()
@@ -126,11 +130,11 @@ def ragged_paged_attention(
             [softcap or 0.0],
         )
         if windows is not None:
-            windowed_launches += 1
+            WINDOWED.launches += 1
         if S > 1:
             # the C entry launched the merge after the kernel (one host call)
             MERGE.launches += 1
-        if split_log is not None:
+        if split_log is not None and not _capturing(q.device):
             grid = (max(-(-bound // (att.TILE_ROWS // (h // kvh))), S), kvh, R)
             # (a copy: a view would keep the whole scratch alive)
             split_log.append((grid, part[-R:].view(torch.int32).clone() if S > 1 else None))

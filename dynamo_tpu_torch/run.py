@@ -17,6 +17,12 @@ scales; ``--kvbm-host-gb`` / ``--kvbm-disk-gb`` write sealed KV blocks
 through to a host-memory (G2) and a disk (G3) tier and onboard a cached
 prefix from them, as the reference's worker flags of the same names do.
 
+``--decode-steps N`` runs N decode steps per dispatch (the decode
+horizon; on the GPU each horizon replays a CUDA graph captured at start)
+and ``--decode-pipeline D`` keeps D horizons in flight; both default to
+the engine's auto-tuned schedule, and ``--decode-steps 1`` runs one eager
+step per tick, as the reference's worker flags of the same names do.
+
 ``out=`` names a preset of either family (llama: tiny, qwen3-0.6b,
 llama3-8b, llama3-70b; gemma: tiny-gemma2, tiny-gemma3, gemma2-2b,
 gemma3-4b), with random weights from ``--seed``; ``--max-context`` goes up
@@ -45,7 +51,9 @@ from .runtime.engine import Context
 def build_engine(preset: str, device: Optional[str], max_context: int, seed: int,
                  kv_dtype: str = "auto", kvbm_host_gb: float = 0.0,
                  kvbm_disk_gb: float = 0.0,
-                 kvbm_disk_path: Optional[str] = None) -> TorchEngine:
+                 kvbm_disk_path: Optional[str] = None,
+                 decode_steps: Optional[int] = None,
+                 decode_pipeline: Optional[int] = None) -> TorchEngine:
     if preset not in PRESETS:
         raise SystemExit(f"unknown preset {preset!r} (one of {', '.join(PRESETS)})")
     model = PRESETS[preset]()
@@ -57,6 +65,7 @@ def build_engine(preset: str, device: Optional[str], max_context: int, seed: int
         model=model, max_context=max_context, seed=seed, device=device,
         num_blocks=max(512, (max_context // 16) * 16),
         prefill_buckets=buckets + (max_context,), kv_dtype=kv_dtype,
+        decode_steps=decode_steps, decode_pipeline=decode_pipeline,
     )
     kvbm = None
     if kvbm_host_gb > 0 or kvbm_disk_gb > 0:
@@ -97,7 +106,7 @@ async def run(args) -> None:
         raise SystemExit(f"unknown input {args.input!r} (text:<prompt> | batch:<file>)")
     engine = build_engine(args.out, args.device, args.max_context, args.seed,
                           args.kv_dtype, args.kvbm_host_gb, args.kvbm_disk_gb,
-                          args.kvbm_disk_path)
+                          args.kvbm_disk_path, args.decode_steps, args.decode_pipeline)
     tok = ByteTokenizer()
     try:
         if kind == "text":
@@ -138,6 +147,12 @@ def main(argv: Optional[List[str]] = None) -> None:
                    help="disk KV tier size (G3)")
     p.add_argument("--kvbm-disk-path", default=None,
                    help="G3 spill directory (default: <tmpdir>/dtpu_kvbm)")
+    p.add_argument("--decode-steps", type=int, default=None,
+                   help="decode steps per dispatch (the decode horizon; default: "
+                        "auto-tuned from the measured device round trip)")
+    p.add_argument("--decode-pipeline", type=int, default=None,
+                   help="decode horizons in flight (default: auto-tuned with "
+                        "--decode-steps)")
     args = p.parse_args(argv)
     spec = dict(part.partition("=")[::2] for part in args.io)
     if "in" not in spec or "out" not in spec:

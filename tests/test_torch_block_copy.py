@@ -320,7 +320,8 @@ def test_engine_offload_then_onboard_round_trip_bit_exact(kv_dtype):
     kvbm = tp.KvbmTiers(nbytes, host_capacity_bytes=8 * nbytes)
     e = TorchEngine(TorchEngineConfig(model=mcfg, device="cpu", num_blocks=16, block_size=4,
                                       max_batch_size=2, max_context=64,
-                                      prefill_buckets=(16, 32), kv_dtype=kv_dtype), kvbm=kvbm)
+                                      prefill_buckets=(16, 32), kv_dtype=kv_dtype,
+                                      decode_steps=1, decode_pipeline=1), kvbm=kvbm)
     try:
         g = torch.Generator().manual_seed(1)
         for c in e.k_caches + e.v_caches:

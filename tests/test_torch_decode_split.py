@@ -180,7 +180,8 @@ def test_engine_bounds_every_decode_call_by_its_rows(monkeypatch):
                       dtype=torch.float32)
     engine = TorchEngine(TorchEngineConfig(
         model=cfg, device="cpu", num_blocks=96, block_size=4, max_batch_size=4,
-        max_context=256, prefill_buckets=(16, 32, 64), seed=0))
+        max_context=256, prefill_buckets=(16, 32, 64), seed=0, decode_steps=1,
+        decode_pipeline=1))
 
     async def run(rid, n, max_tokens):
         req = PreprocessedRequest(

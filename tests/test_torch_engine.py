@@ -48,7 +48,7 @@ MODEL = dict(
 # largest bucket 64: a 150-token prompt prefills in three chunks
 ENGINE = dict(
     num_blocks=160, block_size=4, max_batch_size=4, max_context=256,
-    prefill_buckets=(16, 32, 64), seed=0,
+    prefill_buckets=(16, 32, 64), seed=0, decode_steps=1, decode_pipeline=1,
 )
 
 
@@ -125,8 +125,7 @@ def streams():
 
     async def main():
         jeng = TpuEngine(
-            TpuEngineConfig(model=jcfg, decode_steps=1, decode_pipeline=1,
-                            use_pallas=False, mixed_admission=True, **ENGINE),
+            TpuEngineConfig(model=jcfg, use_pallas=False, mixed_admission=True, **ENGINE),
             params=jparams, mesh=make_mesh(tp=1, devices=jax.devices()[:1]),
         )
         teng = TorchEngine(

@@ -48,7 +48,8 @@ MODEL = dict(
 )
 # tests/test_kv_quant.py's engine: block 4, two slots, buckets up to 64
 ENGINE = dict(block_size=4, max_batch_size=2, max_context=128,
-              prefill_buckets=(16, 32, 64), seed=0, kv_dtype="int8")
+              prefill_buckets=(16, 32, 64), seed=0, kv_dtype="int8",
+              decode_steps=1, decode_pipeline=1)
 PROMPTS = [
     [(i * 37 + 11) % 500 for i in range(9)],
     [(i * 13 + 5) % 500 for i in range(21)],
@@ -104,8 +105,8 @@ def streams(weights):
 
     async def main():
         jeng = TpuEngine(
-            TpuEngineConfig(model=jcfg, num_blocks=32, decode_steps=1, decode_pipeline=1,
-                            use_pallas=False, mixed_admission=True, **ENGINE),
+            TpuEngineConfig(model=jcfg, num_blocks=32, use_pallas=False,
+                            mixed_admission=True, **ENGINE),
             params=jparams, mesh=make_mesh(tp=1, devices=jax.devices()[:1]),
         )
         teng = _torch_engine(weights)

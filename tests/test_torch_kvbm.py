@@ -162,7 +162,8 @@ async def test_engine_onboards_from_host_and_disk_tiers(tmp_path, kv_dtype, host
                         disk_capacity_bytes=64 * nbytes, disk_path=str(tmp_path))
     e = TorchEngine(TorchEngineConfig(
         model=mcfg, device="cpu", num_blocks=14, block_size=4, max_batch_size=2,
-        max_context=128, prefill_buckets=(16, 32, 64), kv_dtype=kv_dtype), kvbm=kvbm)
+        max_context=128, prefill_buckets=(16, 32, 64), kv_dtype=kv_dtype,
+        decode_steps=1, decode_pipeline=1), kvbm=kvbm)
 
     async def run(rid, tokens):
         req = PreprocessedRequest(request_id=rid, model="m", token_ids=tokens,

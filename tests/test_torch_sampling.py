@@ -190,3 +190,41 @@ def test_gumbel_noise_is_jax_threefry_gumbel(seeds, steps):
         key = jax.random.fold_in(jax.random.PRNGKey(np.uint32(seed % 2**32)), np.int32(step))
         want = np.asarray(jax.random.gumbel(key, (vocab,), jnp.float32))
         np.testing.assert_allclose(got[b], want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("seeds,steps", [
+    ([7, 0, 4294967295, 123456789], [3, 0, 17, 1000]),
+    ([2**32 + 5, 1], [0, 2**31 - 1]),     # seeds and steps key as uint32
+])
+def test_gumbel_noise_tensor_is_jax_threefry_gumbel(seeds, steps):
+    """The decode horizon's form (device tensors in, every row drawn, the
+    greedy rows zeroed by a where) equals the list form bit for bit, and
+    row b jax.random.gumbel(fold_in(PRNGKey(uint32(seed)), step))."""
+    vocab = 1000
+    rows = [b % 2 == 0 for b in range(len(seeds))]
+    got = ts.gumbel_noise_tensor(torch.tensor(seeds, dtype=torch.int64),
+                                 torch.tensor(steps, dtype=torch.int64), vocab,
+                                 rows=torch.tensor(rows))
+    torch.testing.assert_close(got, ts.gumbel_noise(seeds, steps, vocab, "cpu", rows=rows),
+                               rtol=0, atol=0)
+    every = ts.gumbel_noise_tensor(torch.tensor(seeds, dtype=torch.int64),
+                                   torch.tensor(steps, dtype=torch.int64), vocab).numpy()
+    for b, (seed, step) in enumerate(zip(seeds, steps)):
+        key = jax.random.fold_in(jax.random.PRNGKey(np.uint32(seed % 2**32)), np.int32(step))
+        want = np.asarray(jax.random.gumbel(key, (vocab,), jnp.float32))
+        np.testing.assert_allclose(every[b], want, rtol=1e-6, atol=1e-6)
+
+
+def test_unfiltered_rows_pass_the_top_k_top_p_mask_unchanged():
+    """sample_tokens(filtered=True) on rows with both filters off equals
+    filtered=False: the flag only skips the sort when no row filters."""
+    l = _logits(3)
+    temp = np.full(B, 0.7, np.float32)
+    noise = ts.gumbel_noise(list(range(B)), [2] * B, V, "cpu")
+    args = (_t(l), _t(temp), torch.zeros(B, dtype=torch.long), torch.ones(B),
+            torch.zeros(B), noise)
+    assert torch.equal(ts.sample_tokens(*args, filtered=True),
+                       ts.sample_tokens(*args, filtered=False))
+    masked = ts.mask_topk_topp(_t(l), _t(temp)[:, None], torch.zeros(B, dtype=torch.long),
+                               torch.ones(B))
+    assert torch.equal(masked, _t(l))

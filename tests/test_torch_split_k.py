@@ -278,7 +278,7 @@ def _prompt(seed, n):
 
 
 ENGINE = dict(num_blocks=160, block_size=4, max_batch_size=4, max_context=256,
-              prefill_buckets=(16, 32, 64), seed=0)
+              prefill_buckets=(16, 32, 64), seed=0, decode_steps=1, decode_pipeline=1)
 
 
 @pytest.mark.parametrize("family", ["llama", "tiny_gemma3"])
