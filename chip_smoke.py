@@ -75,7 +75,33 @@ Phases, in order; any failure raises and the exit code is not 0:
    capture seconds, pool bytes, replays and launches through replays; (d)
    again under the profiler for the device-busy share; and the device time
    per step, inside a graph, of the Gumbel draw and the KV writes.
-6. report: one JSON line with every kernel's numbers, the nvidia-smi line,
+6. gptoss: gpt-oss-20b (64 q heads over 8 kv heads, head_dim 64, window
+   128 on even layers, per-head sinks, 32 experts, top 4). (a) the unified
+   kernel at d = 64, bf16 and int8, against its plain version: a decode
+   batch of 8 rows of 1-8000 keys through a sliding layer (window 128) and
+   through a full one, sinks on in both, the last 2048-token chunk of a
+   6000-token prompt through a sliding layer, and a mixed step, keys
+   planted at each windowed decode row's window edge, each case timed
+   with its bound and compiled flex_attention with the sink and window as
+   its library yardstick; the merge kernel at d = 64 against its plain
+   version and its sink-per-split mutant. (b) the grouped expert FFN
+   (``models/gptoss.experts_grouped``, torch._grouped_mm over the pairs
+   sorted by expert) against the plain expert loop at full width, 8 and
+   2048 tokens, timed against its byte and FLOP bounds, and captured into
+   a CUDA graph whose replay equals its eager run bit for bit (the form
+   the decode horizon captures). (c) the model check at full width and 2
+   layers (sliding, full) with the grouped experts on the kernel path and
+   the plain loop on the plain path: a sink-dropped mutant and a window
+   one key too wide must fail it. (d) gpt-oss-20b at all 24 layers (random
+   bf16 weights from seed 0, 41.8 GB) on its defaults: graph replay =
+   eager horizon bit for bit on a bf16 and an int8 cache; decode-heavy
+   traffic (8 x 128-token prompts, 64 tokens each) streaming the same
+   tokens one step per tick and on the auto-tuned graphed schedule; a
+   serving run of 8 prompts of 100-6000 tokens, 32 tokens each (one seeded
+   sampled), again under the profiler, and a short int8 run: TTFT, ITL,
+   tok/s, device busy share, graphs, capture seconds, pool bytes, launches
+   through replays and peak device memory.
+7. report: one JSON line with every kernel's numbers, the nvidia-smi line,
    and last the device line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without printing a result when no CUDA device is present or
@@ -87,6 +113,7 @@ from __future__ import annotations
 import argparse
 import asyncio
 import dataclasses
+import functools
 import gc
 import json
 import os
@@ -193,6 +220,44 @@ def compare(torch, got, want, name: str) -> float:
     return err.max().item()
 
 
+def ptxas_summary(build_log: str) -> list:
+    """Each kernel of a `nvcc -Xptxas -v` log: its entry name (mangled,
+    cut to 60 characters), registers, and spill stores and loads."""
+    import re
+
+    out, name = [], "?"
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)[:60]
+        elif "spill" in line:
+            spill = line.strip()
+        elif "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line)
+            out.append(f"{name}: {regs.group(1) if regs else '?'} registers, {spill}")
+    return out
+
+
+def unified_occupancy(_build) -> list:
+    """(d, int8, blocks per SM, dynamic shared bytes) of the unified kernel
+    at each head_dim it takes, from the occupancy calculator
+    (dtt_unified_occupancy)."""
+    import ctypes
+
+    fn = _build.load("unified_attention.cu").dtt_unified_occupancy
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = []
+    for d in (64, 128, 256):
+        for i8 in (0, 1):
+            blocks, smem = ctypes.c_int(), ctypes.c_int()
+            err = fn(d, i8, ctypes.byref(blocks), ctypes.byref(smem))
+            if err:
+                raise AssertionError(f"occupancy of the unified kernel at d={d}: CUDA error {err}")
+            out.append((d, bool(i8), blocks.value, smem.value))
+    return out
+
+
 # the libraries whose SASS must hold tensor-core instructions
 TENSOR_CORE_LIBS = ("libdecode_attention.so", "libflash_extend.so", "libunified_attention.so")
 
@@ -218,6 +283,16 @@ def tensor_core_instructions(out_dir: str) -> dict:
         log(f"SASS {lib}: {counts[lib]['HGMMA']} HGMMA, {counts[lib]['HMMA']} HMMA")
         if not sum(counts[lib].values()):
             raise AssertionError(f"{lib}: no tensor-core instruction in its SASS")
+        if lib == "libunified_attention.so":
+            # the head_dim 64 forms (gpt-oss) on their own
+            per = {}
+            for part in sass.split("Function : ")[1:]:
+                name = part.split()[0]
+                if "unified_kernelILi64E" in name:
+                    per[name[:40]] = sum(1 for l in part.splitlines() if "HGMMA." in l)
+            log(f"SASS {lib}, the d = 64 forms: {per}")
+            if len(per) != 2 or not all(per.values()):
+                raise AssertionError(f"{lib}: the d = 64 forms hold no HGMMA: {per}")
     return counts
 
 
@@ -579,27 +654,30 @@ def live_pages(ql, sl, w):
 
 
 # planted keys at each windowed decode row's window edge (plant_window_edges)
-EDGE_K_SCALE = 0.15
+EDGE_SCORE = 38.0
 EDGE_V = (6.0, -3.0)
 
 
 def plant_window_edges(torch, kc, vc, tables, q, starts, rows):
     """At each windowed decode row's window edge, whose query sits at
     p = seq_len - 1: a key at p - w (the last one the window drops) and
-    one at p - w + 1 (the first it keeps), each EDGE_K_SCALE x the sum of
-    its kv head's queries (score ~38 against ~16 at most for the random
-    keys, and still the largest after a softcap of 50), with values
-    EDGE_V. Taking or dropping either moves the row's output by O(1), so
-    a window bound one key off fails the kernel's compare. In place on a
-    bf16 cache [nb, BS, kvh, d]. Returns (query token, whether key p - w
-    exists) per planted row."""
+    one at p - w + 1 (the first it keeps), each the least-norm key whose
+    scaled score is EDGE_SCORE for every one of its kv head's G queries
+    (38 against ~16 at most for the random keys, and still the largest
+    after a softcap of 50; the same for every head, so at G = 8 no head's
+    query misses it), with values EDGE_V. Taking or dropping either moves
+    every head's output by O(1), so a window bound one key off fails the
+    kernel's compare. In place on a bf16 cache [nb, BS, kvh, d]. Returns
+    (query token, whether key p - w exists) per planted row."""
     kvh, d = kc.shape[2], kc.shape[3]
     edges = []
     for r, (ql, sl, w) in enumerate(rows):
         if ql != 1 or w <= 0 or sl < w:   # no key at the window's edge
             continue
         tok = starts[r]
-        k = EDGE_K_SCALE * q[tok].float().reshape(kvh, -1, d).sum(1)
+        qg = q[tok].float().reshape(kvh, -1, d)                      # [kvh, G, d]
+        want = torch.full(qg.shape[:2] + (1,), EDGE_SCORE * d ** 0.5, device=q.device)
+        k = (qg.transpose(1, 2) @ torch.linalg.solve(qg @ qg.transpose(1, 2), want))[..., 0]
         for j, val in zip((sl - 1 - w, sl - w), EDGE_V):
             if j >= 0:
                 page, off = int(tables[r, j // BS]), j % BS
@@ -628,20 +706,22 @@ def edge_gap(torch, args, kw, want, edges) -> float:
     return min(gaps)
 
 
-def gemma_library_call(torch, q, kc, vc, tables, starts, rows, windowed, softcap, sinks,
+def attrs_library_call(torch, q, kc, vc, tables, starts, rows, windowed, softcap, sinks,
                        flex):
-    """One PyTorch call computing the same function as a GEMMA_CASES case,
-    on the same KV gathered (an int8 cache dequantized) into a padded batch
-    [R, h, Tp, d] whose key T (one past the longest row) is zero and whose
-    length Tp is a multiple of 16 (an unaligned mask would be copied on
-    every call); padding query rows see key 0.
-    No softcap or sinks: scaled_dot_product_attention with the boolean
-    causal (and window) mask. Sinks: the same call with a float mask whose
+    """One PyTorch call computing the same function as an attribute case
+    (check_unified_attrs), on the same KV gathered (an int8 cache
+    dequantized) into a padded batch [R, h, Tp, d] whose key T (one past
+    the longest row) is zero and whose length Tp is a multiple of 16 (an
+    unaligned mask would be copied on every call); padding query rows see
+    key 0.
+    Without ``flex``: scaled_dot_product_attention with the boolean causal
+    (and window) mask; with sinks, the same call with a float mask whose
     entry at the zero key is the head's sink logit, so the sink enters the
-    denominator only. Softcap (and sinks): ``flex`` (compiled
-    flex_attention) with a score_mod taking cap * tanh(s / cap) and
-    returning the sink at the zero key, under a block mask of the same
-    visibility. Returns (call, packed output of a call's result)."""
+    denominator only. With ``flex`` (compiled flex_attention; the softcap
+    cases, and gpt-oss's sink cases): a score_mod taking cap * tanh(s /
+    cap) where a softcap is on and returning the sink at the zero key,
+    under a block mask of the same visibility. Returns (call, packed output
+    of a call's result)."""
     from torch.nn.attention.flex_attention import create_block_mask
 
     dev = q.device
@@ -673,7 +753,7 @@ def gemma_library_call(torch, q, kc, vc, tables, starts, rows, windowed, softcap
         return packed
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    if not softcap:
+    if flex is None:
         b, qi, ki = (torch.arange(n, device=dev) for n in (R, max_q, Tp))
         vis = visible(b[:, None, None], qi[None, :, None], ki[None, None, :])[:, None]
         if sinks is None:
@@ -688,20 +768,86 @@ def gemma_library_call(torch, q, kc, vc, tables, starts, rows, windowed, softcap
         return vis | (kv_idx == T) if sinks is not None else vis
 
     def score_mod(score, b, hh, q_idx, kv_idx):
-        capped = softcap * torch.tanh(score / softcap)
+        capped = softcap * torch.tanh(score / softcap) if softcap else score
         return capped if sinks is None else torch.where(kv_idx == T, sinks[hh], capped)
 
     block_mask = create_block_mask(mask_mod, R, None, max_q, Tp, device=dev)
     return (lambda: flex(qp, kp, vp, score_mod=score_mod, block_mask=block_mask)), unpack
 
 
-def check_unified_attrs(torch, gen, timer, int8=False, flex=None):
-    """The unified kernel with its row attributes at Gemma shapes, one
-    launch per GEMMA_CASES entry over its rows, each against its plain
-    version, timed with its bound and its library yardstick
-    (gemma_library_call; ``flex``: the compiled flex_attention it uses).
-    Queries are scaled by 4 so scores reach the softcap's range
-    (~N(0, 16)); sinks are N(10, 4) logits, so their mass counts against
+# gpt-oss-20b attention shapes: 64 query heads over 8 kv heads (G = 8, so a
+# q tile holds 8 tokens), head_dim 64, block 16, window 128 on even layers
+# and per-head sinks on all
+OH, OKVH, OD = 64, 8, 64
+GPTOSS_WINDOW = 128
+# the gpt-oss serving run's prompt lengths (serve_windowed)
+GPTOSS_PROMPTS = (100, 700, 1500, 2600, 3300, 4100, 5000, 6000)
+GPTOSS_INT8_PROMPTS = (4100, 1500, 300)
+# a decode batch of 8 rows of 1 to 8000 keys, through a sliding layer
+# (window 128) and through a full one (window 0), sinks on in both
+GPTOSS_DECODE_LENS = (1, 130, 700, 1500, 3000, 4500, 6000, 8000)
+GPTOSS_DECODE_ROWS = [(1, n, GPTOSS_WINDOW) for n in GPTOSS_DECODE_LENS]
+# the last 2048-token chunk of a 6000-token prompt through a sliding layer
+GPTOSS_PREFILL_ROWS = [(2048, 6000, GPTOSS_WINDOW)]
+# a mixed step: windowed and full prefill segments, decode rows at and
+# past the window, an empty row
+GPTOSS_MIXED_ROWS = [(300, 1200, GPTOSS_WINDOW), (1, 3000, GPTOSS_WINDOW),
+                     (1, 129, GPTOSS_WINDOW), (0, 50, GPTOSS_WINDOW), (1, 4100, 0),
+                     (40, 2000, 0), (1, 17, GPTOSS_WINDOW)]
+GPTOSS_CASES = {
+    "decode batch, window 128 + sinks": dict(window=True, sinks=True, rows=GPTOSS_DECODE_ROWS),
+    "decode batch, full + sinks": dict(sinks=True, rows=GPTOSS_DECODE_ROWS),
+    "prefill 2048 of 6000, window 128 + sinks": dict(window=True, sinks=True,
+                                                     rows=GPTOSS_PREFILL_ROWS),
+    "mixed rows, windows + sinks": dict(window=True, sinks=True),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class AttrFamily:
+    """One model family's shapes and cases for the unified kernel's
+    attribute checks (check_unified_attrs, check_merge)."""
+    name: str          # report names end in _<name>
+    h: int
+    kvh: int
+    d: int
+    rows: list         # a case's rows (q_len, seq_len, window) unless it names its own
+    cases: dict        # case -> its attributes (window, softcap, sinks, rows)
+    main: str          # the case of the top-level numbers
+    decode: str        # the decode batch: at least one working block per SM
+    merge_rows: list   # the decode rows whose partial states check the merge
+    merge_name: str
+    softcap: float = 0.0
+    split_rows: list = None   # rows whose splits some tokens never reach
+    flex_for_sinks: bool = False   # library: flex_attention for sinks too
+    # queries N(0, q_scale^2), sinks N(sink_mean, sink_std^2)
+    q_scale: float = 4.0
+    sink_mean: float = 10.0
+    sink_std: float = 2.0
+
+
+GEMMA = AttrFamily("gemma", GH, GKVH, GD, GEMMA_ROWS, GEMMA_CASES, "window",
+                   "decode batch, window+softcap", GEMMA_DECODE_ROWS,
+                   "merge_attention_partials", softcap=GEMMA_SOFTCAP,
+                   split_rows=GEMMA_SPLIT_ROWS)
+# (a window-128 decode row reads at most 128 keys and is never split: the
+# full layer's decode batch fills the card and feeds the merge). No
+# softcap, so the queries keep the model's score scale (N(0, 1) at d 64),
+# and the sinks N(5, 1) weigh like a window's 128 keys (~e^5.3 of mass)
+GPTOSS = AttrFamily("gptoss", OH, OKVH, OD, GPTOSS_MIXED_ROWS, GPTOSS_CASES,
+                    "decode batch, window 128 + sinks", "decode batch, full + sinks",
+                    [(1, n, 0) for n in GPTOSS_DECODE_LENS], "merge_attention_partials_gptoss",
+                    flex_for_sinks=True, q_scale=1.0, sink_mean=5.0, sink_std=1.0)
+
+
+def check_unified_attrs(torch, gen, timer, fam: AttrFamily, int8=False, flex=None):
+    """The unified kernel with its row attributes at ``fam``'s shapes, one
+    launch per case over its rows, each against its plain version, timed
+    with its bound and its library yardstick (attrs_library_call; ``flex``:
+    the compiled flex_attention it uses).
+    Queries are N(0, fam.q_scale^2): Gemma's x4 brings scores to a
+    softcap's range (~N(0, 16)), gpt-oss keeps N(0, 1); sinks are
+    N(fam.sink_mean, fam.sink_std^2) logits, so their mass counts against
     rows' largest scores. Each windowed decode row carries planted keys at
     its window's edge (plant_window_edges); each windowed case asserts that
     a one-key error there costs at least 10 x KERNEL_ROW_REL."""
@@ -709,7 +855,8 @@ def check_unified_attrs(torch, gen, timer, int8=False, flex=None):
     from dynamo_tpu_torch.ops import cuda_unified
 
     i32 = dict(dtype=torch.int32, device="cuda")
-    sinks = 10 + 2 * torch.randn(GH, generator=gen, device="cuda")
+    h, kvh, d = fam.h, fam.kvh, fam.d
+    sinks = fam.sink_mean + fam.sink_std * torch.randn(h, generator=gen, device="cuda")
     made = {}
 
     def inputs(rows):
@@ -720,12 +867,13 @@ def check_unified_attrs(torch, gen, timer, int8=False, flex=None):
         if key not in made:
             pages = sum(-(-sl // BS) for _, sl, _ in rows)
             kc, vc, tables = paged_case(torch, gen, [sl for _, sl, _ in rows],
-                                        num_blocks=pages + 64, kvh=GKVH, d=GD)
+                                        num_blocks=pages + 64, kvh=kvh, d=d)
             starts, pos = [], 0
             for ql, _, _ in rows:
                 starts.append(pos)
                 pos += ql + 5
-            q = (4 * torch.randn(pos, GH, GD, generator=gen, device="cuda")).to(torch.bfloat16)
+            q = (fam.q_scale * torch.randn(pos, h, d, generator=gen,
+                                           device="cuda")).to(torch.bfloat16)
             edges = plant_window_edges(torch, kc, vc, tables, q, starts, rows)
             if int8:
                 kc, vc = quantized(torch, kc), quantized(torch, vc)
@@ -736,10 +884,10 @@ def check_unified_attrs(torch, gen, timer, int8=False, flex=None):
                 torch.tensor([w for _, _, w in rows], **i32))
         return made[key]
 
-    tag = " int8" if int8 else ""
+    tag = f" {fam.name}" + (" int8" if int8 else "")
     cases, worst = {}, 0.0
-    for name, attrs in GEMMA_CASES.items():
-        rows = attrs.get("rows", GEMMA_ROWS)
+    for name, attrs in fam.cases.items():
+        rows = attrs.get("rows", fam.rows)
         starts, Tq, edges, args, windows = inputs(rows)
         q, kc, vc, tables = args[:4]
         max_q = max(ql for ql, _, _ in rows)
@@ -749,7 +897,7 @@ def check_unified_attrs(torch, gen, timer, int8=False, flex=None):
         if attrs.get("window"):
             kw["windows"] = windows
         if attrs.get("softcap"):
-            kw["softcap"] = GEMMA_SOFTCAP
+            kw["softcap"] = fam.softcap
         if attrs.get("sinks"):
             kw["sinks"] = sinks
         plain = att.ragged_paged_attention(*args, **kw)
@@ -762,21 +910,21 @@ def check_unified_attrs(torch, gen, timer, int8=False, flex=None):
             (grid, n_dev), = cuda_unified.split_log
         finally:
             cuda_unified.split_log = None
-        err = compare(torch, got, plain, f"unified gemma {name}{tag}")
+        err = compare(torch, got, plain, f"unified{tag} {name}")
         worst = max(worst, err)
         n_kernel = n_dev.tolist() if n_dev is not None else [0] * R
-        S, QS = cuda_unified.split_shape(GH, GKVH, max_q, bounds["max_seq_len"])
+        S, QS = cuda_unified.split_shape(h, kvh, max_q, bounds["max_seq_len"])
         n_plain = [att.split_plan(ql, sl, w if "windows" in kw else 0,
                                   cuda_unified.SPLIT_KEYS, cuda_unified.KEY_STEP, S)[2]
                    if S > 1 and 0 < ql <= QS and sl > 0 else 0 for ql, sl, w in rows]
         if n_kernel != n_plain:
-            raise AssertionError(f"unified gemma {name}{tag}: the kernel split its rows "
+            raise AssertionError(f"unified{tag} {name}: the kernel split its rows "
                                  f"{n_kernel}, the plain split plan {n_plain}")
-        tq = att.TILE_ROWS // (GH // GKVH)
-        blocks = GKVH * sum(n if n >= 2 else -(-ql // tq) for (ql, sl, _), n
-                            in zip(rows, n_kernel) if ql > 0 and sl > 0)
+        tq = att.TILE_ROWS // (h // kvh)
+        blocks = kvh * sum(n if n >= 2 else -(-ql // tq) for (ql, sl, _), n
+                           in zip(rows, n_kernel) if ql > 0 and sl > 0)
         unreached = None
-        if rows is GEMMA_SPLIT_ROWS:
+        if rows is fam.split_rows:
             # (row, split, token) triples where the token sees none of the
             # split's keys (l = 0 for every head), from the plain partials
             _, _, l, n = att.attention_partials(
@@ -785,28 +933,29 @@ def check_unified_attrs(torch, gen, timer, int8=False, flex=None):
             unreached = sum(int((l[r, :c, :ql] == 0).all(-1).sum())
                             for r, (c, (ql, _, _)) in enumerate(zip(n.tolist(), rows)) if c)
             if not unreached:
-                raise AssertionError(f"unified gemma {name}: no token misses a whole split")
-            log(f"  unified gemma{tag} {name}: {unreached} (row, split, token) triples "
+                raise AssertionError(f"unified{tag} {name}: no token misses a whole split")
+            log(f"  unified{tag} {name}: {unreached} (row, split, token) triples "
                 "whose split holds no key the token sees")
         gap = None
-        if "windows" in kw:
+        if "windows" in kw and edges:
             gap = edge_gap(torch, args, kw, plain, edges)
             if gap < 10 * KERNEL_ROW_REL:
-                raise AssertionError(f"unified gemma {name}{tag}: a one-key window error moves "
+                raise AssertionError(f"unified{tag} {name}: a one-key window error moves "
                                      f"the planted rows by only {gap:.3g}")
         wins = [w if attrs.get("window") else 0 for _, _, w in live]
         pairs = sum(visible_pairs(ql, sl, w) for (ql, sl, _), w in zip(live, wins))
         pages = sum(live_pages(ql, sl, w) for (ql, sl, _), w in zip(live, wins))
-        kv_moved = (2 * pages * BS * GKVH * GD * (1 if int8 else 2)
-                    + (2 * 4 * pages * GKVH if int8 else 0))
+        kv_moved = (2 * pages * BS * kvh * d * (1 if int8 else 2)
+                    + (2 * 4 * pages * kvh if int8 else 0))
         b, by = bound(
-            2 * (sum(ql for ql, _, _ in live) * GH * GD + Tq * GH * GD)   # queries in, out
-            + kv_moved + 4 * (4 * R + pages) + (4 * GH if "sinks" in kw else 0),
-            4 * pairs * GH * GD,
+            2 * (sum(ql for ql, _, _ in live) * h * d + Tq * h * d)   # queries in, out
+            + kv_moved + 4 * (4 * R + pages) + (4 * h if "sinks" in kw else 0),
+            4 * pairs * h * d,
         )
-        library, unpack = gemma_library_call(
+        use_flex = bool(kw.get("softcap")) or (fam.flex_for_sinks and "sinks" in kw)
+        library, unpack = attrs_library_call(
             torch, q, kc, vc, tables, starts, rows, "windows" in kw, kw.get("softcap"),
-            kw.get("sinks"), flex)
+            kw.get("sinks"), flex if use_flex else None)
         lib_err = (unpack(library()).float() - plain.float()).abs().max().item()
         cases[name] = {
             "rows": rows, "max_abs_err": err, "window_edge_gap": gap,
@@ -815,68 +964,70 @@ def check_unified_attrs(torch, gen, timer, int8=False, flex=None):
             "ms": timer(lambda: cuda_unified.ragged_paged_attention(*args, **bounds, **kw)),
             "plain_ms": timer(lambda: att.ragged_paged_attention(*args, **kw), reps=5),
             "library_ms": timer(library), "library": "flex_attention (compiled)"
-            if kw.get("softcap") else "scaled_dot_product_attention",
+            if use_flex else "scaled_dot_product_attention",
             "library_max_abs_err": lib_err, "bound_ms": b, "bound_by": by,
         }
         del library, unpack
-        log(f"  unified gemma{tag} {name}: max abs err {err:.3g}"
+        log(f"  unified{tag} {name}: max abs err {err:.3g}"
             + (f", window-edge gap {gap:.3g}" if gap is not None else "")
             + f"; {cases[name]['ms']:.4f} ms kernel, {cases[name]['plain_ms']:.4f} ms plain, "
             f"{cases[name]['library_ms']:.4f} ms library ({cases[name]['library']}, max abs "
             f"err {lib_err:.3g}), bound {b:.4f} ms ({by}); grid {grid}, splits per row "
             f"{n_kernel} (the kernel's count), {blocks} working blocks")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    decode = cases["decode batch, window+softcap"]
+    decode = cases[fam.decode]
     if decode["working_blocks"] < sms:
-        raise AssertionError(f"the Gemma decode batch runs {decode['working_blocks']} working "
-                             f"blocks on {sms} SMs")
-    main = cases["window"]
+        raise AssertionError(f"the {fam.name} decode batch runs {decode['working_blocks']} "
+                             f"working blocks on {sms} SMs")
+    main = cases[fam.main]
     return {
-        "name": "ragged_paged_attention_gemma" + ("_int8" if int8 else ""), "route": "cuda",
-        "source": "dynamo_tpu_torch/csrc/unified_attention.cu",
+        "name": f"ragged_paged_attention_{fam.name}" + ("_int8" if int8 else ""),
+        "route": "cuda", "source": "dynamo_tpu_torch/csrc/unified_attention.cu",
         "replaces": "dynamo_tpu/ops/pallas_unified.py:93",
-        "shape": f"rows(q_len,seq_len,window)={GEMMA_ROWS} h={GH} kvh={GKVH} d={GD} "
+        "shape": f"rows(q_len,seq_len,window)={main['rows']} h={h} kvh={kvh} d={d} "
                  f"bs={BS} " + ("int8 cache + f32 scales" if int8 else "bf16")
-                 + "; top-level numbers: the per-row windows case (library: SDPA with "
-                   "the window mask); every case under 'cases' (library: SDPA, with the "
-                   "sinks as a float mask over a zero key; compiled flex_attention where "
-                   "a softcap is on)",
+                 + f"; top-level numbers: the {fam.main!r} case; every case under "
+                   "'cases' (library: SDPA with the window mask, with the sinks as a "
+                   "float mask over a zero key; compiled flex_attention where a "
+                   "softcap is on" + (" or sinks are" if fam.flex_for_sinks else "") + ")",
         "max_abs_err": worst, "ms": main["ms"], "plain_ms": main["plain_ms"],
         "library_ms": main["library_ms"], "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"], "cases": cases,
     }
 
 
-def check_merge(torch, gen, timer):
+def check_merge(torch, gen, timer, fam: AttrFamily):
     """The split-K merge kernel against its plain version on partial states
-    shaped as the Gemma decode batch leaves them (GEMMA_DECODE_ROWS through
-    the split plan: 8 rows, up to 16 splits of one token, 8 heads, d 256).
-    Each head's split maxima m lie near one level (c_h + N(0, 1)), each
-    split's sum l in [1, 9] (at least 1: the split's own largest key),
-    every split row's second split is empty (l = 0, m = NEG_INF), and the
-    sinks sit near the rows' largest m (c_h + 1.5 + N(0, 1)) so that their
-    mass counts: the plain merge with the sink counted once per split (a
-    mutant) must fail the compare against the kernel."""
+    shaped as ``fam``'s decode batch leaves them (its merge_rows through
+    the split plan; the Gemma batch: 8 rows, up to 16 splits of one token,
+    8 heads, d 256). Each head's split maxima m lie near one level
+    (c_h + N(0, 1)), each split's sum l in [1, 9] (at least 1: the split's
+    own largest key), every split row's second split is empty (l = 0,
+    m = NEG_INF), and the sinks sit near the rows' largest m
+    (c_h + 1.5 + N(0, 1)) so that their mass counts: the plain merge with
+    the sink counted once per split (a mutant) must fail the compare
+    against the kernel."""
     from dynamo_tpu_torch.ops import attention as att
     from dynamo_tpu_torch.ops import cuda_unified
 
-    rows = GEMMA_DECODE_ROWS
+    rows, h, d = fam.merge_rows, fam.h, fam.d
     R, dev = len(rows), "cuda"
-    S, QS = cuda_unified.split_shape(GH, GKVH, 1, max(sl for _, sl, _ in rows))
+    S, QS = cuda_unified.split_shape(h, fam.kvh, 1, max(sl for _, sl, _ in rows))
     n = [att.split_plan(ql, sl, w, cuda_unified.SPLIT_KEYS, cuda_unified.KEY_STEP, S)[2]
          for ql, sl, w in rows]
-    level = 4 * torch.randn(GH, generator=gen, device=dev)
-    m = level + torch.randn(R, S, QS, GH, generator=gen, device=dev)
-    l = 1 + 8 * torch.rand(R, S, QS, GH, generator=gen, device=dev)
-    acc = torch.randn(R, S, QS, GH, GD, generator=gen, device=dev) * l[..., None]
+    level = 4 * torch.randn(h, generator=gen, device=dev)
+    m = level + torch.randn(R, S, QS, h, generator=gen, device=dev)
+    l = 1 + 8 * torch.rand(R, S, QS, h, generator=gen, device=dev)
+    acc = torch.randn(R, S, QS, h, d, generator=gen, device=dev) * l[..., None]
     l[:, 1], m[:, 1], acc[:, 1] = 0.0, att.NEG_INF, 0.0
     i32 = dict(dtype=torch.int32, device=dev)
     meta = (torch.tensor(n, **i32), torch.arange(R, **i32), torch.ones(R, **i32))
     args = (acc, m, l, *meta)
-    sinks = level + 1.5 + torch.randn(GH, generator=gen, device=dev)
-    out = torch.zeros(R, GH, GD, dtype=torch.bfloat16, device=dev)
+    sinks = level + 1.5 + torch.randn(h, generator=gen, device=dev)
+    out = torch.zeros(R, h, d, dtype=torch.bfloat16, device=dev)
     got = cuda_unified.merge_attention_partials(*args, out.clone(), sinks)
-    err = compare(torch, got, att.merge_attention_partials(*args, out.clone(), sinks), "merge")
+    err = compare(torch, got, att.merge_attention_partials(*args, out.clone(), sinks),
+                  fam.merge_name)
     # the mutant: every live split seeded with the sink (l_s + exp(sink - m_s))
     per_split = torch.where(l > 0, l + torch.exp(sinks - m), l)
     wrong = att.merge_attention_partials(acc, m, per_split, *meta, out.clone())
@@ -885,24 +1036,25 @@ def check_merge(torch, gen, timer):
              / got[split].float().norm(dim=-1))
     gap = [moved.min().item(), moved.max().item()]
     try:
-        compare(torch, got, wrong, "merge against its sink-per-split mutant")
+        compare(torch, got, wrong, f"{fam.merge_name} against its sink-per-split mutant")
     except AssertionError:
         pass
     else:
-        raise AssertionError("merge: a sink counted once per split passes the compare")
+        raise AssertionError(f"{fam.merge_name}: a sink counted once per split passes the "
+                             "compare")
     # bytes: m and l of every split of a split row, the accumulator of the
     # splits that saw a key (the kernel skips the rest), the output rows,
     # the row metadata and the sinks
     live = sum(int((l[r, :n[r]] > 0).sum()) for r in split)
-    b, by = bound(sum(n[r] for r in split) * QS * GH * 8 + live * GD * 4
-                  + len(split) * QS * GH * GD * 2 + 4 * 3 * R + 4 * GH, 0)
+    b, by = bound(sum(n[r] for r in split) * QS * h * 8 + live * d * 4
+                  + len(split) * QS * h * d * 2 + 4 * 3 * R + 4 * h, 0)
     return {
-        "name": "merge_attention_partials", "route": "cuda",
+        "name": fam.merge_name, "route": "cuda",
         "source": "dynamo_tpu_torch/csrc/unified_attention.cu",
         "replaces": "dynamo_tpu/ops/pallas_unified.py:93",
         "serves": "split-K of the unified kernel (kernel 3): merges its partial states",
-        "shape": f"partials of GEMMA_DECODE_ROWS: R={R} S={S} QS={QS} h={GH} d={GD}, "
-                 f"splits per row {n}, sinks on, one empty split per split row",
+        "shape": f"partials of the {fam.name} decode rows {rows}: R={R} S={S} QS={QS} h={h} "
+                 f"d={d}, splits per row {n}, sinks on, one empty split per split row",
         "max_abs_err": err, "sink_per_split_row_gap": gap,
         "ms": timer(lambda: cuda_unified.merge_attention_partials(*args, out, sinks)),
         "plain_ms": timer(lambda: att.merge_attention_partials(*args, out, sinks), reps=5),
@@ -1258,7 +1410,7 @@ def model_logits(torch, cfg, params, paths, prompt, extra, int8=False):
     """Last-position logits [1, V] (f32) of a prefill, 3 decode steps and a
     2-token ragged step, through each path's attention, per path; the
     model's layers hand their attention attributes (gemma: window,
-    softcap) to the path. With ``int8`` the caches are int8 and written as
+    softcap; gpt-oss: window, sinks) to the path. With ``int8`` the caches are int8 and written as
     the engine writes them: the prefill quantizes whole blocks (pad rows
     zero), later tokens requantize their block one row at a time."""
     from dynamo_tpu_torch.models import registry
@@ -1266,6 +1418,14 @@ def model_logits(torch, cfg, params, paths, prompt, extra, int8=False):
     from dynamo_tpu_torch.ops.quant import QuantizedKV
 
     forward, lm_logits = registry.forward_fn(cfg), registry.lm_logits_fn(cfg)
+    if registry.is_gptoss(cfg):
+        from dynamo_tpu_torch.models import gptoss
+
+        # the kernel path runs the engine's grouped expert products, the
+        # plain paths the plain expert loop
+        plain_forward = functools.partial(forward, expert_fn=gptoss.experts_plain)
+    else:
+        plain_forward = forward
     dev = params["embed"].device
     pages = -(-(len(prompt) + len(extra)) // BS) + 1
     nb = pages + 3
@@ -1273,6 +1433,7 @@ def model_logits(torch, cfg, params, paths, prompt, extra, int8=False):
     n = len(prompt)
     logits = {}
     for name, (prefill, decode, ragged) in paths(table).items():
+        fwd = forward if name == "kernels" else plain_forward
         shape = (nb, BS, cfg.num_kv_heads, cfg.head_dim)
 
         def cache():
@@ -1306,7 +1467,7 @@ def model_logits(torch, cfg, params, paths, prompt, extra, int8=False):
                     att.write_decode_kv(kcs[i], vcs[i], k, v, blocks, offs)
                 return attn(q, kcs[i], vcs[i], start + len(tokens), **attrs)
 
-            hidden = forward(params, cfg, torch.as_tensor(tokens, device=dev), pos, attend)
+            hidden = fwd(params, cfg, torch.as_tensor(tokens, device=dev), pos, attend)
             return lm_logits(params, cfg, hidden.reshape(-1, cfg.hidden_size)[-1:]).float()
 
         with torch.inference_mode():
@@ -1320,9 +1481,10 @@ def model_logits(torch, cfg, params, paths, prompt, extra, int8=False):
 def model_check(torch, tag, cfg, prompt_len, seed_base, weight_sets, paths, int8=False):
     """``cfg`` at full width and its configured depth, per seed in
     MODEL_SEEDS: the kernel path's logits against the plain path's at every
-    step, and the same reading for each mutant. ``weight_sets``: (q/k
-    projection scale, the mutants read on those weights) pairs; the kernel
-    path is read on every set. ``paths(table, mutants)`` gives the
+    step, and the same reading for each mutant. ``weight_sets``: (adjust,
+    the mutants read on those weights) pairs, ``adjust(cfg, params, rng)``
+    changing the seed's random weights in place (None: as drawn); the
+    kernel path is read on every set. ``paths(table, mutants)`` gives the
     attention paths; ``int8`` runs on int8 caches. Every mutant's reading
     must exceed MODEL_REL_TOL on every seed. Returns (worst kernel reading,
     least reading of each mutant over the seeds, max |logit|)."""
@@ -1335,15 +1497,10 @@ def model_check(torch, tag, cfg, prompt_len, seed_base, weight_sets, paths, int8
         rng = np.random.default_rng(seed_base + seed)
         prompt = rng.integers(0, cfg.vocab_size, size=prompt_len)
         extra = rng.integers(0, cfg.vocab_size, size=5)   # 3 decode tokens + a 2-token step
-        for qk, mutants in weight_sets:
+        for adjust, mutants in weight_sets:
             params = registry.init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
-            for lp in params["layers"] if qk != 1.0 else ():
-                if cfg.qk_norm:   # q/k are normed per head (gemma): scale the norm's 1 + w
-                    lp["q_norm"] += qk - 1.0
-                    lp["k_norm"] += qk - 1.0
-                else:
-                    lp["wq"] *= qk
-                    lp["wk"] *= qk
+            if adjust is not None:
+                adjust(cfg, params, rng)
             logits = model_logits(torch, cfg, params, lambda t: paths(t, mutants),
                                   prompt, extra, int8)
             plain = logits.pop("plain")
@@ -1370,11 +1527,12 @@ def model_check(torch, tag, cfg, prompt_len, seed_base, weight_sets, paths, int8
     return worst, {n: min(r) for n, r in readings.items() if n != "kernels"}, spread
 
 
-def gemma_attention_paths(torch, table, mutants):
-    """The Gemma model check's attention paths: every step (prefill,
-    decode, ragged) is one row of the unified kernel, as the engine serves
-    a Gemma layer, or of its plain version, with the layer's window and
-    softcap; ``mutants`` names the wrong attentions to add (GEMMA_MUTANTS)."""
+def unified_attention_paths(torch, table, mutants):
+    """The Gemma and gpt-oss model checks' attention paths: every step
+    (prefill, decode, ragged) is one row of the unified kernel, as the
+    engine serves such a layer, or of its plain version, with the layer's
+    attributes (window, softcap, sinks); ``mutants`` names the wrong
+    attentions to add (ATTR_MUTANTS)."""
     from dynamo_tpu_torch.ops import attention as att
     from dynamo_tpu_torch.ops import cuda_unified
 
@@ -1399,7 +1557,7 @@ def gemma_attention_paths(torch, table, mutants):
 
     paths = {"kernels": (kernel,) * 3, "plain": (plain,) * 3}
     for name in mutants:
-        paths[name] = wrong(GEMMA_MUTANTS[name])
+        paths[name] = wrong(ATTR_MUTANTS[name])
     return paths
 
 
@@ -1407,16 +1565,20 @@ def _drop(key):
     return lambda attrs: dict(attrs, **{key: None})
 
 
-def _window_plus_page(attrs):
-    w = attrs.get("window")
-    return dict(attrs, window=None if w is None else w + BS)
+def _window_plus(n):
+    def change(attrs):
+        w = attrs.get("window")
+        return dict(attrs, window=None if w is None else w + n)
+    return change
 
 
-# the wrong Gemma attentions the model check must catch
-GEMMA_MUTANTS = {
+# the wrong attentions the Gemma and gpt-oss model checks must catch
+ATTR_MUTANTS = {
     "mutant: window dropped": _drop("window"),
-    "mutant: window one page too wide": _window_plus_page,
+    "mutant: window one page too wide": _window_plus(BS),
     "mutant: softcap dropped": _drop("softcap"),
+    "mutant: sinks dropped": _drop("sinks"),
+    "mutant: window one key too wide": _window_plus(1),
 }
 # (preset, layers, prompt tokens): gemma2-2b's first two layers (sliding,
 # full) over a prompt 1.5 windows long; gemma3-4b's first six (five sliding,
@@ -1436,11 +1598,111 @@ def gemma_model_check(torch, preset, num_layers, prompt_len):
     from dynamo_tpu_torch.models import gemma
 
     cfg = dataclasses.replace(getattr(gemma.GemmaConfig, preset)(), num_layers=num_layers)
-    sets = [(1.0, ("mutant: window dropped", "mutant: window one page too wide"))]
+    sets = [(None, ("mutant: window dropped", "mutant: window one page too wide"))]
     if cfg.attn_logit_softcap:
-        sets.append((GEMMA_SHARP_QK, ("mutant: softcap dropped",)))
+        sets.append((sharpen_qk(GEMMA_SHARP_QK), ("mutant: softcap dropped",)))
     return model_check(torch, f"model {preset} x{num_layers} layers", cfg, prompt_len, 200,
-                       sets, lambda t, mutants: gemma_attention_paths(torch, t, mutants))
+                       sets, lambda t, mutants: unified_attention_paths(torch, t, mutants))
+
+
+def sharpen_qk(factor):
+    """A model check's weight adjustment: q/k projections times
+    ``factor`` (with per-head q/k norms, gemma's, the norms' 1 + w)."""
+    def adjust(cfg, params, rng):
+        for lp in params["layers"]:
+            if cfg.qk_norm:
+                lp["q_norm"] += factor - 1.0
+                lp["k_norm"] += factor - 1.0
+            else:
+                lp["wq"] *= factor
+                lp["wk"] *= factor
+    return adjust
+
+
+# gpt-oss-20b cut to its first two layers (sliding, full) over a prompt of
+# 1500 tokens, ~12 windows
+GPTOSS_MODEL_CHECK = (2, 1500)
+# the router bias that pins each layer's top 4 (GPTOSS_ROUTER_MARGIN above
+# the others' init logits, ~N(0, 1)): a token whose 4th and 5th router
+# logits lie closer than the two paths' bf16 rounding would take other
+# experts on each path, a jump of the function that is no kernel's error
+GPTOSS_ROUTER_MARGIN = 12.0
+# sinks of the sink mutant's weights: at the init scale a window's 128 keys
+# hold a softmax mass of ~128 * e^1.6 ~ e^6.5, so a sink near 6 takes a
+# large share of a sliding layer's attention
+GPTOSS_SINK_MEAN = 6.0
+# the window mutant's weights: on sliding layers q and k are their biases
+# alone, one rotary pair at the frequency w nearest pi / (2 * window), so
+# that score(p, j) = -c^2 f^2 cos(w (p - j)) / sqrt(d) rises with the key's
+# age across the window, by GPTOSS_EDGE_STEP between its two oldest keys
+# (f: the YaRN attention factor): each query attends mostly to the oldest
+# keys it sees, and one key more moves it to another token's value
+GPTOSS_EDGE_STEP = 3.0
+
+
+def gptoss_pin_router(cfg, params, rng):
+    for lp in params["layers"]:
+        chosen = rng.permutation(cfg.num_experts)[:cfg.num_experts_per_tok]
+        lp["b_router"][chosen.tolist()] += GPTOSS_ROUTER_MARGIN
+
+
+def gptoss_sink_weights(cfg, params, rng):
+    """The sink mutant's weights: pinned routers, sinks N(GPTOSS_SINK_MEAN, 1)."""
+    import torch
+
+    gptoss_pin_router(cfg, params, rng)
+    for lp in params["layers"]:
+        lp["sinks"].copy_(torch.as_tensor(
+            GPTOSS_SINK_MEAN + rng.standard_normal(cfg.num_heads), dtype=torch.float32))
+
+
+def gptoss_edge_weights(cfg, params, rng):
+    """The window mutant's weights (GPTOSS_EDGE_STEP): pinned routers; on
+    sliding layers q = R(p) bq, k = R(j) bk with bq = -c e_i, bk = c e_i on
+    one rotary pair i, and sinks at -30 (out of the way)."""
+    import math
+
+    import torch
+    from dynamo_tpu_torch.models import gptoss
+
+    gptoss_pin_router(cfg, params, rng)
+    w = cfg.sliding_window
+    inv_freq, factor = gptoss.yarn_inv_freq(cfg)
+    i = int((inv_freq - math.pi / (2 * w)).abs().argmin())
+    omega = float(inv_freq[i])
+    if not 0 < omega * w < math.pi:
+        raise AssertionError(f"model gpt-oss: no rotary pair rises across the window ({omega})")
+    c = math.sqrt(GPTOSS_EDGE_STEP * math.sqrt(cfg.head_dim)
+                  / (factor ** 2 * omega * math.sin(omega * w)))
+    for li, lp in enumerate(params["layers"]):
+        if cfg.window_for_layer(li) is None:
+            continue
+        lp["wq"].zero_()
+        lp["wk"].zero_()
+        bq = lp["bq"].view(cfg.num_heads, cfg.head_dim)
+        bk = lp["bk"].view(cfg.num_kv_heads, cfg.head_dim)
+        bq.zero_()
+        bk.zero_()
+        bq[:, i] = -c
+        bk[:, i] = c
+        lp["sinks"].fill_(-30.0)
+
+
+def gptoss_model_check(torch):
+    """model_check for gpt-oss-20b cut to GPTOSS_MODEL_CHECK's layers: the
+    kernel path (the unified kernel at d = 64, the grouped expert products)
+    against the plain path (plain attention, the plain expert loop). The
+    sink mutant reads on weights whose sinks carry mass, the one-key window
+    mutant on weights whose sliding layers attend to a window's oldest keys
+    (GPTOSS_EDGE_STEP); both sets pin the routers (GPTOSS_ROUTER_MARGIN)."""
+    from dynamo_tpu_torch.models import gptoss
+
+    layers, prompt_len = GPTOSS_MODEL_CHECK
+    cfg = dataclasses.replace(gptoss.GptOssConfig.gpt_oss_20b(), num_layers=layers)
+    sets = [(gptoss_sink_weights, ("mutant: sinks dropped",)),
+            (gptoss_edge_weights, ("mutant: window one key too wide",))]
+    return model_check(torch, f"model gpt-oss-20b x{layers} layers", cfg, prompt_len, 300,
+                       sets, lambda t, mutants: unified_attention_paths(torch, t, mutants))
 
 
 # ------------------------------------------------------------- phase 4
@@ -1483,8 +1745,10 @@ def read_launches() -> dict:
 def device_time_by_kind(prof, n_top: int = 10) -> dict:
     """Summed kernel time (ms) from a CUDA-activity profile, by kind, and
     the ``n_top`` kernels by time."""
+    # (torch's own CUTLASS kernels serve torch._grouped_mm: gpt-oss's experts)
     kinds = {"decode_kernel": "paged_decode_kernel", "flash_kernel": "flash_extend_kernel",
-             "unified_kernel": "unified_kernel", "merge_kernel": "merge_kernel"}
+             "unified_kernel": "unified_kernel", "merge_kernel": "merge_kernel",
+             "grouped_gemm": "enable_3x_kernel_for_sm9x"}
     gemm_tags = ("gemm", "nvjet", "xmma", "cutlass", "cublas")
     out = dict.fromkeys(list(kinds) + ["gemm", "other"], 0.0)
     n, top = 0, []
@@ -1787,54 +2051,67 @@ GEMMA_BLOCKS = 4096
 
 
 async def serve_gemma(torch, int8=False, profile=False):
-    """TorchEngine on the gemma2-2b preset (26 layers, random bf16 weights
-    from seed 0, max_context 8192, batch 8): staggered requests 0.25 s
-    apart, one seeded sampled and the rest greedy. Hard checks: token
-    counts and finish reasons, fused mixed steps ran, the unified kernel
-    (the int8 form with ``int8``) served windowed launches, and neither
-    the decode nor the flash-extend kernel launched (every Gemma layer goes
-    through the unified kernel). ``profile``: under torch.profiler (CUDA
-    activity), returning the device time by kernel kind instead, and the
-    rows the kernel split by its own count (it must split some: decode
-    rows of thousands of keys)."""
+    """serve_windowed on the gemma2-2b preset (26 layers, random bf16
+    weights from seed 0, max_context 8192): GEMMA_PROMPTS with 32 tokens
+    each, or with ``int8`` GEMMA_INT8_PROMPTS with 16."""
+    from dynamo_tpu_torch.models.gemma import GemmaConfig
+
+    return await serve_windowed(
+        torch, GemmaConfig.gemma2_2b(), "gemma", GEMMA_INT8_PROMPTS if int8 else GEMMA_PROMPTS,
+        16 if int8 else 32, int8=int8, profile=profile, prompt_seed=6, sample_seed=11)
+
+
+async def serve_windowed(torch, mcfg, tag, lens, max_tokens, int8=False, profile=False,
+                         params=None, prompt_seed=6, sample_seed=11):
+    """TorchEngine on ``mcfg``, a family whose every layer goes through the
+    unified kernel (gemma, gpt-oss), on its defaults (GEMMA_BLOCKS device
+    blocks, max_context 8192, batch 8; random bf16 weights from seed 0, or
+    ``params``): prompts of ``lens`` tokens arriving 0.25 s apart,
+    ``max_tokens`` each, request 2 seeded sampled and the rest greedy.
+    Hard checks: token counts and finish reasons, fused mixed steps ran,
+    the unified kernel (the int8 form with ``int8``) served windowed
+    launches, and neither the decode nor the flash-extend kernel launched.
+    Reports TTFT, ITL, tok/s, steps, the horizon's graphs, launches by
+    kernel (replays counted) and the peak of allocated device memory.
+    ``profile``: under torch.profiler (CUDA activity), returning the device
+    time by kernel kind instead, and the rows the kernel split by its own
+    count (it must split some: decode rows of thousands of keys)."""
     from dynamo_tpu_torch.engine.engine import TorchEngine, TorchEngineConfig
     from dynamo_tpu_torch.llm.protocols.common import (
         PreprocessedRequest, SamplingOptions, StopConditions,
     )
     from dynamo_tpu_torch.llm.tokenizer import ByteTokenizer
-    from dynamo_tpu_torch.models.gemma import GemmaConfig
     from dynamo_tpu_torch.ops import cuda_unified
     from dynamo_tpu_torch.runtime import Context
 
-    mcfg = GemmaConfig.gemma2_2b()
     cfg = TorchEngineConfig(model=mcfg, num_blocks=GEMMA_BLOCKS, block_size=BS,
                             max_batch_size=8, max_context=8192, seed=0,
                             kv_dtype="int8" if int8 else "model")
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    engine = TorchEngine(cfg)
+    engine = TorchEngine(cfg, params=params)
     torch.cuda.synchronize()
-    tag = "gemma int8" if int8 else "gemma"
-    log(f"serving {tag}: gemma2-2b preset, {mcfg.num_layers} layers, random bf16 weights "
-        f"(seed 0), {GEMMA_BLOCKS} device blocks, ready in {time.perf_counter() - t0:.1f} s; "
+    if int8:
+        tag += " int8"
+    log(f"serving {tag}: {mcfg.num_layers} layers, random bf16 weights (seed 0), "
+        f"{GEMMA_BLOCKS} device blocks, ready in {time.perf_counter() - t0:.1f} s; "
         f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
     tok = ByteTokenizer()
-    rng = np.random.default_rng(6)
+    rng = np.random.default_rng(prompt_seed)
     words = [bytes(rng.integers(97, 123, size=rng.integers(2, 9))).decode()
              for _ in range(4000)]
-    lens = GEMMA_INT8_PROMPTS if int8 else GEMMA_PROMPTS
     prompts = []
     for n in lens:
         text = " ".join(words[int(i)] for i in rng.integers(0, len(words), size=n))
         prompts.append(tok.encode(text)[:n])
-    max_tokens = 16 if int8 else 32
     sampled = 2   # one seeded sampled request; the rest are greedy
     stats = []
 
     async def one(i, prompt):
         await asyncio.sleep(0.25 * i)
-        samp = (SamplingOptions(temperature=0.8, top_p=0.95, seed=11) if i == sampled
+        samp = (SamplingOptions(temperature=0.8, top_p=0.95, seed=sample_seed) if i == sampled
                 else SamplingOptions(temperature=0.0))
-        req = PreprocessedRequest(request_id=f"g{i}", model="gemma2-2b", token_ids=prompt,
+        req = PreprocessedRequest(request_id=f"g{i}", model=tag, token_ids=prompt,
                                   sampling=samp, stop=StopConditions(max_tokens=max_tokens))
         t_sub = time.perf_counter()
         stamps, toks, finish = [], [], None
@@ -1887,9 +2164,10 @@ async def serve_gemma(torch, int8=False, profile=False):
     split = [n for n in ("decode", "flash_extend", "decode_int8", "flash_extend_int8")
              if launches[n]]
     if split:
-        raise AssertionError(f"{tag}: Gemma layers went through {split}: {launches}")
+        raise AssertionError(f"{tag}: layers went through {split}: {launches}")
     if engine.step_counts["mixed"] <= 0:
         raise AssertionError(f"{tag}: no fused mixed step ran: {engine.step_counts}")
+    peak = torch.cuda.max_memory_allocated()
     if prof is not None:
         by_kind = device_time_by_kind(prof)
         busy_ms = sum(v for k, v in by_kind.items() if k not in ("kernels", "top"))
@@ -1906,6 +2184,7 @@ async def serve_gemma(torch, int8=False, profile=False):
         "ttft_s_median": statistics.median(ttft), "ttft_s_max": ttft[-1],
         "itl_s_median": statistics.median(itl), "itl_s_max": itl[-1],
         "steps": dict(engine.step_counts), **horizon_report(engine), "launches": launches,
+        "peak_allocated_bytes": peak,
     }
 
 
@@ -1942,9 +2221,11 @@ def horizon_prompts():
     return out
 
 
-async def serve_decode_heavy(torch, params, prompts, stop=None, profile=False, **knobs):
+async def serve_decode_heavy(torch, params, prompts, stop=None, profile=False, mcfg=None,
+                             tokens=HZ_TOKENS, max_context=4096, **knobs):
     """Serve the decode-heavy traffic once on a fresh engine over
-    ``params``; ``stop``: pick_stop's (request, index, token). ``knobs``: the
+    ``params`` (of ``mcfg``, default llama3-8b), ``tokens`` output tokens
+    a request; ``stop``: pick_stop's (request, index, token). ``knobs``: the
     engine's decode_steps / decode_pipeline / cuda_graphs. Returns each
     request's tokens, finish and the sizes of its output chunks (one per
     horizon), TTFT / ITL / tok/s / wall, the tokens each request had when
@@ -1957,9 +2238,9 @@ async def serve_decode_heavy(torch, params, prompts, stop=None, profile=False, *
     from dynamo_tpu_torch.models.llama import LlamaConfig
     from dynamo_tpu_torch.runtime import Context
 
-    mcfg = LlamaConfig.llama3_8b()
+    mcfg = mcfg or LlamaConfig.llama3_8b()
     cfg = TorchEngineConfig(model=mcfg, num_blocks=2048, block_size=BS, max_batch_size=8,
-                            max_context=4096, seed=0, **knobs)
+                            max_context=max_context, seed=0, **knobs)
     t0 = time.perf_counter()
     engine = TorchEngine(cfg, params=params)
     torch.cuda.synchronize()
@@ -1980,8 +2261,8 @@ async def serve_decode_heavy(torch, params, prompts, stop=None, profile=False, *
         samp = (SamplingOptions(temperature=0.8, top_p=0.95, seed=7) if i == HZ_SAMPLED
                 else SamplingOptions(temperature=0.0))
         ids = [stop[2]] if stop is not None and stop[0] == i else []
-        req = PreprocessedRequest(request_id=f"h{i}", model="llama3-8b", token_ids=prompt,
-                                  sampling=samp, stop=StopConditions(max_tokens=HZ_TOKENS,
+        req = PreprocessedRequest(request_id=f"h{i}", model="decode-heavy", token_ids=prompt,
+                                  sampling=samp, stop=StopConditions(max_tokens=tokens,
                                                                      stop_token_ids=ids))
         t_sub = time.perf_counter()
         stamps, toks, chunks, finish = [], [], [], None
@@ -2042,10 +2323,10 @@ def pick_stop(free: dict):
 
 
 def check_same_streams(tag: str, run: dict, free: dict, stop) -> None:
-    """``run`` streams the free run's tokens: every request its 256, the
-    stopped one its tokens before the stop token, finishing "stop" with
-    the stop inside a horizon."""
-    i_stop, j, _ = stop
+    """``run`` streams the free run's tokens: every request all of them,
+    the stopped one (``stop``: pick_stop's, or None) its tokens before the
+    stop token, finishing "stop" with the stop inside a horizon."""
+    i_stop, j, _ = stop if stop is not None else (None, None, None)
     pre = free["pre"]
     if run["pre"] != pre:
         raise AssertionError(f"{tag}: prefill phase ended at {run['pre']}, free run at {pre}")
@@ -2058,6 +2339,8 @@ def check_same_streams(tag: str, run: dict, free: dict, stop) -> None:
                 f"{tag}: request {r['i']} streamed {len(r['tokens'])} tokens ({r['finish']}), "
                 f"expected {len(want)} ({finish}) of the one-step eager run; first "
                 f"difference at token {first}")
+    if stop is None:
+        return
     last = [c for c in run["requests"][i_stop]["chunks"] if c][-1]
     if run["steps"]["horizon"] and not 0 < last < HZ_STEPS - 1:
         raise AssertionError(f"{tag}: the stop did not fall inside a horizon ({last} "
@@ -2339,12 +2622,248 @@ def horizon_phase(torch, smi: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------- phase 6
+# the expert FFN's check: token counts of a decode batch and of a prefill
+# chunk at gpt-oss-20b width (H 2880, I 2880, E 32, K 4)
+EXPERT_TOKENS = (8, 2048)
+GPTOSS_BLOCKS = 4096
+GPTOSS_HZ_TOKENS = 64
+
+
+def expert_bound(cfg, topi, T) -> tuple:
+    """(bound ms, bound_by, experts hit) of the expert FFN on T tokens
+    routed to ``topi``: the bytes of the experts it hits (gate/up and down
+    weights and biases, bf16), the tokens in and out and the routing, over
+    the FLOPs of the T * K rows' two products."""
+    H, I, K = cfg.hidden_size, cfg.intermediate_size, cfg.num_experts_per_tok
+    hit = len(set(topi.flatten().tolist()))
+    per_expert = 2 * (H * 2 * I + I * H + 2 * I + H)
+    b, by = bound(hit * per_expert + 2 * 2 * T * H + T * K * (4 + 8),
+                  2 * T * K * (H * 2 * I + I * H))
+    return b, by, hit
+
+
+def check_experts(torch, gen, timer) -> dict:
+    """gpt-oss-20b's expert FFN at full width: ``experts_grouped`` (what
+    the engine runs) against ``experts_plain`` (the expert loop in float32)
+    at EXPERT_TOKENS tokens, routed by a random router, with non-zero
+    biases; timed against its byte and FLOP bounds (no single PyTorch call
+    computes it; the wait before each timed call covers its host work, some
+    15 launches). Then the decode batch's form captured into a CUDA graph
+    and replayed must equal its eager run bit for bit: the form the decode
+    horizon captures (gptoss_phase finds its kernels in the profiled
+    horizons)."""
+    from dynamo_tpu_torch.models import gptoss
+
+    if not hasattr(torch, "_grouped_mm"):
+        raise AssertionError(f"torch {torch.__version__} has no torch._grouped_mm: the "
+                             "grouped expert path cannot run")
+    cfg = gptoss.GptOssConfig.gpt_oss_20b()
+    p = gptoss.init_layer_params(cfg, gen, "cuda")
+    for name in ("b_router", "b_gateup", "b_edown"):
+        p[name].normal_(0.0, 0.1, generator=gen)
+    out = {}
+    for T in EXPERT_TOKENS:
+        x = torch.randn(T, cfg.hidden_size, generator=gen, device="cuda").to(torch.bfloat16)
+        routed = gptoss.route(p, cfg, x)
+        got = gptoss.experts_grouped(p, cfg, x, routed)
+        want = gptoss.experts_plain(p, cfg, x, routed).float()
+        # per token: the grouped products round the gate/up and the down
+        # outputs to bf16 where the plain loop keeps float32, a relative
+        # error of a few 2^-9 on a row (no elementwise bound holds near 0);
+        # a wrong expert, bias, lane or permutation moves a row by O(1)
+        row_rel = ((got.float() - want).norm(dim=-1) / want.norm(dim=-1)).max().item()
+        if not torch.isfinite(got).all() or row_rel > KERNEL_ROW_REL:
+            raise AssertionError(f"experts_grouped T={T}: rows differ from the plain loop by "
+                                 f"{row_rel:.4g} relative L2 (limit {KERNEL_ROW_REL})")
+        err = (got.float() - want).abs().max().item()
+        b, by, hit = expert_bound(cfg, routed[1], T)
+        ms = timer(lambda: gptoss.experts_grouped(p, cfg, x, routed), busy=2_000_000)
+        out[T] = {"max_abs_err": err, "worst_row_rel": row_rel, "experts_hit": hit, "ms": ms,
+                  "plain_ms": timer(lambda: gptoss.experts_plain(p, cfg, x, routed), reps=3),
+                  "library_ms": None, "bound_ms": b, "bound_by": by}
+        log(f"  experts_grouped T={T}: worst row relative L2 {row_rel:.3g} (limit "
+            f"{KERNEL_ROW_REL}), max abs err {err:.3g} against the plain loop; "
+            f"{ms:.4f} ms, {out[T]['plain_ms']:.4f} ms plain, bound {b:.4f} ms ({by}, "
+            f"{hit} of {cfg.num_experts} experts hit)")
+    # the decode batch's form inside a CUDA graph
+    x = torch.randn(EXPERT_TOKENS[0], cfg.hidden_size, generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    routed = gptoss.route(p, cfg, x)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        eager = gptoss.experts_grouped(p, cfg, x, routed)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        y = gptoss.experts_grouped(p, cfg, x, routed)
+    graph.replay()
+    torch.cuda.synchronize()
+    if not torch.equal(y, eager):
+        raise AssertionError("experts_grouped: its graph replay differs from its eager run")
+    log(f"  experts_grouped T={EXPERT_TOKENS[0]} captured into a CUDA graph: replay equals "
+        "eager bit for bit")
+    return out
+
+
+def gptoss_phase(torch, gen, smi: str, flex) -> tuple:
+    """gpt-oss-20b on the card (module docstring, phase 6). Returns (the
+    kernel results by report name, the phase's report)."""
+    from dynamo_tpu_torch.engine.engine import TorchEngine, TorchEngineConfig, param_bytes
+    from dynamo_tpu_torch.models import registry
+    from dynamo_tpu_torch.models.gptoss import GptOssConfig
+
+    results, out = {}, {}
+    timer = Timer(torch)
+    # (a) the unified kernel at d = 64, bf16 and int8, and its merge
+    for int8 in (False, True):
+        t0 = time.perf_counter()
+        r = check_unified_attrs(torch, gen, timer, GPTOSS, int8=int8, flex=flex)
+        results[r["name"]] = r
+        log(f"kernel {r['name']}: max abs err {r['max_abs_err']:.3g} over "
+            f"{len(r['cases'])} cases (atol {KERNEL_ATOL}, rtol {KERNEL_RTOL}, row "
+            f"{KERNEL_ROW_REL}) [{time.perf_counter() - t0:.1f} s]")
+    r = check_merge(torch, gen, timer, GPTOSS)
+    results[r["name"]] = r
+    log(f"kernel {r['name']}: max abs err {r['max_abs_err']:.3g}; {r['ms']:.4f} ms kernel, "
+        f"{r['plain_ms']:.4f} ms plain, bound {r['bound_ms']:.4f} ms ({r['bound_by']}); the "
+        f"sink counted once per split moves the split rows by "
+        f"{r['sink_per_split_row_gap'][0]:.3g}-{r['sink_per_split_row_gap'][1]:.3g}")
+    # (b) the expert FFN
+    t0 = time.perf_counter()
+    out["experts"] = check_experts(torch, gen, timer)
+    log(f"experts on {smi}: " + json.dumps(out["experts"]) +
+        f" [{time.perf_counter() - t0:.1f} s]")
+    del timer
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (c) the model check at full width, two layers
+    t0 = time.perf_counter()
+    worst, mutants, spread = gptoss_model_check(torch)
+    out["model"] = {"worst": worst, "mutants": mutants, "max_logit": spread}
+    log(f"model gpt-oss-20b: {GPTOSS_MODEL_CHECK[0]} layers at full width, prefill "
+        f"{GPTOSS_MODEL_CHECK[1]} + 3 decode + a 2-token ragged step, {len(MODEL_SEEDS)} "
+        f"seeds: kernels vs plain logits relative L2 {worst:.4g} at worst (limit "
+        f"{MODEL_REL_TOL}); mutants at least "
+        + ", ".join(f"{n[8:]} {r:.4g}" for n, r in mutants.items())
+        + f"; max |logit| {spread:.3g} [{time.perf_counter() - t0:.1f} s]")
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (d) gpt-oss-20b at all 24 layers on its defaults
+    mcfg = GptOssConfig.gpt_oss_20b()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = registry.init_params(mcfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    torch.cuda.synchronize()
+    out["load"] = {"s": time.perf_counter() - t0, "param_bytes": param_bytes(params),
+                   "peak_allocated_bytes": torch.cuda.max_memory_allocated()}
+    log(f"gpt-oss-20b: {mcfg.num_layers} layers, random bf16 weights (seed 0), "
+        f"{out['load']['param_bytes'] / 1e9:.2f} GB, loaded in {out['load']['s']:.1f} s; "
+        f"peak allocated {out['load']['peak_allocated_bytes'] / 2**30:.2f} GiB")
+    out["graph_equals_eager"] = {}
+    for kv in ("model", "int8"):
+        eng = TorchEngine(TorchEngineConfig(
+            model=mcfg, num_blocks=GPTOSS_BLOCKS, block_size=BS, max_batch_size=8,
+            max_context=8192, kv_dtype=kv, decode_steps=HZ_STEPS, decode_pipeline=1),
+            params=params)
+        tag = f"gpt-oss-20b {'int8' if kv == 'int8' else 'bf16'}"
+        r = {**graph_equals_eager(torch, eng, tag, [300, 5000, 2500, 8192 - HZ_STEPS, 64, 0,
+                                                    4500, 17]), **horizon_report(eng)}
+        out["graph_equals_eager"][tag] = r
+        log(f"horizon graph = eager, {tag}: bit-identical over {r['steps']} steps at key "
+            f"{r['key']} ({r['pages_compared']} pages x {r['cache_arrays']} cache arrays); "
+            f"eager {r['eager_s'] * 1e3:.1f} ms, replay {r['replay_s'] * 1e3:.1f} ms; graphs "
+            f"{r['horizon']}")
+        eng.stop()
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    # the horizon schedules stream one-step decode's tokens
+    prompts = horizon_prompts()
+    runs = {}
+    for tag, knobs in (("a", dict(decode_steps=1, decode_pipeline=1)), ("d", {})):
+        run, eng = asyncio.run(serve_decode_heavy(
+            torch, params, prompts, mcfg=mcfg, tokens=GPTOSS_HZ_TOKENS, max_context=8192,
+            **knobs))
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        runs[tag] = run
+        log(f"gpt-oss decode-heavy ({tag}) on {smi}: schedule {run['schedule']}; "
+            f"{run['output_tok_s']:.1f} tok/s, ITL median {run['itl_s_median'] * 1e3:.2f} ms, "
+            f"TTFT median {run['ttft_s_median'] * 1e3:.0f} ms; steps {run['steps']}; graphs "
+            f"{run['horizon']}")
+    for r in runs["a"]["requests"]:
+        if len(r["tokens"]) != GPTOSS_HZ_TOKENS or r["finish"] != "length":
+            raise AssertionError(f"gpt-oss decode-heavy (a): request {r['i']}: "
+                                 f"{len(r['tokens'])} tokens, {r['finish']!r}")
+    check_same_streams("gpt-oss decode-heavy (d)", runs["d"], runs["a"], None)
+    if runs["d"]["horizon"]["replays"] <= 0:
+        raise AssertionError(f"gpt-oss decode-heavy (d): no graph replay: {runs['d']}")
+    # (d) again under the profiler: where a graphed decode step's time goes
+    prof, eng = asyncio.run(serve_decode_heavy(
+        torch, params, prompts, profile=True, mcfg=mcfg, tokens=GPTOSS_HZ_TOKENS,
+        max_context=8192))
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    prof["busy_share"] = prof["device_busy_ms"] / (runs["d"]["wall_s"] * 1e3)
+    passes = prof["steps"]["horizon"] * prof["schedule"]["decode_steps"] + sum(
+        prof["steps"][k] for k in ("prefill", "decode", "mixed"))
+    # the form the horizon's graphs captured: torch._grouped_mm's kernels
+    if prof["device_ms"]["grouped_gemm"] <= 0:
+        raise AssertionError("gpt-oss decode-heavy (d): no grouped GEMM kernel ran in the "
+                             f"profiled horizons: {prof['device_ms']}")
+    out["experts"]["captured"] = "grouped (torch._grouped_mm)"
+    log(f"gpt-oss decode-heavy (d) profiled on {smi}: device busy "
+        f"{prof['device_busy_ms']:.1f} ms, {prof['busy_share']:.1%} of the unprofiled (d) "
+        f"wall; {prof['device_ms']['kernels']} kernels over {passes} forward passes "
+        f"({prof['device_ms']['kernels'] / passes:.0f} each), "
+        f"{prof['device_busy_ms'] / passes:.3f} device ms each; device ms "
+        + json.dumps(prof["device_ms"]))
+    runs["d profiled"] = prof
+    out["schedules"] = {t: {k: v for k, v in r.items() if k != "requests"}
+                        for t, r in runs.items()}
+    # the serving runs: bf16, profiled again, then a short int8 run
+    serving = {}
+    for key, int8, profile in (("bf16", False, False), ("bf16 profiled", False, True),
+                               ("int8", True, False)):
+        run = asyncio.run(serve_windowed(
+            torch, mcfg, "gpt-oss-20b", GPTOSS_INT8_PROMPTS if int8 else GPTOSS_PROMPTS,
+            16 if int8 else 32, int8=int8, profile=profile, params=params, prompt_seed=12,
+            sample_seed=13))
+        serving[key] = run
+        log(f"serving gpt-oss-20b {key}: " + json.dumps(run))
+        gc.collect()
+        torch.cuda.empty_cache()
+    run, prof = serving["bf16"], serving["bf16 profiled"]
+    prof["busy_share"] = prof["device_busy_ms"] / (run["wall_s"] * 1e3)
+    log(f"serving gpt-oss-20b on {smi}: {run['requests']} requests of {GPTOSS_PROMPTS} "
+        f"tokens, {run['output_tok_s']:.1f} output tok/s, TTFT median "
+        f"{run['ttft_s_median'] * 1e3:.0f} ms (max {run['ttft_s_max'] * 1e3:.0f}), ITL median "
+        f"{run['itl_s_median'] * 1e3:.2f} ms (max {run['itl_s_max'] * 1e3:.2f}); device busy "
+        f"{prof['busy_share']:.1%} ({prof['device_busy_ms']:.1f} ms profiled); graphs "
+        f"{run['horizon']}; launches {run['launches']}; peak allocated "
+        f"{run['peak_allocated_bytes'] / 2**30:.2f} GiB; int8: "
+        f"{serving['int8']['output_tok_s']:.1f} tok/s, ITL median "
+        f"{serving['int8']['itl_s_median'] * 1e3:.2f} ms")
+    out["serving"] = serving
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return results, out
+
+
 # ------------------------------------------------------------------ main
+PHASES = ("kernels", "model", "serve", "horizon", "gptoss")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="kernels,model,serve,horizon",
-                    help="comma list of kernels,model,serve,horizon (environment "
-                         "and build always run; the report needs all four)")
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma list of " + ",".join(PHASES) + " (environment and build "
+                         "always run; the report needs them all)")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
 
@@ -2374,13 +2893,23 @@ def main() -> int:
     for name in sorted(os.listdir(out_dir)):
         if name.endswith(".log"):
             with open(os.path.join(out_dir, name)) as f:
-                regs = [l.strip() for l in f if "registers" in l or "spill" in l]
-            log(f"  {name[:-4]}: " + " | ".join(regs))
+                log(f"  {name[:-4]}: " + " | ".join(ptxas_summary(f.read())))
     tensor_core_instructions(out_dir)
+    log("unified kernel, blocks per SM by the occupancy calculator (dynamic shared memory): "
+        + ", ".join(f"d={d} {'int8' if i8 else 'bf16'} {b} ({smem} B)"
+                    for d, i8, b, smem in unified_occupancy(_build)))
 
     results = {}
     gen = torch.Generator(device="cuda").manual_seed(0)
     timer = Timer(torch)
+    flex = None
+    if phases & {"kernels", "gptoss"}:
+        from torch.nn.attention.flex_attention import flex_attention
+
+        # the yardstick of the softcap and gpt-oss sink cases: one compile
+        # per case and form
+        torch._dynamo.config.recompile_limit = 64
+        flex = torch.compile(flex_attention, fullgraph=True)
     if "kernels" in phases:
         for check, int8 in ((check_decode, False), (check_flash, False),
                             (check_unified, False), (check_decode, True),
@@ -2394,19 +2923,14 @@ def main() -> int:
                 f"{r['plain_ms']:.4f} ms plain, {r['library_ms']:.4f} ms library, "
                 f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) "
                 f"[{time.perf_counter() - t0:.1f} s]")
-        from torch.nn.attention.flex_attention import flex_attention
-
-        # the yardstick of the softcap cases: one compile per case and form
-        torch._dynamo.config.recompile_limit = 64
-        flex = torch.compile(flex_attention, fullgraph=True)
         for int8 in (False, True):
             t0 = time.perf_counter()
-            r = check_unified_attrs(torch, gen, timer, int8=int8, flex=flex)
+            r = check_unified_attrs(torch, gen, timer, GEMMA, int8=int8, flex=flex)
             results[r["name"]] = r
             log(f"kernel {r['name']}: max abs err {r['max_abs_err']:.3g} over "
                 f"{len(r['cases'])} cases (atol {KERNEL_ATOL}, rtol {KERNEL_RTOL}, row "
                 f"{KERNEL_ROW_REL}) [{time.perf_counter() - t0:.1f} s]")
-        r = check_merge(torch, gen, timer)
+        r = check_merge(torch, gen, timer, GEMMA)
         results[r["name"]] = r
         log(f"kernel {r['name']}: max abs err {r['max_abs_err']:.3g} (atol {KERNEL_ATOL}, "
             f"rtol {KERNEL_RTOL}, row {KERNEL_ROW_REL}); {r['ms']:.4f} ms kernel, "
@@ -2440,7 +2964,7 @@ def main() -> int:
             cfg = dataclasses.replace(LlamaConfig.llama3_8b(), num_layers=2)
             worst, mutants, spread = model_check(
                 torch, "model int8" if int8 else "model", cfg, 300, 100,
-                [(1.0, MODEL_MUTANTS)], lambda t, _: attention_paths(torch, t, int8), int8)
+                [(None, MODEL_MUTANTS)], lambda t, _: attention_paths(torch, t, int8), int8)
             log(f"model{' int8' if int8 else ''}: 2-layer llama3-8b width, prefill 300 + "
                 f"3 decode + a 2-token ragged step, {len(MODEL_SEEDS)} seeds: kernels vs "
                 f"plain logits relative L2 {worst:.4g} at worst (limit {MODEL_REL_TOL}); "
@@ -2525,12 +3049,22 @@ def main() -> int:
         log(f"horizon phase [{time.perf_counter() - t0:.1f} s]")
         gc.collect()
         torch.cuda.empty_cache()
-    if phases != {"kernels", "model", "serve", "horizon"}:
+    if "gptoss" in phases:
+        t0 = time.perf_counter()
+        gptoss_results, gpt = gptoss_phase(torch, gen, smi, flex)
+        results.update(gptoss_results)
+        log("gptoss: " + json.dumps({k: v for k, v in gpt.items() if k != "serving"}))
+        log(f"gptoss phase [{time.perf_counter() - t0:.1f} s]")
+        gc.collect()
+        torch.cuda.empty_cache()
+    if phases != set(PHASES):
         log("partial run (--phases): no report")
         return 1
     # launches: each kernel's count from the serving run of its path (the
     # float run for the float kernels, the int8 + KVBM run for the rest,
-    # the Gemma run for the merge). The page-copy kernel counts its
+    # the Gemma run for the merge; the gpt-oss runs for the d = 64 forms,
+    # which share the unified kernel's and the merge's counters with the
+    # other head dims: each run counts only its own). The page-copy kernel counts its
     # launches by move: while serving, every gather and scatter is the
     # engine's layer-batched one (gather_layers / scatter_layers), so the
     # gather rows (gather_blocks, gather_layers) show the same count, and
@@ -2550,7 +3084,10 @@ def main() -> int:
             ("scatter_layers", "scatter", kvbm_run),
             ("ragged_paged_attention_gemma", "unified", gemma_runs["bf16"]),
             ("ragged_paged_attention_gemma_int8", "unified_int8", gemma_runs["int8"]),
-            ("merge_attention_partials", "merge", gemma_runs["bf16"])):
+            ("merge_attention_partials", "merge", gemma_runs["bf16"]),
+            ("ragged_paged_attention_gptoss", "unified", gpt["serving"]["bf16"]),
+            ("ragged_paged_attention_gptoss_int8", "unified_int8", gpt["serving"]["int8"]),
+            ("merge_attention_partials_gptoss", "merge", gpt["serving"]["bf16"])):
         r = dict(results[name], launches=run["launches"][key])
         r["max_err"], r["kernel_ms"] = r["max_abs_err"], r["ms"]
         kernels.append(r)

@@ -9,9 +9,9 @@
 // running sum l and accumulator; masked keys at NEG_INF = -1e30 with their
 // weight forced to 0; output acc / max(l, 1e-30) in q's dtype (bf16). The
 // probabilities are rounded to bf16 for the P.V product, as FlashAttention
-// does. The tile body takes head_dim 128 and 256 and the unified kernel's
-// row attributes (RowAttrs): a sliding window, per-head sink logits and a
-// logit softcap.
+// does. The tile body takes head_dim 64, 128 and 256 and the unified
+// kernel's row attributes (RowAttrs): a sliding window, per-head sink
+// logits and a logit softcap.
 //
 // What bounds it on the H100: operations for long prefill tiles (each K/V
 // tile serves 64 query-head rows), bytes for decode-shaped rows. The design
@@ -33,7 +33,11 @@
 //     their bf16 rounding, so no lossy dequantization happens anywhere;
 //   - head_dim 256: two warpgroups, each owning 128 output dims (64 f32
 //     accumulators a thread) and each computing the full S itself: the
-//     tile needs no exchange and no thread holds all 256 dims.
+//     tile needs no exchange and no thread holds all 256 dims;
+//   - head_dim 64 (gpt-oss): one warpgroup; a 64-dim bf16 row is exactly
+//     one 128-byte swizzle atom (one region of the layout below), S takes
+//     4 k-steps of m64n64k16 and P.V is one m64n64 product per k16 slice
+//     (32 f32 accumulators a thread); the shared tiles shrink to 40 KB.
 // Split-K over long key ranges (decode-shaped rows) is the unified
 // kernel's: a block may own a slice [klo, khi) of its rows' keys and write
 // its partial state (m, l, unnormalized acc) instead of the output.
@@ -184,6 +188,27 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// D[64 x 64] += A[64 x 16] * B[16 x 64], A in registers (bf16 pairs), B
+// MN-major (transposed) in shared memory: the P.V product at head_dim 64
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // D[64 x 128] += A[64 x 16] * B[16 x 128], A in registers (bf16 pairs),
 // B MN-major (transposed) in shared memory
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
@@ -246,12 +271,18 @@ constexpr int TM = 64;     // query-head rows per block: one wgmma M
 constexpr int TN = 64;     // keys per step
 constexpr int NSTAGE = 2;  // K/V ring depth
 
+// one warpgroup per 128 output dims; one warpgroup at D = 64
 template <int D>
-__host__ __device__ constexpr int tile_threads() { return 128 * (D / 128); }
+__host__ __device__ constexpr int tile_threads() { return D < 128 ? 128 : 128 * (D / 128); }
 
-// bf16: Q + 2 stages of K/V tiles: 80 KB at D = 128, 160 KB at D = 256.
-// int8: Q + one bf16 K/V tile + 2 stages of raw int8 K/V and their scales:
-// 48 KB + 32 KB at D = 128, 96 KB + 64 KB at D = 256.
+// output dims of one warpgroup
+template <int D>
+__host__ __device__ constexpr int wg_dims() { return D < 128 ? D : 128; }
+
+// bf16: Q + 2 stages of K/V tiles: 40 KB at D = 64, 80 KB at D = 128,
+// 160 KB at D = 256. int8: Q + one bf16 K/V tile + 2 stages of raw int8 K/V
+// and their scales: 24 KB + 16 KB at D = 64, 48 KB + 32 KB at D = 128,
+// 96 KB + 64 KB at D = 256.
 template <int D, bool I8>
 struct __align__(1024) TileSmem {
   __nv_bfloat16 q[TM * D];
@@ -314,8 +345,10 @@ template <int D, bool I8, class Rows>
 __device__ void tile_attention(TileSmem<D, I8>& sm, const __nv_bfloat16* __restrict__ q,
                                __nv_bfloat16* __restrict__ out, const KVSrc<Rows>& kv,
                                int h, int kh, int G, const RowAttrs at, const TileJob job) {
-  static_assert(D % 128 == 0, "the tile body takes head_dim 128 or 256");
+  static_assert(D == 64 || D % 128 == 0, "the tile body takes head_dim 64, 128 or 256");
   constexpr int NT = tile_threads<D>();
+  constexpr int DW = wg_dims<D>();   // this warpgroup's output dims
+  constexpr int NO = DW / 2;         // its f32 accumulators a thread
   const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
   const int nrows = job.ntok * G;  // valid rows: r < nrows
   const float scale = 1.0f / sqrtf((float)D);
@@ -400,9 +433,9 @@ __device__ void tile_attention(TileSmem<D, I8>& sm, const __nv_bfloat16* __restr
     m[rr] = sink ? at.sinks[kh * G + r % G] : NEG_INF;
     lsum[rr] = sink && (lane & 3) == 0 ? 1.f : 0.f;
   }
-  float o[64];
+  float o[NO];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) o[i] = 0.f;
+  for (int i = 0; i < NO; ++i) o[i] = 0.f;
 
   const int kfirst = job.klo - job.klo % TN;
   const int nsteps = job.khi > job.klo ? (job.khi - kfirst + TN - 1) / TN : 0;
@@ -485,15 +518,19 @@ __device__ void tile_attention(TileSmem<D, I8>& sm, const __nv_bfloat16* __restr
       }
     }
 #pragma unroll
-    for (int i = 0; i < 64; ++i) o[i] *= alpha[(i >> 1) & 1];
+    for (int i = 0; i < NO; ++i) o[i] *= alpha[(i >> 1) & 1];
 
-    // O += P V over this warpgroup's 128 dims (V regions 2wg, 2wg + 1)
+    // O += P V over this warpgroup's DW dims (V regions 2wg, 2wg + 1; at
+    // D = 64 the one region)
     fence_regs(o);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wgmma_rs_n128(o, pa[kk],
-                    sw128_desc(v_s + wg * 2 * (TN * 128) + kk * 16 * 128, TN * 128, 1024));
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t dv =
+          sw128_desc(v_s + wg * 2 * (TN * 128) + kk * 16 * 128, TN * 128, 1024);
+      if constexpr (DW == 64) wgmma_rs_n64(o, pa[kk], dv);
+      else wgmma_rs_n128(o, pa[kk], dv);
+    }
     wgmma_commit();
     wgmma_wait();
     fence_regs(o);
@@ -511,9 +548,9 @@ __device__ void tile_attention(TileSmem<D, I8>& sm, const __nv_bfloat16* __restr
     const long head = (long)kh * G + r % G, tok = r / G;
     if (job.part_acc != nullptr) {
       const long prow = job.part_row0 + tok * h + head;
-      float* dst = job.part_acc + prow * D + wg * 128 + cq;
+      float* dst = job.part_acc + prow * D + wg * DW + cq;
 #pragma unroll
-      for (int j = 0; j < 16; ++j)
+      for (int j = 0; j < DW / 8; ++j)
         *reinterpret_cast<float2*>(dst + j * 8) = make_float2(o[4 * j + 2 * rr], o[4 * j + 2 * rr + 1]);
       if (wg == 0 && (lane & 3) == 0) {
         job.part_m[prow] = m[rr];
@@ -521,9 +558,9 @@ __device__ void tile_attention(TileSmem<D, I8>& sm, const __nv_bfloat16* __restr
       }
     } else {
       const float inv = 1.0f / fmaxf(l, 1e-30f);
-      __nv_bfloat16* dst = out + ((job.tok0 + tok) * h + head) * D + wg * 128 + cq;
+      __nv_bfloat16* dst = out + ((job.tok0 + tok) * h + head) * D + wg * DW + cq;
 #pragma unroll
-      for (int j = 0; j < 16; ++j)
+      for (int j = 0; j < DW / 8; ++j)
         *reinterpret_cast<__nv_bfloat162*>(dst + j * 8) =
             __floats2bfloat162_rn(o[4 * j + 2 * rr] * inv, o[4 * j + 2 * rr + 1] * inv);
     }

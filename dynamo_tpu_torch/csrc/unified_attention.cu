@@ -6,7 +6,7 @@
 // attributes, on the bf16 cache and on the int8 cache (int8 pages plus f32
 // [num_blocks, kvh] scale rows read through the same block table, the
 // payload converted to bf16 exactly and the scales applied to the score
-// and probability columns), at head_dim 128 and 256:
+// and probability columns), at head_dim 64 (gpt-oss), 128 and 256:
 //   - windows [R] int32 (nullable = full attention for every row; an entry
 //     <= 0 = full attention for its row): key j is visible to a query at
 //     position p iff p - w < j <= p. A block reads keys from the first one
@@ -31,7 +31,11 @@
 // for its G heads), operations for long prefill segments (as
 // flash_extend.cu). The tile body (attn_common.cuh) runs S and P.V on the
 // tensor cores (wgmma) over a 2-stage cp.async ring of 64-key steps, one
-// warpgroup per 128 dims. A row of one q tile (a decode row, a short
+// warpgroup per 128 dims (one at d = 64). At d = 64 a block takes 43 KB of
+// shared memory and 128 threads, so four fit an SM; gpt-oss's G = 8 puts 8
+// tokens in a q tile, and with window 128 a decode row reads at most 3
+// 64-key steps, an 8-token tile at most 4 (tile_range skips the pages the
+// window aged out). A row of one q tile (a decode row, a short
 // segment) alone would keep one block per kv head walking thousands of
 // keys while most SMs idle (a Gemma decode batch: 32 blocks on 132 SMs), so
 // such a row's live keys [klo, hi) are cut into splits of SPLIT_KEYS keys
@@ -45,6 +49,8 @@
 // from the host's bound on seq_lens (max_seq_len); a row whose range would
 // need more than S splits takes longer ones, so the bound sizes the grid
 // but never decides correctness.
+
+#include <type_traits>
 
 #include "attn_common.cuh"
 
@@ -80,7 +86,7 @@ struct Splits {
 };
 
 template <int D, bool I8>
-__global__ void __launch_bounds__(128 * (D / 128))
+__global__ void __launch_bounds__(tile_threads<D>())
 unified_kernel(const __nv_bfloat16* __restrict__ q, const KVSrc<PagedRows<D>> kv,
                const int* __restrict__ tables, const int* __restrict__ q_starts,
                const int* __restrict__ q_lens, const int* __restrict__ seq_lens,
@@ -132,7 +138,8 @@ unified_kernel(const __nv_bfloat16* __restrict__ q, const KVSrc<PagedRows<D>> kv
                         RowAttrs{window, sinks, softcap}, job);
 }
 
-// One (token t of row r, head hh) per block, 4 dims per thread: merges the
+// One (token t of row r, head hh) per block, 4 dims per thread (D / 4
+// threads: 16 at d = 64, 32 at 128, 64 at 256): merges the
 // row's n_splits[r] partial states in split order,
 //   M = max(sink, m_s over splits with l_s > 0),
 //   out = sum_s exp(m_s - M) acc_s / max(exp(sink - M) + sum_s exp(m_s - M) l_s, 1e-30),
@@ -178,7 +185,8 @@ int launch_merge(const void* part_acc, const void* part_m, const void* part_l,
                  const void* n_splits, const void* q_starts, const void* q_lens,
                  const void* sinks, void* out, int Tq, int h, int d, int R, int S, int QS,
                  void* stream) {
-  if (d % 128 || R <= 0 || S < 1 || QS < 1 || h <= 0) return (int)cudaErrorInvalidValue;
+  if ((d != 64 && d != 128 && d != 256) || R <= 0 || S < 1 || QS < 1 || h <= 0)
+    return (int)cudaErrorInvalidValue;
   merge_kernel<<<dim3(QS, h, R), d / 4, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(part_acc), static_cast<const float*>(part_m),
       static_cast<const float*>(part_l), static_cast<const int*>(n_splits),
@@ -199,13 +207,25 @@ int launch_unified(const void* q, const KVSrc<PagedRows<D>>& kv, const void* tab
   if (err != cudaSuccess) return (int)err;
   const int TQ = TM / (h / kvh);
   const dim3 grid(max((max_q_len + TQ - 1) / TQ, sp.S), kvh, R);
-  unified_kernel<D, I8><<<grid, 128 * (D / 128), smem, reinterpret_cast<cudaStream_t>(stream)>>>(
+  unified_kernel<D, I8><<<grid, tile_threads<D>(), smem, reinterpret_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(q), kv, static_cast<const int*>(tables),
       static_cast<const int*>(q_starts), static_cast<const int*>(q_lens),
       static_cast<const int*>(seq_lens), static_cast<const int*>(windows),
       static_cast<const float*>(sinks), static_cast<__nv_bfloat16*>(out), sp, Tq, h,
       kvh, bs, max_blocks, softcap);
   return (int)cudaGetLastError();
+}
+
+// blocks of unified_kernel<D, I8> that fit one SM (the occupancy calculator)
+// and its dynamic shared memory
+template <int D, bool I8>
+int occupancy(int* blocks, int* smem) {
+  *smem = tile_smem_bytes<TileSmem<D, I8>>();
+  cudaError_t err = cudaFuncSetAttribute(
+      unified_kernel<D, I8>, cudaFuncAttributeMaxDynamicSharedMemorySize, *smem);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, unified_kernel<D, I8>,
+                                                            tile_threads<D>(), *smem);
 }
 
 template <bool I8>
@@ -221,18 +241,19 @@ int unified_entry(const void* q, const void* kc, const void* vc, const void* ks,
     return (int)cudaErrorInvalidValue;
   const Splits sp{static_cast<float*>(part_acc), static_cast<float*>(part_m),
                   static_cast<float*>(part_l), static_cast<int*>(n_splits), S, QS};
-  if (d != 128 && d != 256) return (int)cudaErrorInvalidValue;
+  if (d != 64 && d != 128 && d != 256) return (int)cudaErrorInvalidValue;
   if (R <= 0 || max_q_len <= 0 || Tq <= 0) return 0;
   const float* fks = static_cast<const float*>(ks);
   const float* fvs = static_cast<const float*>(vs);
-  const int err =
-      d == 128
-          ? launch_unified<128, I8>(q, KVSrc<PagedRows<128>>{kc, vc, fks, fvs, {}}, tables,
-                                    q_starts, q_lens, seq_lens, windows, sinks, out, sp, Tq,
-                                    h, kvh, bs, R, max_blocks, max_q_len, softcap, stream)
-          : launch_unified<256, I8>(q, KVSrc<PagedRows<256>>{kc, vc, fks, fvs, {}}, tables,
-                                    q_starts, q_lens, seq_lens, windows, sinks, out, sp, Tq,
-                                    h, kvh, bs, R, max_blocks, max_q_len, softcap, stream);
+  auto launch = [&](auto dim) {
+    constexpr int D = decltype(dim)::value;
+    return launch_unified<D, I8>(q, KVSrc<PagedRows<D>>{kc, vc, fks, fvs, {}}, tables,
+                                 q_starts, q_lens, seq_lens, windows, sinks, out, sp, Tq, h,
+                                 kvh, bs, R, max_blocks, max_q_len, softcap, stream);
+  };
+  const int err = d == 64    ? launch(std::integral_constant<int, 64>{})
+                  : d == 128 ? launch(std::integral_constant<int, 128>{})
+                             : launch(std::integral_constant<int, 256>{});
   // the split rows' merge, on the same stream (one call from the host per layer)
   if (err || S < 2) return err;
   return launch_merge(part_acc, part_m, part_l, n_splits, q_starts, q_lens, sinks, out, Tq,
@@ -241,7 +262,7 @@ int unified_entry(const void* q, const void* kc, const void* vc, const void* ks,
 
 }  // namespace dtt
 
-// q [Tq, h, d] bf16 (d = 128 or 256); k/v cache [num_blocks, bs, kvh, d]
+// q [Tq, h, d] bf16 (d = 64, 128 or 256); k/v cache [num_blocks, bs, kvh, d]
 // bf16; tables [R, max_blocks], q_starts/q_lens/seq_lens [R] int32;
 // windows [R] int32 or null (null: every row full; an entry <= 0: full);
 // sinks [h] f32 or null; softcap 0 = off; max_q_len >= every q_lens[r]
@@ -285,7 +306,7 @@ extern "C" int dtt_unified_i8(const void* q, const void* kc, const void* vc,
 
 // The split rows' outputs from their partial states (layouts as above):
 // out [Tq, h, d] bf16 rows of tokens q_starts[r] + t, t < q_lens[r], of rows
-// with n_splits[r] >= 2; sinks [h] f32 or null. d = 128 or 256.
+// with n_splits[r] >= 2; sinks [h] f32 or null. d = 64, 128 or 256.
 // Returns cudaGetLastError() after the launch.
 extern "C" int dtt_merge_partials(const void* part_acc, const void* part_m,
                                   const void* part_l, const void* n_splits,
@@ -294,4 +315,17 @@ extern "C" int dtt_merge_partials(const void* part_acc, const void* part_m,
                                   int R, int S, int QS, void* stream) {
   return dtt::launch_merge(part_acc, part_m, part_l, n_splits, q_starts, q_lens, sinks, out,
                           Tq, h, d, R, S, QS, stream);
+}
+
+// Blocks per SM of the unified kernel at head_dim d (64, 128 or 256), bf16
+// (i8 = 0) or int8 cache, by the occupancy calculator, and its dynamic
+// shared memory in bytes. Returns a CUDA error code.
+extern "C" int dtt_unified_occupancy(int d, int i8, int* blocks, int* smem) {
+  if (d == 64) return i8 ? dtt::occupancy<64, true>(blocks, smem)
+                         : dtt::occupancy<64, false>(blocks, smem);
+  if (d == 128) return i8 ? dtt::occupancy<128, true>(blocks, smem)
+                          : dtt::occupancy<128, false>(blocks, smem);
+  if (d == 256) return i8 ? dtt::occupancy<256, true>(blocks, smem)
+                          : dtt::occupancy<256, false>(blocks, smem);
+  return (int)cudaErrorInvalidValue;
 }

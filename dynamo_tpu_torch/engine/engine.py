@@ -1,8 +1,8 @@
 """TorchEngine: continuous-batching paged-KV serving engine on PyTorch/CUDA.
 
 Counterpart of the reference's engine/engine.py ``TpuEngine``, for the
-llama and gemma families on one GPU (models/registry.py picks the family's
-functions):
+llama, gemma and gpt-oss families on one GPU (models/registry.py picks the
+family's functions):
 
 - the paged KV cache lives on the device as ``[num_blocks, block_size,
   kv_heads, head_dim]`` per layer; block 0 is scratch;
@@ -41,11 +41,14 @@ Attention runs through the wrappers of the hand-written CUDA kernels
 (ops/cuda_attention, cuda_prefill, cuda_unified): on CUDA tensors they
 launch the kernels, on CPU tensors (``device="cpu"``, how the tests hold
 this engine to ``TpuEngine``) they run the plain PyTorch versions. A layer
-that passes attention attributes (gemma's sliding window and softcap) is
-served by the unified kernel in every step kind, as the reference routes
-any call with a non-empty ``extra``: a decode step as ``q_len = 1`` rows, a
-prefill chunk as one ragged row, and the mixed step as it is. The llama
-family keeps its decode and flash-extend kernels.
+that passes attention attributes (gemma's sliding window and softcap,
+gpt-oss's window and per-head sinks) is served by the unified kernel in
+every step kind, as the reference routes any call with a non-empty
+``extra``: a decode step as ``q_len = 1`` rows, a prefill chunk as one
+ragged row, and the mixed step as it is. The llama family keeps its decode
+and flash-extend kernels. gpt-oss's expert FFN runs as grouped matrix
+products over the (token, slot) pairs sorted by expert on the device
+(models/gptoss.experts_grouped), inside the horizon's graphs too.
 
 Device work runs on a single executor thread so the asyncio loop that
 streams results never blocks behind the GPU; a horizon's readback waits on
@@ -311,8 +314,8 @@ class _UnifiedRows:
 
 
 class TorchEngine:
-    """AsyncEngine serving PreprocessedRequests with a llama- or
-    gemma-family model."""
+    """AsyncEngine serving PreprocessedRequests with a llama-, gemma- or
+    gpt-oss-family model."""
 
     def __init__(self, config: TorchEngineConfig, params: Optional[llama.Params] = None,
                  kvbm=None):
@@ -416,11 +419,17 @@ class TorchEngine:
                              m.vocab_size, TOP_LOGPROBS_K, self.device, windows,
                              slots=c.decode_pipeline)
         capture = self.device.type == "cuda" and c.cuda_graphs
+        # the decode kernel's scratch, for the one family whose layers reach
+        # it (gemma's and gpt-oss's all go through the unified kernel)
+        reserve = None
+        if registry.family(m) is llama:
+            def reserve():
+                cuda_attention.reserve(self.device, c.max_batch_size, m.num_heads,
+                                       m.num_kv_heads, c.max_context)
         graphs = HorizonGraphs(
             self._decode_multi, state,
             seq_len_buckets(c.max_context, cuda_attention.DEC_SPLIT_KEYS), self.device,
-            capture, reserve=lambda: cuda_attention.reserve(
-                self.device, c.max_batch_size, m.num_heads, m.num_kv_heads, c.max_context))
+            capture, reserve=reserve)
         if capture:
             graphs.capture_all()
             log.info("decode horizon: %d CUDA graphs of %d steps captured in %.2f s, "
@@ -1028,7 +1037,7 @@ class TorchEngine:
         pad = self._pad_rows(chunk_len, S_pad)
 
         def attend(q, k_new, v_new, layer_idx, **extra):
-            # extra: the layer's attention attributes (gemma), if any
+            # extra: the layer's attention attributes (gemma, gpt-oss), if any
             kc, vc = self.k_caches[layer_idx], self.v_caches[layer_idx]
             att.write_prefill_kv(kc, vc, *pad(k_new[:S_pad], v_new[:S_pad]), c_new_ids_t)
             att.write_decode_kv(kc, vc, k_new[S_pad:], v_new[S_pad:], wb, wo)

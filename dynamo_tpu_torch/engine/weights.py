@@ -33,10 +33,12 @@ def _tensor(arr: Any, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
 def params_from_numpy(
     tree: Dict[str, Any], cfg: LlamaConfig, device: DeviceLike = None
 ) -> Params:
-    """Reference pytree of numpy arrays -> port params on ``device`` in
-    ``cfg.dtype``. Each family has its own layer keys (gemma: the sandwich
-    norms). Unknown keys raise: a parameter this port does not use must not
-    be dropped silently."""
+    """Reference pytree of numpy arrays -> port params on ``device``, each
+    in the reference's dtype: ``cfg.dtype``, except the family's float32
+    parameters (gpt-oss's sinks). Each family has its own layer keys
+    (gemma: the sandwich norms; gpt-oss: biases, sinks, router and
+    experts). Unknown keys raise: a parameter this port does not use must
+    not be dropped silently."""
     device = resolve_device(device)
     unknown = set(tree) - set(_TOP) - {"layers"}
     if unknown:
@@ -49,11 +51,13 @@ def params_from_numpy(
         name: _tensor(tree[name], cfg.dtype, device) for name in _TOP if name in tree
     }
     layer_keys = set(registry.layer_keys(cfg))
+    f32 = set(registry.float32_keys(cfg))
     layers = []
     for i, lp in enumerate(tree["layers"]):
         bad = set(lp) - layer_keys
         if bad:
             raise ValueError(f"layer {i}: unknown parameters {sorted(bad)}")
-        layers.append({name: _tensor(w, cfg.dtype, device) for name, w in lp.items()})
+        layers.append({name: _tensor(w, torch.float32 if name in f32 else cfg.dtype, device)
+                       for name, w in lp.items()})
     out["layers"] = layers
     return out

@@ -3,7 +3,7 @@ ops/pallas_unified.py (``ragged_paged_attention``), row attributes included.
 
 The kernel is ``csrc/unified_attention.cu``: one launch serves any mix of
 prefill segments and decode tokens, each row attending over its own pages
-with its segment at the tail of its context, at head_dim 128 or 256. One
+with its segment at the tail of its context, at head_dim 64, 128 or 256. One
 block per (q tile, kv head, row); blocks past their row's segment exit at
 once. Rows may carry a sliding window (pages the window aged out are never
 read), the launch per-head sink logits and a logit softcap. ``KERNEL``
@@ -37,7 +37,7 @@ KERNEL = Kernel("unified_attention.cu", "dtt_unified", n_ptrs=14, n_ints=10, n_f
 KERNEL_INT8 = Kernel("unified_attention.cu", "dtt_unified_i8", n_ptrs=16, n_ints=10,
                      n_floats=1)
 MERGE = Kernel("unified_attention.cu", "dtt_merge_partials", n_ptrs=8, n_ints=6)
-HEAD_DIMS = (128, 256)
+HEAD_DIMS = (64, 128, 256)
 # the kernel's SPLIT_KEYS (csrc/unified_attention.cu): keys per split of a
 # one-tile row, 32 pages of 16 (att.SPLIT_PAGES)
 SPLIT_KEYS = 512

@@ -7,8 +7,10 @@ preprocessor and HTTP frontend are later slices).
     python -m dynamo_tpu_torch.run in=text:"hello world" out=llama3-8b
     python -m dynamo_tpu_torch.run in=batch:prompts.txt out=llama3-8b --max-tokens 32
     python -m dynamo_tpu_torch.run in=text:hi out=gemma2-2b --max-context 8192
+    python -m dynamo_tpu_torch.run in=text:hi out=gpt-oss-20b --max-context 8192
     python -m dynamo_tpu_torch.run in=text:hi out=tiny --device cpu
     python -m dynamo_tpu_torch.run in=text:hi out=tiny-gemma3 --device cpu
+    python -m dynamo_tpu_torch.run in=text:hi out=tiny-gptoss --device cpu
     python -m dynamo_tpu_torch.run in=batch:prompts.txt out=llama3-8b \
         --kv-dtype int8 --kvbm-host-gb 4
 
@@ -23,9 +25,10 @@ and ``--decode-pipeline D`` keeps D horizons in flight; both default to
 the engine's auto-tuned schedule, and ``--decode-steps 1`` runs one eager
 step per tick, as the reference's worker flags of the same names do.
 
-``out=`` names a preset of either family (llama: tiny, qwen3-0.6b,
+``out=`` names a preset of any family (llama: tiny, qwen3-0.6b,
 llama3-8b, llama3-70b; gemma: tiny-gemma2, tiny-gemma3, gemma2-2b,
-gemma3-4b), with random weights from ``--seed``; ``--max-context`` goes up
+gemma3-4b; gpt-oss: tiny-gptoss, gpt-oss-20b), with random weights from
+``--seed`` (gpt-oss-20b: 41.8 GB in bf16); ``--max-context`` goes up
 to the model's ``max_position``. Serves on the GPU by default; ``--device
 cpu`` runs the plain PyTorch path on the CPU.
 ``batch:`` reads one prompt per line and prints one JSON line per prompt.

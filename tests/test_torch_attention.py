@@ -277,6 +277,44 @@ def test_head_dim_256_plain_matches_jax():
     _close(got, want, REF_TOL)
 
 
+# gpt-oss's head geometry: 8 query heads over 1 kv head (G = 8, so a q
+# tile of the kernel holds 8 tokens), head_dim 64, sinks on every row and
+# window 8 on some (the reference's own gpt-oss case is sink_rows of
+# tests/test_unified_attention.py): prefill segments longer and shorter
+# than a q tile, decode rows inside and past the window, an empty row
+GPTOSS_ROWS = [(8, 24), (1, 17), (1, 5), (12, 40), (0, 9), (1, 33), (3, 30)]
+GPTOSS_WINDOWS = [8, 0, 8, 8, 8, 8, 0]
+
+
+@pytest.mark.parametrize("windowed", [False, True], ids=["full", "window"])
+def test_head_dim_64_plain_and_split_match_jax_and_pallas(windowed):
+    """The unified wrapper's plain version, and the split plan with its
+    merge (splits of one 8-key page), at d = 64 and G = 8 with sinks,
+    against the JAX plain op (REF_TOL) and the Pallas kernel in interpret
+    mode (KERNEL_TOL)."""
+    rng = np.random.default_rng(26)
+    args = _ragged_case(rng, GPTOSS_ROWS, h=8, kvh=1, d=64, bs=8, num_blocks=40,
+                        max_blocks=6)
+    sinks = rng.standard_normal(8).astype(np.float32)
+    jkw, tkw = {"sinks": jnp.asarray(sinks)}, {"sinks": _t(sinks)}
+    if windowed:
+        wins = np.asarray(GPTOSS_WINDOWS, np.int32)
+        jkw["windows"], tkw["windows"] = jnp.asarray(wins), _t(wins)
+    jargs = [jnp.asarray(a) for a in args]
+    want = jatt.ragged_paged_attention(*jargs, **jkw)
+    pallas = pun.ragged_paged_attention(*jargs, **jkw, q_seg=4, chunk_tokens=16,
+                                        interpret=True)
+    got = cuda_unified.ragged_paged_attention(*map(_t, args), **tkw)
+    split = tatt.split_ragged_paged_attention(*map(_t, args), **tkw, split_pages=1)
+    _close(got, want, REF_TOL)
+    _close(got, pallas, KERNEL_TOL)
+    _close(split, want, REF_TOL)
+    _close(split, pallas, KERNEL_TOL)
+    if windowed:
+        full = cuda_unified.ragged_paged_attention(*map(_t, args), sinks=_t(sinks))
+        assert not torch.allclose(got, full), "the window must cut some row"
+
+
 # ------------------------------------------- kernel plain versions vs Pallas
 @pytest.mark.parametrize("chunk_tokens", [16, 32])
 @pytest.mark.parametrize("lens", [[5, 16, 47], [1, 2, 33, 48]])

@@ -83,7 +83,7 @@ def test_importing_every_module_loads_neither_jax_nor_the_reference():
 def test_the_walk_covers_every_module_of_the_port():
     """Both checks above walk the package; the modules of each slice must be
     in that walk (slice 2: int8 KV, block copy, KVBM; slice 3: the gemma
-    family and the model registry)."""
+    family and the model registry; then the gpt-oss family)."""
     mods = set(_modules())
     assert {
         "dynamo_tpu_torch.ops.quant", "dynamo_tpu_torch.ops.block_copy",
@@ -91,4 +91,5 @@ def test_the_walk_covers_every_module_of_the_port():
         "dynamo_tpu_torch.kvbm.pool", "dynamo_tpu_torch.engine.engine",
         "dynamo_tpu_torch.engine.sampling", "dynamo_tpu_torch.run", "chip_smoke",
         "dynamo_tpu_torch.models.gemma", "dynamo_tpu_torch.models.registry",
+        "dynamo_tpu_torch.models.gptoss",
     } <= mods
