@@ -101,7 +101,37 @@ Phases, in order; any failure raises and the exit code is not 0:
    sampled), again under the profiler, and a short int8 run: TTFT, ITL,
    tok/s, device busy share, graphs, capture seconds, pool bytes, launches
    through replays and peak device memory.
-7. report: one JSON line with every kernel's numbers, the nvidia-smi line,
+7. moe_mla: the MoE and MLA families. (a) the latent kernel
+   (csrc/mla_attention.cu: one kv head of 576 lanes, 512 value lanes)
+   against its plain version and its plain split form: its ptxas
+   registers (no spill), blocks per SM and HMMA count; a decode batch of
+   8 rows of 1-8000 keys at 16 query heads (DeepSeek-V2-Lite) and at 128
+   (V2 / V3), each with >= 132 working blocks, the last 2048-token chunk
+   of a 6000-token prompt, a mixed step (a chunk row and 8 decode rows),
+   short rows whose last split some tokens never reach, the split counts
+   the kernel wrote held to the plain split plan, and a plain merge that
+   drops each row's last split failing the compare; each case timed with
+   its bound and SDPA over the gathered latent (heads folded into the
+   query axis) as its library yardstick. (b) the routed experts of
+   Qwen3-30B-A3B (128, top 8) and of DeepSeek-V2-Lite (64, top 6, 2 shared)
+   at full width, 8 and 2048 tokens, against the float32 expert loop per
+   token row, timed against byte and FLOP bounds, and captured into a
+   CUDA graph whose replay equals its eager run. (c) model checks at full
+   width, 2 layers, routing pinned: DeepSeek-V2-Lite (one dense, one MoE
+   layer) through the latent kernel, with the query pre-scale dropped and
+   k_pe zeroed in the cache as the mutants; Qwen3-30B-A3B through kernels
+   1-3 with the llama mutants. (d) DeepSeek-V2-Lite at all 27 layers
+   (random bf16 weights, 31.4 GB, max_context 8192): graph replay = eager
+   horizon bit for bit; 8 prompts of 100-6000 tokens 0.25 s apart, 32
+   tokens each (one seeded sampled), again under the profiler; decode-heavy
+   traffic (8 x 128-token prompts, 64 tokens each) one step per tick and
+   on the auto-tuned graphed schedule (streaming the same tokens), the
+   latter profiled: the latent kernel launched through graph replays and
+   no other attention kernel ran. (e) Qwen3-30B-A3B at 12 of its 48 layers
+   (full width; 61 GB at full depth leaves too little of the card) serves
+   the same 8 prompts, 64 tokens each, through kernels 1-3 and the grouped
+   experts. No ERROR log record in (d) or (e).
+8. report: one JSON line with every kernel's numbers, the nvidia-smi line,
    and last the device line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without printing a result when no CUDA device is present or
@@ -259,13 +289,14 @@ def unified_occupancy(_build) -> list:
 
 
 # the libraries whose SASS must hold tensor-core instructions
-TENSOR_CORE_LIBS = ("libdecode_attention.so", "libflash_extend.so", "libunified_attention.so")
+TENSOR_CORE_LIBS = ("libdecode_attention.so", "libflash_extend.so", "libunified_attention.so",
+                    "libmla_attention.so")
 
 
 def tensor_core_instructions(out_dir: str) -> dict:
     """Counts HGMMA (wgmma) and HMMA (mma.sync) instructions in the SASS of
-    the decode, flash-extend and unified libraries (cuobjdump -sass) and
-    fails if a library has none. Where the toolkit has no cuobjdump it says so."""
+    the decode, flash-extend, unified and latent libraries (cuobjdump
+    -sass) and fails if a library has none. Where the toolkit has no cuobjdump it says so."""
     import shutil
 
     tool = os.path.join(os.environ.get("CUDA_HOME") or "/usr/local/cuda", "bin", "cuobjdump")
@@ -1410,7 +1441,8 @@ def model_logits(torch, cfg, params, paths, prompt, extra, int8=False):
     """Last-position logits [1, V] (f32) of a prefill, 3 decode steps and a
     2-token ragged step, through each path's attention, per path; the
     model's layers hand their attention attributes (gemma: window,
-    softcap; gpt-oss: window, sinks) to the path. With ``int8`` the caches are int8 and written as
+    softcap; gpt-oss: window, sinks) to the path. The plain paths of an
+    expert family run its plain expert loop. With ``int8`` the caches are int8 and written as
     the engine writes them: the prefill quantizes whole blocks (pad rows
     zero), later tokens requantize their block one row at a time."""
     from dynamo_tpu_torch.models import registry
@@ -1424,6 +1456,10 @@ def model_logits(torch, cfg, params, paths, prompt, extra, int8=False):
         # the kernel path runs the engine's grouped expert products, the
         # plain paths the plain expert loop
         plain_forward = functools.partial(forward, expert_fn=gptoss.experts_plain)
+    elif registry.is_moe(cfg) or registry.is_mla(cfg):
+        from dynamo_tpu_torch.models import moe
+
+        plain_forward = functools.partial(forward, expert_fn=moe.experts_plain)
     else:
         plain_forward = forward
     dev = params["embed"].device
@@ -1709,9 +1745,10 @@ def gptoss_model_check(torch):
 def kernel_counters() -> dict:
     """Every kernel wrapper's launch counter, by the report's short name."""
     from dynamo_tpu_torch.ops import block_copy as bc
-    from dynamo_tpu_torch.ops import cuda_attention, cuda_prefill, cuda_unified
+    from dynamo_tpu_torch.ops import cuda_attention, cuda_mla, cuda_prefill, cuda_unified
 
     return {
+        "latent": cuda_mla.KERNEL,
         "decode": cuda_attention.KERNEL, "flash_extend": cuda_prefill.KERNEL,
         "unified": cuda_unified.KERNEL, "decode_int8": cuda_attention.KERNEL_INT8,
         "flash_extend_int8": cuda_prefill.KERNEL_INT8,
@@ -1748,6 +1785,7 @@ def device_time_by_kind(prof, n_top: int = 10) -> dict:
     # (torch's own CUTLASS kernels serve torch._grouped_mm: gpt-oss's experts)
     kinds = {"decode_kernel": "paged_decode_kernel", "flash_kernel": "flash_extend_kernel",
              "unified_kernel": "unified_kernel", "merge_kernel": "merge_kernel",
+             "latent_kernel": "latent_kernel",
              "grouped_gemm": "enable_3x_kernel_for_sm9x"}
     gemm_tags = ("gemm", "nvjet", "xmma", "cutlass", "cublas")
     out = dict.fromkeys(list(kinds) + ["gemm", "other"], 0.0)
@@ -2062,7 +2100,8 @@ async def serve_gemma(torch, int8=False, profile=False):
 
 
 async def serve_windowed(torch, mcfg, tag, lens, max_tokens, int8=False, profile=False,
-                         params=None, prompt_seed=6, sample_seed=11):
+                         params=None, prompt_seed=6, sample_seed=11, expect=None,
+                         forbid=None, split_module=None):
     """TorchEngine on ``mcfg``, a family whose every layer goes through the
     unified kernel (gemma, gpt-oss), on its defaults (GEMMA_BLOCKS device
     blocks, max_context 8192, batch 8; random bf16 weights from seed 0, or
@@ -2071,6 +2110,9 @@ async def serve_windowed(torch, mcfg, tag, lens, max_tokens, int8=False, profile
     Hard checks: token counts and finish reasons, fused mixed steps ran,
     the unified kernel (the int8 form with ``int8``) served windowed
     launches, and neither the decode nor the flash-extend kernel launched.
+    Another family names the counters that must have launched
+    (``expect``), those that must not (``forbid``) and the wrapper module
+    whose split log the profiled run reads (``split_module``).
     Reports TTFT, ITL, tok/s, steps, the horizon's graphs, launches by
     kernel (replays counted) and the peak of allocated device memory.
     ``profile``: under torch.profiler (CUDA activity), returning the device
@@ -2084,6 +2126,11 @@ async def serve_windowed(torch, mcfg, tag, lens, max_tokens, int8=False, profile
     from dynamo_tpu_torch.ops import cuda_unified
     from dynamo_tpu_torch.runtime import Context
 
+    unified = "unified_int8" if int8 else "unified"
+    expect = expect or (unified, "unified_windowed")
+    if forbid is None:
+        forbid = ("decode", "flash_extend", "decode_int8", "flash_extend_int8")
+    split_module = split_module or cuda_unified
     cfg = TorchEngineConfig(model=mcfg, num_blocks=GEMMA_BLOCKS, block_size=BS,
                             max_batch_size=8, max_context=8192, seed=0,
                             kv_dtype="int8" if int8 else "model")
@@ -2132,7 +2179,7 @@ async def serve_windowed(torch, mcfg, tag, lens, max_tokens, int8=False, profile
     reset_launches()
     # the kernel's own split counts of every launch: logging them costs
     # host time, so only the profiled runs (which report device time) do
-    cuda_unified.split_log = [] if prof is not None else None
+    split_module.split_log = [] if prof is not None else None
     t0 = time.perf_counter()
     try:
         await asyncio.gather(*(one(i, p) for i, p in enumerate(prompts)))
@@ -2141,7 +2188,7 @@ async def serve_windowed(torch, mcfg, tag, lens, max_tokens, int8=False, profile
         torch.cuda.synchronize()
         if prof is not None:
             prof.__exit__(None, None, None)
-        split_log, cuda_unified.split_log = cuda_unified.split_log, None
+        split_log, split_module.split_log = split_module.split_log, None
     wall = time.perf_counter() - t0
     launches = read_launches()
     for s in stats:
@@ -2150,9 +2197,9 @@ async def serve_windowed(torch, mcfg, tag, lens, max_tokens, int8=False, profile
                                  f"finish {s['finish']!r}; expected {max_tokens}, 'length'")
         if not all(0 <= t < mcfg.vocab_size for t in s["tokens"]):
             raise AssertionError(f"{tag} request {s['i']}: token id outside the vocab")
-    unified = "unified_int8" if int8 else "unified"
-    if launches[unified] <= 0 or launches["unified_windowed"] <= 0:
-        raise AssertionError(f"{tag}: the {unified} kernel served no windowed launch: {launches}")
+    missing = [n for n in expect if launches[n] <= 0]
+    if missing:
+        raise AssertionError(f"{tag}: {missing} never launched: {launches}")
     split_rows = split_launches = None
     if split_log is not None:
         counts = [(n >= 2).sum() for _, n in split_log if n is not None]
@@ -2161,8 +2208,7 @@ async def serve_windowed(torch, mcfg, tag, lens, max_tokens, int8=False, profile
         if not split_rows:
             raise AssertionError(f"{tag}: the kernel split no row (decode rows of up to "
                                  f"{max(lens)} keys) in {len(split_log)} launches")
-    split = [n for n in ("decode", "flash_extend", "decode_int8", "flash_extend_int8")
-             if launches[n]]
+    split = [n for n in forbid if launches[n]]
     if split:
         raise AssertionError(f"{tag}: layers went through {split}: {launches}")
     if engine.step_counts["mixed"] <= 0:
@@ -2855,8 +2901,536 @@ def gptoss_phase(torch, gen, smi: str, flex) -> tuple:
     return results, out
 
 
+# ------------------------------------------------------------- phase 7
+# DeepSeek-V2-Lite's latent attention: 16 query heads over one kv head of
+# 576 lanes (kv_lora_rank 512 + qk_rope_head_dim 64), 512 value lanes;
+# V2 / V3 have 128 query heads
+LD, LV = 576, 512
+LATENT_DECODE_LENS = (1, 2000, 3000, 4000, 5000, 6000, 7000, 8000)
+# case -> (query heads, rows [(q_len, seq_len)])
+LATENT_CASES = {
+    "decode G=16": (16, [(1, n) for n in LATENT_DECODE_LENS]),
+    "decode G=128": (128, [(1, n) for n in LATENT_DECODE_LENS]),
+    # the last 2048-token chunk of a 6000-token prompt
+    "prefill chunk": (16, [(2048, 6000)]),
+    # one chunk row and 8 decode rows in one launch
+    "mixed": (16, [(1024, 2500)] + [(1, n) for n in (130, 700, 1500, 3000, 4500, 6000,
+                                                      7000, 8000)]),
+    # rows of 1-2 tokens (split at G = 16 when a launch's q_len bound is
+    # 2) whose last 256-key split holds keys their first token never sees
+    "short rows": (16, [(2, 513), (2, 1025), (1, 700), (2, 3000), (2, 257), (1, 1),
+                        (2, 2049)]),
+}
+# the cases whose split-K must reach the SM count in working blocks
+LATENT_FILL = ("decode G=16", "decode G=128")
+LATENT_SPLIT_ROWS = "short rows"
+LATENT_MUTANT_CASE = "decode G=16"
+
+
+def latent_library_call(torch, q, kc, vc, tables, starts, rows):
+    """One PyTorch call computing the same function as a latent case:
+    scaled_dot_product_attention over the gathered latent, each row's h
+    heads folded into the query axis (one kv head serves them all, so
+    nothing is expanded), keys padded to a multiple of 16 with a boolean
+    causal mask; PyTorch picks the backend that takes d = 576 (padding
+    query rows see key 0). Returns (call, packed [Tq, h, 512] output of a
+    call's result)."""
+    from dynamo_tpu_torch.ops import attention as att
+
+    dev = q.device
+    R, h = len(rows), q.shape[1]
+    T, max_q = max(sl for _, sl in rows), max(ql for ql, _ in rows)
+    Tp = -(-T // 16) * 16
+    qp = torch.zeros(R, 1, max_q * h, LD, dtype=torch.bfloat16, device=dev)
+    kp = torch.zeros(R, 1, Tp, LD, dtype=torch.bfloat16, device=dev)
+    vp = torch.zeros(R, 1, Tp, LV, dtype=torch.bfloat16, device=dev)
+    for r, (ql, sl) in enumerate(rows):
+        k, v = att.gather_kv(kc, vc, tables[r])
+        kp[r, 0, :sl], vp[r, 0, :sl] = k[:sl, 0], v[:sl, 0, :LV]
+        qp[r, 0, :ql * h] = q[starts[r]:starts[r] + ql].reshape(ql * h, LD)
+    i64 = dict(dtype=torch.long, device=dev)
+    q_len = torch.tensor([ql for ql, _ in rows], **i64)[:, None, None]
+    q_off = torch.tensor([sl - ql for ql, sl in rows], **i64)[:, None, None]
+    tok = (torch.arange(max_q * h, device=dev) // h)[None, :, None]
+    key = torch.arange(Tp, device=dev)[None, None, :]
+    mask = torch.where(tok < q_len, key <= q_off + tok, key == 0)[:, None]
+
+    def unpack(out):
+        packed = torch.zeros(q.shape[0], h, LV, dtype=torch.bfloat16, device=dev)
+        for r, (ql, _) in enumerate(rows):
+            packed[starts[r]:starts[r] + ql] = out[r, 0, :ql * h].reshape(ql, h, LV)
+        return packed
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return (lambda: sdpa(qp, kp, vp, attn_mask=mask)), unpack
+
+
+def latent_case(torch, gen, timer, name, h, rows):
+    """One latent kernel case: against its plain version and its plain
+    split form, the split counts the kernel wrote held to att.split_plan,
+    timed with its bound and its library yardstick."""
+    from dynamo_tpu_torch.ops import attention as att
+    from dynamo_tpu_torch.ops import cuda_mla
+
+    i32 = dict(dtype=torch.int32, device="cuda")
+    lens = [sl for _, sl in rows]
+    kc, vc, tables = paged_case(torch, gen, lens, num_blocks=sum(-(-n // BS) for n in lens)
+                                + 64, kvh=1, d=LD)
+    starts, pos = [], 0
+    for ql, _ in rows:
+        starts.append(pos)
+        pos += ql + 5
+    q = torch.randn(pos, h, LD, generator=gen, device="cuda").to(torch.bfloat16)
+    args = (q, kc, vc, tables, torch.tensor(starts, **i32),
+            torch.tensor([ql for ql, _ in rows], **i32), torch.tensor(lens, **i32))
+    max_q, max_s = max(ql for ql, _ in rows), max(lens)
+    bounds = dict(max_q_len=max_q, max_seq_len=max_s)
+    tag = f"latent {name}"
+    cuda_mla.split_log = []
+    try:
+        got = cuda_mla.latent_paged_attention(*args, **bounds)
+        (grid, n_dev), = cuda_mla.split_log
+    finally:
+        cuda_mla.split_log = None
+    plain = att.ragged_paged_attention(*args)[..., :LV]
+    err = compare(torch, got, plain, tag)
+    compare(torch, got, cuda_mla.split_latent_attention(*args, **bounds), tag + " (plain split)")
+    _, tile_rows, qs, _ = cuda_mla.tile_shape(h, max_q)
+    S = cuda_mla.split_extent(max_s)
+    n_kernel = n_dev.tolist()
+    n_plain = [att.split_plan(ql, sl, 0, cuda_mla.SPLIT_KEYS, BS, S)[2]
+               if S > 1 and 0 < ql <= qs else 0 for ql, sl in rows]
+    if n_kernel != n_plain:
+        raise AssertionError(f"{tag}: the kernel split its rows {n_kernel}, the plain split "
+                             f"plan {n_plain}")
+    blocks = sum(max(n, 1) * -(-ql * h // tile_rows) for (ql, _), n in zip(rows, n_kernel))
+    out = {"h": h, "rows": rows, "max_abs_err": err, "grid": grid, "splits_per_row": n_kernel,
+           "working_blocks": blocks}
+    if name == LATENT_SPLIT_ROWS:
+        _, _, l, n = att.attention_partials(
+            *args, split_keys=cuda_mla.SPLIT_KEYS, align=BS, max_splits=S, tile_tokens=qs)
+        out["tokens_missing_a_split"] = sum(
+            int((l[r, :c, :ql] == 0).all(-1).sum())
+            for r, (c, (ql, _)) in enumerate(zip(n.tolist(), rows)) if c)
+        if not out["tokens_missing_a_split"]:
+            raise AssertionError(f"{tag}: no token misses a whole split")
+    if name == LATENT_MUTANT_CASE:
+        wrong = cuda_mla.split_latent_attention(*args, **bounds, drop_last_split=True)
+        try:
+            compare(torch, got, wrong, tag + " against its drop-last-split mutant")
+        except AssertionError:
+            out["drop_last_split_mutant_fails"] = True
+        else:
+            raise AssertionError(f"{tag}: a merge without each row's last split passes")
+        del wrong
+    live = [(ql, sl) for ql, sl in rows if ql > 0 and sl > 0]
+    pages = sum(-(-sl // BS) for _, sl in live)
+    tokens = sum(ql for ql, _ in live)
+    b, by = bound(2 * tokens * h * (LD + LV)            # queries in, outputs out
+                  + pages * BS * 2 * (LD + LV)           # K pages at 576 lanes, V at 512
+                  + 4 * (3 * len(rows) + pages),
+                  2 * sum(visible_pairs(ql, sl, 0) for ql, sl in live) * h * (LD + LV))
+    library, unpack = latent_library_call(torch, q, kc, vc, tables, starts, rows)
+    lib_err = (unpack(library()).float() - plain.float()).abs().max().item()
+    ms = timer(lambda: cuda_mla.latent_paged_attention(*args, **bounds))
+    out.update(
+        ms=ms, plain_ms=timer(lambda: att.ragged_paged_attention(*args), reps=3),
+        library_ms=timer(library), library="scaled_dot_product_attention (heads folded "
+        "into the query axis; PyTorch's backend choice at d 576)", library_max_abs_err=lib_err,
+        bound_ms=b, bound_by=by, achieved_of_bound=b / ms)
+    del library, unpack
+    log(f"  {tag}: max abs err {err:.3g}; {ms:.4f} ms kernel, {out['plain_ms']:.4f} ms plain, "
+        f"{out['library_ms']:.4f} ms library (max abs err {lib_err:.3g}), bound {b:.4f} ms "
+        f"({by}, {b / ms:.1%} of it reached); grid {grid}, splits per row {n_kernel} (the "
+        f"kernel's count), {blocks} working blocks"
+        + (f"; {out['tokens_missing_a_split']} (row, split, token) triples whose split holds "
+           "no key the token sees" if "tokens_missing_a_split" in out else "")
+        + ("; the plain merge without each row's last split fails the compare"
+           if name == LATENT_MUTANT_CASE else ""))
+    return out
+
+
+def latent_build_report(_build) -> dict:
+    """The latent kernel's build: registers and spills per entry (fails on
+    a spill) and blocks per SM with their dynamic shared memory
+    (dtt_latent_occupancy)."""
+    import ctypes
+    import re
+
+    with open(os.path.join(_build.build_dir(), "libmla_attention.so.log")) as f:
+        lines = ptxas_summary(f.read())
+    spills = [l for l in lines if re.search(r"[1-9]\d* bytes spill", l)]
+    if not lines or spills:
+        raise AssertionError(f"latent kernel: spills or no ptxas report: {lines}")
+    fn = _build.load("mla_attention.cu").dtt_latent_occupancy
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    occ = {}
+    for mt in (1, 2):
+        blocks, smem = ctypes.c_int(), ctypes.c_int()
+        err = fn(mt, ctypes.byref(blocks), ctypes.byref(smem))
+        if err or blocks.value < 1:
+            raise AssertionError(f"latent kernel MT={mt}: occupancy {blocks.value}, error {err}")
+        occ[f"MT={mt}"] = {"blocks_per_sm": blocks.value, "smem_bytes": smem.value}
+    log("latent kernel build: " + " | ".join(lines) + f"; blocks per SM {occ}")
+    return {"ptxas": lines, "occupancy": occ}
+
+
+def check_latent(torch, gen, timer, _build):
+    build = latent_build_report(_build)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    cases = {name: latent_case(torch, gen, timer, name, h, rows)
+             for name, (h, rows) in LATENT_CASES.items()}
+    for name in LATENT_FILL:
+        if cases[name]["working_blocks"] < sms:
+            raise AssertionError(f"latent {name}: {cases[name]['working_blocks']} working "
+                                 f"blocks on {sms} SMs")
+    main = cases["decode G=16"]
+    return {
+        "name": "latent_paged_attention", "route": "cuda",
+        "source": "dynamo_tpu_torch/csrc/mla_attention.cu",
+        "replaces": "dynamo_tpu/ops/pallas_unified.py:93",
+        "shape": f"kvh=1 d_qk={LD} d_v={LV} bs={BS} bf16; top-level numbers: the "
+                 f"'decode G=16' case (DeepSeek-V2-Lite), rows (q_len, seq_len) "
+                 f"{main['rows']}; every case under 'cases'",
+        **{k: main[k] for k in ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
+                                "bound_by")},
+        "build": build, "cases": cases,
+    }
+
+
+def shared_f32(p, x):
+    """DeepSeek's shared experts in float32 (the plain version's)."""
+    import torch.nn.functional as F
+
+    xf = x.float()
+    gate = F.silu(xf @ p["w_shared_gate"].float())
+    return (gate * (xf @ p["w_shared_up"].float())) @ p["w_shared_down"].float()
+
+
+def check_moe_experts(torch, gen, timer) -> dict:
+    """The routed-expert FFN of Qwen3-30B-A3B (128 experts, top 8) and of a
+    DeepSeek-V2-Lite MoE layer (64, top 6, 2 shared experts) at full
+    width, as the engine runs it (routing, grouped products, slot sum; and
+    DeepSeek's shared experts), against the float32 expert loop per token
+    row at EXPERT_TOKENS tokens, timed against its byte and FLOP bounds
+    (no single PyTorch call computes it); then its decode-batch form
+    captured into a CUDA graph must replay its eager run bit for bit."""
+    from dynamo_tpu_torch.models import mla, moe
+
+    qwen = moe.MoeConfig.qwen3_30b_a3b()
+    lite = mla.MlaConfig.deepseek_v2_lite()
+    pq = moe.init_layer_params(qwen, gen, "cuda")
+    pl = mla.init_layer_params(lite, gen, "cuda", lite.first_dense_layers)
+    el = mla.expert_params(pl)
+    forms = {
+        "qwen3-30b-a3b": (
+            qwen, lambda x: moe.experts_grouped(pq, qwen, x, moe.route(pq, qwen, x)),
+            lambda x: moe.experts_plain(pq, qwen, x, moe.route(pq, qwen, x)).float(),
+            lambda x: moe.route(pq, qwen, x)[1], 0),
+        "deepseek-v2-lite": (
+            lite, lambda x: mla.moe_ffn(pl, lite, x),
+            lambda x: moe.experts_plain(el, lite, x, mla.route(pl, lite, x)).float()
+            + shared_f32(pl, x),
+            lambda x: mla.route(pl, lite, x)[1],
+            lite.moe_intermediate_size * lite.num_shared_experts),
+    }
+    out = {}
+    for tag, (cfg, fn, plain_fn, ids_fn, shared) in forms.items():
+        H, I, K, E = (cfg.hidden_size, cfg.moe_intermediate_size, cfg.num_experts_per_tok,
+                      cfg.num_experts)
+        out[tag] = {}
+        for T in EXPERT_TOKENS:
+            x = torch.randn(T, H, generator=gen, device="cuda").to(torch.bfloat16)
+            got, want = fn(x), plain_fn(x)
+            row_rel = ((got.float() - want).norm(dim=-1) / want.norm(dim=-1)).max().item()
+            if not torch.isfinite(got).all() or row_rel > KERNEL_ROW_REL:
+                raise AssertionError(f"{tag} experts T={T}: rows differ from the float32 "
+                                     f"loop by {row_rel:.4g} relative L2 (limit "
+                                     f"{KERNEL_ROW_REL})")
+            hit = len(set(ids_fn(x).flatten().tolist()))
+            b, by = bound(2 * (hit * 3 * H * I + 3 * H * shared + H * E) + 2 * 2 * T * H,
+                          2 * T * (K * 3 * H * I + 3 * H * shared + H * E))
+            ms = timer(lambda: fn(x), busy=2_000_000)
+            out[tag][T] = {"max_abs_err": (got.float() - want).abs().max().item(),
+                           "worst_row_rel": row_rel, "experts_hit": hit, "ms": ms,
+                           "plain_ms": timer(lambda: plain_fn(x), reps=3),
+                           "library_ms": None, "bound_ms": b, "bound_by": by}
+            log(f"  {tag} experts T={T}: worst row relative L2 {row_rel:.3g} (limit "
+                f"{KERNEL_ROW_REL}) against the float32 loop; {ms:.4f} ms, "
+                f"{out[tag][T]['plain_ms']:.4f} ms plain, bound {b:.4f} ms ({by}, {hit} of {E} "
+                f"experts hit)")
+        x = torch.randn(EXPERT_TOKENS[0], H, generator=gen, device="cuda").to(torch.bfloat16)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            eager = fn(x)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            y = fn(x)
+        graph.replay()
+        torch.cuda.synchronize()
+        if not torch.equal(y, eager):
+            raise AssertionError(f"{tag} experts: the graph replay differs from the eager run")
+        out[tag]["graph_equals_eager"] = True
+        del graph
+    return out
+
+
+def latent_attention_paths(torch, table, mutants, qk_head_dim):
+    """The latent model check's attention paths (as attention_paths): the
+    latent kernel for the prefill chunk, the decode steps and the ragged
+    step (each one ragged row), the plain op cut to 512 lanes, and two
+    wrong attentions: the query's MLA pre-scale dropped (logits 1 /
+    sqrt(576 / ``qk_head_dim``) too small) and k_pe zeroed in the cache."""
+    import math
+
+    from dynamo_tpu_torch.ops import attention as att
+    from dynamo_tpu_torch.ops import cuda_mla
+
+    i32 = dict(dtype=torch.int32, device=table.device)
+
+    def one(n):
+        return torch.tensor([n], **i32)
+
+    def rows(q, total):
+        return table[None], one(0), one(q.shape[0]), one(total)
+
+    def kernel(q, kc, vc, total):
+        return cuda_mla.latent_paged_attention(q, kc, vc, *rows(q, total),
+                                               max_q_len=q.shape[0], max_seq_len=total)
+
+    def plain(q, kc, vc, total):
+        return att.ragged_paged_attention(q, kc, vc, *rows(q, total))[..., :LV]
+
+    def no_prescale(q, kc, vc, total):
+        return plain((q.float() / math.sqrt(LD / qk_head_dim)).to(q.dtype), kc, vc, total)
+
+    def no_k_pe(q, kc, vc, total):
+        kz = kc.clone()
+        kz[..., LV:] = 0
+        return plain(q, kz, vc, total)
+
+    paths = {"kernels": (kernel,) * 3, "plain": (plain,) * 3,
+             "mutant: query pre-scale dropped": (no_prescale,) * 3,
+             "mutant: k_pe zeroed in the cache": (no_k_pe,) * 3}
+    return {k: v for k, v in paths.items() if not k.startswith("mutant") or k in mutants}
+
+
+LATENT_MUTANTS = ("mutant: query pre-scale dropped", "mutant: k_pe zeroed in the cache")
+# (layers, prompt tokens) of each model check: DeepSeek-V2-Lite over a
+# long prompt; Qwen3-30B-A3B over the llama check's 300 tokens, the length
+# its mutants read at (one key dropped of 1500 moves the logits by ~0.02)
+MOE_MODEL_CHECKS = {"deepseek-v2-lite": (2, 1500), "qwen3-30b-a3b": (2, 300)}
+# the router bias that pins each MoE layer's top k in the DeepSeek check:
+# softmax scores lie in [0, 1], so a bias of 2 on k experts fixes the
+# selection (a token whose k-th and (k+1)-th scores lie within the paths'
+# bf16 rounding would take other experts on each path, a jump of the
+# function that is no kernel's error); the combine weights stay the
+# unbiased scores
+LATENT_ROUTER_PIN = 2.0
+
+
+def pin_latent_router(cfg, params, rng):
+    import torch
+
+    for lp in params["layers"]:
+        if "w_router" in lp:
+            bias = torch.zeros(cfg.num_experts, dtype=torch.float32,
+                               device=lp["w_router"].device)
+            bias[rng.permutation(cfg.num_experts)[:cfg.num_experts_per_tok].tolist()] = (
+                LATENT_ROUTER_PIN)
+            lp["router_bias"] = bias
+
+
+def pin_moe_router(cfg, params, rng):
+    """Qwen3-MoE's router has no bias: a zero router gives every token
+    equal scores, and the tie rule (lowest ids) the same experts on both
+    paths."""
+    for lp in params["layers"]:
+        lp["w_router"].zero_()
+
+
+def moe_mla_model_checks(torch) -> dict:
+    """model_check for DeepSeek-V2-Lite and Qwen3-30B-A3B at full width, cut
+    to MOE_MODEL_CHECKS' layers (V2-Lite: one dense layer, one MoE layer),
+    routing pinned; the kernel path (latent kernel, or kernels 1-3; the
+    grouped experts) against the plain path (plain attention, the float32
+    expert loop), with the latent mutants and the llama mutants."""
+    from dynamo_tpu_torch.models import mla, moe
+
+    out = {}
+    lite = mla.MlaConfig.deepseek_v2_lite()
+    for tag, base, weight_sets, paths in (
+            ("deepseek-v2-lite", lite, [(pin_latent_router, LATENT_MUTANTS)],
+             lambda t, m: latent_attention_paths(torch, t, m, lite.qk_head_dim)),
+            ("qwen3-30b-a3b", moe.MoeConfig.qwen3_30b_a3b(), [(pin_moe_router, MODEL_MUTANTS)],
+             lambda t, m: attention_paths(torch, t))):
+        layers, prompt_len = MOE_MODEL_CHECKS[tag]
+        cfg = dataclasses.replace(base, num_layers=layers)
+        t0 = time.perf_counter()
+        worst, mutants, spread = model_check(torch, f"model {tag} x{layers} layers", cfg,
+                                             prompt_len, 400, weight_sets, paths)
+        out[tag] = {"worst": worst, "mutants": mutants, "max_logit": spread}
+        log(f"model {tag}: {layers} layers at full width, prefill {prompt_len} + 3 decode + a "
+            f"2-token ragged step, {len(MODEL_SEEDS)} seeds: kernels vs plain logits relative "
+            f"L2 {worst:.4g} at worst (limit {MODEL_REL_TOL}); mutants at least "
+            + ", ".join(f"{n[8:]} {r:.4g}" for n, r in mutants.items())
+            + f"; max |logit| {spread:.3g} [{time.perf_counter() - t0:.1f} s]")
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+LATENT_PROMPTS = (100, 700, 1500, 2600, 3300, 4100, 5000, 6000)
+# Qwen3-30B-A3B (61 GB at 48 layers) is served at 12 layers, full width:
+# its attention path is kernels 1-3 at llama's shape, served at full depth
+# on llama3-8b, and its expert path is checked alone at full width. 64
+# tokens a request: at 12 layers a request decodes 32 tokens in less than
+# the 0.25 s to the next arrival, and kernel 3 (the mixed step) would run
+# only when the arrivals happen to overlap
+QWEN_SERVE_LAYERS = 12
+QWEN_SERVE_TOKENS = 64
+LATENT_FORBID = ("decode", "flash_extend", "unified", "decode_int8", "flash_extend_int8",
+                 "unified_int8")
+
+
+def moe_mla_phase(torch, gen, smi: str, _build) -> tuple:
+    """DeepSeek-V2-Lite and Qwen3-30B-A3B on the card (module docstring,
+    phase 7). Returns (the kernel results by report name, the phase's
+    report)."""
+    from dynamo_tpu_torch.engine.engine import TorchEngine, TorchEngineConfig, param_bytes
+    from dynamo_tpu_torch.models import mla, moe, registry
+    from dynamo_tpu_torch.ops import cuda_mla
+
+    results, out = {}, {}
+    timer = Timer(torch)
+    t0 = time.perf_counter()
+    r = check_latent(torch, gen, timer, _build)
+    results[r["name"]] = r
+    log(f"kernel {r['name']}: max abs err {r['max_abs_err']:.3g} over {len(r['cases'])} cases "
+        f"(atol {KERNEL_ATOL}, rtol {KERNEL_RTOL}, row {KERNEL_ROW_REL}) "
+        f"[{time.perf_counter() - t0:.1f} s]")
+    t0 = time.perf_counter()
+    out["experts"] = check_moe_experts(torch, gen, timer)
+    log(f"experts on {smi}: " + json.dumps(out["experts"]) +
+        f" [{time.perf_counter() - t0:.1f} s]")
+    del timer
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["model"] = moe_mla_model_checks(torch)
+
+    errors = ErrorLog()
+    # DeepSeek-V2-Lite at all 27 layers on its defaults
+    mcfg = mla.MlaConfig.deepseek_v2_lite()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = registry.init_params(mcfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    torch.cuda.synchronize()
+    out["load"] = {"s": time.perf_counter() - t0, "param_bytes": param_bytes(params)}
+    log(f"deepseek-v2-lite: {mcfg.num_layers} layers, random bf16 weights (seed 0), "
+        f"{out['load']['param_bytes'] / 1e9:.2f} GB, loaded in {out['load']['s']:.1f} s")
+    eng = TorchEngine(TorchEngineConfig(
+        model=mcfg, num_blocks=GPTOSS_BLOCKS, block_size=BS, max_batch_size=8,
+        max_context=8192, decode_steps=HZ_STEPS, decode_pipeline=1), params=params)
+    r = {**graph_equals_eager(torch, eng, "deepseek-v2-lite", [300, 5000, 2500,
+                                                               8192 - HZ_STEPS, 64, 0, 4500,
+                                                               17]), **horizon_report(eng)}
+    out["graph_equals_eager"] = r
+    log(f"horizon graph = eager, deepseek-v2-lite bf16: bit-identical over {r['steps']} steps "
+        f"at key {r['key']} ({r['pages_compared']} pages x {r['cache_arrays']} cache arrays); "
+        f"eager {r['eager_s'] * 1e3:.1f} ms, replay {r['replay_s'] * 1e3:.1f} ms; graphs "
+        f"{r['horizon']}")
+    eng.stop()
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the serving run, then again under the profiler
+    serving = {}
+    for key, profile in (("bf16", False), ("bf16 profiled", True)):
+        run = asyncio.run(serve_windowed(
+            torch, mcfg, "deepseek-v2-lite", LATENT_PROMPTS, 32, profile=profile,
+            params=params, prompt_seed=14, sample_seed=15, expect=("latent",),
+            forbid=LATENT_FORBID, split_module=cuda_mla))
+        serving[key] = run
+        log(f"serving deepseek-v2-lite {key}: " + json.dumps(run))
+        gc.collect()
+        torch.cuda.empty_cache()
+    run, prof = serving["bf16"], serving["bf16 profiled"]
+    prof["busy_share"] = prof["device_busy_ms"] / (run["wall_s"] * 1e3)
+    if run["launches"]["replayed"]["latent"] <= 0:
+        raise AssertionError(f"deepseek-v2-lite: no latent launch through a graph replay: "
+                             f"{run['launches']}")
+    log(f"serving deepseek-v2-lite on {smi}: {run['requests']} requests of {LATENT_PROMPTS} "
+        f"tokens, {run['output_tok_s']:.1f} output tok/s, TTFT median "
+        f"{run['ttft_s_median'] * 1e3:.0f} ms (max {run['ttft_s_max'] * 1e3:.0f}), ITL median "
+        f"{run['itl_s_median'] * 1e3:.2f} ms (max {run['itl_s_max'] * 1e3:.2f}); device busy "
+        f"{prof['busy_share']:.1%} ({prof['device_busy_ms']:.1f} ms profiled); device ms "
+        f"{json.dumps(prof['device_ms'])}; graphs {run['horizon']}; launches {run['launches']}; "
+        f"peak allocated {run['peak_allocated_bytes'] / 2**30:.2f} GiB")
+    out["serving"] = serving
+    # decode-heavy traffic: one eager step per tick, and the auto-tuned
+    # graphed schedule (profiled again)
+    prompts = horizon_prompts()
+    runs = {}
+    for tag, knobs, profile in (("a", dict(decode_steps=1, decode_pipeline=1), False),
+                                ("d", {}, False), ("d profiled", {}, True)):
+        run, eng = asyncio.run(serve_decode_heavy(
+            torch, params, prompts, profile=profile, mcfg=mcfg, tokens=GPTOSS_HZ_TOKENS,
+            max_context=8192, **knobs))
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        runs[tag] = run
+        log(f"deepseek-v2-lite decode-heavy ({tag}) on {smi}: schedule {run['schedule']}; "
+            f"{run['output_tok_s']:.1f} tok/s, ITL median {run['itl_s_median'] * 1e3:.2f} ms, "
+            f"TTFT median {run['ttft_s_median'] * 1e3:.0f} ms; steps {run['steps']}; graphs "
+            f"{run['horizon']}; launches {run['launches']}")
+    for rq in runs["a"]["requests"]:
+        if len(rq["tokens"]) != GPTOSS_HZ_TOKENS or rq["finish"] != "length":
+            raise AssertionError(f"deepseek-v2-lite decode-heavy (a): request {rq['i']}: "
+                                 f"{len(rq['tokens'])} tokens, {rq['finish']!r}")
+    check_same_streams("deepseek-v2-lite decode-heavy (d)", runs["d"], runs["a"], None)
+    if runs["d"]["launches"]["replayed"]["latent"] <= 0:
+        raise AssertionError(f"deepseek-v2-lite decode-heavy (d): no latent launch through a "
+                             f"graph replay: {runs['d']['launches']}")
+    prof = runs["d profiled"]
+    prof["busy_share"] = prof["device_busy_ms"] / (runs["d"]["wall_s"] * 1e3)
+    passes = prof["steps"]["horizon"] * prof["schedule"]["decode_steps"] + sum(
+        prof["steps"][k] for k in ("prefill", "decode", "mixed"))
+    log(f"deepseek-v2-lite decode-heavy (d) profiled on {smi}: device busy "
+        f"{prof['device_busy_ms']:.1f} ms, {prof['busy_share']:.1%} of the unprofiled (d) wall; "
+        f"{prof['device_busy_ms'] / passes:.3f} device ms per forward pass; device ms "
+        + json.dumps(prof["device_ms"]))
+    out["schedules"] = {t: {k: v for k, v in r.items() if k != "requests"}
+                        for t, r in runs.items()}
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Qwen3-30B-A3B at QWEN_SERVE_LAYERS layers: kernels 1-3 and the experts
+    qcfg = dataclasses.replace(moe.MoeConfig.qwen3_30b_a3b(), num_layers=QWEN_SERVE_LAYERS)
+    run = asyncio.run(serve_windowed(
+        torch, qcfg, "qwen3-30b-a3b", LATENT_PROMPTS, QWEN_SERVE_TOKENS, prompt_seed=16,
+        sample_seed=17, expect=("decode", "flash_extend", "unified"), forbid=("latent",)))
+    log(f"serving qwen3-30b-a3b x{QWEN_SERVE_LAYERS} layers on {smi}: " + json.dumps(run))
+    log(f"serving qwen3-30b-a3b ({QWEN_SERVE_LAYERS} of its 48 layers, full width) on {smi}: "
+        f"{run['output_tok_s']:.1f} output tok/s, TTFT median "
+        f"{run['ttft_s_median'] * 1e3:.0f} ms, ITL median {run['itl_s_median'] * 1e3:.2f} ms; "
+        f"schedule {run['schedule']}; peak allocated "
+        f"{run['peak_allocated_bytes'] / 2**30:.2f} GiB")
+    out["qwen_serving"] = run
+    errors.close()
+    if errors.records:
+        raise AssertionError(f"ERROR log records: {[r.getMessage() for r in errors.records]}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return results, out
+
+
 # ------------------------------------------------------------------ main
-PHASES = ("kernels", "model", "serve", "horizon", "gptoss")
+PHASES = ("kernels", "model", "serve", "horizon", "gptoss", "moe_mla")
 
 
 def main() -> int:
@@ -2910,6 +3484,7 @@ def main() -> int:
         # per case and form
         torch._dynamo.config.recompile_limit = 64
         flex = torch.compile(flex_attention, fullgraph=True)
+    t_start = time.perf_counter()
     if "kernels" in phases:
         for check, int8 in ((check_decode, False), (check_flash, False),
                             (check_unified, False), (check_decode, True),
@@ -2956,6 +3531,8 @@ def main() -> int:
             f"{writes['bf16_ms']:.4f} ms bf16, {writes['int8_ms']:.4f} ms int8")
     del timer
     torch.cuda.empty_cache()
+    log(f"kernels phase [{time.perf_counter() - t_start:.1f} s]")
+    t_phase = time.perf_counter()
     if "model" in phases:
         from dynamo_tpu_torch.models.llama import LlamaConfig
 
@@ -2981,6 +3558,8 @@ def main() -> int:
                 + f"; max |logit| {spread:.3g} [{time.perf_counter() - t0:.1f} s]")
             gc.collect()
             torch.cuda.empty_cache()
+    log(f"model phase [{time.perf_counter() - t_phase:.1f} s]")
+    t_phase = time.perf_counter()
     serving = None
     if "serve" in phases:
         serving = asyncio.run(serve(torch))
@@ -3042,6 +3621,7 @@ def main() -> int:
                 f"split rows ({prof['split_rows']} rows split, by the kernel's count)")
             gc.collect()
             torch.cuda.empty_cache()
+    log(f"serve phase [{time.perf_counter() - t_phase:.1f} s]")
     if "horizon" in phases:
         t0 = time.perf_counter()
         hz = horizon_phase(torch, smi)
@@ -3057,6 +3637,16 @@ def main() -> int:
         log(f"gptoss phase [{time.perf_counter() - t0:.1f} s]")
         gc.collect()
         torch.cuda.empty_cache()
+    if "moe_mla" in phases:
+        t0 = time.perf_counter()
+        latent_results, lat = moe_mla_phase(torch, gen, smi, _build)
+        results.update(latent_results)
+        log("moe_mla: " + json.dumps({k: v for k, v in lat.items()
+                                      if k not in ("serving", "qwen_serving")}))
+        log(f"moe_mla phase [{time.perf_counter() - t0:.1f} s]")
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"all phases [{time.perf_counter() - t_start:.1f} s]")
     if phases != set(PHASES):
         log("partial run (--phases): no report")
         return 1
@@ -3064,7 +3654,8 @@ def main() -> int:
     # float run for the float kernels, the int8 + KVBM run for the rest,
     # the Gemma run for the merge; the gpt-oss runs for the d = 64 forms,
     # which share the unified kernel's and the merge's counters with the
-    # other head dims: each run counts only its own). The page-copy kernel counts its
+    # other head dims: each run counts only its own; the DeepSeek-V2-Lite
+    # serving run for the latent kernel). The page-copy kernel counts its
     # launches by move: while serving, every gather and scatter is the
     # engine's layer-batched one (gather_layers / scatter_layers), so the
     # gather rows (gather_blocks, gather_layers) show the same count, and
@@ -3087,7 +3678,8 @@ def main() -> int:
             ("merge_attention_partials", "merge", gemma_runs["bf16"]),
             ("ragged_paged_attention_gptoss", "unified", gpt["serving"]["bf16"]),
             ("ragged_paged_attention_gptoss_int8", "unified_int8", gpt["serving"]["int8"]),
-            ("merge_attention_partials_gptoss", "merge", gpt["serving"]["bf16"])):
+            ("merge_attention_partials_gptoss", "merge", gpt["serving"]["bf16"]),
+            ("latent_paged_attention", "latent", lat["serving"]["bf16"])):
         r = dict(results[name], launches=run["launches"][key])
         r["max_err"], r["kernel_ms"] = r["max_abs_err"], r["ms"]
         kernels.append(r)

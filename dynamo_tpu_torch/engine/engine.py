@@ -1,8 +1,8 @@
 """TorchEngine: continuous-batching paged-KV serving engine on PyTorch/CUDA.
 
 Counterpart of the reference's engine/engine.py ``TpuEngine``, for the
-llama, gemma and gpt-oss families on one GPU (models/registry.py picks the
-family's functions):
+llama, gemma, gpt-oss, Qwen3-MoE and DeepSeek (MLA) families on one GPU
+(models/registry.py picks the family's functions):
 
 - the paged KV cache lives on the device as ``[num_blocks, block_size,
   kv_heads, head_dim]`` per layer; block 0 is scratch;
@@ -45,10 +45,14 @@ that passes attention attributes (gemma's sliding window and softcap,
 gpt-oss's window and per-head sinks) is served by the unified kernel in
 every step kind, as the reference routes any call with a non-empty
 ``extra``: a decode step as ``q_len = 1`` rows, a prefill chunk as one
-ragged row, and the mixed step as it is. The llama family keeps its decode
-and flash-extend kernels. gpt-oss's expert FFN runs as grouped matrix
-products over the (token, slot) pairs sorted by expert on the device
-(models/gptoss.experts_grouped), inside the horizon's graphs too.
+ragged row, and the mixed step as it is. The llama and Qwen3-MoE families
+keep their decode and flash-extend kernels. An MLA model (one kv head of
+576 latent lanes) is served by the latent kernel (ops/cuda_mla) in every
+step kind, in the same ragged form; its cache holds bf16 only (an int8
+cache is refused). The expert FFNs (gpt-oss, Qwen3-MoE, DeepSeek's
+routed experts) run as grouped matrix products over the (token, slot)
+pairs sorted by expert on the device (models/gptoss.experts_grouped,
+models/moe.experts_grouped), inside the horizon's graphs too.
 
 Device work runs on a single executor thread so the asyncio loop that
 streams results never blocks behind the GPU; a horizon's readback waits on
@@ -90,10 +94,10 @@ from ..kvbm.layout import (
     storage_dtype,
     to_host,
 )
-from ..models import llama, registry
+from ..models import llama, moe, registry
 from ..ops import attention as att
 from ..ops import block_copy as bc
-from ..ops import cuda_attention, cuda_prefill, cuda_unified
+from ..ops import cuda_attention, cuda_mla, cuda_prefill, cuda_unified
 from ..ops.quant import QuantizedKV, resolve_kv_dtype
 from ..runtime.engine import Context
 from ..tokens import TokenBlockSequence
@@ -314,13 +318,18 @@ class _UnifiedRows:
 
 
 class TorchEngine:
-    """AsyncEngine serving PreprocessedRequests with a llama-, gemma- or
-    gpt-oss-family model."""
+    """AsyncEngine serving PreprocessedRequests with a llama-, gemma-,
+    gpt-oss-, Qwen3-MoE- or MLA-family model."""
 
     def __init__(self, config: TorchEngineConfig, params: Optional[llama.Params] = None,
                  kvbm=None):
         self.cfg = config
         self.mcfg = mcfg = config.model
+        # an MLA model's attention runs on its latent cache (ops/cuda_mla)
+        self._latent = registry.is_mla(mcfg)
+        if self._latent and config.kv_quantized:
+            raise ValueError("an MLA model's latent cache has no int8 form yet: "
+                             "use kv_dtype='model'")
         self.device = resolve_device(config.device)
         self.kv_quantized = config.kv_quantized
         self.allocator = BlockAllocator(config.num_blocks, config.block_size)
@@ -419,10 +428,16 @@ class TorchEngine:
                              m.vocab_size, TOP_LOGPROBS_K, self.device, windows,
                              slots=c.decode_pipeline)
         capture = self.device.type == "cuda" and c.cuda_graphs
-        # the decode kernel's scratch, for the one family whose layers reach
-        # it (gemma's and gpt-oss's all go through the unified kernel)
+        # the split scratch of the kernel the decode steps reach: the decode
+        # kernel's for the families whose layers reach it (gemma's and
+        # gpt-oss's all go through the unified kernel), the latent kernel's
+        # for MLA, sized for the mixed step's rows too
         reserve = None
-        if registry.family(m) is llama:
+        if self._latent:
+            def reserve():
+                cuda_mla.reserve(self.device, c.max_batch_size + 1, m.num_heads,
+                                 c.max_context)
+        elif registry.family(m) in (llama, moe):
             def reserve():
                 cuda_attention.reserve(self.device, c.max_batch_size, m.num_heads,
                                        m.num_kv_heads, c.max_context)
@@ -833,6 +848,19 @@ class TorchEngine:
         n = -(-total_len // self.cfg.block_size)
         return self._t(self._block_tables[st.slot, :n], torch.int32)
 
+    def _ragged(self, q, kc, vc, tables, rows, max_q_len: int, max_seq_len: int,
+                attrs: dict) -> torch.Tensor:
+        """One ragged launch over ``rows`` (q_starts, q_lens, seq_lens): the
+        latent kernel for an MLA model (its first kv_lora_rank output
+        lanes), else the unified kernel with the layer's attention
+        attributes."""
+        if self._latent:
+            return cuda_mla.latent_paged_attention(
+                q, kc, vc, tables, *rows, v_dim=self.mcfg.kv_lora_rank, max_q_len=max_q_len,
+                max_seq_len=max_seq_len)
+        return cuda_unified.ragged_paged_attention(
+            q, kc, vc, tables, *rows, max_q_len=max_q_len, max_seq_len=max_seq_len, **attrs)
+
     @torch.inference_mode()
     def _run_prefill_chunk(self, st: _Seq) -> Optional[Accepted]:
         """Prefill ONE bounded chunk of st's prompt; the final chunk also
@@ -850,10 +878,9 @@ class TorchEngine:
         def attend(q, k_new, v_new, layer_idx, **extra):
             kc, vc = self.k_caches[layer_idx], self.v_caches[layer_idx]
             att.write_prefill_kv(kc, vc, *pad(k_new, v_new), new_ids_t)
-            if extra:
-                return cuda_unified.ragged_paged_attention(
-                    q, kc, vc, table[None], *unified.rows(), max_q_len=chunk_len,
-                    max_seq_len=unified.max_seq_len, **unified.attrs(**extra))
+            if extra or self._latent:
+                return self._ragged(q, kc, vc, table[None], unified.rows(), chunk_len,
+                                    unified.max_seq_len, unified.attrs(**extra))
             if self.kv_quantized:
                 # raw int8 context + per-position scales: the kernel
                 # dequantizes in registers (half the context bytes of bf16)
@@ -997,10 +1024,9 @@ class TorchEngine:
         def attend(q, k_new, v_new, layer_idx, **extra):
             kc, vc = self.k_caches[layer_idx], self.v_caches[layer_idx]
             att.write_decode_kv(kc, vc, k_new[:, 0], v_new[:, 0], wb, wo)
-            if extra:
-                return cuda_unified.ragged_paged_attention(
-                    q[:, 0], kc, vc, tables, *unified.rows(), max_q_len=1,
-                    max_seq_len=unified.max_seq_len, **unified.attrs(**extra))[:, None]
+            if extra or self._latent:
+                return self._ragged(q[:, 0], kc, vc, tables, unified.rows(), 1,
+                                    unified.max_seq_len, unified.attrs(**extra))[:, None]
             return cuda_attention.paged_decode_attention(
                 q[:, 0], kc, vc, tables, lens_t, max_seq_len=unified.max_seq_len
             )[:, None]
@@ -1041,10 +1067,8 @@ class TorchEngine:
             kc, vc = self.k_caches[layer_idx], self.v_caches[layer_idx]
             att.write_prefill_kv(kc, vc, *pad(k_new[:S_pad], v_new[:S_pad]), c_new_ids_t)
             att.write_decode_kv(kc, vc, k_new[S_pad:], v_new[S_pad:], wb, wo)
-            return cuda_unified.ragged_paged_attention(
-                q, kc, vc, tables, *unified.rows(), max_q_len=chunk_len,
-                max_seq_len=unified.max_seq_len, **unified.attrs(**extra),
-            )
+            return self._ragged(q, kc, vc, tables, unified.rows(), chunk_len,
+                                unified.max_seq_len, unified.attrs(**extra))
 
         tokens = self._t(np.concatenate([c_tokens, self._tokens]))
         pos = self._t(np.concatenate([c_positions, positions]))
@@ -1111,9 +1135,10 @@ class TorchEngine:
         CUDA graphs capture). Each step takes its positions from the carry
         ``seq_lens``, its write pages from the block tables (inactive rows
         write scratch block 0), writes the fed tokens' KV, attends (the
-        decode kernel, or the unified kernel's q_len = 1 rows for layers
-        with attention attributes), applies the penalties (exact no-ops at
-        their defaults), samples at ``steps + s``, updates the output counts
+        decode kernel, or the q_len = 1 rows of the unified kernel for
+        layers with attention attributes, of the latent kernel for MLA),
+        applies the penalties (exact no-ops at their defaults), samples at
+        ``steps + s``, updates the output counts
         and writes its row of ``hs.packed``; its samples are the next step's
         tokens. The carry is written back in place. ``max_seq_len``, a
         bound on every row's length in the horizon, sizes the split grids;
@@ -1133,10 +1158,10 @@ class TorchEngine:
             def attend(q, k_new, v_new, layer_idx, **extra):
                 kc, vc = self.k_caches[layer_idx], self.v_caches[layer_idx]
                 att.write_decode_kv(kc, vc, k_new[:, 0], v_new[:, 0], wb, wo)
-                if extra:
-                    return cuda_unified.ragged_paged_attention(
-                        q[:, 0], kc, vc, hs.tables, hs.q_starts, act, seq_lens, max_q_len=1,
-                        max_seq_len=max_seq_len, **hs.attrs(**extra))[:, None]
+                if extra or self._latent:
+                    return self._ragged(q[:, 0], kc, vc, hs.tables,
+                                        (hs.q_starts, act, seq_lens), 1, max_seq_len,
+                                        hs.attrs(**extra))[:, None]
                 return cuda_attention.paged_decode_attention(
                     q[:, 0], kc, vc, hs.tables, seq_lens, max_seq_len=max_seq_len)[:, None]
 

@@ -35,10 +35,11 @@ def params_from_numpy(
 ) -> Params:
     """Reference pytree of numpy arrays -> port params on ``device``, each
     in the reference's dtype: ``cfg.dtype``, except the family's float32
-    parameters (gpt-oss's sinks). Each family has its own layer keys
-    (gemma: the sandwich norms; gpt-oss: biases, sinks, router and
-    experts). Unknown keys raise: a parameter this port does not use must
-    not be dropped silently."""
+    parameters (gpt-oss's sinks, MLA's router bias). Each family has its
+    own layer keys (gemma: the sandwich norms; gpt-oss: biases, sinks,
+    router and experts; MoE: the router and expert stacks; MLA: the latent
+    projections, and dense or MoE FFN keys by layer). Unknown keys raise:
+    a parameter this port does not use must not be dropped silently."""
     device = resolve_device(device)
     unknown = set(tree) - set(_TOP) - {"layers"}
     if unknown:

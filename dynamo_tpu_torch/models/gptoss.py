@@ -55,6 +55,7 @@ import torch
 import torch.nn.functional as F
 
 from ..device import DeviceLike, resolve_device
+from .experts import expert_offsets, sum_slots, top_k, unsort_pairs
 from .llama import AttendFn, LlamaConfig, Params, _normal, apply_rope, rms_norm
 
 # the per-layer parameter names (engine/weights.py refuses any other)
@@ -237,12 +238,10 @@ def route(p: Params, cfg: GptOssConfig, x: torch.Tensor):
     """gpt-oss router: top-k over the float32 logits, softmax over the
     SELECTED logits (not over all experts). x [T, H] -> (weights [T, K]
     float32, expert ids [T, K] int64). Ties go to the lower expert id, as
-    ``jax.lax.top_k`` breaks them: the top k come from a stable descending
-    sort (``torch.topk`` does not promise an order among equal values)."""
+    ``jax.lax.top_k`` breaks them (models/experts.top_k)."""
     logits = x.float() @ p["w_router"].float() + p["b_router"].float()
-    vals, ids = torch.sort(logits, dim=-1, descending=True, stable=True)
-    k = cfg.num_experts_per_tok
-    return torch.softmax(vals[:, :k], dim=-1), ids[:, :k]
+    vals, ids = top_k(logits, cfg.num_experts_per_tok)
+    return torch.softmax(vals, dim=-1), ids
 
 
 def _swiglu(cfg: GptOssConfig, gu: torch.Tensor) -> torch.Tensor:
@@ -261,15 +260,6 @@ def _expert_apply(cfg: GptOssConfig, w_gu, b_gu, w_dn, b_dn, x) -> torch.Tensor:
     return act @ w_dn.float() + b_dn.float()
 
 
-def _sum_slots(topw: torch.Tensor, pairs: torch.Tensor) -> torch.Tensor:
-    """sum_k topw[:, k] * pairs[:, k] (pairs [T, K, H] float32), taken in
-    slot order as the reference adds them."""
-    y = torch.zeros(pairs.shape[0], pairs.shape[2], dtype=torch.float32, device=pairs.device)
-    for k in range(pairs.shape[1]):
-        y = y + topw[:, k, None] * pairs[:, k]
-    return y
-
-
 def experts_plain(p: Params, cfg: GptOssConfig, x: torch.Tensor, routed) -> torch.Tensor:
     """The reference's experts_gather as a loop over the experts:
     each applies its float32 weights to the (token, slot) pairs routed to
@@ -283,19 +273,7 @@ def experts_plain(p: Params, cfg: GptOssConfig, x: torch.Tensor, routed) -> torc
         if t.numel():
             pairs[t, k] = _expert_apply(cfg, p["w_gateup"][e], p["b_gateup"][e],
                                         p["w_edown"][e], p["b_edown"][e], x[t])
-    return _sum_slots(topw, pairs).to(x.dtype)
-
-
-def expert_offsets(topi: torch.Tensor, num_experts: int):
-    """The (token, slot) pairs sorted by expert, on the device and without
-    a host sync. Returns (order [T*K]: the pair index t * K + k of each
-    sorted row; experts [T*K]: each sorted row's expert; offsets [E] int32:
-    where each expert's rows end in the sorted order). Stable: within an
-    expert, the pairs keep their token-major order."""
-    experts, order = torch.sort(topi.reshape(-1), stable=True)
-    bounds = torch.searchsorted(
-        experts, torch.arange(num_experts + 1, dtype=experts.dtype, device=experts.device))
-    return order, experts, bounds[1:].to(torch.int32)
+    return sum_slots(topw, pairs, torch.float32).to(x.dtype)
 
 
 def experts_grouped(p: Params, cfg: GptOssConfig, x: torch.Tensor, routed) -> torch.Tensor:
@@ -310,8 +288,7 @@ def experts_grouped(p: Params, cfg: GptOssConfig, x: torch.Tensor, routed) -> to
     act = _swiglu(cfg, gu + p["b_gateup"].index_select(0, experts).float())
     out = torch._grouped_mm(act.to(p["w_edown"].dtype), p["w_edown"], offs=offs).float()
     out = out + p["b_edown"].index_select(0, experts).float()
-    pairs = torch.empty_like(out).index_copy_(0, order, out)             # pair order
-    return _sum_slots(topw, pairs.view(T, K, -1)).to(x.dtype)
+    return sum_slots(topw, unsort_pairs(order, out, T, K), torch.float32).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

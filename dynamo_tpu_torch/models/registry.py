@@ -1,18 +1,19 @@
 """Model-family registry: one place that maps a model config to its
 family's (init, forward, lm_logits) functions and parameter names, so the
 engine stays family-agnostic. Counterpart of the reference's
-models/registry.py for the families the port has (llama, gemma, gpt-oss).
+models/registry.py for the families the port has (llama, gemma, gpt-oss,
+Qwen3-MoE and the DeepSeek MLA family).
 """
 
 from __future__ import annotations
 
 from typing import Callable, Dict
 
-from . import gemma, gptoss, llama
+from . import gemma, gptoss, llama, mla, moe
 
 # preset name -> config constructor, every family's
 PRESETS: Dict[str, Callable[[], llama.LlamaConfig]] = {
-    **llama.PRESETS, **gemma.PRESETS, **gptoss.PRESETS}
+    **llama.PRESETS, **gemma.PRESETS, **gptoss.PRESETS, **moe.PRESETS, **mla.PRESETS}
 
 
 def is_gemma(cfg) -> bool:
@@ -23,10 +24,20 @@ def is_gptoss(cfg) -> bool:
     return isinstance(cfg, gptoss.GptOssConfig)
 
 
+def is_moe(cfg) -> bool:
+    return isinstance(cfg, moe.MoeConfig)
+
+
+def is_mla(cfg) -> bool:
+    return isinstance(cfg, mla.MlaConfig)
+
+
 def family(cfg):
-    if is_gptoss(cfg):
-        return gptoss
-    return gemma if is_gemma(cfg) else llama
+    for test, module in ((is_gptoss, gptoss), (is_mla, mla), (is_moe, moe),
+                         (is_gemma, gemma)):
+        if test(cfg):
+            return module
+    return llama
 
 
 def init_params(cfg, generator, device=None):
@@ -47,5 +58,5 @@ def layer_keys(cfg):
 
 def float32_keys(cfg):
     """Per-layer parameters kept in float32 whatever the model dtype
-    (gpt-oss's sinks)."""
-    return gptoss.FLOAT32_KEYS if is_gptoss(cfg) else ()
+    (gpt-oss's sinks, MLA's router bias)."""
+    return getattr(family(cfg), "FLOAT32_KEYS", ())

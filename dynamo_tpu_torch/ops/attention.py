@@ -388,19 +388,21 @@ def attention_partials(
     q_starts: torch.Tensor, q_lens: torch.Tensor, seq_lens: torch.Tensor,
     *, split_keys: int, align: int, windows: Optional[torch.Tensor] = None,
     softcap: Optional[float] = None, max_splits: Optional[int] = None,
+    tile_tokens: Optional[int] = None,
 ):
     """The partial softmax states of ragged_paged_attention's split rows:
-    rows of ``0 < q_len <= TILE_ROWS // G`` tokens whose keys span two or
-    more splits (split_plan). Returns (acc [R, S, QS, h, d] unnormalized
+    rows of ``0 < q_len <= QS`` tokens whose keys span two or more splits
+    (split_plan), QS = ``tile_tokens`` (default TILE_ROWS // G, the
+    unified kernel's). Returns (acc [R, S, QS, h, d] unnormalized
     sum of p * v, m [R, S, QS, h] the split's row max over its visible
     keys, l [R, S, QS, h] its sum of exp(s - m), n_splits [R] int32, 0 for
-    rows not split), QS = TILE_ROWS // G, all float32. A split that sees no
+    rows not split), all float32. A split that sees no
     key of a row has m = NEG_INF, l = 0, acc = 0 there; sinks are no
     split's (the merge counts them once)."""
     R = q_starts.shape[0]
     _, h, d = q.shape
     G = h // k_cache.shape[2]
-    QS = TILE_ROWS // G
+    QS = tile_tokens or TILE_ROWS // G
     wins = _row_windows(R, None, windows)
     rows = list(zip(q_starts.tolist(), q_lens.tolist(), seq_lens.tolist(), wins))
     plans = [split_plan(ql, sl, w, split_keys, align, max_splits)

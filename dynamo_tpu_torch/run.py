@@ -8,9 +8,12 @@ preprocessor and HTTP frontend are later slices).
     python -m dynamo_tpu_torch.run in=batch:prompts.txt out=llama3-8b --max-tokens 32
     python -m dynamo_tpu_torch.run in=text:hi out=gemma2-2b --max-context 8192
     python -m dynamo_tpu_torch.run in=text:hi out=gpt-oss-20b --max-context 8192
+    python -m dynamo_tpu_torch.run in=text:hi out=deepseek-v2-lite --max-context 8192
+    python -m dynamo_tpu_torch.run in=text:hi out=qwen3-30b-a3b
     python -m dynamo_tpu_torch.run in=text:hi out=tiny --device cpu
     python -m dynamo_tpu_torch.run in=text:hi out=tiny-gemma3 --device cpu
     python -m dynamo_tpu_torch.run in=text:hi out=tiny-gptoss --device cpu
+    python -m dynamo_tpu_torch.run in=text:hi out=tiny-mla-moe --device cpu
     python -m dynamo_tpu_torch.run in=batch:prompts.txt out=llama3-8b \
         --kv-dtype int8 --kvbm-host-gb 4
 
@@ -27,9 +30,12 @@ step per tick, as the reference's worker flags of the same names do.
 
 ``out=`` names a preset of any family (llama: tiny, qwen3-0.6b,
 llama3-8b, llama3-70b; gemma: tiny-gemma2, tiny-gemma3, gemma2-2b,
-gemma3-4b; gpt-oss: tiny-gptoss, gpt-oss-20b), with random weights from
-``--seed`` (gpt-oss-20b: 41.8 GB in bf16); ``--max-context`` goes up
-to the model's ``max_position``. Serves on the GPU by default; ``--device
+gemma3-4b; gpt-oss: tiny-gptoss, gpt-oss-20b; Qwen3-MoE: tiny-moe,
+qwen3-30b-a3b; MLA: tiny-mla, tiny-mla-moe, deepseek-v2-lite, and
+deepseek-v3 as a configuration that no one card holds), with random
+weights from ``--seed`` (gpt-oss-20b: 41.8 GB in bf16, deepseek-v2-lite
+31.4 GB, qwen3-30b-a3b 61 GB); ``--max-context`` goes up to the model's
+``max_position``. An MLA model takes no ``--kv-dtype int8``. Serves on the GPU by default; ``--device
 cpu`` runs the plain PyTorch path on the CPU.
 ``batch:`` reads one prompt per line and prints one JSON line per prompt.
 """

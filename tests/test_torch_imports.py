@@ -83,7 +83,8 @@ def test_importing_every_module_loads_neither_jax_nor_the_reference():
 def test_the_walk_covers_every_module_of_the_port():
     """Both checks above walk the package; the modules of each slice must be
     in that walk (slice 2: int8 KV, block copy, KVBM; slice 3: the gemma
-    family and the model registry; then the gpt-oss family)."""
+    family and the model registry; then the gpt-oss family; then the
+    Qwen3-MoE and MLA families and the latent attention wrapper)."""
     mods = set(_modules())
     assert {
         "dynamo_tpu_torch.ops.quant", "dynamo_tpu_torch.ops.block_copy",
@@ -91,5 +92,7 @@ def test_the_walk_covers_every_module_of_the_port():
         "dynamo_tpu_torch.kvbm.pool", "dynamo_tpu_torch.engine.engine",
         "dynamo_tpu_torch.engine.sampling", "dynamo_tpu_torch.run", "chip_smoke",
         "dynamo_tpu_torch.models.gemma", "dynamo_tpu_torch.models.registry",
-        "dynamo_tpu_torch.models.gptoss",
+        "dynamo_tpu_torch.models.gptoss", "dynamo_tpu_torch.models.moe",
+        "dynamo_tpu_torch.models.mla", "dynamo_tpu_torch.models.experts",
+        "dynamo_tpu_torch.ops.cuda_mla",
     } <= mods
