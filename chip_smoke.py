@@ -102,17 +102,23 @@ Phases, in order; any failure raises and the exit code is not 0:
    tok/s, device busy share, graphs, capture seconds, pool bytes, launches
    through replays and peak device memory.
 7. moe_mla: the MoE and MLA families. (a) the latent kernel
-   (csrc/mla_attention.cu: one kv head of 576 lanes, 512 value lanes)
-   against its plain version and its plain split form: its ptxas
-   registers (no spill), blocks per SM and HMMA count; a decode batch of
-   8 rows of 1-8000 keys at 16 query heads (DeepSeek-V2-Lite) and at 128
-   (V2 / V3), each with >= 132 working blocks, the last 2048-token chunk
-   of a 6000-token prompt, a mixed step (a chunk row and 8 decode rows),
-   short rows whose last split some tokens never reach, the split counts
-   the kernel wrote held to the plain split plan, and a plain merge that
-   drops each row's last split failing the compare; each case timed with
-   its bound and SDPA over the gathered latent (heads folded into the
-   query axis) as its library yardstick. (b) the routed experts of
+   (csrc/mla_attention.cu: one kv head of 576 lanes, the values its first
+   512) against its plain version (the op over the cache as keys and
+   values, cut to 512 lanes) and its plain split form, in both forms:
+   per form its ptxas registers (no spill), blocks per SM (the narrow
+   form >= 2) and HGMMA / HMMA count (HGMMA in the wide form); a decode
+   batch of 8 rows of 1-8000 keys at 16 query heads (DeepSeek-V2-Lite,
+   narrow form) and at 128 (V2 / V3), each with
+   >= 132 working blocks, the last 2048-token chunk of a 6000-token
+   prompt, a 512-token chunk of 4096 at 128 heads, a mixed step (a chunk
+   row and 8 decode rows), short rows of 1-4 tokens whose last split some
+   tokens never reach, short rows of 1-3 tokens in the narrow form, the
+   split counts the kernel wrote held to the plain split plan, and a
+   plain merge that drops each row's last split failing the compare;
+   each case timed with its bound (each live key read once at 576 lanes;
+   also the bound with a 512-lane V read) and SDPA over the gathered
+   latent (heads folded into the query axis, values the keys' first 512
+   lanes) as its library yardstick. (b) the routed experts of
    Qwen3-30B-A3B (128, top 8) and of DeepSeek-V2-Lite (64, top 6, 2 shared)
    at full width, 8 and 2048 tokens, against the float32 expert loop per
    token row, timed against byte and FLOP bounds, and captured into a
@@ -126,8 +132,8 @@ Phases, in order; any failure raises and the exit code is not 0:
    tokens each (one seeded sampled), again under the profiler; decode-heavy
    traffic (8 x 128-token prompts, 64 tokens each) one step per tick and
    on the auto-tuned graphed schedule (streaming the same tokens), the
-   latter profiled: the latent kernel launched through graph replays and
-   no other attention kernel ran. (e) Qwen3-30B-A3B at 12 of its 48 layers
+   latter profiled: the latent kernel launched through graph replays,
+   both its forms in the serving run, and no other attention kernel ran. (e) Qwen3-30B-A3B at 12 of its 48 layers
    (full width; 61 GB at full depth leaves too little of the card) serves
    the same 8 prompts, 64 tokens each, through kernels 1-3 and the grouped
    experts. No ERROR log record in (d) or (e).
@@ -293,22 +299,30 @@ TENSOR_CORE_LIBS = ("libdecode_attention.so", "libflash_extend.so", "libunified_
                     "libmla_attention.so")
 
 
+def cuobjdump_tool():
+    """The toolkit's cuobjdump, or None."""
+    import shutil
+
+    tool = os.path.join(os.environ.get("CUDA_HOME") or "/usr/local/cuda", "bin", "cuobjdump")
+    return tool if os.path.exists(tool) else shutil.which("cuobjdump")
+
+
+def sass_of(tool: str, path: str) -> str:
+    return subprocess.run([tool, "-sass", path], capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+
+
 def tensor_core_instructions(out_dir: str) -> dict:
     """Counts HGMMA (wgmma) and HMMA (mma.sync) instructions in the SASS of
     the decode, flash-extend, unified and latent libraries (cuobjdump
     -sass) and fails if a library has none. Where the toolkit has no cuobjdump it says so."""
-    import shutil
-
-    tool = os.path.join(os.environ.get("CUDA_HOME") or "/usr/local/cuda", "bin", "cuobjdump")
-    if not os.path.exists(tool):
-        tool = shutil.which("cuobjdump")
+    tool = cuobjdump_tool()
     if tool is None:
         log("SASS check: no cuobjdump in this CUDA toolkit; tensor-core instructions not counted")
         return {}
     counts = {}
     for lib in TENSOR_CORE_LIBS:
-        sass = subprocess.run([tool, "-sass", os.path.join(out_dir, lib)], capture_output=True,
-                              text=True, timeout=300, check=True).stdout
+        sass = sass_of(tool, os.path.join(out_dir, lib))
         counts[lib] = {op: sum(1 for l in sass.splitlines() if op + "." in l or op + " " in l)
                        for op in ("HGMMA", "HMMA")}
         log(f"SASS {lib}: {counts[lib]['HGMMA']} HGMMA, {counts[lib]['HMMA']} HMMA")
@@ -1748,7 +1762,7 @@ def kernel_counters() -> dict:
     from dynamo_tpu_torch.ops import cuda_attention, cuda_mla, cuda_prefill, cuda_unified
 
     return {
-        "latent": cuda_mla.KERNEL,
+        "latent_narrow": cuda_mla.NARROW, "latent_wide": cuda_mla.WIDE,
         "decode": cuda_attention.KERNEL, "flash_extend": cuda_prefill.KERNEL,
         "unified": cuda_unified.KERNEL, "decode_int8": cuda_attention.KERNEL_INT8,
         "flash_extend_int8": cuda_prefill.KERNEL_INT8,
@@ -1785,7 +1799,7 @@ def device_time_by_kind(prof, n_top: int = 10) -> dict:
     # (torch's own CUTLASS kernels serve torch._grouped_mm: gpt-oss's experts)
     kinds = {"decode_kernel": "paged_decode_kernel", "flash_kernel": "flash_extend_kernel",
              "unified_kernel": "unified_kernel", "merge_kernel": "merge_kernel",
-             "latent_kernel": "latent_kernel",
+             "latent_narrow": "latent_narrow", "latent_wide": "latent_wide",
              "grouped_gemm": "enable_3x_kernel_for_sm9x"}
     gemm_tags = ("gemm", "nvjet", "xmma", "cutlass", "cublas")
     out = dict.fromkeys(list(kinds) + ["gemm", "other"], 0.0)
@@ -2908,33 +2922,44 @@ def gptoss_phase(torch, gen, smi: str, flex) -> tuple:
 LD, LV = 576, 512
 LATENT_DECODE_LENS = (1, 2000, 3000, 4000, 5000, 6000, 7000, 8000)
 # case -> (query heads, rows [(q_len, seq_len)])
+# (the form each case takes: tile_shape by h * the longest q_len; rows of
+# at most max(1, 64 / h) tokens are split in either form)
 LATENT_CASES = {
+    # narrow form
     "decode G=16": (16, [(1, n) for n in LATENT_DECODE_LENS]),
+    # rows of 1-2 tokens (narrow form) whose last 256-key split holds keys
+    # their first token never sees
+    "short rows": (16, [(2, 513), (2, 1025), (1, 700), (2, 3000), (2, 257), (1, 1),
+                        (2, 2049)]),
+    # wide form from here on
     "decode G=128": (128, [(1, n) for n in LATENT_DECODE_LENS]),
     # the last 2048-token chunk of a 6000-token prompt
     "prefill chunk": (16, [(2048, 6000)]),
     # one chunk row and 8 decode rows in one launch
     "mixed": (16, [(1024, 2500)] + [(1, n) for n in (130, 700, 1500, 3000, 4500, 6000,
                                                       7000, 8000)]),
-    # rows of 1-2 tokens (split at G = 16 when a launch's q_len bound is
-    # 2) whose last 256-key split holds keys their first token never sees
-    "short rows": (16, [(2, 513), (2, 1025), (1, 700), (2, 3000), (2, 257), (1, 1),
-                        (2, 2049)]),
+    # the same in the wide form: rows of 1-4 tokens (one 64-row tile at G
+    # = 16)
+    "wide short rows": (16, [(2, 513), (4, 1500), (1, 700), (3, 3000), (2, 257), (1, 1),
+                             (4, 2049)]),
+    # V2 / V3's 128 heads on a prefill-shaped row: a 512-token chunk of a
+    # 4096-token prompt (half a token a block)
+    "chunk G=128": (128, [(512, 4096)]),
 }
 # the cases whose split-K must reach the SM count in working blocks
 LATENT_FILL = ("decode G=16", "decode G=128")
-LATENT_SPLIT_ROWS = "short rows"
+LATENT_SPLIT_ROWS = ("short rows", "wide short rows")
 LATENT_MUTANT_CASE = "decode G=16"
 
 
-def latent_library_call(torch, q, kc, vc, tables, starts, rows):
+def latent_library_call(torch, q, kv, tables, starts, rows):
     """One PyTorch call computing the same function as a latent case:
     scaled_dot_product_attention over the gathered latent, each row's h
     heads folded into the query axis (one kv head serves them all, so
-    nothing is expanded), keys padded to a multiple of 16 with a boolean
-    causal mask; PyTorch picks the backend that takes d = 576 (padding
-    query rows see key 0). Returns (call, packed [Tq, h, 512] output of a
-    call's result)."""
+    nothing is expanded), the values the keys' first 512 lanes, keys
+    padded to a multiple of 16 with a boolean causal mask; PyTorch picks
+    the backend that takes d = 576 (padding query rows see key 0). Returns
+    (call, packed [Tq, h, 512] output of a call's result)."""
     from dynamo_tpu_torch.ops import attention as att
 
     dev = q.device
@@ -2943,11 +2968,11 @@ def latent_library_call(torch, q, kc, vc, tables, starts, rows):
     Tp = -(-T // 16) * 16
     qp = torch.zeros(R, 1, max_q * h, LD, dtype=torch.bfloat16, device=dev)
     kp = torch.zeros(R, 1, Tp, LD, dtype=torch.bfloat16, device=dev)
-    vp = torch.zeros(R, 1, Tp, LV, dtype=torch.bfloat16, device=dev)
     for r, (ql, sl) in enumerate(rows):
-        k, v = att.gather_kv(kc, vc, tables[r])
-        kp[r, 0, :sl], vp[r, 0, :sl] = k[:sl, 0], v[:sl, 0, :LV]
+        k, _ = att.gather_kv(kv, kv, tables[r])
+        kp[r, 0, :sl] = k[:sl, 0]
         qp[r, 0, :ql * h] = q[starts[r]:starts[r] + ql].reshape(ql * h, LD)
+    vp = kp[..., :LV]
     i64 = dict(dtype=torch.long, device=dev)
     q_len = torch.tensor([ql for ql, _ in rows], **i64)[:, None, None]
     q_off = torch.tensor([sl - ql for ql, sl in rows], **i64)[:, None, None]
@@ -2965,26 +2990,36 @@ def latent_library_call(torch, q, kc, vc, tables, starts, rows):
     return (lambda: sdpa(qp, kp, vp, attn_mask=mask)), unpack
 
 
-def latent_case(torch, gen, timer, name, h, rows):
-    """One latent kernel case: against its plain version and its plain
-    split form, the split counts the kernel wrote held to att.split_plan,
-    timed with its bound and its library yardstick."""
-    from dynamo_tpu_torch.ops import attention as att
-    from dynamo_tpu_torch.ops import cuda_mla
-
+def latent_inputs(torch, gen, h, rows):
+    """A latent case's inputs: random bf16 queries of h heads packed with
+    gaps, a one-kv-head 576-lane paged cache; returns the kernel's
+    positional arguments, its host bounds and the rows' starts."""
     i32 = dict(dtype=torch.int32, device="cuda")
     lens = [sl for _, sl in rows]
-    kc, vc, tables = paged_case(torch, gen, lens, num_blocks=sum(-(-n // BS) for n in lens)
-                                + 64, kvh=1, d=LD)
+    kc, _, tables = paged_case(torch, gen, lens, num_blocks=sum(-(-n // BS) for n in lens)
+                               + 64, kvh=1, d=LD)
     starts, pos = [], 0
     for ql, _ in rows:
         starts.append(pos)
         pos += ql + 5
     q = torch.randn(pos, h, LD, generator=gen, device="cuda").to(torch.bfloat16)
-    args = (q, kc, vc, tables, torch.tensor(starts, **i32),
+    args = (q, kc, tables, torch.tensor(starts, **i32),
             torch.tensor([ql for ql, _ in rows], **i32), torch.tensor(lens, **i32))
-    max_q, max_s = max(ql for ql, _ in rows), max(lens)
-    bounds = dict(max_q_len=max_q, max_seq_len=max_s)
+    return args, dict(max_q_len=max(ql for ql, _ in rows), max_seq_len=max(lens)), starts
+
+
+def latent_case(torch, gen, timer, name, h, rows):
+    """One latent kernel case: against its plain version (the values the
+    keys' first 512 lanes) and its plain split form, the split counts the
+    kernel wrote held to att.split_plan, timed with its bound and its
+    library yardstick."""
+    from dynamo_tpu_torch.ops import attention as att
+    from dynamo_tpu_torch.ops import cuda_mla
+
+    args, bounds, starts = latent_inputs(torch, gen, h, rows)
+    q, kc, tables = args[:3]
+    plain_args = (q, kc, kc) + args[2:]
+    max_q, max_s = bounds["max_q_len"], bounds["max_seq_len"]
     tag = f"latent {name}"
     cuda_mla.split_log = []
     try:
@@ -2992,10 +3027,10 @@ def latent_case(torch, gen, timer, name, h, rows):
         (grid, n_dev), = cuda_mla.split_log
     finally:
         cuda_mla.split_log = None
-    plain = att.ragged_paged_attention(*args)[..., :LV]
+    plain = att.ragged_paged_attention(*plain_args)[..., :LV]
     err = compare(torch, got, plain, tag)
     compare(torch, got, cuda_mla.split_latent_attention(*args, **bounds), tag + " (plain split)")
-    _, tile_rows, qs, _ = cuda_mla.tile_shape(h, max_q)
+    form, tile_rows, qs, _ = cuda_mla.tile_shape(h, max_q)
     S = cuda_mla.split_extent(max_s)
     n_kernel = n_dev.tolist()
     n_plain = [att.split_plan(ql, sl, 0, cuda_mla.SPLIT_KEYS, BS, S)[2]
@@ -3004,11 +3039,12 @@ def latent_case(torch, gen, timer, name, h, rows):
         raise AssertionError(f"{tag}: the kernel split its rows {n_kernel}, the plain split "
                              f"plan {n_plain}")
     blocks = sum(max(n, 1) * -(-ql * h // tile_rows) for (ql, _), n in zip(rows, n_kernel))
-    out = {"h": h, "rows": rows, "max_abs_err": err, "grid": grid, "splits_per_row": n_kernel,
-           "working_blocks": blocks}
-    if name == LATENT_SPLIT_ROWS:
+    out = {"h": h, "rows": rows, "form": form, "max_abs_err": err, "grid": grid,
+           "splits_per_row": n_kernel, "working_blocks": blocks}
+    if name in LATENT_SPLIT_ROWS:
         _, _, l, n = att.attention_partials(
-            *args, split_keys=cuda_mla.SPLIT_KEYS, align=BS, max_splits=S, tile_tokens=qs)
+            *plain_args, split_keys=cuda_mla.SPLIT_KEYS, align=BS, max_splits=S,
+            tile_tokens=qs)
         out["tokens_missing_a_split"] = sum(
             int((l[r, :c, :ql] == 0).all(-1).sum())
             for r, (c, (ql, _)) in enumerate(zip(n.tolist(), rows)) if c)
@@ -3026,22 +3062,27 @@ def latent_case(torch, gen, timer, name, h, rows):
     live = [(ql, sl) for ql, sl in rows if ql > 0 and sl > 0]
     pages = sum(-(-sl // BS) for _, sl in live)
     tokens = sum(ql for ql, _ in live)
-    b, by = bound(2 * tokens * h * (LD + LV)            # queries in, outputs out
-                  + pages * BS * 2 * (LD + LV)           # K pages at 576 lanes, V at 512
-                  + 4 * (3 * len(rows) + pages),
-                  2 * sum(visible_pairs(ql, sl, 0) for ql, sl in live) * h * (LD + LV))
-    library, unpack = latent_library_call(torch, q, kc, vc, tables, starts, rows)
+    # the work the function does: each live key read once at 576 lanes
+    # (the values are its first 512), queries in, outputs out
+    flops = 2 * sum(visible_pairs(ql, sl, 0) for ql, sl in live) * h * (LD + LV)
+    io = 2 * tokens * h * (LD + LV) + 4 * (3 * len(rows) + pages)
+    b, by = bound(io + pages * BS * 2 * LD, flops)
+    b_v, _ = bound(io + pages * BS * 2 * (LD + LV), flops)  # with a V page read too (the first form's)
+    library, unpack = latent_library_call(torch, q, kc, tables, starts, rows)
     lib_err = (unpack(library()).float() - plain.float()).abs().max().item()
     ms = timer(lambda: cuda_mla.latent_paged_attention(*args, **bounds))
     out.update(
-        ms=ms, plain_ms=timer(lambda: att.ragged_paged_attention(*args), reps=3),
+        ms=ms, plain_ms=timer(lambda: att.ragged_paged_attention(*plain_args), reps=3),
         library_ms=timer(library), library="scaled_dot_product_attention (heads folded "
-        "into the query axis; PyTorch's backend choice at d 576)", library_max_abs_err=lib_err,
-        bound_ms=b, bound_by=by, achieved_of_bound=b / ms)
+        "into the query axis, values the keys' first 512 lanes; PyTorch's backend choice at "
+        "d 576)", library_max_abs_err=lib_err,
+        bound_ms=b, bound_by=by, bound_with_v_read_ms=b_v, achieved_of_bound=b / ms)
     del library, unpack
-    log(f"  {tag}: max abs err {err:.3g}; {ms:.4f} ms kernel, {out['plain_ms']:.4f} ms plain, "
+    log(f"  {tag} ({form} form): max abs err {err:.3g}; {ms:.4f} ms kernel, "
+        f"{out['plain_ms']:.4f} ms plain, "
         f"{out['library_ms']:.4f} ms library (max abs err {lib_err:.3g}), bound {b:.4f} ms "
-        f"({by}, {b / ms:.1%} of it reached); grid {grid}, splits per row {n_kernel} (the "
+        f"({by}, {b / ms:.1%} of it reached; {b_v:.4f} ms with a V read); grid {grid}, "
+        f"splits per row {n_kernel} (the "
         f"kernel's count), {blocks} working blocks"
         + (f"; {out['tokens_missing_a_split']} (row, split, token) triples whose split holds "
            "no key the token sees" if "tokens_missing_a_split" in out else "")
@@ -3050,14 +3091,22 @@ def latent_case(torch, gen, timer, name, h, rows):
     return out
 
 
+# the latent kernel's forms: (name, entry-name tag, rows, the least blocks
+# per SM it is designed for)
+LATENT_FORMS = (("narrow", "latent_narrow", 16, 2), ("wide", "latent_wide", 64, 1))
+
+
 def latent_build_report(_build) -> dict:
-    """The latent kernel's build: registers and spills per entry (fails on
-    a spill) and blocks per SM with their dynamic shared memory
-    (dtt_latent_occupancy)."""
+    """The latent kernel's build, per form: registers and spills (fails on
+    a spill), blocks per SM with their dynamic shared memory
+    (dtt_latent_occupancy; fails below the form's design), and its HGMMA
+    and HMMA instructions (cuobjdump; fails if the wide form has no HGMMA
+    or the narrow one no HMMA)."""
     import ctypes
     import re
 
-    with open(os.path.join(_build.build_dir(), "libmla_attention.so.log")) as f:
+    out_dir = _build.build_dir()
+    with open(os.path.join(out_dir, "libmla_attention.so.log")) as f:
         lines = ptxas_summary(f.read())
     spills = [l for l in lines if re.search(r"[1-9]\d* bytes spill", l)]
     if not lines or spills:
@@ -3065,18 +3114,37 @@ def latent_build_report(_build) -> dict:
     fn = _build.load("mla_attention.cu").dtt_latent_occupancy
     fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    occ = {}
-    for mt in (1, 2):
+    tool = cuobjdump_tool()
+    sass = sass_of(tool, os.path.join(out_dir, "libmla_attention.so")) if tool else None
+    forms = {}
+    for name, tag, rows, least in LATENT_FORMS:
         blocks, smem = ctypes.c_int(), ctypes.c_int()
-        err = fn(mt, ctypes.byref(blocks), ctypes.byref(smem))
-        if err or blocks.value < 1:
-            raise AssertionError(f"latent kernel MT={mt}: occupancy {blocks.value}, error {err}")
-        occ[f"MT={mt}"] = {"blocks_per_sm": blocks.value, "smem_bytes": smem.value}
-    log("latent kernel build: " + " | ".join(lines) + f"; blocks per SM {occ}")
-    return {"ptxas": lines, "occupancy": occ}
+        err = fn(rows, ctypes.byref(blocks), ctypes.byref(smem))
+        if err or blocks.value < least:
+            raise AssertionError(f"latent kernel, {name} form: {blocks.value} blocks per SM "
+                                 f"(designed for {least}), error {err}")
+        form = {"ptxas": [l for l in lines if tag in l], "blocks_per_sm": blocks.value,
+                "smem_bytes": smem.value}
+        if sass is not None:
+            part = "".join(p for p in sass.split("Function : ")[1:] if tag in p.split()[0])
+            form.update({op: sum(1 for l in part.splitlines() if op + "." in l or op + " " in l)
+                         for op in ("HGMMA", "HMMA")})
+            if not form["HGMMA" if rows == 64 else "HMMA"]:
+                raise AssertionError(f"latent kernel, {name} form: no "
+                                     f"{'HGMMA' if rows == 64 else 'HMMA'} in its SASS: {form}")
+        forms[name] = form
+    log("latent kernel build: " + json.dumps(forms))
+    return forms
 
 
-def check_latent(torch, gen, timer, _build):
+# each form's report entry: (name, the case of its top-level numbers)
+LATENT_REPORTS = (("latent_paged_attention", "narrow", "decode G=16"),
+                  ("latent_paged_attention_wide", "wide", "prefill chunk"))
+
+
+def check_latent(torch, gen, timer, _build) -> list:
+    """The latent kernel's build report and every case; one report entry
+    per form (LATENT_REPORTS), the cases and the build under the first."""
     build = latent_build_report(_build)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     cases = {name: latent_case(torch, gen, timer, name, h, rows)
@@ -3085,18 +3153,21 @@ def check_latent(torch, gen, timer, _build):
         if cases[name]["working_blocks"] < sms:
             raise AssertionError(f"latent {name}: {cases[name]['working_blocks']} working "
                                  f"blocks on {sms} SMs")
-    main = cases["decode G=16"]
-    return {
-        "name": "latent_paged_attention", "route": "cuda",
-        "source": "dynamo_tpu_torch/csrc/mla_attention.cu",
-        "replaces": "dynamo_tpu/ops/pallas_unified.py:93",
-        "shape": f"kvh=1 d_qk={LD} d_v={LV} bs={BS} bf16; top-level numbers: the "
-                 f"'decode G=16' case (DeepSeek-V2-Lite), rows (q_len, seq_len) "
-                 f"{main['rows']}; every case under 'cases'",
-        **{k: main[k] for k in ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
-                                "bound_by")},
-        "build": build, "cases": cases,
-    }
+    out = []
+    for name, form, case in LATENT_REPORTS:
+        main = cases[case]
+        if main["form"] != form:
+            raise AssertionError(f"latent {case}: took the {main['form']} form, not {form}")
+        out.append({
+            "name": name, "route": "cuda", "source": "dynamo_tpu_torch/csrc/mla_attention.cu",
+            "replaces": "dynamo_tpu/ops/pallas_unified.py:93",
+            "shape": f"kvh=1 d_qk={LD} d_v={LV} bs={BS} bf16, the {form} form; top-level "
+                     f"numbers: the '{case}' case, G = {main['h']}, rows (q_len, seq_len) "
+                     f"{main['rows']}; every case under 'cases' of latent_paged_attention",
+            **{k: main[k] for k in ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
+                                    "bound_by")}})
+    out[0].update(build=build, cases=cases)
+    return out
 
 
 def shared_f32(p, x):
@@ -3197,8 +3268,8 @@ def latent_attention_paths(torch, table, mutants, qk_head_dim):
     def rows(q, total):
         return table[None], one(0), one(q.shape[0]), one(total)
 
-    def kernel(q, kc, vc, total):
-        return cuda_mla.latent_paged_attention(q, kc, vc, *rows(q, total),
+    def kernel(q, kc, vc, total):  # the values from the keys (V' = [c, 0] equals K' there)
+        return cuda_mla.latent_paged_attention(q, kc, *rows(q, total),
                                                max_q_len=q.shape[0], max_seq_len=total)
 
     def plain(q, kc, vc, total):
@@ -3307,11 +3378,12 @@ def moe_mla_phase(torch, gen, smi: str, _build) -> tuple:
     results, out = {}, {}
     timer = Timer(torch)
     t0 = time.perf_counter()
-    r = check_latent(torch, gen, timer, _build)
-    results[r["name"]] = r
-    log(f"kernel {r['name']}: max abs err {r['max_abs_err']:.3g} over {len(r['cases'])} cases "
-        f"(atol {KERNEL_ATOL}, rtol {KERNEL_RTOL}, row {KERNEL_ROW_REL}) "
-        f"[{time.perf_counter() - t0:.1f} s]")
+    latent = check_latent(torch, gen, timer, _build)
+    results.update((r["name"], r) for r in latent)
+    worst = max(c["max_abs_err"] for c in latent[0]["cases"].values())
+    log(f"kernel latent_paged_attention (both forms): max abs err {worst:.3g} over "
+        f"{len(latent[0]['cases'])} cases (atol {KERNEL_ATOL}, rtol {KERNEL_RTOL}, row "
+        f"{KERNEL_ROW_REL}) [{time.perf_counter() - t0:.1f} s]")
     t0 = time.perf_counter()
     out["experts"] = check_moe_experts(torch, gen, timer)
     log(f"experts on {smi}: " + json.dumps(out["experts"]) +
@@ -3351,7 +3423,8 @@ def moe_mla_phase(torch, gen, smi: str, _build) -> tuple:
     for key, profile in (("bf16", False), ("bf16 profiled", True)):
         run = asyncio.run(serve_windowed(
             torch, mcfg, "deepseek-v2-lite", LATENT_PROMPTS, 32, profile=profile,
-            params=params, prompt_seed=14, sample_seed=15, expect=("latent",),
+            params=params, prompt_seed=14, sample_seed=15,
+            expect=("latent_narrow", "latent_wide"),
             forbid=LATENT_FORBID, split_module=cuda_mla))
         serving[key] = run
         log(f"serving deepseek-v2-lite {key}: " + json.dumps(run))
@@ -3359,7 +3432,8 @@ def moe_mla_phase(torch, gen, smi: str, _build) -> tuple:
         torch.cuda.empty_cache()
     run, prof = serving["bf16"], serving["bf16 profiled"]
     prof["busy_share"] = prof["device_busy_ms"] / (run["wall_s"] * 1e3)
-    if run["launches"]["replayed"]["latent"] <= 0:
+    if run["launches"]["replayed"]["latent_narrow"] + run["launches"]["replayed"][
+            "latent_wide"] <= 0:
         raise AssertionError(f"deepseek-v2-lite: no latent launch through a graph replay: "
                              f"{run['launches']}")
     log(f"serving deepseek-v2-lite on {smi}: {run['requests']} requests of {LATENT_PROMPTS} "
@@ -3392,7 +3466,7 @@ def moe_mla_phase(torch, gen, smi: str, _build) -> tuple:
             raise AssertionError(f"deepseek-v2-lite decode-heavy (a): request {rq['i']}: "
                                  f"{len(rq['tokens'])} tokens, {rq['finish']!r}")
     check_same_streams("deepseek-v2-lite decode-heavy (d)", runs["d"], runs["a"], None)
-    if runs["d"]["launches"]["replayed"]["latent"] <= 0:
+    if runs["d"]["launches"]["replayed"]["latent_narrow"] <= 0:
         raise AssertionError(f"deepseek-v2-lite decode-heavy (d): no latent launch through a "
                              f"graph replay: {runs['d']['launches']}")
     prof = runs["d profiled"]
@@ -3413,7 +3487,8 @@ def moe_mla_phase(torch, gen, smi: str, _build) -> tuple:
     qcfg = dataclasses.replace(moe.MoeConfig.qwen3_30b_a3b(), num_layers=QWEN_SERVE_LAYERS)
     run = asyncio.run(serve_windowed(
         torch, qcfg, "qwen3-30b-a3b", LATENT_PROMPTS, QWEN_SERVE_TOKENS, prompt_seed=16,
-        sample_seed=17, expect=("decode", "flash_extend", "unified"), forbid=("latent",)))
+        sample_seed=17, expect=("decode", "flash_extend", "unified"),
+        forbid=("latent_narrow", "latent_wide")))
     log(f"serving qwen3-30b-a3b x{QWEN_SERVE_LAYERS} layers on {smi}: " + json.dumps(run))
     log(f"serving qwen3-30b-a3b ({QWEN_SERVE_LAYERS} of its 48 layers, full width) on {smi}: "
         f"{run['output_tok_s']:.1f} output tok/s, TTFT median "
@@ -3679,7 +3754,8 @@ def main() -> int:
             ("ragged_paged_attention_gptoss", "unified", gpt["serving"]["bf16"]),
             ("ragged_paged_attention_gptoss_int8", "unified_int8", gpt["serving"]["int8"]),
             ("merge_attention_partials_gptoss", "merge", gpt["serving"]["bf16"]),
-            ("latent_paged_attention", "latent", lat["serving"]["bf16"])):
+            ("latent_paged_attention", "latent_narrow", lat["serving"]["bf16"]),
+            ("latent_paged_attention_wide", "latent_wide", lat["serving"]["bf16"])):
         r = dict(results[name], launches=run["launches"][key])
         r["max_err"], r["kernel_ms"] = r["max_abs_err"], r["ms"]
         kernels.append(r)

@@ -7,8 +7,16 @@ multiple of 16, at most 128; 16 for DeepSeek-V2-Lite, 128 for V2 / V3).
 
 The kernel is ``csrc/mla_attention.cu``: one launch serves any mix of
 prefill chunks and decode tokens (ragged rows, each at the tail of its
-context, causal), every attention call of an MLA model on the card. Rows
-of at most ``tile_shape(...)[2]`` tokens are split over their keys
+context, causal), every attention call of an MLA model on the card. It
+reads one cache: the values are the keys' first 512 lanes (an MLA model
+caches K' = [c, k_pe] and V' = [c, 0], equal there bit for bit), so no V
+byte moves. Each launch takes one of two forms, by ``tile_shape``: the
+wide form (64-row ``wgmma`` tiles, a producer warpgroup filling the
+key ring for two consumer warpgroups) where a row may hold
+64 or more (token, head) pairs (prefill chunks, mixed steps, G = 128
+decode), else the narrow form (16-row ``mma.sync`` tiles, two blocks per
+SM: G = 16 decode, short rows). Rows of at most ``tile_shape(...)[2]``
+tokens are split over their keys
 (``SPLIT_KEYS``-key splits from key 0, ``ops.attention.split_plan``) and
 merged in split order by the last split block, in the same launch. The
 split scratch and the merge counters live in the per-(device, stream)
@@ -18,8 +26,8 @@ capture, and a launch that would grow it during one raises. When
 and a device copy of the split counts the kernel wrote.
 
 On CPU tensors this wrapper runs the plain version,
-``ops.attention.ragged_paged_attention(...)[..., :v_dim]`` (its output
-lanes below v_dim do not depend on the V lanes above it);
+``ops.attention.ragged_paged_attention(q, kv, kv, ...)[..., :v_dim]``
+(output lanes below v_dim read only value lanes below v_dim);
 ``split_latent_attention`` is the plain form of the split plan. On CUDA
 tensors it launches the kernel or raises.
 """
@@ -32,34 +40,44 @@ import torch
 
 from . import attention as att
 from . import cuda_attention
-from ._build import Kernel, check_cuda_tensor
+from ._build import Kernel, LaunchCounter, check_cuda_tensor
 from .cuda_attention import _capturing, _scratch_for, stream_key
 from .quant import is_quantized
 
-KERNEL = Kernel("mla_attention.cu", "dtt_latent_attention", n_ptrs=11, n_ints=7)
+KERNEL = Kernel("mla_attention.cu", "dtt_latent_attention", n_ptrs=10, n_ints=7)
+# the launches of each form (KERNEL counts them all)
+NARROW, WIDE = LaunchCounter(), LaunchCounter()
 D_QK, D_V = 576, 512
 # the kernel's MLA_SPLIT_KEYS (csrc/mla_attention.cu): keys per split
 SPLIT_KEYS = 256
+# the most splits a row takes (the merging block keeps 2 floats a (split,
+# row) in Q's shared bytes, room for 143): longer rows take longer splits
+MAX_SPLITS = 128
+# the kernel's MLA_NARROW_ROWS and MLA_WIDE_ROWS: (token, head) pairs a
+# block takes in each form
+NARROW_ROWS, WIDE_ROWS = 16, 64
 
 # when a list, each launch appends (grid, n_splits): its (x, R) grid and a
 # device copy of the [R] int32 split counts the kernel wrote (0 = not split)
 split_log = None
 
 
-def tile_shape(h: int, max_q_len: int) -> Tuple[int, int, int, int]:
-    """(MT, rows, QS, XS) of a launch: 16-row tiles per block (2 when a row
-    may hold 32 or more (token, head) pairs, else 1), the block's rows,
-    the longest row that may be split (in tokens) and the blocks such a
-    row takes per split."""
-    mt = 2 if max_q_len * h >= 32 else 1
-    rows = 16 * mt
-    qs = max(1, rows // h)
-    return mt, rows, qs, -(-qs * h // rows)
+def tile_shape(h: int, max_q_len: int) -> Tuple[str, int, int, int]:
+    """(form, rows, QS, XS) of a launch: the wide form (64-row wgmma tiles)
+    when a row may hold 64 or more (token, head) pairs, else the narrow
+    form (16-row mma.sync tiles); the block's rows, the longest row that
+    may be split (in tokens: one wide tile's, max(1, 64 // h), in either
+    form, so every row of a narrow launch may be split) and the blocks
+    such a row takes per split."""
+    wide = max_q_len * h >= WIDE_ROWS
+    rows = WIDE_ROWS if wide else NARROW_ROWS
+    qs = max(1, WIDE_ROWS // h)
+    return ("wide" if wide else "narrow"), rows, qs, -(-qs * h // rows)
 
 
 def split_extent(max_seq_len: int) -> int:
     """S, the most splits a row of at most ``max_seq_len`` keys takes."""
-    return max(1, -(-int(max_seq_len) // SPLIT_KEYS))
+    return min(MAX_SPLITS, max(1, -(-int(max_seq_len) // SPLIT_KEYS)))
 
 
 def scratch_words(rows: int, h: int, max_q_len: int, max_seq_len: int) -> Tuple[int, int]:
@@ -71,18 +89,25 @@ def scratch_words(rows: int, h: int, max_q_len: int, max_seq_len: int) -> Tuple[
     return rows * xs, -(-rows // 4) * 4 + n * (D_V + 2)
 
 
+def reserve_words(rows: int, heads: int, max_seq_len: int) -> Tuple[int, int]:
+    """scratch_words covering every launch of at most ``rows`` rows bounded
+    by ``max_seq_len`` keys in either form (q_len 1 takes the narrow form
+    where there is one, 64 the wide)."""
+    forms = [scratch_words(rows, heads, q, max_seq_len) for q in (1, WIDE_ROWS)]
+    return max(c for c, _ in forms), max(w for _, w in forms)
+
+
 def reserve(device, rows: int, heads: int, max_seq_len: int) -> None:
     """Size the current stream's scratch for every launch of at most
     ``rows`` rows bounded by ``max_seq_len`` keys, whatever their q_len
     (before a capture)."""
     device = torch.device(device)
-    _scratch_for(device, stream_key(device), *scratch_words(rows, heads, 2, max_seq_len))
+    _scratch_for(device, stream_key(device), *reserve_words(rows, heads, max_seq_len))
 
 
 def latent_paged_attention(
     q: torch.Tensor,             # [Tq, h, 576] bf16 packed ragged queries
-    k_cache: torch.Tensor,       # [num_blocks, bs, 1, 576] bf16
-    v_cache: torch.Tensor,       # [num_blocks, bs, 1, 576] bf16 (lanes >= v_dim unread)
+    kv_cache: torch.Tensor,      # [num_blocks, bs, 1, 576] bf16: keys, values their first v_dim lanes
     block_tables: torch.Tensor,  # [R, max_blocks] int32
     q_starts: torch.Tensor,      # [R] int32
     q_lens: torch.Tensor,        # [R] int32 (0 = empty row)
@@ -92,27 +117,28 @@ def latent_paged_attention(
     max_q_len: Optional[int] = None,
     max_seq_len: Optional[int] = None,
 ) -> torch.Tensor:
-    """``ops.attention.ragged_paged_attention(...)[..., :v_dim]`` ->
-    [Tq, h, v_dim]. ``max_q_len`` and ``max_seq_len`` are host bounds on
-    every ``q_lens[r]`` and ``seq_lens[r]`` that size the grid (defaults
-    ``Tq`` and ``max_blocks * block_size``, always safe); a low
-    ``max_seq_len`` only lengthens a row's splits."""
+    """``ops.attention.ragged_paged_attention(q, kv_cache, kv_cache,
+    ...)[..., :v_dim]`` -> [Tq, h, v_dim]: the values are the keys' first
+    ``v_dim`` lanes (an MLA cache's V rows equal them there). ``max_q_len``
+    and ``max_seq_len`` are host bounds on every ``q_lens[r]`` and
+    ``seq_lens[r]`` that pick the form and size the grid (defaults ``Tq``
+    and ``max_blocks * block_size``, always safe); a low ``max_seq_len``
+    only lengthens a row's splits."""
     if q.device.type == "cpu":
-        return att.ragged_paged_attention(q, k_cache, v_cache, block_tables, q_starts,
+        return att.ragged_paged_attention(q, kv_cache, kv_cache, block_tables, q_starts,
                                           q_lens, seq_lens)[..., :v_dim]
-    if is_quantized(k_cache) or is_quantized(v_cache):
-        raise TypeError("the latent kernel takes bf16 caches (no int8 form yet)")
+    if is_quantized(kv_cache):
+        raise TypeError("the latent kernel takes a bf16 cache (no int8 form yet)")
     check_cuda_tensor("q", q, torch.bfloat16, 3)
-    check_cuda_tensor("k_cache", k_cache, torch.bfloat16, 4)
-    check_cuda_tensor("v_cache", v_cache, torch.bfloat16, 4)
+    check_cuda_tensor("kv_cache", kv_cache, torch.bfloat16, 4)
     check_cuda_tensor("block_tables", block_tables, torch.int32, 2)
     for name, t in (("q_starts", q_starts), ("q_lens", q_lens), ("seq_lens", seq_lens)):
         check_cuda_tensor(name, t, torch.int32, 1)
     Tq, h, d = q.shape
-    _, bs, kvh, dk = k_cache.shape
+    _, bs, kvh, dk = kv_cache.shape
     R = block_tables.shape[0]
-    if d != D_QK or dk != D_QK or kvh != 1 or v_cache.shape != k_cache.shape:
-        raise ValueError(f"the latent kernel takes q [Tq, h, {D_QK}] and K/V caches "
+    if d != D_QK or dk != D_QK or kvh != 1:
+        raise ValueError(f"the latent kernel takes q [Tq, h, {D_QK}] and a cache "
                          f"[num_blocks, bs, 1, {D_QK}]")
     if v_dim != D_V:
         raise ValueError(f"the latent kernel writes v_dim {D_V}, not {v_dim}")
@@ -127,7 +153,7 @@ def latent_paged_attention(
                                                                 max_blocks * bs)
     out = torch.zeros(Tq, h, D_V, dtype=q.dtype, device=q.device)
     if R and bound > 0 and Tq:
-        mt, rows, qs, xs = tile_shape(h, bound)
+        form, rows, qs, xs = tile_shape(h, bound)
         S = split_extent(seq_bound)
         stream, capturing = stream_key(q.device), _capturing(q.device)
         counts, n_splits = _scratch_for(q.device, stream,
@@ -135,10 +161,11 @@ def latent_paged_attention(
                                         capturing=capturing)
         part = n_splits + 4 * (-(-R // 4) * 4)
         KERNEL.launch(
-            [q, k_cache, v_cache, block_tables, q_starts, q_lens, seq_lens, out, part,
-             n_splits, counts],
-            [h, bs, R, max_blocks, bound, S, mt],
+            [q, kv_cache, block_tables, q_starts, q_lens, seq_lens, out, part, n_splits,
+             counts],
+            [h, bs, R, max_blocks, bound, S, rows],
         )
+        (WIDE if form == "wide" else NARROW).launches += 1
         if split_log is not None and not capturing:
             buf, have = cuda_attention._scratch[(q.device, stream)]
             grid = (max(-(-bound * h // rows), S * xs), R)
@@ -147,12 +174,13 @@ def latent_paged_attention(
 
 
 def split_latent_attention(
-    q: torch.Tensor, k_cache, v_cache, block_tables: torch.Tensor,
+    q: torch.Tensor, kv_cache, block_tables: torch.Tensor,
     q_starts: torch.Tensor, q_lens: torch.Tensor, seq_lens: torch.Tensor,
     *, max_seq_len: int, max_q_len: int, v_dim: int = D_V, drop_last_split: bool = False,
 ) -> torch.Tensor:
     """latent_paged_attention computed as the kernel does with split-K
-    (plain PyTorch): rows of at most QS tokens (tile_shape) whose keys
+    (plain PyTorch, values from the keys): rows of at most QS tokens
+    (tile_shape, by the form ``max_q_len`` picks) whose keys
     span two or more ``SPLIT_KEYS``-key splits go through
     ``ops.attention.attention_partials`` and
     ``merge_attention_partials`` in split order; every other row directly.
@@ -160,14 +188,14 @@ def split_latent_attention(
     mutant that a check must catch)."""
     _, h, _ = q.shape
     _, _, qs, _ = tile_shape(h, max_q_len)
-    bs = k_cache.shape[1]
+    bs = kv_cache.shape[1]
     acc, m, l, n = att.attention_partials(
-        q, k_cache, v_cache, block_tables, q_starts, q_lens, seq_lens,
+        q, kv_cache, kv_cache, block_tables, q_starts, q_lens, seq_lens,
         split_keys=SPLIT_KEYS, align=bs, max_splits=split_extent(max_seq_len),
         tile_tokens=qs)
     split = {r for r, c in enumerate(n.tolist()) if c >= 2}
     R = q_starts.shape[0]
-    out = att._ragged_rows(q, k_cache, v_cache, block_tables, q_starts, q_lens, seq_lens,
+    out = att._ragged_rows(q, kv_cache, kv_cache, block_tables, q_starts, q_lens, seq_lens,
                            [0] * R, None, None, skip=split)
     if drop_last_split:
         n = torch.where(n >= 2, n - 1, n)

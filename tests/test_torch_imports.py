@@ -2,8 +2,8 @@
 imports jax or anything of the dynamo_tpu package (not even its modules
 that are free of JAX). Checked twice: statically over every import
 statement, and by importing every module in a fresh interpreter and looking
-at sys.modules. serve_compare.py (a GPU script that runs on import) is
-checked statically."""
+at sys.modules. serve_compare.py (a GPU script that runs on import) and
+latent_probe.py (a GPU script) are checked statically."""
 
 import ast
 import os
@@ -25,7 +25,8 @@ def _sources():
 
 
 def _static_sources():
-    return sorted(_sources() + [os.path.join(REPO, "serve_compare.py")])
+    return sorted(_sources() + [os.path.join(REPO, f)
+                                for f in ("serve_compare.py", "latent_probe.py")])
 
 
 def _forbidden(name: str) -> bool:

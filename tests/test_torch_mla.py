@@ -13,6 +13,8 @@ tolerance). TorchEngine serving these models: tests/test_torch_mla_engine.py.
 """
 
 import dataclasses
+import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -229,7 +231,8 @@ def test_params_from_numpy_takes_dense_and_moe_layers_and_refuses_unknown_keys()
 # ------------------------------------------------------ latent attention
 def _latent_case(seed, rows, h, d, bs=4, gap=3):
     """rows [(q_len, seq_len)] on scrambled distinct pages of a one-head
-    cache; numpy (q, kc, vc, tables, q_starts, q_lens, seq_lens)."""
+    cache; numpy (q, kv, tables, q_starts, q_lens, seq_lens), the values
+    being the keys' first lanes."""
     rng = np.random.default_rng(seed)
     starts, pos = [], 0
     for ql, _ in rows:
@@ -244,77 +247,163 @@ def _latent_case(seed, rows, h, d, bs=4, gap=3):
         tables[r, :n] = perm[used:used + n]
         used += n
     q = rng.standard_normal((pos, h, d)).astype(np.float32)
-    kc = rng.standard_normal((nb, bs, 1, d)).astype(np.float32)
-    vc = rng.standard_normal((nb, bs, 1, d)).astype(np.float32)
-    return (q, kc, vc, tables, np.array(starts, np.int32),
+    kv = rng.standard_normal((nb, bs, 1, d)).astype(np.float32)
+    return (q, kv, tables, np.array(starts, np.int32),
             np.array([ql for ql, _ in rows], np.int32),
             np.array([sl for _, sl in rows], np.int32))
 
 
 LATENT_ROWS = [(1, 37), (9, 40), (0, 12), (1, 1), (2, 21), (5, 5)]
+LATENT_WIDTHS = pytest.mark.parametrize("h,d,v_dim", [(4, 80, 64), (16, 576, 512)],
+                                        ids=["tiny_mla", "deepseek"])
 
 
-@pytest.mark.parametrize("h,d,v_dim", [(4, 80, 64), (16, 576, 512)],
-                         ids=["tiny_mla", "deepseek"])
+@LATENT_WIDTHS
 def test_latent_wrapper_on_cpu_is_jax_ragged_attention_cut_to_v_dim(h, d, v_dim):
-    args = _latent_case(10, LATENT_ROWS, h, d)
-    want = np.asarray(jatt.ragged_paged_attention(*map(jnp.asarray, args)))[..., :v_dim]
-    got = cuda_mla.latent_paged_attention(*map(torch.from_numpy, args), v_dim=v_dim)
+    q, kv, *rows = _latent_case(10, LATENT_ROWS, h, d)
+    want = np.asarray(jatt.ragged_paged_attention(
+        *map(jnp.asarray, (q, kv, kv, *rows))))[..., :v_dim]
+    got = cuda_mla.latent_paged_attention(*map(torch.from_numpy, (q, kv, *rows)), v_dim=v_dim)
     assert got.shape == want.shape
     _close(got.numpy(), want, SPLIT_TOL)
 
 
-@pytest.mark.parametrize("h", [16, 128])
-def test_split_latent_attention_is_the_unsplit_op(h):
-    """The kernel's split plan in plain PyTorch: decode rows (and, at G =
-    16, two-token rows) over a few 256-key splits, the last of which some
-    tokens never reach (2 tokens, 513 keys), equal the unsplit op; each
-    row's split count follows att.split_plan; dropping each row's last
-    split does not."""
-    rows = [(1, 700), (2, 513), (1, 256), (3, 300), (1, 1), (1, 1030)]
-    max_q = 3 if h == 16 else 1
-    if h == 128:
-        rows = [(1, 700), (1, 513), (1, 1), (1, 600)]
+@LATENT_WIDTHS
+def test_latent_wrapper_reads_values_from_the_model_cache_keys(h, d, v_dim):
+    """The cache as the model builds it, K' = [c, k_pe] and V' = [c, 0]
+    (c: v_dim latent lanes, k_pe: the rest): the wrapper over K' alone is
+    the JAX package's ragged attention over (K', V') cut to v_dim."""
+    q, c, *rows = _latent_case(12, LATENT_ROWS, h, v_dim)
+    k_pe = np.random.default_rng(13).standard_normal(c.shape[:-1] + (d - v_dim,))
+    k = np.concatenate([c, k_pe.astype(np.float32)], -1)
+    v = np.concatenate([c, np.zeros_like(k_pe, np.float32)], -1)
+    q = np.concatenate([q, np.random.default_rng(14).standard_normal(
+        q.shape[:-1] + (d - v_dim,)).astype(np.float32)], -1)
+    want = np.asarray(jatt.ragged_paged_attention(
+        *map(jnp.asarray, (q, k, v, *rows))))[..., :v_dim]
+    got = cuda_mla.latent_paged_attention(*map(torch.from_numpy, (q, k, *rows)), v_dim=v_dim)
+    _close(got.numpy(), want, SPLIT_TOL)
+
+
+def _split_case(h, rows, max_q):
+    """split_latent_attention against the unsplit op on ``rows``, with the
+    split counts of the plan; returns (the counts, the drop-last-split
+    mutant's largest gap)."""
     args = tuple(map(torch.from_numpy, _latent_case(11, rows, h, 576, bs=16)))
-    want = tatt.ragged_paged_attention(*args)[..., :512]
+    want = tatt.ragged_paged_attention(args[0], args[1], args[1], *args[2:])[..., :512]
     kw = dict(max_seq_len=max(sl for _, sl in rows), max_q_len=max_q)
     got = cuda_mla.split_latent_attention(*args, **kw)
     _close(got.numpy(), want.numpy(), SPLIT_TOL)
     _, _, qs, _ = cuda_mla.tile_shape(h, max_q)
     S = cuda_mla.split_extent(kw["max_seq_len"])
-    _, _, _, n = tatt.attention_partials(*args, split_keys=cuda_mla.SPLIT_KEYS, align=16,
+    _, _, _, n = tatt.attention_partials(args[0], args[1], args[1], *args[2:],
+                                         split_keys=cuda_mla.SPLIT_KEYS, align=16,
                                          max_splits=S, tile_tokens=qs)
     plan = [tatt.split_plan(ql, sl, 0, cuda_mla.SPLIT_KEYS, 16, S)[2] if ql <= qs else 0
             for ql, sl in rows]
-    assert n.tolist() == plan and sum(c >= 2 for c in plan) >= 2
+    assert n.tolist() == plan
     mutant = cuda_mla.split_latent_attention(*args, **kw, drop_last_split=True)
-    assert float((mutant - want).abs().max()) > 0.1
+    return plan, float((mutant - want).abs().max())
+
+
+@pytest.mark.parametrize("h", [16, 128])
+def test_split_latent_attention_is_the_unsplit_op(h):
+    """The kernel's split plan in plain PyTorch, wide form: decode rows
+    (and, at G = 16, rows of 2-3 tokens, QS = 4) over a few 256-key
+    splits, the last of which some tokens never reach (2 tokens, 513
+    keys), equal the unsplit op; each row's split count follows
+    att.split_plan; dropping each row's last split does not."""
+    rows = [(1, 700), (2, 513), (1, 256), (3, 300), (1, 1), (1, 1030)]
+    max_q = 4 if h == 16 else 1
+    if h == 128:
+        rows = [(1, 700), (1, 513), (1, 1), (1, 600)]
+    assert cuda_mla.tile_shape(h, max_q)[0] == "wide"
+    plan, gap = _split_case(h, rows, max_q)
+    assert sum(c >= 2 for c in plan) >= (4 if h == 16 else 2) and gap > 0.1
+
+
+def test_split_latent_attention_narrow_form():
+    """The narrow form (G = 16, rows of at most 3 tokens: 48 pairs) may
+    split every row (QS = 4, one wide tile's tokens); a 2-3 token row's
+    splits take 2-3 16-row tiles each, and the first tokens of (2, 513)
+    see no key of its last split."""
+    rows = [(1, 700), (2, 513), (1, 256), (3, 300), (1, 1030)]
+    assert cuda_mla.tile_shape(16, 3) == ("narrow", 16, 4, 4)
+    plan, gap = _split_case(16, rows, 3)
+    assert plan == [3, 3, 0, 2, 5] and gap > 0.1
 
 
 @pytest.mark.parametrize("h", [16, 32, 48, 128])
 def test_reserve_covers_every_launch_the_engine_makes(h):
     """The engine reserves the latent scratch for batch + 1 rows before
     its graphs are captured; every launch it makes (decode rows, a prefill
-    chunk, the mixed step's chunk and decode rows) fits that reservation,
-    so no eager launch grows (and frees) the buffer a graph captured."""
+    chunk, the mixed step's chunk and decode rows), in either form, fits
+    that reservation, so no eager launch grows (and frees) the buffer a
+    graph captured."""
     B, L = 8, 8192
-    counters, words = cuda_mla.scratch_words(B + 1, h, 2, L)
+    counters, words = cuda_mla.reserve_words(B + 1, h, L)
     for rows in (1, B, B + 1):
-        for q_len in (1, 2, 64, 2048):
+        for q_len in (1, 2, 3, 4, 64, 2048):
             for seq in (1, 300, L):
                 c, w = cuda_mla.scratch_words(rows, h, q_len, seq)
                 assert c <= counters and w <= words, (rows, q_len, seq)
 
 
 def test_tile_shapes_and_scratch():
-    assert cuda_mla.tile_shape(16, 1) == (1, 16, 1, 1)      # V2-Lite decode
-    assert cuda_mla.tile_shape(16, 2048) == (2, 32, 2, 1)   # prefill / mixed
-    assert cuda_mla.tile_shape(128, 1) == (2, 32, 1, 4)     # V2 / V3
+    assert cuda_mla.tile_shape(16, 1) == ("narrow", 16, 4, 4)   # V2-Lite decode
+    assert cuda_mla.tile_shape(16, 3) == ("narrow", 16, 4, 4)   # short rows
+    assert cuda_mla.tile_shape(32, 1) == ("narrow", 16, 2, 4)
+    assert cuda_mla.tile_shape(16, 4) == ("wide", 64, 4, 1)     # 64 pairs
+    assert cuda_mla.tile_shape(16, 2048) == ("wide", 64, 4, 1)  # prefill / mixed
+    assert cuda_mla.tile_shape(128, 1) == ("wide", 64, 1, 2)    # V2 / V3 decode
+    assert cuda_mla.tile_shape(48, 1) == ("narrow", 16, 1, 3)
+    assert cuda_mla.tile_shape(48, 2) == ("wide", 64, 1, 1)
     assert cuda_mla.split_extent(8192) == 32 and cuda_mla.split_extent(1) == 1
-    counters, words = cuda_mla.scratch_words(9, 16, 2, 8192)
-    assert counters == 9 and words == 12 + 9 * 32 * 32 * (512 + 2)
+    assert cuda_mla.split_extent(10**6) == cuda_mla.MAX_SPLITS
+    # the partials are the same in both forms; the narrow form has more
+    # tile groups, so more counters
+    words = 12 + 9 * 32 * 64 * (512 + 2)
+    assert cuda_mla.scratch_words(9, 16, 1, 8192) == (36, words)
+    assert cuda_mla.scratch_words(9, 16, 2048, 8192) == (9, words)
+    assert cuda_mla.reserve_words(9, 16, 8192) == (36, words)
+    assert cuda_mla.reserve_words(9, 32, 8192) == (36, words)
+    assert cuda_mla.reserve_words(9, 128, 8192) == (18, 12 + 9 * 32 * 128 * (512 + 2))
     with pytest.raises(ValueError, match="CUDA tensor"):
         cuda_mla.latent_paged_attention(
             torch.zeros(1, 16, 576, dtype=torch.bfloat16, device="meta"),
-            *[torch.zeros(2, 16, 1, 576, dtype=torch.bfloat16)] * 2,
+            torch.zeros(2, 16, 1, 576, dtype=torch.bfloat16),
             *[torch.zeros(1, 1, dtype=torch.int32)] + [torch.zeros(1, dtype=torch.int32)] * 3)
+
+
+def test_kernel_constants_mirror_the_source():
+    """SPLIT_KEYS and the two forms' rows are the kernel's constants, the
+    split cap fits the merge's shared memory, and the wrapper binds the C
+    entry with its argument counts."""
+    src = os.path.join(os.path.dirname(cuda_mla.__file__), "..", "csrc", "mla_attention.cu")
+    with open(src) as f:
+        text = f.read()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
+    assert const("MLA_SPLIT_KEYS") == cuda_mla.SPLIT_KEYS
+    assert (const("MLA_NARROW_ROWS"), const("MLA_WIDE_ROWS")) == (cuda_mla.NARROW_ROWS,
+                                                                   cuda_mla.WIDE_ROWS)
+    # the merge's 2 floats a (split, row) fit each form's Q bytes
+    for rows in (cuda_mla.NARROW_ROWS, cuda_mla.WIDE_ROWS):
+        assert (2 * cuda_mla.MAX_SPLITS + 1) * rows * 4 <= rows * cuda_mla.D_QK * 2
+    # the wide form's setmaxnreg split: a block of WIDE_THREADS starts at
+    # the launch bound's share of the SM's 65,536 registers (a multiple of
+    # 8), and the producer warpgroup frees at least what the consumers take
+    threads, consumers = const("WIDE_THREADS"), const("WIDE_CONSUMERS")
+    producer_regs, consumer_regs = const("WIDE_PRODUCER_REGS"), const("WIDE_CONSUMER_REGS")
+    start = 65536 // threads // 8 * 8
+    assert threads - consumers == 128 and consumers == 2 * 128
+    assert producer_regs % 8 == 0 and consumer_regs % 8 == 0
+    assert 24 <= producer_regs < start < consumer_regs <= 256
+    assert (start - producer_regs) * 128 >= (consumer_regs - start) * consumers
+    sig =re.search(r'extern "C" int dtt_latent_attention\(([^)]*)\)', text).group(1)
+    params = [p.strip() for p in sig.split(",")]
+    assert params[-1] == "void* stream"
+    assert sum("void*" in p for p in params[:-1]) == cuda_mla.KERNEL.n_ptrs
+    assert sum(p.startswith("int ") for p in params) == cuda_mla.KERNEL.n_ints

@@ -8,13 +8,15 @@ staggered requests (mixed steps) with greedy streams that must be
 identical, tiny_mla also at eager horizons of 4; every attention call of
 an MLA model goes through the latent wrapper (ops/cuda_mla.py), in
 prefill chunks, decode steps, mixed steps and horizons; an int8 cache is
-refused; the horizon body with DeepSeek's routing and the grouped experts
-inside runs without a host round trip.
+refused; the V cache the engine writes equals the K cache on the latent
+lanes (the latent kernel reads only K); the horizon body with DeepSeek's
+routing and the grouped experts inside runs without a host round trip.
 """
 
 import asyncio
 
 import pytest
+import torch
 
 from dynamo_tpu_torch.engine import engine as eng
 from dynamo_tpu_torch.engine.engine import TorchEngine, TorchEngineConfig
@@ -74,6 +76,39 @@ def test_every_attention_call_goes_through_the_latent_wrapper(monkeypatch):
     # the latent queries; the first kv_lora_rank output lanes
     assert all(shape[1:] == (4, 80) and v_dim == 64 for shape, _, v_dim in calls)
     assert {q for _, q, _ in calls} >= {1, 64}   # decode rows and prefill chunks
+
+
+def test_engine_caches_hold_values_equal_to_the_keys_latent_lanes():
+    """The latent kernel reads the values from the key cache: after
+    serving staggered requests (prefill chunks, mixed and decode steps),
+    every layer's V cache equals its K cache on the first kv_lora_rank
+    lanes bit for bit and is 0 on the rest, in every row the engine wrote
+    (and the rows it did not, which stay 0 in both)."""
+    _, tcfg = _configs("tiny_mla_moe")
+    engine = TorchEngine(TorchEngineConfig(model=tcfg, device="cpu", **ENGINE))
+    side = Side(engine, PreprocessedRequest, SamplingOptions, StopConditions, Context)
+
+    async def main():
+        started = asyncio.Event()
+        lead = asyncio.ensure_future(side.run("lead", _prompt(60, 30), max_tokens=12,
+                                              on_first=started))
+        await started.wait()
+        return [await side.run("b", _prompt(61, 90), max_tokens=5), await lead]
+
+    try:
+        out = asyncio.run(main())
+    finally:
+        engine.stop()
+    assert [len(r["tokens"]) for r in out] == [5, 12]
+    r = tcfg.kv_lora_rank
+    written = 0
+    for kc, vc in zip(engine.k_caches, engine.v_caches):
+        assert kc.shape == vc.shape and kc.shape[-2:] == (1, r + tcfg.qk_rope_head_dim)
+        assert torch.equal(vc[..., :r], kc[..., :r])
+        assert not vc[..., r:].any()
+        written += int(kc.flatten(0, -2).ne(0).any(-1).sum())
+    # every prompt and generated token's row, in every layer
+    assert written >= tcfg.num_layers * (30 + 90 + 5 + 12 - 2)
 
 
 def test_an_int8_cache_is_refused_for_mla():
