@@ -12,12 +12,18 @@ one CUDA graph per key and replays it.
   inputs (block tables, active mask, seeds, sampling and penalty
   parameters), laid out in one device buffer that ONE host-to-device copy
   from pinned memory fills; the unified kernel's constant row arrays and
-  windows (Gemma); and the packed results ``[N, B, 2 + 2K]``.
+  windows (Gemma); and the packed results ``[N, B, 2 + 2K]``. A
+  speculative engine's state also holds the spec horizon's packed results
+  ``[R, B, 1 + 2k]`` (``TorchEngine._spec_multi``: R rounds of k draft
+  tokens each).
 - ``HorizonGraphs`` captures the body once per key (a ``max_seq_len``
   bucket: ``DEC_SPLIT_KEYS`` times a power of two, up to ``max_context``;
   and whether any row samples, since the Gumbel draw over ``[B, V]`` is
   the body's one costly optional part), all keys at engine start, before
   any traffic, into one shared memory pool. A capture that fails raises.
+  On a speculative engine the spec body is captured too, once per
+  ``max_seq_len`` bucket (spec rows are greedy: no sampled key), into the
+  same pool; its replays are counted apart (``spec_replays``).
   Each run copies ``packed`` to a slot of a pinned host ring (one slot per
   horizon in flight) on the same stream and records an event per slot,
   which the engine's fetch thread waits on.
@@ -71,7 +77,8 @@ class HorizonState:
     kept as a constant [B] array for the unified kernel."""
 
     def __init__(self, batch: int, max_blocks: int, steps: int, vocab: int, top_k: int,
-                 device: torch.device, windows: Sequence[int] = (), slots: int = 1):
+                 device: torch.device, windows: Sequence[int] = (), slots: int = 1,
+                 spec: Optional[Tuple[int, int]] = None):
         B = batch
         f32, i32, i64 = torch.float32, torch.int32, torch.int64
         self.carry = _Staged([("tokens", i64, (B,)), ("seq_lens", i32, (B,)),
@@ -90,6 +97,13 @@ class HorizonState:
         self.windows = {w: torch.full((B,), w, dtype=i32, device=device) for w in windows}
         # per step and row: token, its logprob, TOP_LOGPROBS_K ids, their logprobs
         self.packed = torch.zeros((steps, B, 2 + 2 * top_k), dtype=f32, device=device)
+        # spec (rounds R, draft tokens k): per round and row the advance,
+        # the k verified tokens and their logprobs; the candidates' offsets
+        self.spec_packed = self.spec_offsets = None
+        if spec is not None:
+            R, k = spec
+            self.spec_packed = torch.zeros((R, B, 1 + 2 * k), dtype=f32, device=device)
+            self.spec_offsets = torch.arange(k + 1, dtype=torch.int64, device=device)
 
     def attrs(self, window: Optional[int] = None, **extra) -> dict:
         """A layer's attention attributes as the unified kernel takes them:
@@ -110,27 +124,35 @@ def seq_len_buckets(max_context: int, unit: int) -> List[int]:
 
 
 class HorizonGraphs:
-    """Runs the horizon body (``body(state, max_seq_len, sampled)``) on
-    ``state``: one CUDA-graph replay per run when ``capture`` (call
-    ``capture_all`` before traffic), else eagerly."""
+    """Runs the horizon body (``body(state, max_seq_len, sampled)``) or the
+    spec body (``spec_body(state, max_seq_len)``) on ``state``: one
+    CUDA-graph replay per run when ``capture`` (call ``capture_all`` before
+    traffic), else eagerly."""
 
     def __init__(self, body: Callable[[HorizonState, int, bool], None], state: HorizonState,
                  buckets: Sequence[int], device: torch.device, capture: bool,
-                 reserve: Optional[Callable[[], None]] = None):
+                 reserve: Optional[Callable[[], None]] = None,
+                 spec_body: Optional[Callable[[HorizonState, int], None]] = None):
         self.body = body
+        self.spec_body = spec_body
         self.state = state
         self.buckets = list(buckets)
         self.device = device
         self.capture = capture
         self._reserve = reserve
         self.graphs: Dict[Tuple[int, bool], Tuple[torch.cuda.CUDAGraph, dict]] = {}
+        self.spec_graphs: Dict[int, Tuple[torch.cuda.CUDAGraph, dict]] = {}
         self.capture_s = 0.0
         self.pool_bytes = 0
         self.replays = 0
+        self.spec_replays = 0
         slots = len(state.carry.host)
         pin = device.type == "cuda"
         self._host = [torch.empty(state.packed.shape, dtype=torch.float32, pin_memory=pin)
                       for _ in range(slots)]
+        self._spec_host = [] if spec_body is None else [
+            torch.empty(state.spec_packed.shape, dtype=torch.float32, pin_memory=pin)
+            for _ in range(slots)]
         self._slot = 0
 
     def key(self, max_seq_len: int, sampled: bool) -> Tuple[int, bool]:
@@ -138,6 +160,14 @@ class HorizonGraphs:
             if max_seq_len <= b:
                 return b, bool(sampled)
         raise ValueError(f"max_seq_len {max_seq_len} above the largest bucket {self.buckets[-1]}")
+
+    def _capture(self, fn, pool, stream) -> Tuple[torch.cuda.CUDAGraph, dict]:
+        graph = torch.cuda.CUDAGraph()
+        with _build.recording_launches() as launched:
+            with torch.cuda.graph(graph, pool=pool, stream=stream,
+                                  capture_error_mode="thread_local"):
+                fn()
+        return graph, launched
 
     def capture_all(self) -> None:
         """Capture every key's graph on a side stream into one pool. Runs
@@ -157,16 +187,17 @@ class HorizonGraphs:
             if self._reserve is not None:
                 self._reserve()
             self.body(self.state, self.buckets[-1], True)
+            if self.spec_body is not None:
+                self.spec_body(self.state, self.buckets[-1])
         stream.synchronize()
         pool = torch.cuda.graph_pool_handle()
         for b in self.buckets:
             for sampled in (False, True):
-                graph = torch.cuda.CUDAGraph()
-                with _build.recording_launches() as launched:
-                    with torch.cuda.graph(graph, pool=pool, stream=stream,
-                                          capture_error_mode="thread_local"):
-                        self.body(self.state, b, sampled)
-                self.graphs[(b, sampled)] = (graph, launched)
+                self.graphs[(b, sampled)] = self._capture(
+                    lambda: self.body(self.state, b, sampled), pool, stream)
+            if self.spec_body is not None:
+                self.spec_graphs[b] = self._capture(
+                    lambda: self.spec_body(self.state, b), pool, stream)
         torch.cuda.synchronize(dev)
         self.capture_s = time.perf_counter() - t0
         torch.cuda.empty_cache()
@@ -179,20 +210,23 @@ class HorizonGraphs:
         self._slot = (slot + 1) % len(self._host)
         return slot
 
-    def run(self, slot: int, max_seq_len: int, sampled: bool):
-        """One horizon on the current stream, its packed results copied to
-        host slot ``slot``; returns (that host tensor, an event recorded
-        after the copy, or None off CUDA)."""
+    def run(self, slot: int, max_seq_len: int, sampled: bool, spec: bool = False):
+        """One horizon (the spec body when ``spec``) on the current stream,
+        its packed results copied to host slot ``slot``; returns (that host
+        tensor, an event recorded after the copy, or None off CUDA)."""
         key = self.key(max_seq_len, sampled)
         if self.capture:
-            graph, launched = self.graphs[key]
+            graph, launched = self.spec_graphs[key[0]] if spec else self.graphs[key]
             graph.replay()
             _build.add_replayed(launched)
             self.replays += 1
+            self.spec_replays += spec
+        elif spec:
+            self.spec_body(self.state, key[0])
         else:
             self.body(self.state, *key)
-        host = self._host[slot]
-        host.copy_(self.state.packed, non_blocking=True)
+        host = (self._spec_host if spec else self._host)[slot]
+        host.copy_(self.state.spec_packed if spec else self.state.packed, non_blocking=True)
         event = None
         if self.device.type == "cuda":
             event = torch.cuda.Event()
@@ -207,5 +241,6 @@ class HorizonGraphs:
         return host.numpy().copy()
 
     def stats(self) -> dict:
-        return {"graphs": len(self.graphs), "capture_s": self.capture_s,
-                "pool_bytes": self.pool_bytes, "replays": self.replays}
+        return {"graphs": len(self.graphs) + len(self.spec_graphs),
+                "capture_s": self.capture_s, "pool_bytes": self.pool_bytes,
+                "replays": self.replays, "spec_replays": self.spec_replays}

@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -240,9 +240,13 @@ def forward(
     token_ids: torch.Tensor,        # [..., S] integer
     positions: torch.Tensor,        # [..., S] integer
     attend: AttendFn,
+    inputs_embeds: Optional[torch.Tensor] = None,   # [..., S, hidden]
 ) -> torch.Tensor:
-    """Full stack -> final hidden states [..., S, hidden] (pre-lm_head)."""
-    x = F.embedding(token_ids.long(), params["embed"])
+    """Full stack -> final hidden states [..., S, hidden] (pre-lm_head).
+
+    ``inputs_embeds`` replaces the embedding gather when given: the
+    multimodal path splices vision soft tokens in (models/vision.py)."""
+    x = F.embedding(token_ids.long(), params["embed"]) if inputs_embeds is None else inputs_embeds
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
     cos, sin = cos[..., None, :], sin[..., None, :]   # broadcast over heads
     for i, layer in enumerate(params["layers"]):

@@ -298,6 +298,43 @@ def write_decode_kv(
     return k_cache, v_cache
 
 
+def paged_extend_attention(
+    q: torch.Tensor,             # [B, S_new, h, d] candidate-token queries
+    k_cache,                     # [num_blocks, bs, kvh, d] or QuantizedKV
+    v_cache,
+    block_tables: torch.Tensor,  # [B, max_blocks] int
+    start_pos: torch.Tensor,     # [B] absolute position of each row's q[0]
+    total_lens: torch.Tensor,    # [B] context length incl. the S_new candidates
+) -> torch.Tensor:
+    """Batched paged prefix-extend: every row attends its S_new new tokens
+    causally over its OWN pages (which already hold the new tokens' KV):
+    key j is visible to the row's token at position p iff ``j < min(p + 1,
+    total_lens[b])``. The verify pass of speculative decoding has this
+    shape; the reference's plain engines run this op for it. Batched over
+    the rows with no host read, so that it runs inside the spec horizon's
+    body on the CPU as it is."""
+    B, n, h, d = q.shape
+    _, bs, kvh, _ = k_cache.shape
+    mb = block_tables.shape[1]
+    idx = block_tables.long()
+    if is_quantized(k_cache):
+        k = dequantize_blocks(k_cache.data[idx], k_cache.scale[idx])
+        v = dequantize_blocks(v_cache.data[idx], v_cache.scale[idx])
+    else:
+        k, v = k_cache[idx].float(), v_cache[idx].float()
+    k = k.reshape(B, mb * bs, kvh, d)
+    v = v.reshape(B, mb * bs, kvh, d)
+    g = h // kvh
+    qg = q.reshape(B, n, kvh, g, d).float()
+    scores = torch.einsum("bnkgd,btkd->bnkgt", qg, k) * _scale(d)
+    pos = start_pos.long()[:, None] + torch.arange(n, device=q.device)
+    lim = torch.minimum(pos + 1, total_lens.long()[:, None])                # [B, n]
+    valid = torch.arange(mb * bs, device=q.device)[None, None, :] < lim[:, :, None]
+    scores = torch.where(valid[:, :, None, None, :], scores, NEG_INF)
+    out = torch.einsum("bnkgt,btkd->bnkgd", torch.softmax(scores, dim=-1), v)
+    return out.reshape(B, n, h, d).to(q.dtype)
+
+
 def ragged_paged_attention(
     q: torch.Tensor,             # [Tq, h, d] densely packed ragged queries
     k_cache,                     # [num_blocks, bs, kvh, d] or QuantizedKV

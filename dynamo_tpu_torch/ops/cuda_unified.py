@@ -141,6 +141,37 @@ def ragged_paged_attention(
     return out
 
 
+def verify_attention(
+    q: torch.Tensor,             # [B, n, h, d] bf16: each row's n candidate tokens
+    k_cache,                     # [num_blocks, bs, kvh, d] bf16, or QuantizedKV
+    v_cache,
+    block_tables: torch.Tensor,  # [B, max_blocks] int32
+    total_lens: torch.Tensor,    # [B] int32 context length incl. the candidates
+    active: torch.Tensor,        # [B] bool
+    *,
+    max_seq_len: Optional[int] = None,
+) -> torch.Tensor:
+    """The verify pass of speculative decoding: row b's n tokens sit at
+    positions ``total_lens[b] - n + i`` and attend causally over the row's
+    pages. On CUDA tensors: ONE launch of the unified kernel over
+    ``q_len = n`` rows (``q_starts = arange(B) * n``, ``q_lens = active *
+    n``, ``seq_lens = active * total_lens``; inactive rows read back zeros),
+    built on the device, so that the call can be captured in a CUDA graph.
+    On CPU tensors its plain version, ``ops.attention.paged_extend_attention``
+    (batched, no host read; inactive rows are garbage there)."""
+    B, n, h, d = q.shape
+    if q.device.type == "cpu":
+        return att.paged_extend_attention(q, k_cache, v_cache, block_tables,
+                                          total_lens - n, total_lens)
+    i32 = torch.int32
+    starts = torch.arange(B, dtype=i32, device=q.device) * n
+    out = ragged_paged_attention(
+        q.reshape(B * n, h, d), k_cache, v_cache, block_tables, starts,
+        active.to(i32) * n, torch.where(active, total_lens, 0).to(i32),
+        max_q_len=n, max_seq_len=max_seq_len)
+    return out.reshape(B, n, h, d)
+
+
 def split_shape(h: int, kvh: int, max_q_len: int, max_seq_len: int):
     """(S, QS) of a launch: at most S splits per row (1 = no split-K), and
     QS, the longest row that may be split (one q tile of 64 // G tokens,

@@ -14,6 +14,9 @@ preprocessor and HTTP frontend are later slices).
     python -m dynamo_tpu_torch.run in=text:hi out=tiny-gemma3 --device cpu
     python -m dynamo_tpu_torch.run in=text:hi out=tiny-gptoss --device cpu
     python -m dynamo_tpu_torch.run in=text:hi out=tiny-mla-moe --device cpu
+    python -m dynamo_tpu_torch.run in=text:hi out=tiny-vl --device cpu
+    python -m dynamo_tpu_torch.run in=text:hi out=tiny --spec-draft tiny --spec-k 3 \
+        --device cpu
     python -m dynamo_tpu_torch.run in=batch:prompts.txt out=llama3-8b \
         --kv-dtype int8 --kvbm-host-gb 4
 
@@ -27,6 +30,18 @@ horizon; on the GPU each horizon replays a CUDA graph captured at start)
 and ``--decode-pipeline D`` keeps D horizons in flight; both default to
 the engine's auto-tuned schedule, and ``--decode-steps 1`` runs one eager
 step per tick, as the reference's worker flags of the same names do.
+
+``--spec-draft PRESET`` serves with speculative decoding, a draft of that
+preset's architecture (random weights from ``--seed`` + 2) drafting
+``--spec-k`` tokens a round (default 4, capped at the decode horizon), as
+the reference worker's flags of the same names do: greedy requests ride
+spec rounds, others fall back to normal horizons. Main and draft are of
+the llama family; on the GPU the draft takes head_dim 128.
+
+``out=tiny-vl`` is the tiny llama preset with a tiny vision tower
+(``VisionConfig.tiny``, random weights from ``--seed`` + 1), as the
+reference's ``tiny-vl``: the engine takes image parts (the ``images``
+annotation); text prompts through this CLI serve as on ``tiny``.
 
 ``out=`` names a preset of any family (llama: tiny, qwen3-0.6b,
 llama3-8b, llama3-70b; gemma: tiny-gemma2, tiny-gemma3, gemma2-2b,
@@ -53,8 +68,24 @@ from .kvbm.layout import kv_bytes_per_token
 from .kvbm.pool import KvbmTiers
 from .llm.protocols.common import PreprocessedRequest, SamplingOptions, StopConditions
 from .llm.tokenizer import ByteTokenizer, DecodeStream
+from .models.llama import LlamaConfig
 from .models.registry import PRESETS
+from .models.vision import VisionConfig
 from .runtime.engine import Context
+
+
+# language presets with a vision tower: (language preset, tower for its hidden size)
+VISION_PRESETS = {
+    "tiny-vl": ("tiny", lambda m: VisionConfig.tiny(out_hidden_size=m.hidden_size)),
+}
+
+
+def _model_of(preset: str) -> LlamaConfig:
+    name = VISION_PRESETS[preset][0] if preset in VISION_PRESETS else preset
+    if name not in PRESETS:
+        raise SystemExit(f"unknown preset {preset!r} (one of "
+                         f"{', '.join(list(PRESETS) + list(VISION_PRESETS))})")
+    return PRESETS[name]()
 
 
 def build_engine(preset: str, device: Optional[str], max_context: int, seed: int,
@@ -62,10 +93,11 @@ def build_engine(preset: str, device: Optional[str], max_context: int, seed: int
                  kvbm_disk_gb: float = 0.0,
                  kvbm_disk_path: Optional[str] = None,
                  decode_steps: Optional[int] = None,
-                 decode_pipeline: Optional[int] = None) -> TorchEngine:
-    if preset not in PRESETS:
-        raise SystemExit(f"unknown preset {preset!r} (one of {', '.join(PRESETS)})")
-    model = PRESETS[preset]()
+                 decode_pipeline: Optional[int] = None,
+                 spec_draft: Optional[str] = None, spec_k: int = 4) -> TorchEngine:
+    model = _model_of(preset)
+    vision = VISION_PRESETS[preset][1](model) if preset in VISION_PRESETS else None
+    draft = _model_of(spec_draft) if spec_draft else None
     if max_context > model.max_position:
         raise SystemExit(f"--max-context {max_context} exceeds {preset}'s max_position "
                          f"{model.max_position}")
@@ -75,6 +107,7 @@ def build_engine(preset: str, device: Optional[str], max_context: int, seed: int
         num_blocks=max(512, (max_context // 16) * 16),
         prefill_buckets=buckets + (max_context,), kv_dtype=kv_dtype,
         decode_steps=decode_steps, decode_pipeline=decode_pipeline,
+        vision=vision, spec_draft=draft, spec_k=spec_k,
     )
     kvbm = None
     if kvbm_host_gb > 0 or kvbm_disk_gb > 0:
@@ -115,7 +148,8 @@ async def run(args) -> None:
         raise SystemExit(f"unknown input {args.input!r} (text:<prompt> | batch:<file>)")
     engine = build_engine(args.out, args.device, args.max_context, args.seed,
                           args.kv_dtype, args.kvbm_host_gb, args.kvbm_disk_gb,
-                          args.kvbm_disk_path, args.decode_steps, args.decode_pipeline)
+                          args.kvbm_disk_path, args.decode_steps, args.decode_pipeline,
+                          args.spec_draft, args.spec_k)
     tok = ByteTokenizer()
     try:
         if kind == "text":
@@ -162,6 +196,13 @@ def main(argv: Optional[List[str]] = None) -> None:
     p.add_argument("--decode-pipeline", type=int, default=None,
                    help="decode horizons in flight (default: auto-tuned with "
                         "--decode-steps)")
+    p.add_argument("--spec-draft", default=None, metavar="PRESET",
+                   help="speculative decoding with a draft of this preset's "
+                        "architecture (random weights); greedy requests ride "
+                        "spec rounds, others fall back per dispatch")
+    p.add_argument("--spec-k", type=int, default=4,
+                   help="draft tokens per speculative round (capped at the "
+                        "decode steps)")
     args = p.parse_args(argv)
     spec = dict(part.partition("=")[::2] for part in args.io)
     if "in" not in spec or "out" not in spec:

@@ -85,7 +85,8 @@ def test_the_walk_covers_every_module_of_the_port():
     """Both checks above walk the package; the modules of each slice must be
     in that walk (slice 2: int8 KV, block copy, KVBM; slice 3: the gemma
     family and the model registry; then the gpt-oss family; then the
-    Qwen3-MoE and MLA families and the latent attention wrapper)."""
+    Qwen3-MoE and MLA families and the latent attention wrapper; then the
+    vision tower and the encoder cache)."""
     mods = set(_modules())
     assert {
         "dynamo_tpu_torch.ops.quant", "dynamo_tpu_torch.ops.block_copy",
@@ -95,5 +96,6 @@ def test_the_walk_covers_every_module_of_the_port():
         "dynamo_tpu_torch.models.gemma", "dynamo_tpu_torch.models.registry",
         "dynamo_tpu_torch.models.gptoss", "dynamo_tpu_torch.models.moe",
         "dynamo_tpu_torch.models.mla", "dynamo_tpu_torch.models.experts",
-        "dynamo_tpu_torch.ops.cuda_mla",
+        "dynamo_tpu_torch.ops.cuda_mla", "dynamo_tpu_torch.models.vision",
+        "dynamo_tpu_torch.llm.encoder_cache",
     } <= mods
