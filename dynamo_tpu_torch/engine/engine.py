@@ -51,7 +51,14 @@ llama, gemma, gpt-oss, Qwen3-MoE and DeepSeek (MLA) families on one GPU
   candidates as ``q_len = spec_k + 1`` rows of the unified kernel
   (``_spec_multi``); a dispatch whose rows are all greedy with no
   penalties or logprobs runs a spec horizon (one CUDA-graph replay on
-  CUDA) in place of the normal one, and streams exactly its tokens.
+  CUDA) in place of the normal one, and streams exactly its tokens;
+- embeddings (a request annotated ``op: embed``): the last token's final
+  hidden state, float32, L2-normalised, in one ``BackendOutput``'s
+  annotations, as the reference's. The loop serves them between steps,
+  never while a horizon is in flight. An input of one prefill bucket runs
+  one forward that attends over its own K/V outside the pool; a longer one
+  runs as prefill chunks over temporary pages that are never committed or
+  offloaded and are released after (``_run_embed``).
 
 Attention runs through the wrappers of the hand-written CUDA kernels
 (ops/cuda_attention, cuda_prefill, cuda_unified): on CUDA tensors they
@@ -76,7 +83,7 @@ streams results never blocks behind the GPU; a horizon's readback waits on
 a fetch thread.
 
 Not in this slice (ROADMAP.md): LoRA, guided decoding, logits processors,
-embeddings, vision and spec decode on families other than llama, the G4
+vision and spec decode on families other than llama, the G4
 remote KVBM tier, disaggregated transfer, parallelism, and the KV-event /
 metrics / tracing / SLO hooks. A request that asks for one of those is
 refused with ``UnsupportedRequestError``; an engine configuration that
@@ -251,9 +258,13 @@ def _has_penalties(s) -> bool:
 
 
 def _check_features(config: TorchEngineConfig) -> None:
-    """Refuse, before anything is allocated, the vision and spec
-    configurations this port does not serve yet (ROADMAP.md Queue 1)."""
+    """Refuse, before anything is allocated, the configurations this port
+    does not serve yet (ROADMAP.md Queue 1): vision and spec decoding
+    outside the llama family, and on the card a llama-family or Qwen3-MoE
+    main model whose shape the decode or flash-extend kernel lacks (the
+    CPU's plain ops serve every shape)."""
     m, d = config.model, config.spec_draft
+    on_card = torch.device(config.device or "cuda").type == "cuda"
     if config.vision is not None:
         if registry.family(m) is not llama:
             raise ValueError("vision serving covers the dense llama family in this port; "
@@ -261,23 +272,31 @@ def _check_features(config: TorchEngineConfig) -> None:
         if config.vision.out_hidden_size != m.hidden_size:
             raise ValueError("vision.out_hidden_size must match the language model "
                              f"hidden size ({m.hidden_size})")
-    if d is None:
-        return
-    if config.vision is not None:
-        raise ValueError("speculative decoding covers the text path: vision with a "
-                         "spec_draft is refused (ROADMAP.md Queue 1)")
-    for name, cfg in (("main", m), ("draft", d)):
-        if registry.family(cfg) is not llama:
-            raise ValueError(f"speculative decoding covers dense llama models in this port; "
-                             f"the {name} model is of another family (ROADMAP.md Queue 1)")
-    if d.vocab_size != m.vocab_size:
-        raise ValueError(f"draft and main model must share a vocabulary ({d.vocab_size} != "
-                         f"{m.vocab_size}; ROADMAP.md Queue 1)")
-    if (torch.device(config.device or "cuda").type == "cuda"
-            and d.head_dim != cuda_attention.HEAD_DIM):
-        raise ValueError(f"the draft's head_dim {d.head_dim} has no decode kernel form (it "
-                         f"takes {cuda_attention.HEAD_DIM}); such drafts are queued in "
-                         "ROADMAP.md (Queue 1)")
+    if d is not None:
+        if config.vision is not None:
+            raise ValueError("speculative decoding covers the text path: vision with a "
+                             "spec_draft is refused (ROADMAP.md Queue 1)")
+        for name, cfg in (("main", m), ("draft", d)):
+            if registry.family(cfg) is not llama:
+                raise ValueError(f"speculative decoding covers dense llama models in this "
+                                 f"port; the {name} model is of another family "
+                                 "(ROADMAP.md Queue 1)")
+        if d.vocab_size != m.vocab_size:
+            raise ValueError(f"draft and main model must share a vocabulary ({d.vocab_size} "
+                             f"!= {m.vocab_size}; ROADMAP.md Queue 1)")
+        if on_card and d.head_dim != cuda_attention.HEAD_DIM:
+            raise ValueError(f"the draft's head_dim {d.head_dim} has no decode kernel form (it "
+                             f"takes {cuda_attention.HEAD_DIM}); such drafts are queued in "
+                             "ROADMAP.md (Queue 1)")
+    if on_card and registry.family(m) in (llama, moe) and not (
+            cuda_attention.supports(m.num_heads, m.num_kv_heads, m.head_dim)
+            and cuda_prefill.supports(m.num_heads, m.num_kv_heads, m.head_dim)):
+        raise ValueError(
+            f"{m.num_heads} heads over {m.num_kv_heads} kv heads at head_dim {m.head_dim}: "
+            f"the decode kernel takes head_dim {cuda_attention.HEAD_DIM} and group sizes "
+            f"{cuda_attention.GROUP_SIZES}, flash-extend head_dim {cuda_prefill.HEAD_DIM} "
+            f"and group sizes dividing {cuda_prefill.TILE_ROWS}; serving this shape on the "
+            "card is queued in ROADMAP.md (Queue 1 item 3); device='cpu' serves it")
 
 
 def _sync(device: torch.device) -> None:
@@ -495,6 +514,8 @@ class TorchEngine:
         self._slot_dirty = np.zeros(B, bool)   # slot's penalty rows need reset
 
         self._waiting: List[_Seq] = []
+        # embedding requests for the loop: (token ids, future of the vector)
+        self._embed_waiting: List[Tuple[List[int], asyncio.Future]] = []
         self._prefill_rr = 0  # round-robin cursor over prefilling sequences
         self._loop_task: Optional[asyncio.Task] = None
         self._wake = asyncio.Event()
@@ -502,7 +523,7 @@ class TorchEngine:
         # dispatches run so far, by kind ("prefill" | "decode" | "mixed" |
         # "horizon": one multi-step decode dispatch | "spec": one spec horizon)
         self.step_counts: Dict[str, int] = {"prefill": 0, "decode": 0, "mixed": 0,
-                                            "horizon": 0, "spec": 0}
+                                            "horizon": 0, "spec": 0, "embed": 0}
         self._executor = ThreadPoolExecutor(max_workers=1, thread_name_prefix="torch-step")
         # horizons in flight, oldest first; their readbacks wait on the
         # fetch thread so the step thread keeps dispatching
@@ -606,8 +627,8 @@ class TorchEngine:
                 raise UnsupportedRequestError(f"this engine does not support {key!r}")
         if ann.get("images") and self.cfg.vision is None:
             raise UnsupportedRequestError("this engine was built without a vision tower")
-        if ann.get("op") == "embed":
-            raise UnsupportedRequestError("this engine does not serve embeddings")
+        if ann.get("op") == "embed" and ann.get("images"):
+            raise UnsupportedRequestError("embeddings take text prompts only")
         if req.sampling.guided is not None:
             raise UnsupportedRequestError("this engine has no guided decoding")
         if req.kv_transfer:
@@ -640,6 +661,11 @@ class TorchEngine:
         )
         prompt = self._check_request(req)
         self._ensure_loop()
+        if (req.annotations or {}).get("op") == "embed":
+            vec = await self._embed(list(req.token_ids))
+            yield BackendOutput(finish_reason=FINISH_STOP, annotations={
+                "embedding": [float(v) for v in vec], "input_tokens": len(req.token_ids)})
+            return
         st = _Seq(
             req=req, context=context, out_queue=asyncio.Queue(),
             seq=TokenBlockSequence(prompt, self.cfg.block_size),
@@ -671,6 +697,46 @@ class TorchEngine:
             if item.finish_reason is not None:
                 return
 
+    async def _embed(self, token_ids: List[int]) -> np.ndarray:
+        """Queue an embedding for the loop, which serves it between steps
+        (never while a horizon is in flight), and wait for its vector."""
+        fut = asyncio.get_running_loop().create_future()
+        self._embed_waiting.append((token_ids, fut))
+        self._idle = False
+        self._wake.set()
+        return await fut
+
+    async def _serve_embeds(self, loop) -> None:
+        """Loop thread: run the queued embeddings on the step executor. An
+        input longer than one prefill chunk gets temporary pages for its
+        chunks (allocated here, where the allocator lives; never committed
+        to the prefix cache, never offloaded, released after)."""
+        pending, self._embed_waiting = self._embed_waiting, []
+        for token_ids, fut in pending:
+            if fut.done():
+                continue
+            S, block_ids = len(token_ids), None
+            if S > self.cfg.prefill_chunk:
+                need = -(-S // self.cfg.block_size)
+                if not self.allocator.can_allocate(need):
+                    fut.set_exception(ValueError(
+                        f"no KV capacity for a {S}-token embedding ({need} blocks needed); "
+                        "retry later"))
+                    continue
+                block_ids = self.allocator.allocate(need)
+            try:
+                vec = await loop.run_in_executor(self._executor, self._run_embed, token_ids,
+                                                 block_ids)
+            except Exception as e:
+                if not fut.done():
+                    fut.set_exception(e)
+            else:
+                if not fut.done():
+                    fut.set_result(vec)
+            finally:
+                if block_ids is not None:
+                    self.allocator.release(block_ids)
+
     def _ensure_loop(self) -> None:
         if self._loop_task is None or self._loop_task.done():
             self._loop_task = asyncio.get_running_loop().create_task(self._loop())
@@ -687,12 +753,14 @@ class TorchEngine:
         loop = asyncio.get_running_loop()
         try:
             while True:
-                if (not self._waiting and not self._chains
+                if (not self._waiting and not self._chains and not self._embed_waiting
                         and all(s is None for s in self._slots)):
                     self._wake.clear()
                     self._idle = True
                     await self._wake.wait()
                     self._idle = False
+                if self._embed_waiting and not self._chains:
+                    await self._serve_embeds(loop)
                 self._admit_cancelled()
                 self._try_admit()
                 # chunked prefill: ONE bounded chunk per tick, round-robin
@@ -757,6 +825,7 @@ class TorchEngine:
                 while (
                     has_active
                     and not self._waiting
+                    and not self._embed_waiting
                     and not did_mixed
                     and not mixed_wait
                     and len(self._chains) < self.cfg.decode_pipeline
@@ -795,6 +864,10 @@ class TorchEngine:
                 if st.block_ids:
                     self.allocator.release(st.block_ids)
             self._waiting = []
+            for _, fut in self._embed_waiting:
+                if not fut.done():
+                    fut.set_exception(RuntimeError("engine loop crashed"))
+            self._embed_waiting = []
             self._slots = [None] * self.cfg.max_batch_size
             self._chains.clear()
             self._sealed_unwritten = []
@@ -1019,10 +1092,26 @@ class TorchEngine:
         samples the first token (returned), earlier ones return None."""
         start, chunk_len, is_final, (tokens, positions, new_ids) = self._next_chunk(st)
         total_len = start + chunk_len
-        table = self._chunk_table(st, total_len)
-        new_ids_t = self._t(new_ids)
+        attend = self._chunk_attend(self._chunk_table(st, total_len), start, chunk_len,
+                                    len(tokens), self._t(new_ids))
+        ids, embeds = self._chunk_inputs(st, tokens, start, chunk_len)
+        kw = {} if embeds is None else {"inputs_embeds": embeds}
+        hidden = self._forward(self.params, self.mcfg, ids, self._t(positions), attend, **kw)
+        self.step_counts["prefill"] += 1
+        st.prefill_pos = total_len
+        self._advance_draft_prefill(st)
+        if not is_final:
+            return None
+        return self._first_token(st, hidden[chunk_len - 1:chunk_len])
 
-        pad = self._pad_rows(chunk_len, len(tokens))
+    def _chunk_attend(self, table: torch.Tensor, start: int, chunk_len: int, S_pad: int,
+                      new_ids_t: torch.Tensor):
+        """The attend of one prefill chunk of ``chunk_len`` rows (padded to
+        ``S_pad``) at ``start``, over the pages of ``table``: write the
+        chunk's KV into its pages (``new_ids_t``), then attend over the
+        context through the family's kernel."""
+        total_len = start + chunk_len
+        pad = self._pad_rows(chunk_len, S_pad)
         # for layers with attention attributes: the chunk as ONE ragged row
         # of the unified kernel, its segment at the tail of a total_len context
         unified = _UnifiedRows(self._t, [0], [chunk_len], [total_len])
@@ -1042,15 +1131,61 @@ class TorchEngine:
             k_ctx, v_ctx = att.gather_kv(kc, vc, table)
             return cuda_prefill.flash_extend_attention(q, k_ctx, v_ctx, start, total_len)
 
-        ids, embeds = self._chunk_inputs(st, tokens, start, chunk_len)
-        kw = {} if embeds is None else {"inputs_embeds": embeds}
-        hidden = self._forward(self.params, self.mcfg, ids, self._t(positions), attend, **kw)
-        self.step_counts["prefill"] += 1
-        st.prefill_pos = total_len
-        self._advance_draft_prefill(st)
-        if not is_final:
-            return None
-        return self._first_token(st, hidden[chunk_len - 1:chunk_len])
+        return attend
+
+    @torch.inference_mode()
+    def _run_embed(self, token_ids: List[int],
+                   block_ids: Optional[List[int]] = None) -> np.ndarray:
+        """Step executor: the pooled forward of an embedding request, the
+        last token's final hidden state in float32, L2-normalised (norm
+        floored at 1e-9), as the reference's. An input that fits one
+        prefill bucket (``block_ids`` None) runs one forward whose
+        attention reads the chunk's own K/V, unquantized, in no page of
+        the pool: flash-extend over it for the llama family, else its rows
+        viewed as pages of their own for the unified or the latent kernel.
+        A longer one runs as prefill chunks over the temporary pages
+        ``block_ids``, through the prefill chunk's attend."""
+        S, bs = len(token_ids), self.cfg.block_size
+        if block_ids is None:
+            S_pad = self._bucket(S)
+            tokens = np.zeros(S_pad, np.int64)
+            tokens[:S] = token_ids
+            attend, last = self._own_kv_attend(S, S_pad), S - 1
+            hidden = self._forward(self.params, self.mcfg, self._t(tokens),
+                                   self._t(np.arange(S_pad)), attend)
+            self.step_counts["embed"] += 1
+        else:
+            for start in range(0, S, self.cfg.prefill_chunk):
+                chunk_len = min(self.cfg.prefill_chunk, S - start)
+                tokens, positions, new_ids = self._chunk_arrays(token_ids, start, chunk_len,
+                                                                block_ids)
+                table = self._t(block_ids[:-(-(start + chunk_len) // bs)], torch.int32)
+                attend = self._chunk_attend(table, start, chunk_len, len(tokens),
+                                            self._t(new_ids))
+                hidden = self._forward(self.params, self.mcfg, self._t(tokens),
+                                       self._t(positions), attend)
+                self.step_counts["embed"] += 1
+            last = chunk_len - 1
+        h = hidden[last].float()
+        return (h / torch.clamp(torch.linalg.vector_norm(h), min=1e-9)).cpu().numpy()
+
+    def _own_kv_attend(self, n: int, S_pad: int):
+        """The attend of a one-forward embedding of ``n`` tokens padded to
+        ``S_pad``: causal attention over the forward's own K/V, which no
+        cache holds."""
+        bs = self.cfg.block_size
+        rows = _UnifiedRows(self._t, [0], [n], [n])
+        table = torch.arange(S_pad // bs, dtype=torch.int32, device=self.device)[None]
+
+        def attend(q, k_new, v_new, layer_idx, **extra):
+            k_new, v_new = k_new.contiguous(), v_new.contiguous()
+            if not (extra or self._latent):
+                return cuda_prefill.flash_extend_attention(q, k_new, v_new, 0, n)
+            kc = k_new.view(S_pad // bs, bs, *k_new.shape[1:])
+            vc = v_new.view(S_pad // bs, bs, *v_new.shape[1:])
+            return self._ragged(q, kc, vc, table, rows.rows(), n, n, rows.attrs(**extra))
+
+        return attend
 
     def _chunk_inputs(self, st: _Seq, tokens: np.ndarray, start: int, chunk_len: int):
         """(token ids, inputs_embeds or None) of a prefill chunk's forward.

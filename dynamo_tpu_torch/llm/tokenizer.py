@@ -1,14 +1,37 @@
-"""Byte-level tokenizer and incremental detokenization.
+"""Tokenizers and incremental detokenization.
 
-Copies of ``ByteTokenizer`` and ``DecodeStream`` from the reference
-package's llm/tokenizer.py: UTF-8 bytes as tokens (ids 256+ are special
-tokens), exact text round trip, no assets. The HF tokenizer wrapper comes
-with the slice that loads real checkpoints.
+Counterparts of the reference package's llm/tokenizer.py:
+
+- ``ByteTokenizer``: UTF-8 bytes as tokens (ids 256+ are special tokens),
+  exact text round trip, no assets; the default for presets and tests.
+- ``HFTokenizer``: ``transformers.AutoTokenizer`` over a local checkpoint
+  directory, with the model's own chat template. ``transformers`` is
+  imported when one is built, never with this module.
+- ``load_tokenizer`` picks one by reference, ``DecodeStream`` turns token
+  ids into printable text deltas over either.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterable, List, Sequence
+import logging
+import os
+from typing import Any, Dict, Iterable, List, Optional, Protocol, Sequence
+
+log = logging.getLogger("dynamo_tpu_torch.llm.tokenizer")
+
+
+class Tokenizer(Protocol):
+    eos_token_id: int
+    bos_token_id: Optional[int]
+    vocab_size: int
+
+    def encode(self, text: str) -> List[int]: ...
+
+    def decode(self, ids: Sequence[int], skip_special_tokens: bool = True) -> str: ...
+
+    def apply_chat_template(
+        self, messages: List[Dict[str, Any]], add_generation_prompt: bool = True
+    ) -> str: ...
 
 
 class ByteTokenizer:
@@ -93,13 +116,54 @@ class ByteTokenizer:
         return ids
 
 
+class HFTokenizer:
+    """transformers.AutoTokenizer adapter (local paths only, offline)."""
+
+    def __init__(self, path: str):
+        from transformers import AutoTokenizer  # deferred: a heavy, optional import
+
+        self._tok = AutoTokenizer.from_pretrained(path, local_files_only=True)
+        self.eos_token_id = self._tok.eos_token_id
+        self.bos_token_id = self._tok.bos_token_id
+        self.vocab_size = len(self._tok)
+
+    def encode(self, text: str) -> List[int]:
+        return self._tok.encode(text, add_special_tokens=False)
+
+    def decode(self, ids: Sequence[int], skip_special_tokens: bool = True) -> str:
+        return self._tok.decode(ids, skip_special_tokens=skip_special_tokens)
+
+    def apply_chat_template(
+        self, messages: List[Dict[str, Any]], add_generation_prompt: bool = True
+    ) -> str:
+        return self._tok.apply_chat_template(
+            messages, tokenize=False, add_generation_prompt=add_generation_prompt
+        )
+
+    def encode_chat(self, messages: List[Dict[str, Any]]) -> List[int]:
+        return self._tok.apply_chat_template(messages, tokenize=True,
+                                             add_generation_prompt=True)
+
+
+def load_tokenizer(ref: Optional[str]) -> Tokenizer:
+    """None or "byte" -> ByteTokenizer; a local path -> HFTokenizer; any
+    other reference falls back to the byte tokenizer with a warning, as the
+    reference does."""
+    if ref is None or ref == "byte":
+        return ByteTokenizer()
+    if os.path.exists(ref):
+        return HFTokenizer(ref)
+    log.warning("tokenizer ref %r not found locally; falling back to byte tokenizer", ref)
+    return ByteTokenizer()
+
+
 class DecodeStream:
     """Incremental detokenization: feed token ids, get printable text deltas.
 
     Holds back text while the current suffix could still be an incomplete
     UTF-8 sequence (decode yields U+FFFD at the boundary)."""
 
-    def __init__(self, tokenizer: ByteTokenizer, skip_special_tokens: bool = True):
+    def __init__(self, tokenizer: Tokenizer, skip_special_tokens: bool = True):
         self._tok = tokenizer
         self._ids: List[int] = []
         self._emitted = 0  # chars already released

@@ -46,6 +46,13 @@ KERNEL_INT8 = Kernel("decode_attention.cu", "dtt_paged_decode_i8", n_ptrs=11, n_
 # query heads per kv head the kernel is instantiated for
 GROUP_SIZES = (1, 2, 4, 8)
 HEAD_DIM = 128
+
+
+def supports(heads: int, kv_heads: int, head_dim: int) -> bool:
+    """Whether the kernel has a form for this attention shape."""
+    return head_dim == HEAD_DIM and heads % kv_heads == 0 and heads // kv_heads in GROUP_SIZES
+
+
 # the kernel's DEC_SPLIT_KEYS (csrc/decode_attention.cu): keys per split
 DEC_SPLIT_KEYS = 256
 

@@ -24,6 +24,14 @@ from ._build import Kernel, check_cuda_tensor
 
 KERNEL = Kernel("flash_extend.cu", "dtt_flash_extend", n_ptrs=4, n_ints=5)
 KERNEL_INT8 = Kernel("flash_extend.cu", "dtt_flash_extend_i8", n_ptrs=6, n_ints=5)
+HEAD_DIM = 128
+# query rows of a tile: a kv head's group of query heads must divide it
+TILE_ROWS = 64
+
+
+def supports(heads: int, kv_heads: int, head_dim: int) -> bool:
+    """Whether the kernel has a form for this attention shape."""
+    return head_dim == HEAD_DIM and heads % kv_heads == 0 and TILE_ROWS % (heads // kv_heads) == 0
 
 
 def flash_extend_reference(
@@ -72,10 +80,10 @@ def flash_extend_attention(
             check_cuda_tensor(name, sc, torch.float32, 2)
             if tuple(sc.shape) != (T, kvh):
                 raise ValueError(f"{name} must be [T, kv_heads] = {(T, kvh)}")
-    if d != 128 or dk != 128 or v_ctx.shape != k_ctx.shape:
-        raise ValueError("the flash-extend kernel takes head_dim 128 and equal K/V")
-    if h % kvh or 64 % (h // kvh):
-        raise ValueError(f"{h} heads over {kvh} kv heads: group size must divide 64")
+    if d != HEAD_DIM or dk != HEAD_DIM or v_ctx.shape != k_ctx.shape:
+        raise ValueError(f"the flash-extend kernel takes head_dim {HEAD_DIM} and equal K/V")
+    if h % kvh or TILE_ROWS % (h // kvh):
+        raise ValueError(f"{h} heads over {kvh} kv heads: group size must divide {TILE_ROWS}")
     if not 0 <= int(total_len) <= T:
         raise ValueError(f"total_len {total_len} outside the context of {T} keys")
     out = torch.empty_like(q)

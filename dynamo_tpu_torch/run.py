@@ -43,7 +43,21 @@ the llama family; on the GPU the draft takes head_dim 128.
 reference's ``tiny-vl``: the engine takes image parts (the ``images``
 annotation); text prompts through this CLI serve as on ``tiny``.
 
-``out=`` names a preset of any family (llama: tiny, qwen3-0.6b,
+``out=`` names a HuggingFace checkpoint directory, or an ``org/name``
+reference found in the HF hub cache (llm/hub.py), of any family the
+loader maps (engine/weights.py); it loads through the warm weight cache
+(engine/warm.py; ``--no-warm-cache`` parses the checkpoint every time) and
+encodes with the checkpoint's own tokenizer (``--tokenizer`` picks
+another: ``byte``, or a directory; the HF tokenizer needs
+``transformers``). A prompt is the tokenizer's BOS, when it has one,
+then the prompt's ids; the EOS stops it. ``--spec-draft-path DIR`` loads
+a speculative draft from a checkpoint likewise.
+
+    python -m dynamo_tpu_torch.run in=text:hi out=/models/Qwen3-0.6B
+    python -m dynamo_tpu_torch.run in=text:hi out=Qwen/Qwen3-0.6B --tokenizer byte
+    python -m dynamo_tpu_torch.run in=text:hi out=/ckpt --device cpu --no-warm-cache
+
+Or ``out=`` names a preset of any family (llama: tiny, qwen3-0.6b,
 llama3-8b, llama3-70b; gemma: tiny-gemma2, tiny-gemma3, gemma2-2b,
 gemma3-4b; gpt-oss: tiny-gptoss, gpt-oss-20b; Qwen3-MoE: tiny-moe,
 qwen3-30b-a3b; MLA: tiny-mla, tiny-mla-moe, deepseek-v2-lite, and
@@ -64,10 +78,13 @@ import sys
 from typing import List, Optional
 
 from .engine.engine import TorchEngine, TorchEngineConfig
+from .engine.warm import load_params_warm
+from .engine.weights import config_from_hf, load_params
 from .kvbm.layout import kv_bytes_per_token
 from .kvbm.pool import KvbmTiers
+from .llm.hub import resolve_model_path
 from .llm.protocols.common import PreprocessedRequest, SamplingOptions, StopConditions
-from .llm.tokenizer import ByteTokenizer, DecodeStream
+from .llm.tokenizer import DecodeStream, Tokenizer, load_tokenizer
 from .models.llama import LlamaConfig
 from .models.registry import PRESETS
 from .models.vision import VisionConfig
@@ -80,6 +97,10 @@ VISION_PRESETS = {
 }
 
 
+def is_preset(name: str) -> bool:
+    return name in PRESETS or name in VISION_PRESETS
+
+
 def _model_of(preset: str) -> LlamaConfig:
     name = VISION_PRESETS[preset][0] if preset in VISION_PRESETS else preset
     if name not in PRESETS:
@@ -88,18 +109,39 @@ def _model_of(preset: str) -> LlamaConfig:
     return PRESETS[name]()
 
 
-def build_engine(preset: str, device: Optional[str], max_context: int, seed: int,
+def load_checkpoint(ref: str, device: Optional[str], warm: bool = True):
+    """(directory, config, parameters on ``device``) of a checkpoint
+    directory or hub reference, through the warm cache unless ``warm`` is
+    off."""
+    path = resolve_model_path(ref)
+    cfg = config_from_hf(path)
+    params = load_params_warm(path, cfg, device=device) if warm else load_params(
+        path, cfg, device)
+    return path, cfg, params
+
+
+def build_engine(out: str, device: Optional[str], max_context: int, seed: int,
                  kv_dtype: str = "auto", kvbm_host_gb: float = 0.0,
                  kvbm_disk_gb: float = 0.0,
                  kvbm_disk_path: Optional[str] = None,
                  decode_steps: Optional[int] = None,
                  decode_pipeline: Optional[int] = None,
-                 spec_draft: Optional[str] = None, spec_k: int = 4) -> TorchEngine:
-    model = _model_of(preset)
-    vision = VISION_PRESETS[preset][1](model) if preset in VISION_PRESETS else None
+                 spec_draft: Optional[str] = None, spec_k: int = 4,
+                 spec_draft_path: Optional[str] = None,
+                 warm_cache: bool = True) -> TorchEngine:
+    """The engine for ``out``, a preset (random weights from ``seed``) or
+    a checkpoint directory / hub reference."""
+    params = draft_params = None
+    if is_preset(out):
+        model = _model_of(out)
+    else:
+        _, model, params = load_checkpoint(out, device, warm_cache)
+    vision = VISION_PRESETS[out][1](model) if out in VISION_PRESETS else None
     draft = _model_of(spec_draft) if spec_draft else None
+    if spec_draft_path:
+        _, draft, draft_params = load_checkpoint(spec_draft_path, device, warm_cache)
     if max_context > model.max_position:
-        raise SystemExit(f"--max-context {max_context} exceeds {preset}'s max_position "
+        raise SystemExit(f"--max-context {max_context} exceeds {out}'s max_position "
                          f"{model.max_position}")
     buckets = tuple(b for b in (64, 128, 256, 512, 1024, 2048) if b < max_context)
     cfg = TorchEngineConfig(
@@ -117,16 +159,23 @@ def build_engine(preset: str, device: Optional[str], max_context: int, seed: int
         kvbm = KvbmTiers(block_nbytes, host_capacity_bytes=int(kvbm_host_gb * (1 << 30)),
                          disk_capacity_bytes=int(kvbm_disk_gb * (1 << 30)),
                          disk_path=kvbm_disk_path)
-    return TorchEngine(cfg, kvbm=kvbm)
+    return TorchEngine(cfg, params=params, kvbm=kvbm, draft_params=draft_params)
 
 
-async def generate_text(engine: TorchEngine, tok: ByteTokenizer, prompt: str,
+def prompt_ids(tok: Tokenizer, prompt: str) -> List[int]:
+    """The tokenizer's BOS, when it has one, then the prompt's ids."""
+    bos = [tok.bos_token_id] if tok.bos_token_id is not None else []
+    return bos + tok.encode(prompt)
+
+
+async def generate_text(engine: TorchEngine, tok: Tokenizer, prompt: str,
                         rid: str, max_tokens: int, temperature: float, out=None) -> str:
     """Stream one completion; with ``out`` the text deltas are written as
     they arrive. Returns the whole text."""
+    eos = [tok.eos_token_id] if tok.eos_token_id is not None else []
     req = PreprocessedRequest(
-        request_id=rid, model="run", token_ids=[tok.BOS] + tok.encode(prompt),
-        stop=StopConditions(max_tokens=max_tokens, stop_token_ids=[tok.EOS]),
+        request_id=rid, model="run", token_ids=prompt_ids(tok, prompt),
+        stop=StopConditions(max_tokens=max_tokens, stop_token_ids=eos),
         sampling=SamplingOptions(temperature=temperature),
     )
     stream = DecodeStream(tok)
@@ -149,8 +198,10 @@ async def run(args) -> None:
     engine = build_engine(args.out, args.device, args.max_context, args.seed,
                           args.kv_dtype, args.kvbm_host_gb, args.kvbm_disk_gb,
                           args.kvbm_disk_path, args.decode_steps, args.decode_pipeline,
-                          args.spec_draft, args.spec_k)
-    tok = ByteTokenizer()
+                          args.spec_draft, args.spec_k, args.spec_draft_path,
+                          not args.no_warm_cache)
+    tok_ref = args.tokenizer or ("byte" if is_preset(args.out) else resolve_model_path(args.out))
+    tok = load_tokenizer(tok_ref)
     try:
         if kind == "text":
             await generate_text(engine, tok, val, "text", args.max_tokens,
@@ -170,10 +221,10 @@ async def run(args) -> None:
 def main(argv: Optional[List[str]] = None) -> None:
     p = argparse.ArgumentParser(
         "dynamo_tpu_torch.run",
-        usage="python -m dynamo_tpu_torch.run in=<input> out=<preset> [options]",
+        usage="python -m dynamo_tpu_torch.run in=<input> out=<preset|checkpoint> [options]",
     )
     p.add_argument("io", nargs=2, metavar="in=|out=",
-                   help="in=text:<prompt>|batch:<file>  out=<preset>")
+                   help="in=text:<prompt>|batch:<file>  out=<preset>|<checkpoint dir>|<org/name>")
     p.add_argument("--device", default=None, help="default: cuda; 'cpu' for the CPU")
     p.add_argument("--max-tokens", type=int, default=64)
     p.add_argument("--max-context", type=int, default=2048)
@@ -200,13 +251,23 @@ def main(argv: Optional[List[str]] = None) -> None:
                    help="speculative decoding with a draft of this preset's "
                         "architecture (random weights); greedy requests ride "
                         "spec rounds, others fall back per dispatch")
+    p.add_argument("--spec-draft-path", default=None, metavar="DIR",
+                   help="speculative decoding with a draft loaded from this "
+                        "checkpoint directory or hub reference")
+    p.add_argument("--tokenizer", default=None,
+                   help="'byte', or a tokenizer directory (default: the "
+                        "checkpoint's own; byte for a preset)")
+    p.add_argument("--no-warm-cache", action="store_true",
+                   help="parse the checkpoint on every start (skip the warm "
+                        "weight cache, $DTPU_WARM_CACHE or "
+                        "~/.cache/dynamo_tpu_torch/warm)")
     p.add_argument("--spec-k", type=int, default=4,
                    help="draft tokens per speculative round (capped at the "
                         "decode steps)")
     args = p.parse_args(argv)
     spec = dict(part.partition("=")[::2] for part in args.io)
     if "in" not in spec or "out" not in spec:
-        p.error("need both in=<input> and out=<preset>")
+        p.error("need both in=<input> and out=<preset|checkpoint>")
     args.input, args.out = spec["in"], spec["out"]
     asyncio.run(run(args))
 

@@ -196,7 +196,8 @@ async def test_unsupported_options_are_refused():
     engine = _tiny_engine()
     try:
         for ann, samp in (({"lora": "a"}, {}), ({"logits_processors": ["x"]}, {}),
-                          ({"op": "embed"}, {}), ({}, {"guided": {"kind": "regex"}})):
+                          ({"op": "embed", "images": [{}]}, {}),
+                          ({}, {"guided": {"kind": "regex"}})):
             req = PreprocessedRequest(
                 request_id="x", model="m", token_ids=[1, 2, 3], annotations=ann,
                 sampling=SamplingOptions(temperature=0.0, **samp),

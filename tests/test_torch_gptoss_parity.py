@@ -2,8 +2,9 @@
 GptOssForCausalLM: a tiny random model built from a config written in
 code (tests/test_gptoss_parity.py's, with non-zero sinks and biases, YaRN
 on and off), saved as a checkpoint and mapped to the reference's parameter
-tree by the JAX package's loader (the port loads no checkpoints yet); the
-tree goes through numpy and ``params_from_numpy`` into the port. Logits
+tree by the JAX package's loader; the tree goes through numpy and
+``params_from_numpy`` into the port. A second case reads the checkpoint
+with the port's own loader instead. Logits
 within 2e-3, the reference test's tolerance (float32, eager attention in
 HF), and the same argmax at every position.
 """
@@ -18,6 +19,7 @@ import torch
 pytest.importorskip("transformers")
 
 from dynamo_tpu.engine import weights as jweights  # noqa: E402
+from dynamo_tpu_torch.engine import weights as tweights  # noqa: E402
 from dynamo_tpu_torch.engine.weights import params_from_numpy  # noqa: E402
 from dynamo_tpu_torch.models import gptoss as tgptoss  # noqa: E402
 from dynamo_tpu_torch.ops import attention as tatt  # noqa: E402
@@ -39,6 +41,26 @@ def test_logits_match_hf_gptoss(tmp_path, yarn):
     params = params_from_numpy(tree, tcfg, device="cpu")
     assert params["layers"][0]["sinks"].dtype == torch.float32
     assert float(params["layers"][0]["sinks"].abs().sum()) > 0
+
+    token_ids = np.array([5, 99, 23, 77, 1, 42, 17, 63, 8, 120, 3, 60], np.int64)
+    with torch.no_grad():
+        want = model(torch.tensor(token_ids)[None]).logits[0].numpy()
+        hidden = tgptoss.forward(
+            params, tcfg, torch.from_numpy(token_ids), torch.arange(len(token_ids)),
+            lambda q, k, v, i, **kw: tatt.causal_attention(q, k, v, **kw))
+        got = tgptoss.lm_logits(params, tcfg, hidden).numpy()
+    np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
+    assert (got.argmax(-1) == want.argmax(-1)).all()
+
+
+@pytest.mark.parametrize("yarn", [False, True], ids=["plain", "yarn"])
+def test_logits_match_hf_gptoss_through_the_port_loader(tmp_path, yarn):
+    """The same checkpoint read by the port's own loader
+    (``dynamo_tpu_torch.engine.weights.load_params``)."""
+    model, ckpt = _make_ckpt(tmp_path, yarn)
+    tcfg = dataclasses.replace(tweights.config_from_hf(ckpt), dtype=torch.float32)
+    params = tweights.load_params(ckpt, tcfg, device="cpu")
+    assert params["layers"][0]["sinks"].dtype == torch.float32
 
     token_ids = np.array([5, 99, 23, 77, 1, 42, 17, 63, 8, 120, 3, 60], np.int64)
     with torch.no_grad():

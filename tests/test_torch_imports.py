@@ -99,3 +99,53 @@ def test_the_walk_covers_every_module_of_the_port():
         "dynamo_tpu_torch.ops.cuda_mla", "dynamo_tpu_torch.models.vision",
         "dynamo_tpu_torch.llm.encoder_cache",
     } <= mods
+
+
+# the HF-checkpoint slice reads safetensors with its own reader, and the HF
+# tokenizer imports transformers only when one is built
+NEVER = ("safetensors", "ml_dtypes")
+DEFERRED = ("transformers", "huggingface_hub", "tokenizers")
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: os.path.relpath(p, REPO))
+def test_no_checkpoint_library_import_and_no_module_level_transformers(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    module_level = set(map(id, tree.body))
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            names = [node.module]
+        else:
+            continue
+        for name in names:
+            top = name.split(".")[0]
+            if top in NEVER or (top in DEFERRED and id(node) in module_level):
+                bad.append(name)
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_importing_every_module_loads_no_checkpoint_library():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {NEVER + DEFERRED!r})\n"
+        "print(repr(bad))\n"
+    )
+    r = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+        timeout=120, env={**os.environ, "PYTHONPATH": REPO},
+    )
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "[]", r.stdout
+
+
+def test_the_walk_covers_the_checkpoint_modules():
+    assert {
+        "dynamo_tpu_torch.engine.safetensors_io", "dynamo_tpu_torch.engine.weights",
+        "dynamo_tpu_torch.engine.warm", "dynamo_tpu_torch.llm.hub",
+        "dynamo_tpu_torch.llm.tokenizer",
+    } <= set(_modules())
