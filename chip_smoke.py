@@ -196,7 +196,32 @@ Phases, in order; any failure raises and the exit code is not 0:
    embedding held to the plain op on its inputs (the saturating expert
    FFN of random MXFP4 weights turns bf16 rounding into a ~10% change of
    the whole vector, so the vector is not held to the plain path).
-11. report: one JSON line with every kernel's numbers, the nvidia-smi line,
+11. features: per-request features on llama3-8b at 32 layers (random bf16
+   weights from seed 0), one engine with lora_max_adapters 2 at rank 16 on
+   the reference's four default targets (wq, wk, wv, wo), guided caps 1024
+   states / 320 classes over a synthetic byte vocabulary from a seed (ids
+   0-255 single bytes, the rest 2-8-byte printable-ASCII pieces, EOS
+   128001; not a trained BPE's classes) and two processors, ban_tokens
+   (every even id) and repetition_window (3.0); and a plain engine on the
+   same parameters and schedule. Two adapters (seeds 5 and 9) load after
+   the graphs are captured: no table moves, the graph count stays. (a) 8
+   prompts of 100-2000 tokens queued at once, 64 tokens each: two JSON
+   schemas, a regex and a choice (finite languages), four plain rows (two
+   sampled): each guided output matches its grammar's DFA and ends at EOS,
+   the plain rows bit-equal to the plain engine's on the same traffic with
+   the grammars taken out; the compile seconds per grammar at the full
+   vocabulary, cold and cached. (b) a ban_tokens row emits no even id; the
+   repetition_window row follows the penalty over the plain run's top-20
+   logprobs; the rows without opt-in bit-equal. (c) base, adapter-a and
+   adapter-b rows queued at once: the base row bit-equal; each adapter
+   row's first-token logits within MODEL_REL_TOL (relative L2) of a plain
+   forward on merged weights W + s A B; an adapter request after a base
+   request on the same 40-token prompt caches nothing and streams what it
+   streams after a base request on another prompt. The decode-heavy ITL
+   without and with adapter rows, the grammar mask's and the LoRA deltas'
+   device ms inside a graph against their byte bounds, graphs and capture
+   seconds with and without features, and the kernel launches.
+12. report: one JSON line with every kernel's numbers, the nvidia-smi line,
    and last the device line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without printing a result when no CUDA device is present or
@@ -4841,8 +4866,416 @@ def checkpoint_phase(torch, smi: str) -> dict:
 
 
 # ------------------------------------------------------------------ main
+# ------------------------------------------------------------- phase 11
+# per-request features on llama3-8b at 32 layers (random bf16 weights from
+# seed 0): logits processors, guided decoding over a synthetic byte
+# vocabulary (the repository has no Llama-3 tokenizer), and multi-LoRA on
+# the reference's four default targets
+FEAT_EOS = 128001              # the synthetic vocabulary's EOS (Llama-3's id)
+FEAT_GUIDED_CAPS = (1024, 320)   # guided_max_states / classes (the reference CLI's)
+FEAT_LORA = (2, 16)            # lora_max_adapters, lora_rank
+FEAT_TARGETS = ("wq", "wk", "wv", "wo")
+FEAT_TOKENS = 64
+# (a): 8 prompts queued at once; grammars of finite languages whose longest
+# member fits the 64 tokens (bounded whitespace), so each ends at EOS
+FEAT_PROMPTS = (100, 2000, 700, 1500, 300, 1200, 450, 900)
+FEAT_GRAMMARS = (
+    ("json", {"type": "object", "properties": {"ok": {"type": "boolean"}},
+              "required": ["ok"]}),
+    ("json", {"type": "object", "properties": {"mood": {"enum": ["happy", "sad"]}},
+              "required": ["mood"]}),
+    ("regex", r"[0-9]{3}-[0-9]{4}"),
+    ("choice", ["alpha", "beta", "gamma"]),
+)
+FEAT_SAMPLED = {5: 11, 7: 13}  # row: seed (temperature 0.8)
+# (b): ban every even id; a repetition window of 3.0 (20 top logprobs to check it)
+FEAT_REP_PENALTY = 3.0
+FEAT_B_PROMPTS = (300, 800, 500, 600)
+# (c): base, adapter-a, adapter-b; adapters of seeds 5 and 9 whose delta is
+# about half the base projection's output
+FEAT_C_PROMPTS = (400, 300, 500)
+FEAT_LORA_B_STD = 0.5
+FEAT_SALT_PROMPT = 40
+
+
+def synthetic_vocab(V: int, seed: int = 0) -> list:
+    """Byte forms of a synthetic vocabulary (no trained tokenizer is in the
+    repository): ids 0-255 single bytes, the rest 2-8-byte printable-ASCII
+    pieces from ``seed``, and FEAT_EOS with no byte form."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(2, 9, size=V - 256)
+    chars = rng.integers(32, 127, size=int(lens.sum()), dtype=np.uint8).tobytes()
+    ends = np.cumsum(lens)
+    out = [bytes([i]) for i in range(256)] + [chars[e - n:e] for e, n in zip(ends, lens)]
+    out[FEAT_EOS] = None
+    return out
+
+
+def feature_adapter(mcfg, seed: int) -> dict:
+    """A random adapter for FEAT_TARGETS at rank FEAT_LORA[1]: A ~ N(0,
+    1/in), B ~ N(0, FEAT_LORA_B_STD^2 / r), loaded with alpha = r (scale 1)."""
+    rng = np.random.default_rng(seed)
+    r, L = FEAT_LORA[1], mcfg.num_layers
+    sizes = {"wq": (mcfg.hidden_size, mcfg.q_size), "wk": (mcfg.hidden_size, mcfg.kv_size),
+             "wv": (mcfg.hidden_size, mcfg.kv_size), "wo": (mcfg.q_size, mcfg.hidden_size)}
+    w = {}
+    for t in FEAT_TARGETS:
+        inp, out = sizes[t]
+        w[f"{t}.A"] = (rng.standard_normal((L, inp, r), np.float32) / np.sqrt(inp))
+        w[f"{t}.B"] = (rng.standard_normal((L, r, out), np.float32)
+                       * (FEAT_LORA_B_STD / np.sqrt(r)))
+    return w
+
+
+def merged_params(torch, params, table, slot: int) -> dict:
+    """``params`` with each target weight merged: W + s * A @ B (float32,
+    rounded to the model dtype), from the adapter table's slot."""
+    s = float(table.scales[slot])
+    layers = []
+    for i, p in enumerate(params["layers"]):
+        q = dict(p)
+        for t in table.targets:
+            delta = table.A[t][slot, i].float() @ table.B[t][slot, i].float()
+            q[t] = (p[t].float() + s * delta).to(p[t].dtype)
+        layers.append(q)
+    return {**params, "layers": layers}
+
+
+def freq(rid, tokens, n, stop=(), ann=None, logprobs=0, **samp):
+    from dynamo_tpu_torch.llm.protocols.common import (
+        PreprocessedRequest, SamplingOptions, StopConditions,
+    )
+
+    return PreprocessedRequest(
+        request_id=rid, model="smoke", token_ids=list(tokens),
+        sampling=SamplingOptions(temperature=samp.pop("temperature", 0.0), logprobs=logprobs,
+                                 **samp),
+        stop=StopConditions(max_tokens=n, stop_token_ids=list(stop)),
+        annotations=dict(ann or {}))
+
+
+def guided_graph_ms(torch, engine) -> dict:
+    """Device ms of one step's grammar mask and FSM step over the decode
+    batch at the full vocabulary inside a graph, against its byte bound
+    (the logits read and written, each row's class map and its transition
+    row read once)."""
+    from dynamo_tpu_torch.engine.sampling import guided_mask, guided_step
+
+    B, V = engine.g_class.shape
+    S, C = engine.g_trans.shape[1:]
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    logits = torch.randn(B, V, generator=gen, device="cuda")
+    state = torch.randint(0, S, (B,), generator=gen, device="cuda", dtype=torch.int32)
+    toks = torch.randint(0, V, (B,), generator=gen, device="cuda")
+    active = torch.ones(B, dtype=torch.bool, device="cuda")
+
+    def step():
+        guided_mask(logits, active, state, engine.g_class, engine.g_trans)
+        guided_step(state, toks, active, engine.g_class, engine.g_trans)
+
+    nbytes = 2 * B * V * 4 + B * V * 4 + B * C * 4
+    return {"ms": graph_ms(torch, step), "bound_ms": bound(nbytes, 0)[0], "bytes": nbytes}
+
+
+def lora_graph_ms(torch, engine, ids) -> dict:
+    """Device ms of one decode pass's LoRA deltas (every layer and target,
+    one adapter per row of ``ids``) inside a graph, its kernel launches
+    (torch.profiler over one eager pass) and its byte bound: the tables of
+    the distinct adapters the rows use, each read once."""
+    from dynamo_tpu_torch.lora import make_lora_fn
+
+    m, table = engine.mcfg, engine.lora
+    ids_t = torch.tensor(ids, device="cuda")
+    ins = {"wq": m.hidden_size, "wk": m.hidden_size, "wv": m.hidden_size, "wo": m.q_size}
+    xs = {t: torch.randn(len(ids), 1, ins[t], device="cuda", dtype=m.dtype)
+          for t in table.targets}
+
+    def one_pass():
+        lora = make_lora_fn(table.tables(), ids_t)
+        for layer in range(m.num_layers):
+            for t in table.targets:
+                lora(t, layer, xs[t])
+
+    per_slot = sum(table.A[t][0].numel() + table.B[t][0].numel() for t in table.targets) * 2
+    nbytes = len(set(ids)) * per_slot
+    one_pass()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        one_pass()
+        torch.cuda.synchronize()
+    return {"ms": graph_ms(torch, one_pass), "bound_ms": bound(nbytes, 0)[0], "bytes": nbytes,
+            "launches_per_pass": device_time_by_kind(prof)["kernels"]}
+
+
+def out_bytes(vocab, toks) -> bytes:
+    return b"".join(vocab[t] for t in toks)
+
+
+def features_phase(torch, smi: str) -> dict:
+    """Logits processors, guided decoding and multi-LoRA on the card
+    (module docstring, phase 11)."""
+    from dynamo_tpu_torch.engine.engine import TorchEngine, TorchEngineConfig
+    from dynamo_tpu_torch.guided import compile_regex, guided_regex_pattern
+    from dynamo_tpu_torch.llm.tokenizer import ByteTokenizer
+    from dynamo_tpu_torch.logits_processing import (
+        ban_tokens_processor, repetition_window_processor,
+    )
+    from dynamo_tpu_torch.models import registry
+    from dynamo_tpu_torch.models.llama import LlamaConfig
+
+    mcfg = LlamaConfig.llama3_8b()
+    V = mcfg.vocab_size
+    params = registry.init_params(mcfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    vocab = synthetic_vocab(V)
+    tok, rng = ByteTokenizer(), np.random.default_rng(41)
+    specs = [{"kind": k, "value": v} for k, v in FEAT_GRAMMARS]
+    a_prompts = [words_text(tok, rng, n) for n in FEAT_PROMPTS]
+    b_prompts = [words_text(tok, rng, n) for n in FEAT_B_PROMPTS]
+    c_prompts = [words_text(tok, rng, n) for n in FEAT_C_PROMPTS]
+    salt_x, salt_y = (words_text(tok, rng, FEAT_SALT_PROMPT) for _ in range(2))
+    itl_prompts = [words_text(tok, rng, HZ_PROMPT_LEN) for _ in range(HZ_PROMPTS)]
+
+    def a_reqs(guided: bool, lens=None):
+        out = []
+        for i, p in enumerate(a_prompts):
+            samp = dict(temperature=0.8, seed=FEAT_SAMPLED[i]) if i in FEAT_SAMPLED else {}
+            if guided and i < len(specs):
+                samp["guided"] = specs[i]
+            n = lens[i] if lens is not None else FEAT_TOKENS
+            out.append(freq(f"a{i}", p, n, stop=[FEAT_EOS], **samp))
+        return out
+
+    def b_reqs(procs: bool):
+        ann = [{"logits_processors": ["ban_tokens"]},
+               {"logits_processors": ["repetition_window"]}, {}, {}]
+        return [freq(f"b{i}", p, FEAT_TOKENS, ann=ann[i] if procs else None,
+                     logprobs=20 if i == 1 else 0,
+                     **(dict(temperature=0.8, seed=17) if i == 3 else {}))
+                for i, p in enumerate(b_prompts)]
+
+    def c_reqs(lora: bool):
+        names = (None, "a", "b")
+        return [freq(f"c{i}", p, 32, ann={"lora": names[i]} if lora and names[i] else None)
+                for i, p in enumerate(c_prompts)]
+
+    procs = (("ban_tokens", ban_tokens_processor(range(0, V, 2))),
+             ("repetition_window", repetition_window_processor(FEAT_REP_PENALTY)))
+    t0 = time.perf_counter()
+    engine = TorchEngine(TorchEngineConfig(
+        model=mcfg, num_blocks=2048, block_size=BS, max_batch_size=8, max_context=4096,
+        seed=0, lora_max_adapters=FEAT_LORA[0], lora_rank=FEAT_LORA[1],
+        lora_targets=FEAT_TARGETS, guided_max_states=FEAT_GUIDED_CAPS[0],
+        guided_max_classes=FEAT_GUIDED_CAPS[1], logits_processors=procs),
+        params=params, guided_vocab=(vocab, FEAT_EOS))
+    torch.cuda.synchronize()
+    out = {"ready_s": time.perf_counter() - t0, "feature_engine": horizon_report(engine)}
+    graphs0 = engine.horizon_stats()["graphs"]
+    ptrs = [t.data_ptr() for t in engine.lora.tables().values()]
+    t0 = time.perf_counter()
+    for name, seed in (("a", 5), ("b", 9)):
+        engine.lora.load(name, feature_adapter(mcfg, seed))
+    torch.cuda.synchronize()
+    out["lora_load_s"] = time.perf_counter() - t0
+    if (engine.horizon_stats()["graphs"] != graphs0
+            or [t.data_ptr() for t in engine.lora.tables().values()] != ptrs):
+        raise AssertionError("features: loading the adapters after capture moved a table "
+                             "or changed the graph count")
+    first_logits = {}
+    first_token = engine._first_token
+
+    def spy(st, hidden):
+        if st.req.request_id in ("c1", "c2"):
+            first_logits[st.req.request_id] = engine._lm_logits(
+                engine.params, mcfg, hidden)[0].float()
+        return first_token(st, hidden)
+
+    async def serve_features():
+        res = {"compile_s": []}
+        for spec in specs:
+            t = time.perf_counter()
+            tables = await engine._compile_guided(spec)
+            cold = time.perf_counter() - t
+            t = time.perf_counter()
+            await engine._compile_guided(spec)
+            res["compile_s"].append({"kind": spec["kind"], "cold": cold,
+                                     "cached": time.perf_counter() - t,
+                                     "states": tables.num_states,
+                                     "classes": tables.num_classes})
+        reset_launches()
+        t = time.perf_counter()
+        res["a"] = await run_requests(engine, a_reqs(True))
+        res["b"] = await run_requests(engine, b_reqs(True))
+        engine._first_token = spy
+        res["c"] = await run_requests(engine, c_reqs(True))
+        engine._first_token = first_token
+        res["launches"] = read_launches()
+        res["traffic_s"] = time.perf_counter() - t
+        # the salt: adapter-a on x after a base request on y, then (the
+        # prefix cache dropped in between) after a base request on x
+        salt = []
+        for before in (salt_y, salt_x):
+            engine.allocator.clear()
+            await run_requests(engine, [freq("base", before, 8)])
+            (s,), _ = await run_requests(engine, [freq("lora", salt_x, 16, ann={"lora": "a"})])
+            salt.append(s)
+        (again,), _ = await run_requests(engine, [freq("lora", salt_x, 16, ann={"lora": "a"})])
+        res["salt"] = (salt, again)
+        # decode-heavy ITL: every row base, then rows on adapters a, b, base in turn
+        for tag, names in (("base", [None] * HZ_PROMPTS), ("lora", ["a", "b", None] * 3)):
+            res[f"itl_{tag}"] = await run_requests(engine, [
+                freq(f"i{i}", p, HZ_TOKENS // 2, ann={"lora": names[i]} if names[i] else None)
+                for i, p in enumerate(itl_prompts)])
+        return res
+
+    try:
+        f = asyncio.run(serve_features())
+        out["mask"] = guided_graph_ms(torch, engine)
+        out["lora_delta"] = lora_graph_ms(torch, engine, [0, 1, 2, 1, 2, 0, 1, 2])
+        out["lora_delta_base_rows"] = lora_graph_ms(torch, engine, [0] * 8)
+        out["feature_engine"] = horizon_report(engine)
+        schedule = dict(decode_steps=engine.cfg.decode_steps,
+                        decode_pipeline=engine.cfg.decode_pipeline)
+        merged = {}
+        for rid, slot in (("c1", 1), ("c2", 2)):
+            ids = c_prompts[int(rid[1])]
+            merged[rid] = plain_logits(torch, merged_params(torch, params, engine.lora, slot),
+                                       mcfg, ids)
+    finally:
+        engine.stop()
+    out["lora_logits_rel_l2"] = {
+        rid: float((first_logits[rid] - merged[rid]).norm() / merged[rid].norm())
+        for rid in merged}
+    del engine, merged
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the plain engine on the same weights and schedule: the same traffic
+    # with the features taken out (a guided row's length cut to what it
+    # produced, so that the batch empties in the same steps)
+    a_stats = f["a"][0]
+    a_lens = [len(s["tokens"]) + (s["finish"] == "stop") for s in a_stats]
+    plain = TorchEngine(TorchEngineConfig(model=mcfg, num_blocks=2048, block_size=BS,
+                                          max_batch_size=8, max_context=4096, seed=0,
+                                          **schedule), params=params)
+    out["plain_engine"] = horizon_report(plain)
+
+    async def serve_plain():
+        return {"a": await run_requests(plain, a_reqs(False, a_lens)),
+                "b": await run_requests(plain, b_reqs(False)),
+                "c": await run_requests(plain, c_reqs(False))}
+
+    try:
+        p = asyncio.run(serve_plain())
+    finally:
+        plain.stop()
+    del plain, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (a) guided rows in their grammars, ending at EOS; plain rows bit-equal
+    for i, (kind, value) in enumerate(FEAT_GRAMMARS):
+        s = a_stats[i]
+        dfa = compile_regex(guided_regex_pattern(kind, value))
+        text = out_bytes(vocab, s["tokens"])
+        if s["finish"] != "stop" or not dfa.matches(text):
+            raise AssertionError(f"features (a): guided row {i} ({kind}) gave {text!r}, "
+                                 f"finish {s['finish']!r}")
+    for i in range(len(FEAT_GRAMMARS), len(a_prompts)):
+        if a_stats[i]["tokens"] != p["a"][0][i]["tokens"]:
+            raise AssertionError(f"features (a): plain row {i} differs from the plain engine's")
+    # (b) no banned id; the repetition row follows the penalty; plain rows equal
+    fb, pb = f["b"][0], p["b"][0]
+    if any(t % 2 == 0 for t in fb[0]["tokens"]):
+        raise AssertionError("features (b): the ban_tokens row emitted a banned id")
+    for i in (2, 3):
+        if fb[i]["tokens"] != pb[i]["tokens"]:
+            raise AssertionError(f"features (b): row {i} differs from the plain engine's")
+    rep = repetition_check(fb[1], pb[1])
+    # (c) the base row bit-equal; the adapter rows near the merged weights
+    fc, pc = f["c"][0], p["c"][0]
+    if fc[0]["tokens"] != pc[0]["tokens"]:
+        raise AssertionError("features (c): the base row differs from the plain engine's")
+    for rid, r in out["lora_logits_rel_l2"].items():
+        if not r <= MODEL_REL_TOL:
+            raise AssertionError(f"features (c): {rid}'s first-token logits vs merged weights: "
+                                 f"relative L2 {r:.4g} (limit {MODEL_REL_TOL})")
+    (after_y, after_x), again = f["salt"]
+    if after_x["cached"] != 0 or after_y["cached"] != 0 or again["cached"] == 0 \
+            or after_x["tokens"] != after_y["tokens"]:
+        raise AssertionError(f"features (c): salt: cached {after_y['cached']}, "
+                             f"{after_x['cached']}, again {again['cached']}; streams equal: "
+                             f"{after_x['tokens'] == after_y['tokens']}")
+    launches = f["launches"]
+    for name in ("decode", "flash_extend", "unified"):
+        if launches[name] <= 0:
+            raise AssertionError(f"features: the {name} kernel never launched")
+    if launches["replayed"]["decode"] <= 0:
+        raise AssertionError("features: no decode launch came from a horizon replay")
+    out.update({
+        "compile_s": f["compile_s"], "traffic_s": f["traffic_s"], "launches": launches,
+        "guided_rows": [{"kind": k, "tokens": len(a_stats[i]["tokens"]),
+                         "text": out_bytes(vocab, a_stats[i]["tokens"]).decode("latin-1")}
+                        for i, (k, _) in enumerate(FEAT_GRAMMARS)],
+        "a": latency_summary(*f["a"]), "a_plain": latency_summary(*p["a"]),
+        "ban_row_differs_from_plain": fb[0]["tokens"] != pb[0]["tokens"],
+        "repetition": rep,
+        "adapter_rows_differ_from_base": [fc[i]["tokens"] != pc[i]["tokens"] for i in (1, 2)],
+        "salt": {"cached": [after_y["cached"], after_x["cached"], again["cached"]],
+                 "bit_equal": True},
+        "itl_base": latency_summary(*f["itl_base"]), "itl_lora": latency_summary(*f["itl_lora"]),
+    })
+    return out
+
+
+def features_summary(f: dict, smi: str) -> str:
+    fe, pe = f["feature_engine"]["horizon"], f["plain_engine"]["horizon"]
+    lc = f["launches"]
+    return (
+        f"features on {smi}: graphs {fe['graphs']} captured in {fe['capture_s']:.2f} s, pool "
+        f"{fe['pool_bytes'] / 2**20:.1f} MiB (plain engine: {pe['graphs']} in "
+        f"{pe['capture_s']:.2f} s, {pe['pool_bytes'] / 2**20:.1f} MiB); grammar compile at "
+        f"the full vocabulary (cold / cached s): "
+        + ", ".join(f"{c['kind']} {c['cold']:.3f} / {c['cached']:.6f} ({c['states']} states, "
+                    f"{c['classes']} classes)" for c in f["compile_s"])
+        + f"; guided rows {[g['text'] for g in f['guided_rows']]}; grammar mask + FSM step "
+        f"{f['mask']['ms']:.4f} ms a step in a graph (bound {f['mask']['bound_ms']:.4f}); "
+        f"LoRA deltas of a decode pass {f['lora_delta']['ms']:.4f} ms in a graph (bound "
+        f"{f['lora_delta']['bound_ms']:.4f}, {f['lora_delta']['launches_per_pass']} launches; "
+        f"all base rows {f['lora_delta_base_rows']['ms']:.4f} ms); adapter first-token logits "
+        f"vs merged weights {f['lora_logits_rel_l2']}; decode-heavy ITL median "
+        f"{f['itl_base']['itl_s_median'] * 1e3:.2f} ms base rows, "
+        f"{f['itl_lora']['itl_s_median'] * 1e3:.2f} ms with adapter rows; repetition "
+        f"{f['repetition']}; salt cached {f['salt']['cached']}; launches decode "
+        f"{lc['decode']} [{lc['replayed']['decode']}], flash-extend {lc['flash_extend']} "
+        f"[{lc['replayed']['flash_extend']}], unified {lc['unified']} "
+        f"[{lc['replayed']['unified']}]; traffic {f['traffic_s']:.1f} s")
+
+
+def repetition_check(feat: dict, plain: dict) -> dict:
+    """The repetition_window row against the same prompt without it (both
+    with 20 top logprobs of the raw logits, which agree while the streams
+    do): at every step the feature row's token is the best of the plain
+    step's top logprobs once the tokens already generated are lowered by
+    the penalty. Returns the first step where that moved the token."""
+    ft, pt = feat["tokens"], plain["tokens"]
+    for j, tok in enumerate(pt):
+        seen = set(pt[:j])
+        want = tok
+        if tok in seen:
+            top = {int(k): v for k, v in plain["top"][j].items()}
+            scored = {k: v - FEAT_REP_PENALTY * (k in seen) for k, v in top.items()}
+            want = max(scored, key=scored.get)
+        if j >= len(ft) or ft[j] != want:
+            raise AssertionError(f"features (b): repetition row at step {j}: plain token "
+                                 f"{tok}, expected {want}, got {ft[j:j + 1]}")
+        if want != tok:
+            return {"first_divergent_step": j, "plain_token": tok, "token": want,
+                    "raw_logprob_gap": top[tok] - top[want]}
+    return {"first_divergent_step": None}
+
+
 PHASES = ("kernels", "model", "serve", "horizon", "gptoss", "moe_mla", "vision", "spec",
-          "checkpoint")
+          "checkpoint", "features")
 
 
 def main() -> int:
@@ -5079,6 +5512,14 @@ def main() -> int:
         log("checkpoint: " + json.dumps(ckpt))
         log(f"checkpoint phase [{time.perf_counter() - t0:.1f} s] (qwen3 "
             f"{ckpt['qwen3']['seconds']:.1f} s, gpt-oss {ckpt['gptoss']['seconds']:.1f} s)")
+        gc.collect()
+        torch.cuda.empty_cache()
+    if "features" in phases:
+        t0 = time.perf_counter()
+        feat = features_phase(torch, smi)
+        log("features: " + json.dumps(feat))
+        log(features_summary(feat, smi))
+        log(f"features phase [{time.perf_counter() - t0:.1f} s]")
         gc.collect()
         torch.cuda.empty_cache()
     log(f"all phases [{time.perf_counter() - t_start:.1f} s]")

@@ -52,6 +52,21 @@ llama, gemma, gpt-oss, Qwen3-MoE and DeepSeek (MLA) families on one GPU
   (``_spec_multi``); a dispatch whose rows are all greedy with no
   penalties or logprobs runs a spec horizon (one CUDA-graph replay on
   CUDA) in place of the normal one, and streams exactly its tokens;
+- logits processors (``logits_processors``, logits_processing/): a request
+  opts into processors registered at build by name (annotation
+  ``logits_processors``); guided decoding (``guided_max_states`` and the
+  constructor's ``guided_vocab``, guided/): a request's ``sampling.guided``
+  grammar compiles to token tables held per slot on the device, which
+  mask its logits in every step kind, its FSM state riding the horizon's
+  carry; multi-LoRA (``lora_max_adapters``, lora/, dense llama family): a
+  request names an adapter (annotation ``lora``) loaded into the engine's
+  in-place tables (``engine.lora.load``), and its block hashes are salted
+  with the adapter's load (``LoraAdapterTable.cache_key``), so no adapter
+  request reuses KV computed without its weights. In each sampling
+  epilogue the order is the reference's: penalties, processors, the
+  grammar mask, the sampler; logprobs stay those of the raw logits. On an
+  engine with any of them the horizon has a second set of graphs, replayed
+  only when a row of the dispatch uses a feature;
 - embeddings (a request annotated ``op: embed``): the last token's final
   hidden state, float32, L2-normalised, in one ``BackendOutput``'s
   annotations, as the reference's. The loop serves them between steps,
@@ -82,7 +97,7 @@ Device work runs on a single executor thread so the asyncio loop that
 streams results never blocks behind the GPU; a horizon's readback waits on
 a fetch thread.
 
-Not in this slice (ROADMAP.md): LoRA, guided decoding, logits processors,
+Not in this slice (ROADMAP.md): LoRA on families other than dense llama,
 vision and spec decode on families other than llama, the G4
 remote KVBM tier, disaggregated transfer, parallelism, and the KV-event /
 metrics / tracing / SLO hooks. A request that asks for one of those is
@@ -94,6 +109,7 @@ from __future__ import annotations
 
 import asyncio
 import dataclasses
+import json
 import logging
 import time
 from collections import deque
@@ -120,7 +136,11 @@ from ..kvbm.layout import (
     storage_dtype,
     to_host,
 )
+from ..guided import (RegexError, SchemaError, build_token_tables, compile_regex,
+                      guided_regex_pattern)
 from ..llm.encoder_cache import EncoderCacheManager, content_hash
+from ..logits_processing import apply_processors
+from ..lora import LoraAdapterTable, PackedAdapterIds, make_lora_fn
 from ..models import llama, moe, registry
 from ..models import vision as vis
 from ..ops import attention as att
@@ -134,6 +154,8 @@ from .graphs import HorizonGraphs, HorizonState, seq_len_buckets
 from .sampling import (
     TOP_LOGPROBS_K,
     apply_penalties,
+    guided_mask,
+    guided_step,
     gumbel_noise,
     gumbel_noise_tensor,
     logprobs_of,
@@ -147,6 +169,11 @@ log = logging.getLogger("dynamo_tpu_torch.engine")
 
 class UnsupportedRequestError(ValueError):
     """The request asks for a feature this engine does not have."""
+
+
+class GuidedRejectedError(ValueError):
+    """The request's grammar does not compile within the engine's caps, or
+    its prior tokens leave the grammar."""
 
 
 @dataclasses.dataclass
@@ -188,6 +215,20 @@ class TorchEngineConfig:
     # at decode_steps
     spec_draft: Optional[llama.LlamaConfig] = None
     spec_k: int = 4
+    # multi-LoRA (lora/adapters.py, dense llama family): adapter slots
+    # allocated at build, loads written into them in place (the horizon's
+    # graphs see a load at their next replay). 0 disables
+    lora_max_adapters: int = 0
+    lora_rank: int = 16
+    lora_targets: Tuple[str, ...] = ("wq", "wk", "wv", "wo")
+    # logits processors (logits_processing/): (name, fn) pairs; requests opt
+    # in by name (annotation "logits_processors"). () disables
+    logits_processors: Tuple[Tuple[str, Any], ...] = ()
+    # guided decoding (guided/): the caps of each slot's device tables
+    # ([states, classes]); a grammar over them is refused per request. 0
+    # disables; enabling needs the constructor's guided_vocab
+    guided_max_states: int = 0
+    guided_max_classes: int = 320
 
     def __post_init__(self):
         bad = [b for b in self.prefill_buckets if b % self.block_size]
@@ -242,6 +283,11 @@ class _Seq:
     # logprobs); others skip the draft prefill (their draft KV is never read)
     draft_prefill_pos: int = 0
     spec_ok: bool = False
+    # guided decoding: the compiled token tables and the FSM state after
+    # the tokens applied so far (host view; a chained horizon carries its
+    # own on the device)
+    guided_tables: Optional[Any] = None
+    guided_state: int = 0
     done: bool = False
 
 
@@ -257,14 +303,25 @@ def _has_penalties(s) -> bool:
     )
 
 
-def _check_features(config: TorchEngineConfig) -> None:
+def _check_features(config: TorchEngineConfig, guided_vocab=None) -> None:
     """Refuse, before anything is allocated, the configurations this port
     does not serve yet (ROADMAP.md Queue 1): vision and spec decoding
     outside the llama family, and on the card a llama-family or Qwen3-MoE
     main model whose shape the decode or flash-extend kernel lacks (the
-    CPU's plain ops serve every shape)."""
+    CPU's plain ops serve every shape); and, as the reference, LoRA outside
+    the dense llama family or with spec decoding, and guided decoding
+    without the vocabulary's byte forms."""
     m, d = config.model, config.spec_draft
     on_card = torch.device(config.device or "cuda").type == "cuda"
+    if config.lora_max_adapters > 0:
+        if registry.family(m) is not llama:
+            raise ValueError("LoRA serving covers the llama/qwen dense family only")
+        if d is not None:
+            raise ValueError("speculative decoding covers the text path (no vision/"
+                             "LoRA yet)")
+    if config.guided_max_states > 0 and guided_vocab is None:
+        raise ValueError("guided decoding needs guided_vocab=(vocab byte forms, eos_id) "
+                         "— see guided.vocab_bytes_from_tokenizer")
     if config.vision is not None:
         if registry.family(m) is not llama:
             raise ValueError("vision serving covers the dense llama family in this port; "
@@ -419,8 +476,9 @@ class TorchEngine:
 
     def __init__(self, config: TorchEngineConfig, params: Optional[llama.Params] = None,
                  kvbm=None, draft_params: Optional[llama.Params] = None,
-                 vision_params: Optional[dict] = None):
-        _check_features(config)
+                 vision_params: Optional[dict] = None,
+                 guided_vocab: Optional[Tuple[List[Optional[bytes]], int]] = None):
+        _check_features(config, guided_vocab)
         self.cfg = config
         self.mcfg = mcfg = config.model
         # an MLA model's attention runs on its latent cache (ops/cuda_mla)
@@ -513,6 +571,36 @@ class TorchEngine:
         self.prompt_masks = torch.zeros((B, V), dtype=torch.int8, device=dev)
         self._slot_dirty = np.zeros(B, bool)   # slot's penalty rows need reset
 
+        # --- per-request features (all off: no table, no graph, no op) ---
+        # LoRA: the adapter tables (slot 0 the identity) and each batch
+        # slot's adapter slot
+        self.lora = None
+        if config.lora_max_adapters > 0:
+            self.lora = LoraAdapterTable(mcfg, config.lora_max_adapters, config.lora_rank,
+                                         config.lora_targets, dtype=mcfg.dtype, device=dev)
+        self._lora_slots = np.zeros(B, np.int64)
+        # logits processors: each slot's opt-ins, one column per processor
+        self._procs = tuple(config.logits_processors)
+        self._lp_masks = np.zeros((B, max(1, len(self._procs))), bool)
+        # guided decoding: each slot's token tables on the device ([B, V]
+        # class map, int64 as the gathers index with it; [B, S_cap, C_cap]
+        # transitions; written in place at a guided admission), the
+        # guided rows and their FSM states (host)
+        self.guided_enabled = config.guided_max_states > 0
+        self._g_active = np.zeros(B, bool)
+        self._g_state = np.zeros(B, np.int32)
+        self.g_class = self.g_trans = None
+        if self.guided_enabled:
+            self._g_vocab, self._g_eos = guided_vocab
+            self.g_class = torch.zeros((B, V), dtype=torch.int64, device=dev)
+            self.g_trans = torch.full((B, config.guided_max_states, config.guided_max_classes),
+                                      -1, dtype=torch.int32, device=dev)
+            # grammar key -> future of its TokenTables; compiles run on a
+            # thread of their own, so a cold grammar holds no step back
+            self._g_cache: Dict[str, Any] = {}
+            self._guided_executor = ThreadPoolExecutor(max_workers=1,
+                                                       thread_name_prefix="torch-guided")
+
         self._waiting: List[_Seq] = []
         # embedding requests for the loop: (token ids, future of the vector)
         self._embed_waiting: List[Tuple[List[int], asyncio.Future]] = []
@@ -569,7 +657,9 @@ class TorchEngine:
         state = HorizonState(c.max_batch_size, c.max_blocks_per_seq, c.decode_steps,
                              m.vocab_size, TOP_LOGPROBS_K, self.device, windows,
                              slots=c.decode_pipeline,
-                             spec=(self._spec_rounds, c.spec_k) if self._spec else None)
+                             spec=(self._spec_rounds, c.spec_k) if self._spec else None,
+                             guided=self.guided_enabled, lora=self.lora is not None,
+                             processors=len(self._procs))
         capture = self.device.type == "cuda" and c.cuda_graphs
         # the split scratch of the kernel the decode steps reach: the decode
         # kernel's for the families whose layers reach it (gemma's and
@@ -620,17 +710,33 @@ class TorchEngine:
     # ------------------------------------------------------------ requests
     def _check_request(self, req: PreprocessedRequest) -> List[int]:
         """Refuse what this engine cannot serve as asked; returns the prompt
-        (token_ids + prior_token_ids, as the reference)."""
+        (token_ids + prior_token_ids, as the reference). The feature
+        refusals are the reference's: an unknown processor, LoRA on an
+        engine without it or an unknown adapter, and a grammar on an engine
+        without guided decoding (a ``soft`` one is served unconstrained)."""
         ann = req.annotations or {}
-        for key in ("lora", "logits_processors", "disagg"):
-            if ann.get(key):
-                raise UnsupportedRequestError(f"this engine does not support {key!r}")
+        if ann.get("disagg"):
+            raise UnsupportedRequestError("this engine does not support 'disagg'")
+        wanted = ann.get("logits_processors") or []
+        if wanted:
+            known = {n for n, _ in self._procs}
+            bad = [n for n in wanted if n not in known]
+            if bad:
+                raise UnsupportedRequestError(f"unknown logits processors {bad!r}")
+        name = ann.get("lora")
+        if name:
+            if self.lora is None:
+                raise UnsupportedRequestError("engine built without LoRA support")
+            if self.lora.slot_of(name) == 0:
+                raise UnsupportedRequestError(f"unknown LoRA adapter {name!r}")
         if ann.get("images") and self.cfg.vision is None:
             raise UnsupportedRequestError("this engine was built without a vision tower")
         if ann.get("op") == "embed" and ann.get("images"):
             raise UnsupportedRequestError("embeddings take text prompts only")
-        if req.sampling.guided is not None:
-            raise UnsupportedRequestError("this engine has no guided decoding")
+        guided = req.sampling.guided
+        if guided is not None and not self.guided_enabled and not guided.get("soft"):
+            raise UnsupportedRequestError("engine built without guided decoding "
+                                          "(guided_max_states=0)")
         if req.kv_transfer:
             raise UnsupportedRequestError("this engine has no KV transfer")
         seed = req.sampling.seed
@@ -666,14 +772,23 @@ class TorchEngine:
             yield BackendOutput(finish_reason=FINISH_STOP, annotations={
                 "embedding": [float(v) for v in vec], "input_tokens": len(req.token_ids)})
             return
+        ann = req.annotations or {}
+        guided_tables, guided_state = None, 0
+        if req.sampling.guided is not None and self.guided_enabled:
+            guided_tables, guided_state = await self._request_grammar(req)
+        # an adapter request's blocks are salted with the adapter's load:
+        # the K/V of every layer after a LoRA target depends on it
+        extra_key = self.lora.cache_key(ann.get("lora")) if self.lora is not None else None
         st = _Seq(
             req=req, context=context, out_queue=asyncio.Queue(),
-            seq=TokenBlockSequence(prompt, self.cfg.block_size),
-            last_token=prompt[-1],
+            seq=TokenBlockSequence(prompt, self.cfg.block_size, extra_key=extra_key),
+            last_token=prompt[-1], guided_tables=guided_tables, guided_state=guided_state,
         )
         s = req.sampling
         st.spec_ok = self._spec and (s.temperature == 0.0 and s.logprobs == 0
-                                     and not _has_penalties(s))
+                                     and not _has_penalties(s)
+                                     and not ann.get("logits_processors")
+                                     and guided_tables is None)
         if (req.annotations or {}).get("images"):
             loop = asyncio.get_running_loop()
             embeds, mask = await loop.run_in_executor(self._executor, self._encode_images, req)
@@ -696,6 +811,69 @@ class TorchEngine:
             yield item
             if item.finish_reason is not None:
                 return
+
+    async def _request_grammar(self, req: PreprocessedRequest):
+        """(token tables, FSM state) of a request's grammar: compiled (or
+        taken from the cache), and walked past ``prior_token_ids`` (tokens
+        a request resumed elsewhere already generated). A ``soft`` grammar
+        that fails to compile is served unconstrained: (None, 0)."""
+        spec = req.sampling.guided
+        try:
+            tables = await self._compile_guided(spec)
+        except ValueError:
+            if not spec.get("soft"):
+                raise
+            log.warning("soft guided grammar rejected; serving unconstrained")
+            return None, 0
+        state = 0
+        if req.prior_token_ids:
+            try:
+                state = tables.walk(0, [int(t) for t in req.prior_token_ids])
+            except ValueError as e:
+                raise GuidedRejectedError(
+                    f"prior tokens violate the guided grammar: {e}") from e
+        return tables, state
+
+    async def _compile_guided(self, spec: Dict[str, Any]):
+        """Grammar spec -> TokenTables, compiled on the guided thread (off
+        the event loop and off the step thread) and cached by content: the
+        in-flight future, so that a burst of requests with one schema
+        compiles it once. An automaton over ``guided_max_states`` is
+        refused before anything vocab-sized is built; tables whose classes
+        reach ``guided_max_classes`` are refused too (the last column is the
+        always-reject class of model ids past the tokenizer's vocabulary).
+        Raises GuidedRejectedError; a failure is not cached."""
+        cfg = self.cfg
+        key = json.dumps(spec, sort_keys=True, default=str)
+
+        def compile_():
+            pattern = guided_regex_pattern(spec.get("kind"), spec.get("value"))
+            # subset construction can overshoot before minimization shrinks
+            # it, so construction gets headroom over the cap; the minimized
+            # count is held to the cap before the token product
+            dfa = compile_regex(pattern, max_states=min(32768, 32 * cfg.guided_max_states))
+            if dfa.num_states > cfg.guided_max_states:
+                raise ValueError(f"guided grammar needs {dfa.num_states} states > engine "
+                                 f"cap {cfg.guided_max_states}")
+            tt = build_token_tables(dfa, self._g_vocab, self._g_eos)
+            if tt.num_classes >= cfg.guided_max_classes:
+                raise ValueError(f"guided grammar needs {tt.num_classes} token classes "
+                                 f">= engine cap {cfg.guided_max_classes}")
+            return tt
+
+        loop = asyncio.get_running_loop()
+        task = self._g_cache.get(key)
+        if task is None:
+            task = asyncio.ensure_future(loop.run_in_executor(self._guided_executor, compile_))
+            if len(self._g_cache) > 32:
+                self._g_cache.pop(next(iter(self._g_cache)))
+            self._g_cache[key] = task
+        try:
+            return await asyncio.shield(task)
+        except (RegexError, SchemaError, ValueError) as e:
+            if self._g_cache.get(key) is task:
+                del self._g_cache[key]
+            raise GuidedRejectedError(f"guided grammar rejected: {e}") from e
 
     async def _embed(self, token_ids: List[int]) -> np.ndarray:
         """Queue an embedding for the loop, which serves it between steps
@@ -747,6 +925,8 @@ class TorchEngine:
         self._executor.shutdown(wait=False)
         self._fetch_executor.shutdown(wait=False)
         self._offload_executor.shutdown(wait=False)
+        if self.guided_enabled:
+            self._guided_executor.shutdown(wait=False)
 
     # ------------------------------------------------------------ step loop
     async def _loop(self) -> None:
@@ -932,12 +1112,24 @@ class TorchEngine:
             self._seeds[slot] = (
                 s.seed if s.seed is not None else self._host_rng.integers(1 << 32)
             )
+            ann = st.req.annotations or {}
+            self._lora_slots[slot] = (self.lora.slot_of(ann.get("lora"))
+                                      if self.lora is not None else 0)
+            wanted = ann.get("logits_processors") or []
+            self._lp_masks[slot] = False
+            for k, (pname, _fn) in enumerate(self._procs):
+                self._lp_masks[slot, k] = pname in wanted
+            if self.guided_enabled:
+                self._admit_guided(st, slot)
             # penalty tables: reset the slot's rows when this request uses
-            # penalties or a prior occupant left them dirty
-            st.counting = _has_penalties(s)
+            # penalties or processors (which read the output counts, as
+            # the reference's counts_need) or a prior occupant left them
+            # dirty
+            has_pen = _has_penalties(s)
+            st.counting = has_pen or bool(wanted)
             if st.counting or self._slot_dirty[slot]:
                 row = torch.zeros(self.mcfg.vocab_size, dtype=torch.int8)
-                if st.counting:
+                if has_pen:
                     ids = torch.as_tensor(st.seq.tokens(), dtype=torch.long)
                     # image placeholders sit above the vocab: they are not
                     # sampleable, so they do not enter the mask
@@ -955,6 +1147,34 @@ class TorchEngine:
                     if other is not None and other is not st:
                         self._slot_dirty[j] = True
         self._waiting = still
+
+    def _admit_guided(self, st: _Seq, slot: int) -> None:
+        """Write a guided request's token tables into its slot's rows of the
+        device tables, in place (the horizon's graphs hold their addresses):
+        model ids past the tokenizer's vocabulary map to column C of the
+        transitions, which stays all -1 (always rejected). A request
+        without a grammar only clears the slot's guided flag."""
+        tt = st.guided_tables
+        self._g_active[slot] = tt is not None
+        if tt is None:
+            return
+        c, V = self.cfg, self.mcfg.vocab_size
+        S_g, C_g = tt.trans.shape
+        n = min(len(tt.class_of), V)
+        cls = np.full(V, C_g, np.int32)
+        cls[:n] = tt.class_of[:n]
+        trans = np.full((c.guided_max_states, c.guided_max_classes), -1, np.int32)
+        trans[:S_g, :C_g] = tt.trans
+        self.g_class[slot].copy_(torch.from_numpy(cls))
+        self.g_trans[slot].copy_(torch.from_numpy(trans))
+        self._g_state[slot] = st.guided_state
+
+    def _feature_rows(self, seqs: List[Optional[_Seq]]) -> bool:
+        """Whether any active row of a dispatch uses a per-request feature
+        (an adapter, a processor, a grammar)."""
+        return any(st is not None and (self._lora_slots[i] != 0 or self._lp_masks[i].any()
+                                       or self._g_active[i])
+                   for i, st in enumerate(seqs))
 
     def _bucket(self, n: int) -> int:
         for b in self.cfg.prefill_buckets:
@@ -1095,7 +1315,9 @@ class TorchEngine:
         attend = self._chunk_attend(self._chunk_table(st, total_len), start, chunk_len,
                                     len(tokens), self._t(new_ids))
         ids, embeds = self._chunk_inputs(st, tokens, start, chunk_len)
-        kw = {} if embeds is None else {"inputs_embeds": embeds}
+        kw = self._lora_kw(int(self._lora_slots[st.slot]))
+        if embeds is not None:
+            kw["inputs_embeds"] = embeds
         hidden = self._forward(self.params, self.mcfg, ids, self._t(positions), attend, **kw)
         self.step_counts["prefill"] += 1
         st.prefill_pos = total_len
@@ -1303,6 +1525,10 @@ class TorchEngine:
                 self.prompt_masks[slot][None], self._t([s.presence_penalty]),
                 self._t([s.frequency_penalty]), self._t([s.repetition_penalty]),
             )
+        # the prompt's last position: step 0, the grammar at its walked state
+        pen = self._processors_and_grammar(
+            pen, slice(slot, slot + 1), np.ones(1, bool), np.zeros(1, np.int64),
+            np.array([len(st.seq)]), np.array([st.guided_state], np.int32))
         gumbel = None
         if s.temperature > 0.0:
             gumbel = gumbel_noise(
@@ -1322,6 +1548,48 @@ class TorchEngine:
             vals, ids = top_logprobs(logits)
             tlp_ids, tlp_vals = ids[0].tolist(), vals[0].tolist()
         return st, int(tok[0]), float(lp[0]), tlp_ids, tlp_vals
+
+    def _lora_kw(self, ids) -> dict:
+        """The forward's ``lora`` argument for adapter ids: an int (a prefill
+        chunk), a [B] host array (a decode batch) or ``(head_len, head_id,
+        rows)`` (the mixed step's packed buffer); {} on an engine without
+        LoRA or when every id is 0 (the identity adds exact zeros)."""
+        if self.lora is None:
+            return {}
+        if isinstance(ids, tuple):
+            head_len, head_id, rows = ids
+            if head_id == 0 and not rows.any():
+                return {}
+            ids = PackedAdapterIds(head_len, head_id, self._t(rows))
+        elif isinstance(ids, np.ndarray):
+            if not ids.any():
+                return {}
+            ids = self._t(ids)
+        elif ids == 0:
+            return {}
+        return {"lora": make_lora_fn(self.lora.tables(), ids)}
+
+    def _processors_and_grammar(self, pen: torch.Tensor, rows: slice, active: np.ndarray,
+                                steps: np.ndarray, seq_lens: np.ndarray,
+                                g_state: np.ndarray) -> torch.Tensor:
+        """The processors, then the grammar mask, on the logits of the
+        slots ``rows`` (every slot, or one prefill's) in an eager step. The
+        host knows which processors some active row opted into, so only
+        those run (each under its row mask), and the mask runs only when a
+        row is guided: the reference's ``lax.cond(any(mask))``, decided here
+        before the launch."""
+        masks = self._lp_masks[rows] & active[:, None]
+        use = [k for k in range(len(self._procs)) if masks[:, k].any()]
+        if use:
+            state = {"output_counts": self.output_counts[rows], "steps": self._t(steps),
+                     "seq_lens": self._t(seq_lens)}
+            pen = apply_processors([self._procs[k] for k in use], self._t(masks[:, use]),
+                                   pen, state)
+        g_act = self._g_active[rows] & active
+        if g_act.any():
+            pen = guided_mask(pen, self._t(g_act), self._t(g_state), self.g_class[rows],
+                              self.g_trans[rows])
+        return pen
 
     def _decode_dispatch_arrays(self, seqs: List[Optional[_Seq]]):
         """Per-slot host arrays of ONE decode step over ``seqs`` (shared by
@@ -1358,6 +1626,8 @@ class TorchEngine:
                 logits, self.output_counts, self.prompt_masks,
                 self._t(self._pres), self._t(self._freqs), self._t(self._reps),
             )
+        pen = self._processors_and_grammar(pen, slice(None), active, steps, seq_lens,
+                                           self._g_state)
         sampled = active & (self._temps > 0.0)
         gumbel = None
         if sampled.any():
@@ -1415,6 +1685,7 @@ class TorchEngine:
         hidden = self._forward(
             self.params, self.mcfg, self._t(self._tokens)[:, None],
             self._t(positions)[:, None], attend,
+            **self._lora_kw(np.where(seq_lens > 0, self._lora_slots, 0)),
         )                                                   # [B, 1, H]
         self.step_counts["decode"] += 1
         self._draft_decode_rows(seqs, positions, seq_lens, wb, wo)
@@ -1477,7 +1748,11 @@ class TorchEngine:
 
         tokens = self._t(np.concatenate([c_tokens, self._tokens]))
         pos = self._t(np.concatenate([c_positions, positions]))
-        hidden = self._forward(self.params, self.mcfg, tokens, pos, attend)
+        # the packed buffer's adapters as its segments: the chunk's rows
+        # with its request's, then one decode row per slot
+        lora = self._lora_kw((S_pad, int(self._lora_slots[st.slot]),
+                              np.where(seq_lens > 0, self._lora_slots, 0)))
+        hidden = self._forward(self.params, self.mcfg, tokens, pos, attend, **lora)
         self.step_counts["mixed"] += 1
         st.prefill_pos = total_len
         self._advance_draft_prefill(st)
@@ -1514,6 +1789,8 @@ class TorchEngine:
                     carry["tokens"][i] = st.last_token
                     carry["seq_lens"][i] = len(st.seq)
                     carry["steps"][i] = st.produced
+            if hs.guided:
+                carry["g_state"][:] = np.where(active, self._g_state, 0)
             lens = carry["seq_lens"].copy()
             hs.carry.upload(slot)
         else:
@@ -1530,6 +1807,12 @@ class TorchEngine:
                           ("pres", self._pres), ("freqs", self._freqs),
                           ("reps", self._reps)):
             inp[name][:] = arr
+        if hs.guided:
+            inp["g_active"][:] = active & self._g_active
+        if hs.lora:
+            inp["lora_ids"][:] = np.where(active, self._lora_slots, 0)
+        if hs.processors:
+            inp["proc_masks"][:] = self._lp_masks & active[:, None]
         hs.inputs.upload(slot)
         if self._spec and self._spec_eligible(seqs):
             adv = self._spec_rounds * c.spec_k
@@ -1540,13 +1823,15 @@ class TorchEngine:
                           lens_after=lens + adv * active.astype(np.int32), spec=True)
         n = c.decode_steps
         max_seq_len = int(lens[active].max()) + n - 1
-        host, event = hz.run(slot, max_seq_len, bool(inp["sample_rows"].any()))
+        host, event = hz.run(slot, max_seq_len, bool(inp["sample_rows"].any()),
+                             feat=hs.features and self._feature_rows(seqs))
         self.step_counts["horizon"] += 1
         return _Chain(seqs=list(seqs), host=host, event=event,
                       lens_after=lens + n * active.astype(np.int32))
 
     @torch.inference_mode()
-    def _decode_multi(self, hs: HorizonState, max_seq_len: int, sampled: bool) -> None:
+    def _decode_multi(self, hs: HorizonState, max_seq_len: int, sampled: bool,
+                      feat: bool = False) -> None:
         """The horizon body: ``decode_steps`` decode iterations on device
         tensors only (no readback, no host-to-device copy: it is what the
         CUDA graphs capture). Each step takes its positions from the carry
@@ -1559,12 +1844,24 @@ class TorchEngine:
         and writes its row of ``hs.packed``; its samples are the next step's
         tokens. The carry is written back in place. ``max_seq_len``, a
         bound on every row's length in the horizon, sizes the split grids;
-        ``sampled``: whether any row samples (else no Gumbel draw)."""
+        ``sampled``: whether any row samples (else no Gumbel draw).
+        ``feat``: the feature body, for a dispatch with a row that uses a
+        per-request feature: every row's adapter delta (slot 0 adds zeros),
+        every processor under its row mask after the penalties, and the
+        grammar mask of the guided rows, whose FSM states advance by the
+        sampled tokens and are written back to the carry."""
         n = hs.packed.shape[0]
         V = self.mcfg.vocab_size
         active = hs.active
         act = active.to(torch.int32)
         tokens, seq_lens = hs.tokens, hs.seq_lens
+        lora, g_st = {}, None
+        if feat:
+            if hs.lora:
+                # each slot's tables gathered once for the whole horizon
+                lora = {"lora": make_lora_fn(self.lora.tables(), hs.lora_ids)}
+            if hs.guided:
+                g_st = hs.g_state
         for s in range(n):
             positions = torch.clamp(seq_lens - 1, min=0)
             wb, wo = self._write_pages(hs, positions)
@@ -1580,14 +1877,22 @@ class TorchEngine:
                     q[:, 0], kc, vc, hs.tables, seq_lens, max_seq_len=max_seq_len)[:, None]
 
             hidden = self._forward(self.params, self.mcfg, tokens[:, None],
-                                   positions[:, None], attend)
+                                   positions[:, None], attend, **lora)
             logits = self._lm_logits(self.params, self.mcfg, hidden[:, 0])
             pen = apply_penalties(logits, self.output_counts, self.prompt_masks,
                                   hs.pres, hs.freqs, hs.reps)
+            if feat and hs.processors:
+                pen = apply_processors(self._procs, hs.proc_masks, pen, {
+                    "output_counts": self.output_counts, "steps": hs.steps + s,
+                    "seq_lens": seq_lens})
+            if g_st is not None:
+                pen = guided_mask(pen, hs.g_active, g_st, self.g_class, self.g_trans)
             gumbel = None
             if sampled:
                 gumbel = gumbel_noise_tensor(hs.seeds, hs.steps + s, V, rows=hs.sample_rows)
             toks = sample_tokens(pen, hs.temps, hs.top_ks, hs.top_ps, hs.min_ps, gumbel)
+            if g_st is not None:
+                g_st = guided_step(g_st, toks, hs.g_active, self.g_class, self.g_trans)
             update_counts(self.output_counts, toks, hs.count_rows)
             vals, ids = top_logprobs(logits)
             hs.packed[s].copy_(torch.cat(
@@ -1598,16 +1903,21 @@ class TorchEngine:
         hs.tokens.copy_(tokens)
         hs.seq_lens.copy_(seq_lens)
         hs.steps.add_(act * n)
+        if g_st is not None:
+            hs.g_state.copy_(g_st)
 
     def _spec_eligible(self, seqs: List[Optional[_Seq]]) -> bool:
-        """Every active row greedy, with no penalties and no logprobs (the
-        verify's argmax is sample_tokens at temperature 0; the spec packed
-        format carries token logprobs only). Otherwise the whole dispatch
-        runs the normal horizon."""
+        """Every active row greedy, with no penalties, no logprobs, no
+        processors and no grammar (the verify's argmax is sample_tokens at
+        temperature 0; the spec packed format carries token logprobs only;
+        the spec body carries neither processors nor the grammar mask, as
+        the reference's). Otherwise the whole dispatch runs the normal
+        horizon."""
         for i, st in enumerate(seqs):
             if st is not None and (
                     self._temps[i] != 0.0 or self._lp_ns[i] != 0 or self._pres[i] != 0.0
-                    or self._freqs[i] != 0.0 or self._reps[i] != 1.0):
+                    or self._freqs[i] != 0.0 or self._reps[i] != 1.0
+                    or self._lp_masks[i].any() or self._g_active[i]):
                 return False
         return True
 
@@ -1959,6 +2269,17 @@ class TorchEngine:
                         self._block_tables[st.slot, len(st.block_ids) - 1] = new_id
             if finish is not None:
                 break
+        if st.guided_tables is not None and emit:
+            # the host walk of the FSM over the tokens that survived stop
+            # handling: the state the next unchained dispatch starts from.
+            # A sampled token is legal under the mask, so a refused step
+            # means corrupted tables: the request fails, not the loop
+            try:
+                st.guided_state = st.guided_tables.walk(st.guided_state, emit)
+                self._g_state[st.slot] = st.guided_state
+            except ValueError:
+                log.exception("guided FSM desync")
+                finish = FINISH_ERROR
         ann: Dict[str, Any] = {}
         if first:
             ann = {"cached_tokens": st.cached_tokens,

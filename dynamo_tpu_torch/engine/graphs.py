@@ -15,12 +15,19 @@ one CUDA graph per key and replays it.
   windows (Gemma); and the packed results ``[N, B, 2 + 2K]``. A
   speculative engine's state also holds the spec horizon's packed results
   ``[R, B, 1 + 2k]`` (``TorchEngine._spec_multi``: R rounds of k draft
-  tokens each).
+  tokens each). An engine with per-request features (logits processors,
+  guided decoding, LoRA) adds their per-dispatch fields: each guided row's
+  FSM state in the carry (chained horizons continue each row's grammar),
+  and the guided rows, each slot's adapter id and the processor opt-ins in
+  the inputs. The grammar and adapter tables themselves are the engine's,
+  written in place.
 - ``HorizonGraphs`` captures the body once per key (a ``max_seq_len``
   bucket: ``DEC_SPLIT_KEYS`` times a power of two, up to ``max_context``;
   and whether any row samples, since the Gumbel draw over ``[B, V]`` is
-  the body's one costly optional part), all keys at engine start, before
-  any traffic, into one shared memory pool. A capture that fails raises.
+  the body's one costly optional part; and, on an engine with features,
+  whether any row of the dispatch uses one, so that a batch without such
+  rows replays the plain body), all keys at engine start, before any
+  traffic, into one shared memory pool. A capture that fails raises.
   On a speculative engine the spec body is captured too, once per
   ``max_seq_len`` bucket (spec rows are greedy: no sampled key), into the
   same pool; its replays are counted apart (``spec_replays``).
@@ -78,18 +85,26 @@ class HorizonState:
 
     def __init__(self, batch: int, max_blocks: int, steps: int, vocab: int, top_k: int,
                  device: torch.device, windows: Sequence[int] = (), slots: int = 1,
-                 spec: Optional[Tuple[int, int]] = None):
+                 spec: Optional[Tuple[int, int]] = None, guided: bool = False,
+                 lora: bool = False, processors: int = 0):
         B = batch
         f32, i32, i64 = torch.float32, torch.int32, torch.int64
+        # the per-request features this state carries fields for
+        self.guided, self.lora, self.processors = guided, lora, processors
+        self.features = guided or lora or processors > 0
         self.carry = _Staged([("tokens", i64, (B,)), ("seq_lens", i32, (B,)),
-                              ("steps", i64, (B,))], device, slots)
+                              ("steps", i64, (B,))]
+                             + ([("g_state", i32, (B,))] if guided else []), device, slots)
         self.inputs = _Staged([
             ("tables", i32, (B, max_blocks)), ("active", torch.bool, (B,)),
             ("count_rows", torch.bool, (B,)), ("sample_rows", torch.bool, (B,)),
             ("seeds", i64, (B,)), ("temps", f32, (B,)), ("top_ks", i64, (B,)),
             ("top_ps", f32, (B,)), ("min_ps", f32, (B,)), ("pres", f32, (B,)),
             ("freqs", f32, (B,)), ("reps", f32, (B,)),
-        ], device, slots)
+        ] + ([("g_active", torch.bool, (B,))] if guided else [])
+          + ([("lora_ids", i64, (B,))] if lora else [])
+          + ([("proc_masks", torch.bool, (B, processors))] if processors else []),
+            device, slots)
         for name, t in {**self.carry.views, **self.inputs.views}.items():
             setattr(self, name, t)
         # the unified kernel's q_len = 1 rows: row b's token is q[b]
@@ -124,12 +139,13 @@ def seq_len_buckets(max_context: int, unit: int) -> List[int]:
 
 
 class HorizonGraphs:
-    """Runs the horizon body (``body(state, max_seq_len, sampled)``) or the
-    spec body (``spec_body(state, max_seq_len)``) on ``state``: one
+    """Runs the horizon body (``body(state, max_seq_len, sampled, feat)``)
+    or the spec body (``spec_body(state, max_seq_len)``) on ``state``: one
     CUDA-graph replay per run when ``capture`` (call ``capture_all`` before
     traffic), else eagerly."""
 
-    def __init__(self, body: Callable[[HorizonState, int, bool], None], state: HorizonState,
+    def __init__(self, body: Callable[[HorizonState, int, bool, bool], None],
+                 state: HorizonState,
                  buckets: Sequence[int], device: torch.device, capture: bool,
                  reserve: Optional[Callable[[], None]] = None,
                  spec_body: Optional[Callable[[HorizonState, int], None]] = None):
@@ -140,7 +156,7 @@ class HorizonGraphs:
         self.device = device
         self.capture = capture
         self._reserve = reserve
-        self.graphs: Dict[Tuple[int, bool], Tuple[torch.cuda.CUDAGraph, dict]] = {}
+        self.graphs: Dict[Tuple[int, bool, bool], Tuple[torch.cuda.CUDAGraph, dict]] = {}
         self.spec_graphs: Dict[int, Tuple[torch.cuda.CUDAGraph, dict]] = {}
         self.capture_s = 0.0
         self.pool_bytes = 0
@@ -155,10 +171,11 @@ class HorizonGraphs:
             for _ in range(slots)]
         self._slot = 0
 
-    def key(self, max_seq_len: int, sampled: bool) -> Tuple[int, bool]:
+    def key(self, max_seq_len: int, sampled: bool,
+            feat: bool = False) -> Tuple[int, bool, bool]:
         for b in self.buckets:
             if max_seq_len <= b:
-                return b, bool(sampled)
+                return b, bool(sampled), bool(feat)
         raise ValueError(f"max_seq_len {max_seq_len} above the largest bucket {self.buckets[-1]}")
 
     def _capture(self, fn, pool, stream) -> Tuple[torch.cuda.CUDAGraph, dict]:
@@ -183,18 +200,21 @@ class HorizonGraphs:
         torch.cuda.empty_cache()
         reserved0 = torch.cuda.memory_reserved(dev)
         t0 = time.perf_counter()
+        feats = (False, True) if self.state.features else (False,)
         with torch.cuda.stream(stream):
             if self._reserve is not None:
                 self._reserve()
-            self.body(self.state, self.buckets[-1], True)
+            for feat in feats:
+                self.body(self.state, self.buckets[-1], True, feat)
             if self.spec_body is not None:
                 self.spec_body(self.state, self.buckets[-1])
         stream.synchronize()
         pool = torch.cuda.graph_pool_handle()
         for b in self.buckets:
             for sampled in (False, True):
-                self.graphs[(b, sampled)] = self._capture(
-                    lambda: self.body(self.state, b, sampled), pool, stream)
+                for feat in feats:
+                    self.graphs[(b, sampled, feat)] = self._capture(
+                        lambda: self.body(self.state, b, sampled, feat), pool, stream)
             if self.spec_body is not None:
                 self.spec_graphs[b] = self._capture(
                     lambda: self.spec_body(self.state, b), pool, stream)
@@ -210,11 +230,13 @@ class HorizonGraphs:
         self._slot = (slot + 1) % len(self._host)
         return slot
 
-    def run(self, slot: int, max_seq_len: int, sampled: bool, spec: bool = False):
-        """One horizon (the spec body when ``spec``) on the current stream,
-        its packed results copied to host slot ``slot``; returns (that host
-        tensor, an event recorded after the copy, or None off CUDA)."""
-        key = self.key(max_seq_len, sampled)
+    def run(self, slot: int, max_seq_len: int, sampled: bool, spec: bool = False,
+            feat: bool = False):
+        """One horizon (the spec body when ``spec``; the feature body when
+        ``feat``) on the current stream, its packed results copied to host
+        slot ``slot``; returns (that host tensor, an event recorded after
+        the copy, or None off CUDA)."""
+        key = self.key(max_seq_len, sampled, feat)
         if self.capture:
             graph, launched = self.spec_graphs[key[0]] if spec else self.graphs[key]
             graph.replay()

@@ -105,11 +105,11 @@ def tensor_from_buffer(buf, offset: int, nbytes: int, dtype: torch.dtype, shape,
 
 def read_safetensors(path: str, device: DeviceLike = None) -> Iterator[Tuple[str, torch.Tensor]]:
     """Yields ``(name, tensor)`` for every tensor of every shard in the
-    directory ``path`` (shards, and the tensors of a shard, in sorted name
-    order: the reference's order), each a fresh tensor on ``device`` in its
-    stored dtype and shape."""
+    directory ``path``, or of the one file ``path`` (shards, and the
+    tensors of a shard, in sorted name order: the reference's order), each
+    a fresh tensor on ``device`` in its stored dtype and shape."""
     device = resolve_device(device)
-    for fname in shard_files(path):
+    for fname in [path] if os.path.isfile(path) else shard_files(path):
         with open(fname, "rb") as f:
             size = os.fstat(f.fileno()).st_size
             if size == 0:

@@ -1,5 +1,7 @@
 """Batched on-device sampling: greedy / temperature / top-k / top-p / min-p,
-frequency / presence / repetition penalties, and top-N logprobs.
+frequency / presence / repetition penalties, top-N logprobs, and the
+guided-decoding grammar mask and FSM step (``guided_mask`` /
+``guided_step``, the reference engine's ``gmask`` / ``gstep``).
 
 Counterpart of the reference's engine/sampling.py with the same semantics
 (vLLM/OpenAI penalties):
@@ -209,3 +211,39 @@ def update_counts(
     output_counts.view(-1).scatter_add_(0, rows * V + tokens.long(),
                                         active.to(output_counts.dtype))
     return output_counts
+
+
+def _guided_rows(g_state: torch.Tensor, g_trans: torch.Tensor) -> torch.Tensor:
+    """Each row's transition row ``g_trans[b, g_state[b]]`` [B, C]."""
+    B, _, C = g_trans.shape
+    idx = g_state.long()[:, None, None].expand(B, 1, C)
+    return torch.gather(g_trans, 1, idx)[:, 0]
+
+
+def guided_mask(
+    logits: torch.Tensor,      # [B, V] float32
+    g_active: torch.Tensor,    # [B] bool: guided rows
+    g_state: torch.Tensor,     # [B] int: each row's FSM state
+    g_class: torch.Tensor,     # [B, V] int32: token -> class (guided/tokens.py)
+    g_trans: torch.Tensor,     # [B, S, C] int32: next state, -1 = reject
+) -> torch.Tensor:
+    """Mask each guided row's logits to the tokens legal from its FSM
+    state (``NEG_INF`` elsewhere); other rows pass unchanged. Device
+    tensors only: one [B, C] row gather and one [B, V] class lookup."""
+    ok = torch.gather(_guided_rows(g_state, g_trans), 1, g_class.long()) >= 0
+    return torch.where(g_active[:, None] & ~ok, NEG_INF, logits)
+
+
+def guided_step(
+    g_state: torch.Tensor,     # [B]
+    tokens: torch.Tensor,      # [B] sampled
+    g_active: torch.Tensor,    # [B] bool
+    g_class: torch.Tensor,     # [B, V]
+    g_trans: torch.Tensor,     # [B, S, C]
+) -> torch.Tensor:
+    """Advance each guided row's FSM by its sampled token (a rejected
+    transition, which the mask never samples, lands in state 0, as the
+    reference's ``max(next, 0)``); other rows keep their state."""
+    cls = torch.gather(g_class, 1, tokens.long()[:, None])
+    nxt = torch.gather(_guided_rows(g_state, g_trans), 1, cls.long())[:, 0]
+    return torch.where(g_active, torch.clamp(nxt, min=0).to(g_state.dtype), g_state)

@@ -212,9 +212,20 @@ def layer_forward(
     sin: torch.Tensor,
     attend: AttendFn,
     layer_idx: int,
+    lora: Optional[Callable] = None,
 ) -> torch.Tensor:
+    # optional batched LoRA (lora/adapters.make_lora_fn): its delta is added
+    # to a projection's output; it returns None for targets without tables
+    def _lora(name: str, inp: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+        if lora is None:
+            return out
+        delta = lora(name, layer_idx, inp)
+        return out if delta is None else out + delta
+
     h = rms_norm(x, p["attn_norm"], cfg.rms_norm_eps)
-    q, k, v = h @ p["wq"], h @ p["wk"], h @ p["wv"]
+    q = _lora("wq", h, h @ p["wq"])
+    k = _lora("wk", h, h @ p["wk"])
+    v = _lora("wv", h, h @ p["wv"])
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     lead = h.shape[:-1]
@@ -227,11 +238,11 @@ def layer_forward(
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     attn_out = attend(q, k, v, layer_idx).reshape(*lead, cfg.q_size)
-    x = x + attn_out @ p["wo"]
+    x = x + _lora("wo", attn_out, attn_out @ p["wo"])
     h = rms_norm(x, p["mlp_norm"], cfg.rms_norm_eps)
-    gate = F.silu((h @ p["w_gate"]).float()).to(x.dtype)
-    gu = gate * (h @ p["w_up"])
-    return x + gu @ p["w_down"]
+    gate = F.silu(_lora("w_gate", h, h @ p["w_gate"]).float()).to(x.dtype)
+    gu = gate * _lora("w_up", h, h @ p["w_up"])
+    return x + _lora("w_down", gu, gu @ p["w_down"])
 
 
 def forward(
@@ -241,16 +252,18 @@ def forward(
     positions: torch.Tensor,        # [..., S] integer
     attend: AttendFn,
     inputs_embeds: Optional[torch.Tensor] = None,   # [..., S, hidden]
+    lora: Optional[Callable] = None,
 ) -> torch.Tensor:
     """Full stack -> final hidden states [..., S, hidden] (pre-lm_head).
 
     ``inputs_embeds`` replaces the embedding gather when given: the
-    multimodal path splices vision soft tokens in (models/vision.py)."""
+    multimodal path splices vision soft tokens in (models/vision.py).
+    ``lora``: the batched LoRA deltas (lora/adapters.make_lora_fn)."""
     x = F.embedding(token_ids.long(), params["embed"]) if inputs_embeds is None else inputs_embeds
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
     cos, sin = cos[..., None, :], sin[..., None, :]   # broadcast over heads
     for i, layer in enumerate(params["layers"]):
-        x = layer_forward(layer, cfg, x, cos, sin, attend, i)
+        x = layer_forward(layer, cfg, x, cos, sin, attend, i, lora=lora)
     return rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
 
 

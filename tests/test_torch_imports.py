@@ -2,8 +2,8 @@
 imports jax or anything of the dynamo_tpu package (not even its modules
 that are free of JAX). Checked twice: statically over every import
 statement, and by importing every module in a fresh interpreter and looking
-at sys.modules. serve_compare.py (a GPU script that runs on import) and
-latent_probe.py (a GPU script) are checked statically."""
+at sys.modules. serve_compare.py and stream_compare.py (GPU scripts that
+run on import) and latent_probe.py (a GPU script) are checked statically."""
 
 import ast
 import os
@@ -26,7 +26,8 @@ def _sources():
 
 def _static_sources():
     return sorted(_sources() + [os.path.join(REPO, f)
-                                for f in ("serve_compare.py", "latent_probe.py")])
+                                for f in ("serve_compare.py", "latent_probe.py",
+                                          "stream_compare.py")])
 
 
 def _forbidden(name: str) -> bool:
@@ -141,6 +142,18 @@ def test_importing_every_module_loads_no_checkpoint_library():
     )
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip() == "[]", r.stdout
+
+
+def test_the_walk_covers_the_feature_modules():
+    """The per-request features: logits processors, guided decoding (the
+    grammar compiler, numpy only) and multi-LoRA (adapter tables and the
+    adapter cache)."""
+    assert {
+        "dynamo_tpu_torch.logits_processing", "dynamo_tpu_torch.guided",
+        "dynamo_tpu_torch.guided.regex", "dynamo_tpu_torch.guided.schema",
+        "dynamo_tpu_torch.guided.tokens", "dynamo_tpu_torch.lora",
+        "dynamo_tpu_torch.lora.adapters", "dynamo_tpu_torch.lora.cache",
+    } <= set(_modules())
 
 
 def test_the_walk_covers_the_checkpoint_modules():
