@@ -4,11 +4,12 @@
 // Replaces the TPU kernel dynamo_tpu/ops/pallas_attention.py:36
 // (_decode_kernel, launched by paged_decode_attention at :255) on the bf16
 // cache and on the int8 cache (int8 pages plus f32 [num_blocks, kvh] scale
-// rows). q [B, h, 128] bf16, G = h / kvh in {1, 2, 4, 8}, out [B, h, 128]
-// bf16; a row with seq_len == 0 reads back zeros.
+// rows). q [B, h, d] bf16 with head_dim d in {64, 128} and G = h / kvh in
+// 1 .. 8 (Llama-3 G 4 at d 128 and Llama-3.2-1B G 4 at d 64, Qwen2.5's G 3,
+// 5, 6 and 7), out [B, h, d] bf16; a row with seq_len == 0 reads back zeros.
 //
 // Bound on this card: bytes. Each (sequence, kv head) reads its K and V rows
-// once (2 * seq_len * 256 bytes in bf16, half that plus one scale per page
+// once (2 * seq_len * 2d bytes in bf16, half that plus one scale per page
 // in int8) for its G query heads: about 4 * G flops per byte, far below the
 // ~295 flops per byte at which an H100 stops being memory-bound. The design
 // keeps the card's loads in flight and spends as few instructions per key
@@ -33,6 +34,12 @@
 //     S = Q K^T (K read by ldmatrix from 128-byte-swizzled rows, Q held in
 //     registers), takes ONE max and ONE rescale per head for them, and
 //     adds P V (P straight from the S accumulators, V by ldmatrix.trans).
+//     Any G up to 8 fills rows 0 .. G - 1 of the tile; rows G .. 15 stay
+//     padding;
+//   - head_dim 64: a bf16 key row is 128 bytes, 8 chunks of 16, so the
+//     swizzle XORs all three chunk bits with the row's low bits (at 128 a
+//     row has 16 chunks and the top bit is kept); the ring's stages are
+//     half as large, S takes 4 k-steps and P V 8 n-tiles.
 //     A first form on the CUDA cores (a half-warp per key, 16-lane shuffle
 //     reductions) spent several times the instructions per key and was
 //     slower on every decode case of chip_smoke.py (PERF.md); the padded
@@ -60,7 +67,6 @@
 
 namespace dtt {
 
-constexpr int HEAD_DIM = 128;  // the only head size this kernel takes
 constexpr int DEC_WARPS = 4;
 constexpr int DEC_THREADS = DEC_WARPS * 32;
 constexpr int DEC_TILE = 64;                   // keys per tile
@@ -68,15 +74,15 @@ constexpr int WKEYS = DEC_TILE / DEC_WARPS;    // keys per warp per tile: 16
 constexpr int DEC_STAGES = 3;                  // ring depth
 // keys per split (16 pages of 16); ops/cuda_attention.py mirrors it
 constexpr int DEC_SPLIT_KEYS = 256;
-constexpr int BF16_ROW = 2 * HEAD_DIM;         // bytes of a bf16 key row
 
 // The ring: K and V rows of DEC_STAGES tiles (bf16: swizzled, int8: raw),
 // and for int8 the tile converted to bf16, the K and V scale of each page
 // a tile touches (at most DEC_TILE pages: a tile starts on a page boundary)
 // and of each key. After the key loop the same bytes hold the merges.
-template <bool I8>
+template <int D, bool I8>
 struct __align__(128) DecSmem {
-  static constexpr int ROW = I8 ? HEAD_DIM : BF16_ROW;  // bytes of a staged key row
+  static constexpr int BF16_ROW = 2 * D;                 // bytes of a bf16 key row
+  static constexpr int ROW = I8 ? D : BF16_ROW;          // bytes of a staged key row
   unsigned char k[DEC_STAGES][DEC_TILE * ROW];
   unsigned char v[DEC_STAGES][DEC_TILE * ROW];
   unsigned char kb[I8 ? DEC_TILE * BF16_ROW : 16];
@@ -87,15 +93,18 @@ struct __align__(128) DecSmem {
   float vscale[I8 ? DEC_TILE : 4];
 };
 
-// merge_warps' shared arrays for G = 8: s_acc [DEC_WARPS][G][128], s_m, s_l
-static_assert(sizeof(DecSmem<true>) >= (DEC_WARPS * 8 * (HEAD_DIM + 2)) * 4,
+// merge_warps' shared arrays for G = 8: s_acc [DEC_WARPS][G][D], s_m, s_l
+static_assert(sizeof(DecSmem<64, false>) >= (DEC_WARPS * 8 * (64 + 2)) * 4 &&
+                  sizeof(DecSmem<128, false>) >= (DEC_WARPS * 8 * (128 + 2)) * 4,
               "the ring must hold the block merge");
 
 // byte offset of 16-byte chunk c (dims 8c .. 8c + 7) of key row j in a
-// swizzled bf16 tile: the chunk index XOR the row's low 3 bits, so the 8
-// rows one ldmatrix reads at one chunk fall on 8 different bank groups
+// swizzled bf16 tile of head_dim D: the chunk index XOR the row's low 3
+// bits, so the 8 rows one ldmatrix reads at one chunk fall on 8 different
+// bank groups
+template <int D>
 __device__ __forceinline__ uint32_t row_off(int j, int c) {
-  return (uint32_t)(j * BF16_ROW + ((c ^ (j & 7)) << 4));
+  return (uint32_t)(j * 2 * D + ((c ^ (j & 7)) << 4));
 }
 
 __device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t& r0, uint32_t& r1,
@@ -139,22 +148,24 @@ struct DecSplits {
 // Each warp holds, for its lane's row r = lane / 4 (a query head when
 // r < G), an online-softmax state over the keys it saw: m, its quad's
 // share of l, and o[nt][0..1] = dims nt * 8 + (lane % 4) * 2 + {0, 1}.
-// Merge the warps through shared memory: threads t < G * 16 end with head
-// g = t / 16's block state for dims c = (t % 16) * 8 .. + 7 in (M, L, O).
-template <int G>
-__device__ __forceinline__ void merge_warps(float m, float l, const float (&o)[16][4],
+// Merge the warps through shared memory: threads t < G * D / 8 end with
+// head g = t / (D / 8)'s block state for dims c = (t % (D / 8)) * 8 .. + 7
+// in (M, L, O).
+template <int D, int G>
+__device__ __forceinline__ void merge_warps(float m, float l, const float (&o)[D / 8][4],
                                             unsigned char* smem, int warp, int lane,
                                             float& M, float& L, float (&O)[8]) {
+  constexpr int CPH = D / 8;  // threads per head
   l += __shfl_xor_sync(0xffffffffu, l, 1);
   l += __shfl_xor_sync(0xffffffffu, l, 2);
-  float* s_acc = reinterpret_cast<float*>(smem);   // [DEC_WARPS][G][HEAD_DIM]
-  float* s_m = s_acc + DEC_WARPS * G * HEAD_DIM;   // [DEC_WARPS][G]
+  float* s_acc = reinterpret_cast<float*>(smem);   // [DEC_WARPS][G][D]
+  float* s_m = s_acc + DEC_WARPS * G * D;          // [DEC_WARPS][G]
   float* s_l = s_m + DEC_WARPS * G;
   const int r = lane >> 2, cq = (lane & 3) * 2;
   if (r < G) {
 #pragma unroll
-    for (int nt = 0; nt < 16; ++nt)
-      *reinterpret_cast<float2*>(&s_acc[(warp * G + r) * HEAD_DIM + nt * 8 + cq]) =
+    for (int nt = 0; nt < CPH; ++nt)
+      *reinterpret_cast<float2*>(&s_acc[(warp * G + r) * D + nt * 8 + cq]) =
           make_float2(o[nt][0], o[nt][1]);
     if ((lane & 3) == 0) {
       s_m[warp * G + r] = m;
@@ -163,8 +174,8 @@ __device__ __forceinline__ void merge_warps(float m, float l, const float (&o)[1
   }
   __syncthreads();
   const int t = threadIdx.x;
-  if (t >= G * 16) return;
-  const int g = t / 16, c = (t % 16) * 8;
+  if (t >= G * CPH) return;
+  const int g = t / CPH, c = (t % CPH) * 8;
   M = NEG_INF;
 #pragma unroll
   for (int w = 0; w < DEC_WARPS; ++w) M = fmaxf(M, s_m[w * G + g]);
@@ -176,11 +187,11 @@ __device__ __forceinline__ void merge_warps(float m, float l, const float (&o)[1
     const float a = __expf(s_m[w * G + g] - M);
     L += s_l[w * G + g] * a;
 #pragma unroll
-    for (int e = 0; e < 8; ++e) O[e] += s_acc[(w * G + g) * HEAD_DIM + c + e] * a;
+    for (int e = 0; e < 8; ++e) O[e] += s_acc[(w * G + g) * D + c + e] * a;
   }
 }
 
-template <int G, bool I8>
+template <int D, int G, bool I8>
 __global__ void __launch_bounds__(DEC_THREADS)
 paged_decode_kernel(const __nv_bfloat16* __restrict__ q, const void* __restrict__ kc,
                     const void* __restrict__ vc, const float* __restrict__ ks,
@@ -188,8 +199,12 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q, const void* __restrict_
                     const int* __restrict__ lens, __nv_bfloat16* __restrict__ out,
                     const DecSplits sp, int h, int kvh, int bs, int max_blocks) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  DecSmem<I8>& sm = *reinterpret_cast<DecSmem<I8>*>(smem_raw);
-  constexpr int ROW = DecSmem<I8>::ROW;
+  static_assert(D == 64 || D == 128, "the decode kernel takes head_dim 64 or 128");
+  static_assert(G >= 1 && G <= 8, "G query heads fill at most 8 of an mma's 16 rows");
+  using Smem = DecSmem<D, I8>;
+  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
+  constexpr int ROW = Smem::ROW;
+  constexpr int KSTEPS = D / 16, NTILES = D / 8;  // mma k-steps of S, n-tiles of P V
   const int s = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int r0 = lane >> 2, cq = (lane & 3) * 2;  // this lane's fragment row and columns
@@ -215,23 +230,23 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q, const void* __restrict_
   const auto page_of = [&](int key) { return bs_shift >= 0 ? key >> bs_shift : key / bs; };
   const auto row_of = [&](int key) { return bs_shift >= 0 ? key & (bs - 1) : key % bs; };
 
-  // Q as the A operand of the 8 k-steps over the 128 dims: row r0 (a query
+  // Q as the A operand of the k-steps over the D dims: row r0 (a query
   // head when r0 < G, else padding 0), columns cq, cq + 1 and cq + 8, + 9
-  uint32_t qa[8][2];
+  uint32_t qa[KSTEPS][2];
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk) {
+  for (int kk = 0; kk < KSTEPS; ++kk) {
     qa[kk][0] = qa[kk][1] = 0u;
     if (r0 < G) {
-      const __nv_bfloat16* qr = q + ((long)b * h + (long)kh * G + r0) * HEAD_DIM + kk * 16 + cq;
+      const __nv_bfloat16* qr = q + ((long)b * h + (long)kh * G + r0) * D + kk * 16 + cq;
       qa[kk][0] = *reinterpret_cast<const uint32_t*>(qr);
       qa[kk][1] = *reinterpret_cast<const uint32_t*>(qr + 8);
     }
   }
-  const float scale = 1.0f / sqrtf((float)HEAD_DIM);
+  const float scale = 1.0f / sqrtf((float)D);
   float m = NEG_INF, lsum = 0.f;  // row r0's state over this warp's keys
-  float o[16][4];
+  float o[NTILES][4];
 #pragma unroll
-  for (int nt = 0; nt < 16; ++nt) o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
+  for (int nt = 0; nt < NTILES; ++nt) o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
 
   // The copies of one tile: this thread's PER key rows (chunk c of keys
   // (tid + i * DEC_THREADS) / CHUNKS) and, for int8, one page's K and V
@@ -261,9 +276,9 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q, const void* __restrict_
     for (int i = 0; i < PER; ++i) {
       const int jj = (threadIdx.x + i * DEC_THREADS) / CHUNKS, key = base + jj;
       const bool ok = key < khi;
-      const long off = ok ? ((((long)pages[i] * bs + row_of(key)) * kvh + kh) * HEAD_DIM) *
+      const long off = ok ? ((((long)pages[i] * bs + row_of(key)) * kvh + kh) * D) *
                                 (I8 ? 1 : 2) + cc * 16 : 0;
-      const uint32_t dst = I8 ? (uint32_t)(jj * ROW + cc * 16) : row_off(jj, cc);
+      const uint32_t dst = I8 ? (uint32_t)(jj * ROW + cc * 16) : row_off<D>(jj, cc);
       cp_async16(k_s + dst, kg + off, ok ? 16 : 0);
       cp_async16(v_s + dst, vg + off, ok ? 16 : 0);
     }
@@ -301,14 +316,14 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q, const void* __restrict_
     uint32_t k_s = smem_addr(sm.k[slot]), v_s = smem_addr(sm.v[slot]);
     if constexpr (I8) {
       // raw int8 rows -> swizzled bf16 rows, exactly; each key's scales
-      for (int idx = threadIdx.x; idx < DEC_TILE * (HEAD_DIM / 16); idx += DEC_THREADS) {
-        const int jj = idx / (HEAD_DIM / 16), c = idx % (HEAD_DIM / 16);
+      for (int idx = threadIdx.x; idx < DEC_TILE * (D / 16); idx += DEC_THREADS) {
+        const int jj = idx / (D / 16), c = idx % (D / 16);
         const uint4 kr = *reinterpret_cast<const uint4*>(&sm.k[slot][jj * ROW + c * 16]);
         const uint4 vr = *reinterpret_cast<const uint4*>(&sm.v[slot][jj * ROW + c * 16]);
-        *reinterpret_cast<uint4*>(sm.kb + row_off(jj, 2 * c)) = i8x8_to_bf16x8(kr.x, kr.y);
-        *reinterpret_cast<uint4*>(sm.kb + row_off(jj, 2 * c + 1)) = i8x8_to_bf16x8(kr.z, kr.w);
-        *reinterpret_cast<uint4*>(sm.vb + row_off(jj, 2 * c)) = i8x8_to_bf16x8(vr.x, vr.y);
-        *reinterpret_cast<uint4*>(sm.vb + row_off(jj, 2 * c + 1)) = i8x8_to_bf16x8(vr.z, vr.w);
+        *reinterpret_cast<uint4*>(sm.kb + row_off<D>(jj, 2 * c)) = i8x8_to_bf16x8(kr.x, kr.y);
+        *reinterpret_cast<uint4*>(sm.kb + row_off<D>(jj, 2 * c + 1)) = i8x8_to_bf16x8(kr.z, kr.w);
+        *reinterpret_cast<uint4*>(sm.vb + row_off<D>(jj, 2 * c)) = i8x8_to_bf16x8(vr.x, vr.y);
+        *reinterpret_cast<uint4*>(sm.vb + row_off<D>(jj, 2 * c + 1)) = i8x8_to_bf16x8(vr.z, vr.w);
       }
       if (threadIdx.x < DEC_TILE) {
         const int key = base + threadIdx.x;
@@ -330,9 +345,9 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q, const void* __restrict_
       // ldmatrix rows: matrix lane / 8 = (n-tile, half of the k-step)
       const int mi = lane >> 3, key = w0 + (mi >> 1) * 8 + (lane & 7);
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk) {
+      for (int kk = 0; kk < KSTEPS; ++kk) {
         uint32_t b00, b01, b10, b11;
-        ldsm_x4(k_s + row_off(key, 2 * kk + (mi & 1)), b00, b01, b10, b11);
+        ldsm_x4(k_s + row_off<D>(key, 2 * kk + (mi & 1)), b00, b01, b10, b11);
         mma_16816(sacc[0], qa[kk][0], qa[kk][1], b00, b01);
         mma_16816(sacc[1], qa[kk][0], qa[kk][1], b10, b11);
       }
@@ -359,7 +374,7 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q, const void* __restrict_
     m = m_new;
     lsum *= alpha;
 #pragma unroll
-    for (int nt = 0; nt < 16; ++nt) {
+    for (int nt = 0; nt < NTILES; ++nt) {
       o[nt][0] *= alpha;
       o[nt][1] *= alpha;
     }
@@ -376,13 +391,13 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q, const void* __restrict_
       }
       pa[j] = pack_bf16(pe[0], pe[1]);
     }
-    // O += P V over the 128 dims: 16 n-tiles, V by ldmatrix.trans
+    // O += P V over the D dims: D / 8 n-tiles, V by ldmatrix.trans
     {
       const int mi = lane >> 3, key = w0 + (mi & 1) * 8 + (lane & 7);
 #pragma unroll
-      for (int np = 0; np < 8; ++np) {
+      for (int np = 0; np < NTILES / 2; ++np) {
         uint32_t b0, b1, b2, b3;
-        ldsm_x4_t(v_s + row_off(key, 2 * np + (mi >> 1)), b0, b1, b2, b3);
+        ldsm_x4_t(v_s + row_off<D>(key, 2 * np + (mi >> 1)), b0, b1, b2, b3);
         mma_16816(o[2 * np], pa[0], pa[1], b0, b1);
         mma_16816(o[2 * np + 1], pa[0], pa[1], b2, b3);
       }
@@ -391,12 +406,13 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q, const void* __restrict_
   cp_async_wait_all();
   __syncthreads();  // the ring's bytes become the merge's
 
+  constexpr int CPH = D / 8;  // merge threads per head
   float M, L, O[8];
-  merge_warps<G>(m, lsum, o, smem_raw, warp, lane, M, L, O);
-  const int t = threadIdx.x, g = t / 16, c = (t % 16) * 8;
-  __nv_bfloat16* dst = out + ((long)b * h + (long)kh * G + g) * HEAD_DIM + c;
+  merge_warps<D, G>(m, lsum, o, smem_raw, warp, lane, M, L, O);
+  const int t = threadIdx.x, g = t / CPH, c = (t % CPH) * 8;
+  __nv_bfloat16* dst = out + ((long)b * h + (long)kh * G + g) * D + c;
   if (!nsplit) {
-    if (t < G * 16) {
+    if (t < G * CPH) {
       const float inv = 1.0f / fmaxf(L, 1e-30f);
 #pragma unroll
       for (int e = 0; e < 8; ++e) O[e] *= inv;
@@ -406,9 +422,9 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q, const void* __restrict_
   }
   // this split's partial state: rows (b, kh, split, g)
   const long row0 = ((long)b * kvh + kh) * sp.S * G;  // split s', head g: row0 + s' * G + g
-  if (t < G * 16) {
+  if (t < G * CPH) {
     const long row = row0 + (long)s * G + g;
-    float4* a = reinterpret_cast<float4*>(sp.acc + row * HEAD_DIM + c);
+    float4* a = reinterpret_cast<float4*>(sp.acc + row * D + c);
     a[0] = make_float4(O[0], O[1], O[2], O[3]);
     a[1] = make_float4(O[4], O[5], O[6], O[7]);
     if (c == 0) {
@@ -450,8 +466,8 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q, const void* __restrict_
     s_L[t] = LL;
   }
   __syncthreads();
-  for (int item = t; item < G * (HEAD_DIM / 4); item += DEC_THREADS) {
-    const int gg = item / (HEAD_DIM / 4), c4 = (item % (HEAD_DIM / 4)) * 4;
+  for (int item = t; item < G * (D / 4); item += DEC_THREADS) {
+    const int gg = item / (D / 4), c4 = (item % (D / 4)) * 4;
     float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
     for (int x0 = 0; x0 < nsplit; x0 += 16) {
       float4 v[16];
@@ -459,7 +475,7 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q, const void* __restrict_
       for (int u = 0; u < 16; ++u)
         v[u] = x0 + u < nsplit
                    ? __ldcg(reinterpret_cast<const float4*>(
-                         sp.acc + (row0 + (long)(x0 + u) * G + gg) * HEAD_DIM + c4))
+                         sp.acc + (row0 + (long)(x0 + u) * G + gg) * D + c4))
                    : make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
       for (int u = 0; u < 16; ++u) {
@@ -472,23 +488,23 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q, const void* __restrict_
     }
     const float inv = 1.0f / fmaxf(s_L[gg], 1e-30f);
     __nv_bfloat162* o2 = reinterpret_cast<__nv_bfloat162*>(
-        out + ((long)b * h + (long)kh * G + gg) * HEAD_DIM + c4);
+        out + ((long)b * h + (long)kh * G + gg) * D + c4);
     o2[0] = __floats2bfloat162_rn(a.x * inv, a.y * inv);
     o2[1] = __floats2bfloat162_rn(a.z * inv, a.w * inv);
   }
   if (t == 0) *counter = 0;  // ready for the next launch on this stream
 }
 
-template <int G, bool I8>
+template <int D, int G, bool I8>
 int launch_decode(const void* q, const void* kc, const void* vc, const void* ks,
                   const void* vs, const void* tables, const void* lens, void* out,
                   const DecSplits& sp, int B, int h, int kvh, int bs, int max_blocks,
                   cudaStream_t stream) {
-  constexpr int smem = (int)sizeof(DecSmem<I8>);
+  constexpr int smem = (int)sizeof(DecSmem<D, I8>);
   const cudaError_t err = cudaFuncSetAttribute(
-      paged_decode_kernel<G, I8>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      paged_decode_kernel<D, G, I8>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  paged_decode_kernel<G, I8><<<dim3(sp.S, kvh, B), DEC_THREADS, smem, stream>>>(
+  paged_decode_kernel<D, G, I8><<<dim3(sp.S, kvh, B), DEC_THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), kc, vc, static_cast<const float*>(ks),
       static_cast<const float*>(vs), static_cast<const int*>(tables),
       static_cast<const int*>(lens), static_cast<__nv_bfloat16*>(out), sp, h, kvh, bs,
@@ -496,56 +512,80 @@ int launch_decode(const void* q, const void* kc, const void* vc, const void* ks,
   return (int)cudaGetLastError();
 }
 
+// one head size's launch at the group size G = h / kvh (1 .. 8)
+template <int D, bool I8>
+int decode_launch_g(const void* q, const void* kc, const void* vc, const void* ks,
+                    const void* vs, const void* tables, const void* lens, void* out,
+                    void* part, void* n_splits, void* counts, int B, int h, int kvh, int bs,
+                    int max_blocks, int S, cudaStream_t s) {
+  const int G = h / kvh;
+  // the last split block stages every split's m and l in the ring's bytes
+  if ((2L * S + 1) * G * 4 > (long)sizeof(DecSmem<D, I8>)) return (int)cudaErrorInvalidValue;
+  const long rows = (long)B * kvh * S * G;
+  float* acc = static_cast<float*>(part);
+  const DecSplits sp{acc, acc ? acc + rows * D : nullptr, acc ? acc + rows * (D + 1) : nullptr,
+                     static_cast<int*>(n_splits), static_cast<int*>(counts), S};
+#define DTT_DECODE_G(g)                                                                       \
+  case g:                                                                                     \
+    return launch_decode<D, g, I8>(q, kc, vc, ks, vs, tables, lens, out, sp, B, h, kvh, bs, \
+                                   max_blocks, s);
+  switch (G) {
+    DTT_DECODE_G(1)
+    DTT_DECODE_G(2)
+    DTT_DECODE_G(3)
+    DTT_DECODE_G(4)
+    DTT_DECODE_G(5)
+    DTT_DECODE_G(6)
+    DTT_DECODE_G(7)
+    DTT_DECODE_G(8)
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef DTT_DECODE_G
+}
+
 template <bool I8>
 int decode_entry(const void* q, const void* kc, const void* vc, const void* ks,
                  const void* vs, const void* tables, const void* lens, void* out,
-                 void* part, void* n_splits, void* counts, int B, int h, int kvh, int bs,
-                 int max_blocks, int S, void* stream) {
+                 void* part, void* n_splits, void* counts, int B, int h, int kvh, int d,
+                 int bs, int max_blocks, int S, void* stream) {
   if (B <= 0) return 0;
   if (kvh <= 0 || h % kvh || bs <= 0 || S < 1) return (int)cudaErrorInvalidValue;
   if (S > 1 && (!part || !counts)) return (int)cudaErrorInvalidValue;
-  const int G = h / kvh;
-  // the last split block stages every split's m and l in the ring's bytes
-  if ((2L * S + 1) * G * 4 > (long)sizeof(DecSmem<I8>)) return (int)cudaErrorInvalidValue;
-  const long rows = (long)B * kvh * S * G;
-  float* acc = static_cast<float*>(part);
-  const DecSplits sp{acc, acc ? acc + rows * HEAD_DIM : nullptr,
-                     acc ? acc + rows * (HEAD_DIM + 1) : nullptr,
-                     static_cast<int*>(n_splits), static_cast<int*>(counts), S};
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  switch (G) {
-    case 1: return launch_decode<1, I8>(q, kc, vc, ks, vs, tables, lens, out, sp, B, h, kvh, bs, max_blocks, s);
-    case 2: return launch_decode<2, I8>(q, kc, vc, ks, vs, tables, lens, out, sp, B, h, kvh, bs, max_blocks, s);
-    case 4: return launch_decode<4, I8>(q, kc, vc, ks, vs, tables, lens, out, sp, B, h, kvh, bs, max_blocks, s);
-    case 8: return launch_decode<8, I8>(q, kc, vc, ks, vs, tables, lens, out, sp, B, h, kvh, bs, max_blocks, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (d == 64)
+    return decode_launch_g<64, I8>(q, kc, vc, ks, vs, tables, lens, out, part, n_splits,
+                                   counts, B, h, kvh, bs, max_blocks, S, s);
+  if (d == 128)
+    return decode_launch_g<128, I8>(q, kc, vc, ks, vs, tables, lens, out, part, n_splits,
+                                    counts, B, h, kvh, bs, max_blocks, S, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace dtt
 
-// q [B, h, 128] bf16, k/v cache [num_blocks, bs, kvh, 128] bf16,
-// tables [B, max_blocks] int32, lens [B] int32 -> out [B, h, 128] bf16.
+// q [B, h, d] bf16 (d = 64 or 128, G = h / kvh in 1 .. 8), k/v cache
+// [num_blocks, bs, kvh, d] bf16, tables [B, max_blocks] int32, lens [B]
+// int32 -> out [B, h, d] bf16.
 // Split-K: S >= 1 splits at most per row (grid (S, kvh, B)); with S > 1,
-// part holds f32 acc [B, kvh, S, G, 128], then m and l [B, kvh, S, G], and
+// part holds f32 acc [B, kvh, S, G, d], then m and l [B, kvh, S, G], and
 // counts [B * kvh] int32 must be 0 (the kernel leaves them 0). n_splits
 // [B] int32 (nullable) receives each row's split count, 0 = not split.
 // Returns cudaGetLastError() after the launch.
 extern "C" int dtt_paged_decode(const void* q, const void* kc, const void* vc,
                                 const void* tables, const void* lens, void* out,
                                 void* part, void* n_splits, void* counts, int B, int h,
-                                int kvh, int bs, int max_blocks, int S, void* stream) {
+                                int kvh, int d, int bs, int max_blocks, int S, void* stream) {
   return dtt::decode_entry<false>(q, kc, vc, nullptr, nullptr, tables, lens, out, part,
-                                  n_splits, counts, B, h, kvh, bs, max_blocks, S, stream);
+                                  n_splits, counts, B, h, kvh, d, bs, max_blocks, S, stream);
 }
 
-// As dtt_paged_decode with an int8 cache kc/vc [num_blocks, bs, kvh, 128]
+// As dtt_paged_decode with an int8 cache kc/vc [num_blocks, bs, kvh, d]
 // and its f32 scale rows ks/vs [num_blocks, kvh].
 extern "C" int dtt_paged_decode_i8(const void* q, const void* kc, const void* vc,
                                    const void* ks, const void* vs, const void* tables,
                                    const void* lens, void* out, void* part, void* n_splits,
-                                   void* counts, int B, int h, int kvh, int bs,
+                                   void* counts, int B, int h, int kvh, int d, int bs,
                                    int max_blocks, int S, void* stream) {
   return dtt::decode_entry<true>(q, kc, vc, ks, vs, tables, lens, out, part, n_splits,
-                                 counts, B, h, kvh, bs, max_blocks, S, stream);
+                                 counts, B, h, kvh, d, bs, max_blocks, S, stream);
 }

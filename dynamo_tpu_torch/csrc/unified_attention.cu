@@ -18,6 +18,12 @@
 //   - softcap (0 = off): cap * tanh(s / cap) on the scaled score, before
 //     the mask.
 //
+// Any G = h / kvh up to 64: a q tile holds TQ = floor(64 / G) tokens, so
+// where G does not divide 64 (Qwen2.5's G 3, 5, 6, 7) its last 64 - TQ * G
+// rows are padding (masked, finite, never stored), and a row of at most TQ
+// tokens may be split: its partial states and the merge index (token, query
+// head), never a tile row.
+//
 // Semantics: row r owns query tokens q[q_starts[r] : q_starts[r] + q_lens[r]],
 // its newest tokens, at the tail of its context: token i sits at position
 // seq_lens[r] - q_lens[r] + i and sees the row's keys < position + 1 (and
@@ -94,7 +100,7 @@ unified_kernel(const __nv_bfloat16* __restrict__ q, const KVSrc<PagedRows<D>> kv
                __nv_bfloat16* __restrict__ out, const Splits sp, int Tq, int h, int kvh,
                int bs, int max_blocks, float softcap) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int G = h / kvh, TQ = TM / G;
+  const int G = h / kvh, TQ = TM / G;  // TQ * G <= TM rows, the rest padding
   const int x = blockIdx.x, kh = blockIdx.y, r = blockIdx.z;
   const int q_start = q_starts[r], q_len = q_lens[r], seq_len = seq_lens[r];
   const int window = windows != nullptr ? windows[r] : 0;
@@ -236,7 +242,7 @@ int unified_entry(const void* q, const void* kc, const void* vc, const void* ks,
                   void* part_l, void* n_splits, int Tq, int h, int kvh, int d, int bs,
                   int R, int max_blocks, int max_q_len, int S, int QS, float softcap,
                   void* stream) {
-  if (kvh <= 0 || h % kvh || TM % (h / kvh)) return (int)cudaErrorInvalidValue;
+  if (kvh <= 0 || h % kvh || h / kvh > TM) return (int)cudaErrorInvalidValue;
   if (S < 1 || (S > 1 && (QS < 1 || !part_acc || !part_m || !part_l || !n_splits)))
     return (int)cudaErrorInvalidValue;
   const Splits sp{static_cast<float*>(part_acc), static_cast<float*>(part_m),

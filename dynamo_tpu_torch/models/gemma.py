@@ -248,11 +248,15 @@ def forward(
     token_ids: torch.Tensor,        # [..., S] integer
     positions: torch.Tensor,        # [..., S] integer
     attend: AttendFn,
+    inputs_embeds: Optional[torch.Tensor] = None,   # [..., S, hidden]
 ) -> torch.Tensor:
-    """Full stack -> final hidden states [..., S, hidden] (pre-lm_head)."""
-    x = F.embedding(token_ids.long(), params["embed"])
+    """Full stack -> final hidden states [..., S, hidden] (pre-lm_head).
+
+    ``inputs_embeds`` replaces the embedding gather when given (the
+    multimodal splice) and is scaled as the token embeddings are."""
+    x = F.embedding(token_ids.long(), params["embed"]) if inputs_embeds is None else inputs_embeds
     # the normalizer is rounded to the model dtype (part of the checkpoint
-    # contract: sqrt(3072) is 55.5 in bf16)
+    # contract: sqrt(3072) is 55.5 in bf16), spliced soft tokens included
     x = x * _rounded(math.sqrt(cfg.hidden_size), x.dtype)
     tables: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
 

@@ -333,12 +333,15 @@ def forward(
     positions: torch.Tensor,        # [..., S] integer
     attend: AttendFn,
     lora: Optional[Callable] = None,
+    inputs_embeds: Optional[torch.Tensor] = None,   # [..., S, hidden]
     expert_fn: ExpertFn = experts_grouped,
 ) -> torch.Tensor:
-    """Full stack -> final hidden states [..., S, hidden] (pre-lm_head)."""
+    """Full stack -> final hidden states [..., S, hidden] (pre-lm_head).
+    ``inputs_embeds`` replaces the embedding gather when given (the
+    multimodal splice)."""
     if lora is not None:
         raise NotImplementedError("LoRA is not supported for the gpt-oss family")
-    x = F.embedding(token_ids.long(), params["embed"])
+    x = F.embedding(token_ids.long(), params["embed"]) if inputs_embeds is None else inputs_embeds
     cos, sin = rope_tables(cfg, positions)
     cos, sin = cos[..., None, :], sin[..., None, :]
     for i, layer in enumerate(params["layers"]):

@@ -351,12 +351,12 @@ def forward(
     inputs_embeds: Optional[torch.Tensor] = None,
     expert_fn: moe.ExpertFn = moe.experts_grouped,
 ) -> torch.Tensor:
-    """Full stack -> final hidden states [..., S, hidden] (pre-lm_head)."""
+    """Full stack -> final hidden states [..., S, hidden] (pre-lm_head).
+    ``inputs_embeds`` replaces the embedding gather when given (the
+    multimodal splice)."""
     if lora is not None:
         raise NotImplementedError("LoRA is not supported for the MLA family")
-    if inputs_embeds is not None:
-        raise NotImplementedError("input embeddings are not in this port yet")
-    x = F.embedding(token_ids.long(), params["embed"])
+    x = F.embedding(token_ids.long(), params["embed"]) if inputs_embeds is None else inputs_embeds
     cos, sin = rope_cos_sin(positions, cfg.qk_rope_head_dim, cfg.rope_theta)
     cos, sin = cos[..., None, :], sin[..., None, :]
     for i, layer in enumerate(params["layers"]):

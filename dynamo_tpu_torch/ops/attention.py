@@ -305,12 +305,16 @@ def paged_extend_attention(
     block_tables: torch.Tensor,  # [B, max_blocks] int
     start_pos: torch.Tensor,     # [B] absolute position of each row's q[0]
     total_lens: torch.Tensor,    # [B] context length incl. the S_new candidates
+    window: Optional[int] = None,
+    sinks: Optional[torch.Tensor] = None,
+    softcap: Optional[float] = None,
 ) -> torch.Tensor:
     """Batched paged prefix-extend: every row attends its S_new new tokens
     causally over its OWN pages (which already hold the new tokens' KV):
     key j is visible to the row's token at position p iff ``j < min(p + 1,
-    total_lens[b])``. The verify pass of speculative decoding has this
-    shape; the reference's plain engines run this op for it. Batched over
+    total_lens[b])`` (and ``j > p - window`` with a window). The verify
+    pass of speculative decoding has this shape; the reference's plain
+    engines run this op for it, with the layer's attributes. Batched over
     the rows with no host read, so that it runs inside the spec horizon's
     body on the CPU as it is."""
     B, n, h, d = q.shape
@@ -326,12 +330,20 @@ def paged_extend_attention(
     v = v.reshape(B, mb * bs, kvh, d)
     g = h // kvh
     qg = q.reshape(B, n, kvh, g, d).float()
-    scores = torch.einsum("bnkgd,btkd->bnkgt", qg, k) * _scale(d)
+    scores = _softcap(torch.einsum("bnkgd,btkd->bnkgt", qg, k) * _scale(d), softcap)
     pos = start_pos.long()[:, None] + torch.arange(n, device=q.device)
     lim = torch.minimum(pos + 1, total_lens.long()[:, None])                # [B, n]
-    valid = torch.arange(mb * bs, device=q.device)[None, None, :] < lim[:, :, None]
+    key_pos = torch.arange(mb * bs, device=q.device)[None, None, :]
+    valid = key_pos < lim[:, :, None]
+    if window is not None:
+        valid &= key_pos > (pos - window)[:, :, None]
     scores = torch.where(valid[:, :, None, None, :], scores, NEG_INF)
-    out = torch.einsum("bnkgt,btkd->bnkgd", torch.softmax(scores, dim=-1), v)
+    if sinks is None:
+        weights = torch.softmax(scores, dim=-1)
+    else:
+        weights = _sink_softmax(scores, sinks.to(device=q.device,
+                                                 dtype=torch.float32).reshape(kvh, g))
+    out = torch.einsum("bnkgt,btkd->bnkgd", weights, v)
     return out.reshape(B, n, h, d).to(q.dtype)
 
 

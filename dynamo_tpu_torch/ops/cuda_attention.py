@@ -5,7 +5,8 @@ ops/pallas_attention.py (``paged_decode_attention``, the TPU kernel
 The kernels are in ``csrc/decode_attention.cu``: ``KERNEL`` for a bf16
 cache, ``KERNEL_INT8`` for an int8 ``QuantizedKV`` cache (int8 pages plus
 f32 scale rows, converted to bf16 exactly in shared memory, the scales
-applied to the score and probability columns). Bytes bound them on the H100 (~4 * G flops
+applied to the score and probability columns), at head_dim 64 or 128 and any
+G = h / kvh from 1 to 8. Bytes bound them on the H100 (~4 * G flops
 per byte read), so the design keeps the card's loads in flight: split-K
 over the context, grid (split, kv head, row), each row cut from key 0 into
 ``DEC_SPLIT_KEYS``-key splits (``ops.attention.split_plan``); each block
@@ -41,16 +42,18 @@ from . import attention as att
 from ._build import Kernel, check_cuda_tensor
 from .quant import is_quantized
 
-KERNEL = Kernel("decode_attention.cu", "dtt_paged_decode", n_ptrs=9, n_ints=6)
-KERNEL_INT8 = Kernel("decode_attention.cu", "dtt_paged_decode_i8", n_ptrs=11, n_ints=6)
-# query heads per kv head the kernel is instantiated for
-GROUP_SIZES = (1, 2, 4, 8)
-HEAD_DIM = 128
+KERNEL = Kernel("decode_attention.cu", "dtt_paged_decode", n_ptrs=9, n_ints=7)
+KERNEL_INT8 = Kernel("decode_attention.cu", "dtt_paged_decode_i8", n_ptrs=11, n_ints=7)
+# query heads per kv head the kernel is instantiated for (the G heads fill
+# rows of a 16-row mma tile; G 9-16, Qwen3-235B's 16 among them, is not)
+GROUP_SIZES = tuple(range(1, 9))
+HEAD_DIMS = (64, 128)
 
 
 def supports(heads: int, kv_heads: int, head_dim: int) -> bool:
     """Whether the kernel has a form for this attention shape."""
-    return head_dim == HEAD_DIM and heads % kv_heads == 0 and heads // kv_heads in GROUP_SIZES
+    return (head_dim in HEAD_DIMS and heads % kv_heads == 0
+            and heads // kv_heads in GROUP_SIZES)
 
 
 # the kernel's DEC_SPLIT_KEYS (csrc/decode_attention.cu): keys per split
@@ -71,12 +74,13 @@ def split_extent(max_seq_len: int) -> int:
     return max(1, -(-int(max_seq_len) // DEC_SPLIT_KEYS))
 
 
-def scratch_words(batch: int, heads: int, kv_heads: int, max_seq_len: int) -> Tuple[int, int]:
+def scratch_words(batch: int, heads: int, kv_heads: int, max_seq_len: int,
+                  head_dim: int = 128) -> Tuple[int, int]:
     """(counter words, other words) a launch of ``batch`` rows needs: the
     per-(row, kv head) counters, then n_splits (padded to 16 bytes) and
-    the partials acc [B, kvh, S, G, 128], m and l [B, kvh, S, G] f32."""
+    the partials acc [B, kvh, S, G, head_dim], m and l [B, kvh, S, G] f32."""
     rows = batch * heads * split_extent(max_seq_len)
-    return batch * kv_heads, -(-batch // 4) * 4 + rows * (HEAD_DIM + 2)
+    return batch * kv_heads, -(-batch // 4) * 4 + rows * (head_dim + 2)
 
 
 def stream_key(device: torch.device) -> int:
@@ -98,19 +102,23 @@ def _scratch_for(device: torch.device, stream: int, counters: int, words: int,
             raise RuntimeError(
                 f"decode scratch of stream {stream:#x} would grow during a CUDA-graph "
                 f"capture ({counters} counters, {words} words needed): reserve() it first")
-        have = max(have, -(-counters // 4) * 4)
+        # the rest keeps at least its old size: a later launch that needs
+        # more counters but fewer words must not shrink what an earlier
+        # reserve covered
         size = max(words, 0 if buf is None else buf.numel() - have)
+        have = max(have, -(-counters // 4) * 4)
         buf = torch.zeros(have + size, dtype=torch.int32, device=device)
         _scratch[(device, stream)] = (buf, have)
     return buf.data_ptr(), buf.data_ptr() + 4 * have
 
 
-def reserve(device, batch: int, heads: int, kv_heads: int, max_seq_len: int) -> None:
+def reserve(device, batch: int, heads: int, kv_heads: int, max_seq_len: int,
+            head_dim: int = 128) -> None:
     """Size the current stream's scratch for every launch of at most
     ``batch`` rows bounded by ``max_seq_len`` keys (before a capture)."""
     device = torch.device(device)
     _scratch_for(device, stream_key(device),
-                 *scratch_words(batch, heads, kv_heads, max_seq_len))
+                 *scratch_words(batch, heads, kv_heads, max_seq_len, head_dim))
 
 
 def _capturing(device: torch.device) -> bool:
@@ -118,8 +126,8 @@ def _capturing(device: torch.device) -> bool:
 
 
 def paged_decode_attention(
-    q: torch.Tensor,             # [B, h, 128] bf16
-    k_cache,                     # [num_blocks, bs, kvh, 128] bf16, or QuantizedKV
+    q: torch.Tensor,             # [B, h, d] bf16, d in HEAD_DIMS
+    k_cache,                     # [num_blocks, bs, kvh, d] bf16, or QuantizedKV
     v_cache,                     # (int8 pages + f32 [num_blocks, kvh] scales)
     block_tables: torch.Tensor,  # [B, max_blocks] int32
     seq_lens: torch.Tensor,      # [B] int32
@@ -139,8 +147,9 @@ def paged_decode_attention(
     check_cuda_tensor("seq_lens", seq_lens, torch.int32, 1)
     B, h, d = q.shape
     _, bs, kvh, dk = k_cache.shape
-    if d != HEAD_DIM or dk != HEAD_DIM or v_cache.shape != k_cache.shape:
-        raise ValueError("the decode kernel takes head_dim 128 and equal K/V caches")
+    if d not in HEAD_DIMS or dk != d or v_cache.shape != k_cache.shape:
+        raise ValueError(f"the decode kernel takes head_dim in {HEAD_DIMS} and equal K/V "
+                         "caches of the query's head_dim")
     if h % kvh or h // kvh not in GROUP_SIZES:
         raise ValueError(f"{h} heads over {kvh} kv heads: group size not in {GROUP_SIZES}")
     if block_tables.shape[0] != B or seq_lens.shape[0] != B:
@@ -151,12 +160,13 @@ def paged_decode_attention(
     out = torch.empty_like(q)
     if B:
         stream, capturing = stream_key(q.device), _capturing(q.device)
-        counts, n_splits = _scratch_for(q.device, stream, *scratch_words(B, h, kvh, bound),
+        counts, n_splits = _scratch_for(q.device, stream,
+                                        *scratch_words(B, h, kvh, bound, d),
                                         capturing=capturing)
         part = n_splits + 4 * (-(-B // 4) * 4)
         (KERNEL_INT8 if quantized else KERNEL).launch(
             [q, *caches, block_tables, seq_lens, out, part, n_splits, counts],
-            [B, h, kvh, bs, max_blocks, S],
+            [B, h, kvh, d, bs, max_blocks, S],
         )
         if split_log is not None and not capturing:
             buf, have = _scratch[(q.device, stream)]

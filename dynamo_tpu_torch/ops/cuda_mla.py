@@ -173,6 +173,36 @@ def latent_paged_attention(
     return out
 
 
+def latent_verify_attention(
+    q: torch.Tensor,             # [B, n, h, 576] bf16: each row's n candidate tokens
+    kv_cache: torch.Tensor,      # [num_blocks, bs, 1, 576] bf16
+    block_tables: torch.Tensor,  # [B, max_blocks] int32
+    total_lens: torch.Tensor,    # [B] int32 context length incl. the candidates
+    active: torch.Tensor,        # [B] bool
+    *,
+    v_dim: int = D_V,
+    max_seq_len: Optional[int] = None,
+) -> torch.Tensor:
+    """The verify pass of speculative decoding on an MLA main -> [B, n, h,
+    v_dim]: row b's n tokens at positions ``total_lens[b] - n + i``,
+    causal over the row's pages. On CUDA tensors ONE launch of the latent
+    kernel over ``q_len = n`` rows built on the device (capturable in a
+    CUDA graph; inactive rows read back zeros); on CPU tensors the batched,
+    host-read-free ``ops.attention.paged_extend_attention(q, kv, kv,
+    ...)[..., :v_dim]`` (inactive rows are garbage there)."""
+    B, n, h, d = q.shape
+    if q.device.type == "cpu":
+        return att.paged_extend_attention(q, kv_cache, kv_cache, block_tables,
+                                          total_lens - n, total_lens)[..., :v_dim]
+    i32 = torch.int32
+    starts = torch.arange(B, dtype=i32, device=q.device) * n
+    out = latent_paged_attention(
+        q.reshape(B * n, h, d), kv_cache, block_tables, starts, active.to(i32) * n,
+        torch.where(active, total_lens, 0).to(i32), v_dim=v_dim, max_q_len=n,
+        max_seq_len=max_seq_len)
+    return out.reshape(B, n, h, v_dim)
+
+
 def split_latent_attention(
     q: torch.Tensor, kv_cache, block_tables: torch.Tensor,
     q_starts: torch.Tensor, q_lens: torch.Tensor, seq_lens: torch.Tensor,

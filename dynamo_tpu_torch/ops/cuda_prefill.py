@@ -4,8 +4,10 @@ ops/pallas_prefill.py (``flash_extend_attention``).
 The kernel is ``csrc/flash_extend.cu`` (one block per (q tile, kv head),
 S and P.V on the tensor cores with the online softmax in registers over a
 cp.async ring of context tiles, tiles past the tile's causal limit
-skipped). It takes any ``S`` and ``T``: there are no tile-multiple
-constraints, so the engine runs it for every prefill chunk. On CPU tensors
+skipped), at head_dim 64 or 128 and any G = h / kvh up to 64 (a tile holds
+``64 // G`` tokens; the rows past ``(64 // G) * G`` are padding). It takes
+any ``S`` and ``T``: there are no tile-multiple constraints, so the engine
+runs it for every prefill chunk. On CPU tensors
 this wrapper runs the plain version; on CUDA tensors it launches the kernel
 or raises. With ``k_scales``/``v_scales`` the context is int8 (a
 quantized cache gathered raw by ``ops.attention.gather_kv_quant``):
@@ -22,16 +24,18 @@ import torch
 from . import attention as att
 from ._build import Kernel, check_cuda_tensor
 
-KERNEL = Kernel("flash_extend.cu", "dtt_flash_extend", n_ptrs=4, n_ints=5)
-KERNEL_INT8 = Kernel("flash_extend.cu", "dtt_flash_extend_i8", n_ptrs=6, n_ints=5)
-HEAD_DIM = 128
-# query rows of a tile: a kv head's group of query heads must divide it
+KERNEL = Kernel("flash_extend.cu", "dtt_flash_extend", n_ptrs=4, n_ints=6)
+KERNEL_INT8 = Kernel("flash_extend.cu", "dtt_flash_extend_i8", n_ptrs=6, n_ints=6)
+HEAD_DIMS = (64, 128)
+# query-head rows of a tile: it holds TILE_ROWS // G tokens of a kv head's
+# G query heads, so G may be at most TILE_ROWS
 TILE_ROWS = 64
 
 
 def supports(heads: int, kv_heads: int, head_dim: int) -> bool:
     """Whether the kernel has a form for this attention shape."""
-    return head_dim == HEAD_DIM and heads % kv_heads == 0 and TILE_ROWS % (heads // kv_heads) == 0
+    return (head_dim in HEAD_DIMS and heads % kv_heads == 0
+            and heads // kv_heads <= TILE_ROWS)
 
 
 def flash_extend_reference(
@@ -51,8 +55,8 @@ def flash_extend_reference(
 
 
 def flash_extend_attention(
-    q: torch.Tensor,        # [S, h, 128] bf16 queries of one chunk
-    k_ctx: torch.Tensor,    # [T, kvh, 128] bf16 gathered context, or int8
+    q: torch.Tensor,        # [S, h, d] bf16 queries of one chunk, d in HEAD_DIMS
+    k_ctx: torch.Tensor,    # [T, kvh, d] bf16 gathered context, or int8
     v_ctx: torch.Tensor,
     q_start: int,           # absolute position of q row 0 (rows are contiguous)
     total_len: int,         # valid context length, <= T
@@ -80,15 +84,16 @@ def flash_extend_attention(
             check_cuda_tensor(name, sc, torch.float32, 2)
             if tuple(sc.shape) != (T, kvh):
                 raise ValueError(f"{name} must be [T, kv_heads] = {(T, kvh)}")
-    if d != HEAD_DIM or dk != HEAD_DIM or v_ctx.shape != k_ctx.shape:
-        raise ValueError(f"the flash-extend kernel takes head_dim {HEAD_DIM} and equal K/V")
-    if h % kvh or TILE_ROWS % (h // kvh):
-        raise ValueError(f"{h} heads over {kvh} kv heads: group size must divide {TILE_ROWS}")
+    if d not in HEAD_DIMS or dk != d or v_ctx.shape != k_ctx.shape:
+        raise ValueError(f"the flash-extend kernel takes head_dim in {HEAD_DIMS} and equal "
+                         "K/V of the query's head_dim")
+    if h % kvh or h // kvh > TILE_ROWS:
+        raise ValueError(f"{h} heads over {kvh} kv heads: group size above {TILE_ROWS}")
     if not 0 <= int(total_len) <= T:
         raise ValueError(f"total_len {total_len} outside the context of {T} keys")
     out = torch.empty_like(q)
     if S:
-        ints = [S, h, kvh, int(q_start), int(total_len)]
+        ints = [S, h, kvh, d, int(q_start), int(total_len)]
         if quantized:
             KERNEL_INT8.launch([q, k_ctx, v_ctx, k_scales, v_scales, out], ints)
         else:

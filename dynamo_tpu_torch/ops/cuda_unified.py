@@ -3,7 +3,8 @@ ops/pallas_unified.py (``ragged_paged_attention``), row attributes included.
 
 The kernel is ``csrc/unified_attention.cu``: one launch serves any mix of
 prefill segments and decode tokens, each row attending over its own pages
-with its segment at the tail of its context, at head_dim 64, 128 or 256. One
+with its segment at the tail of its context, at head_dim 64, 128 or 256 and
+any G = h / kvh up to 64 (a q tile holds ``64 // G`` tokens). One
 block per (q tile, kv head, row); blocks past their row's segment exit at
 once. Rows may carry a sliding window (pages the window aged out are never
 read), the launch per-head sink logits and a logit softcap. ``KERNEL``
@@ -92,8 +93,8 @@ def ragged_paged_attention(
     if d not in HEAD_DIMS or dk != d or v_cache.shape != k_cache.shape:
         raise ValueError(f"the unified kernel takes head_dim in {HEAD_DIMS} and equal "
                          "K/V caches of the query's head_dim")
-    if h % kvh or 64 % (h // kvh):
-        raise ValueError(f"{h} heads over {kvh} kv heads: group size must divide 64")
+    if h % kvh or h // kvh > att.TILE_ROWS:
+        raise ValueError(f"{h} heads over {kvh} kv heads: group size above {att.TILE_ROWS}")
     if not q_starts.shape[0] == q_lens.shape[0] == seq_lens.shape[0] == R:
         raise ValueError("q_starts / q_lens / seq_lens need one entry per table row")
     if windows is not None:
@@ -149,26 +150,34 @@ def verify_attention(
     total_lens: torch.Tensor,    # [B] int32 context length incl. the candidates
     active: torch.Tensor,        # [B] bool
     *,
+    window: Optional[int] = None,             # the layer's sliding window (None: full)
+    sinks: Optional[torch.Tensor] = None,     # [h] f32 sink logits
+    softcap: Optional[float] = None,
     max_seq_len: Optional[int] = None,
 ) -> torch.Tensor:
     """The verify pass of speculative decoding: row b's n tokens sit at
     positions ``total_lens[b] - n + i`` and attend causally over the row's
-    pages. On CUDA tensors: ONE launch of the unified kernel over
-    ``q_len = n`` rows (``q_starts = arange(B) * n``, ``q_lens = active *
-    n``, ``seq_lens = active * total_lens``; inactive rows read back zeros),
-    built on the device, so that the call can be captured in a CUDA graph.
-    On CPU tensors its plain version, ``ops.attention.paged_extend_attention``
-    (batched, no host read; inactive rows are garbage there)."""
+    pages, with the layer's attributes (a Gemma or gpt-oss main). On CUDA
+    tensors: ONE launch of the unified kernel over ``q_len = n`` rows
+    (``q_starts = arange(B) * n``, ``q_lens = active * n``, ``seq_lens =
+    active * total_lens``, the window as a [B] array; inactive rows read
+    back zeros), built on the device, so that the call can be captured in a
+    CUDA graph. On CPU tensors its plain version,
+    ``ops.attention.paged_extend_attention`` (batched, no host read;
+    inactive rows are garbage there)."""
     B, n, h, d = q.shape
     if q.device.type == "cpu":
         return att.paged_extend_attention(q, k_cache, v_cache, block_tables,
-                                          total_lens - n, total_lens)
+                                          total_lens - n, total_lens, window=window,
+                                          sinks=sinks, softcap=softcap)
     i32 = torch.int32
     starts = torch.arange(B, dtype=i32, device=q.device) * n
+    windows = None if window is None else torch.full((B,), int(window), dtype=i32,
+                                                     device=q.device)
     out = ragged_paged_attention(
         q.reshape(B * n, h, d), k_cache, v_cache, block_tables, starts,
-        active.to(i32) * n, torch.where(active, total_lens, 0).to(i32),
-        max_q_len=n, max_seq_len=max_seq_len)
+        active.to(i32) * n, torch.where(active, total_lens, 0).to(i32), windows=windows,
+        sinks=sinks, softcap=softcap, max_q_len=n, max_seq_len=max_seq_len)
     return out.reshape(B, n, h, d)
 
 

@@ -211,7 +211,8 @@ def test_warm_cache_shares_no_entry_with_the_reference(tmp_path, monkeypatch):
 
 
 # published configs (huggingface.co/<name>/config.json) the loader reads,
-# with the attention shape the card's decode / flash-extend kernels lack
+# at attention shapes the card's decode / flash-extend kernels took only
+# from their group sizes 3-7 and head_dim 64 on
 CARD_REFUSED = {
     "Qwen2.5-0.5B": dict(model_type="qwen2", hidden_size=896, num_attention_heads=14,
                          num_key_value_heads=2, intermediate_size=4864),
@@ -236,14 +237,18 @@ def _hf_config(tmp_path, name, fields):
 
 @pytest.mark.parametrize("name", list(CARD_REFUSED))
 def test_card_refuses_a_main_model_the_kernels_lack_at_construction(tmp_path, name):
-    """Refused before anything is allocated (no card here), naming the
-    ROADMAP item; the CPU still serves the shape."""
+    """The published shape, read through config_from_hf, is taken on the
+    card; the same shape at a head_dim the kernels lack (96) is refused
+    before anything is allocated (no card here), naming ROADMAP; the CPU
+    serves both."""
     cfg = _hf_config(tmp_path, name, CARD_REFUSED[name])
     for device in ("cuda", None):
-        with pytest.raises(ValueError, match=r"ROADMAP.md \(Queue 1 item 3\)"):
-            TorchEngine(TorchEngineConfig(model=cfg, device=device))
+        engine_mod._check_features(TorchEngineConfig(model=cfg, device=device))
+        with pytest.raises(ValueError, match=r"ROADMAP.md \(Queue 1\)"):
+            TorchEngine(TorchEngineConfig(model=dataclasses.replace(cfg, head_dim=96),
+                                          device=device))
     small = dataclasses.replace(cfg, hidden_size=64, intermediate_size=64, vocab_size=64,
-                                dtype=torch.float32)
+                                head_dim=96, dtype=torch.float32)
     engine = TorchEngine(TorchEngineConfig(model=small, device="cpu", num_blocks=16,
                                            max_context=64, prefill_buckets=(16, 64),
                                            decode_steps=1, decode_pipeline=1))
@@ -267,10 +272,12 @@ def test_card_takes_qwen3_and_refuses_the_tiny_presets():
             num_kv_heads=fields["num_key_value_heads"], head_dim=fields["head_dim"],
             hidden_size=fields["hidden_size"], intermediate_size=fields["intermediate_size"])
         engine_mod._check_features(TorchEngineConfig(model=cfg, device="cuda"))
-    for preset in ("tiny", "tiny-moe"):
-        with pytest.raises(ValueError, match="Queue 1 item 3"):
-            engine_mod._check_features(TorchEngineConfig(model=PRESETS[preset](),
-                                                         device="cuda"))
+    # tiny-moe's head_dim 16 has no kernel form; tiny's (d 64, G 2) has
+    # one since the kernels took head_dim 64
+    with pytest.raises(ValueError, match=r"head_dim 16.*ROADMAP.md \(Queue 1\)"):
+        engine_mod._check_features(TorchEngineConfig(model=PRESETS["tiny-moe"](),
+                                                     device="cuda"))
+    engine_mod._check_features(TorchEngineConfig(model=PRESETS["tiny"](), device="cuda"))
     # the families served by the unified and latent kernels are not refused
     for preset in ("tiny-gemma3", "tiny-gptoss", "tiny-mla"):
         engine_mod._check_features(TorchEngineConfig(model=PRESETS[preset](), device="cuda"))

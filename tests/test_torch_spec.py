@@ -32,6 +32,7 @@ from dynamo_tpu.llm.protocols.common import (
 from dynamo_tpu.models import llama as jllama
 from dynamo_tpu.parallel.mesh import make_mesh
 from dynamo_tpu.runtime import Context as JContext
+from dynamo_tpu_torch.engine import engine as engine_mod
 from dynamo_tpu_torch.engine.engine import TorchEngine, TorchEngineConfig
 from dynamo_tpu_torch.engine.weights import params_from_numpy
 from dynamo_tpu_torch.llm.protocols.common import (
@@ -41,6 +42,7 @@ from dynamo_tpu_torch.llm.protocols.common import (
 )
 from dynamo_tpu_torch.models import llama as tllama
 from dynamo_tpu_torch.models.gemma import GemmaConfig
+from dynamo_tpu_torch.models.gptoss import GptOssConfig
 from dynamo_tpu_torch.models.vision import VisionConfig
 from dynamo_tpu_torch.ops import cuda_attention, cuda_unified
 from dynamo_tpu_torch.ops.quant import QuantizedKV
@@ -82,9 +84,12 @@ async def _collect(engine, req, ctx):
 
 @pytest.fixture(scope="module")
 def weights():
+    """(JAX config, JAX params, the port's params): the port's tensors are
+    shared by every engine of the module (no engine writes its weights)."""
     jcfg = jllama.LlamaConfig(dtype=jnp.float32, **MODEL)
     jparams = jllama.init_params(jax.random.PRNGKey(5), jcfg)
-    return jcfg, jparams, jax.tree.map(np.asarray, jparams)
+    return jcfg, jparams, params_from_numpy(jax.tree.map(np.asarray, jparams), MAIN,
+                                            device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -112,10 +117,9 @@ def reference(weights):
 
 
 def _engine(weights, spec=DRAFT, draft_params=None, **kw):
-    _, _, tree = weights
+    _, _, params = weights
     cfg = TorchEngineConfig(model=MAIN, device="cpu", spec_draft=spec, **{**ENGINE, **kw})
-    return TorchEngine(cfg, params=params_from_numpy(tree, MAIN, device="cpu"),
-                       draft_params=draft_params)
+    return TorchEngine(cfg, params=params, draft_params=draft_params)
 
 
 def _preq(rid, tokens, n=N, **samp):
@@ -252,11 +256,13 @@ def test_int8_main_cache(weights):
         plain = _engine(weights, spec=None, kv_dtype="int8")
         spec = _engine(weights, spec=MAIN, kv_dtype="int8")
         spec.draft_params = spec.params
-        try:
-            want = [(await _collect(plain, _preq(f"r{i}", p), Context()))[0]
+        async def one_by_one(engine, rid):
+            return [(await _collect(engine, _preq(f"{rid}{i}", p), Context()))[0]
                     for i, p in enumerate(PROMPTS)]
-            got = [(await _collect(spec, _preq(f"s{i}", p), Context()))[0]
-                   for i, p in enumerate(PROMPTS)]
+
+        try:
+            # the two engines side by side, each serving one request at a time
+            want, got = await asyncio.gather(one_by_one(plain, "r"), one_by_one(spec, "s"))
             return want, got, spec
         finally:
             plain.stop()
@@ -276,15 +282,24 @@ def _refused(match, **kw):
 
 def test_construction_gates():
     gemma = GemmaConfig.tiny_gemma3(vocab_size=512)
-    _refused("ROADMAP.*", spec_draft=DRAFT, model=gemma)
-    _refused("draft model is of another family.*ROADMAP", spec_draft=gemma)
+    # a Gemma main and a Gemma draft are served (the reference runs both);
+    # gpt-oss and MLA drafts are not
+    engine_mod._check_features(TorchEngineConfig(model=gemma, spec_draft=DRAFT, device="cpu"))
+    engine_mod._check_features(TorchEngineConfig(model=MAIN, spec_draft=gemma, device="cpu"))
+    _refused("gptoss draft model is not served.*ROADMAP",
+             spec_draft=GptOssConfig.tiny_gptoss(vocab_size=512))
     _refused("share a vocabulary.*ROADMAP",
              spec_draft=dataclasses.replace(DRAFT, vocab_size=256))
     _refused("vision with a spec_draft.*ROADMAP", spec_draft=DRAFT,
              vision=VisionConfig.tiny(out_hidden_size=64, dtype=torch.float32))
-    # the decode kernel takes head_dim 128: refused before any device is
-    # touched when the engine would run on the card (device None = cuda)
-    _refused("head_dim 16 has no decode kernel form.*ROADMAP", spec_draft=DRAFT, device=None)
+    # the decode kernel takes head_dim 64 and 128: a d-64 draft of an 8B
+    # main is served on the card, a d-16 one refused before any device is
+    # touched (device None = cuda)
+    main = dataclasses.replace(MAIN, num_heads=32, num_kv_heads=8, head_dim=128)
+    engine_mod._check_features(TorchEngineConfig(
+        model=main, spec_draft=dataclasses.replace(DRAFT, head_dim=64)))
+    _refused("draft model's 2 heads over 1 kv heads at head_dim 16.*ROADMAP", model=main,
+             spec_draft=DRAFT, device=None)
     e = TorchEngine(TorchEngineConfig(model=MAIN, device="cpu", spec_draft=DRAFT,
                                       **{**ENGINE, "decode_steps": 2, "spec_k": 5}))
     try:

@@ -50,6 +50,7 @@ from dynamo_tpu_torch.llm.protocols.common import (
 from dynamo_tpu_torch.models import llama as tllama
 from dynamo_tpu_torch.models import vision as tvision
 from dynamo_tpu_torch.models.gemma import GemmaConfig
+from dynamo_tpu_torch.models.moe import MoeConfig
 from dynamo_tpu_torch.runtime import Context
 
 IMG = tvision.IMAGE_TOKEN_ID
@@ -332,11 +333,17 @@ def test_penalised_request_with_the_placeholder_id(weights):
 
 
 def test_construction_checks():
+    # a Gemma main is served (tests/test_torch_vision_families.py); a
+    # Qwen3-MoE main is refused, as in the reference
     gemma = GemmaConfig.tiny_gemma3(vocab_size=128)
-    with pytest.raises(ValueError, match="llama family.*ROADMAP"):
-        TorchEngine(TorchEngineConfig(model=gemma, device="cpu",
+    TorchEngine(TorchEngineConfig(model=gemma, device="cpu", decode_steps=1,
+                                  vision=tvision.VisionConfig.tiny(
+                                      out_hidden_size=gemma.hidden_size))).stop()
+    moe = MoeConfig.tiny_moe(vocab_size=128)
+    with pytest.raises(ValueError, match="Qwen3-MoE main is refused.*ROADMAP"):
+        TorchEngine(TorchEngineConfig(model=moe, device="cpu",
                                       vision=tvision.VisionConfig.tiny(
-                                          out_hidden_size=gemma.hidden_size)))
+                                          out_hidden_size=moe.hidden_size)))
     with pytest.raises(ValueError, match="out_hidden_size"):
         TorchEngine(TorchEngineConfig(model=tllama.LlamaConfig(dtype=torch.float32, **MODEL),
                                       device="cpu", vision=tvision.VisionConfig.tiny(32)))
