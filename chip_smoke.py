@@ -255,7 +255,34 @@ Phases, in order; any failure raises and the exit code is not 0:
    image, kernels vs plain ops, within MODEL_REL_TOL (Gemma's image embeddings left
    unscaled must fail it), then 4 image prompts served to the end through
    the family's prefill kernel, no mixed step.
-13. report: one JSON line with every kernel's numbers, the nvidia-smi line,
+13. frontend: the serving plane as a user starts it, three processes
+   through ``python -m``: the netstore, a worker (``dynamo_tpu_torch.engine
+   --preset llama3-8b``, 32 layers, random bf16 weights from seed 0,
+   max_context 8192, every other flag at its default: the auto-tuned
+   horizon, each horizon a CUDA-graph replay, guided decoding on) and the
+   OpenAI frontend; ready once each printed its readiness line and
+   /v1/models lists the model. Through the frontend, on the standard
+   library's asyncio streams: the 8-prompt traffic (100-6000 tokens 0.25 s
+   apart, 32 tokens each, one seeded sampled), twice, as streamed chat and
+   completions in turn, every stream ending in [DONE] with a
+   finish_reason and usage counting its 32 tokens; a decode probe (8
+   prompts of 64 tokens at once, 256 greedy tokens each); three greedy prompts
+   one at a time with top-2 logprobs; an n = 2 request with a seed; a
+   guided answer through response_format (it must parse and obey its
+   schema); an embedding; a client that disconnects mid-stream (the
+   in-flight gauge back to 0, a 499 counted, the next request served).
+   The worker stopped by SIGTERM must exit 0 with no busy slot or pinned
+   block, its decode, flash-extend and unified kernels launched (decode
+   through graph replays); no process may log an ERROR record. Then the
+   control, a process of its own as the worker is (``--fe-control``): an
+   in-process engine on the same flags and the worker's decode schedule
+   (one 16 GB model on the card at a time) serves the same traffic,
+   probe, greedy prompts and embedding: the greedy streams must equal the
+   worker's under the tie rule (token ids read from the logprobs), the
+   embedding bit for bit. Prints TTFT, ITL and tok/s on the client clock
+   for both, each run and the probe, and the frontend's TTFT and ITL
+   histograms scraped after the traffic.
+14. report: one JSON line with every kernel's numbers, the nvidia-smi line,
    and last the device line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without printing a result when no CUDA device is present or
@@ -271,6 +298,7 @@ import functools
 import gc
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -5766,8 +5794,599 @@ def shapes_phase(torch, gen, smi: str, timer) -> tuple:
     return results, out
 
 
+# ------------------------------------------------------------- phase 13
+# the serving plane: three processes as a user starts them (README, "the
+# port's quick start"), the 8-prompt traffic through the OpenAI frontend
+FE_MODEL = "llama3-8b"
+FE_PROMPTS = (100, 700, 1500, 2600, 3300, 4100, 5000, 6000)
+FE_TOKENS = 32
+FE_RUNS = 2             # the traffic twice on each side (new prompts each run)
+FE_SAMPLED = 2          # one seeded sampled request; the rest greedy
+FE_GREEDY = (200, 1000, 3000)
+FE_WORKER = ("--preset", FE_MODEL, "--model", FE_MODEL, "--max-context", "8192",
+             "--seed", "0")
+FE_HIDDEN = 4096        # llama3-8b's embedding width
+FE_SCHEMA = {"type": "object",
+             "properties": {"ok": {"type": "boolean"}, "mood": {"enum": ["happy", "sad"]}},
+             "required": ["ok", "mood"]}
+FE_READY_S = 300.0
+FE_STEADY = 8           # the decode probe: requests sent at once,
+FE_STEADY_PROMPT = 64   # prompt tokens each,
+FE_STEADY_TOKENS = 256  # greedy tokens each
+
+
+class Proc:
+    """A child process whose merged output a thread collects line by line."""
+
+    def __init__(self, name: str, *args: str):
+        import threading
+
+        self.name = name
+        self.lines: list = []
+        self.proc = subprocess.Popen([sys.executable, "-m", *args], cwd=HERE,
+                                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                     text=True, env={**os.environ, "PYTHONPATH": HERE})
+        self._cond = threading.Condition()
+        self._thread = threading.Thread(target=self._pump, daemon=True)
+        self._thread.start()
+
+    def _pump(self) -> None:
+        for line in self.proc.stdout:
+            with self._cond:
+                self.lines.append(line.rstrip("\n"))
+                self._cond.notify_all()
+        with self._cond:
+            self._cond.notify_all()
+
+    def wait_line(self, prefix: str, timeout: float = FE_READY_S) -> str:
+        deadline = time.monotonic() + timeout
+        with self._cond:
+            while True:
+                hit = next((ln for ln in self.lines if ln.startswith(prefix)), None)
+                if hit is not None:
+                    return hit
+                if self.proc.poll() is not None and not self._thread.is_alive():
+                    raise AssertionError(f"{self.name} exited ({self.proc.returncode}) before "
+                                         f"{prefix!r}:\n" + "\n".join(self.lines[-40:]))
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    raise AssertionError(f"{self.name}: no {prefix!r} in {timeout:.0f} s:\n"
+                                         + "\n".join(self.lines[-40:]))
+                self._cond.wait(min(left, 1.0))
+
+    def errors(self) -> list:
+        return [ln for ln in self.lines if " ERROR " in ln or ln.startswith("Traceback")]
+
+    def join(self, timeout: float = 60.0) -> int:
+        """Wait for the process to end on its own; stop it past ``timeout``."""
+        try:
+            self.proc.wait(timeout)
+        except subprocess.TimeoutExpired:
+            pass
+        return self.stop()
+
+    def stop(self, timeout: float = 60.0) -> int:
+        import signal as _signal
+
+        if self.proc.poll() is None:
+            self.proc.send_signal(_signal.SIGTERM)
+        try:
+            self.proc.wait(timeout)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait()
+        self._thread.join(5.0)
+        return self.proc.returncode
+
+
+async def http_call(port: int, method: str, path: str, body=None, close_after=None):
+    """One HTTP/1.1 request over asyncio streams: (status, JSON body) or, for
+    a server-sent event stream, (status, [(arrival s, payload)...]).
+    ``close_after`` events, the client closes the connection (a
+    disconnect)."""
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    data = json.dumps(body).encode() if body is not None else b""
+    writer.write(f"{method} {path} HTTP/1.1\r\nHost: 127.0.0.1\r\nContent-Type: "
+                 f"application/json\r\nContent-Length: {len(data)}\r\nConnection: close"
+                 "\r\n\r\n".encode() + data)
+    await writer.drain()
+    try:
+        head = (await reader.readuntil(b"\r\n\r\n")).decode("latin-1").split("\r\n")
+        status = int(head[0].split(" ")[1])
+        headers = {k.strip().lower(): v.strip() for k, _, v in
+                   (h.partition(":") for h in head[1:] if h)}
+        if "chunked" not in headers.get("transfer-encoding", ""):
+            raw = await reader.readexactly(int(headers.get("content-length", "0")))
+            return status, json.loads(raw) if raw else None
+        out, buf = [], b""
+        while True:
+            size = int((await reader.readuntil(b"\r\n")).strip(), 16)
+            if size == 0:
+                break
+            buf += await reader.readexactly(size)
+            await reader.readexactly(2)
+            while b"\n\n" in buf:
+                event, buf = buf.split(b"\n\n", 1)
+                if event.startswith(b"data: "):
+                    payload = event[6:].decode()
+                    out.append((time.perf_counter(),
+                                payload if payload == "[DONE]" else json.loads(payload)))
+                    if close_after is not None and len(out) >= close_after:
+                        return status, out
+        return status, out
+    finally:
+        writer.close()
+
+
+def fe_prompt(n: int, seed: int) -> str:
+    """A prompt of ``n`` bytes (n byte-tokenizer tokens) of random words."""
+    rng = np.random.default_rng(seed)
+    words = [bytes(rng.integers(97, 123, size=rng.integers(2, 9))).decode()
+             for _ in range(4000)]
+    return " ".join(words[int(i)] for i in rng.integers(0, len(words), size=n))[:n]
+
+
+def fe_bodies(run: int) -> list:
+    """The 8-prompt traffic as OpenAI bodies: chat and completions in turn,
+    streamed, FE_TOKENS each (EOS ignored, so each streams them all); each
+    run its own prompts (no run finds another's prefix cached)."""
+    bodies = []
+    for i, n in enumerate(FE_PROMPTS):
+        text = fe_prompt(n, 100 + 10 * run + i)
+        samp = (dict(temperature=0.8, top_p=0.95, seed=11) if i == FE_SAMPLED
+                else dict(temperature=0.0))
+        common = dict(model=FE_MODEL, max_tokens=FE_TOKENS, stream=True, ignore_eos=True,
+                      stream_options={"include_usage": True}, **samp)
+        if i % 2 == 0:
+            bodies.append(("/v1/chat/completions",
+                           dict(messages=[{"role": "user", "content": text}], **common)))
+        else:
+            bodies.append(("/v1/completions", dict(prompt=text, **common)))
+    return bodies
+
+
+def fe_stream_stats(t_sub: float, events: list, chat: bool) -> dict:
+    """TTFT, ITL (the mean gap between a request's tokens: last content
+    event minus first over tokens - 1), tokens (from usage), finish."""
+    if not events or events[-1][1] != "[DONE]":
+        raise AssertionError(f"stream did not end in [DONE]: {events[-2:]}")
+    chunks = [(t, e) for t, e in events if e != "[DONE]"]
+    content = [t for t, e in chunks if e["choices"] and (
+        (e["choices"][0].get("delta") or {}).get("content") if chat
+        else e["choices"][0].get("text"))]
+    finish = [e["choices"][0]["finish_reason"] for _, e in chunks
+              if e["choices"] and e["choices"][0].get("finish_reason")]
+    usage = [e["usage"] for _, e in chunks if e.get("usage")]
+    if not finish or not usage:
+        raise AssertionError(f"stream without finish_reason or usage: {chunks[-3:]}")
+    n = usage[-1]["completion_tokens"]
+    return {"tokens": n, "finish": finish[-1], "usage": usage[-1], "events": len(chunks),
+            "ttft_s": content[0] - t_sub,
+            "itl_s": (content[-1] - content[0]) / (n - 1) if n > 1 else None}
+
+
+def scrape_histograms(text: str) -> dict:
+    """sum and count of the frontend's TTFT and ITL histograms (/metrics)."""
+    out = {}
+    for name in ("dtpu_time_to_first_token_seconds", "dtpu_inter_token_latency_seconds"):
+        vals = {}
+        for line in text.splitlines():
+            for part in ("_sum", "_count"):
+                if line.startswith(name + part + "{"):
+                    vals[part[1:]] = vals.get(part[1:], 0.0) + float(line.rsplit(" ", 1)[1])
+        out[name] = {**vals, "mean_s": vals.get("sum", 0.0) / max(vals.get("count", 0.0), 1.0)}
+    return out
+
+
+def frontend_token_ids(logprobs: dict, top: list) -> list:
+    """Token ids of a greedy completion through the frontend, from its
+    logprobs block (``tokens``, ``token_logprobs``). A string that one id
+    decodes to gives that id. One that several ids decode to (the byte
+    tokenizer decodes a lone byte 128-255 as U+FFFD) gives the id among the
+    in-process run's top logprobs at that index (``top``, id -> logprob)
+    that decodes to it with the frontend's logprob, within 1e-3; None
+    (a mismatch) where not exactly one does."""
+    from dynamo_tpu_torch.llm.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer()
+    special = {v: k for k, v in ByteTokenizer._SPECIAL.items()}
+    out = []
+    for k, (s, lp) in enumerate(zip(logprobs["tokens"], logprobs["token_logprobs"])):
+        if s.startswith("<unk:") and s.endswith(">"):
+            out.append(int(s[5:-1]))
+        elif s in special:
+            out.append(special[s])
+        elif len(s) == 1 and ord(s) < 128:
+            out.append(ord(s))
+        else:
+            alts = top[k] if k < len(top) else {}
+            hits = [t for t, v in alts.items()
+                    if tok.decode([t], skip_special_tokens=False) == s and abs(v - lp) <= 1e-3]
+            out.append(hits[0] if len(hits) == 1 else None)
+    return out
+
+
+async def fe_traffic(port: int, bodies: list, gap: float = 0.25) -> tuple:
+    """Requests through the frontend, request i ``gap`` s after request i-1."""
+    stats = [None] * len(bodies)
+
+    async def one(i, path, body):
+        await asyncio.sleep(gap * i)
+        t_sub = time.perf_counter()
+        status, events = await http_call(port, "POST", path, body)
+        if status != 200:
+            raise AssertionError(f"frontend request {i}: HTTP {status}: {events}")
+        stats[i] = fe_stream_stats(t_sub, events, path.endswith("chat/completions"))
+
+    t0 = time.perf_counter()
+    await asyncio.gather(*(one(i, p, b) for i, (p, b) in enumerate(bodies)))
+    return stats, time.perf_counter() - t0
+
+
+def fe_summary(stats: list, wall: float) -> dict:
+    ttft = sorted(s["ttft_s"] for s in stats)
+    itl = sorted(s["itl_s"] for s in stats if s["itl_s"] is not None)
+    return {"requests": len(stats), "wall_s": wall,
+            "output_tok_s": sum(s["tokens"] for s in stats) / wall,
+            "ttft_s_median": statistics.median(ttft), "ttft_s_max": ttft[-1],
+            "ttft_s_mean": statistics.mean(ttft),
+            "itl_s_median": statistics.median(itl), "itl_s_max": itl[-1]}
+
+
+def fe_steady_bodies() -> list:
+    """The decode probe: FE_STEADY requests of FE_STEADY_PROMPT tokens sent
+    at once, FE_STEADY_TOKENS greedy tokens each, so that after one prefill
+    the batch only decodes: its ITL is the horizon's time a token plus what
+    the path adds to each output, with no prefill chunk in the gaps."""
+    return [("/v1/completions", dict(
+        model=FE_MODEL, prompt=fe_prompt(FE_STEADY_PROMPT, 600 + i),
+        max_tokens=FE_STEADY_TOKENS, temperature=0.0, ignore_eos=True, stream=True,
+        stream_options={"include_usage": True})) for i in range(FE_STEADY)]
+
+
+def check_fe_stats(tag: str, stats: list, tokens: int) -> None:
+    for i, s in enumerate(stats):
+        if s["tokens"] != tokens or s["finish"] != "length":
+            raise AssertionError(f"{tag} request {i}: {s['tokens']} tokens, finish "
+                                 f"{s['finish']!r}; expected {tokens}, 'length'")
+        if "usage" in s and s["usage"]["total_tokens"] != s["usage"]["prompt_tokens"] + tokens:
+            raise AssertionError(f"{tag} request {i}: usage {s['usage']}")
+
+
+async def fe_through_frontend(port: int) -> dict:
+    """Everything the phase sends through the frontend, in order."""
+    out = {"traffic": []}
+    for run in range(FE_RUNS):
+        stats, wall = await fe_traffic(port, fe_bodies(run))
+        check_fe_stats("frontend", stats, FE_TOKENS)
+        out["traffic"].append(fe_summary(stats, wall))
+    # the frontend's own histograms over exactly the traffic's requests
+    _, text = await http_text(port, "/metrics")
+    out["metrics"] = scrape_histograms(text)
+    stats, wall = await fe_traffic(port, fe_steady_bodies(), gap=0.0)
+    check_fe_stats("frontend decode probe", stats, FE_STEADY_TOKENS)
+    out["steady"] = fe_summary(stats, wall)
+    # greedy prompts one at a time, with logprobs for the tie rule
+    out["greedy"] = []
+    for j, n in enumerate(FE_GREEDY):
+        status, body = await http_call(port, "POST", "/v1/completions", dict(
+            model=FE_MODEL, prompt=fe_prompt(n, 200 + j), max_tokens=FE_TOKENS,
+            temperature=0.0, logprobs=2, ignore_eos=True))
+        if status != 200:
+            raise AssertionError(f"greedy request {j}: HTTP {status}: {body}")
+        out["greedy"].append(body["choices"][0]["logprobs"])
+    # n = 2 with a seed: two choices of FE_TOKENS // 2 tokens each, different
+    status, body = await http_call(port, "POST", "/v1/completions", dict(
+        model=FE_MODEL, prompt=fe_prompt(300, 300), max_tokens=FE_TOKENS // 2, n=2, seed=3,
+        temperature=0.9, ignore_eos=True))
+    choices = body["choices"] if status == 200 else []
+    if (len(choices) != 2 or [c["index"] for c in choices] != [0, 1]
+            or body["usage"]["completion_tokens"] != FE_TOKENS
+            or any(c["finish_reason"] != "length" for c in choices)
+            or choices[0]["text"] == choices[1]["text"]):
+        raise AssertionError(f"n = 2: HTTP {status}: {body}")
+    out["n2_texts"] = [c["text"][:40] for c in choices]
+    # guided decoding through response_format: the answer parses and obeys
+    status, body = await http_call(port, "POST", "/v1/chat/completions", dict(
+        model=FE_MODEL, messages=[{"role": "user", "content": "Answer in JSON."}],
+        max_tokens=200, temperature=0.0,
+        response_format={"type": "json_schema", "json_schema": {"schema": FE_SCHEMA}}))
+    try:
+        answer = json.loads(body["choices"][0]["message"]["content"])
+        ok = (body["choices"][0]["finish_reason"] == "stop" and set(answer) == {"ok", "mood"}
+              and isinstance(answer["ok"], bool) and answer["mood"] in ("happy", "sad"))
+    except (KeyError, TypeError, ValueError):
+        ok = False
+    if status != 200 or not ok:
+        raise AssertionError(f"guided response_format: HTTP {status}: {body}")
+    out["guided_answer"] = answer
+    # an embedding
+    emb_text = fe_prompt(400, 400)
+    status, body = await http_call(port, "POST", "/v1/embeddings",
+                                   dict(model=FE_MODEL, input=emb_text))
+    vec = np.asarray(body["data"][0]["embedding"], np.float64) if status == 200 else None
+    if (vec is None or vec.shape != (FE_HIDDEN,) or not np.isfinite(vec).all()
+            or abs(np.linalg.norm(vec) - 1.0) > 1e-3
+            or body["usage"]["prompt_tokens"] != len(emb_text.encode())):
+        raise AssertionError(f"embedding: HTTP {status}: {str(body)[:300]}")
+    out["embedding"] = vec.tolist()
+    # a client that disconnects mid-stream, then the next request
+    status, events = await http_call(port, "POST", "/v1/completions", dict(
+        model=FE_MODEL, prompt=fe_prompt(500, 500), max_tokens=2000, stream=True,
+        ignore_eos=True), close_after=2)
+    if status != 200 or not events:
+        raise AssertionError(f"disconnect: HTTP {status}: {events}")
+    inflight = None
+    for _ in range(200):
+        await asyncio.sleep(0.05)
+        _, text = await http_text(port, "/metrics")
+        inflight = [ln for ln in text.splitlines() if ln.startswith("dtpu_inflight_requests")]
+        if inflight and inflight[0].endswith(" 0.0") and 'status="499"' in text:
+            break
+    counted = 'status="499"' in text
+    if not inflight or not inflight[0].endswith(" 0.0") or not counted:
+        raise AssertionError(f"after a disconnect: {inflight}, a 499 counted: {counted}")
+    status, body = await http_call(port, "POST", "/v1/completions", dict(
+        model=FE_MODEL, prompt="after the disconnect", max_tokens=8, ignore_eos=True))
+    if status != 200 or body["usage"]["completion_tokens"] != 8:
+        raise AssertionError(f"the request after a disconnect: HTTP {status}: {body}")
+    return out
+
+
+async def http_text(port: int, path: str) -> tuple:
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    writer.write(f"GET {path} HTTP/1.1\r\nHost: 127.0.0.1\r\nConnection: close\r\n\r\n"
+                 .encode())
+    await writer.drain()
+    raw = await reader.read()
+    writer.close()
+    head, _, body = raw.partition(b"\r\n\r\n")
+    return int(head.split(b" ")[1]), body.decode()
+
+
+async def fe_in_process(engine, emb_text: str) -> dict:
+    """The same traffic, decode probe, greedy prompts and embedding on an
+    in-process engine (no frontend, no request plane): tokens, top
+    logprobs, TTFT, ITL, tok/s on the client clock, as serve() measures
+    them."""
+    from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
+    from dynamo_tpu_torch.llm.preprocessor import OpenAIPreprocessor
+    from dynamo_tpu_torch.llm.protocols import openai
+
+    pre = OpenAIPreprocessor(ModelDeploymentCard(name=FE_MODEL, tokenizer="byte",
+                                                 context_length=8192))
+
+    def preprocess(tag, bodies):
+        reqs = []
+        for i, (path, body) in enumerate(bodies):
+            if path.endswith("chat/completions"):
+                r = pre.preprocess_chat(openai.ChatCompletionRequest.from_obj(body))
+            else:
+                r = pre.preprocess_completion(openai.CompletionRequest.from_obj(body),
+                                              body["prompt"])
+            r.request_id = f"{tag}-{i}"
+            reqs.append(r)
+        return reqs
+
+    def summary(stats, wall):
+        return fe_summary([dict(s, tokens=len(s["tokens"])) for s in stats], wall)
+
+    out = {"traffic": []}
+    for run in range(FE_RUNS):
+        reqs = preprocess(f"fe{run}", fe_bodies(run))
+        stats, wall = await run_requests(engine, reqs,
+                                         delays=[0.25 * i for i in range(len(reqs))])
+        check_fe_stats("in-process", [dict(s, tokens=len(s["tokens"])) for s in stats],
+                       FE_TOKENS)
+        out["traffic"].append(summary(stats, wall))
+    stats, wall = await run_requests(engine, preprocess("steady", fe_steady_bodies()))
+    check_fe_stats("in-process decode probe",
+                   [dict(s, tokens=len(s["tokens"])) for s in stats], FE_STEADY_TOKENS)
+    out["steady"] = summary(stats, wall)
+    greedy = []
+    for j, n in enumerate(FE_GREEDY):
+        r = pre.preprocess_completion(openai.CompletionRequest.from_obj(dict(
+            model=FE_MODEL, prompt=fe_prompt(n, 200 + j), max_tokens=FE_TOKENS,
+            temperature=0.0, logprobs=2, ignore_eos=True)), fe_prompt(n, 200 + j))
+        r.request_id = f"g{j}"
+        (s,), _ = await run_requests(engine, [r])
+        greedy.append({"i": j, "tokens": s["tokens"], "top": s["top"],
+                       "prompt": list(r.token_ids)})
+    out["greedy"] = greedy
+    out["embedding"] = (await embed_vectors(engine, [list(emb_text.encode())]))[0]
+    return out
+
+
+def check_worker_exit(report: dict) -> None:
+    """The worker's exit line: no slot or KV block still held (the
+    disconnected request's included), and kernels 1-3 launched in it, the
+    decode kernel through graph replays."""
+    if report["busy_slots"] or report["active_blocks"]:
+        raise AssertionError(f"the worker ended with busy slots or pinned blocks: {report}")
+    for name in ("decode", "flash_extend", "unified"):
+        if report["launches"][name] <= 0:
+            raise AssertionError(f"the {name} kernel never launched in the worker: "
+                                 f"{report['launches']}")
+    if report["launches"]["replayed"]["decode"] <= 0:
+        raise AssertionError(f"no decode launch in the worker came from a graph replay: "
+                             f"{report['launches']}")
+
+
+def fe_control(path: str) -> int:
+    """The frontend phase's control (``chip_smoke.py --fe-control FILE``), in
+    a process of its own as the worker is: an engine built from the
+    worker's flags and decode schedule serves the same traffic, decode
+    probe, greedy prompts and embedding in-process. It holds the
+    frontend's greedy streams and embedding (from FILE) to its own: the
+    streams equal under the tie rule, the embedding bit for bit. Prints
+    one ``FE_CONTROL {json}`` line."""
+    import torch
+
+    from dynamo_tpu_torch.engine.__main__ import build_worker_engine, parse_args
+
+    with open(path) as f:
+        fe = json.load(f)
+    args = parse_args([*FE_WORKER, "--decode-steps", fe["steps"],
+                       "--decode-pipeline", fe["pipeline"]])
+    engine, _ = build_worker_engine(args)
+    emb_text = fe_prompt(400, 400)
+    try:
+        got = asyncio.run(fe_in_process(engine, emb_text))
+    finally:
+        engine.stop()
+    run = {"requests": []}
+    for j, (lp, want) in enumerate(zip(fe["greedy"], got["greedy"])):
+        ids = frontend_token_ids(lp, want["top"])
+        k = next((k for k, (a, b) in enumerate(zip(ids, want["tokens"])) if a != b), None)
+        if k is not None and ids[k] is None:
+            raise AssertionError(
+                f"frontend greedy request {j}, token {k}: {lp['tokens'][k]!r} (logprob "
+                f"{lp['token_logprobs'][k]:.6g}) is no token among the in-process run's top "
+                f"logprobs there, {want['top'][k]}")
+        run["requests"].append({"i": j, "tokens": ids})
+    gaps = tie_rule(torch, "frontend greedy", run, {"requests": got["greedy"]},
+                    [g["prompt"] for g in got["greedy"]], engine.params, engine.mcfg)
+    a, b = np.asarray(fe["embedding"]), np.asarray(got["embedding"], np.float64)
+    rel = float(np.linalg.norm(a - b) / np.linalg.norm(b))
+    if rel > 1e-5:
+        raise AssertionError(f"the frontend's embedding differs from the in-process "
+                             f"engine's: relative L2 {rel:.3g}")
+    print("FE_CONTROL " + json.dumps({
+        "traffic": got["traffic"], "steady": got["steady"], "greedy_tie_gaps": gaps,
+        "greedy_equal": sum(r["tokens"] == g["tokens"]
+                            for r, g in zip(run["requests"], got["greedy"])),
+        "embedding_rel_l2": rel}), flush=True)
+    return 0
+
+
+def frontend_phase(torch, smi: str, serving) -> dict:
+    """Phase 13 (module docstring): the netstore, a llama3-8b worker and the
+    frontend as three processes; the traffic, decode probe, greedy
+    prompts, n = 2, a guided request, an embedding and a disconnect
+    through the frontend; then the worker stopped and the same work on an
+    in-process engine of the same configuration and decode schedule, in a
+    process of its own (fe_control)."""
+    import tempfile
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {}
+    procs = []
+    try:
+        t0 = time.perf_counter()
+        store = Proc("netstore", "dynamo_tpu_torch.runtime.discovery.netstore",
+                     "--host", "127.0.0.1", "--port", "0")
+        procs.append(store)
+        addr = store.wait_line("KVSTORE_READY", 30).split()[1]
+        common = ("--store", "tcp", "--store-path", addr)
+        worker = Proc("worker", "dynamo_tpu_torch.engine", *common, *FE_WORKER)
+        procs.append(worker)
+        front = Proc("frontend", "dynamo_tpu_torch.frontend", *common, "--host",
+                     "127.0.0.1", "--port", "0")
+        procs.append(front)
+        port = int(front.wait_line("TORCH_FRONTEND_READY", 60).rsplit(":", 1)[1])
+        worker.wait_line("TORCH_ENGINE_READY")
+        out["ready_s"] = time.perf_counter() - t0
+        schedule = next((ln for ln in worker.lines if "decode schedule" in ln), "")
+        steps = re.search(r"steps=(\d+) pipeline=(\d+)", schedule)
+        if steps is None:
+            raise AssertionError(f"no auto-tuned decode schedule in the worker's log: "
+                                 f"{worker.lines[-20:]}")
+        out["schedule"] = schedule.split(": ", 1)[-1]
+
+        async def models():
+            for _ in range(600):
+                status, body = await http_call(port, "GET", "/v1/models")
+                if status == 200 and [m["id"] for m in body["data"]] == [FE_MODEL]:
+                    return
+                await asyncio.sleep(0.05)
+            raise AssertionError(f"/v1/models never listed {FE_MODEL}")
+
+        async def through():
+            await models()
+            return await fe_through_frontend(port)
+
+        t0 = time.perf_counter()
+        fe = asyncio.run(through())
+        out["requests_s"] = time.perf_counter() - t0
+        rc = worker.stop()
+        exit_line = worker.wait_line("TORCH_ENGINE_EXIT", 10)
+        report = json.loads(exit_line.split(" ", 1)[1])
+        if rc != 0:
+            raise AssertionError(f"the worker exited {rc}")
+        check_worker_exit(report)
+        for p in (front, store):
+            if p.stop() != 0:
+                raise AssertionError(f"the {p.name} exited {p.proc.returncode}")
+        out["worker_exit"] = report
+        # the control, built only now: one 16 GB model on the card at a time
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "frontend.json")
+            with open(path, "w") as f:
+                json.dump({"steps": steps.group(1), "pipeline": steps.group(2),
+                           "greedy": fe["greedy"], "embedding": fe["embedding"]}, f)
+            control = Proc("control", "chip_smoke", "--fe-control", path)
+            procs.append(control)
+            inproc = json.loads(control.wait_line("FE_CONTROL").split(" ", 1)[1])
+            if control.join() != 0:
+                raise AssertionError(f"the control exited {control.proc.returncode}")
+        out["in_process_s"] = time.perf_counter() - t0
+        errors = [f"{p.name}: {ln}" for p in procs for ln in p.errors()]
+        if errors:
+            raise AssertionError("ERROR records in the serving plane's logs:\n"
+                                 + "\n".join(errors[:20]))
+    finally:
+        for p in procs:
+            p.stop()
+    out["frontend"], out["in_process"] = fe["traffic"], inproc["traffic"]
+    out["steady"] = {"frontend": fe["steady"], "in_process": inproc["steady"]}
+    out["metrics"] = fe["metrics"]
+    out["n2_texts"], out["guided_answer"] = fe["n2_texts"], fe["guided_answer"]
+    for k in ("greedy_equal", "greedy_tie_gaps", "embedding_rel_l2"):
+        out[k] = inproc[k]
+
+    def line(f, p):
+        return (f"{f['output_tok_s']:.1f} output tok/s, TTFT median "
+                f"{f['ttft_s_median'] * 1e3:.0f} ms (mean {f['ttft_s_mean'] * 1e3:.0f}, max "
+                f"{f['ttft_s_max'] * 1e3:.0f}), ITL median {f['itl_s_median'] * 1e3:.2f} ms "
+                f"(max {f['itl_s_max'] * 1e3:.2f}), client clock; in-process, the same "
+                f"requests, flags and schedule: {p['output_tok_s']:.1f} output tok/s, TTFT "
+                f"median {p['ttft_s_median'] * 1e3:.0f} ms (mean {p['ttft_s_mean'] * 1e3:.0f}, "
+                f"max {p['ttft_s_max'] * 1e3:.0f}), ITL median {p['itl_s_median'] * 1e3:.2f} "
+                f"ms (max {p['itl_s_max'] * 1e3:.2f}); frontend / in-process: ITL median "
+                f"{f['itl_s_median'] / p['itl_s_median']:.3f}, tok/s "
+                f"{f['output_tok_s'] / p['output_tok_s']:.3f}")
+
+    for run, (f, p) in enumerate(zip(out["frontend"], out["in_process"])):
+        log(f"frontend on {smi}, run {run + 1} of {FE_RUNS}: {FE_MODEL} at 32 layers, "
+            f"{f['requests']} streamed requests (chat and completions in turn) through "
+            f"netstore + worker + frontend: " + line(f, p))
+    log(f"frontend decode probe on {smi}: {FE_STEADY} requests of {FE_STEADY_PROMPT} "
+        f"tokens at once, {FE_STEADY_TOKENS} greedy tokens each, through the frontend: "
+        + line(out["steady"]["frontend"], out["steady"]["in_process"]))
+    m = out["metrics"]
+    log(f"frontend /metrics on {smi}, the {FE_RUNS} traffic runs: "
+        f"dtpu_time_to_first_token_seconds mean "
+        f"{m['dtpu_time_to_first_token_seconds']['mean_s'] * 1e3:.1f} ms over "
+        f"{m['dtpu_time_to_first_token_seconds'].get('count', 0):.0f} requests, "
+        f"dtpu_inter_token_latency_seconds mean "
+        f"{m['dtpu_inter_token_latency_seconds']['mean_s'] * 1e3:.2f} ms over "
+        f"{m['dtpu_inter_token_latency_seconds'].get('count', 0):.0f} gaps (one sample an "
+        f"output: a horizon's tokens); schedule {out['schedule']}")
+    if serving is not None:
+        log(f"serve phase (10 prompts of 120-3000 tokens, in-process) on {smi}: "
+            f"{serving['output_tok_s']:.1f} output tok/s, ITL median "
+            f"{serving['itl_s_median'] * 1e3:.2f} ms")
+    log(f"frontend: greedy streams equal to the in-process engine's {out['greedy_equal']} of "
+        f"{len(FE_GREEDY)} (the rest within the tie rule: {out['greedy_tie_gaps']}); "
+        f"embedding relative L2 {out['embedding_rel_l2']:.3g}; worker kernels "
+        f"{out['worker_exit']['launches']}")
+    return out
+
+
 PHASES = ("kernels", "model", "serve", "horizon", "gptoss", "moe_mla", "vision", "spec",
-          "checkpoint", "features", "shapes")
+          "checkpoint", "features", "shapes", "frontend")
 
 
 def main() -> int:
@@ -5775,6 +6394,9 @@ def main() -> int:
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma list of " + ",".join(PHASES) + " (environment and build "
                          "always run; the report needs them all)")
+    ap.add_argument("--fe-control", metavar="FILE",
+                    help="the frontend phase's in-process control, run by that phase "
+                         "in a process of its own")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
 
@@ -5790,6 +6412,8 @@ def main() -> int:
         print(f"chip_smoke: the dynamo_tpu_torch package is not beside this "
               f"script ({e})", file=sys.stderr)
         return 2
+    if args.fe_control:
+        return fe_control(args.fe_control)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -6022,6 +6646,11 @@ def main() -> int:
         log(f"shapes phase [{time.perf_counter() - t0:.1f} s]")
         gc.collect()
         torch.cuda.empty_cache()
+    if "frontend" in phases:
+        t0 = time.perf_counter()
+        fe = frontend_phase(torch, smi, serving)
+        log("frontend: " + json.dumps({k: v for k, v in fe.items()}))
+        log(f"frontend phase [{time.perf_counter() - t0:.1f} s]")
     log(f"all phases [{time.perf_counter() - t_start:.1f} s]")
     if phases != set(PHASES):
         log("partial run (--phases): no report")

@@ -1,0 +1,296 @@
+"""python -m dynamo_tpu_torch.engine — a TorchEngine worker of the serving plane.
+
+The port's counterpart of the reference's ``python -m dynamo_tpu.engine``:
+builds a TorchEngine (through ``run.build_engine``, the code path of
+``python -m dynamo_tpu_torch.run``), serves it on the request plane behind
+the Backend operator (detokenization, stop strings), and publishes its
+model card under its discovery lease, so that an OpenAI frontend
+(``python -m dynamo_tpu_torch.frontend``) on the same store finds it:
+
+    python -m dynamo_tpu_torch.runtime.discovery.netstore --port 7460
+    python -m dynamo_tpu_torch.engine --store tcp --store-path 127.0.0.1:7460 \\
+        --preset llama3-8b --model llama3-8b
+    python -m dynamo_tpu_torch.frontend --store tcp --store-path 127.0.0.1:7460 --port 8000
+
+It serves on the GPU unless ``--device cpu`` is given, and raises without
+one. Model selection: ``--model-path`` (an HF checkpoint directory or hub
+reference, as run.py's ``out=``) or ``--preset`` (random weights from
+``--seed``). The engine flags are the reference worker's, with its
+defaults; flags of later slices (parallelism, disaggregation, the KV
+events, the status server, the tool-call and reasoning parsers) are not
+defined, and argparse refuses them.
+
+Prints ``TORCH_ENGINE_READY <model> device=<device>`` once it serves. On
+SIGTERM or SIGINT it deletes its instance and card keys at once, drains the
+requests in flight for up to ``--graceful-timeout`` seconds, then prints
+``TORCH_ENGINE_EXIT {json}``: each kernel's launches since the process
+started, as ``ops/_build`` counts them (the engine's build and graph
+captures, and CUDA-graph replays, included), the engine's
+steps by kind, and its busy slots and pinned KV blocks (both 0 once every
+request, a cancelled one too, has freed its slot).
+"""
+
+from __future__ import annotations
+
+import argparse
+import asyncio
+import json
+import signal
+from typing import List, Optional
+
+from ..llm.model_card import (
+    MODEL_TYPE_CHAT,
+    MODEL_TYPE_COMPLETIONS,
+    MODEL_TYPE_EMBEDDING,
+    ModelDeploymentCard,
+    ModelRuntimeConfig,
+)
+from ..llm.serve import register_llm
+from ..models.registry import PRESETS
+from ..runtime.component import new_instance_id
+from ..runtime.config import (
+    ENV_KVBM_DISK_CACHE_GB,
+    ENV_KVBM_DISK_PATH,
+    ENV_KVBM_HOST_CACHE_GB,
+    ENV_MIGRATION_LIMIT,
+    ENV_NAMESPACE,
+    RuntimeConfig,
+    env_float,
+    env_int,
+    env_str,
+)
+from ..runtime.distributed import DistributedRuntime
+from ..runtime.logging import init_logging
+
+READY = "TORCH_ENGINE_READY"
+EXIT = "TORCH_ENGINE_EXIT"
+
+
+def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
+    from ..run import VISION_PRESETS
+
+    presets = sorted(list(PRESETS) + list(VISION_PRESETS))
+    p = argparse.ArgumentParser("dynamo_tpu_torch.engine")
+    p.add_argument("--model", default="torch-model", help="served model name")
+    p.add_argument("--model-path", default=None,
+                   help="HF checkpoint directory or hub reference")
+    p.add_argument("--preset", default="tiny", choices=presets)
+    p.add_argument("--tokenizer", default=None,
+                   help="'byte' or a tokenizer directory (default: the checkpoint's "
+                        "own; byte for a preset)")
+    p.add_argument("--namespace", default=env_str(ENV_NAMESPACE, "dynamo"))
+    p.add_argument("--component", default="backend")
+    p.add_argument("--endpoint", default="generate")
+    p.add_argument("--store", default=None, help="mem|file|tcp (default: DTPU_STORE)")
+    p.add_argument("--store-path", default=None)
+    p.add_argument("--graceful-timeout", type=float, default=10.0,
+                   help="seconds to wait for in-flight requests on shutdown")
+    p.add_argument("--device", default=None, help="default: cuda; 'cpu' for the CPU")
+    p.add_argument("--seed", type=int, default=0, help="random-weight seed")
+    p.add_argument("--num-blocks", type=int, default=2048)
+    p.add_argument("--block-size", type=int, default=16)
+    p.add_argument("--kv-dtype", default="auto", choices=("auto", "model", "int8"),
+                   help="paged-KV storage: int8 pages with per-block scales; auto "
+                        "defers to DTPU_KV_DTYPE (default: the model dtype)")
+    p.add_argument("--max-batch-size", type=int, default=8)
+    p.add_argument("--max-context", type=int, default=2048)
+    p.add_argument("--prefill-chunk", type=int, default=2048,
+                   help="largest single prefill dispatch; longer prompts chunk")
+    p.add_argument("--migration-limit", type=int, default=env_int(ENV_MIGRATION_LIMIT, 0))
+    p.add_argument("--kvbm-host-gb", type=float,
+                   default=env_float(ENV_KVBM_HOST_CACHE_GB, 0.0),
+                   help="host memory KV tier size (G2); 0 disables KVBM")
+    p.add_argument("--kvbm-disk-gb", type=float,
+                   default=env_float(ENV_KVBM_DISK_CACHE_GB, 0.0),
+                   help="disk KV tier size (G3)")
+    p.add_argument("--kvbm-disk-path", default=env_str(ENV_KVBM_DISK_PATH, "") or None)
+    p.add_argument("--decode-steps", type=int, default=None,
+                   help="decode steps per dispatch (default: auto-tuned)")
+    p.add_argument("--decode-pipeline", type=int, default=None,
+                   help="decode horizons in flight (default: auto-tuned)")
+    p.add_argument("--no-warm-cache", action="store_true",
+                   help="parse the checkpoint on every start")
+    p.add_argument("--spec-draft", default=None, choices=presets,
+                   help="speculative decoding with a draft of this preset")
+    p.add_argument("--spec-draft-path", default=None,
+                   help="speculative decoding with a draft from this checkpoint")
+    p.add_argument("--spec-k", type=int, default=4)
+    p.add_argument("--guided-max-states", type=int, default=1024,
+                   help="guided decoding automaton cap; 0 disables guided decoding")
+    p.add_argument("--guided-max-classes", type=int, default=320)
+    p.add_argument("--logits-processors", default=None,
+                   help="named processors to register, e.g. "
+                        "'ban=5,7,9;temperature=0.7;norepeat=2.0'")
+    p.add_argument("--lora-max-adapters", type=int, default=0,
+                   help="multi-LoRA slots; enables the load_lora / unload_lora / "
+                        "list_loras endpoints")
+    p.add_argument("--lora-rank", type=int, default=16)
+    return p.parse_args(argv)
+
+
+def build_logits_processors(spec: Optional[str]):
+    """``--logits-processors`` -> (name, fn) pairs."""
+    if not spec:
+        return ()
+    from ..logits_processing import (
+        ban_tokens_processor,
+        repetition_window_processor,
+        temperature_processor,
+    )
+
+    built = []
+    for part in spec.split(";"):
+        name, _, val = part.strip().partition("=")
+        if name == "ban":
+            built.append(("ban", ban_tokens_processor([int(t) for t in val.split(",") if t])))
+        elif name == "temperature":
+            built.append(("temperature", temperature_processor(float(val))))
+        elif name == "norepeat":
+            built.append(("norepeat", repetition_window_processor(float(val))))
+        else:
+            raise SystemExit(f"unknown logits processor {name!r}")
+    return tuple(built)
+
+
+def guided_vocab_for(tokenizer_ref: str, max_states: int):
+    """(vocab byte forms, eos id) for guided decoding, or None when it is
+    off or the tokenizer has no EOS (guided decoding is then disabled)."""
+    if max_states <= 0:
+        return None
+    from ..guided import vocab_bytes_from_tokenizer
+    from ..llm.tokenizer import load_tokenizer
+
+    try:
+        return vocab_bytes_from_tokenizer(load_tokenizer(tokenizer_ref))
+    except ValueError as e:
+        print(f"guided decoding disabled: {e}", flush=True)
+        return None
+
+
+def build_worker_engine(args: argparse.Namespace):
+    """(engine, tokenizer reference) from the worker's flags."""
+    from ..device import resolve_device
+    from ..llm.hub import resolve_model_path
+    from ..run import build_engine
+
+    resolve_device(args.device)
+    bs = args.block_size
+    args.max_context = -(-args.max_context // bs) * bs
+    out = args.model_path or args.preset
+    tok_ref = args.tokenizer or (resolve_model_path(args.model_path) if args.model_path
+                                 else "byte")
+    vocab = guided_vocab_for(tok_ref, args.guided_max_states)
+    engine = build_engine(
+        out, args.device, args.max_context, args.seed, kv_dtype=args.kv_dtype,
+        kvbm_host_gb=args.kvbm_host_gb, kvbm_disk_gb=args.kvbm_disk_gb,
+        kvbm_disk_path=args.kvbm_disk_path, decode_steps=args.decode_steps,
+        decode_pipeline=args.decode_pipeline, spec_draft=args.spec_draft,
+        spec_k=args.spec_k, spec_draft_path=args.spec_draft_path,
+        warm_cache=not args.no_warm_cache, num_blocks=args.num_blocks, block_size=bs,
+        max_batch_size=args.max_batch_size, prefill_chunk=-(-args.prefill_chunk // bs) * bs,
+        guided_vocab=vocab, guided_max_states=args.guided_max_states if vocab else 0,
+        guided_max_classes=args.guided_max_classes,
+        logits_processors=build_logits_processors(args.logits_processors),
+        lora_max_adapters=args.lora_max_adapters, lora_rank=args.lora_rank,
+    )
+    return engine, tok_ref
+
+
+async def serve_lora_endpoints(runtime: DistributedRuntime, namespace: str, component: str,
+                               engines) -> list:
+    """The load_lora / unload_lora / list_loras endpoints beside generate,
+    as the reference worker serves them: a load fetches the adapter (a
+    PEFT directory or an .npz, by path or file:// URI) into the local
+    adapter cache and writes it into every engine's tables."""
+    from ..lora import LoRACache, LocalLoRASource, load_adapter
+
+    cache, source = LoRACache(), LocalLoRASource()
+
+    async def handle_load(request, context):
+        name, uri = request["name"], request["uri"]
+
+        def work():
+            weights, alpha = load_adapter(source.fetch(uri, cache))
+            return [e.lora.load(name, weights, alpha) for e in engines]
+
+        try:
+            slots = await asyncio.get_running_loop().run_in_executor(None, work)
+            yield {"ok": True, "name": name, "slot": slots[0]}
+        except Exception as e:
+            yield {"ok": False, "error": str(e)}
+
+    async def handle_unload(request, context):
+        yield {"ok": all([e.lora.unload(request["name"]) for e in engines])}
+
+    async def handle_list(request, context):
+        yield {"adapters": engines[0].lora.list_adapters()}
+
+    comp = runtime.namespace(namespace).component(component)
+    return [await comp.endpoint(name).serve(handler)
+            for name, handler in (("load_lora", handle_load),
+                                  ("unload_lora", handle_unload),
+                                  ("list_loras", handle_list))]
+
+
+def kernel_launches() -> dict:
+    """Each kernel wrapper's launches since start, and under "replayed"
+    the share CUDA-graph replays made."""
+    from ..ops import block_copy as bc
+    from ..ops import cuda_attention, cuda_mla, cuda_prefill, cuda_unified
+
+    counters = {
+        "decode": cuda_attention.KERNEL, "decode_int8": cuda_attention.KERNEL_INT8,
+        "flash_extend": cuda_prefill.KERNEL, "flash_extend_int8": cuda_prefill.KERNEL_INT8,
+        "unified": cuda_unified.KERNEL, "unified_int8": cuda_unified.KERNEL_INT8,
+        "merge": cuda_unified.MERGE, "latent_narrow": cuda_mla.NARROW,
+        "latent_wide": cuda_mla.WIDE, "gather": bc.GATHER, "scatter": bc.SCATTER,
+        "copy": bc.COPY,
+    }
+    out = {name: k.launches for name, k in counters.items()}
+    out["replayed"] = {name: k.replayed for name, k in counters.items()}
+    return out
+
+
+async def main(argv: Optional[List[str]] = None) -> None:
+    args = parse_args(argv)
+    init_logging()
+    # the engine first: its build (weights, graph capture) blocks the loop,
+    # which must not hold a lease yet
+    engine, tok_ref = build_worker_engine(args)
+    cfg = RuntimeConfig.from_env(store=args.store, store_path=args.store_path)
+    runtime = await DistributedRuntime(cfg).start()
+    card = ModelDeploymentCard(
+        name=args.model, namespace=args.namespace, component=args.component,
+        endpoint=args.endpoint, model_type=[MODEL_TYPE_CHAT, MODEL_TYPE_COMPLETIONS, MODEL_TYPE_EMBEDDING],
+        tokenizer=tok_ref, context_length=args.max_context, kv_block_size=args.block_size,
+        migration_limit=args.migration_limit,
+        runtime_config=ModelRuntimeConfig(
+            total_kv_blocks=engine.cfg.num_blocks, kv_block_size=args.block_size,
+            max_batch_size=args.max_batch_size, max_context_len=args.max_context),
+    )
+    served = await register_llm(runtime, engine, card, instance_id=new_instance_id())
+    lora_served = []
+    if engine.lora is not None:
+        lora_served = await serve_lora_endpoints(runtime, args.namespace, args.component,
+                                                 [engine])
+    stop = asyncio.Event()
+    loop = asyncio.get_running_loop()
+    for sig in (signal.SIGINT, signal.SIGTERM):
+        loop.add_signal_handler(sig, stop.set)
+    print(f"{READY} {args.model} device={engine.device}", flush=True)
+    await stop.wait()
+    # graceful drain: deregister first (discovery stops routing here), then
+    # the request server waits out in-flight streams before closing
+    await served.stop(graceful_timeout_s=args.graceful_timeout)
+    for s in lora_served:
+        await s.stop()
+    engine.stop()
+    await runtime.shutdown()
+    report = {"launches": kernel_launches(), "steps": dict(engine.step_counts),
+              "busy_slots": sum(s is not None for s in engine._slots),
+              "active_blocks": engine.allocator.active_blocks}
+    print(f"{EXIT} {json.dumps(report)}", flush=True)
+
+
+if __name__ == "__main__":
+    asyncio.run(main())

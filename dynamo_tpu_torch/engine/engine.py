@@ -106,9 +106,11 @@ Not in this slice (ROADMAP.md): LoRA on families other than dense llama,
 gpt-oss and MLA drafts, vision on Qwen3-MoE or with a spec draft, on the
 card a llama or Qwen3-MoE model at a head_dim outside {64, 128} or a group
 size above 8, the G4 remote KVBM tier, disaggregated transfer, parallelism, and the KV-event /
-metrics / tracing / SLO hooks. A request that asks for one of those is
-refused with ``UnsupportedRequestError``; an engine configuration that
-does, with ``ValueError``.
+step-telemetry / tracing / SLO hooks (ROADMAP item 4b). A request that asks for one of those is
+refused with ``UnsupportedRequestError`` (a 400 at the frontend); an engine configuration that
+does, with ``ValueError``. The engine serves behind the port's serving plane as the reference's
+does (``python -m dynamo_tpu_torch.engine``: the Backend operator, the TCP request plane and
+discovery; ``python -m dynamo_tpu_torch.frontend``: the OpenAI frontend).
 """
 
 from __future__ import annotations
@@ -154,6 +156,7 @@ from ..ops import block_copy as bc
 from ..ops import cuda_attention, cuda_mla, cuda_prefill, cuda_unified
 from ..ops.quant import QuantizedKV, resolve_kv_dtype
 from ..runtime.engine import Context
+from ..runtime.errors import ContextLengthError, GuidedRejectedError, InvalidRequestError
 from ..tokens import TokenBlockSequence
 from .allocator import BlockAllocator, OutOfBlocks
 from .graphs import HorizonGraphs, HorizonState, seq_len_buckets
@@ -173,13 +176,10 @@ from .sampling import (
 log = logging.getLogger("dynamo_tpu_torch.engine")
 
 
-class UnsupportedRequestError(ValueError):
-    """The request asks for a feature this engine does not have."""
-
-
-class GuidedRejectedError(ValueError):
-    """The request's grammar does not compile within the engine's caps, or
-    its prior tokens leave the grammar."""
+class UnsupportedRequestError(InvalidRequestError):
+    """The request asks for a feature this engine does not have (a 400 at
+    the frontend, code ``invalid_request``, as the reference's
+    InvalidRequestError)."""
 
 
 @dataclasses.dataclass
@@ -778,7 +778,7 @@ class TorchEngine:
                 f"{self.cfg.max_context}"
             )
         if len(prompt) // self.cfg.block_size + 2 > self.cfg.num_blocks:
-            raise ValueError(
+            raise ContextLengthError(
                 f"prompt {len(prompt)} tokens cannot fit the KV pool "
                 f"({self.cfg.num_blocks} blocks x {self.cfg.block_size})"
             )

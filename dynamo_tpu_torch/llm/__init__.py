@@ -1,1 +1,5 @@
-"""LLM-layer types the port's engine speaks (request/response, tokenizer)."""
+"""LLM serving layer of the port: protocols, tokenizers, preprocessing,
+the worker-side Backend, discovery and the OpenAI HTTP frontend.
+
+The submodules are imported where they are used; importing this package
+loads nothing beyond it."""

@@ -1,0 +1,519 @@
+"""OpenAI-compatible HTTP frontend with SSE streaming.
+
+The port's copy of the reference package's llm/http/service.py, on the
+port's own HTTP server (server.py) in place of aiohttp:
+/v1/chat/completions, /v1/completions, /v1/embeddings, /v1/models plus
+/health, /live and /metrics, with the reference's operational behaviours:
+a client that disconnects mid-stream cancels its request (the frontend
+kills the request's contexts, the request plane carries the cancel to the
+worker, whose engine frees the slot), the busy threshold answers 503,
+``n`` > 1 fans into n engine streams, and TTFT / ITL / token metrics are
+observed per model. Chat and text completions share one request path; the
+only per-endpoint differences are request parsing and delta generation.
+
+Later slices (ROADMAP item 4b): /v1/responses, /v1/images, the admin and
+debug endpoints, TLS, tracing, audit, SLO accounting and the per-model
+circuit breaker.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import base64
+import copy
+import json
+import struct
+import time
+from typing import AsyncIterator, Optional
+
+from ...runtime import metrics as M
+from ...runtime.engine import Context
+from ...runtime.errors import InvalidRequestError, http_status_for
+from ...runtime.logging import get_logger
+from ...runtime.request_plane.tcp import NoResponders
+from ..discovery import ModelManager, ModelPipeline
+from ..protocols.common import BackendOutput, PreprocessedRequest
+from ..protocols.delta import (
+    ChatDeltaGenerator,
+    CompletionDeltaGenerator,
+    aggregate_chat,
+    aggregate_chat_multi,
+    aggregate_completion,
+    aggregate_completion_multi,
+    merge_usage,
+)
+from ..protocols.openai import (
+    ChatCompletionChunk,
+    ChatCompletionRequest,
+    CompletionRequest,
+    CompletionResponse,
+    EmbeddingData,
+    EmbeddingRequest,
+    EmbeddingResponse,
+    ModelInfo,
+    ModelList,
+    Usage,
+    new_request_id,
+)
+from .server import (
+    DISCONNECT,
+    HttpServer,
+    Request,
+    Response,
+    StreamResponse,
+    json_response,
+)
+
+log = get_logger("llm.http")
+
+SSE_HEADERS = {
+    "Content-Type": "text/event-stream",
+    "Cache-Control": "no-cache",
+    "X-Accel-Buffering": "no",
+}
+
+
+def _preprocess_err_type(e: Exception) -> str:
+    """OpenAI-style error type for a preprocess-stage failure: typed errors
+    carry their own wire type; a plain ValueError is a generic invalid
+    request."""
+    if isinstance(e, InvalidRequestError):
+        return e.err_type
+    return "invalid_request_error"
+
+
+def _error(status: int, message: str, err_type: str = "invalid_request_error",
+           headers: Optional[dict] = None) -> Response:
+    return json_response(
+        {"error": {"message": message, "type": err_type, "code": status}},
+        status=status, headers=headers,
+    )
+
+
+def _sse_error_event(message: str, err_type: str) -> bytes:
+    payload = json.dumps({"error": {"message": message, "type": err_type}})
+    return f"data: {payload}\n\n".encode()
+
+
+def _sse(chunk) -> bytes:
+    return f"data: {chunk.to_json()}\n\n".encode()
+
+
+class HttpService:
+    def __init__(
+        self,
+        manager: ModelManager,
+        metrics_scope: Optional[M.MetricsScope] = None,
+        busy_threshold: Optional[int] = None,
+        host: str = "0.0.0.0",
+        port: int = 8000,
+    ):
+        self.manager = manager
+        self.host = host
+        self.port = port
+        self.busy_threshold = busy_threshold
+        self.inflight = 0
+        self.metrics = metrics_scope or M.MetricsScope()
+        self._requests = self.metrics.counter(
+            M.REQUESTS_TOTAL, "requests", extra_labels=(M.LABEL_MODEL, "status")
+        )
+        self._inflight_g = self.metrics.gauge(M.INFLIGHT_REQUESTS, "in-flight requests")
+        self._duration = self.metrics.histogram(
+            M.REQUEST_DURATION_SECONDS, "end-to-end request duration",
+            extra_labels=(M.LABEL_MODEL, M.LABEL_SLA_CLASS),
+            buckets=(0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 120.0),
+        )
+        self._ttft = self.metrics.histogram(
+            M.TTFT_SECONDS, "time to first token",
+            extra_labels=(M.LABEL_MODEL, M.LABEL_SLA_CLASS),
+            buckets=(0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0),
+        )
+        self._itl = self.metrics.histogram(
+            M.ITL_SECONDS, "inter-token latency",
+            extra_labels=(M.LABEL_MODEL, M.LABEL_SLA_CLASS),
+            buckets=(0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 1.0),
+        )
+        self._input_tokens = self.metrics.counter(
+            M.INPUT_TOKENS, "input tokens", extra_labels=(M.LABEL_MODEL,)
+        )
+        self._output_tokens = self.metrics.counter(
+            M.OUTPUT_TOKENS, "output tokens", extra_labels=(M.LABEL_MODEL,)
+        )
+        self.server = HttpServer(host, port)
+        for method, path, handler in (
+                ("POST", "/v1/chat/completions", self.chat_completions),
+                ("POST", "/v1/completions", self.completions),
+                ("POST", "/v1/embeddings", self.embeddings),
+                ("GET", "/v1/models", self.models),
+                ("GET", "/health", self.health),
+                ("GET", "/live", self.live),
+                ("GET", "/metrics", self.metrics_handler)):
+            self.server.add_route(method, path, handler)
+
+    async def start(self) -> str:
+        self.port = await self.server.start()
+        log.info("OpenAI HTTP frontend listening on %s:%d", self.host, self.port)
+        return f"{self.host}:{self.port}"
+
+    async def stop(self) -> None:
+        await self.server.stop()
+
+    # -- aux handlers --------------------------------------------------------
+    async def health(self, request: Request) -> Response:
+        return json_response({"status": "healthy", "models": self.manager.list_models()})
+
+    async def live(self, request: Request) -> Response:
+        return json_response({"status": "live"})
+
+    async def metrics_handler(self, request: Request) -> Response:
+        return Response(self.metrics.expose(),
+                        content_type="text/plain; version=0.0.4; charset=utf-8")
+
+    async def models(self, request: Request) -> Response:
+        data = ModelList(
+            data=[ModelInfo(id=m, created=int(time.time()))
+                  for m in self.manager.list_models()]
+        )
+        return json_response(data.to_obj())
+
+    # -- shared request path -------------------------------------------------
+    def _observed(self, stream: AsyncIterator[BackendOutput], model: str,
+                  t_start: float) -> AsyncIterator[BackendOutput]:
+        """Wrap the token stream with TTFT/ITL observation (one ITL sample
+        per output after the first: an output may carry several tokens)."""
+
+        async def gen():
+            first_at = None
+            last_at = None
+            async for out in stream:
+                if out.token_ids:
+                    now = time.monotonic()
+                    if first_at is None:
+                        first_at = now
+                        self._ttft.observe(now - t_start, model=model, sla_class="")
+                    elif last_at is not None:
+                        self._itl.observe(now - last_at, model=model, sla_class="")
+                    last_at = now
+                yield out
+
+        return gen()
+
+    @staticmethod
+    def _fan_choices(preq: PreprocessedRequest, n: int) -> list:
+        """One PreprocessedRequest per choice, each with its own request id;
+        a set seed is offset per choice so choices actually differ."""
+        if n <= 1:
+            return [preq]
+        preqs = []
+        for i in range(n):
+            p = copy.deepcopy(preq)
+            p.request_id = f"{preq.request_id}-c{i}"
+            if p.sampling.seed is not None:
+                p.sampling.seed += i
+            preqs.append(p)
+        return preqs
+
+    @staticmethod
+    async def _merged(streams):
+        """Interleave n token streams as (stream_index, output) pairs in
+        arrival order. One failing stream fails the merge (the caller's
+        error path kills the surviving contexts)."""
+        q: asyncio.Queue = asyncio.Queue()
+        done_marker = object()
+
+        async def pump(i, s):
+            try:
+                async for out in s:
+                    await q.put((i, out, None))
+            except BaseException as e:  # noqa: BLE001 — relayed, not dropped
+                await q.put((i, done_marker, e))
+            else:
+                await q.put((i, done_marker, None))
+
+        tasks = [asyncio.create_task(pump(i, s)) for i, s in enumerate(streams)]
+        done = 0
+        try:
+            while done < len(streams):
+                i, out, err = await q.get()
+                if out is done_marker:
+                    if err is not None:
+                        raise err
+                    done += 1
+                    continue
+                yield i, out
+        finally:
+            for t in tasks:
+                t.cancel()
+
+    async def _run(self, request: Request, preqs, pipeline: ModelPipeline, model: str,
+                   stream_mode: bool, delta_gens, aggregator, usage_chunk_factory=None):
+        """Execute one generation request: routing, streaming, metrics, errors.
+
+        ``preqs`` / ``delta_gens`` are parallel lists, one entry per choice.
+        ``aggregator`` receives the list of streams; ``usage_chunk_factory``
+        builds the single trailing usage chunk of a multi-choice stream."""
+        ctxs = [Context(p.request_id) for p in preqs]
+        self.inflight += 1
+        self._inflight_g.set(self.inflight)
+        status = "200"
+        resp: Optional[StreamResponse] = None
+        prompt_tokens = completion_tokens = 0
+        rid = preqs[0].request_id
+        t0 = time.monotonic()
+        streams = [self._observed(pipeline.generate_tokens(p, c), model, t0)
+                   for p, c in zip(preqs, ctxs)]
+        try:
+            if stream_mode:
+                resp = StreamResponse(request, headers=SSE_HEADERS)
+                await resp.prepare()
+                # disconnect -> cancel: the contexts' cancel reaches the
+                # worker over the request plane and frees the engine slot
+                request.on_disconnect(lambda: [c.kill() for c in ctxs])
+                try:
+                    if len(streams) == 1:
+                        # hot path: no queue hop per output
+                        async for out in streams[0]:
+                            for chunk in delta_gens[0].on_output(out):
+                                await resp.write(_sse(chunk))
+                    else:
+                        async for i, out in self._merged(streams):
+                            for chunk in delta_gens[i].on_output(out):
+                                await resp.write(_sse(chunk))
+                        if usage_chunk_factory is not None:
+                            chunk = usage_chunk_factory()
+                            if chunk is not None:
+                                await resp.write(_sse(chunk))
+                    await resp.write(b"data: [DONE]\n\n")
+                    await resp.write_eof()
+                except DISCONNECT:
+                    status = "499"
+                    for c in ctxs:
+                        c.kill()
+                finally:
+                    prompt_tokens = max(g.prompt_tokens for g in delta_gens)
+                    completion_tokens = sum(g.completion_tokens for g in delta_gens)
+                return resp
+            result = await aggregator(streams)
+            usage = result.usage
+            if usage is not None:
+                prompt_tokens, completion_tokens = usage.prompt_tokens, usage.completion_tokens
+            return json_response(result.to_obj())
+        except NoResponders:
+            status = "503"
+            return await self._fail(resp, 503, "no workers available", "service_unavailable")
+        except asyncio.CancelledError:
+            status = "499"
+            for c in ctxs:
+                c.kill()
+            raise
+        except Exception as e:
+            log.exception("request %s failed", rid[:16])
+            code, etype = http_status_for(e)
+            status = str(code)
+            return await self._fail(resp, code, str(e), etype)
+        finally:
+            for s in streams:
+                try:
+                    await s.aclose()
+                except RuntimeError:
+                    pass  # still running in a cancelled merge pump: it ends there
+            self.inflight -= 1
+            self._inflight_g.set(self.inflight)
+            self._requests.inc(model=model, status=status)
+            self._duration.observe(time.monotonic() - t0, model=model, sla_class="")
+            self._input_tokens.inc(prompt_tokens, model=model)
+            self._output_tokens.inc(completion_tokens, model=model)
+            for c in ctxs:
+                c.stop_generating()
+
+    async def _fail(self, resp: Optional[StreamResponse], status: int, msg: str,
+                    err_type: str):
+        """Error path that respects an already-started SSE stream: once the
+        head went out, only an error event can be appended."""
+        if resp is None:
+            return _error(status, msg, err_type)
+        try:
+            await resp.write(_sse_error_event(msg, err_type))
+            await resp.write_eof()
+        except DISCONNECT:
+            pass
+        return resp
+
+    def _check_capacity(self) -> Optional[Response]:
+        if self.busy_threshold is not None and self.inflight >= self.busy_threshold:
+            return _error(503, "service busy", "service_unavailable")
+        return None
+
+    # -- endpoints -----------------------------------------------------------
+    async def chat_completions(self, request: Request):
+        busy = self._check_capacity()
+        if busy is not None:
+            return busy
+        try:
+            req = ChatCompletionRequest.from_obj(request.json())
+        except ValueError as e:
+            return _error(400, f"invalid request: {e}")
+        pipeline = self.manager.get(req.model)
+        if pipeline is None:
+            return _error(404, f"model '{req.model}' not found", "model_not_found")
+        try:
+            preq = pipeline.preprocessor.preprocess_chat(req)
+        except ValueError as e:
+            return _error(400, str(e), _preprocess_err_type(e))
+
+        include_usage = bool(req.stream_options and req.stream_options.include_usage)
+        rid = preq.request_id
+        preqs = self._fan_choices(preq, req.n)
+        # multi-choice: one merged usage chunk at stream end instead of one
+        # per choice
+        gens = [ChatDeltaGenerator(rid, req.model, include_usage and len(preqs) == 1,
+                                   index=i)
+                for i in range(len(preqs))]
+        usage_chunk_factory = None
+        if include_usage and len(preqs) > 1:
+            usage_chunk_factory = lambda: ChatCompletionChunk(  # noqa: E731
+                id=rid, created=gens[0].created, model=req.model, choices=[],
+                usage=merge_usage(gens),
+            )
+        if len(preqs) == 1:
+            aggregator = lambda ss: aggregate_chat(rid, req.model, ss[0])  # noqa: E731
+        else:
+            aggregator = lambda ss: aggregate_chat_multi(rid, req.model, ss)  # noqa: E731
+        return await self._run(request, preqs, pipeline, req.model, req.stream, gens,
+                               aggregator, usage_chunk_factory=usage_chunk_factory)
+
+    async def completions(self, request: Request):
+        busy = self._check_capacity()
+        if busy is not None:
+            return busy
+        try:
+            req = CompletionRequest.from_obj(request.json())
+        except ValueError as e:
+            return _error(400, f"invalid request: {e}")
+        pipeline = self.manager.get(req.model)
+        if pipeline is None:
+            return _error(404, f"model '{req.model}' not found", "model_not_found")
+        prompt = req.prompt
+        if isinstance(prompt, list) and prompt and isinstance(prompt[0], (list, str)):
+            if len(prompt) > 1 or isinstance(prompt[0], list):
+                return _error(400, "batched prompts not supported; send one request "
+                                   "per prompt")
+            prompt = prompt[0]
+        try:
+            preq = pipeline.preprocessor.preprocess_completion(req, prompt)
+        except ValueError as e:
+            return _error(400, str(e), _preprocess_err_type(e))
+
+        include_usage = bool(req.stream_options and req.stream_options.include_usage)
+        rid = preq.request_id
+        preqs = self._fan_choices(preq, req.n)
+        echo_text = prompt if (req.echo and isinstance(prompt, str)) else ""
+        gens = [CompletionDeltaGenerator(rid, req.model, include_usage and len(preqs) == 1,
+                                         text_offset=len(echo_text), index=i)
+                for i in range(len(preqs))]
+        usage_chunk_factory = None
+        if include_usage and len(preqs) > 1:
+            usage_chunk_factory = lambda: CompletionResponse(  # noqa: E731
+                id=rid, created=gens[0].created, model=req.model, choices=[],
+                usage=merge_usage(gens),
+            )
+        if len(preqs) == 1:
+            aggregator = lambda ss: aggregate_completion(  # noqa: E731
+                rid, req.model, ss[0], echo_text)
+        else:
+            aggregator = lambda ss: aggregate_completion_multi(  # noqa: E731
+                rid, req.model, ss, echo_text)
+        return await self._run(request, preqs, pipeline, req.model, req.stream, gens,
+                               aggregator, usage_chunk_factory=usage_chunk_factory)
+
+    async def embeddings(self, request: Request) -> Response:
+        """/v1/embeddings off a pooled forward: a string, a list of strings,
+        or pre-tokenized int lists."""
+        busy = self._check_capacity()
+        if busy is not None:
+            return busy
+        try:
+            req = EmbeddingRequest.from_obj(request.json())
+        except ValueError as e:
+            return _error(400, f"invalid request: {e}")
+        pipeline = self.manager.get(req.model)
+        if pipeline is None:
+            return _error(404, f"model '{req.model}' not found", "model_not_found")
+        inputs = req.input
+        if isinstance(inputs, str) or (inputs and isinstance(inputs[0], int)):
+            inputs = [inputs]
+        if not inputs or any(
+            (isinstance(item, (str, list)) and len(item) == 0) for item in inputs
+        ):
+            return _error(400, "input must not be empty")
+        model = req.model
+        # preprocess up front so client mistakes are 400s, not worker errors
+        preqs = []
+        try:
+            for item in inputs:
+                preq = pipeline.preprocessor.preprocess_completion(
+                    CompletionRequest(model=model, prompt=item, max_tokens=1), item
+                )
+                preq.request_id = new_request_id("embd")
+                preq.annotations["op"] = "embed"
+                preqs.append(preq)
+        except ValueError as e:
+            return _error(400, str(e), _preprocess_err_type(e))
+        self.inflight += 1
+        self._inflight_g.set(self.inflight)
+        status = "200"
+        prompt_tokens = 0
+
+        async def one(preq) -> tuple:
+            ctx = Context(preq.request_id)
+            try:
+                async for out in pipeline.generate_tokens(preq, ctx):
+                    if out.annotations and "embedding" in out.annotations:
+                        return (
+                            out.annotations["embedding"],
+                            out.annotations.get("input_tokens", len(preq.token_ids)),
+                        )
+            finally:
+                ctx.stop_generating()
+            return None, 0
+
+        try:
+            # independent pooled forwards: fan out, assemble by index
+            results = await asyncio.gather(*[one(p) for p in preqs], return_exceptions=True)
+            for r in results:
+                if isinstance(r, BaseException):
+                    raise r
+            data = []
+            for i, (emb, n_toks) in enumerate(results):
+                if emb is None:
+                    status = "500"
+                    return _error(500, "worker returned no embedding (model may not "
+                                       "support embeddings)", "internal_error")
+                prompt_tokens += n_toks
+                if req.dimensions:
+                    # renormalize after Matryoshka-style truncation (OpenAI
+                    # semantics: unit vectors)
+                    emb = emb[: req.dimensions]
+                    norm = sum(v * v for v in emb) ** 0.5
+                    if norm > 0:
+                        emb = [v / norm for v in emb]
+                if req.encoding_format == "base64":
+                    emb = base64.b64encode(struct.pack(f"<{len(emb)}f", *emb)).decode()
+                data.append(EmbeddingData(index=i, embedding=emb))
+            resp = EmbeddingResponse(
+                data=data, model=model,
+                usage=Usage(prompt_tokens=prompt_tokens, total_tokens=prompt_tokens),
+            )
+            return json_response(resp.to_obj())
+        except NoResponders:
+            status = "503"
+            return _error(503, "no workers available", "service_unavailable")
+        except Exception as e:
+            log.exception("embeddings request failed")
+            status = "500"
+            return _error(500, str(e), "internal_error")
+        finally:
+            self.inflight -= 1
+            self._inflight_g.set(self.inflight)
+            self._requests.inc(model=model, status=status)
+            self._input_tokens.inc(prompt_tokens, model=model)

@@ -1,0 +1,183 @@
+"""Frontend preprocessor: OpenAI request -> PreprocessedRequest (tokens).
+
+The port's copy of the reference package's llm/preprocessor.py: applies the
+chat template, tokenizes, folds sampling + stop options and the guided,
+``lora`` and ``logits_processors`` options into the internal request, and
+stamps metric annotations. Two refusals are the port's own, each a 400
+naming ROADMAP item 4b: image parts (the media decoder needs PIL, absent
+on the card; vision prompts are served in-process) and a forced
+``tool_choice`` ("required" or a named function: the tool-call parsers
+that read its output are not ported).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Union
+
+from ..runtime.errors import (
+    ContextLengthError,
+    GuidedRejectedError,
+    InvalidRequestError,
+)
+from ..runtime.logging import get_logger
+from .model_card import ModelDeploymentCard
+from .protocols.common import PreprocessedRequest, SamplingOptions, StopConditions
+from .protocols.openai import ChatCompletionRequest, CompletionRequest, new_request_id
+from .tokenizer import Tokenizer, load_tokenizer
+
+log = get_logger("llm.preprocessor")
+
+ANNOTATION_INPUT_TOKENS = "input_tokens"
+
+
+class OpenAIPreprocessor:
+    def __init__(self, card: ModelDeploymentCard, tokenizer: Tokenizer | None = None):
+        self.card = card
+        self.tokenizer = tokenizer or load_tokenizer(card.tokenizer)
+
+    # -- tokenization --------------------------------------------------------
+    def tokenize_chat(self, request: ChatCompletionRequest) -> List[int]:
+        messages = [m.to_obj() for m in request.messages]
+        encode_chat = getattr(self.tokenizer, "encode_chat", None)
+        if encode_chat is not None:
+            return encode_chat(messages)
+        prompt = self.tokenizer.apply_chat_template(messages, add_generation_prompt=True)
+        return self.tokenizer.encode(prompt)
+
+    @staticmethod
+    def _check_images(request: ChatCompletionRequest) -> None:
+        if any(isinstance(m.content, list)
+               and any(p.get("type") == "image_url" for p in m.content)
+               for m in request.messages):
+            raise InvalidRequestError(
+                "image input through the frontend is ROADMAP item 4b (no image "
+                "decoder on the card); vision prompts are served in-process")
+
+    @staticmethod
+    def _check_tool_choice(request: ChatCompletionRequest) -> None:
+        tc = request.tool_choice
+        if tc == "required" or (isinstance(tc, dict) and (tc.get("function") or {}).get("name")):
+            raise InvalidRequestError(
+                "a forced tool_choice needs the tool-call parsers of ROADMAP item 4b")
+
+    def _check_audio(self, request: ChatCompletionRequest) -> None:
+        """Audio requests against a non-audio model fail loudly."""
+        if self.card.audio:
+            return
+        wants_audio = "audio" in (request.modalities or [])
+        has_audio_part = any(
+            isinstance(m.content, list)
+            and any(p.get("type") in ("input_audio", "audio") for p in m.content)
+            for m in request.messages
+        )
+        if wants_audio or has_audio_part:
+            raise InvalidRequestError(
+                f"model {self.card.name!r} does not support audio input/output"
+            )
+
+    def tokenize_prompt(self, prompt: Union[str, List[int]]) -> List[int]:
+        if isinstance(prompt, str):
+            return self.tokenizer.encode(prompt)
+        return list(prompt)
+
+    @staticmethod
+    def _guided_spec(request) -> Optional[Dict[str, Any]]:
+        """Guided-decoding spec from the request, in the reference's
+        precedence: explicit guided_json, then guided_regex/choice, then
+        chat response_format (the reference's tool_choice-derived schema
+        sits between the first two; a forced tool_choice is refused here).
+
+        Explicit specs are syntax-validated here so malformed grammars fail
+        as 400s at the frontend; the engine still enforces its own
+        automaton caps at compile time."""
+
+        def _checked(spec):
+            from ..guided import guided_regex_pattern
+            from ..guided.regex import validate_pattern
+
+            try:
+                validate_pattern(guided_regex_pattern(spec["kind"], spec["value"]))
+            except Exception as e:
+                raise GuidedRejectedError(f"invalid guided grammar: {e}") from e
+            return spec
+
+        if getattr(request, "guided_json", None) is not None:
+            return _checked({"kind": "json", "value": request.guided_json})
+        if getattr(request, "guided_regex", None) is not None:
+            return _checked({"kind": "regex", "value": request.guided_regex})
+        if getattr(request, "guided_choice", None) is not None:
+            return _checked({"kind": "choice", "value": list(request.guided_choice)})
+        rf = getattr(request, "response_format", None) or {}
+        if rf.get("type") == "json_schema":
+            schema = (rf.get("json_schema") or {}).get("schema")
+            if schema is not None:
+                return _checked({"kind": "json", "value": schema})
+        if rf.get("type") == "json_object":
+            return {"kind": "json_object", "value": None}  # built-in grammar, always valid
+        return None
+
+    # -- request conversion --------------------------------------------------
+    def _common(
+        self,
+        request: Union[ChatCompletionRequest, CompletionRequest],
+        token_ids: List[int],
+        request_id: str,
+    ) -> PreprocessedRequest:
+        if len(token_ids) >= self.card.context_length:
+            raise ContextLengthError(
+                f"prompt length {len(token_ids)} exceeds model context "
+                f"{self.card.context_length}"
+            )
+        sampling = SamplingOptions(
+            temperature=request.temperature if request.temperature is not None else 1.0,
+            top_p=request.top_p if request.top_p is not None else 1.0,
+            top_k=request.top_k if request.top_k is not None else -1,
+            min_p=request.min_p or 0.0,
+            seed=request.seed,
+            frequency_penalty=request.frequency_penalty or 0.0,
+            presence_penalty=request.presence_penalty or 0.0,
+            repetition_penalty=request.repetition_penalty or 1.0,
+            # chat style: logprobs=true (+ top_logprobs=N alternatives);
+            # completions style: logprobs=N directly (N=0 still returns the
+            # chosen token's logprob with no alternatives)
+            logprobs=(
+                int(request.logprobs)
+                if isinstance(request.logprobs, int) and not isinstance(request.logprobs, bool)
+                else int(request.top_logprobs or 0)
+            ),
+            want_logprobs=request.logprobs is not None and request.logprobs is not False,
+            guided=self._guided_spec(request),
+        )
+        max_new = request.effective_max_tokens()
+        budget = self.card.context_length - len(token_ids)
+        stop = StopConditions(
+            max_tokens=min(max_new, budget) if max_new else budget,
+            stop_strings=request.stop_list(),
+            ignore_eos=bool(request.ignore_eos),
+        )
+        annotations = {ANNOTATION_INPUT_TOKENS: len(token_ids)}
+        if getattr(request, "lora", None):
+            annotations["lora"] = request.lora
+        if getattr(request, "logits_processors", None):
+            annotations["logits_processors"] = list(request.logits_processors)
+        return PreprocessedRequest(
+            request_id=request_id,
+            model=request.model,
+            token_ids=token_ids,
+            stop=stop,
+            sampling=sampling,
+            annotations=annotations,
+        )
+
+    def preprocess_chat(self, request: ChatCompletionRequest) -> PreprocessedRequest:
+        rid = new_request_id("chatcmpl")
+        self._check_audio(request)
+        self._check_images(request)
+        self._check_tool_choice(request)
+        return self._common(request, self.tokenize_chat(request), rid)
+
+    def preprocess_completion(
+        self, request: CompletionRequest, prompt: Union[str, List[int]]
+    ) -> PreprocessedRequest:
+        rid = new_request_id("cmpl")
+        return self._common(request, self.tokenize_prompt(prompt), rid)

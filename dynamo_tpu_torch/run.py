@@ -1,8 +1,14 @@
 """python -m dynamo_tpu_torch.run — drive TorchEngine in one process.
 
 Counterpart of the reference's ``python -m dynamo_tpu.run``: the engine
-runs in-process behind the byte tokenizer (the distributed runtime,
-preprocessor and HTTP frontend are later slices).
+runs in-process behind the byte tokenizer. To serve it behind the OpenAI
+frontend, start the three processes of the serving plane instead (the
+discovery store, a worker, the frontend; README "PyTorch/CUDA port"):
+
+    python -m dynamo_tpu_torch.runtime.discovery.netstore --port 7460
+    python -m dynamo_tpu_torch.engine --store tcp --store-path 127.0.0.1:7460 \
+        --preset llama3-8b --model llama3-8b
+    python -m dynamo_tpu_torch.frontend --store tcp --store-path 127.0.0.1:7460 --port 8000
 
     python -m dynamo_tpu_torch.run in=text:"hello world" out=llama3-8b
     python -m dynamo_tpu_torch.run in=batch:prompts.txt out=llama3-8b --max-tokens 32
@@ -128,9 +134,16 @@ def build_engine(out: str, device: Optional[str], max_context: int, seed: int,
                  decode_pipeline: Optional[int] = None,
                  spec_draft: Optional[str] = None, spec_k: int = 4,
                  spec_draft_path: Optional[str] = None,
-                 warm_cache: bool = True) -> TorchEngine:
+                 warm_cache: bool = True,
+                 num_blocks: Optional[int] = None, block_size: int = 16,
+                 max_batch_size: int = 8, prefill_chunk: Optional[int] = None,
+                 guided_vocab=None, **features) -> TorchEngine:
     """The engine for ``out``, a preset (random weights from ``seed``) or
-    a checkpoint directory / hub reference."""
+    a checkpoint directory / hub reference. ``num_blocks`` defaults to
+    the context's worth of blocks (at least 512) and ``prefill_chunk``
+    (the largest prefill dispatch) to ``max_context``; ``features`` are
+    TorchEngineConfig's feature fields (guided caps, logits processors,
+    LoRA slots), ``guided_vocab`` the constructor's."""
     params = draft_params = None
     if is_preset(out):
         model = _model_of(out)
@@ -143,13 +156,15 @@ def build_engine(out: str, device: Optional[str], max_context: int, seed: int,
     if max_context > model.max_position:
         raise SystemExit(f"--max-context {max_context} exceeds {out}'s max_position "
                          f"{model.max_position}")
-    buckets = tuple(b for b in (64, 128, 256, 512, 1024, 2048) if b < max_context)
+    chunk = min(prefill_chunk or max_context, max_context)
+    buckets = tuple(b for b in (64, 128, 256, 512, 1024, 2048) if b < chunk)
     cfg = TorchEngineConfig(
         model=model, max_context=max_context, seed=seed, device=device,
-        num_blocks=max(512, (max_context // 16) * 16),
-        prefill_buckets=buckets + (max_context,), kv_dtype=kv_dtype,
+        num_blocks=num_blocks or max(512, (max_context // 16) * 16),
+        block_size=block_size, max_batch_size=max_batch_size,
+        prefill_buckets=buckets + (chunk,), kv_dtype=kv_dtype,
         decode_steps=decode_steps, decode_pipeline=decode_pipeline,
-        vision=vision, spec_draft=draft, spec_k=spec_k,
+        vision=vision, spec_draft=draft, spec_k=spec_k, **features,
     )
     kvbm = None
     if kvbm_host_gb > 0 or kvbm_disk_gb > 0:
@@ -159,7 +174,8 @@ def build_engine(out: str, device: Optional[str], max_context: int, seed: int,
         kvbm = KvbmTiers(block_nbytes, host_capacity_bytes=int(kvbm_host_gb * (1 << 30)),
                          disk_capacity_bytes=int(kvbm_disk_gb * (1 << 30)),
                          disk_path=kvbm_disk_path)
-    return TorchEngine(cfg, params=params, kvbm=kvbm, draft_params=draft_params)
+    return TorchEngine(cfg, params=params, kvbm=kvbm, draft_params=draft_params,
+                       guided_vocab=guided_vocab)
 
 
 def prompt_ids(tok: Tokenizer, prompt: str) -> List[int]:

@@ -1,5 +1,67 @@
-"""Runtime types the port's engine needs (request cancellation context)."""
+"""Distributed runtime of the port: component model, request and event
+planes, discovery, metrics. Standard library only (and the port's own
+MessagePack codec)."""
 
-from .engine import Context
+from .component import (
+    Client,
+    Component,
+    Endpoint,
+    Instance,
+    Namespace,
+    RouterMode,
+    ServedEndpoint,
+)
+from .config import RuntimeConfig
+from .discovery.store import (
+    EventType,
+    FileKVStore,
+    KVStore,
+    MemKVStore,
+    WatchEvent,
+    make_store,
+)
+from .distributed import DistributedRuntime
+from .engine import AsyncEngine, Context, FnEngine, Operator, collect
+from .errors import ContextLengthError, GuidedRejectedError, InvalidRequestError
+from .event_plane.base import EventPlane, InProcEventPlane, Subscription
+from .logging import get_logger, init_logging
+from .metrics import MetricsScope
+from .request_plane.tcp import NoResponders, RequestPlaneError, TcpClient, TcpRequestServer
+from .resilience import RetryPolicy
 
-__all__ = ["Context"]
+__all__ = [
+    "AsyncEngine",
+    "Client",
+    "Component",
+    "Context",
+    "ContextLengthError",
+    "DistributedRuntime",
+    "Endpoint",
+    "EventPlane",
+    "EventType",
+    "FileKVStore",
+    "FnEngine",
+    "GuidedRejectedError",
+    "InProcEventPlane",
+    "Instance",
+    "InvalidRequestError",
+    "KVStore",
+    "MemKVStore",
+    "MetricsScope",
+    "Namespace",
+    "NoResponders",
+    "Operator",
+    "RequestPlaneError",
+    "RetryPolicy",
+    "RouterMode",
+    "RuntimeConfig",
+    "ServedEndpoint",
+    "Subscription",
+    "TcpClient",
+    "TcpRequestServer",
+    "WatchEvent",
+    "collect",
+    "get_logger",
+    "init_logging",
+    "make_store",
+]

@@ -1,0 +1,126 @@
+"""Layered runtime configuration and the ``DTPU_*`` environment catalog.
+
+The port's copy of the reference package's runtime/config.py, holding the
+names the serving plane reads (the reference's catalog also names the
+planes of later slices). Precedence: explicit kwargs > env > config file
+(``DTPU_CONFIG``, json or toml) > defaults.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import tempfile
+from typing import Any, Dict, Optional
+
+ENV_LOG = "DTPU_LOG"                                  # log level (debug/info/warn/error)
+ENV_LOG_JSONL = "DTPU_LOGGING_JSONL"                  # structured JSONL logging on/off
+ENV_EVENT_PLANE = "DTPU_EVENT_PLANE"                  # inproc
+ENV_STORE = "DTPU_STORE"                              # mem | file | tcp
+ENV_STORE_PATH = "DTPU_STORE_PATH"                    # file path / tcp host:port
+ENV_HOST_IP = "DTPU_HOST_IP"                          # advertised host for request plane
+ENV_LEASE_TTL_S = "DTPU_LEASE_TTL_S"                  # discovery lease ttl
+ENV_NAMESPACE = "DTPU_NAMESPACE"
+ENV_MIGRATION_LIMIT = "DTPU_MIGRATION_LIMIT"
+ENV_KVBM_HOST_CACHE_GB = "DTPU_KVBM_HOST_CACHE_GB"    # G2 host memory pool size
+ENV_KVBM_DISK_CACHE_GB = "DTPU_KVBM_DISK_CACHE_GB"    # G3 local disk pool size
+ENV_KVBM_DISK_PATH = "DTPU_KVBM_DISK_PATH"
+ENV_HTTP_PORT = "DTPU_HTTP_PORT"
+ENV_BUSY_THRESHOLD = "DTPU_BUSY_THRESHOLD"
+ENV_CONFIG_FILE = "DTPU_CONFIG"                       # layered config file (json/toml)
+
+_TRUTHY = {"1", "true", "yes", "on", "enabled"}
+
+
+def is_truthy(val: Optional[str]) -> bool:
+    if val is None:
+        return False
+    return val.strip().lower() in _TRUTHY
+
+
+def env_str(name: str, default: str) -> str:
+    return os.environ.get(name, default)
+
+
+def env_int(name: str, default: int) -> int:
+    raw = os.environ.get(name)
+    if raw is None or raw == "":
+        return default
+    try:
+        return int(raw)
+    except ValueError:
+        return default
+
+
+def env_float(name: str, default: float) -> float:
+    raw = os.environ.get(name)
+    if raw is None or raw == "":
+        return default
+    try:
+        return float(raw)
+    except ValueError:
+        return default
+
+
+def default_store_path() -> str:
+    """The file store's directory when none is named: under the temp dir."""
+    return os.path.join(tempfile.gettempdir(), "dtpu_store")
+
+
+@dataclasses.dataclass
+class RuntimeConfig:
+    """Top-level runtime knobs; every field has an env override."""
+
+    event_plane: str = "inproc"          # inproc (the zmq plane is a later slice)
+    store: str = "mem"                   # mem | file | tcp
+    store_path: str = dataclasses.field(default_factory=default_store_path)
+    host_ip: str = "127.0.0.1"
+    lease_ttl_s: float = 10.0
+
+    @classmethod
+    def from_env(cls, **overrides: Any) -> "RuntimeConfig":
+        """defaults < config file (DTPU_CONFIG) < env < kwargs."""
+        base: Dict[str, Any] = {}
+        cfg_file = os.environ.get(ENV_CONFIG_FILE)
+        if cfg_file:
+            base.update(load_config_file(cfg_file))
+        defaults = cls()
+
+        def layered(field: str, env_name: str, conv) -> Any:
+            value = getattr(defaults, field)
+            if field in base:
+                try:
+                    value = conv(base[field])
+                except (TypeError, ValueError):
+                    pass
+            raw = os.environ.get(env_name)
+            if raw is None or raw == "":
+                return value
+            try:
+                return conv(raw)
+            except (TypeError, ValueError):
+                return value
+
+        cfg = cls(
+            event_plane=layered("event_plane", ENV_EVENT_PLANE, str),
+            store=layered("store", ENV_STORE, str),
+            store_path=layered("store_path", ENV_STORE_PATH, str),
+            host_ip=layered("host_ip", ENV_HOST_IP, str),
+            lease_ttl_s=layered("lease_ttl_s", ENV_LEASE_TTL_S, float),
+        )
+        for k, v in overrides.items():
+            if v is not None:
+                setattr(cfg, k, v)
+        return cfg
+
+
+def load_config_file(path: str) -> Dict[str, Any]:
+    """json, or toml through the standard library's tomllib."""
+    with open(path, "rb") as f:
+        raw = f.read()
+    if path.endswith(".toml"):
+        import tomllib
+
+        return tomllib.loads(raw.decode())
+    return json.loads(raw.decode())

@@ -1,16 +1,18 @@
-"""Request cancellation context.
+"""Streaming engine protocol and cancellation contexts.
 
-Copy of the ``Context`` class of the reference package's runtime/engine.py:
-cooperative cancellation for one in-flight request. ``stop_generating()``
-asks the producer to wind down gracefully, ``kill()`` demands immediate
-teardown; contexts form a tree so cancelling a parent cancels its children.
+The port's copy of the reference package's runtime/engine.py. Every unit
+of work (preprocessor, router, engine) is an async callable
+``generate(request, context) -> AsyncIterator[response]``. Cancellation is
+cooperative: ``Context.stop_generating()`` asks the producer to wind down
+gracefully, ``kill()`` demands immediate teardown; contexts form a tree so
+cancelling a parent cancels its children.
 """
 
 from __future__ import annotations
 
 import asyncio
 import uuid
-from typing import Callable, List, Optional
+from typing import Any, AsyncIterator, Callable, List, Optional, Protocol, runtime_checkable
 
 
 class Context:
@@ -78,3 +80,45 @@ class Context:
 
     def __repr__(self) -> str:  # pragma: no cover - debug aid
         return f"Context(id={self.id!r}, stopped={self.is_stopped()}, killed={self.is_killed()})"
+
+
+@runtime_checkable
+class AsyncEngine(Protocol):
+    """Anything that turns a request into an async stream of responses."""
+
+    def generate(self, request: Any, context: Context) -> AsyncIterator[Any]:
+        ...
+
+
+class FnEngine:
+    """Wrap a plain async-generator function as an AsyncEngine."""
+
+    def __init__(self, fn: Callable[[Any, Context], AsyncIterator[Any]], name: str = "fn"):
+        self._fn = fn
+        self.name = name
+
+    def generate(self, request: Any, context: Context) -> AsyncIterator[Any]:
+        return self._fn(request, context)
+
+    def __repr__(self) -> str:  # pragma: no cover
+        return f"FnEngine({self.name})"
+
+
+class Operator:
+    """A pipeline stage wrapping the next engine: transforms a request on
+    the way in and the response stream on the way out."""
+
+    def __init__(self, downstream: AsyncEngine):
+        self.downstream = downstream
+
+    async def generate(self, request: Any, context: Context) -> AsyncIterator[Any]:
+        async for item in self.downstream.generate(request, context):
+            yield item
+
+
+async def collect(stream: AsyncIterator[Any]) -> List[Any]:
+    """Drain a response stream into a list (test/batch helper)."""
+    out = []
+    async for item in stream:
+        out.append(item)
+    return out

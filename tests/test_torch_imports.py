@@ -163,3 +163,52 @@ def test_the_walk_covers_the_checkpoint_modules():
         "dynamo_tpu_torch.engine.warm", "dynamo_tpu_torch.llm.hub",
         "dynamo_tpu_torch.llm.tokenizer",
     } <= set(_modules())
+
+
+# the reference's serving planes import these; the machine the port serves
+# on has none of them, so the port's planes (and chip_smoke.py) carry their
+# own codec, HTTP server, validators and metrics registry
+SERVING_NEVER = ("msgpack", "aiohttp", "zmq", "pydantic", "prometheus_client", "PIL")
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: os.path.relpath(p, REPO))
+def test_no_serving_library_import_statement(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if a.name.split(".")[0] in SERVING_NEVER]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            if node.module.split(".")[0] in SERVING_NEVER:
+                bad.append(node.module)
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_importing_every_module_loads_no_serving_library():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {SERVING_NEVER!r})\n"
+        "print(repr(bad))\n"
+    )
+    r = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+        timeout=120, env={**os.environ, "PYTHONPATH": REPO},
+    )
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "[]", r.stdout
+
+
+def test_the_walk_covers_the_serving_plane():
+    assert {
+        "dynamo_tpu_torch.runtime.codec", "dynamo_tpu_torch.runtime.metrics",
+        "dynamo_tpu_torch.runtime.discovery.store",
+        "dynamo_tpu_torch.runtime.discovery.netstore",
+        "dynamo_tpu_torch.runtime.request_plane.tcp", "dynamo_tpu_torch.runtime.component",
+        "dynamo_tpu_torch.runtime.distributed", "dynamo_tpu_torch.llm.protocols.openai",
+        "dynamo_tpu_torch.llm.http.service", "dynamo_tpu_torch.llm.http.server",
+        "dynamo_tpu_torch.llm.discovery", "dynamo_tpu_torch.engine.__main__",
+        "dynamo_tpu_torch.frontend.__main__",
+    } <= set(_modules())
