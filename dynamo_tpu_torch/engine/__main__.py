@@ -16,9 +16,13 @@ It serves on the GPU unless ``--device cpu`` is given, and raises without
 one. Model selection: ``--model-path`` (an HF checkpoint directory or hub
 reference, as run.py's ``out=``) or ``--preset`` (random weights from
 ``--seed``). The engine flags are the reference worker's, with its
-defaults; flags of later slices (parallelism, disaggregation, the KV
-events, the status server, the tool-call and reasoning parsers) are not
-defined, and argparse refuses them.
+defaults; flags of later slices (parallelism, disaggregation, the status
+server, the tool-call and reasoning parsers) are not defined, and argparse
+refuses them.
+
+The engine publishes its KV events and load (kv_router/publisher.py) on
+the runtime's event plane, for a frontend in ``--router-mode kv``: with
+``--event-plane zmq`` (the port's own broker) across processes.
 
 Prints ``TORCH_ENGINE_READY <model> device=<device>`` once it serves. On
 SIGTERM or SIGINT it deletes its instance and card keys at once, drains the
@@ -26,8 +30,11 @@ requests in flight for up to ``--graceful-timeout`` seconds, then prints
 ``TORCH_ENGINE_EXIT {json}``: each kernel's launches since the process
 started, as ``ops/_build`` counts them (the engine's build and graph
 captures, and CUDA-graph replays, included), the engine's
-steps by kind, and its busy slots and pinned KV blocks (both 0 once every
-request, a cancelled one too, has freed its slot).
+steps by kind, its busy slots and pinned KV blocks (both 0 once every
+request, a cancelled one too, has freed its slot), its prefix cache
+(``block_set_view`` of the allocator's hashes, which a KV router's view of
+this worker equals once both are idle) and the KV events it published by
+kind.
 """
 
 from __future__ import annotations
@@ -38,6 +45,8 @@ import json
 import signal
 from typing import List, Optional
 
+from ..kv_router import KvEventPublisher, WorkerMetricsPublisher
+from ..kv_router.protocols import block_set_view
 from ..llm.model_card import (
     MODEL_TYPE_CHAT,
     MODEL_TYPE_COMPLETIONS,
@@ -83,6 +92,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--endpoint", default="generate")
     p.add_argument("--store", default=None, help="mem|file|tcp (default: DTPU_STORE)")
     p.add_argument("--store-path", default=None)
+    p.add_argument("--event-plane", default=None, help="zmq|inproc (default: DTPU_EVENT_PLANE)")
     p.add_argument("--graceful-timeout", type=float, default=10.0,
                    help="seconds to wait for in-flight requests on shutdown")
     p.add_argument("--device", default=None, help="default: cuda; 'cpu' for the CPU")
@@ -257,8 +267,17 @@ async def main(argv: Optional[List[str]] = None) -> None:
     # the engine first: its build (weights, graph capture) blocks the loop,
     # which must not hold a lease yet
     engine, tok_ref = build_worker_engine(args)
-    cfg = RuntimeConfig.from_env(store=args.store, store_path=args.store_path)
+    cfg = RuntimeConfig.from_env(store=args.store, store_path=args.store_path,
+                                 event_plane=args.event_plane)
     runtime = await DistributedRuntime(cfg).start()
+    instance_id = new_instance_id()
+    # one publisher pair per engine (dp_rank 0: the port has no data
+    # parallelism yet)
+    engine.kv_publisher = KvEventPublisher(
+        runtime.event_plane, args.namespace, args.component, worker_id=instance_id,
+        block_size=args.block_size)
+    engine.metrics_publisher = WorkerMetricsPublisher(
+        runtime.event_plane, args.namespace, args.component, worker_id=instance_id)
     card = ModelDeploymentCard(
         name=args.model, namespace=args.namespace, component=args.component,
         endpoint=args.endpoint, model_type=[MODEL_TYPE_CHAT, MODEL_TYPE_COMPLETIONS, MODEL_TYPE_EMBEDDING],
@@ -268,7 +287,7 @@ async def main(argv: Optional[List[str]] = None) -> None:
             total_kv_blocks=engine.cfg.num_blocks, kv_block_size=args.block_size,
             max_batch_size=args.max_batch_size, max_context_len=args.max_context),
     )
-    served = await register_llm(runtime, engine, card, instance_id=new_instance_id())
+    served = await register_llm(runtime, engine, card, instance_id=instance_id)
     lora_served = []
     if engine.lora is not None:
         lora_served = await serve_lora_endpoints(runtime, args.namespace, args.component,
@@ -288,7 +307,10 @@ async def main(argv: Optional[List[str]] = None) -> None:
     await runtime.shutdown()
     report = {"launches": kernel_launches(), "steps": dict(engine.step_counts),
               "busy_slots": sum(s is not None for s in engine._slots),
-              "active_blocks": engine.allocator.active_blocks}
+              "active_blocks": engine.allocator.active_blocks,
+              "worker_id": f"{instance_id:016x}",
+              "prefix_cache": block_set_view(engine.allocator._by_hash),
+              "kv_events": dict(engine.kv_publisher.counts)}
     print(f"{EXIT} {json.dumps(report)}", flush=True)
 
 

@@ -36,6 +36,9 @@ llama, gemma, gpt-oss, Qwen3-MoE and DeepSeek (MLA) families on one GPU
   tiers on an offload thread; a prompt whose prefix missed the device
   cache onboards it from the tiers before admission, by one scatter
   launch of the block-copy kernel;
+- KV events (``kv_publisher=`` / ``metrics_publisher=``, kv_router/
+  publisher.py): every loop tick drains the allocator's stored / removed
+  events and publishes them and the load for the frontend's KV router;
 - vision prompts (``vision=VisionConfig(...)``, every family but
   Qwen3-MoE, as the reference): the images
   of a request's ``images`` annotation go through the vision tower
@@ -105,7 +108,7 @@ a fetch thread.
 Not in this slice (ROADMAP.md): LoRA on families other than dense llama,
 gpt-oss and MLA drafts, vision on Qwen3-MoE or with a spec draft, on the
 card a llama or Qwen3-MoE model at a head_dim outside {64, 128} or a group
-size above 8, the G4 remote KVBM tier, disaggregated transfer, parallelism, and the KV-event /
+size above 8, the G4 remote KVBM tier, disaggregated transfer, parallelism, and the
 step-telemetry / tracing / SLO hooks (ROADMAP item 4b). A request that asks for one of those is
 refused with ``UnsupportedRequestError`` (a 400 at the frontend); an engine configuration that
 does, with ``ValueError``. The engine serves behind the port's serving plane as the reference's
@@ -494,9 +497,17 @@ class TorchEngine:
     def __init__(self, config: TorchEngineConfig, params: Optional[llama.Params] = None,
                  kvbm=None, draft_params: Optional[llama.Params] = None,
                  vision_params: Optional[dict] = None,
-                 guided_vocab: Optional[Tuple[List[Optional[bytes]], int]] = None):
+                 guided_vocab: Optional[Tuple[List[Optional[bytes]], int]] = None,
+                 kv_publisher=None, metrics_publisher=None):
         _check_features(config, guided_vocab)
         self.cfg = config
+        # the KV router's feeds (kv_router/publisher.py): the allocator's
+        # stored / removed events and the load, published at the end of
+        # every loop tick (_publish_events); None publishes nothing (the
+        # events are drained all the same)
+        self.kv_publisher = kv_publisher
+        self.metrics_publisher = metrics_publisher
+        self._last_published_load: Tuple[int, int, int] = (-1, -1, -1)
         self.mcfg = mcfg = config.model
         # an MLA model's attention runs on its latent cache (ops/cuda_mla)
         self._latent = registry.is_mla(mcfg)
@@ -1056,6 +1067,7 @@ class TorchEngine:
                 self._reap_finished()
                 if self.kvbm is not None:
                     await self._offload_ready_blocks()
+                await self._publish_events()
                 await asyncio.sleep(0)
         except Exception:
             log.exception("engine loop crashed")
@@ -1074,6 +1086,68 @@ class TorchEngine:
             self._slots = [None] * self.cfg.max_batch_size
             self._chains.clear()
             self._sealed_unwritten = []
+
+    async def _publish_events(self) -> None:
+        """Drain the allocator's stored / removed events (and KVBM's
+        evictions) every tick, publish them when a KV publisher is
+        attached, and publish the load whenever it changed. The publishers
+        queue their frames (the event plane's writer sends them), so this
+        never waits on the network."""
+        stored, removed = self.allocator.drain_events()
+        evicted = self.kvbm.drain_evicted() if self.kvbm is not None else []
+        if self.kv_publisher is not None:
+            removed = await self._publish_kv_events(stored, removed, evicted)
+        if self.metrics_publisher is not None:
+            # on KV events AND whenever the load changed: releases emit no
+            # events, and a stale active-block report would leave the
+            # router seeing phantom load on an idle worker
+            running = sum(1 for s in self._slots if s is not None and not s.done)
+            load = (self.allocator.active_blocks, len(self._waiting), running)
+            if stored or removed or load != self._last_published_load:
+                self._last_published_load = load
+                await self.metrics_publisher.publish(
+                    active_decode_blocks=load[0],
+                    num_requests_waiting=load[1],
+                    num_requests_active=running,
+                    total_blocks=self.cfg.num_blocks,
+                )
+
+    async def _publish_kv_events(self, stored, removed, evicted) -> list:
+        """Publish one tick's stored and removed batches; returns the
+        removed batches that went out. With KVBM, a block evicted from the
+        device pool that a tier still serves is not reported removed (the
+        router's view is of every tier, as the reference's consolidated
+        events), and a block gone from every tier and from the device pool
+        is.
+
+        The removals go out before the stores, and a block stored and gone
+        again within the tick is removed once more after them: a prompt's
+        admission can evict a cached block that its own prefill then
+        commits again, and the reference's order (stores, then removals)
+        leaves such a block out of the router's view."""
+        by_hash = self.allocator._by_hash
+        # stored and gone again within the tick: removed once more at the end
+        again = [h for batch in stored for h in batch if h not in by_hash] if removed else []
+        if self.kvbm is not None:
+            gone = [h for h in evicted if by_hash.get(h) is None]
+            if gone:
+                removed = removed + [gone]
+            loop = asyncio.get_running_loop()
+
+            async def unservable(batch):
+                servable = set(await loop.run_in_executor(
+                    None, self.kvbm.filter_servable, batch))
+                return [h for h in batch if h not in servable]
+
+            removed = [b for b in [await unservable(b) for b in removed] if b]
+            again = await unservable(again) if again else again
+        for batch in removed:
+            await self.kv_publisher.removed(batch)
+        for batch in stored:
+            await self.kv_publisher.stored(batch)
+        if again:
+            await self.kv_publisher.removed(again)
+        return removed
 
     def _admit_cancelled(self) -> None:
         keep = []

@@ -2,23 +2,38 @@
 
 The port's counterpart of the reference's ``python -m dynamo_tpu.frontend``:
 one process running the OpenAI HTTP server, the model-card watcher, the
-preprocessor and the round-robin (or random) router over the workers
-(``python -m dynamo_tpu_torch.engine``) it discovers on the store:
+preprocessor and the round-robin, random or KV-aware router over the
+workers (``python -m dynamo_tpu_torch.engine``) it discovers on the store:
 
     python -m dynamo_tpu_torch.frontend --store tcp --store-path 127.0.0.1:7460 --port 8000
+    python -m dynamo_tpu_torch.frontend --store tcp --store-path 127.0.0.1:7460 \\
+        --router-mode kv --event-plane zmq
+
+In ``--router-mode kv`` each model's KV router (kv_router/) follows the
+workers' KV events and load on the event plane (``--event-plane zmq``: the
+port's own broker, runtime/event_plane/tcp_plane.py; the workers take the
+same flag) and sends a request to the worker whose cached prefix and load
+cost least; ``--no-kv-events`` predicts the caches from the routing
+decisions instead.
 
 Prints ``TORCH_FRONTEND_READY <host>:<port>`` once it listens (``--port 0``
-takes a free port and prints it). The KV router, gRPC and TLS are later
-slices (ROADMAP item 4b).
+takes a free port and prints it). On SIGTERM or SIGINT it stops and prints
+``TORCH_FRONTEND_EXIT {json}``: for each model in KV mode, the router's view
+of each worker (``block_set_view``: block count, digest and hashes, which a
+worker's exit line prints for its own prefix cache) and the events the
+router applied. gRPC and TLS are later slices (ROADMAP item 4b).
 """
 
 from __future__ import annotations
 
 import argparse
 import asyncio
+import json
 import signal
 from typing import List, Optional
 
+from ..kv_router import KvRouterConfig
+from ..kv_router.protocols import block_set_view
 from ..llm.discovery import ModelManager, ModelWatcher
 from ..llm.http.service import HttpService
 from ..runtime.component import RouterMode
@@ -34,29 +49,60 @@ from ..runtime.distributed import DistributedRuntime
 from ..runtime.logging import init_logging
 
 READY = "TORCH_FRONTEND_READY"
+EXIT = "TORCH_FRONTEND_EXIT"
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p = argparse.ArgumentParser("dynamo_tpu_torch.frontend")
     p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--port", type=int, default=env_int(ENV_HTTP_PORT, 8000))
-    p.add_argument("--router-mode", choices=["round-robin", "random"], default="round-robin")
+    p.add_argument("--router-mode", choices=["round-robin", "random", "kv"],
+                   default="round-robin")
+    p.add_argument("--event-plane", default=None, help="zmq|inproc (default: DTPU_EVENT_PLANE)")
     p.add_argument("--namespace", default=env_str(ENV_NAMESPACE, "dynamo"))
     p.add_argument("--store", default=None, help="mem|file|tcp (default: DTPU_STORE)")
     p.add_argument("--store-path", default=None)
     p.add_argument("--busy-threshold", type=int,
                    default=(env_int(ENV_BUSY_THRESHOLD, 0) or None),
                    help="answer 503 once this many requests are in flight")
+    p.add_argument("--kv-overlap-score-weight", type=float, default=1.0)
+    p.add_argument("--router-temperature", type=float, default=0.0)
+    p.add_argument("--no-kv-events", action="store_true")
     return p.parse_args(argv)
+
+
+def router_views(manager: ModelManager) -> dict:
+    """Each KV-routed model's view of its workers: {model: {"workers":
+    {worker id (hex): block_set_view}, "events_applied", "events_dropped"}}."""
+    out = {}
+    for pipe in manager.pipelines():
+        router = pipe.kv_router
+        if router is None:
+            continue
+        tree = router.indexer.tree
+        out[pipe.card.name] = {
+            "workers": {f"{w.worker_id:016x}": block_set_view(tree.worker_hashes(w))
+                        for w in sorted(tree.workers())},
+            "events_applied": getattr(router.indexer, "events_applied", 0),
+            "events_dropped": getattr(router.indexer, "events_dropped", 0),
+        }
+    return out
 
 
 async def main(argv: Optional[List[str]] = None) -> None:
     args = parse_args(argv)
     init_logging()
-    cfg = RuntimeConfig.from_env(store=args.store, store_path=args.store_path)
+    cfg = RuntimeConfig.from_env(store=args.store, store_path=args.store_path,
+                                 event_plane=args.event_plane)
     runtime = await DistributedRuntime(cfg).start()
     manager = ModelManager()
-    watcher = await ModelWatcher(runtime, manager, RouterMode(args.router_mode)).start()
+    kv_cfg = KvRouterConfig(
+        overlap_score_weight=args.kv_overlap_score_weight,
+        router_temperature=args.router_temperature,
+        use_kv_events=not args.no_kv_events,
+    )
+    watcher = await ModelWatcher(runtime, manager, RouterMode(args.router_mode),
+                                 kv_cfg).start()
     service = HttpService(manager, runtime.metrics, busy_threshold=args.busy_threshold,
                           host=args.host, port=args.port)
     await service.start()
@@ -67,6 +113,7 @@ async def main(argv: Optional[List[str]] = None) -> None:
         loop.add_signal_handler(sig, stop.set)
     await stop.wait()
     await service.stop()
+    print(f"{EXIT} {json.dumps({'router': router_views(manager)})}", flush=True)
     await watcher.stop()
     await runtime.shutdown()
 

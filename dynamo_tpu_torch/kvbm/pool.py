@@ -273,15 +273,23 @@ class KvbmTiers:
         self.errors = 0
         self.queue = OffloadQueue(offload_queue_depth)
         self._worker: Optional[threading.Thread] = None
+        # hashes evicted from every tier since the last drain (the engine
+        # turns these into router 'removed' events so the index stays honest)
+        self._evicted: List[SequenceHash] = []
+        self._evicted_lock = threading.Lock()
 
     def __contains__(self, h: SequenceHash) -> bool:
         return h in self.host or (self.disk is not None and h in self.disk)
 
     def _insert_host(self, h: SequenceHash, block: np.ndarray) -> None:
-        """Host insert with spill to disk."""
+        """Host insert with spill to disk; tracks blocks gone from all tiers."""
         evicted = self.host.store(h, block)
-        if evicted is not None and self.disk is not None:
-            self.disk.store(*evicted)
+        if evicted is None:
+            return
+        gone = self.disk.store(*evicted) if self.disk is not None else [evicted[0]]
+        if gone:
+            with self._evicted_lock:
+                self._evicted.extend(gone)
 
     def store(self, h: SequenceHash, block: np.ndarray) -> None:
         """Synchronous write-through. Prefer ``offload``."""
@@ -328,14 +336,33 @@ class KvbmTiers:
     def close(self) -> None:
         self.queue.close()
 
+    def drain_evicted(self) -> List[SequenceHash]:
+        with self._evicted_lock:
+            out, self._evicted = self._evicted, []
+        return out
+
     def clear(self, host: bool = True, disk: bool = True) -> Dict[str, int]:
-        """Reset the local tiers; returns the blocks dropped per tier."""
+        """Reset the local tiers; returns the blocks dropped per tier. The
+        dropped hashes feed the consolidated event path (drain_evicted)."""
         counts = {"g2": 0, "g3": 0}
+        gone: List[SequenceHash] = []
         if host:
-            counts["g2"] = len(self.host.clear())
+            dropped = self.host.clear()
+            counts["g2"] = len(dropped)
+            gone.extend(dropped)
         if disk and self.disk is not None:
-            counts["g3"] = len(self.disk.clear())
+            dropped = self.disk.clear()
+            counts["g3"] = len(dropped)
+            gone.extend(dropped)
+        if gone:
+            with self._evicted_lock:
+                self._evicted.extend(gone)
         return counts
+
+    def filter_servable(self, hashes: List[SequenceHash]) -> List[SequenceHash]:
+        """Subset of ``hashes`` still servable from a tier. Used to
+        consolidate router 'removed' events."""
+        return [h for h in hashes if h in self]
 
     def match_prefix(self, hashes: List[SequenceHash]) -> int:
         """Length of the leading run of ``hashes`` that some tier holds."""

@@ -4,10 +4,11 @@ The port's copy of the reference package's llm/discovery.py. Workers
 publish ModelDeploymentCards under ``v1/mdc/...`` tied to their lease; the
 frontend watches that prefix and (un)registers one pipeline per model:
 
-    OpenAIPreprocessor -> Migration -> endpoint Client -> worker
+    OpenAIPreprocessor -> Migration -> [KvRouter] -> endpoint Client -> worker
 
-with the client's round-robin or random choice of instance. The
-reference's KV router, prefill router, global KV directory and per-worker
+with the client's round-robin or random choice of instance, or in KV mode
+the KV router's (kv_router/): the worker whose cached prefix and load cost
+least. The reference's prefill router, global KV directory and per-worker
 circuit breakers wait for ROADMAP items 4b and 5.
 """
 
@@ -16,6 +17,7 @@ from __future__ import annotations
 import asyncio
 from typing import Any, AsyncIterator, Dict, List, Optional
 
+from ..kv_router import KvRouter, KvRouterConfig, WorkerWithDpRank
 from ..runtime import codec
 from ..runtime.component import Client, RouterMode
 from ..runtime.discovery.store import EventType
@@ -26,7 +28,7 @@ from ..runtime.request_plane.tcp import NoResponders
 from ..runtime.tasks import spawn_bg
 from .migration import Migration
 from .model_card import MDC_PREFIX, MODEL_TYPE_PREFILL, ModelDeploymentCard
-from .preprocessor import OpenAIPreprocessor
+from .preprocessor import ANNOTATION_CACHED_TOKENS, ANNOTATION_WORKER_ID, OpenAIPreprocessor
 from .protocols.common import BackendOutput, PreprocessedRequest
 
 log = get_logger("llm.discovery")
@@ -40,16 +42,25 @@ class ModelPipeline:
         runtime: DistributedRuntime,
         card: ModelDeploymentCard,
         router_mode: RouterMode = RouterMode.ROUND_ROBIN,
+        kv_router_config: Optional[KvRouterConfig] = None,
     ):
-        if router_mode not in (RouterMode.ROUND_ROBIN, RouterMode.RANDOM):
-            raise ValueError(f"router mode {router_mode.value!r}: the port routes "
-                             "round-robin or random (the KV router is ROADMAP item 4b)")
+        if router_mode == RouterMode.DIRECT:
+            raise ValueError("router mode 'direct': the frontend routes round-robin, "
+                             "random or kv")
         self.runtime = runtime
         self.card = card
         self.router_mode = router_mode
+        self.kv_router_config = kv_router_config
         self.preprocessor = OpenAIPreprocessor(card)
         self.client: Optional[Client] = None
+        self.kv_router: Optional[KvRouter] = None
         self.migration = Migration(self._send, card.migration_limit)
+        self._known_worker_ids: set = set()
+        # router-universe reconcile throttle (_prune_dead_workers): the
+        # full sweep is O(fleet), so it runs on instance-count change or
+        # every N requests, not per decision
+        self._router_sync_tick = 0
+        self._router_synced_count = -1
         self._rr = 0  # round-robin over the survivors when some are excluded
 
     async def start(self) -> "ModelPipeline":
@@ -58,19 +69,97 @@ class ModelPipeline:
             .component(self.card.component)
             .endpoint(self.card.endpoint)
         )
-        self.client = await endpoint.client(self.router_mode)
+        self.client = await endpoint.client(
+            RouterMode.ROUND_ROBIN if self.router_mode == RouterMode.KV else self.router_mode
+        )
+        if self.router_mode == RouterMode.KV:
+            self.kv_router = await KvRouter(
+                self.runtime.event_plane,
+                self.card.namespace,
+                self.card.component,
+                block_size=self.card.kv_block_size,
+                config=self.kv_router_config,
+                metrics=self.runtime.metrics,
+            ).start()
         return self
 
     async def stop(self) -> None:
+        if self.kv_router is not None:
+            await self.kv_router.stop()
         if self.client is not None:
             await self.client.stop()
+
+    def _prune_dead_workers(self) -> None:
+        """Sync the KV router's candidate universe with discovery: departed
+        instances are removed, new ones registered (per dp_rank). Routing
+        then passes only per-request exclusion sets — the O(K) path — and
+        never builds a fleet-sized candidate list per decision.
+
+        The reconcile itself is O(fleet), so it is throttled: it runs when
+        the instance count changes and on a coarse request tick, not per
+        decision. The sweep walks the router's *registered universe*, not a
+        known-set delta — a late metrics event auto-registers workers in
+        the scheduler (update_metrics), so a removed worker can be
+        resurrected after its one-shot delta removal and must be swept out
+        again."""
+        if self.kv_router is None or self.client is None:
+            return
+        inst_map = self.client.instances
+        self._router_sync_tick += 1
+        if (
+            len(inst_map) == self._router_synced_count
+            and self._router_sync_tick % 64 != 1
+        ):
+            return
+        live = set(inst_map)
+        for w in self.kv_router.scheduler.known_workers():
+            if w.worker_id not in live:
+                self.kv_router.remove_worker_id(w.worker_id)
+        for iid in live - self._known_worker_ids:
+            inst = inst_map.get(iid)
+            dp = int(inst.metadata.get("data_parallel_size", 1) or 1) if inst else 1
+            for r in range(dp):
+                self.kv_router.register_worker(WorkerWithDpRank(iid, r))
+        self._known_worker_ids = live
+        self._router_synced_count = len(inst_map)
+
+    def _kv_route(self, req: PreprocessedRequest, excluded: List[int]) -> int:
+        """The KV router's worker for ``req``, excluding the migration's
+        failed instances; stamps the predicted cached tokens, the worker
+        and its dp_rank on the request's annotations."""
+        assert self.kv_router is not None and self.client is not None
+        self._prune_dead_workers()
+        inst_map = self.client.instances
+        shun_live = sum(1 for iid in set(excluded) if iid in inst_map)
+        if not inst_map or shun_live >= len(inst_map):
+            # every instance is excluded (dead mid-request): fail this
+            # attempt rather than route back onto a dead worker
+            raise NoResponders(f"no non-excluded instances for {self.card.name}")
+        excl = set()
+        for iid in excluded:
+            inst = inst_map.get(iid)
+            dp = int(inst.metadata.get("data_parallel_size", 1) or 1) if inst is not None else 1
+            for r in range(dp):
+                excl.add(WorkerWithDpRank(iid, r))
+        decision = self.kv_router.schedule_tokens(
+            req.token_ids, excluded=excl, request_id=req.request_id)
+        instance_id = decision.worker.worker_id
+        req.annotations[ANNOTATION_CACHED_TOKENS] = (
+            decision.overlap_blocks * self.card.kv_block_size)
+        req.annotations[ANNOTATION_WORKER_ID] = instance_id
+        req.annotations["dp_rank"] = decision.worker.dp_rank
+        return instance_id
 
     async def _send(
         self, req: PreprocessedRequest, context: Context, excluded: List[int]
     ) -> AsyncIterator[Any]:
         assert self.client is not None
         instance_id: Optional[int] = None
-        if excluded:
+        # pooled forwards touch no KV pages: the KV scheduler would charge
+        # them phantom blocks that nothing frees
+        if self.kv_router is not None and req.annotations.get("op") != "embed":
+            instance_id = self._kv_route(req, excluded)
+        elif excluded:
             # migration: steer away from the failed instances, round-robin
             # over the survivors
             alive = [i for i in self.client.instance_ids() if i not in excluded]
@@ -90,14 +179,22 @@ class ModelPipeline:
     ) -> AsyncIterator[BackendOutput]:
         """The full internal stream: migration-wrapped routed generation;
         the request's annotations ride on the first output."""
-        first = req.annotations.get("op") != "embed"
-        async for out in self.migration.generate(req, context):
-            if first:
-                first = False
-                merged = dict(req.annotations)
-                merged.update(out.annotations)
-                out.annotations = merged
-            yield out
+        if req.annotations.get("op") == "embed":
+            async for out in self.migration.generate(req, context):
+                yield out
+            return
+        first = True
+        try:
+            async for out in self.migration.generate(req, context):
+                if first:
+                    first = False
+                    merged = dict(req.annotations)
+                    merged.update(out.annotations)
+                    out.annotations = merged
+                yield out
+        finally:
+            if self.kv_router is not None:
+                self.kv_router.complete(req.request_id)
 
 
 class ModelManager:
@@ -118,6 +215,9 @@ class ModelManager:
     def list_models(self) -> List[str]:
         return sorted(self._models)
 
+    def pipelines(self) -> List[ModelPipeline]:
+        return list(self._models.values())
+
 
 class ModelWatcher:
     """Adds a model's pipeline when its first card appears and removes it
@@ -129,10 +229,12 @@ class ModelWatcher:
         runtime: DistributedRuntime,
         manager: ModelManager,
         router_mode: RouterMode = RouterMode.ROUND_ROBIN,
+        kv_router_config: Optional[KvRouterConfig] = None,
     ):
         self.runtime = runtime
         self.manager = manager
         self.router_mode = router_mode
+        self.kv_router_config = kv_router_config
         self._task: Optional[asyncio.Task] = None
         self._watcher = None
         # mdc store key -> model name (for DELETE handling)
@@ -167,7 +269,9 @@ class ModelWatcher:
         self._model_keys.setdefault(card.name, set()).add(key)
         if self.manager.get(card.name) is None:
             log.info("model %s appeared (card at %s)", card.name, key)
-            pipeline = await ModelPipeline(self.runtime, card, self.router_mode).start()
+            pipeline = await ModelPipeline(
+                self.runtime, card, self.router_mode, self.kv_router_config
+            ).start()
             self.manager.add(card.name, pipeline)
 
     async def _handle_delete(self, key: str) -> None:

@@ -28,6 +28,8 @@ from .tokenizer import Tokenizer, load_tokenizer
 log = get_logger("llm.preprocessor")
 
 ANNOTATION_INPUT_TOKENS = "input_tokens"
+ANNOTATION_CACHED_TOKENS = "cached_tokens"
+ANNOTATION_WORKER_ID = "worker_id"
 
 
 class OpenAIPreprocessor:

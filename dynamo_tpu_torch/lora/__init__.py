@@ -1,9 +1,10 @@
-"""Multi-LoRA serving: device-resident adapter tables (adapters.py) and
-adapter sources with a local cache (cache.py). The reference's fleet
-routing (dynamo_tpu/lora/routing.py) waits for the port's KV router."""
+"""Multi-LoRA serving: device-resident adapter tables (adapters.py),
+adapter sources with a local cache (cache.py) and fleet placement by
+rendezvous hashing (routing.py)."""
 
 from .adapters import LoraAdapterTable, PackedAdapterIds, make_lora_fn
 from .cache import LoRACache, LocalLoRASource, from_peft_dir, load_adapter
+from .routing import LoraReplicaConfig, LoraRoutingTable, RendezvousHasher, allocate
 
 __all__ = [
     "LoraAdapterTable",
@@ -13,4 +14,8 @@ __all__ = [
     "LocalLoRASource",
     "from_peft_dir",
     "load_adapter",
+    "LoraReplicaConfig",
+    "LoraRoutingTable",
+    "RendezvousHasher",
+    "allocate",
 ]

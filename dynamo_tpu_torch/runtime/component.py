@@ -2,8 +2,9 @@
 
 The port's copy of the reference package's runtime/component.py: the
 component hierarchy and the client-side round-robin / random / direct
-selection of ``RouterMode`` (KV mode waits for the port's KV router,
-ROADMAP item 4b).
+selection of ``RouterMode``; in KV mode the caller (llm/discovery.py's
+KV router) picks the instance and passes its id. The reference's
+``Client.kv_selector`` hook, which nothing there sets, is left out.
 
 A worker *serves* an endpoint (registers an Instance in the discovery store
 under ``v1/instances/...`` tied to its lease); a frontend builds a *Client*
@@ -64,6 +65,7 @@ class RouterMode(enum.Enum):
     ROUND_ROBIN = "round-robin"
     RANDOM = "random"
     DIRECT = "direct"
+    KV = "kv"
 
 
 class Namespace:
@@ -287,7 +289,7 @@ class Client:
         ids = sorted(self.instances)
         if self.router_mode == RouterMode.RANDOM:
             return self.instances[random.choice(ids)]
-        # ROUND_ROBIN default
+        # ROUND_ROBIN default (KV mode resolves instance_id upstream)
         inst = self.instances[ids[self._rr_index % len(ids)]]
         self._rr_index += 1
         return inst

@@ -1,9 +1,9 @@
 """Layered runtime configuration and the ``DTPU_*`` environment catalog.
 
 The port's copy of the reference package's runtime/config.py, holding the
-names the serving plane reads (the reference's catalog also names the
-planes of later slices). Precedence: explicit kwargs > env > config file
-(``DTPU_CONFIG``, json or toml) > defaults.
+names the serving plane and the KV router read (the reference's catalog
+also names the planes of later slices). Precedence: explicit kwargs > env >
+config file (``DTPU_CONFIG``, json or toml) > defaults.
 """
 
 from __future__ import annotations
@@ -16,13 +16,17 @@ from typing import Any, Dict, Optional
 
 ENV_LOG = "DTPU_LOG"                                  # log level (debug/info/warn/error)
 ENV_LOG_JSONL = "DTPU_LOGGING_JSONL"                  # structured JSONL logging on/off
-ENV_EVENT_PLANE = "DTPU_EVENT_PLANE"                  # inproc
+ENV_EVENT_PLANE = "DTPU_EVENT_PLANE"                  # zmq | inproc (zmq: the port's own broker)
 ENV_STORE = "DTPU_STORE"                              # mem | file | tcp
 ENV_STORE_PATH = "DTPU_STORE_PATH"                    # file path / tcp host:port
 ENV_HOST_IP = "DTPU_HOST_IP"                          # advertised host for request plane
 ENV_LEASE_TTL_S = "DTPU_LEASE_TTL_S"                  # discovery lease ttl
 ENV_NAMESPACE = "DTPU_NAMESPACE"
 ENV_MIGRATION_LIMIT = "DTPU_MIGRATION_LIMIT"
+ENV_ROUTER_REPLICA_SYNC = "DTPU_ROUTER_REPLICA_SYNC"  # replicated KV routers share state
+ENV_ROUTER_TOPK = "DTPU_ROUTER_TOPK"                  # two-stage routing candidate K
+ENV_ROUTER_SHARDS = "DTPU_ROUTER_SHARDS"              # postings/snapshot index shards
+ENV_ROUTER_POSTINGS_BUCKET = "DTPU_ROUTER_POSTINGS_BUCKET"  # per-block postings cap
 ENV_KVBM_HOST_CACHE_GB = "DTPU_KVBM_HOST_CACHE_GB"    # G2 host memory pool size
 ENV_KVBM_DISK_CACHE_GB = "DTPU_KVBM_DISK_CACHE_GB"    # G3 local disk pool size
 ENV_KVBM_DISK_PATH = "DTPU_KVBM_DISK_PATH"
@@ -53,6 +57,13 @@ def env_int(name: str, default: int) -> int:
         return default
 
 
+def env_bool(name: str, default: bool = False) -> bool:
+    raw = os.environ.get(name)
+    if raw is None:
+        return default
+    return is_truthy(raw)
+
+
 def env_float(name: str, default: float) -> float:
     raw = os.environ.get(name)
     if raw is None or raw == "":
@@ -72,7 +83,7 @@ def default_store_path() -> str:
 class RuntimeConfig:
     """Top-level runtime knobs; every field has an env override."""
 
-    event_plane: str = "inproc"          # inproc (the zmq plane is a later slice)
+    event_plane: str = "inproc"          # inproc | zmq (runtime/event_plane/tcp_plane.py)
     store: str = "mem"                   # mem | file | tcp
     store_path: str = dataclasses.field(default_factory=default_store_path)
     host_ip: str = "127.0.0.1"

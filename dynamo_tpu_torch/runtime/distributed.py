@@ -2,9 +2,9 @@
 
 The port's copy of the reference package's runtime/distributed.py: owns
 the discovery store connection, a primary lease with keepalive, the
-request-plane client, the event plane (in-process; the cross-process plane
-waits for ROADMAP item 4b), and the process metrics registry. Everything
-else (namespaces, components, endpoints) hangs off it.
+request-plane client, the event plane (in-process, or under ``zmq`` the
+port's own broker, event_plane/tcp_plane.py), and the process metrics
+registry. Everything else (namespaces, components, endpoints) hangs off it.
 """
 
 from __future__ import annotations
@@ -57,11 +57,14 @@ class DistributedRuntime(DistributedRuntimeBase):
         self.lease_id = lease.id
         self._keepalive_task = self.tasks.spawn(self._keepalive_loop(lease.ttl_s))
         if self._event_plane is None:
-            if self.config.event_plane != "inproc":
-                raise ValueError(
-                    f"event plane {self.config.event_plane!r}: the port serves the "
-                    "in-process plane only (the cross-process plane is ROADMAP item 4b)")
-            self._event_plane = InProcEventPlane()
+            if self.config.event_plane == "zmq":
+                from .event_plane.tcp_plane import event_plane_from_store
+
+                self._event_plane = await event_plane_from_store(self.store, self.lease_id)
+            elif self.config.event_plane == "inproc":
+                self._event_plane = InProcEventPlane()
+            else:
+                raise ValueError(f"event plane {self.config.event_plane!r}: zmq or inproc")
         log.debug("runtime started (lease=%s, store=%s)", lease.id[:8], self.config.store)
         return self
 

@@ -2,8 +2,8 @@
 
 The port's copy of the reference package's runtime/event_plane/base.py:
 topics are dot-separated strings, subscriptions match by prefix, payloads
-are opaque bytes. ``InProcEventPlane`` serves one process; the
-cross-process plane waits for the KV events of ROADMAP item 4b.
+are opaque bytes. ``InProcEventPlane`` serves one process; tcp_plane.py is
+the cross-process plane.
 """
 
 from __future__ import annotations

@@ -31,6 +31,7 @@ INPUT_TOKENS = f"{PREFIX}_input_tokens_total"
 OUTPUT_TOKENS = f"{PREFIX}_output_tokens_total"
 RETRY_ATTEMPTS_TOTAL = f"{PREFIX}_retry_attempts_total"
 RETRY_GIVEUPS_TOTAL = f"{PREFIX}_retry_giveups_total"
+KV_HIT_TOKENS = f"{PREFIX}_kv_cached_tokens_total"
 
 LABEL_NAMESPACE = "dtpu_namespace"
 LABEL_COMPONENT = "dtpu_component"

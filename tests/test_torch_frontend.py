@@ -61,6 +61,7 @@ from dynamo_tpu_torch.runtime import (
 )
 from test_torch_lora import _adapter_weights
 from torch_feature_engines import Weights
+from torch_port_logging import port_logging_restored  # noqa: F401  # dtpu: ignore[UNUSED-IMPORT] — an autouse fixture, live by its name in this module
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODEL = dict(vocab_size=512, hidden_size=64, num_layers=2, num_heads=4, num_kv_heads=2,

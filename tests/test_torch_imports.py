@@ -212,3 +212,14 @@ def test_the_walk_covers_the_serving_plane():
         "dynamo_tpu_torch.llm.discovery", "dynamo_tpu_torch.engine.__main__",
         "dynamo_tpu_torch.frontend.__main__",
     } <= set(_modules())
+
+
+def test_the_walk_covers_the_kv_router_and_the_event_plane():
+    assert {
+        "dynamo_tpu_torch.kv_router", "dynamo_tpu_torch.kv_router.protocols",
+        "dynamo_tpu_torch.kv_router.postings", "dynamo_tpu_torch.kv_router.radix_tree",
+        "dynamo_tpu_torch.kv_router.indexer", "dynamo_tpu_torch.kv_router.scheduler",
+        "dynamo_tpu_torch.kv_router.publisher", "dynamo_tpu_torch.kv_router.router",
+        "dynamo_tpu_torch.runtime.event_plane.tcp_plane", "dynamo_tpu_torch.runtime.clock",
+        "dynamo_tpu_torch.lora.routing",
+    } <= set(_modules())
