@@ -270,7 +270,16 @@ Phases, in order; any failure raises and the exit code is not 0:
    one at a time with top-2 logprobs; an n = 2 request with a seed; a
    guided answer through response_format (it must parse and obey its
    schema); an embedding; a client that disconnects mid-stream (the
-   in-flight gauge back to 0, a 499 counted, the next request served).
+   in-flight gauge back to 0, a 499 counted, the next request served);
+   just before that client, as the worker's card names the hermes tool
+   parser and the qwen3 reasoning parser: a chat request with ``tools`` and a named ``tool_choice`` (the
+   soft grammar on the card holds the reply to the tool's schema) must
+   come back with finish_reason tool_calls and one call whose arguments
+   obey the schema, and the same request streamed must give the same call
+   from its joined deltas (both after a warm-up of the prompt, so that
+   both find the same blocks cached); a hermes call and a <think> answer
+   forced with guided_regex must come back as tool_calls and as
+   reasoning_content plus content.
    The worker stopped by SIGTERM must exit 0 with no busy slot or pinned
    block, its decode, flash-extend and unified kernels launched (decode
    through graph replays); no process may log an ERROR record. Then the
@@ -286,12 +295,17 @@ Phases, in order; any failure raises and the exit code is not 0:
    llama3-8b workers (32 layers, random bf16 weights from seed 0, 512 KV
    blocks each, ``--event-plane zmq``: the port's own broker), a
    ``--router-mode kv --event-plane zmq`` frontend (it founds the broker)
-   and a round-robin frontend on the same workers. Through the kv
+   the standalone router service (``python -m dynamo_tpu_torch.router
+   --record-events``, started before the workers) and a round-robin
+   frontend on the same workers. Through the kv
    frontend, streamed greedy chat of 32 tokens: 8 documents of 1000-3000
    tokens 0.25 s apart, then each document plus 64 new tokens in a seeded
    shuffled order, one at a time, 0.25 s after the one before ended
    (each must report at least (document blocks - 1) x 16 cached tokens:
-   it reached its document's worker); new documents and their follow-ups
+   it reached its document's worker; each is first put to the service's
+   route op, whose worker and cached tokens must equal the kv frontend's
+   decision, read from the recording, and its cached-token counter step);
+   new documents and their follow-ups
    0.25 s apart without waiting for each other (observed, not gated: a
    follow-up arriving while its document's worker is busy may rightly go
    to the idle one; the router's predicted cached tokens are printed
@@ -299,8 +313,10 @@ Phases, in order; any failure raises and the exit code is not 0:
    3000-token prompts (both pools evict) and the decode probe; then new
    documents and follow-ups through the round-robin frontend (the
    control: its hit share and follow-up TTFT median beside the kv
-   mode's, observations, not gates). Once idle, the kv frontend stops
-   first and prints its router's view of each worker; each worker's exit
+   mode's, observations, not gates). Once idle, the service stops first
+   and prints its view, which must equal each worker's prefix cache, as
+   must the view of its recording replayed into a fresh KvRouter here;
+   then the kv frontend prints its router's view of each worker; each worker's exit
    line must show the same blocks and digest for its prefix cache, stored
    and removed events, the router must have applied every event the
    workers published, and the decode, flash-extend and unified kernels
@@ -5847,12 +5863,23 @@ FE_RUNS = 2             # the traffic twice on each side (new prompts each run)
 FE_SAMPLED = 2          # one seeded sampled request; the rest greedy
 FE_GREEDY = (200, 1000, 3000)
 FE_WORKER = ("--preset", FE_MODEL, "--model", FE_MODEL, "--max-context", "8192",
-             "--seed", "0")
+             "--seed", "0", "--tool-parser", "hermes", "--reasoning-parser", "qwen3")
 FE_HIDDEN = 4096        # llama3-8b's embedding width
 FE_SCHEMA = {"type": "object",
              "properties": {"ok": {"type": "boolean"}, "mood": {"enum": ["happy", "sad"]}},
              "required": ["ok", "mood"]}
 FE_READY_S = 300.0
+# the parser requests: a tool whose arguments a finite grammar can hold
+FE_TOOL_PARAMS = {"type": "object",
+                  "properties": {"city": {"enum": ["Paris", "Tokyo", "Lima"]},
+                                 "unit": {"enum": ["c", "f"]}},
+                  "required": ["city", "unit"]}
+FE_TOOLS = [{"type": "function", "function": {
+    "name": "get_weather", "description": "the weather in a city",
+    "parameters": FE_TOOL_PARAMS}}]
+FE_HERMES = (r'<tool_call>\{"name": "get_weather", "arguments": \{"city": '
+             r'"(Paris|Tokyo|Lima)", "unit": "(c|f)"\}\}</tool_call>')
+FE_THINK = r"<think>[a-z ]{4,24}</think>[A-Za-z ]{4,24}"
 FE_STEADY = 8           # the decode probe: requests sent at once,
 FE_STEADY_PROMPT = 64   # prompt tokens each,
 FE_STEADY_TOKENS = 256  # greedy tokens each
@@ -6096,6 +6123,93 @@ def check_fe_stats(tag: str, stats: list, tokens: int) -> None:
             raise AssertionError(f"{tag} request {i}: usage {s['usage']}")
 
 
+def fe_weather_args(arguments: str) -> dict:
+    """A get_weather call's arguments: JSON that obeys FE_TOOL_PARAMS."""
+    args = json.loads(arguments)
+    props = FE_TOOL_PARAMS["properties"]
+    if set(args) != set(props) or any(args[k] not in props[k]["enum"] for k in props):
+        raise AssertionError(f"get_weather arguments outside the tool's schema: {args}")
+    return args
+
+
+def fe_joined_calls(events: list) -> list:
+    """A stream's tool-call deltas joined by index: [(name, arguments)]."""
+    calls = {}
+    for _, e in events:
+        if e == "[DONE]" or not e["choices"]:
+            continue
+        for tc in e["choices"][0].get("delta", {}).get("tool_calls") or []:
+            name, args = calls.get(tc["index"], ("", ""))
+            fn = tc.get("function") or {}
+            calls[tc["index"]] = (name + (fn.get("name") or ""),
+                                  args + (fn.get("arguments") or ""))
+    return [calls[i] for i in sorted(calls)]
+
+
+def fe_stream_field(events: list, field: str) -> str:
+    return "".join(e["choices"][0].get("delta", {}).get(field) or "" for _, e in events
+                   if e != "[DONE]" and e["choices"])
+
+
+def fe_stream_finish(events: list) -> str:
+    return [e["choices"][0]["finish_reason"] for _, e in events
+            if e != "[DONE]" and e["choices"] and e["choices"][0].get("finish_reason")][-1]
+
+
+async def fe_parsers(port: int) -> dict:
+    """The worker's card names the hermes tool parser and the qwen3
+    reasoning parser. A named tool_choice (the soft grammar on the card
+    holds the model to the tool's schema, even with random weights), whole
+    and streamed after a warm-up of the same prompt (both then find the
+    same blocks cached, so that greedy decoding gives both one call); a
+    hermes call and a <think> answer, each forced with guided_regex."""
+    chat = dict(model=FE_MODEL, temperature=0.0, tools=FE_TOOLS,
+                messages=[{"role": "user", "content": "Weather in Paris? Use the tool."}])
+    named = dict(chat, max_tokens=256,   # the grammar bounds the reply to ~210 tokens
+                 tool_choice={"type": "function", "function": {"name": "get_weather"}})
+    out = {}
+    status, body = await http_call(port, "POST", "/v1/chat/completions",
+                                   dict(named, max_tokens=1))
+    if status != 200:
+        raise AssertionError(f"named tool_choice warm-up: HTTP {status}: {body}")
+    status, body = await http_call(port, "POST", "/v1/chat/completions", named)
+    choice = body["choices"][0] if status == 200 else {}
+    calls = (choice.get("message") or {}).get("tool_calls") or []
+    if choice.get("finish_reason") != "tool_calls" or len(calls) != 1 or \
+            calls[0]["function"]["name"] != "get_weather":
+        raise AssertionError(f"named tool_choice: HTTP {status}: {body}")
+    call = (calls[0]["function"]["name"], calls[0]["function"]["arguments"])
+    out["named_call"] = fe_weather_args(call[1])
+    status, events = await http_call(port, "POST", "/v1/chat/completions",
+                                     dict(named, stream=True))
+    if status != 200 or events[-1][1] != "[DONE]":
+        raise AssertionError(f"named tool_choice, streamed: HTTP {status}: {events[-3:]}")
+    streamed = fe_joined_calls(events)
+    if streamed != [call] or fe_stream_finish(events) != "tool_calls":
+        raise AssertionError(f"named tool_choice: the streamed calls {streamed} "
+                             f"({fe_stream_finish(events)}) are not the whole reply's {call}")
+    status, body = await http_call(port, "POST", "/v1/chat/completions", dict(
+        chat, max_tokens=160, guided_regex=FE_HERMES))
+    choice = body["choices"][0] if status == 200 else {}
+    calls = (choice.get("message") or {}).get("tool_calls") or []
+    if choice.get("finish_reason") != "tool_calls" or len(calls) != 1 or \
+            calls[0]["function"]["name"] != "get_weather" or \
+            choice["message"].get("content"):
+        raise AssertionError(f"hermes call: HTTP {status}: {body}")
+    out["hermes_call"] = fe_weather_args(calls[0]["function"]["arguments"])
+    status, events = await http_call(port, "POST", "/v1/chat/completions", dict(
+        model=FE_MODEL, temperature=0.0, max_tokens=80, guided_regex=FE_THINK, stream=True,
+        messages=[{"role": "user", "content": "Think, then answer."}]))
+    reasoning = fe_stream_field(events, "reasoning_content") if status == 200 else ""
+    content = fe_stream_field(events, "content") if status == 200 else ""
+    if not (re.fullmatch(r"[a-z ]{4,24}", reasoning) and re.fullmatch(r"[A-Za-z ]{4,24}",
+                                                                      content)):
+        raise AssertionError(f"<think> answer, streamed: HTTP {status}: reasoning "
+                             f"{reasoning!r}, content {content!r}")
+    out["think"] = {"reasoning": reasoning, "content": content}
+    return out
+
+
 async def fe_through_frontend(port: int) -> dict:
     """Everything the phase sends through the frontend, in order."""
     out = {"traffic": []}
@@ -6153,6 +6267,12 @@ async def fe_through_frontend(port: int) -> dict:
             or body["usage"]["prompt_tokens"] != len(emb_text.encode())):
         raise AssertionError(f"embedding: HTTP {status}: {str(body)[:300]}")
     out["embedding"] = vec.tolist()
+    # tool calls and reasoning; before the disconnect, so that the last
+    # request is one the engine ends itself (a grammar's forced EOS is
+    # seen by the Backend, which stops the engine's request a tick later)
+    t0 = time.perf_counter()
+    out["parsers"] = await fe_parsers(port)
+    out["parsers"]["seconds"] = time.perf_counter() - t0
     # a client that disconnects mid-stream, then the next request
     status, events = await http_call(port, "POST", "/v1/completions", dict(
         model=FE_MODEL, prompt=fe_prompt(500, 500), max_tokens=2000, stream=True,
@@ -6386,6 +6506,7 @@ def frontend_phase(torch, smi: str, serving) -> dict:
     out["steady"] = {"frontend": fe["steady"], "in_process": inproc["steady"]}
     out["metrics"] = fe["metrics"]
     out["n2_texts"], out["guided_answer"] = fe["n2_texts"], fe["guided_answer"]
+    out["parsers"] = fe["parsers"]
     for k in ("greedy_equal", "greedy_tie_gaps", "embedding_rel_l2"):
         out[k] = inproc[k]
 
@@ -6421,6 +6542,12 @@ def frontend_phase(torch, smi: str, serving) -> dict:
         log(f"serve phase (10 prompts of 120-3000 tokens, in-process) on {smi}: "
             f"{serving['output_tok_s']:.1f} output tok/s, ITL median "
             f"{serving['itl_s_median'] * 1e3:.2f} ms")
+    pr = out["parsers"]
+    log(f"frontend parsers (--tool-parser hermes --reasoning-parser qwen3) on {smi}: a named "
+        f"tool_choice gave get_weather({pr['named_call']}), whole and streamed alike; a "
+        f"hermes call gave get_weather({pr['hermes_call']}); a <think> answer gave "
+        f"reasoning {pr['think']['reasoning']!r} and content {pr['think']['content']!r}; "
+        f"{pr['seconds']:.1f} s for the five requests")
     log(f"frontend: greedy streams equal to the in-process engine's {out['greedy_equal']} of "
         f"{len(FE_GREEDY)} (the rest within the tie rule: {out['greedy_tie_gaps']}); "
         f"embedding relative L2 {out['embedding_rel_l2']:.3g}; worker kernels "
@@ -6492,33 +6619,74 @@ async def kv_models(port: int) -> None:
     raise AssertionError(f"/v1/models on :{port} never listed {FE_MODEL}")
 
 
-async def kv_one_at_a_time(port: int, bodies: list, kv: bool) -> tuple:
+async def kv_one_at_a_time(port: int, bodies: list, kv: bool, ask=None) -> tuple:
     """Each request KV_GAP s after the one before ended: (stats, the tokens
     the kv router predicted each request's worker holds: the change of its
-    dtpu_kv_cached_tokens_total, or None through a round-robin frontend).
-    The router's cost is prefill blocks plus load, and a worker's load
-    report still carrying its last request could rightly send a follow-up
-    elsewhere; alone, a follow-up must go where its prefix is."""
-    stats, predicted = [], []
+    dtpu_kv_cached_tokens_total, or None through a round-robin frontend,
+    and the router service's answers: ``ask`` of each request's body just
+    before it is sent, when given). The router's cost is prefill blocks plus
+    load, and a worker's load report still carrying its last request could
+    rightly send a follow-up elsewhere; alone, a follow-up must go where
+    its prefix is."""
+    stats, predicted, answers = [], [], []
     for body in bodies:
         await asyncio.sleep(KV_GAP)
         before = await kv_counter(port) if kv else None
+        if ask is not None:
+            t0 = time.perf_counter()
+            answers.append(dict(await ask(body[1]), ask_s=time.perf_counter() - t0))
         got, _ = await fe_traffic(port, [body])
         stats += got
         predicted.append(await kv_counter(port) - before if kv else None)
-    return stats, predicted
+    return stats, predicted, answers
 
 
-async def kv_documents_and_followups(port: int, seed: int, kv: bool) -> dict:
+async def kv_service_asker(addr: str) -> tuple:
+    """(runtime, ask): ``ask(body)`` puts a chat body's tokens (as the
+    frontend's preprocessor makes them) to the router service's ``route``
+    op, frees the route, and returns the answer with the prompt's last
+    full block hash (the block only the worker that serves it stores)."""
+    from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
+    from dynamo_tpu_torch.llm.preprocessor import OpenAIPreprocessor
+    from dynamo_tpu_torch.llm.protocols import openai
+    from dynamo_tpu_torch.runtime import DistributedRuntime, RuntimeConfig
+    from dynamo_tpu_torch.tokens import compute_sequence_hashes
+
+    rt = await DistributedRuntime(RuntimeConfig(store="tcp", store_path=addr,
+                                                event_plane="inproc")).start()
+    client = await rt.namespace("dynamo").component("backend-router").endpoint(
+        "route").client()
+    await client.wait_for_instances(1)
+    pre = OpenAIPreprocessor(ModelDeploymentCard(name=FE_MODEL, tokenizer="byte",
+                                                 context_length=8192))
+    asked = [0]
+
+    async def ask(body):
+        toks = pre.preprocess_chat(openai.ChatCompletionRequest.from_obj(body)).token_ids
+        rid = f"svc-{asked[0]}"
+        asked[0] += 1
+        (answer,) = [x async for x in await client.generate(
+            {"op": "route", "request_id": rid, "token_ids": toks})]
+        [x async for x in await client.generate({"op": "free", "request_id": rid})]
+        if "worker_id" not in answer:
+            raise AssertionError(f"the router service's route op: {answer}")
+        return dict(answer, last_hash=compute_sequence_hashes(toks, KV_BLOCK)[-1])
+
+    return rt, ask
+
+
+async def kv_documents_and_followups(port: int, seed: int, kv: bool, ask=None) -> dict:
     """Steps 1-2 of phase 14 through the frontend on ``port``: the
-    documents 0.25 s apart, then the follow-ups one at a time."""
+    documents 0.25 s apart, then the follow-ups one at a time (each first
+    put to the router service, with ``ask``)."""
     docs = kv_documents(seed)
     before = await kv_counter(port) if kv else 0.0
     doc_stats, _ = await fe_traffic(port, [kv_chat(d) for d in docs])
     doc_pred = (await kv_counter(port) - before) if kv else 0.0
     check_fe_stats("document", doc_stats, FE_TOKENS)
     order, texts = kv_followups(docs, seed)
-    fu_stats, fu_pred = await kv_one_at_a_time(port, [kv_chat(t) for t in texts], kv)
+    fu_stats, fu_pred, service = await kv_one_at_a_time(port, [kv_chat(t) for t in texts],
+                                                        kv, ask)
     check_fe_stats("follow-up", fu_stats, FE_TOKENS)
     hits = kv_hits(doc_stats, order, fu_stats)
     predicted = [None] * len(order)
@@ -6532,7 +6700,8 @@ async def kv_documents_and_followups(port: int, seed: int, kv: bool) -> dict:
             "document_ttft_s_median": statistics.median(s["ttft_s"] for s in doc_stats),
             "cached_tokens": sum((s["usage"].get("cached_tokens") or 0)
                                  for s in doc_stats + fu_stats),
-            "predicted_tokens": doc_pred + sum(p or 0 for p in fu_pred)}
+            "predicted_tokens": doc_pred + sum(p or 0 for p in fu_pred),
+            "service": [dict(a, frontend_predicted=p) for a, p in zip(service, fu_pred)]}
 
 
 async def kv_overlapping_followups(port: int, seed: int) -> dict:
@@ -6556,14 +6725,19 @@ async def kv_overlapping_followups(port: int, seed: int) -> dict:
             "followup_ttft_s_median": statistics.median(s["ttft_s"] for s in fu_stats)}
 
 
-async def kv_traffic(kv_port: int, rr_port: int) -> dict:
-    """Everything phase 14 sends: the documents and follow-ups (kv), the
-    overlapping follow-ups (kv), the churn (kv), the decode probe (kv),
-    then the documents and follow-ups again with new documents through the
-    round-robin frontend."""
+async def kv_traffic(kv_port: int, rr_port: int, addr: str) -> dict:
+    """Everything phase 14 sends: the documents and follow-ups (kv; each
+    follow-up first put to the router service), the overlapping follow-ups
+    (kv), the churn (kv), the decode probe (kv), then the documents and
+    follow-ups again with new documents through the round-robin
+    frontend."""
     await kv_models(kv_port)
     await kv_models(rr_port)
-    out = {"kv": await kv_documents_and_followups(kv_port, 700, kv=True)}
+    rt, ask = await kv_service_asker(addr)
+    try:
+        out = {"kv": await kv_documents_and_followups(kv_port, 700, kv=True, ask=ask)}
+    finally:
+        await rt.shutdown()
     bad = [(i, c, want, p) for i, ((c, want), p) in enumerate(
         zip(out["kv"]["hits"], out["kv"]["predicted"])) if c < want]
     if bad:
@@ -6587,15 +6761,62 @@ async def kv_traffic(kv_port: int, rr_port: int) -> dict:
     return out
 
 
+def kv_service_checks(view: dict, reports: list, answers: list, recording: str) -> list:
+    """The router service's decisions, its view and its recording, held to
+    the kv frontend's decisions and the workers' prefix caches: problems."""
+    from dynamo_tpu_torch.kv_router import KvEventKind, KvRouter, RouterEvent
+    from dynamo_tpu_torch.runtime import InProcEventPlane
+    from dynamo_tpu_torch.runtime.recorder import Recorder
+
+    problems = []
+    events = [RouterEvent.from_obj(ev["event"]) for _, ev in Recorder.load(recording)]
+    stored_by = {}
+    for ev in events:
+        if ev.event.kind == KvEventKind.STORED:
+            for h in ev.event.block_hashes:
+                stored_by.setdefault(h, ev.worker.worker_id)
+    for k, a in enumerate(answers):
+        served = stored_by.get(a["last_hash"])
+        if a["worker_id"] != served or a["cached_tokens"] != a["frontend_predicted"]:
+            problems.append(
+                f"follow-up {k}: the router service chose worker {a['worker_id']:016x} with "
+                f"{a['cached_tokens']} cached tokens; the kv frontend's worker "
+                f"{served if served is None else f'{served:016x}'} with "
+                f"{a['frontend_predicted']:.0f} predicted")
+    published = sum(sum(r["kv_events"].values()) for r in reports)
+    if not view["events_applied"] == view["recorded"] == len(events) == published:
+        problems.append(f"the router service applied {view['events_applied']} events, "
+                        f"recorded {view['recorded']} ({len(events)} in the file); the "
+                        f"workers published {published}")
+    for r in reports:
+        have = set(view["workers"].get(r["worker_id"], {"hashes": []})["hashes"])
+        if have != set(r["prefix_cache"]["hashes"]):
+            problems.append(f"the router service's view of worker {r['worker_id']}: "
+                            f"{len(have)} blocks; its prefix cache "
+                            f"{r['prefix_cache']['blocks']}")
+    replayed = KvRouter(InProcEventPlane(), "dynamo", "backend", block_size=KV_BLOCK)
+    for ev in events:
+        replayed.indexer.apply(ev)
+    if replayed.view()["workers"] != view["workers"]:
+        problems.append("the recording replayed into a fresh KvRouter gives another view "
+                        "than the router service's")
+    return problems
+
+
 def kv_router_phase(torch, smi: str, fe) -> dict:
     """Phase 14 (module docstring): the netstore, two llama3-8b workers on
-    the port's event plane, a --router-mode kv frontend and a round-robin
-    one; the KV router's view of each worker held to the worker's prefix
-    cache once both are idle."""
+    the port's event plane, a --router-mode kv frontend, the standalone
+    router service and a round-robin frontend; the KV router's and the
+    service's views of each worker held to the worker's prefix cache once
+    both are idle, the service's decisions to the frontend's."""
+    import tempfile
+
     gc.collect()
     torch.cuda.empty_cache()
     out = {}
     procs = []
+    tmp = tempfile.TemporaryDirectory()
+    recording = os.path.join(tmp.name, "kv_events.jsonl")
     try:
         t0 = time.perf_counter()
         store = Proc("netstore", "dynamo_tpu_torch.runtime.discovery.netstore",
@@ -6608,6 +6829,12 @@ def kv_router_phase(torch, smi: str, fe) -> dict:
                    "--router-mode", "kv", "--host", "127.0.0.1", "--port", "0")
         procs.append(kvf)
         kv_port = int(kvf.wait_line("TORCH_FRONTEND_READY", 60).rsplit(":", 1)[1])
+        svc = Proc("router service", "dynamo_tpu_torch.router", *common, "--event-plane",
+                   "zmq", "--block-size", str(KV_BLOCK), "--record-events", recording)
+        procs.append(svc)
+        t1 = time.perf_counter()
+        svc.wait_line("ROUTER_READY", 60)
+        out["service_ready_s"] = time.perf_counter() - t1
         workers = [Proc(f"worker {i}", "dynamo_tpu_torch.engine", *common, *KV_WORKER)
                    for i in range(2)]
         procs += workers
@@ -6619,11 +6846,14 @@ def kv_router_phase(torch, smi: str, fe) -> dict:
             w.wait_line("TORCH_ENGINE_READY")
         out["ready_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        out.update(asyncio.run(kv_traffic(kv_port, rr_port)))
+        out.update(asyncio.run(kv_traffic(kv_port, rr_port, addr)))
         out["requests_s"] = time.perf_counter() - t0
-        # idle: the last events reach the router, then the frontend (the
-        # broker's founder) stops first and reports its view
+        # idle: the last events reach the routers; the service stops first,
+        # then the kv frontend (the broker's founder), each printing its view
         time.sleep(1.0)
+        if svc.stop() != 0:
+            raise AssertionError(f"the router service exited {svc.proc.returncode}")
+        svc_view = json.loads(svc.wait_line("ROUTER_EXIT", 10).split(" ", 1)[1])
         for p in (kvf, rrf):
             if p.stop() != 0:
                 raise AssertionError(f"the {p.name} exited {p.proc.returncode}")
@@ -6636,10 +6866,11 @@ def kv_router_phase(torch, smi: str, fe) -> dict:
             reports.append(json.loads(w.wait_line("TORCH_ENGINE_EXIT", 10).split(" ", 1)[1]))
         if store.stop() != 0:
             raise AssertionError(f"the netstore exited {store.proc.returncode}")
+        problems = kv_service_checks(svc_view, reports, out["kv"]["service"], recording)
     finally:
         for p in procs:
             p.stop()
-    problems = []
+        tmp.cleanup()
     published = sum(sum(r["kv_events"].values()) for r in reports)
     if view["events_applied"] != published:
         problems.append(f"the kv router applied {view['events_applied']} events (dropped "
@@ -6660,7 +6891,7 @@ def kv_router_phase(torch, smi: str, fe) -> dict:
                  if "WARNING" in ln or " ERROR " in ln or "Traceback" in ln]
         raise AssertionError("; ".join(problems) + "\n" + "\n".join(notes[-40:]))
     for part in [view["workers"][r["worker_id"]] for r in reports] + [
-            r["prefix_cache"] for r in reports]:
+            r["prefix_cache"] for r in reports] + list(svc_view["workers"].values()):
         part.pop("hashes")
     for r in reports:
         check_worker_exit(r)
@@ -6669,6 +6900,7 @@ def kv_router_phase(torch, smi: str, fe) -> dict:
         raise AssertionError("ERROR records in the serving plane's logs:\n"
                              + "\n".join(errors[:20]))
     out["router_view"], out["worker_exits"] = view, reports
+    out["service_view"] = svc_view
     kv, rr = out["kv"], out["round_robin"]
     log(f"kv_router on {smi}: {FE_MODEL} at 32 layers, two workers of {KV_BLOCKS} blocks "
         f"behind --router-mode kv over the event plane; {len(KV_DOCS)} documents of "
@@ -6689,6 +6921,14 @@ def kv_router_phase(torch, smi: str, fe) -> dict:
             f"worker {r['worker_id']}: decode {r['launches']['decode']}, flash_extend "
             f"{r['launches']['flash_extend']}, unified {r['launches']['unified']}"
             for r in reports))
+    log(f"kv_router service (python -m dynamo_tpu_torch.router --record-events) on {smi}: "
+        f"{len(kv['service'])} of {len(kv['service'])} follow-ups put to its route op "
+        f"first got the kv frontend's worker and predicted cached tokens "
+        f"({sum(a['cached_tokens'] for a in kv['service'])} in all); its view equal to each "
+        f"worker's prefix cache, {svc_view['events_applied']} events applied and "
+        f"{svc_view['recorded']} recorded, the recording replayed into a fresh KvRouter to "
+        f"the same view; the service ready in {out['service_ready_s']:.1f} s, its route ops "
+        f"{sum(a['ask_s'] for a in kv['service']):.2f} s in all")
     probe = f"kv decode probe on {smi}: ITL median {out['steady']['itl_s_median'] * 1e3:.2f} ms"
     if fe is not None:
         probe += (f"; phase 13's (one worker, in-process event plane): "

@@ -17,12 +17,16 @@ one. Model selection: ``--model-path`` (an HF checkpoint directory or hub
 reference, as run.py's ``out=``) or ``--preset`` (random weights from
 ``--seed``). The engine flags are the reference worker's, with its
 defaults; flags of later slices (parallelism, disaggregation, the status
-server, the tool-call and reasoning parsers) are not defined, and argparse
-refuses them.
+server) are not defined, and argparse refuses them. ``--tool-parser`` and
+``--reasoning-parser`` name the card's parsers (parsers/; gpt-oss presets
+default to ``harmony`` / ``gpt_oss``); an unknown name fails at start.
 
 The engine publishes its KV events and load (kv_router/publisher.py) on
-the runtime's event plane, for a frontend in ``--router-mode kv``: with
-``--event-plane zmq`` (the port's own broker) across processes.
+the runtime's event plane, for a frontend in ``--router-mode kv`` or the
+standalone router (``python -m dynamo_tpu_torch.router``): with
+``--event-plane zmq`` (the port's own broker) across processes. A LoRA
+worker's load reports carry its adapter keys, republished at once after
+each adapter load or unload.
 
 Prints ``TORCH_ENGINE_READY <model> device=<device>`` once it serves. On
 SIGTERM or SIGINT it deletes its instance and card keys at once, drains the
@@ -55,7 +59,8 @@ from ..llm.model_card import (
     ModelRuntimeConfig,
 )
 from ..llm.serve import register_llm
-from ..models.registry import PRESETS
+from ..models.registry import PRESETS, is_gptoss
+from ..parsers import get_reasoning_parser, get_tool_parser
 from ..runtime.component import new_instance_id
 from ..runtime.config import (
     ENV_KVBM_DISK_CACHE_GB,
@@ -87,6 +92,15 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--tokenizer", default=None,
                    help="'byte' or a tokenizer directory (default: the checkpoint's "
                         "own; byte for a preset)")
+    p.add_argument("--tool-parser", default=None,
+                   help="streaming tool-call dialect for this model's card "
+                        "(parsers/tool_calls.py registry); default: harmony "
+                        "for gpt-oss presets, else none")
+    p.add_argument("--reasoning-parser", default=None,
+                   help="reasoning-block parser for the card "
+                        "(e.g. deepseek_r1, qwen3, gpt_oss; "
+                        "parsers/reasoning.py registry); default: gpt_oss "
+                        "for gpt-oss presets, else none")
     p.add_argument("--namespace", default=env_str(ENV_NAMESPACE, "dynamo"))
     p.add_argument("--component", default="backend")
     p.add_argument("--endpoint", default="generate")
@@ -225,12 +239,22 @@ async def serve_lora_endpoints(runtime: DistributedRuntime, namespace: str, comp
 
         try:
             slots = await asyncio.get_running_loop().run_in_executor(None, work)
-            yield {"ok": True, "name": name, "slot": slots[0]}
         except Exception as e:
             yield {"ok": False, "error": str(e)}
+            return
+        await publish_keys()
+        yield {"ok": True, "name": name, "slot": slots[0]}
 
     async def handle_unload(request, context):
-        yield {"ok": all([e.lora.unload(request["name"]) for e in engines])}
+        ok = all([e.lora.unload(request["name"]) for e in engines])
+        await publish_keys()
+        yield {"ok": ok}
+
+    async def publish_keys():
+        # the KV router hashes an adapter request with the load's key: it
+        # must have the new one before the adapter's next request
+        for e in engines:
+            await e.publish_load()
 
     async def handle_list(request, context):
         yield {"adapters": engines[0].lora.list_adapters()}
@@ -264,9 +288,19 @@ def kernel_launches() -> dict:
 async def main(argv: Optional[List[str]] = None) -> None:
     args = parse_args(argv)
     init_logging()
+    # an unknown parser name fails here, before the build (the frontend
+    # would only warn and pass text through)
+    get_tool_parser(args.tool_parser)
+    get_reasoning_parser(args.reasoning_parser)
     # the engine first: its build (weights, graph capture) blocks the loop,
     # which must not hold a lease yet
     engine, tok_ref = build_worker_engine(args)
+    # gpt-oss: the harmony dialect and its reasoning channels by default
+    oss = is_gptoss(engine.mcfg)
+    tool_parser = args.tool_parser if args.tool_parser is not None else (
+        "harmony" if oss else None)
+    reasoning_parser = args.reasoning_parser if args.reasoning_parser is not None else (
+        "gpt_oss" if oss else None)
     cfg = RuntimeConfig.from_env(store=args.store, store_path=args.store_path,
                                  event_plane=args.event_plane)
     runtime = await DistributedRuntime(cfg).start()
@@ -283,6 +317,7 @@ async def main(argv: Optional[List[str]] = None) -> None:
         endpoint=args.endpoint, model_type=[MODEL_TYPE_CHAT, MODEL_TYPE_COMPLETIONS, MODEL_TYPE_EMBEDDING],
         tokenizer=tok_ref, context_length=args.max_context, kv_block_size=args.block_size,
         migration_limit=args.migration_limit,
+        tool_parser=tool_parser, reasoning_parser=reasoning_parser,
         runtime_config=ModelRuntimeConfig(
             total_kv_blocks=engine.cfg.num_blocks, kv_block_size=args.block_size,
             max_batch_size=args.max_batch_size, max_context_len=args.max_context),

@@ -38,7 +38,9 @@ llama, gemma, gpt-oss, Qwen3-MoE and DeepSeek (MLA) families on one GPU
   launch of the block-copy kernel;
 - KV events (``kv_publisher=`` / ``metrics_publisher=``, kv_router/
   publisher.py): every loop tick drains the allocator's stored / removed
-  events and publishes them and the load for the frontend's KV router;
+  events and publishes them and the load (with a LoRA engine's adapter
+  keys, which a KV router salts an adapter request's hashes with) for the
+  frontend's KV router;
 - vision prompts (``vision=VisionConfig(...)``, every family but
   Qwen3-MoE, as the reference): the images
   of a request's ``images`` annotation go through the vision tower
@@ -507,7 +509,7 @@ class TorchEngine:
         # events are drained all the same)
         self.kv_publisher = kv_publisher
         self.metrics_publisher = metrics_publisher
-        self._last_published_load: Tuple[int, int, int] = (-1, -1, -1)
+        self._last_published_load: Optional[tuple] = None
         self.mcfg = mcfg = config.model
         # an MLA model's attention runs on its latent cache (ops/cuda_mla)
         self._latent = registry.is_mla(mcfg)
@@ -1097,20 +1099,31 @@ class TorchEngine:
         evicted = self.kvbm.drain_evicted() if self.kvbm is not None else []
         if self.kv_publisher is not None:
             removed = await self._publish_kv_events(stored, removed, evicted)
-        if self.metrics_publisher is not None:
-            # on KV events AND whenever the load changed: releases emit no
-            # events, and a stale active-block report would leave the
-            # router seeing phantom load on an idle worker
-            running = sum(1 for s in self._slots if s is not None and not s.done)
-            load = (self.allocator.active_blocks, len(self._waiting), running)
-            if stored or removed or load != self._last_published_load:
-                self._last_published_load = load
-                await self.metrics_publisher.publish(
-                    active_decode_blocks=load[0],
-                    num_requests_waiting=load[1],
-                    num_requests_active=running,
-                    total_blocks=self.cfg.num_blocks,
-                )
+        # on KV events AND whenever the load changed: releases emit no
+        # events, and a stale active-block report would leave the router
+        # seeing phantom load on an idle worker
+        await self.publish_load(force=bool(stored or removed))
+
+    async def publish_load(self, force: bool = False) -> None:
+        """Publish the load, and a LoRA engine's adapter keys, when they
+        changed since the last report (or ``force``). The worker calls it
+        after an adapter load or unload, which may come while the loop
+        idles: the KV router needs the new key before the adapter's next
+        request."""
+        if self.metrics_publisher is None:
+            return
+        running = sum(1 for s in self._slots if s is not None and not s.done)
+        adapters = self.lora.key_map() if self.lora is not None else None
+        load = (self.allocator.active_blocks, len(self._waiting), running, adapters)
+        if force or load != self._last_published_load:
+            self._last_published_load = load
+            await self.metrics_publisher.publish(
+                active_decode_blocks=load[0],
+                num_requests_waiting=load[1],
+                num_requests_active=running,
+                total_blocks=self.cfg.num_blocks,
+                adapters=adapters,
+            )
 
     async def _publish_kv_events(self, stored, removed, evicted) -> list:
         """Publish one tick's stored and removed batches; returns the

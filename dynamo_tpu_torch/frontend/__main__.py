@@ -33,7 +33,6 @@ import signal
 from typing import List, Optional
 
 from ..kv_router import KvRouterConfig
-from ..kv_router.protocols import block_set_view
 from ..llm.discovery import ModelManager, ModelWatcher
 from ..llm.http.service import HttpService
 from ..runtime.component import RouterMode
@@ -74,19 +73,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 def router_views(manager: ModelManager) -> dict:
     """Each KV-routed model's view of its workers: {model: {"workers":
     {worker id (hex): block_set_view}, "events_applied", "events_dropped"}}."""
-    out = {}
-    for pipe in manager.pipelines():
-        router = pipe.kv_router
-        if router is None:
-            continue
-        tree = router.indexer.tree
-        out[pipe.card.name] = {
-            "workers": {f"{w.worker_id:016x}": block_set_view(tree.worker_hashes(w))
-                        for w in sorted(tree.workers())},
-            "events_applied": getattr(router.indexer, "events_applied", 0),
-            "events_dropped": getattr(router.indexer, "events_dropped", 0),
-        }
-    return out
+    return {pipe.card.name: pipe.kv_router.view() for pipe in manager.pipelines()
+            if pipe.kv_router is not None}
 
 
 async def main(argv: Optional[List[str]] = None) -> None:

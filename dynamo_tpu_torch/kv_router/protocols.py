@@ -126,9 +126,13 @@ class WorkerMetrics:
     num_requests_active: int = 0
     total_blocks: int = 0
     ts: float = 0.0
+    # the port's own field: {adapter name: prefix-cache key hex} of the
+    # worker's loaded adapters (lora/adapters.py cache_key); None from a
+    # worker without adapter tables, whose payload is the reference's
+    adapters: Optional[Dict[str, str]] = None
 
     def to_obj(self) -> Dict:
-        return {
+        obj = {
             "worker": self.worker.to_obj(),
             "decode_blocks": self.active_decode_blocks,
             "prefill_tokens": self.active_prefill_tokens,
@@ -138,6 +142,9 @@ class WorkerMetrics:
             "total_blocks": self.total_blocks,
             "ts": self.ts,
         }
+        if self.adapters is not None:
+            obj["adapters"] = dict(self.adapters)
+        return obj
 
     @classmethod
     def from_obj(cls, obj: Dict) -> "WorkerMetrics":
@@ -150,6 +157,7 @@ class WorkerMetrics:
             num_requests_active=obj.get("active", 0),
             total_blocks=obj.get("total_blocks", 0),
             ts=obj.get("ts", 0.0),
+            adapters=obj.get("adapters"),
         )
 
 

@@ -14,7 +14,7 @@ msgpack's bytes: an event is the same payload in both packages.
 from __future__ import annotations
 
 import time
-from typing import Callable, Iterable, Optional
+from typing import Callable, Dict, Iterable, Optional
 
 from ..runtime import codec
 from ..runtime.event_plane.base import EventPlane
@@ -76,7 +76,8 @@ class KvEventPublisher:
 
 
 class WorkerMetricsPublisher:
-    """Load snapshots on the metrics topic; the engine calls publish() when its load changes."""
+    """Load snapshots on the metrics topic; the engine calls publish() when
+    its load or its adapter keys change."""
 
     def __init__(
         self,
@@ -103,6 +104,7 @@ class WorkerMetricsPublisher:
         num_requests_active: int = 0,
         total_blocks: int = 0,
         waiting_prefill_blocks: int = 0,
+        adapters: Optional[Dict[str, str]] = None,
     ) -> None:
         m = WorkerMetrics(
             worker=self.worker,
@@ -113,5 +115,6 @@ class WorkerMetricsPublisher:
             total_blocks=total_blocks,
             waiting_prefill_blocks=waiting_prefill_blocks,
             ts=self._clock(),
+            adapters=adapters,
         )
         await self._plane.publish(self._topic, codec.packb(m.to_obj()))

@@ -32,11 +32,23 @@ first peer to answer ships its indexer state + in-flight load table. With
 ``index_shards > 1`` catch-up is per hash-bucket shard: one request and one
 answer per shard, so no peer ever serializes its whole tree in one message
 and different shards may be served by different peers.
+
+Adapter requests (the port's own, ROADMAP Queue 3): the port's engine salts
+an adapter request's blocks with the adapter load's ``cache_key``, and
+each worker reports its ``{adapter: key}`` map with its load
+(``WorkerMetrics.adapters``). A request naming an adapter is hashed once
+for each distinct key among the candidates and each worker is scored on
+its own key's chain; a worker without the adapter scores 0. Requests
+without one take the reference's path unchanged.
+
+``recorder`` (runtime/recorder.py) captures every ingested KV event as the
+reference's ``{"kind": "kv_event", "event": ...}`` lines.
 """
 
 from __future__ import annotations
 
 import asyncio
+import functools
 import heapq
 import random
 import uuid
@@ -50,7 +62,13 @@ from ..runtime.event_plane.base import EventPlane, Subscription
 from ..runtime.logging import get_logger
 from ..tokens import compute_sequence_hashes
 from .indexer import ApproxKvIndexer, KvIndexer
-from .protocols import RouterEvent, WorkerMetrics, WorkerWithDpRank
+from .protocols import (
+    OverlapScores,
+    RouterEvent,
+    WorkerMetrics,
+    WorkerWithDpRank,
+    block_set_view,
+)
 from .publisher import events_topic, metrics_topic
 from .scheduler import KvRouterConfig, KvScheduler, SchedulingDecision
 
@@ -72,8 +90,12 @@ class KvRouter:
         seed: Optional[int] = None,
         metrics: Optional[M.MetricsScope] = None,
         clock: Optional[Clock] = None,
+        recorder=None,
     ):
         self.config = config or KvRouterConfig()
+        # optional runtime.recorder.Recorder: the ingested KV-event stream as
+        # JSONL, for replay into another router
+        self.recorder = recorder
         # prefix-cache effectiveness on /metrics: tokens the chosen worker
         # already holds per routing decision (the reference's kv-hit-rate
         # signal); None = no registry attached (standalone/unit use)
@@ -171,7 +193,10 @@ class KvRouter:
         assert isinstance(self.indexer, KvIndexer)
         async for _topic, payload in sub:
             try:
-                self.indexer.apply(RouterEvent.from_obj(codec.unpackb(payload)))
+                obj = codec.unpackb(payload)
+                self.indexer.apply(RouterEvent.from_obj(obj))
+                if self.recorder is not None:
+                    self.recorder.record({"kind": "kv_event", "event": obj})
             except Exception:
                 log.exception("bad router event")
 
@@ -333,13 +358,16 @@ class KvRouter:
         match_hashes: Sequence[int],
         query_blocks: int,
         fetchable: Optional[Dict[WorkerWithDpRank, float]] = None,
+        overlaps_for=None,
     ) -> SchedulingDecision:
         """The two-stage selection shared by schedule_tokens/score_tokens:
         prune to ~2-3K candidates when the eligible universe is large, then
         run the exact scorer on whatever survived. ``candidates`` None means
         "every registered worker" (the sublinear path); an explicit list is
         honored exactly (and its members are registered as a side effect so
-        the load index covers idle workers on later calls)."""
+        the load index covers idle workers on later calls).
+        ``overlaps_for(pool)``, when given, scores the final pool in place
+        of the indexer's match on ``match_hashes`` (an adapter request)."""
         sched = self.scheduler
         excl = excluded if excluded else ()
         k = self.config.topk_candidates
@@ -383,11 +411,15 @@ class KvRouter:
         if not pool:
             raise ValueError("no candidate workers")
         if pruned:
-            overlaps = self.indexer.find_matches_for(pool, match_hashes)
             self.pruned_decisions += 1
         else:
-            overlaps = self.indexer.find_matches(match_hashes)
             self.exact_decisions += 1
+        if overlaps_for is not None:
+            overlaps = overlaps_for(pool)
+        elif pruned:
+            overlaps = self.indexer.find_matches_for(pool, match_hashes)
+        else:
+            overlaps = self.indexer.find_matches(match_hashes)
         tree_sizes = {c: self.indexer.tree.worker_block_count(c) for c in pool}
         return sched.select_worker(
             pool, overlaps, query_blocks=query_blocks,
@@ -405,6 +437,7 @@ class KvRouter:
         hashes: Optional[Sequence[int]] = None,
         excluded=None,
         fetchable: Optional[Dict[WorkerWithDpRank, float]] = None,
+        lora: Optional[str] = None,
     ) -> SchedulingDecision:
         """Multimodal prompts (image placeholder runs hash identically
         across different images) must not produce overlap estimates or
@@ -417,17 +450,29 @@ class KvRouter:
         disagg planner hashes once for scoring AND the transfer handshake)
         skip the re-hash; it must be ``compute_sequence_hashes(token_ids,
         self.block_size)``. ``candidates=None`` routes over every
-        registered worker minus ``excluded`` — the O(K) path."""
+        registered worker minus ``excluded`` — the O(K) path. ``lora``
+        names the request's adapter: each worker is then scored on the
+        prompt's chain salted with its own load of the adapter."""
         if cacheable is None:
             cacheable = IMAGE_TOKEN_ID not in token_ids
         if hashes is None:
             hashes = compute_sequence_hashes(token_ids, self.block_size)
+        salted: Dict[bytes, List[int]] = {}
+        overlaps_for = None
+        if lora and cacheable:
+            overlaps_for = functools.partial(self._salted_overlaps, token_ids, lora, salted)
         decision = self._decide(
             candidates, excluded, extra_costs,
-            match_hashes=(hashes if cacheable else []),
+            match_hashes=(hashes if cacheable and not lora else []),
             query_blocks=len(hashes),
             fetchable=fetchable,
+            overlaps_for=overlaps_for,
         )
+        if lora:
+            # the chosen worker's blocks for this request are its salted
+            # chain (none at all without the adapter)
+            key = self.scheduler.adapter_key(decision.worker, lora)
+            hashes = salted.get(key, []) if key is not None else []
         new_blocks = decision.query_blocks - decision.overlap_blocks
         if self._hit_tokens is not None and decision.overlap_blocks > 0:
             self._hit_tokens.inc(decision.overlap_blocks * self.block_size)
@@ -454,6 +499,28 @@ class KvRouter:
                 msg["hashes"] = list(hashes)
             self._publish_sync_soon(msg)
         return decision
+
+    def _salted_overlaps(
+        self,
+        token_ids: Sequence[int],
+        lora: str,
+        salted: Dict[bytes, List[int]],
+        pool: Sequence[WorkerWithDpRank],
+    ) -> OverlapScores:
+        """Overlap of an adapter request on each worker of ``pool``: the
+        prompt hashed once per distinct adapter key (kept in ``salted``),
+        each worker matched on its own key's chain."""
+        by_key: Dict[bytes, List[WorkerWithDpRank]] = {}
+        for w in pool:
+            key = self.scheduler.adapter_key(w, lora)
+            if key is not None:
+                by_key.setdefault(key, []).append(w)
+        scores: Dict[WorkerWithDpRank, int] = {}
+        for key, workers in by_key.items():
+            salted[key] = compute_sequence_hashes(token_ids, self.block_size,
+                                                  extra_key=key)
+            scores.update(self.indexer.find_matches_for(workers, salted[key]).scores)
+        return OverlapScores(scores=scores, matched_blocks=max(scores.values(), default=0))
 
     def score_tokens(
         self,
@@ -531,6 +598,18 @@ class KvRouter:
         }
         self._remote_active = {
             k: v for k, v in self._remote_active.items() if v[0].worker_id != worker_id
+        }
+
+    def view(self) -> dict:
+        """The router's view of its workers, as the exit lines print it:
+        {"workers": {worker id (hex): block_set_view}, "events_applied",
+        "events_dropped"}."""
+        tree = self.indexer.tree
+        return {
+            "workers": {f"{w.worker_id:016x}": block_set_view(tree.worker_hashes(w))
+                        for w in sorted(tree.workers())},
+            "events_applied": getattr(self.indexer, "events_applied", 0),
+            "events_dropped": getattr(self.indexer, "events_dropped", 0),
         }
 
     async def stop(self) -> None:

@@ -236,6 +236,13 @@ class KvScheduler:
             m.worker, m.active_decode_blocks + m.waiting_prefill_blocks
         )
 
+    def adapter_key(self, worker: WorkerWithDpRank, name: str) -> Optional[bytes]:
+        """The prefix-cache key of adapter ``name`` on ``worker``, from its
+        last report (None: not loaded there, or never reported)."""
+        m = self._metrics.get(worker)
+        key = (m.adapters or {}).get(name) if m is not None else None
+        return bytes.fromhex(key) if key else None
+
     def add_local_load(self, worker: WorkerWithDpRank, blocks: int) -> None:
         if worker in self._removed:
             # a charge can race the removal (decision in flight while

@@ -142,7 +142,8 @@ class ModelPipeline:
             for r in range(dp):
                 excl.add(WorkerWithDpRank(iid, r))
         decision = self.kv_router.schedule_tokens(
-            req.token_ids, excluded=excl, request_id=req.request_id)
+            req.token_ids, excluded=excl, request_id=req.request_id,
+            lora=req.annotations.get("lora"))
         instance_id = decision.worker.worker_id
         req.annotations[ANNOTATION_CACHED_TOKENS] = (
             decision.overlap_blocks * self.card.kv_block_size)

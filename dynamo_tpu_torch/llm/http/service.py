@@ -10,6 +10,9 @@ worker, whose engine frees the slot), the busy threshold answers 503,
 ``n`` > 1 fans into n engine streams, and TTFT / ITL / token metrics are
 observed per model. Chat and text completions share one request path; the
 only per-endpoint differences are request parsing and delta generation.
+Chat replies go through the card's reasoning and tool-call parsers
+(parsers/), a fresh pair for each choice; an unknown parser name on a card
+passes text through with a warning.
 
 Later slices (ROADMAP item 4b): /v1/responses, /v1/images, the admin and
 debug endpoints, TLS, tracing, audit, SLO accounting and the per-model
@@ -30,6 +33,7 @@ from ...runtime import metrics as M
 from ...runtime.engine import Context
 from ...runtime.errors import InvalidRequestError, http_status_for
 from ...runtime.logging import get_logger
+from ...parsers import get_reasoning_parser, get_tool_parser
 from ...runtime.request_plane.tcp import NoResponders
 from ..discovery import ModelManager, ModelPipeline
 from ..protocols.common import BackendOutput, PreprocessedRequest
@@ -71,6 +75,16 @@ SSE_HEADERS = {
     "Cache-Control": "no-cache",
     "X-Accel-Buffering": "no",
 }
+
+
+def _safe_parser(factory, name):
+    """A bad parser name on a model card must degrade to pass-through, not
+    turn every chat request into a 500."""
+    try:
+        return factory(name)
+    except ValueError:
+        log.warning("unknown parser %r on model card; passing text through", name)
+        return None
 
 
 def _preprocess_err_type(e: Exception) -> str:
@@ -362,12 +376,18 @@ class HttpService:
             return _error(400, str(e), _preprocess_err_type(e))
 
         include_usage = bool(req.stream_options and req.stream_options.include_usage)
+        card = pipeline.card
         rid = preq.request_id
         preqs = self._fan_choices(preq, req.n)
+        # parsers are stateful stream machines: one instance per choice
+        reasoning_factory = lambda: _safe_parser(get_reasoning_parser, card.reasoning_parser)  # noqa: E731
+        tool_factory = lambda: _safe_parser(get_tool_parser, card.tool_parser)  # noqa: E731
         # multi-choice: one merged usage chunk at stream end instead of one
         # per choice
         gens = [ChatDeltaGenerator(rid, req.model, include_usage and len(preqs) == 1,
-                                   index=i)
+                                   reasoning_parser=reasoning_factory(),
+                                   tool_parser=tool_factory(),
+                                   tool_choice=req.tool_choice, index=i)
                 for i in range(len(preqs))]
         usage_chunk_factory = None
         if include_usage and len(preqs) > 1:
@@ -376,9 +396,13 @@ class HttpService:
                 usage=merge_usage(gens),
             )
         if len(preqs) == 1:
-            aggregator = lambda ss: aggregate_chat(rid, req.model, ss[0])  # noqa: E731
+            aggregator = lambda ss: aggregate_chat(  # noqa: E731
+                rid, req.model, ss[0], reasoning_parser=reasoning_factory(),
+                tool_parser=tool_factory(), tool_choice=req.tool_choice)
         else:
-            aggregator = lambda ss: aggregate_chat_multi(rid, req.model, ss)  # noqa: E731
+            aggregator = lambda ss: aggregate_chat_multi(  # noqa: E731
+                rid, req.model, ss, reasoning_parser_factory=reasoning_factory,
+                tool_parser_factory=tool_factory, tool_choice=req.tool_choice)
         return await self._run(request, preqs, pipeline, req.model, req.stream, gens,
                                aggregator, usage_chunk_factory=usage_chunk_factory)
 

@@ -73,8 +73,8 @@ class ModelDeploymentCard:
     context_length: int = 8192
     kv_block_size: int = 16
     migration_limit: int = 0
-    # streaming output parsers (the reference's parsers registry names; the
-    # port's parsers are ROADMAP item 4b, so its workers leave them None)
+    # streaming output parsers (parsers/ registry names, the reference's);
+    # None passes raw text through
     reasoning_parser: Optional[str] = None
     tool_parser: Optional[str] = None
     # multimodal (models/vision.py): placeholder token id, soft tokens per

@@ -3,11 +3,12 @@
 The port's copy of the reference package's llm/preprocessor.py: applies the
 chat template, tokenizes, folds sampling + stop options and the guided,
 ``lora`` and ``logits_processors`` options into the internal request, and
-stamps metric annotations. Two refusals are the port's own, each a 400
-naming ROADMAP item 4b: image parts (the media decoder needs PIL, absent
-on the card; vision prompts are served in-process) and a forced
-``tool_choice`` ("required" or a named function: the tool-call parsers
-that read its output are not ported).
+stamps metric annotations. A forced named ``tool_choice`` becomes a soft
+JSON grammar over the tool's parameters (the delta generator's jail reads
+the call out of it); ``"required"`` goes to the jail without a grammar.
+One refusal is the port's own, a 400 naming ROADMAP item 4b: image parts
+(the media decoder needs PIL, absent on the card; vision prompts are
+served in-process).
 """
 
 from __future__ import annotations
@@ -55,13 +56,6 @@ class OpenAIPreprocessor:
                 "image input through the frontend is ROADMAP item 4b (no image "
                 "decoder on the card); vision prompts are served in-process")
 
-    @staticmethod
-    def _check_tool_choice(request: ChatCompletionRequest) -> None:
-        tc = request.tool_choice
-        if tc == "required" or (isinstance(tc, dict) and (tc.get("function") or {}).get("name")):
-            raise InvalidRequestError(
-                "a forced tool_choice needs the tool-call parsers of ROADMAP item 4b")
-
     def _check_audio(self, request: ChatCompletionRequest) -> None:
         """Audio requests against a non-audio model fail loudly."""
         if self.card.audio:
@@ -85,9 +79,11 @@ class OpenAIPreprocessor:
     @staticmethod
     def _guided_spec(request) -> Optional[Dict[str, Any]]:
         """Guided-decoding spec from the request, in the reference's
-        precedence: explicit guided_json, then guided_regex/choice, then
-        chat response_format (the reference's tool_choice-derived schema
-        sits between the first two; a forced tool_choice is refused here).
+        precedence: explicit guided_json, then the tool_choice-derived
+        schema, then guided_regex/choice, then chat response_format.
+        Tool-derived specs are marked soft=True: an engine without guided
+        decoding serves them unconstrained (the tool-call jail still reads
+        the call) instead of erroring.
 
         Explicit specs are syntax-validated here so malformed grammars fail
         as 400s at the frontend; the engine still enforces its own
@@ -105,6 +101,25 @@ class OpenAIPreprocessor:
 
         if getattr(request, "guided_json", None) is not None:
             return _checked({"kind": "json", "value": request.guided_json})
+        tc = getattr(request, "tool_choice", None)
+        if isinstance(tc, dict) and (tc.get("function") or {}).get("name"):
+            name = tc["function"]["name"]
+            for tool in getattr(request, "tools", None) or []:
+                fn = tool.get("function") or {}
+                if fn.get("name") == name:
+                    params = fn.get("parameters") or {"type": "object"}
+                    return {
+                        "kind": "json",
+                        "value": {
+                            "type": "object",
+                            "properties": {
+                                "name": {"const": name},
+                                "arguments": params,
+                            },
+                            "required": ["name", "arguments"],
+                        },
+                        "soft": True,
+                    }
         if getattr(request, "guided_regex", None) is not None:
             return _checked({"kind": "regex", "value": request.guided_regex})
         if getattr(request, "guided_choice", None) is not None:
@@ -175,7 +190,6 @@ class OpenAIPreprocessor:
         rid = new_request_id("chatcmpl")
         self._check_audio(request)
         self._check_images(request)
-        self._check_tool_choice(request)
         return self._common(request, self.tokenize_chat(request), rid)
 
     def preprocess_completion(

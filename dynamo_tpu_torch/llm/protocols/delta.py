@@ -3,16 +3,27 @@
 The port's copy of the reference package's llm/protocols/delta.py: one
 chunk (or none) per BackendOutput, never one per token, so an output that
 carries a whole decode horizon's tokens streams as one SSE chunk, as the
-reference emits it. The reasoning and tool-call parsers, and the forced
-``tool_choice`` jail built on them, wait for ROADMAP item 4b (no card of
-the port names a parser; the preprocessor refuses a forced tool_choice).
+reference emits it. Raw text goes through the card's reasoning parser,
+then its tool-call parser (parsers/); a forced ``tool_choice`` is the
+jail's Immediate mode: every token is held from the first and the call is
+parsed at finish. Logprob entries are held back with the text they belong
+to, and each choice of an ``n`` > 1 request has its own parser state.
+
+One difference from the reference, on purpose (ROADMAP Queue 3): a named
+``tool_choice`` whose output is the preprocessor's soft grammar,
+``{"name": <the function>, "arguments": {...}}``, gives a call whose
+arguments are that object's ``arguments``; the reference passes the whole
+envelope on as the arguments. A bare argument object is read as the
+reference reads it.
 """
 
 from __future__ import annotations
 
 import asyncio
+import json
 from typing import AsyncIterator, Optional
 
+from ...parsers.tool_calls import _mk_call
 from .common import BackendOutput
 from .openai import (
     ChatChoice,
@@ -34,6 +45,9 @@ class ChatDeltaGenerator:
         request_id: str,
         model: str,
         include_usage: bool = False,
+        reasoning_parser=None,
+        tool_parser=None,
+        tool_choice=None,
         index: int = 0,
     ):
         self.id = request_id
@@ -45,8 +59,27 @@ class ChatDeltaGenerator:
         self.completion_tokens = 0
         self.cached_tokens: Optional[int] = None
         self._first = True
-        # logprob entries not yet attached to an emitted content chunk
-        # (stop-string or split UTF-8 holdback delays the text they belong to)
+        self.reasoning_parser = reasoning_parser
+        self.tool_parser = tool_parser
+        self._tool_call_count = 0
+        # forced tool_choice = the reference jail's Immediate mode
+        # (jail.rs JailMode::Immediate): the WHOLE output is a tool call, so
+        # every token is jailed from the first and parsed at finish —
+        # "required" expects a JSON array of calls, a named choice expects
+        # that function's bare argument object
+        self._forced: Optional[tuple] = None
+        self._forced_buf = ""
+        if tool_choice == "required":
+            self._forced = ("required", None)
+        elif tool_choice == "none":
+            # explicit opt-out beats the model card: no tool parsing at all
+            self.tool_parser = None
+        elif isinstance(tool_choice, dict):
+            name = (tool_choice.get("function") or {}).get("name")
+            if name:
+                self._forced = ("named", name)
+        # logprob entries not yet attached to an emitted content chunk (jail
+        # holdback / parser diversion can delay the text they belong to)
         self._pending_logprobs: list = []
 
     def _chunk(
@@ -67,6 +100,64 @@ class ChatDeltaGenerator:
             ],
         )
 
+    def _split_reasoning(self, text: str, flush: bool):
+        """(content, reasoning) via the model card's reasoning parser."""
+        if self.reasoning_parser is None:
+            return text, ""
+        ev = self.reasoning_parser.feed(text)
+        if flush:
+            fin = self.reasoning_parser.flush()
+            ev.content += fin.content
+            ev.reasoning += fin.reasoning
+        return ev.content, ev.reasoning
+
+    def _parse(self, text: str, flush: bool = False):
+        """Pipe raw text through the reasoning then tool parsers; returns
+        (content, reasoning, tool_calls). Tool markers never appear inside
+        reasoning spans, so reasoning splits first."""
+        text, reasoning = self._split_reasoning(text, flush)
+        tool_calls = []
+        if self.tool_parser is not None:
+            tev = self.tool_parser.feed(text)
+            if flush:
+                fin = self.tool_parser.flush()
+                tev.content += fin.content
+                tev.tool_calls.extend(fin.tool_calls)
+            text, tool_calls = tev.content, tev.tool_calls
+        for tc in tool_calls:
+            tc["index"] = self._tool_call_count
+            self._tool_call_count += 1
+        return text, reasoning, tool_calls
+
+    def _parse_forced(self):
+        """End-of-stream parse of the jailed buffer (reference
+        ToolChoiceFormat::{ArrayOfTools, SingleObject}). Malformed output
+        degrades to plain content rather than a dropped response."""
+        mode, name = self._forced
+        text = self._forced_buf.strip()
+        self._forced_buf = ""
+        try:
+            obj = json.loads(text)
+        except Exception:
+            return [], text
+        if mode == "named":
+            # the soft grammar's envelope carries the arguments under its
+            # own key (module docstring)
+            if (isinstance(obj, dict) and set(obj) == {"name", "arguments"}
+                    and obj["name"] == name):
+                obj = obj["arguments"]
+            return [_mk_call(name, obj)], ""
+        calls = obj if isinstance(obj, list) else [obj]
+        try:
+            return [
+                _mk_call(
+                    c["name"], c.get("arguments", c.get("parameters", {}))
+                )
+                for c in calls
+            ], ""
+        except (KeyError, TypeError):
+            return [], text
+
     def on_output(self, out: BackendOutput):
         """Yields zero or more chunks for one backend step."""
         if out.annotations:
@@ -80,23 +171,61 @@ class ChatDeltaGenerator:
             chunks.append(self._chunk(ChatDelta(role="assistant", content="")))
         finished = out.finish_reason is not None
         step_entries = list(out.logprob_entries or [])
-        content = out.text or ""
+        if self._forced is not None:
+            # immediate jail: reasoning still streams (it is never part of
+            # the call JSON — reasoning models wrap the payload in think/
+            # channel markup that would break the end-of-stream parse), the
+            # rest accumulates silently for the finish-time parse. logprob
+            # entries ride along so the malformed-output content fallback
+            # still carries every token's logprob
+            text, reasoning = self._split_reasoning(out.text or "", finished)
+            self._forced_buf += text
+            self._pending_logprobs.extend(step_entries)
+            step_entries = []
+            if reasoning:
+                chunks.append(self._chunk(ChatDelta(reasoning_content=reasoning)))
+            if not finished:
+                return chunks
+            tool_calls, content = self._parse_forced()
+            for tc in tool_calls:
+                tc["index"] = self._tool_call_count
+                self._tool_call_count += 1
+            if tool_calls:
+                # OpenAI logprobs.content covers content tokens only
+                self._pending_logprobs = []
+            reasoning = ""
+        else:
+            content, reasoning, tool_calls = self._parse(
+                out.text or "", flush=finished
+            )
+        if reasoning:
+            chunks.append(self._chunk(ChatDelta(reasoning_content=reasoning)))
         if content:
-            # entries held back earlier belong to text only now released
+            # entries held back earlier (jail/UTF-8 holdback) belong to text
+            # that is only now being released as content
             lp = None
             entries = self._pending_logprobs + step_entries
             self._pending_logprobs = []
             if entries:
                 lp = {"content": entries}
             chunks.append(self._chunk(ChatDelta(content=content), logprobs=lp))
-        else:
+        elif not (reasoning or tool_calls):
             self._pending_logprobs.extend(step_entries)
+        # else: this step's tokens were diverted into reasoning/tool-call
+        # fields; OpenAI logprobs.content must only cover content tokens, so
+        # their entries are dropped (the engine emits one token per step, so
+        # step granularity == token granularity)
+        if tool_calls:
+            chunks.append(self._chunk(ChatDelta(tool_calls=tool_calls)))
         if finished:
+            finish = out.finish_reason
+            if self._tool_call_count and finish == "stop":
+                finish = "tool_calls"
             lp = None
             if self._pending_logprobs:
                 lp = {"content": self._pending_logprobs}
                 self._pending_logprobs = []
-            chunks.append(self._chunk(ChatDelta(), finish=out.finish_reason, logprobs=lp))
+            chunks.append(self._chunk(ChatDelta(), finish=finish, logprobs=lp))
             if self.include_usage:
                 usage_chunk = ChatCompletionChunk(
                     id=self.id, created=self.created, model=self.model, choices=[],
@@ -118,11 +247,20 @@ async def aggregate_chat(
     request_id: str,
     model: str,
     stream: AsyncIterator[BackendOutput],
+    reasoning_parser=None,
+    tool_parser=None,
+    tool_choice=None,
     index: int = 0,
 ) -> ChatCompletionResponse:
     """Non-streaming mode: fold the whole stream into one response."""
-    gen = ChatDeltaGenerator(request_id, model, index=index)
+    gen = ChatDeltaGenerator(
+        request_id, model,
+        reasoning_parser=reasoning_parser, tool_parser=tool_parser,
+        tool_choice=tool_choice, index=index,
+    )
     text_parts = []
+    reasoning_parts = []
+    tool_calls = []
     logprob_entries = []
     finish = None
     async for out in stream:
@@ -130,6 +268,10 @@ async def aggregate_chat(
             for choice in chunk.choices:
                 if choice.delta.content:
                     text_parts.append(choice.delta.content)
+                if choice.delta.reasoning_content:
+                    reasoning_parts.append(choice.delta.reasoning_content)
+                if choice.delta.tool_calls:
+                    tool_calls.extend(choice.delta.tool_calls)
                 if choice.logprobs and choice.logprobs.get("content"):
                     logprob_entries.extend(choice.logprobs["content"])
                 if choice.finish_reason is not None:
@@ -141,7 +283,14 @@ async def aggregate_chat(
         choices=[
             ChatChoice(
                 index=index,
-                message=ChatResponseMessage(content="".join(text_parts)),
+                message=ChatResponseMessage(
+                    content="".join(text_parts),
+                    reasoning_content="".join(reasoning_parts) or None,
+                    tool_calls=[
+                        {k: v for k, v in tc.items() if k != "index"}
+                        for tc in tool_calls
+                    ] or None,
+                ),
                 finish_reason=finish or "stop",
                 logprobs={"content": logprob_entries} if logprob_entries else None,
             )
@@ -268,9 +417,9 @@ async def aggregate_completion(
 
 
 # -- multi-choice (n > 1) ----------------------------------------------------
-# Each choice is an independent engine stream with its own delta state,
-# re-indexed into one response: callers fan one request into n streams and
-# these helpers fold them back together.
+# Each choice is an independent engine stream with its own delta and parser
+# state, re-indexed into one response: callers fan one request into n
+# streams and these helpers fold them back together.
 
 
 def merge_usage(gens) -> Usage:
@@ -291,10 +440,22 @@ async def aggregate_chat_multi(
     request_id: str,
     model: str,
     streams,
+    reasoning_parser_factory=None,
+    tool_parser_factory=None,
+    tool_choice=None,
 ) -> ChatCompletionResponse:
-    """Aggregate n independent streams into one multi-choice response."""
+    """Aggregate n independent streams into one multi-choice response.
+
+    Parser *factories* (not instances): streaming parsers are stateful, so
+    every choice needs its own."""
     results = await asyncio.gather(*[
-        aggregate_chat(request_id, model, s, index=i)
+        aggregate_chat(
+            request_id, model, s,
+            reasoning_parser=reasoning_parser_factory() if reasoning_parser_factory else None,
+            tool_parser=tool_parser_factory() if tool_parser_factory else None,
+            tool_choice=tool_choice,
+            index=i,
+        )
         for i, s in enumerate(streams)
     ])
     base = results[0]

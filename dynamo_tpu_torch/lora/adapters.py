@@ -116,6 +116,13 @@ class LoraAdapterTable:
         slot = self.slot_of(name)
         return self._keys[slot] if slot else None
 
+    def key_map(self) -> Dict[str, str]:
+        """{name: cache_key hex} of every loaded adapter: what a KV router
+        needs to hash an adapter request as this table's engine does."""
+        with self._lock:
+            return {n: k.hex() for n, k in zip(self._names, self._keys)
+                    if isinstance(n, str) and k is not None}
+
     # -- lifecycle -----------------------------------------------------------
     def load(
         self,

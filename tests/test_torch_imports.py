@@ -223,3 +223,12 @@ def test_the_walk_covers_the_kv_router_and_the_event_plane():
         "dynamo_tpu_torch.runtime.event_plane.tcp_plane", "dynamo_tpu_torch.runtime.clock",
         "dynamo_tpu_torch.lora.routing",
     } <= set(_modules())
+
+
+def test_the_walk_covers_the_router_service_and_the_parsers():
+    assert {
+        "dynamo_tpu_torch.router", "dynamo_tpu_torch.router.service",
+        "dynamo_tpu_torch.router.__main__", "dynamo_tpu_torch.runtime.recorder",
+        "dynamo_tpu_torch.parsers", "dynamo_tpu_torch.parsers.jail",
+        "dynamo_tpu_torch.parsers.reasoning", "dynamo_tpu_torch.parsers.tool_calls",
+    } <= set(_modules())

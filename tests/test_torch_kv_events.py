@@ -19,13 +19,16 @@ on the CPU.
   each follow-up goes to the worker that served its document and finds
   its prefix cached, and the router's view of each worker equals that
   worker's prefix cache once idle.
-- The adapter salt: an adapter request after a base request on the same
-  prompt reuses nothing in the port (its blocks are salted with the
-  adapter); the router, which hashes the tokens without a salt as the
-  reference's does, predicts the base request's blocks (ROADMAP Queue 3).
+- The adapter salt: the port's engine salts an adapter request's blocks
+  with the adapter load's key and reports its keys with its load; the
+  router hashes an adapter request with each worker's key, so its
+  predicted cached tokens equal the worker's report for base, adapter and
+  reloaded-adapter requests, and a worker without the adapter scores no
+  overlap (ROADMAP Queue 3).
 """
 
 import asyncio
+from types import SimpleNamespace
 
 import pytest
 
@@ -34,7 +37,7 @@ from dynamo_tpu.tokens import compute_sequence_hashes as jhashes
 from dynamo_tpu_torch import kv_router as T
 from dynamo_tpu_torch.kv_router import KvIndexer, KvRouter, KvRouterConfig, WorkerWithDpRank
 from dynamo_tpu_torch.kv_router.protocols import RouterEvent
-from dynamo_tpu_torch.llm.discovery import ModelManager, ModelWatcher
+from dynamo_tpu_torch.llm.discovery import ModelManager, ModelPipeline, ModelWatcher
 from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
 from dynamo_tpu_torch.llm.protocols.common import (
     PreprocessedRequest,
@@ -284,42 +287,115 @@ def test_kv_pipeline_routes_followups_to_their_documents_worker(kv_events):
 
 
 # ------------------------------------------------------------ the adapter salt
-def test_router_overstates_an_adapter_requests_overlap():
-    """The KV router credits an adapter request with the blocks a base
-    request on the same prompt left: it hashes ``token_ids`` without the
-    adapter's salt (as the reference's router does), while the port's
-    engine salts an adapter request's blocks and reuses none of them. A
-    base request on the prompt then finds what the router predicts."""
+def test_router_predicts_an_adapter_requests_overlap():
+    """The port's engine salts an adapter request's blocks with the
+    adapter load's key and reports the key with its load; the router hashes
+    an adapter request with that key. So for a base request, an adapter
+    request (first cold, then warm), and the adapter reloaded with other
+    weights (cold again, then warm), the router's predicted cached tokens
+    equal what the worker then reports. Base requests are hashed without a
+    salt, as the reference hashes every request."""
     weights = Weights(LORA_MODEL)
     engine = weights.torch_engine(LORA_ENGINE)
     engine.lora.load("a", _adapter_weights(LORA_TCFG, seed=5, scale=2.0))
     prompt = tokens(2, 40, 128)
+    w = WorkerWithDpRank(7)
 
     async def main():
         plane = InProcEventPlane()
         router = await KvRouter(plane, "ns", "be", block_size=16).start()
         engine.kv_publisher = T.KvEventPublisher(plane, "ns", "be", worker_id=7,
                                                  block_size=16)
-        w = WorkerWithDpRank(7)
-        try:
-            await collect(engine, request(False, "base", prompt, 4, ignore_eos=True))
-            await wait_idle(engine)
+        engine.metrics_publisher = T.WorkerMetricsPublisher(plane, "ns", "be", worker_id=7)
+        steps = []
+
+        async def step(tag, ann):
+            await engine.publish_load()
             await asyncio.sleep(0.05)
-            predicted = router.schedule_tokens(prompt, [w]).overlap_blocks * 16
-            adapter = await collect(engine, request(False, "lora", prompt, 4,
-                                                    ann={"lora": "a"}, ignore_eos=True))
-            base = await collect(engine, request(False, "base-2", prompt, 4, ignore_eos=True))
-            return predicted, adapter["cached"], base["cached"]
+            d = router.schedule_tokens(prompt, [w], request_id=tag, lora=ann.get("lora"))
+            got = await collect(engine, request(False, tag, prompt, 4, ann=ann,
+                                                ignore_eos=True))
+            router.complete(tag)
+            await wait_idle(engine)
+            steps.append((tag, d.overlap_blocks * 16, got["cached"]))
+
+        try:
+            await step("base", {})
+            await step("base-2", {})
+            await step("lora", {"lora": "a"})
+            await step("lora-2", {"lora": "a"})
+            keys = engine.lora.key_map()
+            engine.lora.load("a", _adapter_weights(LORA_TCFG, seed=6, scale=2.0))
+            assert engine.lora.key_map() != keys
+            await step("reloaded", {"lora": "a"})
+            await step("reloaded-2", {"lora": "a"})
+            await step("base-3", {})
+            return steps
         finally:
             await router.stop()
             engine.stop()
 
-    predicted, adapter_cached, base_cached = asyncio.run(main())
-    assert predicted == 32            # the prompt's two full blocks
-    assert adapter_cached == 0        # salted: nothing reused
-    assert predicted > adapter_cached
-    assert base_cached == predicted
+    steps = asyncio.run(main())
+    assert [(tag, predicted) for tag, predicted, _ in steps] == [
+        ("base", 0), ("base-2", 32), ("lora", 0), ("lora-2", 32), ("reloaded", 0),
+        ("reloaded-2", 32), ("base-3", 32)]
+    for tag, predicted, reported in steps:
+        assert predicted == reported, (tag, predicted, reported)
     assert compute_sequence_hashes(prompt, 16) == jhashes(prompt, 16)
+
+
+async def test_a_worker_without_the_adapter_scores_no_overlap():
+    """Two workers hold the prompt's base blocks; only worker 1 reports the
+    adapter's key and holds 3 blocks of its salted chain. An adapter
+    request scores worker 1 on that chain and worker 2 on nothing; a base
+    request scores both on the base chain; an adapter that no worker
+    reports scores no one."""
+    plane = InProcEventPlane()
+    router = await KvRouter(plane, "ns", "be", block_size=4).start()
+    prompt = list(range(20))
+    key = b"lora\x00a\x00" + bytes(16)
+    try:
+        pubs = {}
+        for wid, adapters in ((1, {"a": key.hex()}), (2, None)):
+            pubs[wid] = T.KvEventPublisher(plane, "ns", "be", worker_id=wid, block_size=4)
+            await pubs[wid].stored(compute_sequence_hashes(prompt, 4))
+            await T.WorkerMetricsPublisher(plane, "ns", "be", worker_id=wid).publish(
+                adapters=adapters)
+        await pubs[1].stored(compute_sequence_hashes(prompt, 4, extra_key=key)[:3])
+        await asyncio.sleep(0.05)
+        ws = [WorkerWithDpRank(1), WorkerWithDpRank(2)]
+        d = router.schedule_tokens(prompt, ws, request_id="q1", lora="a")
+        assert (d.worker, d.overlap_blocks) == (ws[0], 3)
+        assert (d.logits[ws[0]], d.logits[ws[1]]) == (2, 5)   # blocks left to prefill
+        router.complete("q1")
+        base = router.schedule_tokens(prompt, ws)
+        assert base.overlap_blocks == 5 and set(base.logits.values()) == {0}
+        other = router.schedule_tokens(prompt, ws, lora="b")
+        assert other.overlap_blocks == 0
+    finally:
+        await router.stop()
+        await plane.close()
+
+
+def test_the_kv_frontend_passes_the_adapter_to_the_router():
+    """ModelPipeline routes a request with its ``lora`` annotation (None
+    without one)."""
+    seen = []
+
+    class Spy:
+        def schedule_tokens(self, token_ids, **kw):
+            seen.append(kw["lora"])
+            return SimpleNamespace(worker=WorkerWithDpRank(5), overlap_blocks=0)
+
+    pipe = ModelPipeline.__new__(ModelPipeline)
+    pipe.kv_router, pipe.card = Spy(), SimpleNamespace(kv_block_size=4, name=M)
+    pipe.client = SimpleNamespace(instances={5: SimpleNamespace(metadata={})})
+    pipe._prune_dead_workers = lambda: None
+    for ann in ({"lora": "ad"}, {}):
+        req = _preq("r", [1, 2, 3])
+        req.annotations.update(ann)
+        assert pipe._kv_route(req, []) == 5
+    assert seen == ["ad", None]
 
 
 # ------------------------------------------------- the order within one tick

@@ -432,12 +432,24 @@ def test_the_corpus_holds_both_outcomes():
     _chat(messages=[{"role": "user", "content": [
         {"type": "image_url", "image_url": {"url": "data:image/png;base64,AAAA"}}]}]),
     _chat(tool_choice="required", tools=[{"type": "function", "function": {"name": "f"}}]),
-    _chat(tool_choice={"type": "function", "function": {"name": "f"}}),
+    _chat(tool_choice={"type": "function", "function": {"name": "f"}},
+          tools=[{"type": "function", "function": {"name": "f", "parameters": {
+              "type": "object", "properties": {"x": {"type": "integer"}}}}}]),
 ])
 def test_port_refusals_name_the_roadmap(body):
+    """Image parts are the port's one refusal; a forced tool_choice
+    ("required", or a named function, whose soft grammar the folded
+    request carries) is served as the reference serves it."""
     req = topenai.ChatCompletionRequest.from_obj(body)
-    with pytest.raises(InvalidRequestError, match="ROADMAP item 4b"):
-        tpre.OpenAIPreprocessor(_card(tcard), ByteTokenizer()).preprocess_chat(req)
+    if body.get("tool_choice") is None:
+        with pytest.raises(InvalidRequestError, match="ROADMAP item 4b"):
+            tpre.OpenAIPreprocessor(_card(tcard), ByteTokenizer()).preprocess_chat(req)
+        return
+    port = _fold("chat", body, topenai, tpre, _card(tcard), ByteTokenizer())
+    assert port == _fold("chat", body, jopenai, jpre, _card(jcard), JByteTokenizer())
+    assert port[0] == "ok"
+    assert (port[1]["sampling"].get("guided") is not None) == isinstance(
+        body["tool_choice"], dict)
 
 
 def test_response_objects_dump_as_the_reference():
