@@ -48,7 +48,11 @@ Phases, in order; any failure raises and the exit code is not 0:
    random bf16 weights from a seed) serves staggered concurrent requests;
    every request must finish with its token count, and the decode,
    flash-extend and unified kernels and the fused mixed step must all have
-   run during it. Then the same engine with the int8 KV cache and a KVBM
+   run during it. Two greedy prompts of 4600 and 6100 tokens (three
+   prefill chunks each) at once, on a fresh engine with DTPU_ASYNC_PREP=1
+   and on one with 0, must stream the same tokens, the first taking
+   prebuilt chunks (engine/prep.py; prints prep_build_s and prep_wait_s).
+   Then the same engine with the int8 KV cache and a KVBM
    host tier serves three waves (first, churn, repeat): the repeats
    onboard their evicted prefixes from the host tier; the int8 attention
    kernels and the layer-batched gather and scatter must all have run,
@@ -291,6 +295,23 @@ Phases, in order; any failure raises and the exit code is not 0:
    embedding bit for bit. Prints TTFT, ITL and tok/s on the client clock
    for both, each run and the probe, and the frontend's TTFT and ITL
    histograms scraped after the traffic.
+   Health and observability on the same run: the worker runs with
+   ``--system-port 0`` (its status server), both processes with
+   ``DTPU_TRACE_JSONL`` (one file each) and a ``DTPU_SLA_CLASSES`` class
+   that the probe's requests name. The worker's /live answers 200 and
+   /health 200 with the canary's endpoint healthy and its RTT;
+   /debug/requests?id= one served request gives its timeline in order
+   (queued, admitted, first_token, finish) and an unknown id 404; its
+   /debug/slo and the frontend's count the class's requests, as many as
+   were sent; /debug/worker holds its telemetry, SLO, attribution and
+   health sections; the frontend's /debug/fleet merges the one worker
+   with no error; the step counts by phase in the worker's /metrics equal
+   its exit line's (decode: eager steps and consumed horizons); and that
+   request's spans in the two files (http.generate, router.schedule,
+   worker.generate and engine.queue / prefill / decode) share one trace,
+   each parented as the reference parents them. Prints the drift
+   detector's measured / predicted step ratio (median by phase) and any
+   health event.
 14. kv_router: KV-aware routing across processes. The netstore, two
    llama3-8b workers (32 layers, random bf16 weights from seed 0, 512 KV
    blocks each, ``--event-plane zmq``: the port's own broker), a
@@ -2148,6 +2169,84 @@ async def serve(torch, profile: bool = False):
         "steps": dict(engine.step_counts), **horizon_report(engine),
         "launches": launches,
     }
+
+
+# async chunk prep (engine/prep.py): two greedy prompts of several prefill
+# chunks each, sent at once, on an engine with DTPU_ASYNC_PREP on and on one
+# with it off
+PREP_PROMPTS = (4600, 6100)
+PREP_TOKENS = 16
+
+
+async def serve_prep(torch, prep: bool) -> dict:
+    """PREP_PROMPTS on a fresh llama3-8b engine (32 layers, the serve
+    phase's weights) with async chunk prep on or off: the token streams and
+    the prebuilds' StepStats (hits, build and wait seconds)."""
+    from dynamo_tpu_torch.engine.engine import TorchEngine, TorchEngineConfig
+    from dynamo_tpu_torch.llm.protocols.common import (
+        PreprocessedRequest, SamplingOptions, StopConditions,
+    )
+    from dynamo_tpu_torch.models.llama import LlamaConfig
+    from dynamo_tpu_torch.runtime import Context
+
+    os.environ["DTPU_ASYNC_PREP"] = "1" if prep else "0"
+    try:
+        engine = TorchEngine(TorchEngineConfig(
+            model=LlamaConfig.llama3_8b(), num_blocks=2048, block_size=BS,
+            max_batch_size=8, max_context=8192, seed=0))
+    finally:
+        del os.environ["DTPU_ASYNC_PREP"]
+    if (engine._prep is not None) != prep:
+        raise AssertionError(f"DTPU_ASYNC_PREP={int(prep)} gave prep {engine._prep}")
+    steps = []
+    engine.stats_hook = steps.append
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(0, 128000, size=n).tolist() for n in PREP_PROMPTS]
+
+    async def one(i, prompt):
+        req = PreprocessedRequest(request_id=f"prep{i}", model="llama3-8b", token_ids=prompt,
+                                  sampling=SamplingOptions(temperature=0.0),
+                                  stop=StopConditions(max_tokens=PREP_TOKENS))
+        toks = []
+        async for out in engine.generate(req, Context()):
+            toks.extend(out.token_ids)
+        return toks
+
+    try:
+        streams = await asyncio.gather(*(one(i, p) for i, p in enumerate(prompts)))
+    finally:
+        engine.stop()
+        torch.cuda.synchronize()
+    chunked = [st for st in steps if st.phase in ("prefill", "mixed")]
+    hits = [st for st in chunked if st.prep_hit]
+    return {"streams": streams, "chunk_steps": len(chunked), "hits": len(hits),
+            "misses": sum(1 for st in chunked if st.prep_hit is False),
+            "build_s": [st.prep_build_s for st in hits],
+            "wait_s": [st.prep_wait_s for st in hits]}
+
+
+def prep_check(torch, smi: str) -> dict:
+    """The serve phase's async-prep check: equal streams, prep hits > 0."""
+    on = asyncio.run(serve_prep(torch, True))
+    gc.collect()
+    torch.cuda.empty_cache()
+    off = asyncio.run(serve_prep(torch, False))
+    gc.collect()
+    torch.cuda.empty_cache()
+    if on["streams"] != off["streams"]:
+        raise AssertionError(f"async prep changed the token streams: {on['streams']} "
+                             f"vs {off['streams']}")
+    if any(len(t) != PREP_TOKENS for t in on["streams"]):
+        raise AssertionError(f"prep streams of {[len(t) for t in on['streams']]} tokens")
+    if on["hits"] <= 0 or off["hits"]:
+        raise AssertionError(f"prep hits on {on['hits']}, off {off['hits']}")
+    log(f"async chunk prep on {smi}: prompts {PREP_PROMPTS} (chunks of 2048) at once, "
+        f"{PREP_TOKENS} greedy tokens each, streams equal with DTPU_ASYNC_PREP 1 and 0; "
+        f"{on['hits']} of {on['chunk_steps']} chunk steps took a prebuild ({on['misses']} "
+        f"misses); prep_build_s {sum(on['build_s']):.6f} in all (max "
+        f"{max(on['build_s']):.6f}), prep_wait_s {sum(on['wait_s']):.6f} in all (max "
+        f"{max(on['wait_s']):.6f})")
+    return {k: v for k, v in on.items() if k != "streams"}
 
 
 # int8 + KVBM serving: a device pool small enough that the churn wave evicts
@@ -5716,7 +5815,7 @@ def image_prompt_logits(torch, engine, req, unscaled: bool = False):
     pos = torch.arange(S, device="cuda")
     with torch.inference_mode():
         ids, embeds = engine._chunk_inputs(SimpleNamespace(mm_embeds=mm, mm_mask=mask),
-                                           tokens, 0, S)
+                                           torch.as_tensor(tokens, device="cuda"), 0, S)
         if unscaled:
             norm = gemma._rounded(cfg.hidden_size ** 0.5, embeds.dtype)
             mask_t = torch.as_tensor(mask, device="cuda")[:, None]
@@ -5883,19 +5982,29 @@ FE_THINK = r"<think>[a-z ]{4,24}</think>[A-Za-z ]{4,24}"
 FE_STEADY = 8           # the decode probe: requests sent at once,
 FE_STEADY_PROMPT = 64   # prompt tokens each,
 FE_STEADY_TOKENS = 256  # greedy tokens each
+# the decode probe's SLA class, on both processes (its targets are loose:
+# the class's ledger is checked, not its attainment)
+FE_SLA_CLASS = "probe"
+FE_SLA_CLASSES = f"{FE_SLA_CLASS}:ttft=30,itl=1"
+# the request spans of one traced request: name -> the name of its parent
+FE_SPAN_PARENTS = {"http.generate": None, "router.schedule": "http.generate",
+                   "worker.generate": "router.schedule", "engine.queue": "router.schedule",
+                   "engine.prefill": "router.schedule", "engine.decode": "router.schedule"}
+FE_TIMELINE = ("queued", "admitted", "first_token", "finish")
 
 
 class Proc:
     """A child process whose merged output a thread collects line by line."""
 
-    def __init__(self, name: str, *args: str):
+    def __init__(self, name: str, *args: str, env=None):
         import threading
 
         self.name = name
         self.lines: list = []
         self.proc = subprocess.Popen([sys.executable, "-m", *args], cwd=HERE,
                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                     text=True, env={**os.environ, "PYTHONPATH": HERE})
+                                     text=True,
+                                     env={**os.environ, "PYTHONPATH": HERE, **(env or {})})
         self._cond = threading.Condition()
         self._thread = threading.Thread(target=self._pump, daemon=True)
         self._thread.start()
@@ -6103,15 +6212,17 @@ def fe_summary(stats: list, wall: float) -> dict:
             "itl_s_median": statistics.median(itl), "itl_s_max": itl[-1]}
 
 
-def fe_steady_bodies() -> list:
+def fe_steady_bodies(sla=None) -> list:
     """The decode probe: FE_STEADY requests of FE_STEADY_PROMPT tokens sent
     at once, FE_STEADY_TOKENS greedy tokens each, so that after one prefill
     the batch only decodes: its ITL is the horizon's time a token plus what
-    the path adds to each output, with no prefill chunk in the gaps."""
+    the path adds to each output, with no prefill chunk in the gaps.
+    ``sla`` names the requests' SLA class (phase 13's)."""
     return [("/v1/completions", dict(
         model=FE_MODEL, prompt=fe_prompt(FE_STEADY_PROMPT, 600 + i),
         max_tokens=FE_STEADY_TOKENS, temperature=0.0, ignore_eos=True, stream=True,
-        stream_options={"include_usage": True})) for i in range(FE_STEADY)]
+        stream_options={"include_usage": True}, **({"sla": sla} if sla else {})))
+        for i in range(FE_STEADY)]
 
 
 def check_fe_stats(tag: str, stats: list, tokens: int) -> None:
@@ -6220,9 +6331,16 @@ async def fe_through_frontend(port: int) -> dict:
     # the frontend's own histograms over exactly the traffic's requests
     _, text = await http_text(port, "/metrics")
     out["metrics"] = scrape_histograms(text)
-    stats, wall = await fe_traffic(port, fe_steady_bodies(), gap=0.0)
+    stats, wall = await fe_traffic(port, fe_steady_bodies(FE_SLA_CLASS), gap=0.0)
     check_fe_stats("frontend decode probe", stats, FE_STEADY_TOKENS)
     out["steady"] = fe_summary(stats, wall)
+    # one request whose timeline and spans the observability checks read
+    status, body = await http_call(port, "POST", "/v1/completions", dict(
+        model=FE_MODEL, prompt=fe_prompt(700, 700), max_tokens=FE_TOKENS, temperature=0.0,
+        ignore_eos=True))
+    if status != 200:
+        raise AssertionError(f"the traced request: HTTP {status}: {body}")
+    out["traced_id"] = body["id"]
     # greedy prompts one at a time, with logprobs for the tie rule
     out["greedy"] = []
     for j, n in enumerate(FE_GREEDY):
@@ -6305,6 +6423,102 @@ async def http_text(port: int, path: str) -> tuple:
     writer.close()
     head, _, body = raw.partition(b"\r\n\r\n")
     return int(head.split(b" ")[1]), body.decode()
+
+
+async def fe_observability(port: int, status_port: int, traced_id: str) -> dict:
+    """The worker's status server and the frontend's debug routes, once
+    the traffic is done and the engine idle: the phase's gates on them
+    (module docstring); returns the step counts by phase in the worker's
+    /metrics, the drift ratios and the health events."""
+    obs = {}
+    for _ in range(200):
+        status, doc = await http_call(status_port, "GET", "/debug/worker")
+        if status == 200 and doc["engine"]["running"] == 0 and doc["engine"]["waiting"] == 0:
+            break
+        await asyncio.sleep(0.05)
+    else:
+        raise AssertionError(f"the engine never went idle: {doc.get('engine')}")
+    missing = [k for k in ("telemetry", "slo", "attribution", "health") if k not in doc]
+    if missing:
+        raise AssertionError(f"/debug/worker lacks {missing}: {sorted(doc)}")
+    obs["drift"], obs["health_events"] = doc.get("drift", {}), doc["health"]["recent"]
+    status, live = await http_call(status_port, "GET", "/live")
+    if status != 200 or live.get("status") != "live":
+        raise AssertionError(f"/live: HTTP {status}: {live}")
+    status, health = await http_call(status_port, "GET", "/health")
+    canary = health["subsystems"].get("backend/generate", {}) if health else {}
+    if (status != 200 or health["status"] != "healthy" or not canary.get("healthy")
+            or not canary.get("detail", "").startswith("rtt=")):
+        raise AssertionError(f"/health: HTTP {status}: {health}")
+    obs["canary"] = canary["detail"]
+    status, flight = await http_call(status_port, "GET", f"/debug/requests?id={traced_id}")
+    kinds = [e["event"]["kind"] for e in flight.get("events", [])] if flight else []
+    if status != 200 or [k for k in kinds if k in FE_TIMELINE] != list(FE_TIMELINE):
+        raise AssertionError(f"/debug/requests?id={traced_id}: HTTP {status}: {kinds}")
+    status, _ = await http_call(status_port, "GET", "/debug/requests?id=never-served")
+    if status != 404:
+        raise AssertionError(f"/debug/requests of an unknown id: HTTP {status}, not 404")
+    for name, p in (("worker", status_port), ("frontend", port)):
+        status, slo = await http_call(p, "GET", "/debug/slo")
+        got = (slo or {}).get("models", {}).get(FE_MODEL, {}).get(FE_SLA_CLASS, {})
+        n = got.get("windows", {}).get("total", {}).get("requests")
+        if status != 200 or n != FE_STEADY:
+            raise AssertionError(f"the {name}'s /debug/slo counts {n} {FE_SLA_CLASS!r} "
+                                 f"requests, {FE_STEADY} were sent: {slo}")
+    status, fleet = await http_call(port, "GET", "/debug/fleet")
+    workers = fleet.get("workers", []) if fleet else []
+    if (status != 200 or len(workers) != 1 or workers[0]["stale"]
+            or "error" in workers[0] or fleet["fleet"]["workers_live"] != 1):
+        raise AssertionError(f"/debug/fleet: HTTP {status}: {str(fleet)[:600]}")
+    _, text = await http_text(status_port, "/metrics")
+    steps = {}
+    for ln in text.splitlines():
+        m = re.match(r'dtpu_engine_step_duration_seconds_count\{.*phase="(\w+)".*\} (\S+)',
+                     ln)
+        if m:
+            steps[m.group(1)] = int(float(m.group(2)))
+    obs["metric_steps"] = steps
+    return obs
+
+
+def check_metric_steps(metric: dict, steps: dict) -> None:
+    """The step histogram's counts by phase against the engine's step
+    counts: a consumed horizon (normal or spec) and an eager step are
+    each one ``decode`` step of the telemetry."""
+    want = {"prefill": steps["prefill"], "mixed": steps["mixed"],
+            "decode": steps["decode"] + steps["horizon"] + steps["spec"]}
+    got = {k: metric.get(k, 0) for k in want}
+    if got != want or set(metric) - set(want):
+        raise AssertionError(f"/metrics step counts {metric} != the engine's {want}")
+
+
+def check_trace(paths: dict, request_id: str) -> dict:
+    """One request's spans in the frontend's and the worker's JSONL files:
+    every span of FE_SPAN_PARENTS once, one trace id, each parented on its
+    parent's span id. Returns {name: duration ms}."""
+    spans = {}
+    for proc, path in paths.items():
+        with open(path) as f:
+            for line in f:
+                sp = json.loads(line)
+                attrs = {a["key"]: next(iter(a["value"].values())) for a in sp["attributes"]}
+                if attrs.get("request_id") == request_id:
+                    if sp["name"] in spans:
+                        raise AssertionError(f"span {sp['name']} twice for {request_id}")
+                    spans[sp["name"]] = sp
+    if set(spans) != set(FE_SPAN_PARENTS):
+        raise AssertionError(f"spans of {request_id}: {sorted(spans)}, want "
+                             f"{sorted(FE_SPAN_PARENTS)}")
+    traces = {sp["traceId"] for sp in spans.values()}
+    if len(traces) != 1:
+        raise AssertionError(f"{request_id}'s spans are in {len(traces)} traces")
+    for name, parent in FE_SPAN_PARENTS.items():
+        want = spans[parent]["spanId"] if parent else None
+        if spans[name].get("parentSpanId") != want:
+            raise AssertionError(f"{name}'s parent is {spans[name].get('parentSpanId')}, "
+                                 f"not {parent} ({want})")
+    return {name: (int(sp["endTimeUnixNano"]) - int(sp["startTimeUnixNano"])) / 1e6
+            for name, sp in spans.items()}
 
 
 async def fe_in_process(engine, emb_text: str) -> dict:
@@ -6435,6 +6649,9 @@ def frontend_phase(torch, smi: str, serving) -> dict:
     torch.cuda.empty_cache()
     out = {}
     procs = []
+    traces_dir = tempfile.TemporaryDirectory()
+    traces = {name: os.path.join(traces_dir.name, f"{name}.jsonl")
+              for name in ("frontend", "worker")}
     try:
         t0 = time.perf_counter()
         store = Proc("netstore", "dynamo_tpu_torch.runtime.discovery.netstore",
@@ -6442,13 +6659,19 @@ def frontend_phase(torch, smi: str, serving) -> dict:
         procs.append(store)
         addr = store.wait_line("KVSTORE_READY", 30).split()[1]
         common = ("--store", "tcp", "--store-path", addr)
-        worker = Proc("worker", "dynamo_tpu_torch.engine", *common, *FE_WORKER)
+        worker = Proc("worker", "dynamo_tpu_torch.engine", *common, *FE_WORKER,
+                      "--system-port", "0",
+                      env={"DTPU_TRACE_JSONL": traces["worker"],
+                           "DTPU_SLA_CLASSES": FE_SLA_CLASSES})
         procs.append(worker)
         front = Proc("frontend", "dynamo_tpu_torch.frontend", *common, "--host",
-                     "127.0.0.1", "--port", "0")
+                     "127.0.0.1", "--port", "0",
+                     env={"DTPU_TRACE_JSONL": traces["frontend"],
+                          "DTPU_SLA_CLASSES": FE_SLA_CLASSES})
         procs.append(front)
         port = int(front.wait_line("TORCH_FRONTEND_READY", 60).rsplit(":", 1)[1])
         worker.wait_line("TORCH_ENGINE_READY")
+        status_port = int(worker.wait_line("TORCH_STATUS_ADDRESS", 10).rsplit(":", 1)[1])
         out["ready_s"] = time.perf_counter() - t0
         schedule = next((ln for ln in worker.lines if "decode schedule" in ln), "")
         steps = re.search(r"steps=(\d+) pipeline=(\d+)", schedule)
@@ -6467,7 +6690,9 @@ def frontend_phase(torch, smi: str, serving) -> dict:
 
         async def through():
             await models()
-            return await fe_through_frontend(port)
+            fe = await fe_through_frontend(port)
+            fe["observability"] = await fe_observability(port, status_port, fe["traced_id"])
+            return fe
 
         t0 = time.perf_counter()
         fe = asyncio.run(through())
@@ -6482,6 +6707,9 @@ def frontend_phase(torch, smi: str, serving) -> dict:
             if p.stop() != 0:
                 raise AssertionError(f"the {p.name} exited {p.proc.returncode}")
         out["worker_exit"] = report
+        check_metric_steps(fe["observability"]["metric_steps"], report["steps"])
+        # both processes flushed their spans at exit
+        out["trace_ms"] = check_trace(traces, fe["traced_id"])
         # the control, built only now: one 16 GB model on the card at a time
         t0 = time.perf_counter()
         with tempfile.TemporaryDirectory() as tmp:
@@ -6502,6 +6730,8 @@ def frontend_phase(torch, smi: str, serving) -> dict:
     finally:
         for p in procs:
             p.stop()
+        traces_dir.cleanup()
+    out["observability"] = fe["observability"]
     out["frontend"], out["in_process"] = fe["traffic"], inproc["traffic"]
     out["steady"] = {"frontend": fe["steady"], "in_process": inproc["steady"]}
     out["metrics"] = fe["metrics"]
@@ -6548,6 +6778,17 @@ def frontend_phase(torch, smi: str, serving) -> dict:
         f"hermes call gave get_weather({pr['hermes_call']}); a <think> answer gave "
         f"reasoning {pr['think']['reasoning']!r} and content {pr['think']['content']!r}; "
         f"{pr['seconds']:.1f} s for the five requests")
+    ob = out["observability"]
+    log(f"frontend observability on {smi}: status server, canary {ob['canary']}, the "
+        f"request timeline, /debug/slo ({FE_STEADY} {FE_SLA_CLASS!r} requests on both "
+        f"sides), /debug/worker, /debug/fleet and the step counts by phase "
+        f"{ob['metric_steps']} (= the exit line's) checked; one request's spans "
+        + ", ".join(f"{k} {v:.1f} ms" for k, v in out["trace_ms"].items())
+        + "; drift measured / predicted, median by phase: "
+        + (", ".join(f"{k} {v['median_ratio']:.3f} over {v['steps']} steps"
+                     for k, v in ob["drift"].items()) or "none")
+        + f"; health events: {ob['health_events'] or 'none'}; the probe (traced) ITL "
+        f"median {out['steady']['frontend']['itl_s_median'] * 1e3:.2f} ms")
     log(f"frontend: greedy streams equal to the in-process engine's {out['greedy_equal']} of "
         f"{len(FE_GREEDY)} (the rest within the tie rule: {out['greedy_tie_gaps']}); "
         f"embedding relative L2 {out['embedding_rel_l2']:.3g}; worker kernels "
@@ -7085,6 +7326,7 @@ def main() -> int:
             f"{serving['itl_s_median'] * 1e3:.1f} ms")
         gc.collect()
         torch.cuda.empty_cache()
+        prep_check(torch, smi)
         # the same traffic again on a fresh engine under torch.profiler
         # (CUDA activity only): where the device time goes, and how much
         # of the wall the device is busy at all

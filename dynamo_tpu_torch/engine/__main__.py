@@ -16,8 +16,8 @@ It serves on the GPU unless ``--device cpu`` is given, and raises without
 one. Model selection: ``--model-path`` (an HF checkpoint directory or hub
 reference, as run.py's ``out=``) or ``--preset`` (random weights from
 ``--seed``). The engine flags are the reference worker's, with its
-defaults; flags of later slices (parallelism, disaggregation, the status
-server) are not defined, and argparse refuses them. ``--tool-parser`` and
+defaults; flags of later slices (parallelism, disaggregation, drain and
+restore) are not defined, and argparse refuses them. ``--tool-parser`` and
 ``--reasoning-parser`` name the card's parsers (parsers/; gpt-oss presets
 default to ``harmony`` / ``gpt_oss``); an unknown name fails at start.
 
@@ -27,6 +27,22 @@ standalone router (``python -m dynamo_tpu_torch.router``): with
 ``--event-plane zmq`` (the port's own broker) across processes. A LoRA
 worker's load reports carry its adapter keys, republished at once after
 each adapter load or unload.
+
+Health and status, as the reference worker wires them: step telemetry
+(engine/telemetry.py) on the runtime's metrics, the ``cost_model_drift``
+detector fed each step's measured time against ops/costs.py's floor (the
+card's memory rate, the model's weight bytes, the engine's measured
+dispatch round trip; N passes for a horizon of N steps), the SLO ledger
+and the attribution aggregates fed by the engine, an engine watchdog that
+deregisters the model when the loop crashes, a canary that pings the
+generate endpoint over the request plane, and with ``--system-port P``
+(0: any free port; ``DTPU_SYSTEM_PORT``) a status server
+(runtime/health.py: /health, /live, /metrics, /metadata, /v1/loras,
+/debug/requests, /debug/slo, /debug/worker, POST /drain) whose address
+the worker prints as ``TORCH_STATUS_ADDRESS host:port`` and advertises as
+``status_address`` in its discovery metadata, for the frontend's
+``/debug/fleet``. Health events go out on the event plane as
+``dtpu.health.<detector>``.
 
 Prints ``TORCH_ENGINE_READY <model> device=<device>`` once it serves. On
 SIGTERM or SIGINT it deletes its instance and card keys at once, drains the
@@ -45,8 +61,10 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import collections
 import json
 import signal
+import statistics
 from typing import List, Optional
 
 from ..kv_router import KvEventPublisher, WorkerMetricsPublisher
@@ -63,6 +81,7 @@ from ..models.registry import PRESETS, is_gptoss
 from ..parsers import get_reasoning_parser, get_tool_parser
 from ..runtime.component import new_instance_id
 from ..runtime.config import (
+    ENV_SYSTEM_PORT,
     ENV_KVBM_DISK_CACHE_GB,
     ENV_KVBM_DISK_PATH,
     ENV_KVBM_HOST_CACHE_GB,
@@ -74,10 +93,24 @@ from ..runtime.config import (
     env_str,
 )
 from ..runtime.distributed import DistributedRuntime
-from ..runtime.logging import init_logging
+from ..ops.costs import predict_step_seconds
+from ..runtime.attribution import get_attribution
+from ..runtime.health import EndpointCanary, HealthState, StatusServer, get_health_monitor
+from ..runtime.logging import get_logger, init_logging
+from ..runtime.slo import debug_slo_payload, get_slo_accountant
+from ..runtime.tasks import spawn_bg
+from ..runtime.tracing import get_tracer
+from .monitor import EngineWatchdog
+from .telemetry import EngineTelemetry
 
 READY = "TORCH_ENGINE_READY"
 EXIT = "TORCH_ENGINE_EXIT"
+STATUS = "TORCH_STATUS_ADDRESS"
+# the drift predictor's memory rate: the H100's HBM3, as PERF.md's bounds
+HBM_BYTES_S = 3.35e12
+
+
+log = get_logger("engine.worker")
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -107,6 +140,10 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--store", default=None, help="mem|file|tcp (default: DTPU_STORE)")
     p.add_argument("--store-path", default=None)
     p.add_argument("--event-plane", default=None, help="zmq|inproc (default: DTPU_EVENT_PLANE)")
+    p.add_argument("--system-port", "--status-port", type=int,
+                   default=env_int(ENV_SYSTEM_PORT, -1),
+                   help="status server port (/health /live /metrics /metadata /debug/*); "
+                        "0 = any free port, -1 = none (default: DTPU_SYSTEM_PORT)")
     p.add_argument("--graceful-timeout", type=float, default=10.0,
                    help="seconds to wait for in-flight requests on shutdown")
     p.add_argument("--device", default=None, help="default: cuda; 'cpu' for the CPU")
@@ -285,6 +322,87 @@ def kernel_launches() -> dict:
     return out
 
 
+def step_predictor(engine, args):
+    """StepStats -> the roofline floor of the step's forward passes
+    (ops/costs.py): every active row at the occupancy-mean context, its
+    pages and one stream of the model's weights over the card's memory
+    rate, plus the engine's measured dispatch round trip, times the passes
+    (a horizon of N decode steps is N)."""
+    from .engine import param_bytes
+
+    m = engine.mcfg
+    weights = param_bytes(engine.params)
+    dispatch_s = float(engine.schedule.get("rtt_s", 0.0))
+    kv_heads = getattr(m, "num_kv_heads", 1)
+    head_dim = getattr(m, "head_dim", 0) or getattr(m, "kv_lora_rank", 0)
+    item = 1 if engine.kv_quantized else 2
+
+    def predict(s) -> float:
+        occ = max(s.batch_occupancy, 1)
+        mean_len = max(s.kv_active_blocks * args.block_size // occ, 1)
+        q = max(s.tokens // occ, 1) if s.phase != "decode" else 1
+        one = predict_step_seconds(
+            [(q, mean_len)] * occ, block_size=args.block_size, kv_heads=kv_heads,
+            num_heads=m.num_heads, head_dim=head_dim, layers=m.num_layers,
+            hbm_bytes_s=HBM_BYTES_S, dispatch_s=dispatch_s, weight_bytes=weights,
+            kv_itemsize=item, quantized=engine.kv_quantized)
+        return one * max(s.passes, 1)
+
+    return predict
+
+
+async def serve_status(args, runtime, engine, served, instance_id, telemetry, monitor,
+                       health, canary, drift):
+    """The status server and its ``/debug/worker`` document; advertises its
+    address in the discovery metadata. Returns the server. ``drift``:
+    {phase: recent measured / predicted step ratios}."""
+    gauges = {name: runtime.metrics.gauge(f"dtpu_engine_{name}", doc) for name, doc in (
+        ("running_seqs", "active sequences"), ("waiting_seqs", "queued sequences"),
+        ("free_blocks", "free KV blocks"), ("cached_blocks", "prefix-cached KV blocks"))}
+
+    def refresh_gauges() -> None:
+        snap = engine.snapshot()
+        gauges["running_seqs"].set(snap["running"])
+        gauges["waiting_seqs"].set(snap["waiting"])
+        gauges["free_blocks"].set(snap["free_blocks"])
+        gauges["cached_blocks"].set(snap["cached_blocks"])
+        # the rolling attainment / burn gauges follow the scrape clock
+        get_slo_accountant().export_metrics()
+
+    def worker_snapshot() -> dict:
+        """What the frontend's /debug/fleet merges from this worker: host
+        counters only (the drain, restore, KV directory and bandwidth
+        sections come with ROADMAP Queue 1 items 5-6)."""
+        snap = engine.snapshot()
+        return {
+            "instance_id": f"{instance_id:016x}", "model": args.model, "tp": 1, "dp": 1,
+            "engine": snap, "telemetry": [telemetry.snapshot()],
+            "slo": debug_slo_payload(get_slo_accountant()),
+            "attribution": get_attribution().snapshot(),
+            "health": monitor.snapshot(),
+            "drift": {phase: {"steps": len(r), "median_ratio": statistics.median(r)}
+                      for phase, r in sorted(drift.items()) if r},
+            "kv": {"active_blocks": snap["active_blocks"], "free_blocks": snap["free_blocks"],
+                   "total_blocks": engine.cfg.num_blocks,
+                   "cached_blocks": snap["cached_blocks"]},
+        }
+
+    server = StatusServer(
+        health, metrics_scope=runtime.metrics, pre_expose=refresh_gauges,
+        metadata_fn=lambda: {"model": args.model, "instance_id": f"{instance_id:016x}",
+                             "tp": 1, "engine": engine.snapshot(),
+                             "canary_rtt_s": canary.last_rtt},
+        port=args.system_port,
+        loras_fn=(engine.lora.list_adapters if engine.lora is not None else None),
+        worker_snapshot_fn=worker_snapshot,
+    )
+    await server.start()
+    address = f"{runtime.config.host_ip}:{server.port}"
+    await served.update_metadata({"status_address": address})
+    print(f"{STATUS} {address}", flush=True)
+    return server
+
+
 async def main(argv: Optional[List[str]] = None) -> None:
     args = parse_args(argv)
     init_logging()
@@ -322,24 +440,81 @@ async def main(argv: Optional[List[str]] = None) -> None:
             total_kv_blocks=engine.cfg.num_blocks, kv_block_size=args.block_size,
             max_batch_size=args.max_batch_size, max_context_len=args.max_context),
     )
+    # step telemetry on the runtime's metrics, under the component's labels,
+    # and the drift detector fed from the same hook
+    scope = runtime.metrics.child(dtpu_namespace=args.namespace,
+                                  dtpu_component=args.component,
+                                  dtpu_endpoint=args.endpoint)
+    telemetry = EngineTelemetry(scope.child(dp_rank="0"))
+    monitor = get_health_monitor()
+    monitor.bind_metrics(scope)
+    predict = step_predictor(engine, args)
+    subject = f"worker/{instance_id:016x}/dp0"
+    # the last measured / predicted ratios by phase, for /debug/worker
+    drift: dict = {}
+
+    def on_step(s) -> None:
+        telemetry.on_step(s)
+        try:
+            predicted = predict(s)
+            drift.setdefault(s.phase, collections.deque(maxlen=256)).append(
+                s.duration_s / predicted)
+            monitor.observe_step(subject, s.duration_s, predicted, phase=s.phase)
+        except Exception:
+            log.exception("drift detector failed")  # never takes the loop down
+
+    engine.stats_hook = on_step
+    # the engine feeds the process's SLO ledger; its goodput and
+    # attainment / burn gauges go on this worker's /metrics
+    get_slo_accountant().bind_metrics(scope)
     served = await register_llm(runtime, engine, card, instance_id=instance_id)
     lora_served = []
     if engine.lora is not None:
         lora_served = await serve_lora_endpoints(runtime, args.namespace, args.component,
                                                  [engine])
     stop = asyncio.Event()
+    health = HealthState()
+    async def on_down() -> None:
+        stop.set()   # the watchdog deregistered: exit, so a supervisor restarts
+
+    watchdog = EngineWatchdog(engine, [served], state=health, on_down=on_down).start()
+    canary = EndpointCanary({f"{card.component}/{card.endpoint}": served.address},
+                            state=health).start()
+    status_server = None
+    if args.system_port >= 0:
+        status_server = await serve_status(args, runtime, engine, served, instance_id,
+                                           telemetry, monitor, health, canary, drift)
     loop = asyncio.get_running_loop()
+
+    def publish_health(ev) -> None:
+        # health events on the event plane, for subscribers that do not
+        # scrape; a detector may fire off the loop thread
+        coro = runtime.event_plane.publish(f"dtpu.health.{ev.detector}",
+                                           json.dumps(ev.to_dict()).encode())
+        try:
+            loop.call_soon_threadsafe(spawn_bg, coro)
+        except RuntimeError:
+            coro.close()  # the loop closed during shutdown
+
+    health_sub = monitor.subscribe(publish_health)
     for sig in (signal.SIGINT, signal.SIGTERM):
         loop.add_signal_handler(sig, stop.set)
     print(f"{READY} {args.model} device={engine.device}", flush=True)
     await stop.wait()
     # graceful drain: deregister first (discovery stops routing here), then
     # the request server waits out in-flight streams before closing
-    await served.stop(graceful_timeout_s=args.graceful_timeout)
+    await watchdog.stop()
+    await canary.stop()
+    health_sub.close()
+    if status_server is not None:
+        await status_server.stop()
+    if not watchdog.fired:
+        await served.stop(graceful_timeout_s=args.graceful_timeout)
     for s in lora_served:
         await s.stop()
     engine.stop()
     await runtime.shutdown()
+    get_tracer().shutdown()
     report = {"launches": kernel_launches(), "steps": dict(engine.step_counts),
               "busy_slots": sum(s is not None for s in engine._slots),
               "active_blocks": engine.allocator.active_blocks,

@@ -110,12 +110,25 @@ a fetch thread.
 Not in this slice (ROADMAP.md): LoRA on families other than dense llama,
 gpt-oss and MLA drafts, vision on Qwen3-MoE or with a spec draft, on the
 card a llama or Qwen3-MoE model at a head_dim outside {64, 128} or a group
-size above 8, the G4 remote KVBM tier, disaggregated transfer, parallelism, and the
-step-telemetry / tracing / SLO hooks (ROADMAP item 4b). A request that asks for one of those is
+size above 8, the G4 remote KVBM tier, disaggregated transfer and parallelism. A request that asks for one of those is
 refused with ``UnsupportedRequestError`` (a 400 at the frontend); an engine configuration that
 does, with ``ValueError``. The engine serves behind the port's serving plane as the reference's
 does (``python -m dynamo_tpu_torch.engine``: the Backend operator, the TCP request plane and
 discovery; ``python -m dynamo_tpu_torch.frontend``: the OpenAI frontend).
+
+Health and observability hooks, all host-side bookkeeping on the loop
+thread (never inside a graph capture, never a device sync): ``healthy``
+and ``on_crash`` (the crash handler flips and calls them: the worker's
+watchdog deregisters the model), ``stats_hook`` (a ``StepStats`` after
+every prefill chunk, mixed step, consumed horizon and eager decode step;
+engine/telemetry.py), each request's milestones (queued, admitted, prefill
+start, first token) on the flight recorder and, at its end, the
+``engine.queue`` / ``engine.prefill`` / ``engine.decode`` spans parented on
+its ``traceparent`` annotation, the SLO ledger for a request with an
+``sla`` annotation, and the attribution aggregates (runtime/). With
+``DTPU_ASYNC_PREP`` (default on) the next prefill chunk's arrays are
+packed and copied to the device on a prep thread while the current chunk
+runs (engine/prep.py).
 """
 
 from __future__ import annotations
@@ -160,11 +173,18 @@ from ..ops import attention as att
 from ..ops import block_copy as bc
 from ..ops import cuda_attention, cuda_mla, cuda_prefill, cuda_unified
 from ..ops.quant import QuantizedKV, resolve_kv_dtype
+from ..runtime.attribution import get_attribution
 from ..runtime.engine import Context
 from ..runtime.errors import ContextLengthError, GuidedRejectedError, InvalidRequestError
+from ..runtime.flight_recorder import get_flight_recorder
+from ..runtime.slo import get_slo_accountant, sla_t0_ns, spec_from_annotations
+from ..runtime.tasks import spawn_bg
+from ..runtime.tracing import get_tracer
 from ..tokens import TokenBlockSequence
 from .allocator import BlockAllocator, OutOfBlocks
 from .graphs import HorizonGraphs, HorizonState, seq_len_buckets
+from .prep import ChunkPrep, async_prep_enabled
+from .telemetry import StepStats
 from .sampling import (
     TOP_LOGPROBS_K,
     apply_penalties,
@@ -300,6 +320,14 @@ class _Seq:
     guided_tables: Optional[Any] = None
     guided_state: int = 0
     done: bool = False
+    # lifecycle milestones (unix ns, 0 = not reached), stamped on the loop
+    # thread; the request's spans and flight events come from them
+    t_queued: int = 0
+    t_admitted: int = 0
+    t_prefill_start: int = 0
+    t_first_token: int = 0
+    # the request's SLA promise (runtime/slo.py); None = unclassified
+    sla: Optional[Any] = None
 
 
 # (sequence, token, logprob, top-logprob ids or None, top-logprob values or None)
@@ -643,6 +671,21 @@ class TorchEngine:
         self.step_counts: Dict[str, int] = {"prefill": 0, "decode": 0, "mixed": 0,
                                             "horizon": 0, "spec": 0, "embed": 0}
         self._executor = ThreadPoolExecutor(max_workers=1, thread_name_prefix="torch-step")
+        # health: the crash handler flips ``healthy`` and calls
+        # ``on_crash(exc)`` (the worker's watchdog deregisters the model)
+        self.healthy = True
+        self.on_crash: Optional[Any] = None
+        # step telemetry (engine/telemetry.py): callable(StepStats) after
+        # every prefill chunk, mixed step, consumed horizon and eager
+        # decode step; None = off
+        self.stats_hook: Optional[Any] = None
+        # async host chunk prep (engine/prep.py): the next prefill chunk's
+        # arrays packed and copied to the device on a prep thread while
+        # the current chunk runs; the copies go on the stream the step
+        # executor launches on (this thread's current stream, the default)
+        self._stream = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
+        self._prep = (ChunkPrep(self._chunk_arrays, upload=self._prep_upload)
+                      if async_prep_enabled() else None)
         # horizons in flight, oldest first; their readbacks wait on the
         # fetch thread so the step thread keeps dispatching
         self._chains: Deque[_Chain] = deque()
@@ -839,11 +882,24 @@ class TorchEngine:
             # a tier miss or a foreign block format is a miss; a kernel or
             # device error raises to the caller (no silent recompute)
             await self._onboard_from_kvbm(st)
+        st.sla = spec_from_annotations(ann)
+        st.t_queued = time.time_ns()
+        queued: Dict[str, Any] = dict(prompt_tokens=len(prompt), waiting=len(self._waiting))
+        if st.sla is not None:
+            # the promise rides the queued event: /debug/requests?id= reads
+            # the budget breakdown from it (runtime/slo.py)
+            queued.update(sla_class=st.sla.sla_class, ttft_target_s=st.sla.ttft_target_s,
+                          itl_target_s=st.sla.itl_target_s, deadline_s=st.sla.deadline_s)
+        get_flight_recorder().record(req.request_id, "queued", **queued)
         self._waiting.append(st)
         self._idle = False
         self._wake.set()
         while True:
             item = await st.out_queue.get()
+            if item.finish_reason is not None:
+                # before the last yield: a consumer that returns at the
+                # finish closes this generator at the yield
+                self._request_finished(st, item.finish_reason)
             yield item
             if item.finish_reason is not None:
                 return
@@ -963,6 +1019,8 @@ class TorchEngine:
         self._offload_executor.shutdown(wait=False)
         if self.guided_enabled:
             self._guided_executor.shutdown(wait=False)
+        if self._prep is not None:
+            self._prep.stop()
 
     # ------------------------------------------------------------ step loop
     async def _loop(self) -> None:
@@ -997,6 +1055,9 @@ class TorchEngine:
                             cumulative_tokens=pick.produced,
                         ))
                     else:
+                        if pick.t_prefill_start == 0:
+                            pick.t_prefill_start = time.time_ns()
+                        chunk_from = pick.prefill_pos
                         # the fused mixed step, when decode rows are resident
                         # and no horizon is in flight (its carry would
                         # predate the fused step's cache writes); never on a
@@ -1012,6 +1073,8 @@ class TorchEngine:
                                     # horizons go on rather than wait for a
                                     # fused step that cannot book
                                     mixed_blocked = True
+                        t_step = time.perf_counter()
+                        results = []
                         if mixed_seqs is not None:
                             results, first = await loop.run_in_executor(
                                 self._executor, self._run_mixed_step, pick, mixed_seqs
@@ -1027,6 +1090,9 @@ class TorchEngine:
                         if first is not None:
                             pick.prefilled = True
                             self._accept_token(*first)
+                        self._step_stats("mixed" if did_mixed else "prefill",
+                                         time.perf_counter() - t_step,
+                                         (pick.prefill_pos - chunk_from) + len(results))
                 has_active = any(s is not None for s in self._decode_snapshot())
                 # top up the horizon pipeline before fetching the oldest
                 # results, so that the readback overlaps the horizons in
@@ -1058,21 +1124,32 @@ class TorchEngine:
                     self._chains.append(chain)
                 if self._chains:
                     chain = self._chains.popleft()
+                    t_step = time.perf_counter()
                     packed = await asyncio.wrap_future(chain.fetch)
+                    before = sum(st.produced for st in chain.seqs if st is not None)
                     self._apply_packed(chain, packed)
+                    self._step_stats(
+                        "decode", time.perf_counter() - t_step,
+                        sum(st.produced for st in chain.seqs if st is not None) - before,
+                        passes=(self._spec_rounds if chain.spec else self.cfg.decode_steps))
                 elif has_active and not did_mixed:
+                    t_step = time.perf_counter()
                     results = await loop.run_in_executor(
                         self._executor, self._run_decode, self._decode_snapshot()
                     )
                     for acc in results:
                         self._accept_token(*acc)
+                    self._step_stats("decode", time.perf_counter() - t_step, len(results))
                 self._reap_finished()
                 if self.kvbm is not None:
                     await self._offload_ready_blocks()
                 await self._publish_events()
                 await asyncio.sleep(0)
-        except Exception:
+        except Exception as crash:
             log.exception("engine loop crashed")
+            self.healthy = False
+            if self.on_crash is not None:
+                spawn_bg(self.on_crash(crash))
             for st in list(self._waiting) + [s for s in self._slots if s]:
                 st.done = True
                 st.out_queue.put_nowait(BackendOutput(
@@ -1208,6 +1285,10 @@ class TorchEngine:
             st.prefill_pos = st.cached_tokens
             st.slot = slot
             self._slots[slot] = st
+            st.t_admitted = time.time_ns()
+            get_flight_recorder().record(st.req.request_id, "admitted", slot=slot,
+                                         cached_tokens=st.cached_tokens,
+                                         prompt_tokens=prompt_len)
             self._block_tables[slot].fill(0)
             self._block_tables[slot, : len(st.block_ids)] = st.block_ids
             s = st.req.sampling
@@ -1389,13 +1470,44 @@ class TorchEngine:
         return tokens, positions, new_block_ids
 
     def _next_chunk(self, st: _Seq):
+        """(start, chunk_len, is_final, host arrays, device tensors or None)
+        of st's next prefill chunk: the prep thread's prebuild when it
+        matches exactly (engine/prep.py), else packed here."""
         prompt = st.seq.tokens()
         start = st.prefill_pos
         remaining = len(prompt) - start
         is_final = remaining <= self.cfg.prefill_chunk
         chunk_len = remaining if is_final else self.cfg.prefill_chunk
-        arrays = self._chunk_arrays(prompt, start, chunk_len, st.block_ids)
-        return start, chunk_len, is_final, arrays
+        got = None
+        if self._prep is not None:
+            got = self._prep.take(st.req.request_id, prompt, start, chunk_len, st.block_ids)
+        arrays, dev = got if got is not None else (
+            self._chunk_arrays(prompt, start, chunk_len, st.block_ids), None)
+        return start, chunk_len, is_final, arrays, dev
+
+    def _schedule_next_chunk(self, st: _Seq, is_final: bool) -> None:
+        """Step executor, right after a chunk's forward is enqueued (the
+        device runs it from here): hand the NEXT chunk's packing and copy
+        to the prep thread, so they run under this chunk's device work."""
+        if self._prep is None or is_final:
+            return
+        prompt = st.seq.tokens()
+        remaining = len(prompt) - st.prefill_pos
+        if remaining <= 0:
+            return
+        self._prep.schedule(st.req.request_id, prompt, st.prefill_pos,
+                            min(remaining, self.cfg.prefill_chunk), st.block_ids)
+
+    def _prep_upload(self, arr: np.ndarray) -> torch.Tensor:
+        """Prep thread: one chunk array on the device. On CUDA the copy
+        goes from pinned memory onto the step executor's stream, so it is
+        ordered before the dispatch that reads it; PyTorch's pinned-memory
+        allocator holds the host buffer until the copy has run."""
+        host = torch.from_numpy(arr)
+        if self._stream is None:
+            return host
+        with torch.cuda.stream(self._stream):
+            return host.pin_memory().to(self.device, non_blocking=True)
 
     def _chunk_table(self, st: _Seq, total_len: int) -> torch.Tensor:
         """The sequence's block table cut to the pages holding keys <
@@ -1428,17 +1540,20 @@ class TorchEngine:
     def _run_prefill_chunk(self, st: _Seq) -> Optional[Accepted]:
         """Prefill ONE bounded chunk of st's prompt; the final chunk also
         samples the first token (returned), earlier ones return None."""
-        start, chunk_len, is_final, (tokens, positions, new_ids) = self._next_chunk(st)
+        start, chunk_len, is_final, (tokens, positions, new_ids), dev = self._next_chunk(st)
+        tokens_t, positions_t, new_ids_t = dev if dev is not None else (
+            self._t(tokens), self._t(positions), self._t(new_ids))
         total_len = start + chunk_len
         attend = self._chunk_attend(self._chunk_table(st, total_len), start, chunk_len,
-                                    len(tokens), self._t(new_ids))
-        ids, embeds = self._chunk_inputs(st, tokens, start, chunk_len)
+                                    len(tokens), new_ids_t)
+        ids, embeds = self._chunk_inputs(st, tokens_t, start, chunk_len)
         kw = self._lora_kw(int(self._lora_slots[st.slot]))
         if embeds is not None:
             kw["inputs_embeds"] = embeds
-        hidden = self._forward(self.params, self.mcfg, ids, self._t(positions), attend, **kw)
+        hidden = self._forward(self.params, self.mcfg, ids, positions_t, attend, **kw)
         self.step_counts["prefill"] += 1
         st.prefill_pos = total_len
+        self._schedule_next_chunk(st, is_final)
         self._advance_draft_prefill(st)
         if not is_final:
             return None
@@ -1527,18 +1642,18 @@ class TorchEngine:
 
         return attend
 
-    def _chunk_inputs(self, st: _Seq, tokens: np.ndarray, start: int, chunk_len: int):
-        """(token ids, inputs_embeds or None) of a prefill chunk's forward.
-        On a vision engine the splice is the reference's: the ids clipped
-        to [0, vocab) (the placeholders sit above it), their embeddings,
-        and the chunk's soft tokens over the image positions; the forward
-        takes the clipped ids and the spliced embeddings."""
-        ids = self._t(tokens)
+    def _chunk_inputs(self, st: _Seq, ids: torch.Tensor, start: int, chunk_len: int):
+        """(token ids, inputs_embeds or None) of a prefill chunk's forward
+        from its padded ids on the device. On a vision engine the splice is
+        the reference's: the ids clipped to [0, vocab) (the placeholders
+        sit above it), their embeddings, and the chunk's soft tokens over
+        the image positions; the forward takes the clipped ids and the
+        spliced embeddings."""
         if self.cfg.vision is None:
             return ids, None
         ids = torch.clamp(ids, 0, self.mcfg.vocab_size - 1)
         base = F.embedding(ids, self.params["embed"])
-        embeds, mask = self._mm_chunk(st, start, chunk_len, len(tokens))
+        embeds, mask = self._mm_chunk(st, start, chunk_len, len(ids))
         return ids, torch.where(mask[:, None], embeds.to(base.dtype), base)
 
     def _mm_chunk(self, st: _Seq, start: int, chunk_len: int, S_pad: int):
@@ -1847,7 +1962,8 @@ class TorchEngine:
         The packed token buffer is [S_pad + B]: the chunk's bucketed tokens,
         then one decode token per slot. Returns (decode acceptances, the
         chunk's first-token acceptance or None)."""
-        start, chunk_len, is_final, (c_tokens, c_positions, c_new_ids) = self._next_chunk(st)
+        start, chunk_len, is_final, (c_tokens, c_positions, c_new_ids), dev = (
+            self._next_chunk(st))
         total_len = start + chunk_len
         positions, seq_lens, write_blocks, write_offsets, steps = (
             self._decode_dispatch_arrays(seqs)
@@ -1859,7 +1975,9 @@ class TorchEngine:
         unified = _UnifiedRows(self._t, np.concatenate([[0], S_pad + np.arange(B)]),
                                np.concatenate([[chunk_len], seq_lens > 0]),
                                np.concatenate([[total_len], seq_lens]))
-        c_new_ids_t = self._t(c_new_ids)
+        # the packed buffer concatenates the chunk's host arrays with the
+        # decode rows'; a prebuilt chunk's page ids are on the device already
+        c_new_ids_t = dev[2] if dev is not None else self._t(c_new_ids)
         wb, wo = self._t(write_blocks), self._t(write_offsets)
 
         pad = self._pad_rows(chunk_len, S_pad)
@@ -1881,6 +1999,7 @@ class TorchEngine:
         hidden = self._forward(self.params, self.mcfg, tokens, pos, attend, **lora)
         self.step_counts["mixed"] += 1
         st.prefill_pos = total_len
+        self._schedule_next_chunk(st, is_final)
         self._advance_draft_prefill(st)
         self._draft_decode_rows(seqs, positions, seq_lens, wb, wo)
         results = self._decode_epilogue(hidden[S_pad:], seqs, seq_lens, steps)
@@ -2197,6 +2316,23 @@ class TorchEngine:
             self._accept_tokens(st, toks, lps)
             st.kv_written = max(st.kv_written, min(len(st.seq), L + len(toks) - 1))
 
+    def snapshot(self) -> Dict[str, Any]:
+        """Host counters of the engine's state (the status server's
+        /metadata and /debug/worker read it; no device sync)."""
+        snap: Dict[str, Any] = {
+            "running": sum(1 for s in self._slots if s is not None),
+            "waiting": len(self._waiting),
+            "active_blocks": self.allocator.active_blocks,
+            "cached_blocks": self.allocator.cached_blocks,
+            "free_blocks": self.allocator.free_blocks,
+            "steps": dict(self.step_counts),
+        }
+        if self._spec:
+            snap["spec"] = dict(self.spec_stats)
+        if self.kvbm is not None:
+            snap["kvbm"] = self.kvbm.stats()
+        return snap
+
     def spec_acceptance(self) -> Optional[float]:
         """emitted / (rounds * k): the share of drafted tokens the device
         advanced (1.0 for a perfect draft); None before any spec round."""
@@ -2423,6 +2559,10 @@ class TorchEngine:
         if first:
             ann = {"cached_tokens": st.cached_tokens,
                    "input_tokens": len(st.req.token_ids)}
+            if st.t_first_token == 0:
+                st.t_first_token = time.time_ns()
+                get_flight_recorder().record(st.req.request_id, "first_token",
+                                             slot=st.slot)
         st.out_queue.put_nowait(BackendOutput(
             token_ids=emit, finish_reason=finish, cumulative_tokens=st.produced,
             logprobs=emit_lps if emit else None, top_logprobs=tlp if tlp else None,
@@ -2448,6 +2588,106 @@ class TorchEngine:
             elif not st.done:
                 waiting.append(entry)
         self._sealed_unwritten = waiting
+
+    def _request_finished(self, st: _Seq, finish_reason: str) -> None:
+        """Close the request's flight-recorder timeline, feed the SLO
+        ledger and the attribution aggregates, and emit its engine-phase
+        spans (queue / prefill / decode, parented on the traceparent
+        annotation). Host-side bookkeeping only."""
+        flight = get_flight_recorder()
+        rid = st.req.request_id
+        failed = finish_reason == FINISH_ERROR
+        if st.sla is not None:
+            self._slo_finished(st, finish_reason)
+        flight.finish(
+            rid, error="engine error finish" if failed else None,
+            error_class="engine_error" if failed else None,
+            finish_reason=finish_reason, tokens=st.produced,
+            **({"sla_class": st.sla.sla_class} if st.sla is not None else {}),
+        )
+        # the closed timeline into the worker's rolling per-(model, class)
+        # phase aggregates: /debug/worker's "where does p99 go"
+        try:
+            timeline = flight.timeline(rid)
+            if timeline is not None:
+                get_attribution().observe_flight(
+                    st.req.model,
+                    st.sla.sla_class if st.sla is not None else "unclassified", timeline)
+        except Exception:
+            log.exception("attribution observe failed for %s", rid[:8])
+        tracer = get_tracer()
+        if not tracer.enabled:
+            return
+        tp = (st.req.annotations or {}).get("traceparent")
+        if st.t_queued and st.t_admitted:
+            tracer.emit("engine.queue", st.t_queued, st.t_admitted, traceparent=tp,
+                        request_id=rid)
+        prefill_start = st.t_prefill_start or st.t_admitted
+        if prefill_start and st.t_first_token:
+            tracer.emit("engine.prefill", prefill_start, st.t_first_token, traceparent=tp,
+                        request_id=rid, prompt_tokens=len(st.req.token_ids),
+                        cached_tokens=st.cached_tokens)
+        if st.t_first_token:
+            tracer.emit("engine.decode", st.t_first_token, time.time_ns(), traceparent=tp,
+                        request_id=rid, status="ERROR" if failed else "OK",
+                        tokens=st.produced, finish=finish_reason)
+
+    def _slo_finished(self, st: _Seq, finish_reason: str) -> None:
+        """Feed the worker's SLO ledger from the milestones: TTFT from the
+        frontend's receipt stamp on the sla annotation when present (one
+        host's wall clock), else from queue entry; ITL the request's mean
+        decode gap."""
+        spec = st.sla
+        now_ns = time.time_ns()
+        t0 = sla_t0_ns(st.req.annotations) or st.t_queued
+        ttft_s = (st.t_first_token - t0) / 1e9 if st.t_first_token else None
+        itl_s = None
+        if st.t_first_token and st.produced > 1:
+            itl_s = (now_ns - st.t_first_token) / 1e9 / (st.produced - 1)
+        e2e_s = (now_ns - t0) / 1e9
+        met = get_slo_accountant().record(st.req.model, spec, ttft_s=ttft_s, itl_s=itl_s,
+                                          output_tokens=st.produced, e2e_s=e2e_s)
+        fields: Dict[str, Any] = dict(
+            sla_class=spec.sla_class, met=met,
+            ttft_ms=None if ttft_s is None else round(ttft_s * 1e3, 3),
+            ttft_target_ms=round(spec.ttft_target_s * 1e3, 3),
+            itl_ms=None if itl_s is None else round(itl_s * 1e3, 3),
+            itl_target_ms=round(spec.itl_target_s * 1e3, 3),
+        )
+        if spec.deadline_s > 0:
+            fields["deadline_remaining_s"] = round(spec.deadline_s - e2e_s, 3)
+        if not met or finish_reason == FINISH_ERROR:
+            get_flight_recorder().record(st.req.request_id, "slo_violation", **fields)
+
+    def _step_stats(self, phase: str, duration_s: float, tokens: int,
+                    passes: int = 1) -> None:
+        """Feed one StepStats to ``stats_hook``: scalars the loop already
+        holds (engine/telemetry.py); never a device sync."""
+        hook = self.stats_hook
+        # a chunk-carrying step consumed (or missed) a prebuild
+        prep = (self._prep.pop_last()
+                if self._prep is not None and phase in ("prefill", "mixed") else None)
+        if hook is None:
+            return
+        spec_acc = self.spec_acceptance() if self._spec else None
+        try:
+            hook(StepStats(
+                phase=phase, duration_s=duration_s,
+                batch_occupancy=sum(1 for st in self._slots
+                                    if st is not None and not st.done),
+                batch_size=self.cfg.max_batch_size, tokens=int(tokens),
+                queue_depth=len(self._waiting),
+                kv_active_blocks=self.allocator.active_blocks,
+                kv_free_blocks=self.allocator.free_blocks,
+                kv_total_blocks=self.cfg.num_blocks,
+                spec_acceptance=spec_acc,
+                prep_hit=prep["hit"] if prep is not None else None,
+                prep_build_s=prep["build_s"] if prep is not None else 0.0,
+                prep_wait_s=prep["wait_s"] if prep is not None else 0.0,
+                passes=passes,
+            ))
+        except Exception:
+            log.exception("stats hook failed")
 
     def _reap_finished(self) -> None:
         # commit what is written before any block goes back to the pool

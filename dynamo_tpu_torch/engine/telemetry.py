@@ -1,0 +1,187 @@
+"""Engine step telemetry: a cheap per-step stats hook + Prometheus projection.
+
+The port's copy of the reference package's engine/telemetry.py. The engine
+loop hands a ``StepStats`` to ``engine.stats_hook`` after every prefill
+chunk, every consumed decode horizon (or eager decode step), and every
+fused ``mixed`` step (one prefill chunk riding along with a decode step
+through the unified ragged kernel: its batch_occupancy shows how full the
+fused launch ran). The stats are host-side scalars read off bookkeeping the
+loop already keeps: the hook never runs inside a CUDA graph capture and
+never forces a device sync (durations are host wall time around executor
+calls and readbacks; token counts come from ``_accept_tokens``'s own
+``produced`` counters).
+
+``EngineTelemetry`` is the standard consumer: it projects StepStats onto
+the runtime metrics registry (histograms split by phase, occupancy/KV/queue
+gauges, spec-decode acceptance) under the caller's hierarchy labels
+(``dtpu_namespace``/``dtpu_component``), and logs any step slower than
+``DTPU_SLOW_STEP_MS`` (default 1000 ms).
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+from typing import Any, Dict, Optional
+
+from ..runtime import metrics as M
+from ..runtime.config import ENV_SLOW_STEP_MS, env_float
+from ..runtime.logging import get_logger
+
+log = get_logger("engine.telemetry")
+
+_STEP_BUCKETS = (0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
+                 1.0, 2.5, 5.0, 15.0, 60.0)
+_TOKEN_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024, 4096)
+
+
+@dataclasses.dataclass
+class StepStats:
+    """One engine-loop step, observed host-side."""
+
+    phase: str                 # "prefill" | "decode" | "mixed"
+    duration_s: float          # host wall time of the step's dispatch/consume
+    batch_occupancy: int       # active (admitted, unfinished) slots
+    batch_size: int            # configured max batch width
+    tokens: int                # tokens processed: prefill chunk len / emitted
+                               # ("mixed" fused steps count chunk + decode)
+    queue_depth: int           # admission queue length (waiting requests)
+    kv_active_blocks: int
+    kv_free_blocks: int
+    kv_total_blocks: int
+    spec_acceptance: Optional[float] = None  # None unless spec decoding on
+    # async host chunk prep (engine/prep.py, DTPU_ASYNC_PREP): whether this
+    # chunk-carrying step consumed a prebuilt pack, how long the prebuild
+    # took (that time ran UNDER the previous step's device compute when
+    # hit), and how long the dispatch still had to wait on it. None/0 on
+    # decode-only steps and with async prep off.
+    prep_hit: Optional[bool] = None
+    prep_build_s: float = 0.0
+    prep_wait_s: float = 0.0
+    # forward passes of the main model the step ran: a consumed horizon of
+    # N decode steps is N (the worker's drift predictor prices N passes)
+    passes: int = 1
+
+
+class EngineTelemetry:
+    """StepStats -> Prometheus + slow-step log. Construct one per engine
+    with a scope already stamped with the component hierarchy (and a
+    ``dp_rank`` label for dp groups); ranks share the underlying metric
+    objects through the scope cache."""
+
+    def __init__(self, scope: M.MetricsScope,
+                 slow_step_s: Optional[float] = None):
+        self.slow_step_s = (
+            env_float(ENV_SLOW_STEP_MS, 1000.0) / 1e3
+            if slow_step_s is None else slow_step_s
+        )
+        self.steps = 0
+        self._dur = scope.histogram(
+            M.STEP_DURATION_SECONDS,
+            "engine step duration (host-observed), split by phase",
+            extra_labels=("phase",), buckets=_STEP_BUCKETS,
+        )
+        self._tokens = scope.histogram(
+            M.STEP_TOKENS, "tokens processed per engine step",
+            extra_labels=("phase",), buckets=_TOKEN_BUCKETS,
+        )
+        self._occupancy = scope.gauge(
+            M.BATCH_OCCUPANCY, "active sequences in the decode batch"
+        )
+        self._queue = scope.gauge(
+            M.QUEUED_REQUESTS, "requests waiting in the engine admission queue"
+        )
+        self._kv_active = scope.gauge(
+            M.KV_ACTIVE_BLOCKS, "KV blocks pinned by active sequences"
+        )
+        self._kv_free = scope.gauge(M.KV_FREE_BLOCKS, "free KV blocks")
+        self._kv_total = scope.gauge(M.KV_TOTAL_BLOCKS, "configured KV blocks")
+        self._decode_blocks = scope.gauge(
+            M.WORKER_ACTIVE_DECODE_BLOCKS,
+            "active decode blocks this worker reports to the router",
+        )
+        self._spec = scope.gauge(
+            M.SPEC_ACCEPTANCE,
+            "speculative decoding acceptance rate (emitted / drafted)",
+        )
+        self._slow = scope.counter(
+            M.SLOW_STEPS_TOTAL, "steps slower than DTPU_SLOW_STEP_MS",
+            extra_labels=("phase",),
+        )
+        self.slow_steps = 0
+        # small rolling window + last-seen gauges for the /debug/worker
+        # snapshot (runtime/health.py): step telemetry without a Prometheus
+        # scrape-and-parse round trip
+        self._recent: "collections.deque[StepStats]" = collections.deque(
+            maxlen=128
+        )
+        self._last: Optional[StepStats] = None
+
+    def snapshot(self) -> Dict[str, Any]:
+        """The step-telemetry section of the worker's ``/debug/worker``
+        document: rolling per-phase step-time means plus the last step's
+        occupancy/queue/KV view."""
+        recent = list(self._recent)
+        by_phase: Dict[str, Dict[str, Any]] = {}
+        for s in recent:
+            agg = by_phase.setdefault(
+                s.phase, {"steps": 0, "duration_sum_s": 0.0, "tokens": 0}
+            )
+            agg["steps"] += 1
+            agg["duration_sum_s"] += s.duration_s
+            agg["tokens"] += s.tokens
+        phases = {
+            phase: {
+                "steps": agg["steps"],
+                "mean_step_s": round(agg["duration_sum_s"] / agg["steps"], 6),
+                "tokens": agg["tokens"],
+            }
+            for phase, agg in sorted(by_phase.items())
+        }
+        out: Dict[str, Any] = {
+            "steps_total": self.steps,
+            "slow_steps_total": self.slow_steps,
+            "recent": phases,
+        }
+        last = self._last
+        if last is not None:
+            out["last"] = {
+                "phase": last.phase,
+                "batch_occupancy": last.batch_occupancy,
+                "batch_size": last.batch_size,
+                "queue_depth": last.queue_depth,
+                "kv_active_blocks": last.kv_active_blocks,
+                "kv_free_blocks": last.kv_free_blocks,
+                "kv_total_blocks": last.kv_total_blocks,
+            }
+        return out
+
+    def on_step(self, s: StepStats) -> None:
+        try:
+            self.steps += 1
+            self._recent.append(s)
+            self._last = s
+            self._dur.observe(s.duration_s, phase=s.phase)
+            if s.tokens > 0:
+                self._tokens.observe(s.tokens, phase=s.phase)
+            self._occupancy.set(s.batch_occupancy)
+            self._queue.set(s.queue_depth)
+            self._kv_active.set(s.kv_active_blocks)
+            self._kv_free.set(s.kv_free_blocks)
+            self._kv_total.set(s.kv_total_blocks)
+            self._decode_blocks.set(s.kv_active_blocks)
+            if s.spec_acceptance is not None:
+                self._spec.set(s.spec_acceptance)
+            if s.duration_s > self.slow_step_s:
+                self.slow_steps += 1
+                self._slow.inc(phase=s.phase)
+                log.warning(
+                    "slow %s step: %.0f ms (threshold %.0f ms; occupancy "
+                    "%d/%d, queue %d, kv %d/%d blocks)",
+                    s.phase, s.duration_s * 1e3, self.slow_step_s * 1e3,
+                    s.batch_occupancy, s.batch_size, s.queue_depth,
+                    s.kv_active_blocks, s.kv_total_blocks,
+                )
+        except Exception:
+            # telemetry must never take the step loop down
+            log.exception("step telemetry projection failed")

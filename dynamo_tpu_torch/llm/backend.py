@@ -8,6 +8,8 @@ one BackendOutput, as in the reference.
 Wraps a token engine: takes PreprocessedRequest objects off the request plane,
 streams BackendOutput objects back with incremental text attached and stop
 strings enforced exactly (the emitted text never contains the stop string).
+With tracing on, each request's stream runs under a ``worker.generate``
+span parented on its ``traceparent`` annotation.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from typing import Any, AsyncIterator, List, Optional, Tuple
 
 from ..runtime.engine import AsyncEngine, Context
 from ..runtime.logging import get_logger
+from ..runtime.tracing import get_tracer
 from .protocols.common import FINISH_STOP, BackendOutput, PreprocessedRequest
 from .tokenizer import DecodeStream, Tokenizer
 
@@ -112,6 +115,20 @@ class Backend:
     async def generate(self, request: Any, context: Context) -> AsyncIterator[Any]:
         req = (request if isinstance(request, PreprocessedRequest)
                else PreprocessedRequest.from_obj(request))
+        # tracing: continue the frontend's trace across the request-plane
+        # hop (runtime/tracing.py)
+        tracer = get_tracer()
+        if not tracer.enabled:
+            async for item in self._generate(req, context):
+                yield item
+            return
+        with tracer.span("worker.generate", traceparent=req.annotations.get("traceparent"),
+                         request_id=req.request_id):
+            async for item in self._generate(req, context):
+                yield item
+
+    async def _generate(self, req: PreprocessedRequest, context: Context
+                        ) -> AsyncIterator[Any]:
         decode = DecodeStream(self.tokenizer)
         jail = StopStringJail(req.stop.stop_strings)
         stop_token_ids = set(req.stop.stop_token_ids)

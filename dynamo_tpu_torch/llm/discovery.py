@@ -8,8 +8,11 @@ frontend watches that prefix and (un)registers one pipeline per model:
 
 with the client's round-robin or random choice of instance, or in KV mode
 the KV router's (kv_router/): the worker whose cached prefix and load cost
-least. The reference's prefill router, global KV directory and per-worker
-circuit breakers wait for ROADMAP items 4b and 5.
+least. With tracing on, each routing decision is a ``router.schedule``
+span whose id replaces the request's ``traceparent`` annotation, and each
+lands on the request's flight-recorder timeline (``routed``). The
+reference's prefill router, global KV directory and per-worker circuit
+breakers wait for ROADMAP items 4b and 5.
 """
 
 from __future__ import annotations
@@ -23,9 +26,11 @@ from ..runtime.component import Client, RouterMode
 from ..runtime.discovery.store import EventType
 from ..runtime.distributed import DistributedRuntime
 from ..runtime.engine import Context
+from ..runtime.flight_recorder import get_flight_recorder
 from ..runtime.logging import get_logger
 from ..runtime.request_plane.tcp import NoResponders
 from ..runtime.tasks import spawn_bg
+from ..runtime.tracing import get_tracer
 from .migration import Migration
 from .model_card import MDC_PREFIX, MODEL_TYPE_PREFILL, ModelDeploymentCard
 from .preprocessor import ANNOTATION_CACHED_TOKENS, ANNOTATION_WORKER_ID, OpenAIPreprocessor
@@ -124,7 +129,11 @@ class ModelPipeline:
         self._router_synced_count = len(inst_map)
 
     def _kv_route(self, req: PreprocessedRequest, excluded: List[int]) -> int:
-        """The KV router's worker for ``req``, excluding the migration's
+        """The KV router's worker for ``req`` (``_kv_decide``)."""
+        return self._kv_decide(req, excluded).worker.worker_id
+
+    def _kv_decide(self, req: PreprocessedRequest, excluded: List[int]):
+        """The KV router's decision for ``req``, excluding the migration's
         failed instances; stamps the predicted cached tokens, the worker
         and its dp_rank on the request's annotations."""
         assert self.kv_router is not None and self.client is not None
@@ -149,31 +158,67 @@ class ModelPipeline:
             decision.overlap_blocks * self.card.kv_block_size)
         req.annotations[ANNOTATION_WORKER_ID] = instance_id
         req.annotations["dp_rank"] = decision.worker.dp_rank
-        return instance_id
+        return decision
 
     async def _send(
         self, req: PreprocessedRequest, context: Context, excluded: List[int]
     ) -> AsyncIterator[Any]:
         assert self.client is not None
         instance_id: Optional[int] = None
-        # pooled forwards touch no KV pages: the KV scheduler would charge
-        # them phantom blocks that nothing frees
-        if self.kv_router is not None and req.annotations.get("op") != "embed":
-            instance_id = self._kv_route(req, excluded)
-        elif excluded:
-            # migration: steer away from the failed instances, round-robin
-            # over the survivors
-            alive = [i for i in self.client.instance_ids() if i not in excluded]
-            if not alive:
-                raise NoResponders(f"no non-excluded instances for {self.card.name}")
-            instance_id = alive[self._rr % len(alive)]
-            self._rr += 1
+        # trace hop: the routing decision gets its own span, and its id
+        # REPLACES the traceparent annotation the worker parents on, so one
+        # trace reads frontend -> router -> worker in order
+        tracer = get_tracer()
+        span = None
+        if tracer.enabled:
+            span = tracer.span("router.schedule",
+                               traceparent=req.annotations.get("traceparent"),
+                               request_id=req.request_id, model=self.card.name)
+            span.__enter__()
+            req.annotations["traceparent"] = span.traceparent()
         try:
-            return await self.client.generate(req.to_obj(), context, instance_id)
-        except (NoResponders, ConnectionError) as e:
-            if instance_id is not None and getattr(e, "instance_id", None) is None:
-                e.instance_id = instance_id  # type: ignore[attr-defined]
+            # pooled forwards touch no KV pages: the KV scheduler would
+            # charge them phantom blocks that nothing frees
+            use_kv = self.kv_router is not None and req.annotations.get("op") != "embed"
+            overlap_tokens = 0
+            if use_kv:
+                decision = self._kv_decide(req, excluded)
+                instance_id = decision.worker.worker_id
+                overlap_tokens = decision.overlap_blocks * self.card.kv_block_size
+                if span is not None:
+                    span.set(mode="kv", worker=f"{instance_id:016x}",
+                             dp_rank=decision.worker.dp_rank,
+                             overlap_blocks=decision.overlap_blocks,
+                             query_blocks=decision.query_blocks, excluded=len(excluded))
+            elif excluded:
+                # migration: steer away from the failed instances,
+                # round-robin over the survivors
+                alive = [i for i in self.client.instance_ids() if i not in excluded]
+                if not alive:
+                    raise NoResponders(f"no non-excluded instances for {self.card.name}")
+                instance_id = alive[self._rr % len(alive)]
+                self._rr += 1
+            worker = f"{instance_id:016x}" if instance_id is not None else "client-routed"
+            if span is not None and not use_kv:
+                span.set(mode=str(self.router_mode.value), worker=worker,
+                         excluded=len(excluded))
+            get_flight_recorder().record(req.request_id, "routed", worker=worker,
+                                         overlap_tokens=overlap_tokens,
+                                         excluded=len(excluded))
+            try:
+                return await self.client.generate(req.to_obj(), context, instance_id)
+            except (NoResponders, ConnectionError) as e:
+                if instance_id is not None and getattr(e, "instance_id", None) is None:
+                    e.instance_id = instance_id  # type: ignore[attr-defined]
+                raise
+        except Exception as e:
+            if span is not None:
+                span.status = "ERROR"
+                span.set(error=repr(e))
             raise
+        finally:
+            if span is not None:
+                span.__exit__(None, None, None)
 
     async def generate_tokens(
         self, req: PreprocessedRequest, context: Context

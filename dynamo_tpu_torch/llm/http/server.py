@@ -2,7 +2,7 @@
 
 What the OpenAI frontend (service.py) needs of aiohttp's server, which the
 reference package uses and the machine the port serves on lacks: the
-request line, headers and a ``Content-Length`` body (``Expect:
+request line with its query parameters, headers and a ``Content-Length`` body (``Expect:
 100-continue`` answered), keep-alive between non-streamed responses, and
 streamed responses in chunked transfer encoding (server-sent events). A
 streamed response ends its connection; while it streams, the client's
@@ -18,7 +18,7 @@ import asyncio
 import json
 from http import HTTPStatus
 from typing import Awaitable, Callable, Dict, List, Optional, Tuple, Union
-from urllib.parse import urlsplit
+from urllib.parse import parse_qsl, urlsplit
 
 from ...runtime.logging import get_logger
 
@@ -44,7 +44,10 @@ class Request:
     def __init__(self, method: str, target: str, version: str,
                  headers: Dict[str, str], body: bytes):
         self.method = method
-        self.path = urlsplit(target).path
+        url = urlsplit(target)
+        self.path = url.path
+        # the query string's parameters (the last value of a repeated one)
+        self.query: Dict[str, str] = dict(parse_qsl(url.query))
         self.version = version
         self.headers = headers
         self.body = body

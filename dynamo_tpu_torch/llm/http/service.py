@@ -14,9 +14,18 @@ Chat replies go through the card's reasoning and tool-call parsers
 (parsers/), a fresh pair for each choice; an unknown parser name on a card
 passes text through with a warning.
 
-Later slices (ROADMAP item 4b): /v1/responses, /v1/images, the admin and
-debug endpoints, TLS, tracing, audit, SLO accounting and the per-model
-circuit breaker.
+Observability, as the reference's: each generation runs under an
+``http.generate`` span (parented on a client ``traceparent`` header; its id
+rides the request's annotations to the router and the worker), leaves a
+flight-recorder timeline (``/debug/requests[?id=]``), is accounted against
+its SLA class (the body's ``sla``, the ``x-dtpu-sla`` header or
+``DTPU_SLA_DEFAULT``; an unknown class is a 400) in the frontend's SLO
+ledger (``/debug/slo``) and attribution aggregates, and is audited per
+``DTPU_AUDIT_SINKS`` (llm/audit.py). ``/debug/fleet`` merges every
+worker's ``/debug/worker`` (llm/fleet.py).
+
+Later slices (ROADMAP item 4b): /v1/responses, /v1/images, the admin
+endpoints, TLS and the per-model circuit breaker.
 """
 
 from __future__ import annotations
@@ -30,11 +39,23 @@ import time
 from typing import AsyncIterator, Optional
 
 from ...runtime import metrics as M
+from ...runtime.attribution import AttributionAggregator
 from ...runtime.engine import Context
+from ...runtime.flight_recorder import debug_requests_payload, get_flight_recorder
 from ...runtime.errors import InvalidRequestError, http_status_for
 from ...runtime.logging import get_logger
 from ...parsers import get_reasoning_parser, get_tool_parser
 from ...runtime.request_plane.tcp import NoResponders
+from ...runtime.slo import (
+    ANNOTATION_SLA,
+    SLA_HEADER,
+    SloAccountant,
+    SlaSpec,
+    debug_slo_payload,
+    resolve_sla,
+)
+from ...runtime.tracing import Tracer, get_tracer
+from ..audit import AuditBus
 from ..discovery import ModelManager, ModelPipeline
 from ..protocols.common import BackendOutput, PreprocessedRequest
 from ..protocols.delta import (
@@ -121,11 +142,16 @@ class HttpService:
         busy_threshold: Optional[int] = None,
         host: str = "0.0.0.0",
         port: int = 8000,
+        tracer: Optional[Tracer] = None,
+        audit_bus: Optional[AuditBus] = None,
     ):
         self.manager = manager
         self.host = host
         self.port = port
         self.busy_threshold = busy_threshold
+        # W3C traceparent in -> spans out; audit records per policy
+        self.tracer = tracer if tracer is not None else get_tracer()
+        self.audit = audit_bus if audit_bus is not None else AuditBus()
         self.inflight = 0
         self.metrics = metrics_scope or M.MetricsScope()
         self._requests = self.metrics.counter(
@@ -137,6 +163,13 @@ class HttpService:
             extra_labels=(M.LABEL_MODEL, M.LABEL_SLA_CLASS),
             buckets=(0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 120.0),
         )
+        # the client-observed SLO ledger per (model, sla_class), fed from
+        # the stream observation below and served on /debug/slo; workers
+        # keep their own from the engine's milestones
+        self.slo = SloAccountant(metrics=self.metrics)
+        # every finished request's timeline decomposed into phases, rolled
+        # up per (model, class): served in /debug/fleet
+        self.attribution = AttributionAggregator(metrics=self.metrics)
         self._ttft = self.metrics.histogram(
             M.TTFT_SECONDS, "time to first token",
             extra_labels=(M.LABEL_MODEL, M.LABEL_SLA_CLASS),
@@ -161,7 +194,10 @@ class HttpService:
                 ("GET", "/v1/models", self.models),
                 ("GET", "/health", self.health),
                 ("GET", "/live", self.live),
-                ("GET", "/metrics", self.metrics_handler)):
+                ("GET", "/metrics", self.metrics_handler),
+                ("GET", "/debug/requests", self.debug_requests),
+                ("GET", "/debug/slo", self.debug_slo),
+                ("GET", "/debug/fleet", self.debug_fleet)):
             self.server.add_route(method, path, handler)
 
     async def start(self) -> str:
@@ -171,6 +207,8 @@ class HttpService:
 
     async def stop(self) -> None:
         await self.server.stop()
+        # a short-lived process would drop a partial span batch
+        self.tracer.shutdown()
 
     # -- aux handlers --------------------------------------------------------
     async def health(self, request: Request) -> Response:
@@ -180,8 +218,44 @@ class HttpService:
         return json_response({"status": "live"})
 
     async def metrics_handler(self, request: Request) -> Response:
+        # attainment / burn gauges follow the scrape clock
+        self.slo.export_metrics()
         return Response(self.metrics.expose(),
                         content_type="text/plain; version=0.0.4; charset=utf-8")
+
+    async def debug_requests(self, request: Request) -> Response:
+        """Flight-recorder timelines, most recent first; ``?id=`` one
+        timeline (404 once evicted), ``?limit=`` how many."""
+        status, payload = debug_requests_payload(
+            get_flight_recorder(), request.query.get("id"), request.query.get("limit"))
+        return json_response(payload, status=status)
+
+    async def debug_slo(self, request: Request) -> Response:
+        """This frontend's client-observed SLO ledger."""
+        return json_response(debug_slo_payload(self.slo))
+
+    async def debug_fleet(self, request: Request) -> Response:
+        """Every discovered worker's ``/debug/worker`` merged with this
+        frontend's SLO and attribution views; an unreachable worker comes
+        back ``stale``, never as a 500."""
+        from ..fleet import fleet_snapshot
+
+        doc = await fleet_snapshot(
+            self.manager.pipelines(),
+            frontend={"slo": self.slo.snapshot(),
+                      "attribution": self.attribution.snapshot()})
+        return json_response(doc)
+
+    def _resolve_sla(self, request: Request, body_class: Optional[str],
+                     pipeline: ModelPipeline):
+        """(spec, error response): the request's SLA class from the body's
+        ``sla``, the x-dtpu-sla header or the default class, with the
+        model card's per-class overrides. An unknown class is a 400."""
+        name = body_class or request.headers.get(SLA_HEADER)
+        spec = resolve_sla(name, pipeline.card.runtime_config.sla_classes)
+        if spec is None:
+            return None, _error(400, f"unknown SLA class {name!r}", "invalid_request_error")
+        return spec, None
 
     async def models(self, request: Request) -> Response:
         data = ModelList(
@@ -192,23 +266,42 @@ class HttpService:
 
     # -- shared request path -------------------------------------------------
     def _observed(self, stream: AsyncIterator[BackendOutput], model: str,
-                  t_start: float) -> AsyncIterator[BackendOutput]:
+                  t_start: float, request_id: str = "",
+                  sla: Optional[SlaSpec] = None) -> AsyncIterator[BackendOutput]:
         """Wrap the token stream with TTFT/ITL observation (one ITL sample
-        per output after the first: an output may carry several tokens)."""
+        per output after the first: an output may carry several tokens).
+        With an ``sla`` spec the samples are class-labelled and the
+        stream's outcome feeds the SLO ledger."""
+        cls = sla.sla_class if sla is not None else ""
 
         async def gen():
             first_at = None
             last_at = None
-            async for out in stream:
-                if out.token_ids:
-                    now = time.monotonic()
-                    if first_at is None:
-                        first_at = now
-                        self._ttft.observe(now - t_start, model=model, sla_class="")
-                    elif last_at is not None:
-                        self._itl.observe(now - last_at, model=model, sla_class="")
-                    last_at = now
-                yield out
+            n_tokens = 0
+            try:
+                async for out in stream:
+                    if out.token_ids:
+                        now = time.monotonic()
+                        n_tokens += len(out.token_ids)
+                        if first_at is None:
+                            first_at = now
+                            self._ttft.observe(now - t_start, model=model, sla_class=cls)
+                            ann = out.annotations or {}
+                            wid = ({"worker_id": ann["worker_id"]} if "worker_id" in ann
+                                   else {})
+                            get_flight_recorder().record(
+                                request_id, "first_token",
+                                ttft_ms=round((now - t_start) * 1e3, 3), **wid)
+                        elif last_at is not None:
+                            self._itl.observe(now - last_at, model=model, sla_class=cls)
+                        last_at = now
+                    yield out
+            finally:
+                if sla is not None and first_at is not None:
+                    itl = ((last_at - first_at) / (n_tokens - 1) if n_tokens > 1 else None)
+                    self.slo.record(model, sla, ttft_s=first_at - t_start, itl_s=itl,
+                                    output_tokens=n_tokens,
+                                    e2e_s=time.monotonic() - t_start)
 
         return gen()
 
@@ -260,7 +353,8 @@ class HttpService:
                 t.cancel()
 
     async def _run(self, request: Request, preqs, pipeline: ModelPipeline, model: str,
-                   stream_mode: bool, delta_gens, aggregator, usage_chunk_factory=None):
+                   stream_mode: bool, delta_gens, aggregator, usage_chunk_factory=None,
+                   audit_handle=None, sla: Optional[SlaSpec] = None):
         """Execute one generation request: routing, streaming, metrics, errors.
 
         ``preqs`` / ``delta_gens`` are parallel lists, one entry per choice.
@@ -273,8 +367,29 @@ class HttpService:
         resp: Optional[StreamResponse] = None
         prompt_tokens = completion_tokens = 0
         rid = preqs[0].request_id
+        # the span parents on the client's traceparent header when there is
+        # one; the hops downstream get its id through the annotations
+        span = self.tracer.span("http.generate",
+                                traceparent=request.headers.get("traceparent"),
+                                request_id=rid, model=model, streaming=stream_mode,
+                                n=len(preqs))
+        sla_ann = sla.to_annotation() if sla is not None else None
+        for p in preqs:
+            p.annotations["traceparent"] = span.traceparent()
+            if sla_ann is not None:
+                # the promise rides the request plane like the traceparent
+                p.annotations[ANNOTATION_SLA] = dict(sla_ann)
+        span.__enter__()
+        flight = get_flight_recorder()
+        flight.record(rid, "received", model=model, streaming=stream_mode,
+                      choices=len(preqs),
+                      **({"sla_class": sla.sla_class} if sla is not None else {}))
+        flight.record(rid, "tokenized", prompt_tokens=len(preqs[0].token_ids))
+        fail_msg: Optional[str] = None
+        fail_type = "internal_error"
         t0 = time.monotonic()
-        streams = [self._observed(pipeline.generate_tokens(p, c), model, t0)
+        streams = [self._observed(pipeline.generate_tokens(p, c), model, t0,
+                                  request_id=rid, sla=sla)
                    for p, c in zip(preqs, ctxs)]
         try:
             if stream_mode:
@@ -306,14 +421,21 @@ class HttpService:
                 finally:
                     prompt_tokens = max(g.prompt_tokens for g in delta_gens)
                     completion_tokens = sum(g.completion_tokens for g in delta_gens)
+                    if audit_handle is not None:
+                        audit_handle.set_response({
+                            "streamed": True, "completion_tokens": completion_tokens,
+                            "prompt_tokens": prompt_tokens})
                 return resp
             result = await aggregator(streams)
             usage = result.usage
             if usage is not None:
                 prompt_tokens, completion_tokens = usage.prompt_tokens, usage.completion_tokens
+            if audit_handle is not None:
+                audit_handle.set_response(result.to_obj())
             return json_response(result.to_obj())
         except NoResponders:
             status = "503"
+            fail_msg, fail_type = "no workers available", "service_unavailable"
             return await self._fail(resp, 503, "no workers available", "service_unavailable")
         except asyncio.CancelledError:
             status = "499"
@@ -324,6 +446,7 @@ class HttpService:
             log.exception("request %s failed", rid[:16])
             code, etype = http_status_for(e)
             status = str(code)
+            fail_msg, fail_type = str(e), etype
             return await self._fail(resp, code, str(e), etype)
         finally:
             for s in streams:
@@ -333,12 +456,45 @@ class HttpService:
                     pass  # still running in a cancelled merge pump: it ends there
             self.inflight -= 1
             self._inflight_g.set(self.inflight)
+            failed = status not in ("200", "499")
+            if sla is not None and failed and completion_tokens == 0:
+                # died before a first token: the stream observation never
+                # accounted it, and a promise broken by an outage is what
+                # the client-observed ledger is for
+                self.slo.record(model, sla, ttft_s=None, output_tokens=0,
+                                e2e_s=time.monotonic() - t0)
             self._requests.inc(model=model, status=status)
-            self._duration.observe(time.monotonic() - t0, model=model, sla_class="")
+            self._duration.observe(time.monotonic() - t0, model=model,
+                                   sla_class=sla.sla_class if sla is not None else "")
             self._input_tokens.inc(prompt_tokens, model=model)
             self._output_tokens.inc(completion_tokens, model=model)
             for c in ctxs:
                 c.stop_generating()
+            span.set(status=status, completion_tokens=completion_tokens)
+            if failed:
+                # errors became responses before the span closes
+                span.status = "ERROR"
+            span.__exit__(None, None, None)
+            # a failed request dumps its timeline; 499 is the client
+            # hanging up, not a failure
+            flight.finish(rid, error=fail_msg if failed else None, error_class=fail_type,
+                          status=status, completion_tokens=completion_tokens)
+            self._observe_attribution(model, sla, rid, flight)
+            if audit_handle is not None:
+                audit_handle.emit()
+                await self.audit.drain_async_sinks()
+
+    def _observe_attribution(self, model, sla, rid, flight) -> None:
+        """Fold the finished request's timeline into the rolling phase
+        aggregates (read back after finish(), so milestones stamped by an
+        engine in this process are in it)."""
+        try:
+            timeline = flight.timeline(rid)
+            if timeline is not None:
+                self.attribution.observe_flight(
+                    model, sla.sla_class if sla is not None else "unclassified", timeline)
+        except Exception:
+            log.exception("attribution observe failed for %s", rid[:16])
 
     async def _fail(self, resp: Optional[StreamResponse], status: int, msg: str,
                     err_type: str):
@@ -364,12 +520,16 @@ class HttpService:
         if busy is not None:
             return busy
         try:
-            req = ChatCompletionRequest.from_obj(request.json())
+            body = request.json()
+            req = ChatCompletionRequest.from_obj(body)
         except ValueError as e:
             return _error(400, f"invalid request: {e}")
         pipeline = self.manager.get(req.model)
         if pipeline is None:
             return _error(404, f"model '{req.model}' not found", "model_not_found")
+        sla, sla_err = self._resolve_sla(request, req.sla, pipeline)
+        if sla_err is not None:
+            return sla_err
         try:
             preq = pipeline.preprocessor.preprocess_chat(req)
         except ValueError as e:
@@ -403,20 +563,26 @@ class HttpService:
             aggregator = lambda ss: aggregate_chat_multi(  # noqa: E731
                 rid, req.model, ss, reasoning_parser_factory=reasoning_factory,
                 tool_parser_factory=tool_factory, tool_choice=req.tool_choice)
+        audit_handle = self.audit.create_handle(body, rid, req.model, req.stream)
         return await self._run(request, preqs, pipeline, req.model, req.stream, gens,
-                               aggregator, usage_chunk_factory=usage_chunk_factory)
+                               aggregator, usage_chunk_factory=usage_chunk_factory,
+                               audit_handle=audit_handle, sla=sla)
 
     async def completions(self, request: Request):
         busy = self._check_capacity()
         if busy is not None:
             return busy
         try:
-            req = CompletionRequest.from_obj(request.json())
+            body = request.json()
+            req = CompletionRequest.from_obj(body)
         except ValueError as e:
             return _error(400, f"invalid request: {e}")
         pipeline = self.manager.get(req.model)
         if pipeline is None:
             return _error(404, f"model '{req.model}' not found", "model_not_found")
+        sla, sla_err = self._resolve_sla(request, req.sla, pipeline)
+        if sla_err is not None:
+            return sla_err
         prompt = req.prompt
         if isinstance(prompt, list) and prompt and isinstance(prompt[0], (list, str)):
             if len(prompt) > 1 or isinstance(prompt[0], list):
@@ -447,8 +613,10 @@ class HttpService:
         else:
             aggregator = lambda ss: aggregate_completion_multi(  # noqa: E731
                 rid, req.model, ss, echo_text)
+        audit_handle = self.audit.create_handle(body, rid, req.model, req.stream)
         return await self._run(request, preqs, pipeline, req.model, req.stream, gens,
-                               aggregator, usage_chunk_factory=usage_chunk_factory)
+                               aggregator, usage_chunk_factory=usage_chunk_factory,
+                               audit_handle=audit_handle, sla=sla)
 
     async def embeddings(self, request: Request) -> Response:
         """/v1/embeddings off a pooled forward: a string, a list of strings,

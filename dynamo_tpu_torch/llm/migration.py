@@ -4,8 +4,9 @@ The port's copy of the reference package's llm/migration.py: if the worker
 dies before or during generation (NoResponders / dropped stream / an error
 finish), re-send the request to a different worker carrying the tokens
 already generated (``prior_token_ids``) so decode resumes where it stopped,
-bounded by ``migration_limit`` attempts. The reference's evacuation plans
-(KV pulled from a draining worker) wait for the port's KV transfer.
+bounded by ``migration_limit`` attempts; each migration lands on the
+request's flight-recorder timeline. The reference's evacuation plans (KV
+pulled from a draining worker) wait for the port's KV transfer.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 from typing import Any, AsyncIterator, Awaitable, Callable, List, Optional
 
 from ..runtime.engine import Context
+from ..runtime.flight_recorder import get_flight_recorder
 from ..runtime.logging import get_logger
 from ..runtime.request_plane.tcp import NoResponders
 from .protocols.common import BackendOutput, PreprocessedRequest
@@ -97,6 +99,12 @@ class Migration:
                 worker_id: Optional[int] = getattr(e, "instance_id", None)
                 if worker_id is not None and worker_id not in excluded:
                     excluded.append(worker_id)
+                get_flight_recorder().record(
+                    request.request_id, "migration",
+                    tokens_so_far=len(accumulated), attempts_left=attempts_left,
+                    from_worker=(f"{worker_id:016x}" if worker_id is not None else "unknown"),
+                    evacuated=False, error=str(e)[:200],
+                )
                 log.info(
                     "migrating request %s (%d tokens so far, %d attempts left): %s",
                     req.request_id, len(accumulated), attempts_left, e,

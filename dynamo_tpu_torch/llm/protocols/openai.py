@@ -311,7 +311,8 @@ _SAMPLING_FIELDS = {
     "logprobs": _opt(_union(_bool, _int)),
     "top_logprobs": _opt(_int, ge=0, le=20),
     "ignore_eos": _opt(_bool),
-    # SLA class (the reference's SLO plane, ROADMAP item 4b): accepted, unused
+    # SLA class (runtime/slo.py): resolved by the frontend, accounted in
+    # its SLO ledger and the worker's
     "sla": _opt(_str),
     # guided decoding (at most one); chat requests can also use
     # response_format json_schema / json_object (llm/preprocessor.py)

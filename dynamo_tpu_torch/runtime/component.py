@@ -168,6 +168,13 @@ class ServedEndpoint:
     def address(self) -> str:
         return self.instance.address
 
+    async def update_metadata(self, metadata: Dict[str, Any]) -> None:
+        """Merge ``metadata`` into the instance record and republish it (a
+        worker advertises its status port's address so)."""
+        self.instance.metadata.update(metadata)
+        rt = self.endpoint.runtime
+        await rt.store.put_obj(self._key, self.instance.to_obj(), rt.lease_id)
+
     async def publish_extra(self, key: str, obj: Any) -> None:
         rt = self.endpoint.runtime
         self.extra_objs[key] = obj

@@ -1,8 +1,9 @@
 """Layered runtime configuration and the ``DTPU_*`` environment catalog.
 
 The port's copy of the reference package's runtime/config.py, holding the
-names the serving plane and the KV router read (the reference's catalog
-also names the planes of later slices). Precedence: explicit kwargs > env >
+names the serving plane, the KV router and the health and observability
+planes read (the reference's catalog also names the planes of later
+slices). Precedence: explicit kwargs > env >
 config file (``DTPU_CONFIG``, json or toml) > defaults.
 """
 
@@ -33,6 +34,29 @@ ENV_KVBM_DISK_PATH = "DTPU_KVBM_DISK_PATH"
 ENV_HTTP_PORT = "DTPU_HTTP_PORT"
 ENV_BUSY_THRESHOLD = "DTPU_BUSY_THRESHOLD"
 ENV_CONFIG_FILE = "DTPU_CONFIG"                       # layered config file (json/toml)
+ENV_SYSTEM_PORT = "DTPU_SYSTEM_PORT"                  # worker status server port
+ENV_SYSTEM_HOST = "DTPU_SYSTEM_HOST"
+ENV_CANARY_WAIT_TIME = "DTPU_CANARY_WAIT_TIME"        # s between canary probes
+# observability (runtime/tracing.py, llm/audit.py)
+ENV_AUDIT_SINKS = "DTPU_AUDIT_SINKS"                  # stderr,jsonl:<path>,event
+ENV_AUDIT_FORCE_LOGGING = "DTPU_AUDIT_FORCE_LOGGING"  # audit every request
+ENV_AUDIT_SUBJECT = "DTPU_AUDIT_SUBJECT"              # event-plane audit topic
+ENV_OTLP_ENDPOINT = "DTPU_OTLP_ENDPOINT"              # OTLP/HTTP collector
+ENV_TRACE_JSONL = "DTPU_TRACE_JSONL"                  # span JSONL file
+# request flight recorder (runtime/flight_recorder.py) + step telemetry
+ENV_FLIGHT_CAPACITY = "DTPU_FLIGHT_CAPACITY"          # retained request timelines
+ENV_FLIGHT_DUMP = "DTPU_FLIGHT_DUMP"                  # JSONL path for failure dumps
+ENV_SLOW_STEP_MS = "DTPU_SLOW_STEP_MS"                # slow-step log threshold
+ENV_ASYNC_PREP = "DTPU_ASYNC_PREP"                    # async host chunk prep on/off
+# SLO accounting (runtime/slo.py)
+ENV_SLA_CLASSES = "DTPU_SLA_CLASSES"                  # "interactive:ttft=0.5,itl=0.05;batch:ttft=30"
+ENV_SLA_DEFAULT = "DTPU_SLA_DEFAULT"                  # class stamped when a request names none
+ENV_SLO_OBJECTIVE = "DTPU_SLO_OBJECTIVE"              # attainment objective for burn rate (0.99)
+# fleet observability (runtime/health.py detectors, llm/fleet.py /debug/fleet)
+ENV_FLEET_FANOUT = "DTPU_FLEET_FANOUT"                # /debug/fleet concurrent worker fetches
+ENV_FLEET_TIMEOUT_S = "DTPU_FLEET_TIMEOUT_S"          # per-worker snapshot fetch timeout (s)
+ENV_HEALTH_MIN_INTERVAL_S = "DTPU_HEALTH_MIN_INTERVAL_S"  # min s between health events per subject
+ENV_HEALTH_DRIFT_RATIO = "DTPU_HEALTH_DRIFT_RATIO"    # measured/predicted step-time trip ratio
 
 _TRUTHY = {"1", "true", "yes", "on", "enabled"}
 

@@ -1,0 +1,678 @@
+"""Health subsystem: canary checks, degradation detectors, status server.
+
+The port's copy of the reference package's runtime/health.py: canary
+health checks (synthetic probes through the real serving path, not just
+process liveness) and the system status server (/health /live /metrics
+/metadata and the debug routes on a side port of every worker), which
+runs on the port's own HTTP server (llm/http/server.py) in place of
+aiohttp.
+
+The canary pings a worker's own served endpoints over the actual TCP request
+plane (connect + codec + server loop), so a wedged event loop or dead socket
+fails the probe even while the process is alive. Consecutive failures flip
+the subsystem unhealthy and fire a callback (deregister, shed, restart —
+caller's choice).
+
+The degradation detectors (:class:`HealthMonitor`) compare live signals
+against expectations and emit typed, rate-limited :class:`HealthEvent`\\ s:
+
+- ``cost_model_drift`` — measured step seconds vs the ``ops/costs.py``
+  analytic prediction for the same shapes (the deterministic byte models
+  auditing the live path);
+- ``wire_collapse`` — a wire's bandwidth EWMA collapsing against the
+  detector's own long-horizon reference of that same wire (no port caller
+  feeds it until the KV transfer plane lands);
+- ``hitrate_drop`` — radix/global-KV hit rate falling far below its own
+  baseline;
+- ``burn_rate_accel`` — a class's short-window error-budget burn running
+  far ahead of its long-window burn.
+
+Every detector runs through one hysteresis + rate-limit core: N consecutive
+over-threshold observations trip it (no single-sample flaps), M consecutive
+healthy observations clear it, and per-(detector, subject) emissions are
+spaced at least ``DTPU_HEALTH_MIN_INTERVAL_S`` apart. The monitor is
+clock-injectable, so tests drive the detectors on a clock of their own.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import collections
+import dataclasses
+import time
+from typing import Any, Awaitable, Callable, Dict, List, Optional
+
+from ..llm.http.server import HttpServer, Response, json_response
+from . import metrics as M
+from .config import (
+    ENV_CANARY_WAIT_TIME,
+    ENV_HEALTH_DRIFT_RATIO,
+    ENV_HEALTH_MIN_INTERVAL_S,
+    ENV_SYSTEM_HOST,
+    env_float,
+    env_str,
+)
+from .logging import get_logger
+from .request_plane.tcp import TcpClient
+from .tasks import spawn_bg
+
+log = get_logger("runtime.health")
+
+
+class HealthState:
+    """Aggregated health of named subsystems (endpoints, engine, planes)."""
+
+    def __init__(self):
+        self._subsystems: Dict[str, bool] = {}
+        self._detail: Dict[str, str] = {}
+
+    def set(self, name: str, healthy: bool, detail: str = "") -> None:
+        self._subsystems[name] = healthy
+        self._detail[name] = detail
+
+    def remove(self, name: str) -> None:
+        self._subsystems.pop(name, None)
+        self._detail.pop(name, None)
+
+    @property
+    def healthy(self) -> bool:
+        return all(self._subsystems.values()) if self._subsystems else True
+
+    def snapshot(self) -> Dict[str, Any]:
+        return {
+            "status": "healthy" if self.healthy else "unhealthy",
+            "subsystems": {
+                name: {"healthy": ok, "detail": self._detail.get(name, "")}
+                for name, ok in self._subsystems.items()
+            },
+        }
+
+
+class EndpointCanary:
+    """Periodic request-plane pings of served endpoints.
+
+    targets: name -> address. After ``fail_threshold`` consecutive failures a
+    target is marked unhealthy in ``state`` and ``on_unhealthy(name)`` fires
+    once per downtime episode; a later success marks it healthy again."""
+
+    def __init__(
+        self,
+        targets: Dict[str, str],
+        state: Optional[HealthState] = None,
+        interval_s: Optional[float] = None,
+        timeout_s: float = 2.0,
+        fail_threshold: int = 3,
+        on_unhealthy: Optional[Callable[[str], Awaitable[None]]] = None,
+    ):
+        self.targets = dict(targets)
+        self.state = state or HealthState()
+        # DTPU_CANARY_WAIT_TIME (reference canary_wait_time) paces the probe
+        # loop when the caller leaves it open
+        self.interval_s = (
+            env_float(ENV_CANARY_WAIT_TIME, 1.0) if interval_s is None else interval_s
+        )
+        self.timeout_s = timeout_s
+        self.fail_threshold = fail_threshold
+        self.on_unhealthy = on_unhealthy
+        self.last_rtt: Dict[str, float] = {}
+        self._fails: Dict[str, int] = {}
+        self._down: set = set()
+        self._client = TcpClient()
+        self._task: Optional[asyncio.Task] = None
+        for name in self.targets:
+            self.state.set(name, True, "not probed yet")
+
+    async def probe_once(self) -> None:
+        for name, address in list(self.targets.items()):
+            try:
+                rtt = await self._client.ping(address, timeout=self.timeout_s)
+                self.last_rtt[name] = rtt
+                self._fails[name] = 0
+                self._down.discard(name)
+                self.state.set(name, True, f"rtt={rtt*1000:.1f}ms")
+            except Exception as e:
+                n = self._fails.get(name, 0) + 1
+                self._fails[name] = n
+                if n >= self.fail_threshold:
+                    self.state.set(name, False, f"{n} consecutive failures: {e}")
+                    if name not in self._down:
+                        self._down.add(name)
+                        log.warning("canary: endpoint %s unhealthy (%s)", name, e)
+                        if self.on_unhealthy is not None:
+                            try:
+                                await self.on_unhealthy(name)
+                            except Exception:
+                                # the callback (deregister, shed, restart)
+                                # tends to hit the same dead infrastructure
+                                # the canary just detected; its failure must
+                                # not kill the probe loop — the canary is
+                                # most needed exactly then
+                                log.exception(
+                                    "canary: on_unhealthy(%s) failed", name
+                                )
+
+    def start(self) -> "EndpointCanary":
+        async def loop() -> None:
+            try:
+                while True:
+                    await self.probe_once()
+                    await asyncio.sleep(self.interval_s)
+            except asyncio.CancelledError:
+                pass
+
+        # spawn_bg: a canary that dies from an unexpected error must log,
+        # not silently stop probing while /health keeps reporting stale state
+        self._task = spawn_bg(loop())
+        return self
+
+    async def stop(self) -> None:
+        if self._task is not None:
+            self._task.cancel()
+        await self._client.close()
+
+
+# ---------------------------------------------------------------------------
+# degradation detectors
+# ---------------------------------------------------------------------------
+
+DEFAULT_DRIFT_RATIO = 2.0        # measured/predicted step time trip point
+DEFAULT_COLLAPSE_FRAC = 0.3      # bandwidth below this fraction of reference
+DEFAULT_HITRATE_DROP = 0.5       # hit rate below this fraction of baseline
+DEFAULT_BURN_ACCEL = 4.0         # short-window burn over long-window burn
+DEFAULT_MIN_INTERVAL_S = 30.0    # per-(detector, subject) emission spacing
+_TRIP_N = 3                      # consecutive bad observations to trip
+_CLEAR_N = 3                     # consecutive good observations to clear
+_CLEAR_SLACK = 0.8               # clear threshold = slack * trip threshold
+_EVENTS_RETAINED = 256
+_REFERENCE_ALPHA = 0.02          # long-horizon reference EWMA
+_MIN_REFERENCE_OBS = 10          # observations before a detector arms
+
+
+@dataclasses.dataclass
+class HealthEvent:
+    """One typed degradation event (what fired, on what, how far off)."""
+
+    detector: str     # cost_model_drift | wire_collapse | hitrate_drop | ...
+    subject: str      # "worker/3", "wire/inline", "class/interactive", ...
+    kind: str         # "degraded" | "recovered"
+    value: float      # the measured signal
+    expected: float   # the reference it was compared against
+    ratio: float      # value/expected (drift) or value/reference (others)
+    t: float          # monitor-clock seconds
+    detail: str = ""
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {
+            "detector": self.detector,
+            "subject": self.subject,
+            "kind": self.kind,
+            "value": round(self.value, 6),
+            "expected": round(self.expected, 6),
+            "ratio": round(self.ratio, 4),
+            "t": round(self.t, 3),
+            "detail": self.detail,
+        }
+
+
+class _SubjectState:
+    """Hysteresis + rate-limit core shared by every detector: trip after
+    ``_TRIP_N`` consecutive over-threshold observations, clear after
+    ``_CLEAR_N`` consecutive observations under ``_CLEAR_SLACK`` of the
+    trip threshold — the gap between the two thresholds is the no-flap
+    band. Emissions per subject are spaced ``min_interval_s`` apart."""
+
+    __slots__ = ("bad", "good", "tripped", "last_emit", "reference", "obs")
+
+    def __init__(self) -> None:
+        self.bad = 0
+        self.good = 0
+        self.tripped = False
+        self.last_emit = float("-inf")
+        self.reference: Optional[float] = None
+        self.obs = 0
+
+
+class HealthSubscription:
+    """Handle for one subscriber callback; ``close()`` detaches it
+    (RESOURCE-LEAK: health-subscription)."""
+
+    def __init__(self, monitor: "HealthMonitor",
+                 callback: Callable[[HealthEvent], None]):
+        self._monitor = monitor
+        self._callback = callback
+
+    def close(self) -> None:
+        self._monitor._subscribers.discard(self)
+
+
+class HealthMonitor:
+    """Clock-injectable degradation detectors over live serving signals.
+
+    One monitor per component; producers call the ``observe_*`` feeds from
+    wherever the signal lives (the step-stats hook, the bandwidth
+    estimator's consumer, the SLO accountant reader). Emissions go to the
+    bounded ``recent`` ring (the ``/debug/worker`` payload), the flight
+    recorder under a synthetic ``health:<detector>`` timeline, the
+    ``dtpu_health_events_total`` counter, and any subscribers (the worker
+    main publishes them onto the event plane).
+    """
+
+    def __init__(
+        self,
+        clock: Optional[Callable[[], float]] = None,
+        min_interval_s: Optional[float] = None,
+        drift_ratio: Optional[float] = None,
+        collapse_frac: float = DEFAULT_COLLAPSE_FRAC,
+        hitrate_drop: float = DEFAULT_HITRATE_DROP,
+        burn_accel: float = DEFAULT_BURN_ACCEL,
+        metrics: Optional[M.MetricsScope] = None,
+        flight_recorder=None,
+    ):
+        self._clock = clock if clock is not None else time.monotonic
+        self.min_interval_s = (
+            env_float(ENV_HEALTH_MIN_INTERVAL_S, DEFAULT_MIN_INTERVAL_S)
+            if min_interval_s is None else min_interval_s
+        )
+        self.drift_ratio = (
+            env_float(ENV_HEALTH_DRIFT_RATIO, DEFAULT_DRIFT_RATIO)
+            if drift_ratio is None else drift_ratio
+        )
+        self.collapse_frac = collapse_frac
+        self.hitrate_drop = hitrate_drop
+        self.burn_accel = burn_accel
+        self._flight = flight_recorder
+        self._states: Dict[tuple, _SubjectState] = {}
+        self._subscribers: set = set()
+        self.recent: "collections.deque[HealthEvent]" = collections.deque(
+            maxlen=_EVENTS_RETAINED
+        )
+        self.counts: Dict[str, int] = {}
+        self._events_c = None
+        if metrics is not None:
+            self.bind_metrics(metrics)
+
+    def bind_metrics(self, scope: M.MetricsScope) -> None:
+        self._events_c = scope.counter(
+            M.HEALTH_EVENTS_TOTAL,
+            "degradation-detector events",
+            extra_labels=("detector", "kind"),
+        )
+
+    def subscribe(
+        self, callback: Callable[[HealthEvent], None]
+    ) -> HealthSubscription:
+        sub = HealthSubscription(self, callback)
+        self._subscribers.add(sub)
+        return sub
+
+    # -- detector feeds ------------------------------------------------------
+    def observe_step(
+        self, subject: str, measured_s: float, predicted_s: float,
+        phase: str = "decode",
+    ) -> Optional[HealthEvent]:
+        """Cost-model drift: host-measured step time vs the ops/costs.py
+        analytic prediction for the same shapes (the worker predicts from
+        the card's memory rate and the model's weight bytes). ``subject``
+        names the worker (``worker/<id>``)."""
+        if predicted_s <= 0.0:
+            return None
+        ratio = measured_s / predicted_s
+        return self._evaluate(
+            "cost_model_drift", subject,
+            bad=ratio >= self.drift_ratio,
+            good=ratio <= self.drift_ratio * _CLEAR_SLACK,
+            value=measured_s, expected=predicted_s, ratio=ratio,
+            detail=f"{phase} step {measured_s * 1e3:.1f}ms vs model "
+                   f"{predicted_s * 1e3:.1f}ms",
+        )
+
+    def observe_wire(
+        self, wire: str, bandwidth_bytes_s: float
+    ) -> Optional[HealthEvent]:
+        """Wire-bandwidth collapse vs the EWMA's own history: the detector
+        keeps a slow reference EWMA per wire and trips when the live
+        estimate falls under ``collapse_frac`` of it. The reference only
+        learns while untripped, so a collapse cannot drag its own baseline
+        down and silence the alarm."""
+        subject = f"wire/{wire}"
+        st = self._states.setdefault(("wire_collapse", subject),
+                                     _SubjectState())
+        st.obs += 1
+        if st.reference is None:
+            st.reference = bandwidth_bytes_s
+        ref = st.reference
+        armed = st.obs > _MIN_REFERENCE_OBS and ref > 0.0
+        ratio = bandwidth_bytes_s / ref if ref > 0 else 1.0
+        ev = self._evaluate(
+            "wire_collapse", subject,
+            bad=armed and ratio <= self.collapse_frac,
+            good=(not armed) or ratio >= min(
+                self.collapse_frac / _CLEAR_SLACK, 1.0
+            ),
+            value=bandwidth_bytes_s, expected=ref, ratio=ratio,
+            detail=f"{bandwidth_bytes_s / 1e6:.1f} MB/s vs reference "
+                   f"{ref / 1e6:.1f} MB/s",
+            state=st,
+        )
+        if not st.tripped:
+            st.reference = (
+                (1.0 - _REFERENCE_ALPHA) * ref
+                + _REFERENCE_ALPHA * bandwidth_bytes_s
+            )
+        return ev
+
+    def observe_hit_rate(
+        self, subject: str, rate: float
+    ) -> Optional[HealthEvent]:
+        """Radix/global-KV hit-rate drop vs the subject's own baseline
+        EWMA. ``subject`` e.g. ``radix/worker0`` or ``global_kv``."""
+        st = self._states.setdefault(("hitrate_drop", subject),
+                                     _SubjectState())
+        st.obs += 1
+        if st.reference is None:
+            st.reference = rate
+        ref = st.reference
+        # an always-cold cache (tiny baseline) has nothing to drop from
+        armed = st.obs > _MIN_REFERENCE_OBS and ref >= 0.05
+        ratio = rate / ref if ref > 0 else 1.0
+        ev = self._evaluate(
+            "hitrate_drop", subject,
+            bad=armed and ratio <= self.hitrate_drop,
+            good=(not armed) or ratio >= min(
+                self.hitrate_drop / _CLEAR_SLACK, 1.0
+            ),
+            value=rate, expected=ref, ratio=ratio,
+            detail=f"hit rate {rate:.3f} vs baseline {ref:.3f}",
+            state=st,
+        )
+        if not st.tripped:
+            st.reference = (1.0 - _REFERENCE_ALPHA) * ref + _REFERENCE_ALPHA * rate
+        return ev
+
+    def observe_burn(
+        self, model: str, sla_class: str,
+        short_burn: Optional[float], long_burn: Optional[float],
+    ) -> Optional[HealthEvent]:
+        """Burn-rate acceleration: a class whose short-window error-budget
+        burn runs ``burn_accel``x ahead of its long-window burn (and is
+        itself over budget) is degrading NOW, not historically."""
+        if short_burn is None:
+            return None
+        base = max(long_burn if long_burn is not None else 0.0, 1.0)
+        ratio = short_burn / base
+        return self._evaluate(
+            "burn_rate_accel", f"class/{model}/{sla_class}",
+            bad=ratio >= self.burn_accel and short_burn > 1.0,
+            good=ratio <= self.burn_accel * _CLEAR_SLACK,
+            value=short_burn, expected=base, ratio=ratio,
+            detail=f"short-window burn {short_burn:.2f} vs long {base:.2f}",
+        )
+
+    def check_burn(self, accountant, window: str = "1m",
+                   baseline: str = "1h") -> List[HealthEvent]:
+        """Sweep an SloAccountant's classes through observe_burn."""
+        out = []
+        for model, cls in accountant.keys():
+            ev = self.observe_burn(
+                model, cls,
+                accountant.burn_rate(model, cls, window),
+                accountant.burn_rate(model, cls, baseline),
+            )
+            if ev is not None:
+                out.append(ev)
+        return out
+
+    # -- the shared hysteresis/rate-limit core -------------------------------
+    def _evaluate(
+        self, detector: str, subject: str, *, bad: bool, good: bool,
+        value: float, expected: float, ratio: float, detail: str,
+        state: Optional[_SubjectState] = None,
+    ) -> Optional[HealthEvent]:
+        st = state if state is not None else self._states.setdefault(
+            (detector, subject), _SubjectState()
+        )
+        now = self._clock()
+        emitted: Optional[HealthEvent] = None
+        if bad:
+            st.bad += 1
+            st.good = 0
+            should_fire = st.bad >= _TRIP_N
+            if should_fire and (
+                not st.tripped or now - st.last_emit >= self.min_interval_s
+            ):
+                st.tripped = True
+                st.last_emit = now
+                emitted = HealthEvent(
+                    detector, subject, "degraded", value, expected, ratio,
+                    now, detail,
+                )
+        elif good:
+            st.good += 1
+            st.bad = 0
+            if st.tripped and st.good >= _CLEAR_N:
+                st.tripped = False
+                st.last_emit = now
+                emitted = HealthEvent(
+                    detector, subject, "recovered", value, expected, ratio,
+                    now, detail,
+                )
+        else:
+            # the no-flap band between clear and trip thresholds: reset the
+            # consecutive counters, change nothing
+            st.bad = 0
+            st.good = 0
+        if emitted is not None:
+            self._emit(emitted)
+        return emitted
+
+    def _emit(self, ev: HealthEvent) -> None:
+        self.recent.append(ev)
+        self.counts[ev.detector] = self.counts.get(ev.detector, 0) + 1
+        if self._events_c is not None:
+            self._events_c.inc(detector=ev.detector, kind=ev.kind)
+        (log.warning if ev.kind == "degraded" else log.info)(
+            "health: %s %s on %s (ratio %.2f; %s)",
+            ev.detector, ev.kind, ev.subject, ev.ratio, ev.detail,
+        )
+        flight = self._flight
+        if flight is None:
+            from .flight_recorder import get_flight_recorder
+
+            flight = get_flight_recorder()
+        # synthetic per-detector timelines: "what degraded on this worker"
+        # is answerable from /debug/requests like any request post-mortem
+        flight.record(
+            f"health:{ev.detector}", ev.kind,
+            subject=ev.subject, ratio=round(ev.ratio, 4),
+            value=round(ev.value, 6), expected=round(ev.expected, 6),
+            detail=ev.detail,
+        )
+        for sub in list(self._subscribers):
+            try:
+                sub._callback(ev)
+            except Exception:
+                # a broken subscriber (event-plane hiccup) must not take
+                # the detector path down
+                log.exception("health subscriber failed for %s", ev.detector)
+
+    # -- consumer side -------------------------------------------------------
+    def active(self) -> List[Dict[str, Any]]:
+        return [
+            {"detector": det, "subject": subj}
+            for (det, subj), st in sorted(self._states.items())
+            if st.tripped
+        ]
+
+    def snapshot(self) -> Dict[str, Any]:
+        return {
+            "active": self.active(),
+            "counts": dict(sorted(self.counts.items())),
+            "recent": [ev.to_dict() for ev in list(self.recent)[-32:]],
+        }
+
+    def close(self) -> None:
+        self._subscribers.clear()
+
+
+_global_monitor: Optional[HealthMonitor] = None
+
+
+def get_health_monitor() -> HealthMonitor:
+    global _global_monitor
+    if _global_monitor is None:
+        _global_monitor = HealthMonitor()
+    return _global_monitor
+
+
+def set_health_monitor(monitor: Optional[HealthMonitor]) -> None:
+    global _global_monitor
+    _global_monitor = monitor
+
+
+class StatusServer:
+    """Side-port HTTP server exposing component health and metrics, on the
+    port's own HTTP server.
+
+    Routes:
+      /health    aggregated HealthState (+ canary RTTs), 503 when unhealthy
+      /live      process liveness (always 200 while serving)
+      /metrics   Prometheus exposition from the runtime registry
+      /metadata  caller-provided component metadata (model, config, snapshot)
+      /v1/loras  loaded LoRA adapters
+      /debug/requests  flight-recorder timelines (runtime/flight_recorder.py);
+                 ``?id=<request_id>`` returns one timeline, 404 if evicted
+      /debug/slo  per-(model, sla_class) attainment/burn-rate/goodput ledger
+                 (runtime/slo.py SloAccountant; the worker-side view fed
+                 from engine milestone timestamps)
+      /debug/worker  the worker's one-call observability document (engine
+                 snapshot, step telemetry, SLO ledger, attribution windows,
+                 health events): the unit the frontend's ``/debug/fleet``
+                 fan-out merges (llm/fleet.py)
+      POST /drain  planned-reclaim notice, body ``{"deadline_s": 30}``: 409
+                 when no drain handler is wired (the port's workers wire
+                 none yet)
+
+    Handlers run on the worker's event loop and read host counters only.
+    """
+
+    def __init__(
+        self,
+        state: HealthState,
+        metrics_scope: Optional[M.MetricsScope] = None,
+        metadata_fn: Optional[Callable[[], Dict[str, Any]]] = None,
+        pre_expose: Optional[Callable[[], None]] = None,
+        host: Optional[str] = None,
+        port: int = 0,
+        loras_fn: Optional[Callable[[], list]] = None,
+        flight_recorder=None,
+        drain_fn: Optional[Callable[[Optional[float]], Awaitable[Dict[str, Any]]]] = None,
+        worker_snapshot_fn: Optional[Callable[[], Dict[str, Any]]] = None,
+    ):
+        self.state = state
+        self.metrics = metrics_scope
+        self.metadata_fn = metadata_fn
+        self.loras_fn = loras_fn
+        self.drain_fn = drain_fn
+        self.worker_snapshot_fn = worker_snapshot_fn
+        self.pre_expose = pre_expose  # refresh gauges right before scraping
+        # explicit host wins; DTPU_SYSTEM_HOST configures what callers left open
+        self.host = host if host is not None else env_str(ENV_SYSTEM_HOST, "0.0.0.0")
+        self.port = port
+        # None = the process-global recorder (workers get /debug/requests
+        # without wiring); tests pass their own
+        self._flight_recorder = flight_recorder
+        self.started_at = time.time()
+        self.server = HttpServer(self.host, self.port)
+        for method, path, handler in (
+                ("GET", "/health", self._health),
+                ("GET", "/live", self._live),
+                ("GET", "/metrics", self._metrics),
+                ("GET", "/metadata", self._metadata),
+                ("GET", "/v1/loras", self._loras),
+                ("GET", "/debug/requests", self._debug_requests),
+                ("GET", "/debug/slo", self._debug_slo),
+                ("GET", "/debug/worker", self._debug_worker),
+                ("POST", "/drain", self._drain)):
+            self.server.add_route(method, path, handler)
+
+    async def _health(self, request):
+        snap = self.state.snapshot()
+        return json_response(snap, status=200 if self.state.healthy else 503)
+
+    async def _live(self, request):
+        return json_response({"status": "live", "uptime_s": time.time() - self.started_at})
+
+    async def _metrics(self, request):
+        if self.pre_expose is not None:
+            try:
+                self.pre_expose()
+            except Exception:
+                # stale gauges beat a failed scrape
+                log.exception("metrics pre_expose hook failed")
+        body = self.metrics.expose() if self.metrics is not None else b""
+        return Response(body, content_type="text/plain; version=0.0.4; charset=utf-8")
+
+    async def _metadata(self, request):
+        meta = self.metadata_fn() if self.metadata_fn is not None else {}
+        return json_response(meta)
+
+    async def _loras(self, request):
+        names = self.loras_fn() if self.loras_fn is not None else []
+        return json_response({"data": [{"id": n} for n in names]})
+
+    async def _debug_requests(self, request):
+        from .flight_recorder import debug_requests_payload, get_flight_recorder
+
+        rec = self._flight_recorder or get_flight_recorder()
+        status, payload = debug_requests_payload(
+            rec, request.query.get("id"), request.query.get("limit")
+        )
+        return json_response(payload, status=status)
+
+    async def _debug_slo(self, request):
+        from .slo import debug_slo_payload, get_slo_accountant
+
+        return json_response(debug_slo_payload(get_slo_accountant()))
+
+    async def _debug_worker(self, request):
+        if self.worker_snapshot_fn is not None:
+            try:
+                doc = self.worker_snapshot_fn()
+            except Exception as e:  # a broken section must not 500 the probe
+                log.exception("worker snapshot assembly failed")
+                doc = {"error": f"snapshot failed: {e}"}
+        else:
+            # minimal fallback so every StatusServer answers the fleet
+            # fan-out with something mergeable
+            doc = {"health": self.state.snapshot()}
+        doc = dict(doc, uptime_s=round(time.time() - self.started_at, 3))
+        return json_response(doc)
+
+    async def _drain(self, request):
+        if self.drain_fn is None:
+            return json_response(
+                {"error": "no drain handler on this component"}, status=409
+            )
+        deadline_s: Optional[float] = None
+        try:
+            body = request.json()
+        except Exception:
+            body = {}
+        if not isinstance(body, dict):
+            body = {}
+        raw = body.get("deadline_s", request.query.get("deadline_s"))
+        if raw is not None:
+            try:
+                deadline_s = float(raw)
+            except (TypeError, ValueError):
+                return json_response({"error": f"bad deadline_s {raw!r}"}, status=400)
+        summary = await self.drain_fn(deadline_s)
+        return json_response(summary)
+
+    async def start(self) -> str:
+        self.port = await self.server.start()
+        log.info("status server on %s:%d", self.host, self.port)
+        return f"{self.host}:{self.port}"
+
+    async def stop(self) -> None:
+        await self.server.stop()

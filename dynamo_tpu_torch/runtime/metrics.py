@@ -32,12 +32,30 @@ OUTPUT_TOKENS = f"{PREFIX}_output_tokens_total"
 RETRY_ATTEMPTS_TOTAL = f"{PREFIX}_retry_attempts_total"
 RETRY_GIVEUPS_TOTAL = f"{PREFIX}_retry_giveups_total"
 KV_HIT_TOKENS = f"{PREFIX}_kv_cached_tokens_total"
+QUEUED_REQUESTS = f"{PREFIX}_queued_requests"
+KV_ACTIVE_BLOCKS = f"{PREFIX}_kv_active_blocks"
+KV_TOTAL_BLOCKS = f"{PREFIX}_kv_total_blocks"
+KV_FREE_BLOCKS = f"{PREFIX}_kv_free_blocks"
+WORKER_ACTIVE_DECODE_BLOCKS = f"{PREFIX}_worker_active_decode_blocks"
+# engine step telemetry (engine/telemetry.py)
+STEP_DURATION_SECONDS = f"{PREFIX}_engine_step_duration_seconds"
+STEP_TOKENS = f"{PREFIX}_engine_tokens_per_step"
+BATCH_OCCUPANCY = f"{PREFIX}_engine_batch_occupancy"
+SPEC_ACCEPTANCE = f"{PREFIX}_engine_spec_acceptance_rate"
+SLOW_STEPS_TOTAL = f"{PREFIX}_engine_slow_steps_total"
+# SLO accounting (runtime/slo.py), attribution, health detectors
+SLO_ATTAINMENT = f"{PREFIX}_slo_attainment_ratio"
+SLO_BURN_RATE = f"{PREFIX}_slo_burn_rate"
+GOODPUT_TOKENS = f"{PREFIX}_goodput_tokens_total"
+REQUEST_PHASE_SECONDS = f"{PREFIX}_request_phase_seconds"
+HEALTH_EVENTS_TOTAL = f"{PREFIX}_health_events_total"
 
 LABEL_NAMESPACE = "dtpu_namespace"
 LABEL_COMPONENT = "dtpu_component"
 LABEL_ENDPOINT = "dtpu_endpoint"
 LABEL_MODEL = "model"
 LABEL_SLA_CLASS = "sla_class"
+LABEL_WINDOW = "window"
 
 # prometheus_client's default histogram buckets
 DEFAULT_BUCKETS = (0.005, 0.01, 0.025, 0.05, 0.075, 0.1, 0.25, 0.5, 0.75, 1.0, 2.5,
@@ -99,7 +117,7 @@ class _Metric:
 
     def _created(self, base: str) -> List[str]:
         lines = self._header(f"{base}_created", "gauge")
-        for values, child in sorted(self._children.items()):
+        for values, child in list(self._children.items()):
             lines.append(f"{base}_created{_labels(zip(self.labelnames, values))} "
                          f"{go_float(child[-1])}")
         return lines
@@ -118,7 +136,7 @@ class Counter(_Metric):
         base = self.name[:-len("_total")] if self.name.endswith("_total") else self.name
         with self._lock:
             lines = self._header(f"{base}_total", "counter")
-            for values, child in sorted(self._children.items()):
+            for values, child in list(self._children.items()):
                 lines.append(f"{base}_total{_labels(zip(self.labelnames, values))} "
                              f"{go_float(child[0])}")
             return lines + self._created(base)
@@ -138,7 +156,7 @@ class Gauge(_Metric):
     def render(self) -> List[str]:
         with self._lock:
             lines = self._header(self.name, "gauge")
-            for values, child in sorted(self._children.items()):
+            for values, child in list(self._children.items()):
                 lines.append(f"{self.name}{_labels(zip(self.labelnames, values))} "
                              f"{go_float(child[0])}")
             return lines
@@ -171,7 +189,7 @@ class Histogram(_Metric):
     def render(self) -> List[str]:
         with self._lock:
             lines = self._header(self.name, "histogram")
-            for values, child in sorted(self._children.items()):
+            for values, child in list(self._children.items()):
                 pairs = list(zip(self.labelnames, values))
                 cum = 0.0
                 for bound, n in zip(self.bounds, child[0]):

@@ -14,7 +14,7 @@ Frame schema::
     {"t": "end",    "id": str}
     {"t": "err",    "id": str, "error": str, "code": str}
     {"t": "cancel", "id": str}
-    {"t": "ping"} / {"t": "pong"}
+    {"t": "ping"} / {"t": "pong"}   (the canary's probe, ``TcpClient.ping``)
 
 MessagePack carries ``bytes`` natively, so tensor payloads ride as binary
 fields without a separate framing layer.
@@ -195,6 +195,11 @@ class _Conn:
         self.streams: Dict[str, asyncio.Queue] = {}
         self.reader_task: Optional[asyncio.Task] = None
         self.closed = False
+        self.pong_waiters: list = []  # futures resolved in order by pong frames
+        # pongs owed to pings that already timed out: discarded instead of
+        # resolving the NEXT ping's future (a wedged server would otherwise
+        # look healthy forever on one late pong's credit)
+        self.stale_pongs = 0
 
     async def send(self, msg: Dict[str, Any]) -> None:
         async with self.write_lock:
@@ -207,6 +212,16 @@ class _Conn:
                 msg = await _read_frame(self.reader)
                 if msg is None:
                     break
+                if msg.get("t") == "pong":
+                    if self.stale_pongs > 0:
+                        self.stale_pongs -= 1
+                        continue
+                    while self.pong_waiters:
+                        fut = self.pong_waiters.pop(0)
+                        if not fut.done():
+                            fut.set_result(True)
+                            break
+                    continue
                 rid = msg.get("id")
                 q = self.streams.get(rid)
                 if q is not None:
@@ -217,6 +232,10 @@ class _Conn:
             self.closed = True
             for q in self.streams.values():
                 q.put_nowait({"t": "err", "error": "connection lost", "code": "no_responders"})
+            for fut in self.pong_waiters:
+                if not fut.done():
+                    fut.set_result(False)
+            self.pong_waiters.clear()
             self.writer.close()
 
 
@@ -304,6 +323,32 @@ class TcpClient:
                 conn.streams.pop(rid, None)
 
         return stream()
+
+    async def ping(self, address: str, timeout: float = 2.0) -> float:
+        """Round-trip a ping through the whole request-plane path (connect,
+        frame codec, the server's read loop): the canary's probe. Returns
+        the RTT in seconds; raises NoResponders on a failed connect or a
+        pong that does not come within ``timeout``."""
+        loop = asyncio.get_running_loop()
+        t0 = loop.time()
+        conn = await self._get_conn(address)
+        fut: asyncio.Future = loop.create_future()
+        conn.pong_waiters.append(fut)
+        sent = False
+        try:
+            await conn.send({"t": "ping"})
+            sent = True
+            ok = await asyncio.wait_for(fut, timeout)
+        except (asyncio.TimeoutError, ConnectionResetError, BrokenPipeError) as e:
+            if fut in conn.pong_waiters:
+                conn.pong_waiters.remove(fut)
+                if sent and isinstance(e, asyncio.TimeoutError):
+                    # this ping's pong may still come: discard it then
+                    conn.stale_pongs += 1
+            raise NoResponders(f"ping {address}: {e!r}") from e
+        if not ok:
+            raise NoResponders(f"ping {address}: connection lost")
+        return loop.time() - t0
 
     async def close(self) -> None:
         for conn in self._conns.values():

@@ -232,3 +232,14 @@ def test_the_walk_covers_the_router_service_and_the_parsers():
         "dynamo_tpu_torch.parsers", "dynamo_tpu_torch.parsers.jail",
         "dynamo_tpu_torch.parsers.reasoning", "dynamo_tpu_torch.parsers.tool_calls",
     } <= set(_modules())
+
+
+def test_the_walk_covers_health_status_and_observability():
+    assert {
+        "dynamo_tpu_torch.runtime.tracing", "dynamo_tpu_torch.runtime.flight_recorder",
+        "dynamo_tpu_torch.runtime.slo", "dynamo_tpu_torch.runtime.attribution",
+        "dynamo_tpu_torch.runtime.health", "dynamo_tpu_torch.ops.costs",
+        "dynamo_tpu_torch.engine.telemetry", "dynamo_tpu_torch.engine.prep",
+        "dynamo_tpu_torch.engine.monitor", "dynamo_tpu_torch.llm.audit",
+        "dynamo_tpu_torch.llm.fleet", "dynamo_tpu_torch.llm.perf",
+    } <= set(_modules())
