@@ -283,7 +283,11 @@ Phases, in order; any failure raises and the exit code is not 0:
    from its joined deltas (both after a warm-up of the prompt, so that
    both find the same blocks cached); a hermes call and a <think> answer
    forced with guided_regex must come back as tool_calls and as
-   reasoning_content plus content.
+   reasoning_content plus content; one aggregated and one streamed
+   /v1/responses request (after a one-token warm-up of their message) must
+   give the text of the greedy chat request with the same message, the
+   stream its Responses events in order (response.created, the deltas,
+   response.completed) with the deltas joining to that text.
    The worker stopped by SIGTERM must exit 0 with no busy slot or pinned
    block, its decode, flash-extend and unified kernels launched (decode
    through graph replays); no process may log an ERROR record. Then the
@@ -334,7 +338,26 @@ Phases, in order; any failure raises and the exit code is not 0:
    3000-token prompts (both pools evict) and the decode probe; then new
    documents and follow-ups through the round-robin frontend (the
    control: its hit share and follow-up TTFT median beside the kv
-   mode's, observations, not gates). Once idle, the service stops first
+   mode's, observations, not gates). Then the fault drill
+   (runtime/faults.py, runtime/resilience.py) on the same two workers,
+   which run with ``--migration-limit 2``: (a) a round-robin frontend
+   armed with DRILL_SPEC (seeded drops of the request plane's sends) and
+   a ``--request-template`` naming the model serves 16 greedy chat
+   requests that omit the model, 4 at a time, 32-62 new tokens each: each
+   must come back 200 (a dropped send migrates to the other worker) with
+   the tokens of the same request through the clean round-robin frontend
+   (equal, or within the tie rule: a divergence is checked after the
+   workers stop, in a process of its own, ``--tie-control``), its
+   /debug/fleet must list both workers' breakers, and the fired-fault log
+   its exit line prints must equal ``FaultRegistry.plan`` of DRILL_SPEC
+   for the sends it counted; (b) a second round-robin frontend armed to
+   drop exactly the first DRILL_TRIP_SENDS sends (two a request: the
+   third attempt finds both workers excluded and fails without a send),
+   with ``DTPU_CB_FRONTEND=reset=1``: the first 5 requests get 503, the
+   sixth 503 with Retry-After and no send, and after the reset a probe is
+   served and closes the circuit: /metrics counts one transition each to
+   open, half_open and closed under ``policy="frontend.<model>"`` and the
+   state gauge is back at 0. Once idle, the service stops first
    and prints its view, which must equal each worker's prefix cache, as
    must the view of its recording replayed into a fresh KvRouter here;
    then the kv frontend prints its router's view of each worker; each worker's exit
@@ -6058,11 +6081,14 @@ class Proc:
         return self.proc.returncode
 
 
-async def http_call(port: int, method: str, path: str, body=None, close_after=None):
+async def http_call(port: int, method: str, path: str, body=None, close_after=None,
+                    headers=None):
     """One HTTP/1.1 request over asyncio streams: (status, JSON body) or, for
-    a server-sent event stream, (status, [(arrival s, payload)...]).
-    ``close_after`` events, the client closes the connection (a
-    disconnect)."""
+    a server-sent event stream, (status, [(arrival s, payload)...]) (an
+    event's ``event:`` line, as the Responses stream sends, is dropped: its
+    payload names its type). ``close_after`` events, the client closes the
+    connection (a disconnect). ``headers`` (a dict) receives the
+    response's headers, names in lower case."""
     reader, writer = await asyncio.open_connection("127.0.0.1", port)
     data = json.dumps(body).encode() if body is not None else b""
     writer.write(f"{method} {path} HTTP/1.1\r\nHost: 127.0.0.1\r\nContent-Type: "
@@ -6072,10 +6098,12 @@ async def http_call(port: int, method: str, path: str, body=None, close_after=No
     try:
         head = (await reader.readuntil(b"\r\n\r\n")).decode("latin-1").split("\r\n")
         status = int(head[0].split(" ")[1])
-        headers = {k.strip().lower(): v.strip() for k, _, v in
-                   (h.partition(":") for h in head[1:] if h)}
-        if "chunked" not in headers.get("transfer-encoding", ""):
-            raw = await reader.readexactly(int(headers.get("content-length", "0")))
+        got = {k.strip().lower(): v.strip() for k, _, v in
+               (h.partition(":") for h in head[1:] if h)}
+        if headers is not None:
+            headers.update(got)
+        if "chunked" not in got.get("transfer-encoding", ""):
+            raw = await reader.readexactly(int(got.get("content-length", "0")))
             return status, json.loads(raw) if raw else None
         out, buf = [], b""
         while True:
@@ -6086,6 +6114,8 @@ async def http_call(port: int, method: str, path: str, body=None, close_after=No
             await reader.readexactly(2)
             while b"\n\n" in buf:
                 event, buf = buf.split(b"\n\n", 1)
+                if event.startswith(b"event: "):
+                    event = event.partition(b"\n")[2]
                 if event.startswith(b"data: "):
                     payload = event[6:].decode()
                     out.append((time.perf_counter(),
@@ -6321,6 +6351,45 @@ async def fe_parsers(port: int) -> dict:
     return out
 
 
+async def fe_responses(port: int) -> dict:
+    """/v1/responses, aggregated and streamed, held to the greedy chat
+    request with the same message: the same text, the same token count,
+    the stream's events in order with its deltas joining to that text.
+    A one-token warm-up of the message first, so that all three find the
+    same blocks cached."""
+    text = fe_prompt(300, 350)
+    chat = dict(model=FE_MODEL, messages=[{"role": "user", "content": text}],
+                temperature=0.0)
+    status, body = await http_call(port, "POST", "/v1/chat/completions",
+                                   dict(chat, max_tokens=1))
+    if status != 200:
+        raise AssertionError(f"responses warm-up: HTTP {status}: {body}")
+    status, body = await http_call(port, "POST", "/v1/chat/completions",
+                                   dict(chat, max_tokens=FE_TOKENS))
+    if status != 200:
+        raise AssertionError(f"responses' chat twin: HTTP {status}: {body}")
+    want = body["choices"][0]["message"]["content"] or ""
+    want_tokens = body["usage"]["completion_tokens"]
+    resp = dict(model=FE_MODEL, input=text, max_output_tokens=FE_TOKENS, temperature=0.0)
+    status, whole = await http_call(port, "POST", "/v1/responses", resp)
+    ok = (status == 200 and whole.get("object") == "response"
+          and whole.get("status") == "completed" and whole["id"].startswith("resp_"))
+    got = whole["output"][0]["content"][0]["text"] if ok else None
+    if not ok or got != want or whole["usage"]["output_tokens"] != want_tokens:
+        raise AssertionError(f"/v1/responses: HTTP {status}: {str(whole)[:400]}; the chat "
+                             f"text {want[:200]!r} ({want_tokens} tokens)")
+    status, events = await http_call(port, "POST", "/v1/responses", dict(resp, stream=True))
+    kinds = [e["type"] for _, e in events] if status == 200 else []
+    deltas = "".join(e["delta"] for _, e in events if e["type"] == "response.output_text.delta")
+    final = events[-1][1]["response"] if kinds and kinds[-1] == "response.completed" else {}
+    if (status != 200 or kinds[0] != "response.created" or deltas != want
+            or set(kinds[1:-1]) - {"response.output_text.delta"}
+            or final.get("output", [{}])[0].get("content", [{}])[0].get("text") != want):
+        raise AssertionError(f"/v1/responses streamed: HTTP {status}: events {kinds[:8]}..., "
+                             f"deltas {deltas[:200]!r}; the chat text {want[:200]!r}")
+    return {"tokens": want_tokens, "deltas": len(kinds) - 2, "text": want[:40]}
+
+
 async def fe_through_frontend(port: int) -> dict:
     """Everything the phase sends through the frontend, in order."""
     out = {"traffic": []}
@@ -6385,6 +6454,7 @@ async def fe_through_frontend(port: int) -> dict:
             or body["usage"]["prompt_tokens"] != len(emb_text.encode())):
         raise AssertionError(f"embedding: HTTP {status}: {str(body)[:300]}")
     out["embedding"] = vec.tolist()
+    out["responses"] = await fe_responses(port)
     # tool calls and reasoning; before the disconnect, so that the last
     # request is one the engine ends itself (a grammar's forced EOS is
     # seen by the Backend, which stops the engine's request a tick later)
@@ -6737,6 +6807,7 @@ def frontend_phase(torch, smi: str, serving) -> dict:
     out["metrics"] = fe["metrics"]
     out["n2_texts"], out["guided_answer"] = fe["n2_texts"], fe["guided_answer"]
     out["parsers"] = fe["parsers"]
+    out["responses"] = fe["responses"]
     for k in ("greedy_equal", "greedy_tie_gaps", "embedding_rel_l2"):
         out[k] = inproc[k]
 
@@ -6778,6 +6849,9 @@ def frontend_phase(torch, smi: str, serving) -> dict:
         f"hermes call gave get_weather({pr['hermes_call']}); a <think> answer gave "
         f"reasoning {pr['think']['reasoning']!r} and content {pr['think']['content']!r}; "
         f"{pr['seconds']:.1f} s for the five requests")
+    rs = out["responses"]
+    log(f"frontend /v1/responses on {smi}: aggregated and streamed ({rs['deltas']} "
+        f"output_text deltas) gave the greedy chat request's text, {rs['tokens']} tokens")
     ob = out["observability"]
     log(f"frontend observability on {smi}: status server, canary {ob['canary']}, the "
         f"request timeline, /debug/slo ({FE_STEADY} {FE_SLA_CLASS!r} requests on both "
@@ -6807,7 +6881,9 @@ KV_NEW = 64             # a follow-up: its document plus this many new tokens
 KV_CHURN = 24           # distinct prompts of KV_CHURN_TOKENS, so both pools evict
 KV_CHURN_TOKENS = 3000
 KV_BLOCKS = 512         # each worker's KV pool (blocks of 16 tokens)
-KV_WORKER = (*FE_WORKER, "--num-blocks", str(KV_BLOCKS), "--event-plane", "zmq")
+# --migration-limit 2: the fault drill's dropped sends migrate
+KV_WORKER = (*FE_WORKER, "--num-blocks", str(KV_BLOCKS), "--event-plane", "zmq",
+             "--migration-limit", "2")
 KV_BLOCK = 16
 KV_HIT_METRIC = "dtpu_kv_cached_tokens_total"
 KV_GAP = 0.25           # s between one follow-up's end and the next one's start
@@ -7044,6 +7120,266 @@ def kv_service_checks(view: dict, reports: list, answers: list, recording: str) 
     return problems
 
 
+# the fault drill of phase 14. DRILL_SPEC's seeded schedule drops calls 1, 10
+# and 16 of the first 22: the first 16 sends are each request's first, and
+# no two drops lie within DRILL_BATCH + 1 calls of each other, so no request
+# can lose both its attempts (with two workers the third attempt finds both
+# excluded: a 503). A denser schedule, p=0.3@seed=11, drops calls 11 and
+# 13, 21 and 22, which one request's two attempts can meet
+DRILL_REQUESTS = 16
+DRILL_BATCH = 4
+DRILL_SPEC = "request_plane.send:drop@p=0.2@seed=319"
+DRILL_TOP = 5
+# (b): the frontend breaker's threshold of worker-loss 503s, two sends each
+DRILL_TRIPS = 5
+DRILL_TRIP_SENDS = 2 * DRILL_TRIPS
+DRILL_TRIP_SPEC = ";".join(f"request_plane.send:drop@{i}"
+                           for i in range(1, DRILL_TRIP_SENDS + 1))
+DRILL_RESET_S = 1.0
+DRILL_POLICY = f'policy="frontend.{FE_MODEL}"'
+
+
+def drill_bodies(model=None) -> list:
+    """The drill's greedy chat requests, with DRILL_TOP top logprobs;
+    ``model`` None leaves it to the frontend's request template."""
+    out = []
+    for i in range(DRILL_REQUESTS):
+        body = dict(messages=[{"role": "user", "content": fe_prompt(64 + 16 * i, 1500 + i)}],
+                    max_tokens=32 + 2 * i, temperature=0.0, ignore_eos=True, logprobs=True,
+                    top_logprobs=DRILL_TOP)
+        if model is not None:
+            body["model"] = model
+        out.append(body)
+    return out
+
+
+async def drill_send(port: int, bodies: list) -> list:
+    """Each chat body through the frontend, DRILL_BATCH at a time:
+    [(status, body)]."""
+    out = []
+    for k in range(0, len(bodies), DRILL_BATCH):
+        out += await asyncio.gather(*(http_call(port, "POST", "/v1/chat/completions", b)
+                                      for b in bodies[k:k + DRILL_BATCH]))
+    return out
+
+
+def drill_tokens(tag: str, i: int, body: dict, want: int) -> list:
+    """A drill answer's tokens as (string, logprob, {top string: logprob});
+    it must be served whole, FE_MODEL's, ``want`` tokens."""
+    ch = body["choices"][0]
+    content = (ch.get("logprobs") or {}).get("content") or []
+    if (body["model"] != FE_MODEL or ch["finish_reason"] != "length"
+            or body["usage"]["completion_tokens"] != want or len(content) != want):
+        raise AssertionError(f"{tag} request {i}: model {body['model']!r}, finish "
+                             f"{ch['finish_reason']!r}, {body['usage']}, {len(content)} "
+                             f"logprob entries; expected {want} tokens")
+    return [(e["token"], e["logprob"], {t["token"]: t["logprob"] for t in e["top_logprobs"]})
+            for e in content]
+
+
+def drill_divergences(drill: list, clean: list, bodies: list) -> list:
+    """Each drill request against its clean twin: where their tokens first
+    differ (none, most often), the request, the clean run's tokens before
+    it, and both tokens there, for the tie control."""
+    out = []
+    for i, ((sd, bd), (sc, bc), body) in enumerate(zip(drill, clean, bodies)):
+        if sd != 200 or sc != 200:
+            raise AssertionError(f"drill request {i}: HTTP {sd} through the armed frontend, "
+                                 f"{sc} through the clean one: {str(bd)[:200]} / "
+                                 f"{str(bc)[:200]}")
+        a = drill_tokens("drill", i, bd, body["max_tokens"])
+        b = drill_tokens("clean", i, bc, body["max_tokens"])
+        j = next((j for j, (x, y) in enumerate(zip(a, b)) if x[0] != y[0]), None)
+        if j is not None:
+            out.append({"request": i, "index": j, "body": dict(body, model=FE_MODEL),
+                        "prefix": [t for t, _, _ in b[:j]], "drill": a[j], "clean": b[j]})
+    return out
+
+
+def token_candidates(s: str) -> list:
+    """The byte tokenizer's ids that decode, alone, to ``s``."""
+    from dynamo_tpu_torch.llm.tokenizer import ByteTokenizer
+
+    special = {v: k for k, v in ByteTokenizer._SPECIAL.items()}
+    if s.startswith("<unk:") and s.endswith(">"):
+        return [int(s[5:-1])]
+    if s in special:
+        return [special[s]]
+    if len(s) == 1 and ord(s) < 128:
+        return [ord(s)]
+    if s == "\ufffd":
+        return list(range(128, 256))
+    return []
+
+
+def tie_control(path: str) -> int:
+    """``chip_smoke.py --tie-control FILE``, run by phase 14 after its
+    workers stopped, in a process of its own: the fault drill's
+    divergences (FILE) held to the tie rule on the workers' weights. At
+    each, the drill's token must be among the clean run's top logprobs,
+    within TIE_SPACINGS bf16 spacings (at the larger of the two plain
+    logits after the clean prefix) of the clean token's logprob. A token
+    string several ids decode to is the one of those ids with the largest
+    plain logit (both runs were greedy). Prints ``TIE_CONTROL {json}``."""
+    import torch
+
+    from dynamo_tpu_torch.engine.__main__ import build_worker_engine, parse_args
+    from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
+    from dynamo_tpu_torch.llm.preprocessor import OpenAIPreprocessor
+    from dynamo_tpu_torch.llm.protocols import openai
+
+    with open(path) as f:
+        divergences = json.load(f)
+    engine, _ = build_worker_engine(parse_args([*FE_WORKER, "--decode-steps", "1",
+                                                "--num-blocks", "64"]))
+    pre = OpenAIPreprocessor(ModelDeploymentCard(name=FE_MODEL, tokenizer="byte",
+                                                 context_length=8192))
+    gaps = []
+    try:
+        for d in divergences:
+            ids = list(pre.preprocess_chat(
+                openai.ChatCompletionRequest.from_obj(d["body"])).token_ids)
+
+            def pick(s, logits=None):
+                cands = token_candidates(s)
+                if not cands:
+                    raise AssertionError(f"drill request {d['request']}: token {s!r} is no "
+                                         "byte-tokenizer token")
+                if len(cands) == 1:
+                    return cands[0]
+                if logits is None:
+                    logits = plain_logits(torch, engine.params, engine.mcfg, ids)
+                return max(cands, key=lambda t: float(logits[t]))
+
+            for s in d["prefix"]:
+                ids.append(pick(s))
+            logits = plain_logits(torch, engine.params, engine.mcfg, ids)
+            (sa, _, _), (sb, lpb, top) = d["drill"], d["clean"]
+            a, b = pick(sa, logits), pick(sb, logits)
+            larger = max(float(logits[a]), float(logits[b]))
+            limit = TIE_SPACINGS * bf16_spacing(larger)
+            if sa not in top:
+                raise AssertionError(
+                    f"drill request {d['request']} token {d['index']}: {sa!r} is not among "
+                    f"the clean run's top logprobs {top}; its plain logit is "
+                    f"{float(logits[b] - logits[a]):.4g} below the clean token's (limit "
+                    f"{limit:.4g})")
+            gap = lpb - top[sa]
+            gaps.append({"request": d["request"], "index": d["index"], "gap": gap,
+                         "limit": limit, "larger_logit": larger})
+            if gap > limit:
+                raise AssertionError(f"drill request {d['request']} token {d['index']}: gap "
+                                     f"{gap:.4g} beyond {limit:.4g}")
+    finally:
+        engine.stop()
+    print("TIE_CONTROL " + json.dumps(gaps), flush=True)
+    return 0
+
+
+def circuit_transitions(text: str) -> tuple:
+    """The frontend breaker's transitions by state and its state gauge, from
+    a /metrics text."""
+    moved, state = {}, None
+    for ln in text.splitlines():
+        if DRILL_POLICY not in ln:
+            continue
+        if ln.startswith("dtpu_circuit_transitions_total{"):
+            moved[re.search(r'state="(\w+)"', ln).group(1)] = float(ln.rsplit(" ", 1)[1])
+        elif ln.startswith("dtpu_circuit_state{"):
+            state = float(ln.rsplit(" ", 1)[1])
+    return moved, state
+
+
+async def fault_drill(drill_port: int, trip_port: int, rr_port: int) -> dict:
+    """Phase 14's fault drill, (a) then (b) (module docstring): what each
+    request got, and the times."""
+    out = {}
+    await kv_models(drill_port)
+    await kv_models(trip_port)
+    t0 = time.perf_counter()
+    drill = await drill_send(drill_port, drill_bodies())
+    out["a_s"] = time.perf_counter() - t0
+    bodies = drill_bodies(FE_MODEL)
+    clean = await drill_send(rr_port, bodies)
+    out["divergences"] = drill_divergences(drill, clean, bodies)
+    # each dropped send's retry is a "migration" event on its request's
+    # timeline in the drill frontend's flight recorder
+    status, flights = await http_call(drill_port, "GET",
+                                      f"/debug/requests?limit={2 * DRILL_REQUESTS}")
+    out["migrations"] = sum(1 for f in flights["requests"] for e in f["events"]
+                            if e["event"]["kind"] == "migration") if status == 200 else None
+    status, fleet = await http_call(drill_port, "GET", "/debug/fleet")
+    out["worker_breakers"] = fleet["models"][FE_MODEL]["worker_breakers"] if status == 200 else {}
+    out["model_breakers"] = fleet["frontend"]["model_breakers"] if status == 200 else {}
+    if len(out["worker_breakers"]) != 2 or out["model_breakers"] != {FE_MODEL: "closed"}:
+        raise AssertionError(f"the drill frontend's /debug/fleet: HTTP {status}: worker "
+                             f"breakers {out['worker_breakers']}, model breakers "
+                             f"{out['model_breakers']}")
+    # (b): the first DRILL_TRIPS requests lose both attempts; the model's
+    # circuit opens at the last of them
+    t0 = time.perf_counter()
+    trips = [await http_call(trip_port, "POST", "/v1/chat/completions",
+                             dict(b, max_tokens=32, logprobs=False, top_logprobs=None))
+             for b in bodies[:DRILL_TRIPS]]
+    t_open = time.perf_counter()
+    bad = [(s, b) for s, b in trips if s != 503 or "circuit open" in b["error"]["message"]
+           or b["error"]["type"] != "service_unavailable"]
+    if bad:
+        raise AssertionError(f"drill (b): the tripping requests must get the worker-loss "
+                             f"503: {bad}")
+    headers = {}
+    status, shed = await http_call(trip_port, "POST", "/v1/chat/completions",
+                                   dict(bodies[DRILL_TRIPS], max_tokens=32, logprobs=False,
+                                        top_logprobs=None), headers=headers)
+    out["retry_after"] = headers.get("retry-after")
+    if (status != 503 or "circuit open" not in shed["error"]["message"]
+            or out["retry_after"] != str(int(DRILL_RESET_S))):
+        raise AssertionError(f"drill (b): the request after the trip got HTTP {status}, "
+                             f"Retry-After {out['retry_after']}: {shed}")
+    await asyncio.sleep(DRILL_RESET_S + 0.1)
+    status, probe = await http_call(trip_port, "POST", "/v1/chat/completions",
+                                    dict(bodies[DRILL_TRIPS + 1], max_tokens=32,
+                                         logprobs=False, top_logprobs=None))
+    out["close_s"] = time.perf_counter() - t_open
+    if status != 200 or probe["usage"]["completion_tokens"] != 32:
+        raise AssertionError(f"drill (b): the probe after the reset: HTTP {status}: {probe}")
+    _, text = await http_text(trip_port, "/metrics")
+    out["transitions"], out["state"] = circuit_transitions(text)
+    if out["transitions"] != {"open": 1.0, "half_open": 1.0, "closed": 1.0} or out["state"] != 0.0:
+        raise AssertionError(f"drill (b): {DRILL_POLICY} transitions {out['transitions']}, "
+                             f"state {out['state']}")
+    out["b_s"] = time.perf_counter() - t0
+    return out
+
+
+def drill_fault_checks(drill: dict, drill_exit: dict, trip_exit: dict) -> dict:
+    """The drill frontends' fired-fault logs, from their exit lines: (a)'s
+    equal to FaultRegistry.plan of DRILL_SPEC for the sends it counted,
+    at least two, one migration each; (b)'s exactly the first
+    DRILL_TRIP_SENDS sends, and one send more, the probe's (the shed
+    request made none)."""
+    from dynamo_tpu_torch.runtime.faults import FaultRegistry
+
+    point = "request_plane.send"
+    calls = drill_exit["faults"]["calls"].get(point, 0)
+    fired = [tuple(f) for f in drill_exit["faults"]["fired"]]
+    reg = FaultRegistry()
+    reg.arm(DRILL_SPEC)
+    plan = reg.plan(point, calls)
+    if ([(i, a) for _, a, i in fired] != plan or len(fired) < 2
+            or drill["migrations"] != len(fired)):
+        raise AssertionError(f"drill (a): fired {fired} over {calls} sends, "
+                             f"{drill['migrations']} migrations; the plan of "
+                             f"{DRILL_SPEC!r}: {plan}")
+    trip_calls = trip_exit["faults"]["calls"].get(point, 0)
+    trip_fired = [tuple(f) for f in trip_exit["faults"]["fired"]]
+    if (trip_fired != [(point, "drop", i) for i in range(1, DRILL_TRIP_SENDS + 1)]
+            or trip_calls != DRILL_TRIP_SENDS + 1):
+        raise AssertionError(f"drill (b): fired {trip_fired} over {trip_calls} sends; "
+                             f"expected the first {DRILL_TRIP_SENDS} and the probe's")
+    return {"sends": calls, "drops": len(fired), "fired": fired, "trip_sends": trip_calls}
+
+
 def kv_router_phase(torch, smi: str, fe) -> dict:
     """Phase 14 (module docstring): the netstore, two llama3-8b workers on
     the port's event plane, a --router-mode kv frontend, the standalone
@@ -7082,13 +7418,38 @@ def kv_router_phase(torch, smi: str, fe) -> dict:
         rrf = Proc("round-robin frontend", "dynamo_tpu_torch.frontend", *common,
                    "--host", "127.0.0.1", "--port", "0")
         procs.append(rrf)
+        # the fault drill's two round-robin frontends, armed through the
+        # environment: (a) seeded drops and a request template naming the
+        # model, (b) the first sends dropped and a 1 s breaker reset
+        template = os.path.join(tmp.name, "template.json")
+        with open(template, "w") as f:
+            json.dump({"model": FE_MODEL}, f)
+        drf = Proc("drill frontend", "dynamo_tpu_torch.frontend", *common, "--host",
+                   "127.0.0.1", "--port", "0", "--request-template", template,
+                   env={"DTPU_FAULTS": DRILL_SPEC})
+        trf = Proc("trip frontend", "dynamo_tpu_torch.frontend", *common, "--host",
+                   "127.0.0.1", "--port", "0",
+                   env={"DTPU_FAULTS": DRILL_TRIP_SPEC,
+                        "DTPU_CB_FRONTEND": f"reset={DRILL_RESET_S}"})
+        procs += [drf, trf]
         rr_port = int(rrf.wait_line("TORCH_FRONTEND_READY", 60).rsplit(":", 1)[1])
+        drill_port = int(drf.wait_line("TORCH_FRONTEND_READY", 60).rsplit(":", 1)[1])
+        trip_port = int(trf.wait_line("TORCH_FRONTEND_READY", 60).rsplit(":", 1)[1])
         for w in workers:
             w.wait_line("TORCH_ENGINE_READY")
         out["ready_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         out.update(asyncio.run(kv_traffic(kv_port, rr_port, addr)))
         out["requests_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        drill = asyncio.run(fault_drill(drill_port, trip_port, rr_port))
+        exits = []
+        for p in (drf, trf):
+            if p.stop() != 0:
+                raise AssertionError(f"the {p.name} exited {p.proc.returncode}")
+            exits.append(json.loads(p.wait_line("TORCH_FRONTEND_EXIT", 10).split(" ", 1)[1]))
+        drill.update(drill_fault_checks(drill, *exits))
+        drill["seconds"] = time.perf_counter() - t0
         # idle: the last events reach the routers; the service stops first,
         # then the kv frontend (the broker's founder), each printing its view
         time.sleep(1.0)
@@ -7108,6 +7469,20 @@ def kv_router_phase(torch, smi: str, fe) -> dict:
         if store.stop() != 0:
             raise AssertionError(f"the netstore exited {store.proc.returncode}")
         problems = kv_service_checks(svc_view, reports, out["kv"]["service"], recording)
+        # the drill's divergences from its clean twins, held to the tie
+        # rule on the workers' weights now that the card is free
+        drill["tie_gaps"] = []
+        if drill["divergences"]:
+            t1 = time.perf_counter()
+            path = os.path.join(tmp.name, "divergences.json")
+            with open(path, "w") as f:
+                json.dump(drill["divergences"], f)
+            control = Proc("tie control", "chip_smoke", "--tie-control", path)
+            procs.append(control)
+            drill["tie_gaps"] = json.loads(control.wait_line("TIE_CONTROL").split(" ", 1)[1])
+            if control.join() != 0:
+                raise AssertionError(f"the tie control exited {control.proc.returncode}")
+            drill["tie_control_s"] = time.perf_counter() - t1
     finally:
         for p in procs:
             p.stop()
@@ -7142,6 +7517,8 @@ def kv_router_phase(torch, smi: str, fe) -> dict:
                              + "\n".join(errors[:20]))
     out["router_view"], out["worker_exits"] = view, reports
     out["service_view"] = svc_view
+    drill.pop("divergences")
+    out["drill"] = drill
     kv, rr = out["kv"], out["round_robin"]
     log(f"kv_router on {smi}: {FE_MODEL} at 32 layers, two workers of {KV_BLOCKS} blocks "
         f"behind --router-mode kv over the event plane; {len(KV_DOCS)} documents of "
@@ -7170,6 +7547,19 @@ def kv_router_phase(torch, smi: str, fe) -> dict:
         f"{svc_view['recorded']} recorded, the recording replayed into a fresh KvRouter to "
         f"the same view; the service ready in {out['service_ready_s']:.1f} s, its route ops "
         f"{sum(a['ask_s'] for a in kv['service']):.2f} s in all")
+    log(f"fault drill on {smi}: (a) {DRILL_REQUESTS} greedy chat requests without a model "
+        f"({DRILL_BATCH} at a time, 32-62 tokens) through a round-robin frontend armed with "
+        f"{DRILL_SPEC!r}: {drill['drops']} of {drill['sends']} sends dropped (calls "
+        f"{[i for _, _, i in drill['fired']]}, = FaultRegistry.plan), "
+        f"{drill['migrations']} migrations, all {DRILL_REQUESTS} served 200 with the clean frontend's tokens "
+        f"({len(drill['tie_gaps'])} within the tie rule: {drill['tie_gaps']}), "
+        f"{drill['a_s']:.2f} s; worker breakers {drill['worker_breakers']}. (b) "
+        f"{DRILL_TRIP_SENDS} sends dropped: {DRILL_TRIPS} worker-loss 503s opened "
+        f"frontend.{FE_MODEL}, 1 request shed with 503 and Retry-After "
+        f"{drill['retry_after']} s and no send, the probe after the {DRILL_RESET_S:.0f} s "
+        f"reset served and closed it {drill['close_s']:.2f} s after it opened; transitions "
+        f"{drill['transitions']}, state {drill['state']:.0f}; (b) {drill['b_s']:.2f} s; "
+        f"the drill {drill['seconds']:.1f} s in all")
     probe = f"kv decode probe on {smi}: ITL median {out['steady']['itl_s_median'] * 1e3:.2f} ms"
     if fe is not None:
         probe += (f"; phase 13's (one worker, in-process event plane): "
@@ -7192,6 +7582,9 @@ def main() -> int:
     ap.add_argument("--fe-control", metavar="FILE",
                     help="the frontend phase's in-process control, run by that phase "
                          "in a process of its own")
+    ap.add_argument("--tie-control", metavar="FILE",
+                    help="the kv_router phase's tie-rule check of its fault drill's "
+                         "divergences, run by that phase in a process of its own")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
 
@@ -7209,6 +7602,8 @@ def main() -> int:
         return 2
     if args.fe_control:
         return fe_control(args.fe_control)
+    if args.tie_control:
+        return tie_control(args.tie_control)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 

@@ -98,7 +98,6 @@ from ..runtime.attribution import get_attribution
 from ..runtime.health import EndpointCanary, HealthState, StatusServer, get_health_monitor
 from ..runtime.logging import get_logger, init_logging
 from ..runtime.slo import debug_slo_payload, get_slo_accountant
-from ..runtime.tasks import spawn_bg
 from ..runtime.tracing import get_tracer
 from .monitor import EngineWatchdog
 from .telemetry import EngineTelemetry
@@ -403,6 +402,30 @@ async def serve_status(args, runtime, engine, served, instance_id, telemetry, mo
     return server
 
 
+def health_publisher(runtime: DistributedRuntime, loop: asyncio.AbstractEventLoop):
+    """A health-monitor subscriber that publishes each event on the event
+    plane (``dtpu.health.<detector>``) for subscribers that do not scrape.
+    A detector may fire off the loop thread. Each publish is a task of the
+    runtime's tracker, so ``runtime.shutdown()`` drains the events still in
+    flight before it closes the event plane; one that fires after the drain
+    began is dropped."""
+
+    def spawn(topic: str, payload: bytes) -> None:
+        try:
+            runtime.tasks.spawn(lambda: runtime.event_plane.publish(topic, payload))
+        except RuntimeError:
+            log.debug("health event %s after shutdown began: dropped", topic)
+
+    def publish(ev) -> None:
+        try:
+            loop.call_soon_threadsafe(spawn, f"dtpu.health.{ev.detector}",
+                                      json.dumps(ev.to_dict()).encode())
+        except RuntimeError:
+            pass  # the loop closed during shutdown
+
+    return publish
+
+
 async def main(argv: Optional[List[str]] = None) -> None:
     args = parse_args(argv)
     init_logging()
@@ -485,18 +508,7 @@ async def main(argv: Optional[List[str]] = None) -> None:
         status_server = await serve_status(args, runtime, engine, served, instance_id,
                                            telemetry, monitor, health, canary, drift)
     loop = asyncio.get_running_loop()
-
-    def publish_health(ev) -> None:
-        # health events on the event plane, for subscribers that do not
-        # scrape; a detector may fire off the loop thread
-        coro = runtime.event_plane.publish(f"dtpu.health.{ev.detector}",
-                                           json.dumps(ev.to_dict()).encode())
-        try:
-            loop.call_soon_threadsafe(spawn_bg, coro)
-        except RuntimeError:
-            coro.close()  # the loop closed during shutdown
-
-    health_sub = monitor.subscribe(publish_health)
+    health_sub = monitor.subscribe(health_publisher(runtime, loop))
     for sig in (signal.SIGINT, signal.SIGTERM):
         loop.add_signal_handler(sig, stop.set)
     print(f"{READY} {args.model} device={engine.device}", flush=True)

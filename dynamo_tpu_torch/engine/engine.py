@@ -176,6 +176,7 @@ from ..ops.quant import QuantizedKV, resolve_kv_dtype
 from ..runtime.attribution import get_attribution
 from ..runtime.engine import Context
 from ..runtime.errors import ContextLengthError, GuidedRejectedError, InvalidRequestError
+from ..runtime.faults import FAULTS
 from ..runtime.flight_recorder import get_flight_recorder
 from ..runtime.slo import get_slo_accountant, sla_t0_ns, spec_from_annotations
 from ..runtime.tasks import spawn_bg
@@ -1033,6 +1034,11 @@ class TorchEngine:
                     self._idle = True
                     await self._wake.wait()
                     self._idle = False
+                # chaos drill hook: an armed engine.step fault crashes the
+                # loop through the real crash path below (the requests
+                # finish with an error, on_crash, the watchdog deregisters);
+                # a no-op unarmed
+                await FAULTS.ainject("engine.step")
                 if self._embed_waiting and not self._chains:
                     await self._serve_embeds(loop)
                 self._admit_cancelled()

@@ -16,12 +16,24 @@ same flag) and sends a request to the worker whose cached prefix and load
 cost least; ``--no-kv-events`` predicts the caches from the routing
 decisions instead.
 
+It serves /v1/chat/completions, /v1/completions, /v1/embeddings and
+/v1/responses; ``--request-template FILE`` (a JSON object with ``model``,
+``temperature`` and ``max_completion_tokens``) fills those fields of chat
+and completions requests that leave them unset. Routing steers around
+workers whose circuit is open (``DTPU_CB_WORKER``), and while a model's
+own circuit is open (``DTPU_CB_FRONTEND``) its requests get 503 with
+``Retry-After``. ``DTPU_FAULTS`` arms the fault-injection plane
+(runtime/faults.py) in this process, e.g.
+``DTPU_FAULTS="request_plane.send:drop@p=0.3@seed=11"``.
+
 Prints ``TORCH_FRONTEND_READY <host>:<port>`` once it listens (``--port 0``
 takes a free port and prints it). On SIGTERM or SIGINT it stops and prints
-``TORCH_FRONTEND_EXIT {json}``: for each model in KV mode, the router's view
-of each worker (``block_set_view``: block count, digest and hashes, which a
-worker's exit line prints for its own prefix cache) and the events the
-router applied. gRPC and TLS are later slices (ROADMAP item 4b).
+``TORCH_FRONTEND_EXIT {json}``: ``router``, for each model in KV mode, the
+router's view of each worker (``block_set_view``: block count, digest and
+hashes, which a worker's exit line prints for its own prefix cache) and the
+events the router applied; ``faults``, the armed points' call counts and
+the fired-fault log (``[point, action, call]`` each). gRPC and TLS are
+later slices (ROADMAP item 4b).
 """
 
 from __future__ import annotations
@@ -35,6 +47,7 @@ from typing import List, Optional
 from ..kv_router import KvRouterConfig
 from ..llm.discovery import ModelManager, ModelWatcher
 from ..llm.http.service import HttpService
+from ..llm.request_template import RequestTemplate
 from ..runtime.component import RouterMode
 from ..runtime.config import (
     ENV_BUSY_THRESHOLD,
@@ -45,6 +58,7 @@ from ..runtime.config import (
     env_str,
 )
 from ..runtime.distributed import DistributedRuntime
+from ..runtime.faults import FAULT_POINTS, FAULTS
 from ..runtime.logging import init_logging
 
 READY = "TORCH_FRONTEND_READY"
@@ -67,6 +81,10 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--kv-overlap-score-weight", type=float, default=1.0)
     p.add_argument("--router-temperature", type=float, default=0.0)
     p.add_argument("--no-kv-events", action="store_true")
+    p.add_argument("--request-template", default=None,
+                   help="JSON file with default model/temperature/"
+                        "max_completion_tokens applied to requests that "
+                        "omit them")
     return p.parse_args(argv)
 
 
@@ -77,9 +95,18 @@ def router_views(manager: ModelManager) -> dict:
             if pipe.kv_router is not None}
 
 
+def fault_report() -> dict:
+    """This process's fault-injection record: each armed point's call
+    count and the fired log, in firing order."""
+    return {"calls": {p: FAULTS.calls(p) for p in FAULT_POINTS if FAULTS.calls(p)},
+            "fired": [list(f) for f in FAULTS.fired]}
+
+
 async def main(argv: Optional[List[str]] = None) -> None:
     args = parse_args(argv)
     init_logging()
+    # a bad template file fails the start, before anything listens
+    template = RequestTemplate.load(args.request_template) if args.request_template else None
     cfg = RuntimeConfig.from_env(store=args.store, store_path=args.store_path,
                                  event_plane=args.event_plane)
     runtime = await DistributedRuntime(cfg).start()
@@ -92,7 +119,7 @@ async def main(argv: Optional[List[str]] = None) -> None:
     watcher = await ModelWatcher(runtime, manager, RouterMode(args.router_mode),
                                  kv_cfg).start()
     service = HttpService(manager, runtime.metrics, busy_threshold=args.busy_threshold,
-                          host=args.host, port=args.port)
+                          host=args.host, port=args.port, request_template=template)
     await service.start()
     print(f"{READY} {args.host}:{service.port}", flush=True)
     stop = asyncio.Event()
@@ -101,7 +128,8 @@ async def main(argv: Optional[List[str]] = None) -> None:
         loop.add_signal_handler(sig, stop.set)
     await stop.wait()
     await service.stop()
-    print(f"{EXIT} {json.dumps({'router': router_views(manager)})}", flush=True)
+    print(f"{EXIT} {json.dumps({'router': router_views(manager), 'faults': fault_report()})}",
+          flush=True)
     await watcher.stop()
     await runtime.shutdown()
 

@@ -10,9 +10,15 @@ with the client's round-robin or random choice of instance, or in KV mode
 the KV router's (kv_router/): the worker whose cached prefix and load cost
 least. With tracing on, each routing decision is a ``router.schedule``
 span whose id replaces the request's ``traceparent`` annotation, and each
-lands on the request's flight-recorder timeline (``routed``). The
-reference's prefill router, global KV directory and per-worker circuit
-breakers wait for ROADMAP items 4b and 5.
+lands on the request's flight-recorder timeline (``routed``).
+
+Each worker has a circuit breaker (runtime/resilience.py, scope
+``DTPU_CB_WORKER``) fed by its outcomes: a send that fails and a stream
+that ends without a finish, with an error finish or on a lost connection
+count against it, a clean finish for it. Routing steers new requests and
+migration retries around open circuits, round-robin and KV alike, unless
+that would leave no worker at all. The reference's prefill router, global
+KV directory and draining-worker steering wait for ROADMAP item 5.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ from typing import Any, AsyncIterator, Dict, List, Optional
 
 from ..kv_router import KvRouter, KvRouterConfig, WorkerWithDpRank
 from ..runtime import codec
+from ..runtime import metrics as M
 from ..runtime.component import Client, RouterMode
 from ..runtime.discovery.store import EventType
 from ..runtime.distributed import DistributedRuntime
@@ -29,6 +36,7 @@ from ..runtime.engine import Context
 from ..runtime.flight_recorder import get_flight_recorder
 from ..runtime.logging import get_logger
 from ..runtime.request_plane.tcp import NoResponders
+from ..runtime.resilience import OPEN, CircuitBreaker
 from ..runtime.tasks import spawn_bg
 from ..runtime.tracing import get_tracer
 from .migration import Migration
@@ -37,6 +45,47 @@ from .preprocessor import ANNOTATION_CACHED_TOKENS, ANNOTATION_WORKER_ID, OpenAI
 from .protocols.common import BackendOutput, PreprocessedRequest
 
 log = get_logger("llm.discovery")
+
+
+class _RecordedStream:
+    """Wraps a worker response stream and reports the worker's outcome to
+    its circuit breaker: clean finish -> success; transport loss, an
+    ``error`` finish frame, or EOF-without-finish (the signals Migration
+    treats as worker death) -> failure. Preserves ``instance_id`` so the
+    migration operator can still attribute failures."""
+
+    def __init__(self, stream, record):
+        self._stream = stream
+        self._record = record
+        self._done = False
+        self.instance_id = getattr(stream, "instance_id", None)
+
+    def _close(self, ok: bool) -> None:
+        if not self._done:
+            self._done = True
+            self._record(ok)
+
+    def __aiter__(self) -> "_RecordedStream":
+        return self
+
+    async def __anext__(self):
+        try:
+            item = await self._stream.__anext__()
+        except StopAsyncIteration:
+            # EOF without a finish frame = worker died mid-request
+            self._close(False)
+            raise
+        except (NoResponders, ConnectionError):
+            self._close(False)
+            raise
+        fr = (item.get("finish_reason") if isinstance(item, dict)
+              else getattr(item, "finish_reason", None))
+        if fr is not None:
+            # record AT the finish frame: consumers (Migration) return from
+            # their async-for right here, so the iterator is never exhausted
+            # on the success path
+            self._close(fr != "error")
+        return item
 
 
 class ModelPipeline:
@@ -61,12 +110,55 @@ class ModelPipeline:
         self.kv_router: Optional[KvRouter] = None
         self.migration = Migration(self._send, card.migration_limit)
         self._known_worker_ids: set = set()
+        # per-worker circuit breakers (scope DTPU_CB_WORKER): a flapping
+        # worker that keeps dropping streams trips its circuit and routing
+        # steers around it (retry-then-migrate) until the reset probe
+        # passes. Their metrics go to a detached scope, not the runtime's
+        # registry: worker ids are ephemeral, and one series per id ever
+        # seen would grow /metrics without bound under churn (the per-model
+        # frontend breaker stays on /metrics)
+        self._worker_breakers: Dict[int, CircuitBreaker] = {}
+        self._worker_cb_metrics = M.MetricsScope()
         # router-universe reconcile throttle (_prune_dead_workers): the
         # full sweep is O(fleet), so it runs on instance-count change or
         # every N requests, not per decision
         self._router_sync_tick = 0
         self._router_synced_count = -1
-        self._rr = 0  # round-robin over the survivors when some are excluded
+        self._rr = 0  # round-robin over the survivors when some are shunned
+
+    def _worker_cb(self, iid: int) -> CircuitBreaker:
+        cb = self._worker_breakers.get(iid)
+        if cb is None:
+            cb = self._worker_breakers[iid] = CircuitBreaker.from_env(
+                "worker", name=f"worker.{iid:016x}",
+                failure_threshold=3, failure_rate=0.5, window_s=10.0,
+                reset_timeout_s=2.0, metrics=self._worker_cb_metrics,
+            )
+        return cb
+
+    def _tripped(self, excluded: List[int]) -> List[int]:
+        """Workers to steer around: open circuits, unless that would leave
+        no candidate at all (then trying a tripped worker beats failing).
+        Only workers that ever recorded an outcome have a breaker, so the
+        scan is O(breakers), never O(fleet): a worker with no breaker is
+        treated as closed without constructing one."""
+        assert self.client is not None
+        inst = self.client.instances
+        # drop breakers of departed workers when the table outgrows the
+        # fleet (the KV path also sweeps them in _prune_dead_workers)
+        if len(self._worker_breakers) > len(inst):
+            for iid in list(self._worker_breakers):
+                if iid not in inst:
+                    self._worker_breakers.pop(iid, None)
+        avoid = [iid for iid, cb in self._worker_breakers.items()
+                 if iid not in excluded and iid in inst and cb.state == OPEN]
+        if not avoid:
+            return []
+        shun_live = sum(1 for iid in set(excluded) if iid in inst)
+        # would avoiding empty the pool? (all counts over live instances)
+        if len(inst) - shun_live - len(avoid) <= 0:
+            return []
+        return avoid
 
     async def start(self) -> "ModelPipeline":
         endpoint = (
@@ -120,6 +212,7 @@ class ModelPipeline:
         for w in self.kv_router.scheduler.known_workers():
             if w.worker_id not in live:
                 self.kv_router.remove_worker_id(w.worker_id)
+                self._worker_breakers.pop(w.worker_id, None)
         for iid in live - self._known_worker_ids:
             inst = inst_map.get(iid)
             dp = int(inst.metadata.get("data_parallel_size", 1) or 1) if inst else 1
@@ -133,9 +226,10 @@ class ModelPipeline:
         return self._kv_decide(req, excluded).worker.worker_id
 
     def _kv_decide(self, req: PreprocessedRequest, excluded: List[int]):
-        """The KV router's decision for ``req``, excluding the migration's
-        failed instances; stamps the predicted cached tokens, the worker
-        and its dp_rank on the request's annotations."""
+        """The KV router's decision for ``req``, excluding ``excluded`` (the
+        migration's failed instances and the open circuits); stamps the
+        predicted cached tokens, the worker and its dp_rank on the
+        request's annotations."""
         assert self.kv_router is not None and self.client is not None
         self._prune_dead_workers()
         inst_map = self.client.instances
@@ -177,23 +271,28 @@ class ModelPipeline:
             span.__enter__()
             req.annotations["traceparent"] = span.traceparent()
         try:
+            # per-request exclusions (migration) plus cross-request tripped
+            # circuits, steered around the same way
+            shun = list(excluded) + self._tripped(excluded)
             # pooled forwards touch no KV pages: the KV scheduler would
             # charge them phantom blocks that nothing frees
             use_kv = self.kv_router is not None and req.annotations.get("op") != "embed"
             overlap_tokens = 0
             if use_kv:
-                decision = self._kv_decide(req, excluded)
+                decision = self._kv_decide(req, shun)
                 instance_id = decision.worker.worker_id
                 overlap_tokens = decision.overlap_blocks * self.card.kv_block_size
                 if span is not None:
                     span.set(mode="kv", worker=f"{instance_id:016x}",
                              dp_rank=decision.worker.dp_rank,
                              overlap_blocks=decision.overlap_blocks,
-                             query_blocks=decision.query_blocks, excluded=len(excluded))
-            elif excluded:
-                # migration: steer away from the failed instances,
-                # round-robin over the survivors
-                alive = [i for i in self.client.instance_ids() if i not in excluded]
+                             query_blocks=decision.query_blocks, excluded=len(shun))
+            elif shun:
+                # steer away from the failed (migration) and tripped
+                # instances, round-robin over the survivors: pinning to
+                # alive[0] would dump a tripped worker's whole share onto
+                # one neighbour for the open window
+                alive = [i for i in self.client.instance_ids() if i not in shun]
                 if not alive:
                     raise NoResponders(f"no non-excluded instances for {self.card.name}")
                 instance_id = alive[self._rr % len(alive)]
@@ -201,15 +300,23 @@ class ModelPipeline:
             worker = f"{instance_id:016x}" if instance_id is not None else "client-routed"
             if span is not None and not use_kv:
                 span.set(mode=str(self.router_mode.value), worker=worker,
-                         excluded=len(excluded))
+                         excluded=len(shun))
             get_flight_recorder().record(req.request_id, "routed", worker=worker,
                                          overlap_tokens=overlap_tokens,
-                                         excluded=len(excluded))
+                                         excluded=len(shun))
             try:
-                return await self.client.generate(req.to_obj(), context, instance_id)
+                stream = await self.client.generate(req.to_obj(), context, instance_id)
             except (NoResponders, ConnectionError) as e:
                 if instance_id is not None and getattr(e, "instance_id", None) is None:
                     e.instance_id = instance_id  # type: ignore[attr-defined]
+                iid = getattr(e, "instance_id", None)
+                if iid is not None:
+                    cb = self._worker_cb(iid)
+                    # reserve the half-open probe slot (a no-op when closed)
+                    # so that this outcome counts as the probe's; the breaker
+                    # ignores unreserved results in half-open as stale
+                    cb.allow()
+                    cb.record(False)
                 raise
         except Exception as e:
             if span is not None:
@@ -219,6 +326,12 @@ class ModelPipeline:
         finally:
             if span is not None:
                 span.__exit__(None, None, None)
+        iid = getattr(stream, "instance_id", None)
+        if iid is None:
+            return stream
+        cb = self._worker_cb(iid)
+        cb.allow()  # as above: this stream IS the half-open probe
+        return _RecordedStream(stream, cb.record)
 
     async def generate_tokens(
         self, req: PreprocessedRequest, context: Context

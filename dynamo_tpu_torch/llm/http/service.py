@@ -2,8 +2,9 @@
 
 The port's copy of the reference package's llm/http/service.py, on the
 port's own HTTP server (server.py) in place of aiohttp:
-/v1/chat/completions, /v1/completions, /v1/embeddings, /v1/models plus
-/health, /live and /metrics, with the reference's operational behaviours:
+/v1/chat/completions, /v1/completions, /v1/embeddings, /v1/responses,
+/v1/models plus /health, /live and /metrics, with the reference's
+operational behaviours:
 a client that disconnects mid-stream cancels its request (the frontend
 kills the request's contexts, the request plane carries the cancel to the
 worker, whose engine frees the slot), the busy threshold answers 503,
@@ -12,7 +13,19 @@ observed per model. Chat and text completions share one request path; the
 only per-endpoint differences are request parsing and delta generation.
 Chat replies go through the card's reasoning and tool-call parsers
 (parsers/), a fresh pair for each choice; an unknown parser name on a card
-passes text through with a warning.
+passes text through with a warning. /v1/responses converts its request to
+a chat request, runs it through the same pipeline and answers a Response
+object, or streams the Responses SSE events. A request template
+(llm/request_template.py, the frontend's ``--request-template``) fills a
+chat or completions body's model, temperature and max_completion_tokens
+where the client left them unset.
+
+Each model has a circuit breaker over worker availability
+(runtime/resilience.py, scope ``DTPU_CB_FRONTEND``): only worker loss (a
+503) counts against it, and while it is open, chat, completions,
+embeddings and responses answer 503 ``service_unavailable`` with a
+``Retry-After`` header after preprocessing, without a send, until a
+half-open probe succeeds.
 
 Observability, as the reference's: each generation runs under an
 ``http.generate`` span (parented on a client ``traceparent`` header; its id
@@ -22,10 +35,10 @@ its SLA class (the body's ``sla``, the ``x-dtpu-sla`` header or
 ``DTPU_SLA_DEFAULT``; an unknown class is a 400) in the frontend's SLO
 ledger (``/debug/slo``) and attribution aggregates, and is audited per
 ``DTPU_AUDIT_SINKS`` (llm/audit.py). ``/debug/fleet`` merges every
-worker's ``/debug/worker`` (llm/fleet.py).
+worker's ``/debug/worker`` (llm/fleet.py) with each model's breaker and
+its workers' breakers.
 
-Later slices (ROADMAP item 4b): /v1/responses, /v1/images, the admin
-endpoints, TLS and the per-model circuit breaker.
+Later slices (ROADMAP item 4b): /v1/images, the admin endpoints and TLS.
 """
 
 from __future__ import annotations
@@ -46,6 +59,7 @@ from ...runtime.errors import InvalidRequestError, http_status_for
 from ...runtime.logging import get_logger
 from ...parsers import get_reasoning_parser, get_tool_parser
 from ...runtime.request_plane.tcp import NoResponders
+from ...runtime.resilience import CircuitBreaker
 from ...runtime.slo import (
     ANNOTATION_SLA,
     SLA_HEADER,
@@ -77,6 +91,11 @@ from ..protocols.openai import (
     EmbeddingResponse,
     ModelInfo,
     ModelList,
+    ResponseMessage,
+    ResponseObject,
+    ResponseOutputText,
+    ResponsesRequest,
+    ResponseUsage,
     Usage,
     new_request_id,
 )
@@ -134,6 +153,84 @@ def _sse(chunk) -> bytes:
     return f"data: {chunk.to_json()}\n\n".encode()
 
 
+class _DataEvents:
+    """The SSE framing of chat and completions streams: each chunk a
+    ``data:`` event, ``[DONE]`` last."""
+
+    def head(self) -> bytes:
+        return b""
+
+    def frame(self, chunk) -> bytes:
+        return _sse(chunk)
+
+    def tail(self) -> bytes:
+        return b"data: [DONE]\n\n"
+
+
+def _named_event(name: str, data: dict) -> bytes:
+    return f"event: {name}\ndata: {json.dumps(data)}\n\n".encode()
+
+
+class _ResponsesStream:
+    """One /v1/responses request for ``HttpService._run``: its delta
+    generator (each output's text a ``response.output_text.delta`` event),
+    its SSE framing (``response.created`` first, ``response.completed`` with
+    the whole Response object last) and, aggregated, its result."""
+
+    def __init__(self, rid: str, model: str):
+        self.rid = rid
+        self.model = model
+        self.created = int(time.time())
+        self.text: list = []
+        self.prompt_tokens = 0
+        self.completion_tokens = 0
+
+    def on_output(self, out: BackendOutput) -> list:
+        self.completion_tokens = out.cumulative_tokens or self.completion_tokens
+        if out.annotations and "input_tokens" in out.annotations:
+            self.prompt_tokens = out.annotations["input_tokens"]
+        if not out.text:
+            return []
+        self.text.append(out.text)
+        return [("response.output_text.delta", {
+            "type": "response.output_text.delta",
+            "item_id": self.rid + "-msg0", "delta": out.text})]
+
+    async def aggregate(self, streams) -> "_ResponsesStream":
+        async for out in streams[0]:
+            self.on_output(out)
+        return self
+
+    @property
+    def usage(self) -> Usage:
+        return Usage(prompt_tokens=self.prompt_tokens,
+                     completion_tokens=self.completion_tokens,
+                     total_tokens=self.prompt_tokens + self.completion_tokens)
+
+    def to_obj(self) -> dict:
+        return ResponseObject(
+            id=self.rid, created_at=self.created, model=self.model, status="completed",
+            output=[ResponseMessage(id=self.rid + "-msg0",
+                                    content=[ResponseOutputText(text="".join(self.text))])],
+            usage=ResponseUsage(input_tokens=self.prompt_tokens,
+                                output_tokens=self.completion_tokens,
+                                total_tokens=self.prompt_tokens + self.completion_tokens),
+        ).to_obj()
+
+    def head(self) -> bytes:
+        return _named_event("response.created", {
+            "type": "response.created",
+            "response": {"id": self.rid, "object": "response",
+                         "status": "in_progress", "model": self.model}})
+
+    def frame(self, event) -> bytes:
+        return _named_event(*event)
+
+    def tail(self) -> bytes:
+        return _named_event("response.completed", {"type": "response.completed",
+                                                   "response": self.to_obj()})
+
+
 class HttpService:
     def __init__(
         self,
@@ -144,6 +241,7 @@ class HttpService:
         port: int = 8000,
         tracer: Optional[Tracer] = None,
         audit_bus: Optional[AuditBus] = None,
+        request_template=None,
     ):
         self.manager = manager
         self.host = host
@@ -186,11 +284,22 @@ class HttpService:
         self._output_tokens = self.metrics.counter(
             M.OUTPUT_TOKENS, "output tokens", extra_labels=(M.LABEL_MODEL,)
         )
+        # optional llm.request_template.RequestTemplate: fills model /
+        # temperature / max_completion_tokens on requests that omit them
+        self.request_template = request_template
+        # per-model circuit breaker over worker availability: repeated
+        # no-responders (migration exhausted) trip it, and while it is open
+        # the frontend sheds load with busy-503 + Retry-After instead of
+        # burning a full migration cycle per doomed request. Tunable via
+        # DTPU_CB_FRONTEND; its state / transition series ride this
+        # service's /metrics registry
+        self._model_breakers: dict = {}
         self.server = HttpServer(host, port)
         for method, path, handler in (
                 ("POST", "/v1/chat/completions", self.chat_completions),
                 ("POST", "/v1/completions", self.completions),
                 ("POST", "/v1/embeddings", self.embeddings),
+                ("POST", "/v1/responses", self.responses),
                 ("GET", "/v1/models", self.models),
                 ("GET", "/health", self.health),
                 ("GET", "/live", self.live),
@@ -199,6 +308,27 @@ class HttpService:
                 ("GET", "/debug/slo", self.debug_slo),
                 ("GET", "/debug/fleet", self.debug_fleet)):
             self.server.add_route(method, path, handler)
+
+    def _breaker(self, model: str) -> CircuitBreaker:
+        cb = self._model_breakers.get(model)
+        if cb is None:
+            cb = self._model_breakers[model] = CircuitBreaker.from_env(
+                "frontend", name=f"frontend.{model}",
+                failure_threshold=5, failure_rate=0.5, window_s=10.0,
+                reset_timeout_s=2.0, metrics=self.metrics,
+            )
+        return cb
+
+    def _check_circuit(self, model: str) -> Optional[Response]:
+        """Busy-503 with Retry-After (whole seconds, at least 1) while the
+        model's circuit is open."""
+        cb = self._breaker(model)
+        if cb.allow():
+            return None
+        retry_after = max(1, int(cb.retry_after_s() + 0.999))
+        self._requests.inc(model=model, status="503")
+        return _error(503, f"no workers responding for {model!r} (circuit open)",
+                      "service_unavailable", headers={"Retry-After": str(retry_after)})
 
     async def start(self) -> str:
         self.port = await self.server.start()
@@ -236,14 +366,16 @@ class HttpService:
 
     async def debug_fleet(self, request: Request) -> Response:
         """Every discovered worker's ``/debug/worker`` merged with this
-        frontend's SLO and attribution views; an unreachable worker comes
-        back ``stale``, never as a 500."""
+        frontend's SLO, attribution and breaker views; an unreachable
+        worker comes back ``stale``, never as a 500."""
         from ..fleet import fleet_snapshot
 
         doc = await fleet_snapshot(
             self.manager.pipelines(),
             frontend={"slo": self.slo.snapshot(),
-                      "attribution": self.attribution.snapshot()})
+                      "attribution": self.attribution.snapshot(),
+                      "model_breakers": {m: cb.state for m, cb in
+                                         sorted(self._model_breakers.items())}})
         return json_response(doc)
 
     def _resolve_sla(self, request: Request, body_class: Optional[str],
@@ -354,12 +486,20 @@ class HttpService:
 
     async def _run(self, request: Request, preqs, pipeline: ModelPipeline, model: str,
                    stream_mode: bool, delta_gens, aggregator, usage_chunk_factory=None,
-                   audit_handle=None, sla: Optional[SlaSpec] = None):
+                   audit_handle=None, sla: Optional[SlaSpec] = None,
+                   events=None, span_name: str = "http.generate"):
         """Execute one generation request: routing, streaming, metrics, errors.
 
         ``preqs`` / ``delta_gens`` are parallel lists, one entry per choice.
         ``aggregator`` receives the list of streams; ``usage_chunk_factory``
-        builds the single trailing usage chunk of a multi-choice stream."""
+        builds the single trailing usage chunk of a multi-choice stream.
+        ``events`` frames a streamed body (``head`` / ``frame`` per chunk /
+        ``tail``): ``data:`` chunks and ``[DONE]`` unless given."""
+        events = events or _DataEvents()
+        circuit = self._check_circuit(model)
+        if circuit is not None:
+            return circuit
+        cb = self._breaker(model)
         ctxs = [Context(p.request_id) for p in preqs]
         self.inflight += 1
         self._inflight_g.set(self.inflight)
@@ -369,7 +509,7 @@ class HttpService:
         rid = preqs[0].request_id
         # the span parents on the client's traceparent header when there is
         # one; the hops downstream get its id through the annotations
-        span = self.tracer.span("http.generate",
+        span = self.tracer.span(span_name,
                                 traceparent=request.headers.get("traceparent"),
                                 request_id=rid, model=model, streaming=stream_mode,
                                 n=len(preqs))
@@ -399,20 +539,23 @@ class HttpService:
                 # worker over the request plane and frees the engine slot
                 request.on_disconnect(lambda: [c.kill() for c in ctxs])
                 try:
+                    head = events.head()
+                    if head:
+                        await resp.write(head)
                     if len(streams) == 1:
                         # hot path: no queue hop per output
                         async for out in streams[0]:
                             for chunk in delta_gens[0].on_output(out):
-                                await resp.write(_sse(chunk))
+                                await resp.write(events.frame(chunk))
                     else:
                         async for i, out in self._merged(streams):
                             for chunk in delta_gens[i].on_output(out):
-                                await resp.write(_sse(chunk))
+                                await resp.write(events.frame(chunk))
                         if usage_chunk_factory is not None:
                             chunk = usage_chunk_factory()
                             if chunk is not None:
-                                await resp.write(_sse(chunk))
-                    await resp.write(b"data: [DONE]\n\n")
+                                await resp.write(events.frame(chunk))
+                    await resp.write(events.tail())
                     await resp.write_eof()
                 except DISCONNECT:
                     status = "499"
@@ -456,6 +599,9 @@ class HttpService:
                     pass  # still running in a cancelled merge pump: it ends there
             self.inflight -= 1
             self._inflight_g.set(self.inflight)
+            # only worker loss (503) counts against the circuit: an
+            # application error means the workers ARE responding
+            cb.record(status != "503")
             failed = status not in ("200", "499")
             if sla is not None and failed and completion_tokens == 0:
                 # died before a first token: the stream observation never
@@ -521,6 +667,8 @@ class HttpService:
             return busy
         try:
             body = request.json()
+            if self.request_template is not None:
+                body = self.request_template.apply(body)
             req = ChatCompletionRequest.from_obj(body)
         except ValueError as e:
             return _error(400, f"invalid request: {e}")
@@ -574,6 +722,8 @@ class HttpService:
             return busy
         try:
             body = request.json()
+            if self.request_template is not None:
+                body = self.request_template.apply(body)
             req = CompletionRequest.from_obj(body)
         except ValueError as e:
             return _error(400, f"invalid request: {e}")
@@ -651,6 +801,10 @@ class HttpService:
                 preqs.append(preq)
         except ValueError as e:
             return _error(400, str(e), _preprocess_err_type(e))
+        circuit = self._check_circuit(model)
+        if circuit is not None:
+            return circuit
+        cb = self._breaker(model)
         self.inflight += 1
         self._inflight_g.set(self.inflight)
         status = "200"
@@ -707,5 +861,37 @@ class HttpService:
         finally:
             self.inflight -= 1
             self._inflight_g.set(self.inflight)
+            cb.record(status != "503")
             self._requests.inc(model=model, status=status)
             self._input_tokens.inc(prompt_tokens, model=model)
+
+    async def responses(self, request: Request):
+        """/v1/responses: the request converted to a chat completion, run
+        through the normal pipeline, and the result converted back to a
+        Response object; streamed, the Responses SSE events
+        (response.created, response.output_text.delta per output,
+        response.completed)."""
+        busy = self._check_capacity()
+        if busy is not None:
+            return busy
+        try:
+            body = request.json()
+            rreq = ResponsesRequest.from_obj(body)
+            chat = rreq.to_chat()
+        except ValueError as e:
+            return _error(400, f"invalid request: {e}")
+        pipeline = self.manager.get(rreq.model)
+        if pipeline is None:
+            return _error(404, f"model '{rreq.model}' not found", "model_not_found")
+        sla, sla_err = self._resolve_sla(request, rreq.sla, pipeline)
+        if sla_err is not None:
+            return sla_err
+        try:
+            preq = pipeline.preprocessor.preprocess_chat(chat)
+        except ValueError as e:
+            return _error(400, str(e), _preprocess_err_type(e))
+        gen = _ResponsesStream(preq.request_id.replace("chatcmpl-", "resp_"), rreq.model)
+        audit_handle = self.audit.create_handle(body, preq.request_id, rreq.model, rreq.stream)
+        return await self._run(request, [preq], pipeline, rreq.model, rreq.stream, [gen],
+                               gen.aggregate, audit_handle=audit_handle, sla=sla,
+                               events=gen, span_name="http.responses")

@@ -1,4 +1,5 @@
-"""OpenAI-compatible API types (chat completions, completions, embeddings).
+"""OpenAI-compatible API types (chat completions, completions, embeddings,
+responses).
 
 The port's counterpart of the reference package's llm/protocols/openai.py,
 which declares these types as pydantic models (absent on the machine the
@@ -401,6 +402,50 @@ class EmbeddingRequest(_Lenient):
     }
 
 
+class ResponsesRequest(_Lenient):
+    """/v1/responses: converted to a chat request internally, text inputs
+    only. ``input`` is a string, or a list of {role, content} items whose
+    content is a string or [{type: "input_text" / "output_text" / "text",
+    text}] parts."""
+
+    FIELDS = {
+        "model": _F(_str),
+        "input": _F(_union(_str, _list(_dict))),
+        "instructions": _opt(_str),
+        "max_output_tokens": _opt(_int, ge=1),
+        "temperature": _opt(_float, ge=0.0, le=2.0),
+        "top_p": _opt(_float, gt=0.0, le=1.0),
+        "stream": _F(_bool, False),
+        "user": _opt(_str),
+        # SLA class, as the chat field
+        "sla": _opt(_str),
+    }
+
+    def to_chat(self) -> ChatCompletionRequest:
+        """The chat request this one stands for; RequestValidationError
+        where its messages do not validate."""
+        messages: List[Dict[str, Any]] = []
+        if self.instructions:
+            messages.append({"role": "system", "content": self.instructions})
+        if isinstance(self.input, str):
+            messages.append({"role": "user", "content": self.input})
+        else:
+            for item in self.input:
+                content = item.get("content", "")
+                if isinstance(content, list):
+                    content = "".join(
+                        p.get("text", "") for p in content
+                        if p.get("type") in ("input_text", "output_text", "text"))
+                role = item.get("role", "user")
+                if role not in _ROLES:
+                    role = "user"
+                messages.append({"role": role, "content": content})
+        return ChatCompletionRequest.from_obj(dict(
+            model=self.model, messages=messages, max_tokens=self.max_output_tokens,
+            temperature=self.temperature, top_p=self.top_p, stream=self.stream,
+            user=self.user))
+
+
 # --------------------------------------------------------------- responses
 def _dump(v: Any) -> Any:
     """``model_dump(exclude_none=True)``: None fields of a model dropped,
@@ -518,6 +563,44 @@ class EmbeddingResponse(_Response):
     model: str
     object: str = "list"
     usage: Optional[Usage] = None
+
+
+@dataclasses.dataclass
+class ResponseOutputText(_Response):
+    type: str = "output_text"
+    text: str = ""
+    annotations: List[Any] = dataclasses.field(default_factory=list)
+
+
+@dataclasses.dataclass
+class ResponseMessage(_Response):
+    id: str
+    type: str = "message"
+    role: str = "assistant"
+    status: str = "completed"
+    content: List[ResponseOutputText] = dataclasses.field(default_factory=list)
+
+
+@dataclasses.dataclass
+class ResponseUsage(_Response):
+    input_tokens: int = 0
+    output_tokens: int = 0
+    total_tokens: int = 0
+
+
+@dataclasses.dataclass
+class ResponseObject(_Response):
+    id: str
+    object: str = "response"
+    created_at: int = 0
+    status: str = "completed"
+    model: str = ""
+    output: List[ResponseMessage] = dataclasses.field(default_factory=list)
+    usage: Optional[ResponseUsage] = None
+
+    @property
+    def output_text(self) -> str:
+        return "".join(part.text for msg in self.output for part in msg.content)
 
 
 @dataclasses.dataclass

@@ -24,13 +24,16 @@ from .distributed import DistributedRuntime
 from .engine import AsyncEngine, Context, FnEngine, Operator, collect
 from .errors import ContextLengthError, GuidedRejectedError, InvalidRequestError
 from .event_plane.base import EventPlane, InProcEventPlane, Subscription
+from .faults import FAULTS, FaultInjected, FaultRegistry, InjectedDrop
 from .logging import get_logger, init_logging
 from .metrics import MetricsScope
 from .request_plane.tcp import NoResponders, RequestPlaneError, TcpClient, TcpRequestServer
-from .resilience import RetryPolicy
+from .resilience import CircuitBreaker, CircuitOpenError, RetryPolicy
 
 __all__ = [
     "AsyncEngine",
+    "CircuitBreaker",
+    "CircuitOpenError",
     "Client",
     "Component",
     "Context",
@@ -39,10 +42,14 @@ __all__ = [
     "Endpoint",
     "EventPlane",
     "EventType",
+    "FAULTS",
+    "FaultInjected",
+    "FaultRegistry",
     "FileKVStore",
     "FnEngine",
     "GuidedRejectedError",
     "InProcEventPlane",
+    "InjectedDrop",
     "Instance",
     "InvalidRequestError",
     "KVStore",

@@ -22,6 +22,7 @@ ENV_STORE = "DTPU_STORE"                              # mem | file | tcp
 ENV_STORE_PATH = "DTPU_STORE_PATH"                    # file path / tcp host:port
 ENV_HOST_IP = "DTPU_HOST_IP"                          # advertised host for request plane
 ENV_LEASE_TTL_S = "DTPU_LEASE_TTL_S"                  # discovery lease ttl
+ENV_WORKER_GRACEFUL_SHUTDOWN_TIMEOUT = "DTPU_WORKER_GRACEFUL_SHUTDOWN_TIMEOUT"
 ENV_NAMESPACE = "DTPU_NAMESPACE"
 ENV_MIGRATION_LIMIT = "DTPU_MIGRATION_LIMIT"
 ENV_ROUTER_REPLICA_SYNC = "DTPU_ROUTER_REPLICA_SYNC"  # replicated KV routers share state
@@ -57,6 +58,8 @@ ENV_FLEET_FANOUT = "DTPU_FLEET_FANOUT"                # /debug/fleet concurrent 
 ENV_FLEET_TIMEOUT_S = "DTPU_FLEET_TIMEOUT_S"          # per-worker snapshot fetch timeout (s)
 ENV_HEALTH_MIN_INTERVAL_S = "DTPU_HEALTH_MIN_INTERVAL_S"  # min s between health events per subject
 ENV_HEALTH_DRIFT_RATIO = "DTPU_HEALTH_DRIFT_RATIO"    # measured/predicted step-time trip ratio
+# DTPU_RETRY_* / DTPU_CB_* (runtime/resilience.py) and DTPU_FAULTS
+# (runtime/faults.py) are read where they apply
 
 _TRUTHY = {"1", "true", "yes", "on", "enabled"}
 
@@ -112,6 +115,8 @@ class RuntimeConfig:
     store_path: str = dataclasses.field(default_factory=default_store_path)
     host_ip: str = "127.0.0.1"
     lease_ttl_s: float = 10.0
+    # DistributedRuntime.shutdown drains its task tracker this long
+    graceful_shutdown_timeout_s: float = 30.0
 
     @classmethod
     def from_env(cls, **overrides: Any) -> "RuntimeConfig":
@@ -143,6 +148,9 @@ class RuntimeConfig:
             store_path=layered("store_path", ENV_STORE_PATH, str),
             host_ip=layered("host_ip", ENV_HOST_IP, str),
             lease_ttl_s=layered("lease_ttl_s", ENV_LEASE_TTL_S, float),
+            graceful_shutdown_timeout_s=layered(
+                "graceful_shutdown_timeout_s",
+                ENV_WORKER_GRACEFUL_SHUTDOWN_TIMEOUT, float),
         )
         for k, v in overrides.items():
             if v is not None:

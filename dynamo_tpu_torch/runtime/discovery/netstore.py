@@ -23,6 +23,7 @@ import struct
 from typing import Dict, Optional
 
 from .. import codec
+from ..faults import FAULTS
 from ..logging import get_logger
 from ..resilience import retry_policy
 from .store import (
@@ -233,6 +234,7 @@ class TcpKVStore(KVStore):
             self._rx_task = None
 
     async def _call(self, obj: dict) -> dict:
+        await FAULTS.ainject("discovery.call")
         await self._ensure()
         async with self._lock:
             if self._writer is None:
@@ -250,7 +252,7 @@ class TcpKVStore(KVStore):
         return await fut
 
     async def _call_retry(self, obj: dict) -> dict:
-        """Idempotent ops replay under a retry policy: a severed
+        """Idempotent ops replay through the shared policy: a severed
         connection reconnects in ``_ensure`` on the next attempt instead of
         surfacing every blip to discovery consumers."""
         return await retry_policy(

@@ -5,6 +5,11 @@ the discovery store connection, a primary lease with keepalive, the
 request-plane client, the event plane (in-process, or under ``zmq`` the
 port's own broker, event_plane/tcp_plane.py), and the process metrics
 registry. Everything else (namespaces, components, endpoints) hangs off it.
+The shared retry policies and breakers of runtime/resilience.py export their
+series through the first runtime's registry (the process's /metrics), and
+``shutdown`` drains the runtime's task tracker (in a worker, its health-event
+publishes) for up to ``RuntimeConfig.graceful_shutdown_timeout_s`` before it
+cancels what is left and closes the event plane.
 """
 
 from __future__ import annotations
@@ -16,10 +21,11 @@ from .component import DistributedRuntimeBase
 from .config import RuntimeConfig
 from .discovery.store import KVStore, make_store
 from .event_plane.base import EventPlane, InProcEventPlane
+from .faults import FAULTS
 from .logging import get_logger, init_logging
 from .metrics import MetricsScope
 from .request_plane.tcp import TcpClient
-from .resilience import retry_policy
+from .resilience import adopt_metrics_scope, retry_policy
 from .tasks import TaskTracker
 
 log = get_logger("runtime.distributed")
@@ -40,8 +46,12 @@ class DistributedRuntime(DistributedRuntimeBase):
         self._owns_event_plane = event_plane is None
         self.tcp_client = TcpClient()
         self.metrics = MetricsScope()
-        # the runtime's own background work: cancelled and awaited at shutdown
-        self.tasks = TaskTracker()
+        # shared retry policies / breakers created after this point export
+        # their series through this runtime's registry (-> /metrics)
+        adopt_metrics_scope(self.metrics)
+        # supervised background work: components spawn under runtime.tasks,
+        # and shutdown() drains the whole tree
+        self.tasks = TaskTracker(name="runtime")
         self.lease_id: Optional[str] = None
         self._keepalive_task: Optional[asyncio.Task] = None
         self._started = False
@@ -55,7 +65,7 @@ class DistributedRuntime(DistributedRuntimeBase):
         self._started = True
         lease = await self.store.create_lease(self.config.lease_ttl_s)
         self.lease_id = lease.id
-        self._keepalive_task = self.tasks.spawn(self._keepalive_loop(lease.ttl_s))
+        self._keepalive_task = asyncio.create_task(self._keepalive_loop(lease.ttl_s))
         if self._event_plane is None:
             if self.config.event_plane == "zmq":
                 from .event_plane.tcp_plane import event_plane_from_store
@@ -81,6 +91,7 @@ class DistributedRuntime(DistributedRuntimeBase):
                 if self.lease_id is None:
                     continue
                 try:
+                    await FAULTS.ainject("discovery.lease_keepalive")
                     ok = await self.store.keep_alive(self.lease_id)
                 except Exception as e:
                     # a raising heartbeat must not kill the loop — treat it
@@ -90,8 +101,8 @@ class DistributedRuntime(DistributedRuntimeBase):
                 if not ok:
                     log.warning("lease %s lost; re-acquiring", self.lease_id[:8])
                     try:
-                        # the store may be mid-restart: back off instead
-                        # of hot-looping
+                        # shared policy (scope discovery.lease): the store
+                        # may be mid-restart; back off instead of hot-looping
                         lease = await retry_policy(
                             "discovery.lease",
                             max_attempts=4, base_delay_s=0.1, max_delay_s=2.0,
@@ -118,7 +129,11 @@ class DistributedRuntime(DistributedRuntimeBase):
             pass
 
     async def shutdown(self) -> None:
-        await self.tasks.shutdown()
+        await self.tasks.graceful_shutdown(
+            timeout=self.config.graceful_shutdown_timeout_s)
+        if self._keepalive_task is not None:
+            self._keepalive_task.cancel()
+            await asyncio.gather(self._keepalive_task, return_exceptions=True)
         if self.lease_id is not None:
             try:
                 await self.store.revoke_lease(self.lease_id)

@@ -41,6 +41,7 @@ HTTP_BY_CODE = {
     ContextLengthError.code: (400, ContextLengthError.err_type),
     GuidedRejectedError.code: (400, GuidedRejectedError.err_type),
     "no_responders": (503, "service_unavailable"),
+    "circuit_open": (503, "service_unavailable"),
 }
 
 

@@ -3,7 +3,9 @@
 The port's copy of the reference package's runtime/event_plane/base.py:
 topics are dot-separated strings, subscriptions match by prefix, payloads
 are opaque bytes. ``InProcEventPlane`` serves one process; tcp_plane.py is
-the cross-process plane.
+the cross-process plane. Both carry the ``event_plane.publish`` fault point
+(runtime/faults.py): an armed drop loses the event with a warning, never
+the publisher's loop, and an armed corrupt flips the payload's first byte.
 """
 
 from __future__ import annotations
@@ -11,6 +13,10 @@ from __future__ import annotations
 import asyncio
 from typing import AsyncIterator, Optional, Tuple
 
+from ..faults import FAULTS
+from ..logging import get_logger
+
+log = get_logger("runtime.event_plane")
 
 
 class Subscription:
@@ -61,6 +67,15 @@ class InProcEventPlane(EventPlane):
         self._subs: list = []  # (prefix, Subscription)
 
     async def publish(self, topic: str, payload: bytes) -> None:
+        try:
+            await FAULTS.ainject("event_plane.publish")
+        except ConnectionError as e:
+            # events are fire-and-forget: a dropped publish degrades
+            # (consumers resync from snapshots), it must not crash the
+            # publisher's loop
+            log.warning("event publish dropped (%s): %s", topic, e)
+            return
+        payload = FAULTS.mangle("event_plane.publish", payload)
         for prefix, sub in list(self._subs):
             if topic.startswith(prefix):
                 sub._emit(topic, payload)

@@ -38,6 +38,7 @@ from typing import Deque, List, Optional, Set, Tuple
 
 from .. import codec
 from ..discovery.store import KVStore
+from ..faults import FAULTS
 from ..logging import get_logger
 from ..tasks import spawn_bg
 from .base import EventPlane, Subscription
@@ -216,6 +217,16 @@ class TcpEventPlane(EventPlane):
     async def publish(self, topic: str, payload: bytes) -> None:
         if self._closed:
             return
+        try:
+            await FAULTS.ainject("event_plane.publish")
+        except ConnectionError as e:
+            # best-effort pub/sub: a dropped publish loses the event (the
+            # routers resync from later events), never the publisher's loop;
+            # the writer task re-dials a lost broker on its own, so there is
+            # no send here to retry
+            log.warning("event publish dropped (%s): %s", topic, e)
+            return
+        payload = FAULTS.mangle("event_plane.publish", payload)
         self._outbox.put(_frame([topic, payload]))
         if self._writer_task is None:
             self._writer_task = spawn_bg(self._write_loop())

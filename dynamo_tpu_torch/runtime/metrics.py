@@ -31,6 +31,8 @@ INPUT_TOKENS = f"{PREFIX}_input_tokens_total"
 OUTPUT_TOKENS = f"{PREFIX}_output_tokens_total"
 RETRY_ATTEMPTS_TOTAL = f"{PREFIX}_retry_attempts_total"
 RETRY_GIVEUPS_TOTAL = f"{PREFIX}_retry_giveups_total"
+CIRCUIT_STATE = f"{PREFIX}_circuit_state"
+CIRCUIT_TRANSITIONS_TOTAL = f"{PREFIX}_circuit_transitions_total"
 KV_HIT_TOKENS = f"{PREFIX}_kv_cached_tokens_total"
 QUEUED_REQUESTS = f"{PREFIX}_queued_requests"
 KV_ACTIVE_BLOCKS = f"{PREFIX}_kv_active_blocks"

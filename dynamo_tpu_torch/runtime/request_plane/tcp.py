@@ -29,6 +29,7 @@ from typing import Any, AsyncIterator, Callable, Dict, Optional
 
 from .. import codec
 from ..engine import Context
+from ..faults import FAULTS
 from ..logging import get_logger
 from ..resilience import retry_policy
 from ..tasks import spawn_bg
@@ -258,10 +259,12 @@ class TcpClient:
             host, port_s = address.rsplit(":", 1)
 
             async def connect():
+                await FAULTS.ainject("request_plane.connect")
                 return await asyncio.open_connection(host, int(port_s))
 
             try:
-                # one quick retry absorbs a worker restarting its listener; a truly
+                # shared policy (scope request_plane.connect): one quick
+                # retry absorbs a worker restarting its listener; a truly
                 # dead target still surfaces as NoResponders in ~base delay
                 reader, writer = await retry_policy(
                     "request_plane.connect",
@@ -300,8 +303,9 @@ class TcpClient:
 
         ctx.on_cancel(on_cancel)
         try:
+            await FAULTS.ainject("request_plane.send")
             await conn.send({"t": "req", "id": rid, "body": request})
-        except ConnectionError as e:  # covers reset/broken-pipe
+        except ConnectionError as e:  # covers reset/broken-pipe/injected drop
             conn.streams.pop(rid, None)
             raise NoResponders(f"send {address}: {e}") from e
 

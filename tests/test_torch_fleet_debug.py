@@ -238,7 +238,12 @@ async def test_a_worker_document_through_the_frontend(tmp_path):
         assert wdoc["drift"] == {"decode": {"steps": 3, "median_ratio": 2.5}}
         assert wdoc["telemetry"][0]["steps_total"] >= 2
         assert wdoc["kv"]["total_blocks"] == 64
-        assert set(fleet_doc["frontend"]) == {"slo", "attribution"}
+        assert set(fleet_doc["frontend"]) == {"slo", "attribution", "model_breakers"}
+        # the request's outcome recorded on the model's and its worker's breakers
+        assert fleet_doc["frontend"]["model_breakers"] == {"m": "closed"}
+        assert fleet_doc["models"]["m"]["worker_breakers"] == {
+            f"{served.instance_id:016x}": "closed"}
+        assert fleet_doc["models"]["m"]["open_circuits"] == 0
         code, meta_doc = await get_json(f"127.0.0.1:{status.port}", "/metadata")
         assert code == 200 and meta_doc["engine"]["steps"]["prefill"] >= 1
     finally:

@@ -13,11 +13,17 @@ and ``created`` and floats within 1e-4: streamed and unstreamed chat and
 completions, stop strings, ``max_tokens``, logprobs with
 ``top_logprobs``, ``n = 2`` with a seed, ``guided_json`` and
 ``response_format``, a logits processor, a LoRA adapter loaded through the
-``load_lora`` endpoint, embeddings, /v1/models, 404 and 400. Then a
-second worker instance joins and a streamed request's worker dies after
-three outputs: the frontend replays it on the other instance (the card's
-``migration_limit`` is 1), and the stream equals the reference's and the
-undisturbed one.
+``load_lora`` endpoint, embeddings, /v1/responses whole and streamed (the
+Responses SSE events), /v1/models, 404 and 400; and through a second
+service on the same models with a request template, chat and
+completions bodies that omit the model, max tokens or temperature, or set
+them. Then a second worker instance joins and a streamed request's worker
+dies after three outputs: the frontend replays it on the other instance
+(the card's ``migration_limit`` is 1), and the stream equals the
+reference's and the undisturbed one. Last, each package's fault registry
+drops every send: five requests get the worker-loss 503, which trips the
+model's circuit, and the sixth gets the circuit-open 503 with its
+``Retry-After`` header, without a send.
 
 Then the port alone: a client that disconnects mid-stream frees the
 engine's slot and leaves the in-flight gauge at 0; a worker that stops
@@ -44,13 +50,16 @@ from dynamo_tpu import logits_processing as jlp
 from dynamo_tpu import llm as jllm
 from dynamo_tpu import lora as jlora
 from dynamo_tpu.llm.http.service import HttpService as JHttpService
+from dynamo_tpu.llm.request_template import RequestTemplate as JRequestTemplate
 from dynamo_tpu import runtime as jrt
+from dynamo_tpu.runtime import faults as jfaults
 from dynamo_tpu_torch import guided as tguided
 from dynamo_tpu_torch import logits_processing as tlp
 from dynamo_tpu_torch.engine.__main__ import serve_lora_endpoints
 from dynamo_tpu_torch.llm.discovery import ModelManager, ModelWatcher
 from dynamo_tpu_torch.llm.http.service import HttpService
 from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
+from dynamo_tpu_torch.llm.request_template import RequestTemplate
 from dynamo_tpu_torch.llm.serve import register_llm
 from dynamo_tpu_torch.llm.tokenizer import ByteTokenizer
 from dynamo_tpu_torch.runtime import (
@@ -59,6 +68,7 @@ from dynamo_tpu_torch.runtime import (
     MemKVStore,
     RuntimeConfig,
 )
+from dynamo_tpu_torch.runtime import faults as tfaults
 from test_torch_lora import _adapter_weights
 from torch_feature_engines import Weights
 from torch_port_logging import port_logging_restored  # noqa: F401  # dtpu: ignore[UNUSED-IMPORT] — an autouse fixture, live by its name in this module
@@ -117,6 +127,22 @@ CORPUS = [
     ("cmpl_lora", "POST", "/v1/completions",
      _cmpl("Qz adapter prompt", max_tokens=10, lora="ad")),
     ("embed", "POST", "/v1/embeddings", {"model": M, "input": "hello there"}),
+    ("responses", "POST", "/v1/responses",
+     {"model": M, "input": "hello there", "max_output_tokens": 8,
+      "instructions": "be brief"}),
+    ("responses_stream", "POST", "/v1/responses",
+     {"model": M, "input": "hello there", "max_output_tokens": 8, "stream": True,
+      "temperature": 0.0}),
+    ("chat_greedy", "POST", "/v1/chat/completions",
+     _chat("hello there", max_tokens=8, temperature=0.0)),
+    ("responses_items", "POST", "/v1/responses",
+     {"model": M, "max_output_tokens": 6, "temperature": 0.0,
+      "input": [{"role": "user", "content": [{"type": "input_text", "text": "part one"},
+                                             {"type": "input_image", "text": "skip"}]},
+                {"role": "critic", "content": "as a user"}]}),
+    ("responses_unknown_model", "POST", "/v1/responses", {"model": "nope", "input": "x"}),
+    ("responses_invalid", "POST", "/v1/responses", {"model": M, "max_output_tokens": 0,
+                                                    "input": "x"}),
     ("embed_batch", "POST", "/v1/embeddings",
      {"model": M, "input": ["first input", "a second input"], "dimensions": 16}),
     ("models", "GET", "/v1/models", None),
@@ -127,22 +153,53 @@ CORPUS = [
      _cmpl("hi", max_tokens=3, logits_processors=["nope"])),
 ]
 STOP_FROM = {"cmpl_stop": "cmpl", "chat_stop_stream": "chat"}
-NAMES = [c[0] for c in CORPUS]
+# sent to a second service whose request template fills model, temperature
+# and max_completion_tokens where a body leaves them unset
+TEMPLATE = dict(model=M, temperature=0.0, max_completion_tokens=6)
+TEMPLATE_CORPUS = [
+    ("template_chat", "POST", "/v1/chat/completions",
+     {"messages": [{"role": "user", "content": "hello there"}]}),
+    ("template_cmpl_stream", "POST", "/v1/completions",
+     {"prompt": "Once upon a time", "stream": True, "model": ""}),
+    ("template_request_wins", "POST", "/v1/chat/completions",
+     {"messages": [{"role": "user", "content": "hello there"}], "max_tokens": 3,
+      "temperature": 0.5, "seed": 4}),
+    ("template_unknown_model", "POST", "/v1/chat/completions",
+     {"model": "nope", "messages": [{"role": "user", "content": "hi"}]}),
+]
+# each package's fault registry drops every send: TRIPS worker-loss 503s
+# open the model's circuit (the frontend breaker's threshold is 5). Its
+# window is cut to CB_WINDOW s, and the trips start once the corpus's
+# successes have left it, so that the failure rate is 1
+TRIPS = 5
+DROP_ALL = "request_plane.send:drop@1+"
+CB_WINDOW = 1.0
+NAMES = ([c[0] for c in CORPUS] + [c[0] for c in TEMPLATE_CORPUS]
+         + [f"trip_{i}" for i in range(TRIPS)] + ["circuit_open"])
 
 
-async def _send(session, base, method, path, body):
+async def _send(session, base, method, path, body, headers=None):
+    """(status, body); a server-sent event stream's body is its data chunks,
+    its event names and whether it ended (``[DONE]``, or a Responses
+    stream's ``response.completed``). With ``headers`` (a dict), the
+    response's headers are copied into it."""
     async with session.request(method, base + path, json=body) as r:
+        if headers is not None:
+            headers.update(r.headers)
         if r.headers.get("Content-Type", "").startswith("text/event-stream"):
-            chunks, done = [], False
+            chunks, events, done = [], [], False
             async for line in r.content:
                 line = line.decode().strip()
+                if line.startswith("event: "):
+                    events.append(line[7:])
+                    done = line == "event: response.completed"
                 if not line.startswith("data: "):
                     continue
                 if line == "data: [DONE]":
                     done = True
                     continue
                 chunks.append(json.loads(line[6:]))
-            return r.status, {"stream": chunks, "done": done}
+            return r.status, {"stream": chunks, "done": done, "events": events}
         return r.status, await r.json(content_type=None)
 
 
@@ -220,6 +277,7 @@ async def _run_stack(port: bool, engine, adapter_path):
             ModelDeploymentCard(name=M, tokenizer="byte", context_length=512,
                                 kv_block_size=4, migration_limit=1),
             register_llm, ModelManager, ModelWatcher, HttpService)
+        template, faults = RequestTemplate(**TEMPLATE), tfaults.FAULTS
         make_rt = lambda store: DistributedRuntime(  # noqa: E731
             RuntimeConfig(store="mem", event_plane="inproc", lease_ttl_s=2.0),
             store=store, event_plane=InProcEventPlane())
@@ -227,6 +285,7 @@ async def _run_stack(port: bool, engine, adapter_path):
     else:
         card, reg, mgr, watcher_cls, svc_cls = (
             _card(jllm), jllm.register_llm, jllm.ModelManager, jllm.ModelWatcher, JHttpService)
+        template, faults = JRequestTemplate(**TEMPLATE), jfaults.FAULTS
         make_rt = lambda store: jrt.DistributedRuntime(  # noqa: E731
             jrt.RuntimeConfig(store="mem", event_plane="inproc", lease_ttl_s=2.0),
             store=store, event_plane=jrt.InProcEventPlane())
@@ -243,6 +302,8 @@ async def _run_stack(port: bool, engine, adapter_path):
     service = svc_cls(manager, host="127.0.0.1", port=0)
     await service.start()
     base = f"http://127.0.0.1:{service.port}"
+    templated = svc_cls(manager, host="127.0.0.1", port=0, request_template=template)
+    await templated.start()
     results = {}
     try:
         for _ in range(200):
@@ -255,6 +316,9 @@ async def _run_stack(port: bool, engine, adapter_path):
                 if name in STOP_FROM:
                     body = _fill(body, _stop_string(results[STOP_FROM[name]][1]))
                 results[name] = await _send(s, base, method, path, body)
+            for name, method, path, body in TEMPLATE_CORPUS:
+                results[name] = await _send(s, f"http://127.0.0.1:{templated.port}", method,
+                                            path, body)
             # a second worker on the same engine; then one dies mid-stream
             second_rt = await make_rt(store).start()
             second = await reg(second_rt, _DiesOnce(engine, state, "b"), card)
@@ -267,7 +331,25 @@ async def _run_stack(port: bool, engine, adapter_path):
             results["migrated"] = await _send(s, base, "POST", "/v1/completions", MIGRATED)
             results["undisturbed"] = await _send(s, base, "POST", "/v1/completions", MIGRATED)
             results["migration_calls"] = list(state["calls"])
+            # every send dropped: worker-loss 503s trip the model's circuit,
+            # then the frontend sheds without a send
+            faults.disarm()
+            faults.arm(DROP_ALL)
+            await asyncio.sleep(CB_WINDOW + 0.1)
+            try:
+                for i in range(TRIPS):
+                    results[f"trip_{i}"] = await _send(s, base, "POST", "/v1/chat/completions",
+                                                       _chat(f"trip {i}", max_tokens=4))
+                headers = {}
+                results["circuit_open"] = await _send(s, base, "POST", "/v1/chat/completions",
+                                                      _chat("shed", max_tokens=4), headers)
+                results["circuit_headers"] = {k: headers.get(k) for k in (
+                    "Retry-After", "Content-Type")}
+                results["circuit_fired"] = list(faults.fired)
+            finally:
+                faults.disarm()
     finally:
+        await templated.stop()
         await service.stop()
         await watcher.stop()
         for e in extra:
@@ -288,6 +370,7 @@ def bodies(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("frontend")
     old = os.environ.get("DTPU_LORA_CACHE")
     os.environ["DTPU_LORA_CACHE"] = str(tmp / "lora_cache")
+    os.environ["DTPU_CB_FRONTEND"] = f"window={CB_WINDOW}"
     try:
         w = Weights(MODEL)
         adapter = str(tmp / "ad.npz")
@@ -303,6 +386,7 @@ def bodies(tmp_path_factory):
                                      ByteTokenizer()))
         port = asyncio.run(_run_stack(True, tengine, adapter))
     finally:
+        os.environ.pop("DTPU_CB_FRONTEND", None)
         if old is None:
             os.environ.pop("DTPU_LORA_CACHE", None)
         else:
@@ -313,7 +397,8 @@ def bodies(tmp_path_factory):
 def _norm(v):
     """Drop per-response ids and timestamps."""
     if isinstance(v, dict):
-        return {k: _norm(x) for k, x in v.items() if k not in ("id", "created")}
+        return {k: _norm(x) for k, x in v.items()
+                if k not in ("id", "created", "created_at", "item_id")}
     if isinstance(v, list):
         return [_norm(x) for x in v]
     return v
@@ -356,9 +441,19 @@ def test_bodies_equal_the_reference(bodies, name):
     if ps != 200:
         assert pb["error"]["type"] == rb["error"]["type"], (pb, rb)
         assert pb["error"]["code"] == rb["error"]["code"] == ps
+        if name.startswith("trip_") or name == "circuit_open":
+            assert ps == 503 and pb == rb
+        if name == "circuit_open":
+            assert port["circuit_headers"] == ref["circuit_headers"]
+            assert port["circuit_headers"]["Retry-After"] == "2"
+            assert "circuit open" in pb["error"]["message"]
+            # the shed request made no send: two drops per tripping request
+            assert port["circuit_fired"] == ref["circuit_fired"] == [
+                ("request_plane.send", "drop", i) for i in range(1, 2 * TRIPS + 1)]
         return
     if isinstance(rb, dict) and "stream" in rb:
         assert pb["done"] and rb["done"]
+        assert pb["events"] == rb["events"]
         if name.endswith("n2_stream"):
             _same(_norm(_by_choice(pb["stream"])), _norm(_by_choice(rb["stream"])), name)
         else:
@@ -392,6 +487,21 @@ def test_the_corpus_exercised_every_feature(bodies):
     texts = [c["text"] for c in port["cmpl_n2"][1]["choices"]]
     assert len(texts) == 2 and texts[0] != texts[1]
     assert len(port["embed_batch"][1]["data"][1]["embedding"]) == 16
+    # /v1/responses: the text equals the chat answer's to the same message
+    resp = port["responses_stream"][1]
+    assert resp["events"][0] == "response.created" and resp["events"][-1] == (
+        "response.completed")
+    text = resp["stream"][-1]["response"]["output"][0]["content"][0]["text"]
+    assert text == "".join(c["delta"] for c in resp["stream"]
+                           if c["type"] == "response.output_text.delta")
+    assert text and text == port["chat_greedy"][1]["choices"][0]["message"]["content"]
+    assert port["responses"][1]["usage"]["output_tokens"] == 8
+    # the template filled the model and max_completion_tokens; the request's
+    # own fields won over it
+    assert port["template_chat"][1]["model"] == M
+    assert port["template_chat"][1]["usage"]["completion_tokens"] == 6
+    assert port["template_request_wins"][1]["usage"]["completion_tokens"] == 3
+    assert port["template_unknown_model"][0] == 404
 
 
 def test_a_stream_whose_worker_dies_migrates_as_the_reference(bodies):

@@ -243,3 +243,13 @@ def test_the_walk_covers_health_status_and_observability():
         "dynamo_tpu_torch.engine.monitor", "dynamo_tpu_torch.llm.audit",
         "dynamo_tpu_torch.llm.fleet", "dynamo_tpu_torch.llm.perf",
     } <= set(_modules())
+
+
+def test_the_walk_covers_faults_breakers_and_the_request_template():
+    """The fault-injection plane, the resilience policy, the task tracker and
+    the request template are in both walks (no jax, no reference, no
+    serving library)."""
+    assert {
+        "dynamo_tpu_torch.runtime.faults", "dynamo_tpu_torch.runtime.resilience",
+        "dynamo_tpu_torch.runtime.tasks", "dynamo_tpu_torch.llm.request_template",
+    } <= set(_modules())

@@ -622,11 +622,14 @@ def test_task_tracker_cancels_and_awaits_at_shutdown():
             finally:
                 ended.append(name)
 
-        quick, slow = tracker.spawn(work("quick", 0)), tracker.spawn(work("slow", 60))
+        quick = tracker.spawn(lambda: work("quick", 0), name="quick")
+        slow = tracker.spawn(lambda: work("slow", 60), name="slow")
         await quick
-        assert tracker._tasks == {slow}
-        await tracker.shutdown()
-        assert slow.cancelled() and ended == ["quick", "slow"] and not tracker._tasks
+        assert list(tracker._tasks) == ["slow"]
+        tracker.shutdown()
+        assert await tracker.join(5.0)
+        assert slow.done and ended == ["quick", "slow"] and not tracker._tasks
+        assert tracker.metrics.cancelled == 1 and tracker.metrics.ok == 1
 
     asyncio.run(main())
 
@@ -654,7 +657,8 @@ def test_retry_policy_backs_off_and_gives_up(monkeypatch, fails, exc, want):
         return x + 1
 
     monkeypatch.setattr(resilience.asyncio, "sleep", fake_sleep)
-    policy = resilience.retry_policy("t", max_attempts=3, base_delay_s=0.5, max_delay_s=0.8)
+    kw = dict(name="t", max_attempts=3, base_delay_s=0.5, max_delay_s=0.8, seed=7)
+    policy = resilience.RetryPolicy(**kw)
     try:
         got = asyncio.run(policy.acall(fn, 41))
     except exc:
@@ -662,7 +666,9 @@ def test_retry_policy_backs_off_and_gives_up(monkeypatch, fails, exc, want):
     assert (got == 42) == (want == "ok")
     retried = exc is ConnectionRefusedError
     assert len(calls) == (min(fails + 1, 3) if retried else 1)
-    assert sleeps == [0.5, 0.8][:len(calls) - 1]
+    # the seeded decorrelated-jitter schedule, each delay in [base, cap]
+    assert sleeps == list(resilience.RetryPolicy(**kw).delays())[:len(calls) - 1]
+    assert all(0.5 <= d <= 0.8 for d in sleeps)
 
 
 # ---------------------------------------------------------------- migration
