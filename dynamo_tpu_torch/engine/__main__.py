@@ -44,6 +44,15 @@ the worker prints as ``TORCH_STATUS_ADDRESS host:port`` and advertises as
 ``/debug/fleet``. Health events go out on the event plane as
 ``dtpu.health.<detector>``.
 
+Beside ``generate`` the worker serves ``clear_kv_blocks`` under the same
+instance id (llm/serve.py ``serve_clear_endpoint``; the frontend's ``POST
+/clear_kv_blocks`` fans out to it). A vision preset (``--preset tiny-vl``)
+publishes its tower's ``image_tokens``, ``image_size`` and
+``image_token_id`` on the card, so the frontend decodes and places image
+parts (llm/media.py). ``DTPU_REQUEST_PLANE=http`` serves the endpoints on
+the HTTP request plane (runtime/request_plane/http.py) instead of TCP, and
+``--store etcd --store-path http://host:2379`` discovers through etcd.
+
 Prints ``TORCH_ENGINE_READY <model> device=<device>`` once it serves. On
 SIGTERM or SIGINT it deletes its instance and card keys at once, drains the
 requests in flight for up to ``--graceful-timeout`` seconds, then prints
@@ -76,7 +85,7 @@ from ..llm.model_card import (
     ModelDeploymentCard,
     ModelRuntimeConfig,
 )
-from ..llm.serve import register_llm
+from ..llm.serve import register_llm, serve_clear_endpoint
 from ..models.registry import PRESETS, is_gptoss
 from ..parsers import get_reasoning_parser, get_tool_parser
 from ..runtime.component import new_instance_id
@@ -136,7 +145,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--namespace", default=env_str(ENV_NAMESPACE, "dynamo"))
     p.add_argument("--component", default="backend")
     p.add_argument("--endpoint", default="generate")
-    p.add_argument("--store", default=None, help="mem|file|tcp (default: DTPU_STORE)")
+    p.add_argument("--store", default=None, help="mem|file|tcp|etcd (default: DTPU_STORE)")
     p.add_argument("--store-path", default=None)
     p.add_argument("--event-plane", default=None, help="zmq|inproc (default: DTPU_EVENT_PLANE)")
     p.add_argument("--system-port", "--status-port", type=int,
@@ -426,6 +435,28 @@ def health_publisher(runtime: DistributedRuntime, loop: asyncio.AbstractEventLoo
     return publish
 
 
+def worker_card(args: argparse.Namespace, engine, tok_ref: str, tool_parser: Optional[str],
+                reasoning_parser: Optional[str]) -> ModelDeploymentCard:
+    """The model card this worker publishes. A vision preset's tower
+    (``run.VISION_PRESETS``, e.g. ``tiny-vl``) puts its image fields on it:
+    the frontend's preprocessor decodes each image to ``image_size`` and
+    places ``image_tokens`` placeholders of ``image_token_id``."""
+    vcfg = engine.cfg.vision
+    return ModelDeploymentCard(
+        name=args.model, namespace=args.namespace, component=args.component,
+        endpoint=args.endpoint, model_type=[MODEL_TYPE_CHAT, MODEL_TYPE_COMPLETIONS, MODEL_TYPE_EMBEDDING],
+        tokenizer=tok_ref, context_length=args.max_context, kv_block_size=args.block_size,
+        migration_limit=args.migration_limit,
+        tool_parser=tool_parser, reasoning_parser=reasoning_parser,
+        image_tokens=vcfg.num_patches if vcfg is not None else 0,
+        image_size=vcfg.image_size if vcfg is not None else 0,
+        image_token_id=engine.cfg.image_token_id,
+        runtime_config=ModelRuntimeConfig(
+            total_kv_blocks=engine.cfg.num_blocks, kv_block_size=args.block_size,
+            max_batch_size=args.max_batch_size, max_context_len=args.max_context),
+    )
+
+
 async def main(argv: Optional[List[str]] = None) -> None:
     args = parse_args(argv)
     init_logging()
@@ -453,16 +484,7 @@ async def main(argv: Optional[List[str]] = None) -> None:
         block_size=args.block_size)
     engine.metrics_publisher = WorkerMetricsPublisher(
         runtime.event_plane, args.namespace, args.component, worker_id=instance_id)
-    card = ModelDeploymentCard(
-        name=args.model, namespace=args.namespace, component=args.component,
-        endpoint=args.endpoint, model_type=[MODEL_TYPE_CHAT, MODEL_TYPE_COMPLETIONS, MODEL_TYPE_EMBEDDING],
-        tokenizer=tok_ref, context_length=args.max_context, kv_block_size=args.block_size,
-        migration_limit=args.migration_limit,
-        tool_parser=tool_parser, reasoning_parser=reasoning_parser,
-        runtime_config=ModelRuntimeConfig(
-            total_kv_blocks=engine.cfg.num_blocks, kv_block_size=args.block_size,
-            max_batch_size=args.max_batch_size, max_context_len=args.max_context),
-    )
+    card = worker_card(args, engine, tok_ref, tool_parser, reasoning_parser)
     # step telemetry on the runtime's metrics, under the component's labels,
     # and the drift detector fed from the same hook
     scope = runtime.metrics.child(dtpu_namespace=args.namespace,
@@ -491,6 +513,8 @@ async def main(argv: Optional[List[str]] = None) -> None:
     # attainment / burn gauges go on this worker's /metrics
     get_slo_accountant().bind_metrics(scope)
     served = await register_llm(runtime, engine, card, instance_id=instance_id)
+    clear_served = await serve_clear_endpoint(runtime, args.namespace, args.component,
+                                              [engine], served.instance_id)
     lora_served = []
     if engine.lora is not None:
         lora_served = await serve_lora_endpoints(runtime, args.namespace, args.component,
@@ -522,7 +546,7 @@ async def main(argv: Optional[List[str]] = None) -> None:
         await status_server.stop()
     if not watchdog.fired:
         await served.stop(graceful_timeout_s=args.graceful_timeout)
-    for s in lora_served:
+    for s in lora_served + [clear_served]:
         await s.stop()
     engine.stop()
     await runtime.shutdown()

@@ -2339,6 +2339,34 @@ class TorchEngine:
             snap["kvbm"] = self.kvbm.stats()
         return snap
 
+    async def clear_kv_blocks(self, levels: Optional[List[str]] = None) -> Dict[str, Any]:
+        """Runtime cache reset (the reference's ``clear_kv_blocks``): drop
+        the device prefix cache (g1) and/or the KVBM tiers (g2 host, g3
+        disk). Requests in flight keep their pinned blocks; only reusable
+        cache is dropped. A g1 clear publishes a wholesale CLEARED event for
+        this worker; tier clears ride the consolidated removed-event path.
+        ``None`` clears every level, an empty list none."""
+        if levels is not None and (
+            not isinstance(levels, (list, tuple))
+            or any(not isinstance(lv, str) for lv in levels)
+        ):
+            raise ValueError("levels must be a list of tier names")
+        levels = [lv.lower() for lv in (levels if levels is not None else ["g1", "g2", "g3"])]
+        result: Dict[str, Any] = {}
+        if "g1" in levels:
+            before = self.allocator.cached_blocks
+            self.allocator.clear()
+            if self.kv_publisher is not None:
+                await self.kv_publisher.cleared()
+            result["g1"] = before
+        if self.kvbm is not None and ("g2" in levels or "g3" in levels):
+            counts = self.kvbm.clear(host="g2" in levels, disk="g3" in levels)
+            result.update({k: v for k, v in counts.items() if k in levels})
+            # the eviction notifications go out now, not at the next tick
+            await self._publish_events()
+        result["snapshot"] = self.snapshot()
+        return result
+
     def spec_acceptance(self) -> Optional[float]:
         """emitted / (rounds * k): the share of drafted tokens the device
         advanced (1.0 for a perfect draft); None before any spec round."""

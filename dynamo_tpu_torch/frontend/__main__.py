@@ -32,8 +32,13 @@ takes a free port and prints it). On SIGTERM or SIGINT it stops and prints
 router's view of each worker (``block_set_view``: block count, digest and
 hashes, which a worker's exit line prints for its own prefix cache) and the
 events the router applied; ``faults``, the armed points' call counts and
-the fired-fault log (``[point, action, call]`` each). gRPC and TLS are
-later slices (ROADMAP item 4b).
+the fired-fault log (``[point, action, call]`` each).
+
+``--grpc-port P`` (0: any free port) also serves the KServe v2 gRPC
+frontend (llm/grpc/, on the port's own HTTP/2) over the same models and
+prints ``KSERVE_GRPC_READY <port>``; ``--tls-cert-path`` and
+``--tls-key-path`` (PEM files, given together) serve the OpenAI frontend
+over HTTPS. ``POST /clear_kv_blocks`` resets the workers' KV caches.
 """
 
 from __future__ import annotations
@@ -46,6 +51,7 @@ from typing import List, Optional
 
 from ..kv_router import KvRouterConfig
 from ..llm.discovery import ModelManager, ModelWatcher
+from ..llm.grpc import KserveGrpcService
 from ..llm.http.service import HttpService
 from ..llm.request_template import RequestTemplate
 from ..runtime.component import RouterMode
@@ -63,6 +69,7 @@ from ..runtime.logging import init_logging
 
 READY = "TORCH_FRONTEND_READY"
 EXIT = "TORCH_FRONTEND_EXIT"
+GRPC_READY = "KSERVE_GRPC_READY"
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -73,7 +80,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                    default="round-robin")
     p.add_argument("--event-plane", default=None, help="zmq|inproc (default: DTPU_EVENT_PLANE)")
     p.add_argument("--namespace", default=env_str(ENV_NAMESPACE, "dynamo"))
-    p.add_argument("--store", default=None, help="mem|file|tcp (default: DTPU_STORE)")
+    p.add_argument("--store", default=None, help="mem|file|tcp|etcd (default: DTPU_STORE)")
     p.add_argument("--store-path", default=None)
     p.add_argument("--busy-threshold", type=int,
                    default=(env_int(ENV_BUSY_THRESHOLD, 0) or None),
@@ -81,11 +88,19 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--kv-overlap-score-weight", type=float, default=1.0)
     p.add_argument("--router-temperature", type=float, default=0.0)
     p.add_argument("--no-kv-events", action="store_true")
+    p.add_argument("--grpc-port", type=int, default=-1,
+                   help="KServe v2 gRPC frontend port (0 = ephemeral, -1 = off)")
+    p.add_argument("--tls-cert-path", default=None,
+                   help="serve HTTPS with this PEM cert (requires --tls-key-path)")
+    p.add_argument("--tls-key-path", default=None)
     p.add_argument("--request-template", default=None,
                    help="JSON file with default model/temperature/"
                         "max_completion_tokens applied to requests that "
                         "omit them")
-    return p.parse_args(argv)
+    args = p.parse_args(argv)
+    if bool(args.tls_cert_path) != bool(args.tls_key_path):
+        p.error("--tls-cert-path and --tls-key-path must be given together")
+    return args
 
 
 def router_views(manager: ModelManager) -> dict:
@@ -119,14 +134,22 @@ async def main(argv: Optional[List[str]] = None) -> None:
     watcher = await ModelWatcher(runtime, manager, RouterMode(args.router_mode),
                                  kv_cfg).start()
     service = HttpService(manager, runtime.metrics, busy_threshold=args.busy_threshold,
-                          host=args.host, port=args.port, request_template=template)
+                          host=args.host, port=args.port, request_template=template,
+                          tls_cert=args.tls_cert_path, tls_key=args.tls_key_path)
     await service.start()
     print(f"{READY} {args.host}:{service.port}", flush=True)
+    grpc_service = None
+    if args.grpc_port >= 0:
+        grpc_service = KserveGrpcService(manager, host=args.host, port=args.grpc_port)
+        await grpc_service.start()
+        print(f"{GRPC_READY} {grpc_service.port}", flush=True)
     stop = asyncio.Event()
     loop = asyncio.get_running_loop()
     for sig in (signal.SIGINT, signal.SIGTERM):
         loop.add_signal_handler(sig, stop.set)
     await stop.wait()
+    if grpc_service is not None:
+        await grpc_service.stop()
     await service.stop()
     print(f"{EXIT} {json.dumps({'router': router_views(manager), 'faults': fault_report()})}",
           flush=True)

@@ -9,7 +9,7 @@ streamed response ends its connection; while it streams, the client's
 side is watched, and a client that closes it fires the request's
 disconnect callbacks at once (the frontend kills the request's contexts
 there, as the reference does on aiohttp's disconnect), not only at the
-next write. TLS is a later slice.
+next write. Given an ``ssl.SSLContext`` the listener serves HTTPS.
 """
 
 from __future__ import annotations
@@ -171,19 +171,29 @@ class HttpServer:
     """Routes ``(method, path)`` to handlers; unknown paths 404, a known
     path asked with another method 405."""
 
-    def __init__(self, host: str = "0.0.0.0", port: int = 8000):
+    def __init__(self, host: str = "0.0.0.0", port: int = 8000, ssl_context=None,
+                 max_body_bytes: int = MAX_BODY_BYTES):
         self.host = host
         self.port = port
+        self.ssl_context = ssl_context
+        self.max_body_bytes = max_body_bytes
         self._routes: Dict[Tuple[str, str], Handler] = {}
+        self._prefix_routes: List[Tuple[str, str, Handler]] = []
         self._server: Optional[asyncio.base_events.Server] = None
         self._conns: set = set()
 
     def add_route(self, method: str, path: str, handler: Handler) -> None:
         self._routes[(method, path)] = handler
 
+    def add_prefix_route(self, method: str, prefix: str, handler: Handler) -> None:
+        """Route every path under ``prefix`` (e.g. ``/cancel/``); the
+        handler reads the rest from ``request.path``."""
+        self._prefix_routes.append((method, prefix, handler))
+
     async def start(self) -> int:
         self._server = await asyncio.start_server(self._on_conn, self.host, self.port,
-                                                  limit=MAX_HEADER_BYTES)
+                                                  limit=MAX_HEADER_BYTES,
+                                                  ssl=self.ssl_context)
         self.port = self._server.sockets[0].getsockname()[1]
         return self.port
 
@@ -233,9 +243,9 @@ class HttpServer:
             raise HttpError(400, "bad Content-Length") from None
         if length < 0:
             raise HttpError(400, "bad Content-Length")
-        if length > MAX_BODY_BYTES:
+        if length > self.max_body_bytes:
             raise HttpError(413, f"request body of {length} bytes exceeds "
-                                 f"{MAX_BODY_BYTES}")
+                                 f"{self.max_body_bytes}")
         if length and headers.get("expect", "").lower() == "100-continue":
             writer.write(b"HTTP/1.1 100 Continue\r\n\r\n")
             await writer.drain()
@@ -247,7 +257,11 @@ class HttpServer:
     async def _dispatch(self, req: Request) -> Union[Response, StreamResponse]:
         handler = self._routes.get((req.method, req.path))
         if handler is None:
-            if any(path == req.path for _, path in self._routes):
+            handler = next((h for m, p, h in self._prefix_routes
+                            if m == req.method and req.path.startswith(p)), None)
+        if handler is None:
+            if any(path == req.path for _, path in self._routes) or any(
+                    req.path.startswith(p) for _, p, _ in self._prefix_routes):
                 return Response("405: Method Not Allowed", 405)
             return Response("404: Not Found", 404)
         try:

@@ -38,7 +38,11 @@ ledger (``/debug/slo``) and attribution aggregates, and is audited per
 worker's ``/debug/worker`` (llm/fleet.py) with each model's breaker and
 its workers' breakers.
 
-Later slices (ROADMAP item 4b): /v1/images, the admin endpoints and TLS.
+``POST /clear_kv_blocks`` resets the workers' KV caches (g1 device prefix
+cache, g2 / g3 KVBM tiers) through each worker's ``clear_kv_blocks``
+endpoint. With ``tls_cert`` and ``tls_key`` it serves HTTPS (an
+``ssl.SSLContext`` on the server's listener). /v1/images waits for the
+diffusion slice (ROADMAP Queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -242,7 +246,14 @@ class HttpService:
         tracer: Optional[Tracer] = None,
         audit_bus: Optional[AuditBus] = None,
         request_template=None,
+        tls_cert: Optional[str] = None,
+        tls_key: Optional[str] = None,
     ):
+        # HTTPS (the frontend's --tls-cert-path / --tls-key-path)
+        if bool(tls_cert) != bool(tls_key):
+            raise ValueError("tls_cert and tls_key must be given together")
+        self.tls_cert = tls_cert
+        self.tls_key = tls_key
         self.manager = manager
         self.host = host
         self.port = port
@@ -294,7 +305,13 @@ class HttpService:
         # DTPU_CB_FRONTEND; its state / transition series ride this
         # service's /metrics registry
         self._model_breakers: dict = {}
-        self.server = HttpServer(host, port)
+        ssl_ctx = None
+        if tls_cert:
+            import ssl
+
+            ssl_ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
+            ssl_ctx.load_cert_chain(tls_cert, tls_key)
+        self.server = HttpServer(host, port, ssl_context=ssl_ctx)
         for method, path, handler in (
                 ("POST", "/v1/chat/completions", self.chat_completions),
                 ("POST", "/v1/completions", self.completions),
@@ -306,7 +323,8 @@ class HttpService:
                 ("GET", "/metrics", self.metrics_handler),
                 ("GET", "/debug/requests", self.debug_requests),
                 ("GET", "/debug/slo", self.debug_slo),
-                ("GET", "/debug/fleet", self.debug_fleet)):
+                ("GET", "/debug/fleet", self.debug_fleet),
+                ("POST", "/clear_kv_blocks", self.clear_kv_blocks)):
             self.server.add_route(method, path, handler)
 
     def _breaker(self, model: str) -> CircuitBreaker:
@@ -332,7 +350,8 @@ class HttpService:
 
     async def start(self) -> str:
         self.port = await self.server.start()
-        log.info("OpenAI HTTP frontend listening on %s:%d", self.host, self.port)
+        log.info("OpenAI %s frontend listening on %s:%d",
+                 "HTTPS" if self.tls_cert else "HTTP", self.host, self.port)
         return f"{self.host}:{self.port}"
 
     async def stop(self) -> None:
@@ -388,6 +407,60 @@ class HttpService:
         if spec is None:
             return None, _error(400, f"unknown SLA class {name!r}", "invalid_request_error")
         return spec, None
+
+    async def clear_kv_blocks(self, request: Request) -> Response:
+        """Runtime cache reset across workers. Body (all optional):
+        {"model": name, "levels": ["g1", "g2", "g3"]}. Fans out to every
+        instance's ``clear_kv_blocks`` endpoint (served beside generate under
+        the same instance id) and reports per-worker results; a worker
+        without the endpoint is reported, not fatal."""
+        try:
+            body = request.json() if request.body else {}
+        except (json.JSONDecodeError, UnicodeDecodeError):
+            return _error(400, "invalid JSON body")
+        model = body.get("model")
+        levels = body.get("levels")
+        if levels is not None and (
+            not isinstance(levels, list)
+            or not all(isinstance(lv, str) for lv in levels)
+        ):
+            # a bare string would iterate character-wise downstream and
+            # silently clear nothing
+            return _error(400, 'levels must be a list of strings, e.g. ["g1"]')
+        pipelines = [self.manager.get(model)] if model else self.manager.pipelines()
+        if model and pipelines[0] is None:
+            return _error(404, f"model {model!r} not found", "model_not_found")
+        results: dict = {}
+        for pipe in pipelines:
+            if pipe is None or pipe.client is None:
+                continue
+            card = pipe.card
+            endpoint = (pipe.runtime.namespace(card.namespace).component(card.component)
+                        .endpoint("clear_kv_blocks"))
+            client = await endpoint.client()
+            per_worker: dict = {}
+            try:
+                targets = pipe.client.instance_ids()
+                # the fresh client's discovery snapshot arrives async
+                try:
+                    await client.wait_for_instances(len(targets), timeout=5.0)
+                except TimeoutError:
+                    pass
+                for iid in targets:
+                    wk = f"{iid:016x}"
+                    if iid not in client.instances:
+                        per_worker[wk] = {"error": "no clear_kv_blocks endpoint"}
+                        continue
+                    try:
+                        async for item in await client.generate({"levels": levels},
+                                                                instance_id=iid):
+                            per_worker[wk] = item
+                    except (NoResponders, ConnectionError, OSError) as e:
+                        per_worker[wk] = {"error": str(e)}
+            finally:
+                await client.stop()
+            results[card.name] = per_worker
+        return json_response({"cleared": results})
 
     async def models(self, request: Request) -> Response:
         data = ModelList(
@@ -679,7 +752,7 @@ class HttpService:
         if sla_err is not None:
             return sla_err
         try:
-            preq = pipeline.preprocessor.preprocess_chat(req)
+            preq = await pipeline.preprocessor.apreprocess_chat(req)
         except ValueError as e:
             return _error(400, str(e), _preprocess_err_type(e))
 
@@ -887,7 +960,7 @@ class HttpService:
         if sla_err is not None:
             return sla_err
         try:
-            preq = pipeline.preprocessor.preprocess_chat(chat)
+            preq = await pipeline.preprocessor.apreprocess_chat(chat)
         except ValueError as e:
             return _error(400, str(e), _preprocess_err_type(e))
         gen = _ResponsesStream(preq.request_id.replace("chatcmpl-", "resp_"), rreq.model)

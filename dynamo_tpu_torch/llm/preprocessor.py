@@ -6,13 +6,14 @@ chat template, tokenizes, folds sampling + stop options and the guided,
 stamps metric annotations. A forced named ``tool_choice`` becomes a soft
 JSON grammar over the tool's parameters (the delta generator's jail reads
 the call out of it); ``"required"`` goes to the jail without a grammar.
-One refusal is the port's own, a 400 naming ROADMAP item 4b: image parts
-(the media decoder needs PIL, absent on the card; vision prompts are
-served in-process).
+Image parts are decoded by llm/media.py (the port's own PNG and JPEG
+decoders) into the ``images`` annotation the engine's vision path reads.
 """
 
 from __future__ import annotations
 
+import asyncio
+import concurrent.futures
 from typing import Any, Dict, List, Optional, Union
 
 from ..runtime.errors import (
@@ -27,6 +28,16 @@ from .protocols.openai import ChatCompletionRequest, CompletionRequest, new_requ
 from .tokenizer import Tokenizer, load_tokenizer
 
 log = get_logger("llm.preprocessor")
+
+_IMAGE_EXECUTOR: Optional[concurrent.futures.ThreadPoolExecutor] = None
+
+
+def _image_executor() -> concurrent.futures.ThreadPoolExecutor:
+    global _IMAGE_EXECUTOR
+    if _IMAGE_EXECUTOR is None:
+        _IMAGE_EXECUTOR = concurrent.futures.ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="image-decode")
+    return _IMAGE_EXECUTOR
 
 ANNOTATION_INPUT_TOKENS = "input_tokens"
 ANNOTATION_CACHED_TOKENS = "cached_tokens"
@@ -47,14 +58,19 @@ class OpenAIPreprocessor:
         prompt = self.tokenizer.apply_chat_template(messages, add_generation_prompt=True)
         return self.tokenizer.encode(prompt)
 
-    @staticmethod
-    def _check_images(request: ChatCompletionRequest) -> None:
-        if any(isinstance(m.content, list)
-               and any(p.get("type") == "image_url" for p in m.content)
-               for m in request.messages):
+    def _has_images(self, request: ChatCompletionRequest) -> bool:
+        has = any(
+            isinstance(m.content, list)
+            and any(p.get("type") == "image_url" for p in m.content)
+            for m in request.messages
+        )
+        if has and self.card.image_tokens <= 0:
+            # silently dropping the image would produce a confident answer
+            # about content the model never saw
             raise InvalidRequestError(
-                "image input through the frontend is ROADMAP item 4b (no image "
-                "decoder on the card); vision prompts are served in-process")
+                f"model {self.card.name!r} does not accept image input"
+            )
+        return has
 
     def _check_audio(self, request: ChatCompletionRequest) -> None:
         """Audio requests against a non-audio model fail loudly."""
@@ -70,6 +86,42 @@ class OpenAIPreprocessor:
             raise InvalidRequestError(
                 f"model {self.card.name!r} does not support audio input/output"
             )
+
+    def tokenize_chat_multimodal(self, request: ChatCompletionRequest):
+        """Chat messages with image parts -> (token_ids with placeholder
+        runs, decoded images). Multimodal prompts use plain role framing
+        (templates are text functions; image spans must stay byte-exact),
+        as the reference's. Each image becomes ``card.image_tokens``
+        placeholder ids; the engine splices the vision tower's patch
+        embeddings over them."""
+        from .media import decode_image
+
+        tokens: List[int] = []
+        images: List[dict] = []
+        for m in request.messages:
+            tokens.extend(self.tokenizer.encode(f"<|{m.role}|>\n"))
+            parts = m.content if isinstance(m.content, list) else [
+                {"type": "text", "text": m.content or ""}
+            ]
+            for part in parts:
+                if part.get("type") == "image_url":
+                    url = (part.get("image_url") or {}).get("url", "")
+                    arr = decode_image(url, self.card.image_size)
+                    images.append({
+                        "data": arr.tobytes(),
+                        "shape": list(arr.shape),
+                    })
+                    tokens.extend(
+                        [self.card.image_token_id] * self.card.image_tokens
+                    )
+                    # separator: adjacent image parts must stay distinct
+                    # placeholder RUNS (the engine maps one run per image)
+                    tokens.extend(self.tokenizer.encode("\n"))
+                elif part.get("type") == "text":
+                    tokens.extend(self.tokenizer.encode(part.get("text", "")))
+            tokens.extend(self.tokenizer.encode("\n"))
+        tokens.extend(self.tokenizer.encode("<|assistant|>\n"))
+        return tokens, images
 
     def tokenize_prompt(self, prompt: Union[str, List[int]]) -> List[int]:
         if isinstance(prompt, str):
@@ -189,8 +241,23 @@ class OpenAIPreprocessor:
     def preprocess_chat(self, request: ChatCompletionRequest) -> PreprocessedRequest:
         rid = new_request_id("chatcmpl")
         self._check_audio(request)
-        self._check_images(request)
+        if self._has_images(request):
+            tokens, images = self.tokenize_chat_multimodal(request)
+            preq = self._common(request, tokens, rid)
+            preq.annotations["images"] = images
+            return preq
         return self._common(request, self.tokenize_chat(request), rid)
+
+    async def apreprocess_chat(self, request: ChatCompletionRequest) -> PreprocessedRequest:
+        """``preprocess_chat`` for a server's event loop: a request with
+        images is preprocessed on the image thread, since decoding them is
+        CPU work of up to seconds (a 12-megapixel JPEG) that would stall
+        every other stream the loop serves; one thread, so that decodes
+        queue instead of taking the loop's share of the interpreter."""
+        if not self._has_images(request):
+            return self.preprocess_chat(request)
+        return await asyncio.get_running_loop().run_in_executor(
+            _image_executor(), self.preprocess_chat, request)
 
     def preprocess_completion(
         self, request: CompletionRequest, prompt: Union[str, List[int]]

@@ -4,8 +4,10 @@ The port's copy of ``register_llm`` from the reference package's
 llm/serve.py: wraps the engine in the Backend operator (detokenize + stop
 handling), serves the endpoint on the request plane, and writes the
 ModelDeploymentCard into the store under the worker's lease so frontends
-discover it. The reference's ``clear_kv_blocks`` and ``eplb_rebalance``
-admin endpoints wait for the engine hooks they call (ROADMAP item 4b).
+discover it; ``serve_clear_endpoint`` serves the ``clear_kv_blocks``
+admin endpoint beside it (the frontend's ``POST /clear_kv_blocks`` fans out
+to it). The reference's ``eplb_rebalance`` endpoint waits for expert
+parallelism with redundant experts (ROADMAP Queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -25,10 +27,14 @@ async def register_llm(
     engine: AsyncEngine,
     card: ModelDeploymentCard,
     tokenizer: Optional[Tokenizer] = None,
+    raw_token_stream: bool = False,
     instance_id: Optional[int] = None,
 ) -> ServedEndpoint:
-    """Serve ``engine`` behind the Backend for ``card`` and announce it."""
-    handler = Backend(engine, tokenizer or load_tokenizer(card.tokenizer)).generate
+    """Serve ``engine`` behind the Backend for ``card`` and announce it.
+    ``raw_token_stream`` serves the engine's stream as it is (an engine
+    that already emits finished outputs, or a tensor model's)."""
+    handler = engine.generate if raw_token_stream else Backend(
+        engine, tokenizer or load_tokenizer(card.tokenizer)).generate
     endpoint = (
         runtime.namespace(card.namespace).component(card.component).endpoint(card.endpoint)
     )
@@ -41,3 +47,35 @@ async def register_llm(
     key = mdc_key(card.namespace, card.slug, served.instance_id)
     await served.publish_extra(key, card.to_obj())
     return served
+
+
+async def serve_clear_endpoint(
+    runtime: DistributedRuntime,
+    namespace: str,
+    component: str,
+    engines,
+    instance_id: int,
+) -> ServedEndpoint:
+    """Serve a ``clear_kv_blocks`` admin endpoint beside generate, under the
+    same instance id, so that the frontend's per-worker fan-out targets line
+    up. ``engines`` are the engines whose caches this worker owns; integer
+    tier counts sum across them."""
+
+    async def handle_clear_kv(request, context):
+        levels = (request or {}).get("levels")
+        results = []
+        for e in engines:
+            results.append(await e.clear_kv_blocks(levels))
+        out = {k: v for k, v in results[0].items() if isinstance(v, int)}
+        for r in results[1:]:
+            for k, v in r.items():
+                if isinstance(v, int):
+                    out[k] = out.get(k, 0) + v
+        out["snapshot"] = results[0].get("snapshot")
+        yield out
+
+    return await (
+        runtime.namespace(namespace).component(component)
+        .endpoint("clear_kv_blocks")
+        .serve(handle_clear_kv, instance_id=instance_id)
+    )

@@ -46,7 +46,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--namespace", default="dynamo")
     p.add_argument("--component", default="backend")
     p.add_argument("--endpoint", default="generate")
-    p.add_argument("--store", default=None, help="mem|file|tcp (default: DTPU_STORE)")
+    p.add_argument("--store", default=None, help="mem|file|tcp|etcd (default: DTPU_STORE)")
     p.add_argument("--store-path", default=None)
     p.add_argument("--event-plane", default=None, help="zmq|inproc (default: DTPU_EVENT_PLANE)")
     p.add_argument("--block-size", type=int, default=16)

@@ -127,7 +127,12 @@ class Endpoint:
         """Start a request-plane server for ``handler`` and register it."""
         rt = self.runtime
         iid = instance_id if instance_id is not None else new_instance_id()
-        server = TcpRequestServer(handler, host=rt.config.host_ip)
+        if getattr(rt.config, "request_plane", "tcp") == "http":
+            from .request_plane.http import HttpRequestServer
+
+            server = HttpRequestServer(handler, host=rt.config.host_ip)
+        else:
+            server = TcpRequestServer(handler, host=rt.config.host_ip)
         address = await server.start()
         inst = Instance(
             instance_id=iid,
@@ -316,7 +321,7 @@ class Client:
         """
         inst = self._select(request, instance_id)
         try:
-            stream = await self._rt.tcp_client.call(
+            stream = await self._rt.plane_client(inst.address).call(
                 inst.address, request, context
             )
         except (NoResponders, ConnectionError) as e:
@@ -339,6 +344,13 @@ class DistributedRuntimeBase:
     tcp_client: TcpClient
     lease_id: Optional[str]
     config: Any
+
+    def plane_client(self, address: str):
+        """The transport by the address's scheme: http(s):// the HTTP plane,
+        else TCP."""
+        if address.startswith("http"):
+            return self.http_client
+        return self.tcp_client
 
     def namespace(self, name: str) -> Namespace:
         return Namespace(self, name)

@@ -18,8 +18,9 @@ from typing import Any, Dict, Optional
 ENV_LOG = "DTPU_LOG"                                  # log level (debug/info/warn/error)
 ENV_LOG_JSONL = "DTPU_LOGGING_JSONL"                  # structured JSONL logging on/off
 ENV_EVENT_PLANE = "DTPU_EVENT_PLANE"                  # zmq | inproc (zmq: the port's own broker)
-ENV_STORE = "DTPU_STORE"                              # mem | file | tcp
-ENV_STORE_PATH = "DTPU_STORE_PATH"                    # file path / tcp host:port
+ENV_REQUEST_PLANE = "DTPU_REQUEST_PLANE"              # tcp | http
+ENV_STORE = "DTPU_STORE"                              # mem | file | tcp | etcd
+ENV_STORE_PATH = "DTPU_STORE_PATH"                    # file path / tcp host:port / etcd endpoint
 ENV_HOST_IP = "DTPU_HOST_IP"                          # advertised host for request plane
 ENV_LEASE_TTL_S = "DTPU_LEASE_TTL_S"                  # discovery lease ttl
 ENV_WORKER_GRACEFUL_SHUTDOWN_TIMEOUT = "DTPU_WORKER_GRACEFUL_SHUTDOWN_TIMEOUT"
@@ -111,7 +112,8 @@ class RuntimeConfig:
     """Top-level runtime knobs; every field has an env override."""
 
     event_plane: str = "inproc"          # inproc | zmq (runtime/event_plane/tcp_plane.py)
-    store: str = "mem"                   # mem | file | tcp
+    request_plane: str = "tcp"           # tcp | http (request_plane/http.py)
+    store: str = "mem"                   # mem | file | tcp | etcd
     store_path: str = dataclasses.field(default_factory=default_store_path)
     host_ip: str = "127.0.0.1"
     lease_ttl_s: float = 10.0
@@ -144,6 +146,7 @@ class RuntimeConfig:
 
         cfg = cls(
             event_plane=layered("event_plane", ENV_EVENT_PLANE, str),
+            request_plane=layered("request_plane", ENV_REQUEST_PLANE, str),
             store=layered("store", ENV_STORE, str),
             store_path=layered("store_path", ENV_STORE_PATH, str),
             host_ip=layered("host_ip", ENV_HOST_IP, str),

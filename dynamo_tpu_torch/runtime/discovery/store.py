@@ -7,7 +7,7 @@ package reads back in the other. The file backend keeps one file per key
 plus lease heartbeat files; watchers poll and synthesize PUT/DELETE
 events, and keys whose lease heartbeat has gone stale are reaped as if
 their owner died (etcd's lease-expiry semantics). The networked store is
-discovery/netstore.py; the etcd gateway waits for a later slice.
+discovery/netstore.py, and discovery/etcd.py speaks to a real etcd.
 """
 
 from __future__ import annotations
@@ -397,4 +397,10 @@ def make_store(kind: str, path: Optional[str] = None) -> KVStore:
         from .netstore import TcpKVStore
 
         return TcpKVStore(path)
-    raise ValueError(f"unknown store kind: {kind!r} (expected mem|file|tcp)")
+    if kind == "etcd":
+        # a real etcd cluster through its v3 JSON gateway; path is the
+        # client endpoint, e.g. http://etcd:2379 (discovery/etcd.py)
+        from .etcd import EtcdKVStore
+
+        return EtcdKVStore(path or "http://127.0.0.1:2379")
+    raise ValueError(f"unknown store kind: {kind!r} (expected mem|file|tcp|etcd)")

@@ -45,6 +45,7 @@ class DistributedRuntime(DistributedRuntimeBase):
         self._event_plane = event_plane
         self._owns_event_plane = event_plane is None
         self.tcp_client = TcpClient()
+        self._http_client = None  # the HTTP plane's client, made on first use
         self.metrics = MetricsScope()
         # shared retry policies / breakers created after this point export
         # their series through this runtime's registry (-> /metrics)
@@ -58,6 +59,14 @@ class DistributedRuntime(DistributedRuntimeBase):
         # ServedEndpoints register here so their instance keys can be re-put
         # if the lease is ever lost and re-acquired
         self.served: list = []
+
+    @property
+    def http_client(self):
+        if self._http_client is None:
+            from .request_plane.http import HttpClient
+
+            self._http_client = HttpClient()
+        return self._http_client
 
     async def start(self) -> "DistributedRuntime":
         if self._started:
@@ -143,6 +152,8 @@ class DistributedRuntime(DistributedRuntimeBase):
         if self._event_plane is not None and self._owns_event_plane:
             await self._event_plane.close()
         await self.tcp_client.close()
+        if self._http_client is not None:
+            await self._http_client.close()
         if self._owns_store:
             await self.store.close()
         self._started = False

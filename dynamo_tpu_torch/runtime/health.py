@@ -7,8 +7,8 @@ process liveness) and the system status server (/health /live /metrics
 runs on the port's own HTTP server (llm/http/server.py) in place of
 aiohttp.
 
-The canary pings a worker's own served endpoints over the actual TCP request
-plane (connect + codec + server loop), so a wedged event loop or dead socket
+The canary pings a worker's own served endpoints over the actual request
+plane, TCP or HTTP by the address's scheme (connect + codec + server loop), so a wedged event loop or dead socket
 fails the probe even while the process is alive. Consecutive failures flip
 the subsystem unhealthy and fire a callback (deregister, shed, restart —
 caller's choice).
@@ -118,14 +118,24 @@ class EndpointCanary:
         self._fails: Dict[str, int] = {}
         self._down: set = set()
         self._client = TcpClient()
+        self._http_client = None  # for http:// request-plane addresses
         self._task: Optional[asyncio.Task] = None
         for name in self.targets:
             self.state.set(name, True, "not probed yet")
 
+    def _client_for(self, address: str):
+        if address.startswith("http"):
+            if self._http_client is None:
+                from .request_plane.http import HttpClient
+
+                self._http_client = HttpClient()
+            return self._http_client
+        return self._client
+
     async def probe_once(self) -> None:
         for name, address in list(self.targets.items()):
             try:
-                rtt = await self._client.ping(address, timeout=self.timeout_s)
+                rtt = await self._client_for(address).ping(address, timeout=self.timeout_s)
                 self.last_rtt[name] = rtt
                 self._fails[name] = 0
                 self._down.discard(name)
@@ -169,6 +179,8 @@ class EndpointCanary:
         if self._task is not None:
             self._task.cancel()
         await self._client.close()
+        if self._http_client is not None:
+            await self._http_client.close()
 
 
 # ---------------------------------------------------------------------------

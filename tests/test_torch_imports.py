@@ -167,8 +167,10 @@ def test_the_walk_covers_the_checkpoint_modules():
 
 # the reference's serving planes import these; the machine the port serves
 # on has none of them, so the port's planes (and chip_smoke.py) carry their
-# own codec, HTTP server, validators and metrics registry
-SERVING_NEVER = ("msgpack", "aiohttp", "zmq", "pydantic", "prometheus_client", "PIL")
+# own codec, HTTP server and client, validators, metrics registry, image
+# decoders, protobuf codec and HTTP/2
+SERVING_NEVER = ("msgpack", "aiohttp", "zmq", "pydantic", "prometheus_client", "PIL",
+                 "grpc", "google", "h2", "hpack")
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: os.path.relpath(p, REPO))
@@ -186,11 +188,17 @@ def test_no_serving_library_import_statement(path):
 
 
 def test_importing_every_module_loads_no_serving_library():
+    # torch itself loads modules of the ``google`` namespace package on some
+    # machines (google.cloud); those, and only those, are exempt:
+    # google.protobuf and every other name are never loaded
     code = (
-        "import importlib, sys\n"
+        "import importlib, sys, torch\n"
+        "torch_google = {m for m in sys.modules if m.split('.')[0] == 'google'\n"
+        "                and not m.startswith('google.protobuf')}\n"
         f"for m in {_modules()!r}:\n"
         "    importlib.import_module(m)\n"
-        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {SERVING_NEVER!r})\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {SERVING_NEVER!r}\n"
+        "             and m not in torch_google)\n"
         "print(repr(bad))\n"
     )
     r = subprocess.run(
@@ -252,4 +260,17 @@ def test_the_walk_covers_faults_breakers_and_the_request_template():
     assert {
         "dynamo_tpu_torch.runtime.faults", "dynamo_tpu_torch.runtime.resilience",
         "dynamo_tpu_torch.runtime.tasks", "dynamo_tpu_torch.llm.request_template",
+    } <= set(_modules())
+
+
+def test_the_walk_covers_the_frontend_planes():
+    """Image input, KServe gRPC on the port's HTTP/2, the etcd store, the
+    HTTP request plane and the HTTP client under them."""
+    assert {
+        "dynamo_tpu_torch.llm.media", "dynamo_tpu_torch.llm.image_codecs",
+        "dynamo_tpu_torch.llm.protocols.tensor", "dynamo_tpu_torch.llm.grpc",
+        "dynamo_tpu_torch.llm.grpc.kserve", "dynamo_tpu_torch.llm.grpc.service",
+        "dynamo_tpu_torch.runtime.hpack", "dynamo_tpu_torch.runtime.http2",
+        "dynamo_tpu_torch.runtime.http_client", "dynamo_tpu_torch.runtime.discovery.etcd",
+        "dynamo_tpu_torch.runtime.request_plane.http",
     } <= set(_modules())

@@ -437,13 +437,17 @@ def test_the_corpus_holds_both_outcomes():
               "type": "object", "properties": {"x": {"type": "integer"}}}}}]),
 ])
 def test_port_refusals_name_the_roadmap(body):
-    """Image parts are the port's one refusal; a forced tool_choice
-    ("required", or a named function, whose soft grammar the folded
-    request carries) is served as the reference serves it."""
+    """The bodies the port once refused naming ROADMAP item 4b are served
+    as the reference serves them: image parts (a 400 from both on a model
+    whose card takes no images; tests/test_torch_media.py serves them on a
+    vision card), and a forced tool_choice ("required", or a named
+    function, whose soft grammar the folded request carries)."""
     req = topenai.ChatCompletionRequest.from_obj(body)
     if body.get("tool_choice") is None:
-        with pytest.raises(InvalidRequestError, match="ROADMAP item 4b"):
+        with pytest.raises(InvalidRequestError, match="does not accept image input"):
             tpre.OpenAIPreprocessor(_card(tcard), ByteTokenizer()).preprocess_chat(req)
+        port = _fold("chat", body, topenai, tpre, _card(tcard), ByteTokenizer())
+        assert port == _fold("chat", body, jopenai, jpre, _card(jcard), JByteTokenizer())
         return
     port = _fold("chat", body, topenai, tpre, _card(tcard), ByteTokenizer())
     assert port == _fold("chat", body, jopenai, jpre, _card(jcard), JByteTokenizer())
