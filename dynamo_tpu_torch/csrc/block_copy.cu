@@ -36,6 +36,7 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace dtt {
 
@@ -163,4 +164,50 @@ extern "C" int dtt_page_moves(const void* src_ids, const void* dst_ids, const vo
       static_cast<const int*>(dst_ids), M, static_cast<unsigned char*>(base0),
       static_cast<unsigned char*>(base1));
   return (int)cudaGetLastError();
+}
+
+// Device memory shared between processes on one card (engine/transfer.py's
+// device path): the transfer server's staging arena is one cudaMalloc of
+// its own, outside PyTorch's caching allocator, so that its IPC handle
+// names exactly the arena (a handle of a caching-allocator tensor names
+// the whole segment it sits in). The server exports the handle once, each
+// client process opens it once per server and caches the mapping; the
+// page-move kernel above gathers into the arena and scatters out of it.
+// Each returns a cudaError_t.
+extern "C" int dtt_ipc_alloc(int device, long long nbytes, void** out) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaMalloc(out, (size_t)nbytes);
+}
+
+extern "C" int dtt_ipc_free(int device, void* ptr) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaFree(ptr);
+}
+
+// ``handle_out``: CUDA_IPC_HANDLE_SIZE (64) bytes of host memory
+extern "C" int dtt_ipc_export(int device, void* ptr, void* handle_out) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  cudaIpcMemHandle_t h;
+  e = cudaIpcGetMemHandle(&h, ptr);
+  if (e == cudaSuccess) memcpy(handle_out, &h, sizeof(h));
+  return (int)e;
+}
+
+// Fails (cudaErrorInvalidContext / cudaErrorInvalidValue) on a handle this
+// process exported itself: the same process reaches its pages directly.
+extern "C" int dtt_ipc_open(int device, const void* handle, void** out) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  cudaIpcMemHandle_t h;
+  memcpy(&h, handle, sizeof(h));
+  return (int)cudaIpcOpenMemHandle(out, h, cudaIpcMemLazyEnablePeerAccess);
+}
+
+extern "C" int dtt_ipc_close(int device, void* ptr) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaIpcCloseMemHandle(ptr);
 }

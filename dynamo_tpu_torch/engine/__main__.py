@@ -16,8 +16,8 @@ It serves on the GPU unless ``--device cpu`` is given, and raises without
 one. Model selection: ``--model-path`` (an HF checkpoint directory or hub
 reference, as run.py's ``out=``) or ``--preset`` (random weights from
 ``--seed``). The engine flags are the reference worker's, with its
-defaults; flags of later slices (parallelism, disaggregation, drain and
-restore) are not defined, and argparse refuses them. ``--tool-parser`` and
+defaults; flags of later slices (parallelism, drain and restore) are not
+defined, and argparse refuses them. ``--tool-parser`` and
 ``--reasoning-parser`` name the card's parsers (parsers/; gpt-oss presets
 default to ``harmony`` / ``gpt_oss``); an unknown name fails at start.
 
@@ -43,6 +43,22 @@ the worker prints as ``TORCH_STATUS_ADDRESS host:port`` and advertises as
 ``status_address`` in its discovery metadata, for the frontend's
 ``/debug/fleet``. Health events go out on the event plane as
 ``dtpu.health.<detector>``.
+
+Disaggregation (``--disagg``, engine/transfer.py): ``prefill`` joins the
+model's prefill pool (component ``backend_prefill`` for the default
+``backend``, model type ``prefill``) and serves its KV pages on a transfer
+endpoint; ``decode`` serves generation and imports the pages its requests'
+``kv_transfer`` plans name (and serves its own pages to peers too). Both
+print ``KV_TRANSFER at <address>`` and advertise ``transfer_address`` and
+``kv_wire`` (``DTPU_KV_WIRE``, default ``inline``) in their discovery
+metadata; the card carries ``kv_bytes_per_block``. Two workers on one card
+move pages through the card's memory (CUDA IPC) unless
+``DTPU_DEVICE_TRANSFER=0``. The per-wire bandwidth EWMA
+(``dtpu_kv_wire_bandwidth_bytes_per_s``) and the transfer fallbacks
+(``dtpu_kv_transfer_fallbacks_total``) are on /metrics, the EWMA also in
+``/debug/worker``'s ``bandwidth`` section and the transfer plane's counters
+in its ``transfer`` section; each pull's EWMA feeds the ``wire_collapse``
+detector.
 
 Beside ``generate`` the worker serves ``clear_kv_blocks`` under the same
 instance id (llm/serve.py ``serve_clear_endpoint``; the frontend's ``POST
@@ -82,6 +98,7 @@ from ..llm.model_card import (
     MODEL_TYPE_CHAT,
     MODEL_TYPE_COMPLETIONS,
     MODEL_TYPE_EMBEDDING,
+    MODEL_TYPE_PREFILL,
     ModelDeploymentCard,
     ModelRuntimeConfig,
 )
@@ -104,6 +121,7 @@ from ..runtime.config import (
 from ..runtime.distributed import DistributedRuntime
 from ..ops.costs import predict_step_seconds
 from ..runtime.attribution import get_attribution
+from ..runtime.bandwidth import get_bandwidth_estimator
 from ..runtime.health import EndpointCanary, HealthState, StatusServer, get_health_monitor
 from ..runtime.logging import get_logger, init_logging
 from ..runtime.slo import debug_slo_payload, get_slo_accountant
@@ -194,6 +212,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                    help="multi-LoRA slots; enables the load_lora / unload_lora / "
                         "list_loras endpoints")
     p.add_argument("--lora-rank", type=int, default=16)
+    p.add_argument("--disagg", choices=["none", "prefill", "decode"], default="none",
+                   help="prefill: join the prefill pool and serve kv_fetch; decode: serve "
+                        "decode with remote-KV import (also serves kv_fetch for peers)")
     return p.parse_args(argv)
 
 
@@ -379,14 +400,16 @@ async def serve_status(args, runtime, engine, served, instance_id, telemetry, mo
 
     def worker_snapshot() -> dict:
         """What the frontend's /debug/fleet merges from this worker: host
-        counters only (the drain, restore, KV directory and bandwidth
-        sections come with ROADMAP Queue 1 items 5-6)."""
+        counters only (the drain, restore and KV directory sections come
+        with ROADMAP Queue 1 items 5-6)."""
         snap = engine.snapshot()
         return {
             "instance_id": f"{instance_id:016x}", "model": args.model, "tp": 1, "dp": 1,
             "engine": snap, "telemetry": [telemetry.snapshot()],
             "slo": debug_slo_payload(get_slo_accountant()),
             "attribution": get_attribution().snapshot(),
+            "bandwidth": get_bandwidth_estimator().snapshot(),
+            "transfer": engine.transfer_snapshot(),
             "health": monitor.snapshot(),
             "drift": {phase: {"steps": len(r), "median_ratio": statistics.median(r)}
                       for phase, r in sorted(drift.items()) if r},
@@ -442,9 +465,14 @@ def worker_card(args: argparse.Namespace, engine, tok_ref: str, tool_parser: Opt
     the frontend's preprocessor decodes each image to ``image_size`` and
     places ``image_tokens`` placeholders of ``image_token_id``."""
     vcfg = engine.cfg.vision
+    component = args.component
+    model_type = [MODEL_TYPE_CHAT, MODEL_TYPE_COMPLETIONS, MODEL_TYPE_EMBEDDING]
+    if args.disagg == "prefill":
+        component = args.component + "_prefill" if args.component == "backend" else args.component
+        model_type = [MODEL_TYPE_PREFILL]
     return ModelDeploymentCard(
-        name=args.model, namespace=args.namespace, component=args.component,
-        endpoint=args.endpoint, model_type=[MODEL_TYPE_CHAT, MODEL_TYPE_COMPLETIONS, MODEL_TYPE_EMBEDDING],
+        name=args.model, namespace=args.namespace, component=component,
+        endpoint=args.endpoint, model_type=model_type,
         tokenizer=tok_ref, context_length=args.max_context, kv_block_size=args.block_size,
         migration_limit=args.migration_limit,
         tool_parser=tool_parser, reasoning_parser=reasoning_parser,
@@ -477,18 +505,24 @@ async def main(argv: Optional[List[str]] = None) -> None:
                                  event_plane=args.event_plane)
     runtime = await DistributedRuntime(cfg).start()
     instance_id = new_instance_id()
+    card = worker_card(args, engine, tok_ref, tool_parser, reasoning_parser)
     # one publisher pair per engine (dp_rank 0: the port has no data
-    # parallelism yet)
+    # parallelism yet), under the card's component (a prefill worker's is
+    # its pool's)
     engine.kv_publisher = KvEventPublisher(
-        runtime.event_plane, args.namespace, args.component, worker_id=instance_id,
+        runtime.event_plane, args.namespace, card.component, worker_id=instance_id,
         block_size=args.block_size)
     engine.metrics_publisher = WorkerMetricsPublisher(
-        runtime.event_plane, args.namespace, args.component, worker_id=instance_id)
-    card = worker_card(args, engine, tok_ref, tool_parser, reasoning_parser)
+        runtime.event_plane, args.namespace, card.component, worker_id=instance_id)
+    if args.disagg != "none":
+        # before register_llm, which advertises the address: a streamed hop
+        # dispatches the decode request before the prefill ends
+        addr = await engine.serve_transfer(host=cfg.host_ip)
+        print(f"KV_TRANSFER at {addr}", flush=True)
     # step telemetry on the runtime's metrics, under the component's labels,
     # and the drift detector fed from the same hook
     scope = runtime.metrics.child(dtpu_namespace=args.namespace,
-                                  dtpu_component=args.component,
+                                  dtpu_component=card.component,
                                   dtpu_endpoint=args.endpoint)
     telemetry = EngineTelemetry(scope.child(dp_rank="0"))
     monitor = get_health_monitor()
@@ -509,15 +543,21 @@ async def main(argv: Optional[List[str]] = None) -> None:
             log.exception("drift detector failed")  # never takes the loop down
 
     engine.stats_hook = on_step
+    # the per-wire transfer bandwidth EWMA and the transfer fallbacks on
+    # this worker's /metrics (the decode side of a pair observes pulls)
+    from .transfer import transfer_stats
+
+    get_bandwidth_estimator().attach_metrics(scope)
+    transfer_stats.attach_metrics(scope)
     # the engine feeds the process's SLO ledger; its goodput and
     # attainment / burn gauges go on this worker's /metrics
     get_slo_accountant().bind_metrics(scope)
     served = await register_llm(runtime, engine, card, instance_id=instance_id)
-    clear_served = await serve_clear_endpoint(runtime, args.namespace, args.component,
+    clear_served = await serve_clear_endpoint(runtime, args.namespace, card.component,
                                               [engine], served.instance_id)
     lora_served = []
     if engine.lora is not None:
-        lora_served = await serve_lora_endpoints(runtime, args.namespace, args.component,
+        lora_served = await serve_lora_endpoints(runtime, args.namespace, card.component,
                                                  [engine])
     stop = asyncio.Event()
     health = HealthState()
@@ -556,7 +596,8 @@ async def main(argv: Optional[List[str]] = None) -> None:
               "active_blocks": engine.allocator.active_blocks,
               "worker_id": f"{instance_id:016x}",
               "prefix_cache": block_set_view(engine.allocator._by_hash),
-              "kv_events": dict(engine.kv_publisher.counts)}
+              "kv_events": dict(engine.kv_publisher.counts),
+              "transfer": engine.transfer_snapshot()}
     print(f"{EXIT} {json.dumps(report)}", flush=True)
 
 

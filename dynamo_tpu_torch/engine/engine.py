@@ -110,11 +110,23 @@ a fetch thread.
 Not in this slice (ROADMAP.md): LoRA on families other than dense llama,
 gpt-oss and MLA drafts, vision on Qwen3-MoE or with a spec draft, on the
 card a llama or Qwen3-MoE model at a head_dim outside {64, 128} or a group
-size above 8, the G4 remote KVBM tier, disaggregated transfer and parallelism. A request that asks for one of those is
+size above 8, the G4 remote KVBM tier and parallelism. A request that asks for one of those is
 refused with ``UnsupportedRequestError`` (a 400 at the frontend); an engine configuration that
 does, with ``ValueError``. The engine serves behind the port's serving plane as the reference's
 does (``python -m dynamo_tpu_torch.engine``: the Backend operator, the TCP request plane and
 discovery; ``python -m dynamo_tpu_torch.frontend``: the OpenAI frontend).
+
+Disaggregated prefill/decode (engine/transfer.py): ``serve_transfer``
+serves the engine's pages by sequence hash on an endpoint of its own; a
+request annotated ``disagg: prefill`` finishes with a ``kv_transfer``
+plan (the transfer address and the prompt's full-block hashes), and a
+request that carries a ``kv_transfer`` plan pulls those pages before
+admission (streamed or blocking, through the wire, the in-process mover
+or the device path) and imports them as cached prefix blocks: committed
+to the prefix cache and published as stored KV events, as the prefill's
+own blocks are. A transfer that fails or falls short leaves the rest to
+the local prefill (logged, counted, a flight event). ``kv_commits`` wakes
+streamed fetches per committed prefill chunk and per import.
 
 Health and observability hooks, all host-side bookkeeping on the loop
 thread (never inside a graph capture, never a device sync): ``healthy``
@@ -138,6 +150,7 @@ import dataclasses
 import json
 import logging
 import time
+import warnings
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, AsyncIterator, Deque, Dict, List, Optional, Tuple
@@ -717,6 +730,14 @@ class TorchEngine:
             QuantizedBlockCodec(block_shape_for(mcfg, config.block_size, "int8"))
             if self.kv_quantized else None
         )
+        # disaggregation (engine/transfer.py): this engine's transfer
+        # server and its address, the client of its pulls, and the commit
+        # signal streamed fetches wait on (made with the server)
+        self.transfer_address: Optional[str] = None
+        self._transfer_server = None
+        self._kv_transfer_srv = None
+        self._transfer_client = None
+        self.kv_commits = None
         self._horizon: Optional[HorizonGraphs] = None
         if config.decode_steps > 1:
             self._horizon = self._build_horizon()
@@ -772,6 +793,79 @@ class TorchEngine:
         """Graphs, capture seconds, pool bytes and replays of the horizon."""
         return self._horizon.stats() if self._horizon is not None else {}
 
+    # ------------------------------------------------------ kv transfer wiring
+    async def serve_transfer(self, host: str = "127.0.0.1") -> str:
+        """Start the KV fetch endpoint (the prefill side of disaggregation;
+        a decode worker serves it too, for its peers); returns its
+        address, also registered in ``transfer.LOCAL_SERVERS`` for clients
+        in this process."""
+        from ..runtime.request_plane.tcp import TcpRequestServer
+        from .transfer import LOCAL_SERVERS, KvCommitSignal, KvTransferServer
+
+        if self.kv_commits is None:
+            self.kv_commits = KvCommitSignal()
+        srv = KvTransferServer(self, host=host)
+        self._kv_transfer_srv = srv
+        self._transfer_server = TcpRequestServer(srv.handle, host=host)
+        self.transfer_address = await self._transfer_server.start()
+        LOCAL_SERVERS[self.transfer_address] = srv
+        return self.transfer_address
+
+    def _get_transfer_client(self):
+        if self._transfer_client is None:
+            from .transfer import KvTransferClient
+
+            self._transfer_client = KvTransferClient(self)
+        return self._transfer_client
+
+    @property
+    def kv_bytes_per_block(self) -> int:
+        """Wire and storage bytes of one KV block (the transfer-cost signal
+        ``register_llm`` advertises for transfer-aware routing)."""
+        from ..kvbm.layout import kv_bytes_per_token
+
+        kv_dtype = "int8" if self.kv_quantized else "model"
+        return int(kv_bytes_per_token(self.mcfg, self.cfg.block_size, kv_dtype)
+                   * self.cfg.block_size)
+
+    def transfer_snapshot(self) -> Dict[str, Any]:
+        """The transfer plane's host counters (``/debug/worker``)."""
+        from .transfer import transfer_stats
+
+        out: Dict[str, Any] = {"address": self.transfer_address,
+                               "fallbacks": transfer_stats.snapshot()}
+        if self._kv_transfer_srv is not None:
+            out["server"] = self._kv_transfer_srv.snapshot()
+        if self._transfer_client is not None:
+            out["client"] = self._transfer_client.snapshot()
+        return out
+
+    async def _import_transferred(self, req: PreprocessedRequest) -> None:
+        """Pull a ``kv_transfer`` plan's pages before admission, with the
+        fetch's flight events (fetch_started, then fetch_committed or
+        fetch_aborted, and transfer). A failure leaves the prefix to the
+        local prefill (counted by the client as a recompute)."""
+        plan = req.kv_transfer
+        flight = get_flight_recorder()
+        hashes = [int(h) for h in plan.get("hashes", [])]
+        flight.record(req.request_id, "fetch_started", holder="", tier=False,
+                      blocks=len(hashes))
+        try:
+            got = await self._get_transfer_client().fetch_and_import(
+                plan["address"], hashes, traceparent=(req.annotations or {}).get("traceparent"),
+                stream=bool(plan.get("stream")), request_id=req.request_id)
+            if got > 0:
+                flight.record(req.request_id, "fetch_committed", tokens=got)
+            else:
+                flight.record(req.request_id, "fetch_aborted", reason="zero_progress")
+            log.debug("imported %d transferred kv tokens for %s", got, req.request_id[:8])
+            flight.record(req.request_id, "transfer", tokens=got, address=plan["address"])
+        except Exception as e:
+            log.exception("kv transfer failed; recomputing the prefill locally")
+            flight.record(req.request_id, "fetch_aborted", reason=str(e)[:200])
+            flight.record(req.request_id, "transfer", tokens=0, error=str(e)[:200],
+                          address=plan["address"])
+
     def _init_caches(self, m=None, quantized: Optional[bool] = None) -> list:
         """One zeroed paged cache per layer of ``m`` (default: the model):
         raw model-dtype tensors, or ``QuantizedKV`` (int8 payload + f32
@@ -795,8 +889,6 @@ class TorchEngine:
         engine without it or an unknown adapter, and a grammar on an engine
         without guided decoding (a ``soft`` one is served unconstrained)."""
         ann = req.annotations or {}
-        if ann.get("disagg"):
-            raise UnsupportedRequestError("this engine does not support 'disagg'")
         wanted = ann.get("logits_processors") or []
         if wanted:
             known = {n for n, _ in self._procs}
@@ -817,8 +909,6 @@ class TorchEngine:
         if guided is not None and not self.guided_enabled and not guided.get("soft"):
             raise UnsupportedRequestError("engine built without guided decoding "
                                           "(guided_max_states=0)")
-        if req.kv_transfer:
-            raise UnsupportedRequestError("this engine has no KV transfer")
         seed = req.sampling.seed
         if seed is not None and not 0 <= seed < 1 << 32:
             raise ValueError(f"seed {seed} outside [0, 2**32): seeds key as uint32")
@@ -879,6 +969,10 @@ class TorchEngine:
                                                             np.float32)])
             st.mm_mask = np.concatenate([mask, np.zeros(extra, bool)])
             st.no_cache = True
+        if req.kv_transfer and req.kv_transfer.get("address") and not st.no_cache:
+            # disaggregated decode: the prefill worker's pages first, so
+            # that admission finds them as a cached prefix
+            await self._import_transferred(req)
         if self.kvbm is not None and not st.no_cache:
             # a tier miss or a foreign block format is a miss; a kernel or
             # device error raises to the caller (no silent recompute)
@@ -895,8 +989,20 @@ class TorchEngine:
         self._waiting.append(st)
         self._idle = False
         self._wake.set()
+        # disaggregated prefill: the finish carries the pages' address
+        prefill_side = ann.get("disagg") == "prefill"
         while True:
             item = await st.out_queue.get()
+            if (prefill_side and item.finish_reason is not None
+                    and self.transfer_address is not None and not st.no_cache):
+                prompt_blocks = len(req.token_ids) // self.cfg.block_size
+                item.kv_transfer = {
+                    "address": self.transfer_address,
+                    "hashes": [int(h) for h in st.seq.sequence_hashes()[:prompt_blocks]],
+                    "num_tokens": prompt_blocks * self.cfg.block_size,
+                    # this server speaks the block-window protocol
+                    "stream": True,
+                }
             if item.finish_reason is not None:
                 # before the last yield: a consumer that returns at the
                 # finish closes this generator at the yield
@@ -1015,6 +1121,21 @@ class TorchEngine:
     def stop(self) -> None:
         if self._loop_task is not None:
             self._loop_task.cancel()
+        if self._transfer_server is not None or self._transfer_client is not None:
+            try:
+                loop = asyncio.get_running_loop()
+            except RuntimeError:
+                loop = None   # no running loop: the sockets close with us
+            if loop is not None:
+                if self._transfer_server is not None:
+                    spawn_bg(self._transfer_server.stop(0.5))
+                if self._transfer_client is not None:
+                    spawn_bg(self._transfer_client.close())
+        if self._kv_transfer_srv is not None:
+            from .transfer import LOCAL_SERVERS
+
+            self._kv_transfer_srv.close()
+            LOCAL_SERVERS.pop(self.transfer_address, None)
         self._executor.shutdown(wait=False)
         self._fetch_executor.shutdown(wait=False)
         self._offload_executor.shutdown(wait=False)
@@ -1393,6 +1514,9 @@ class TorchEngine:
             self.allocator.commit(st.block_ids[i], hashes[i])
             if self.kvbm is not None:
                 self._offload_pending.append((st.block_ids[i], hashes[i], 0))
+        if upto > st.commit_upto and self.kv_commits is not None:
+            # wake streamed fetches: this chunk's blocks are addressable
+            self.kv_commits.fire()
         st.commit_upto = max(st.commit_upto, upto)
 
     def _decode_snapshot(self) -> List[Optional[_Seq]]:
@@ -2440,29 +2564,78 @@ class TorchEngine:
             self.offload_errors += 1
             log.exception("kv offload of %d blocks failed", len(pending))
 
+    def _device_pages(self, a) -> torch.Tensor:
+        """A host storage array or a tensor, on this engine's device. A
+        wire frame's array is read-only (numpy over the frame's bytes): the
+        tensor over it is only read, by the upload or the scatter."""
+        if isinstance(a, np.ndarray):
+            if not a.flags.writeable:
+                with warnings.catch_warnings():
+                    warnings.simplefilter("ignore", UserWarning)
+                    return from_host(a).to(self.device)
+            return from_host(a).to(self.device)
+        return a.to(self.device)
+
+    def _cache_pages(self, parts: List[torch.Tensor]):
+        """Transferred pages in this cache's format: as they are when the
+        formats match; int8 pages at a float cache dequantize, float pages
+        at an int8 cache quantize (ops/quant, as the reference's import),
+        and a float of another dtype casts."""
+        if self.kv_quantized:
+            if len(parts) == 2:
+                return QuantizedKV(*parts)
+            from ..ops.quant import quantize_blocks
+
+            return QuantizedKV(*quantize_blocks(parts[0].float()))
+        if len(parts) == 2:
+            from ..ops.quant import dequantize_blocks
+
+            return dequantize_blocks(*parts).to(self.mcfg.dtype)
+        return parts[0].to(self.mcfg.dtype)
+
     @torch.inference_mode()
-    def _scatter_blocks(self, local_ids: List[int], arr) -> None:
-        """Step executor: upload host blocks and scatter them into device
-        pages with ONE launch (block_copy.scatter_layers; no allocator
-        access here: the allocator lives on the loop thread).
+    def _scatter_blocks(self, local_ids: List[int], arr, wire: bool = False, after=None):
+        """Step executor: upload the blocks and scatter them into device
+        pages with ONE launch (no allocator access here: the allocator lives
+        on the loop thread); returns an event recorded after the scatter on
+        the card, else None.
 
         ``arr`` is model-dtype pages [n, L, 2, bs, kvh, d] (host storage
         form, kvbm/layout) or, for an int8 cache, a (payload int8 [n, L, 2,
         bs, kvh, d], scales f32 [n, L, 2, kvh]) pair that scatters straight
-        into the quantized cache, bit-exactly."""
+        into the quantized cache, bit-exactly (block_copy.scatter_layers).
+        With ``wire`` the pages are in the transfer wire's layer-major
+        layout [L, 2, n, ...] (scales [L, 2, n, kvh]), host arrays or
+        tensors on the card (block_copy.scatter_layers_wire); ``after``,
+        an event of another thread's stream, is waited for first."""
         ids = self._t(local_ids, torch.int32)
-        if self.kv_quantized:
-            pages = QuantizedKV(*(from_host(a).to(self.device) for a in arr))
-        else:
-            pages = from_host(arr).to(self.device)
-        bc.scatter_layers(self.k_caches, self.v_caches, ids, pages)
+        if after is not None:
+            torch.cuda.current_stream(self.device).wait_event(after)
+        parts = ([arr.data, arr.scale] if isinstance(arr, QuantizedKV)
+                 else list(arr) if isinstance(arr, tuple) else [arr])
+        pages = self._cache_pages([self._device_pages(a) for a in parts])
+        (bc.scatter_layers_wire if wire else bc.scatter_layers)(
+            self.k_caches, self.v_caches, ids, pages)
+        if self.device.type != "cuda":
+            return None
+        ev = torch.cuda.Event()
+        ev.record()
+        return ev
 
-    async def import_blocks(self, hashes: List[int], arr) -> int:
-        """Import [n, L, 2, bs, kvh, d] pages (or an int8 (payload, scales)
-        pair, see _scatter_blocks) as content-addressed cached pages; returns
-        the number imported (0 when the pool has no room). Allocator changes
-        stay on the loop thread; only the scatter runs on the executor."""
-        n = (arr[0] if isinstance(arr, tuple) else arr).shape[0]
+    async def import_blocks(self, hashes: List[int], arr, wire: bool = False,
+                            sync: bool = False, after=None) -> int:
+        """Import pages as content-addressed cached pages; returns the
+        number imported (0 when the pool has no room). ``arr``: [n, L, 2,
+        bs, kvh, d] pages (or an int8 (payload, scales) pair, see
+        _scatter_blocks), or with ``wire`` the transfer wire's [L, 2, n,
+        ...] layout. ``sync`` returns only once the scatter has run on the
+        card (the device path frees the source's staging slots after it).
+        Allocator changes stay on the loop thread; only the scatter runs on
+        the executor. The commits publish stored KV events with the next
+        tick's events and wake streamed fetches of this engine's pages."""
+        first = arr[0] if isinstance(arr, tuple) else (
+            arr.data if isinstance(arr, QuantizedKV) else arr)
+        n = first.shape[2] if wire else first.shape[0]
         try:
             local_ids = self.allocator.allocate(n)
         except OutOfBlocks:
@@ -2470,13 +2643,18 @@ class TorchEngine:
             return 0
         loop = asyncio.get_running_loop()
         try:
-            await loop.run_in_executor(self._executor, self._scatter_blocks, local_ids, arr)
+            ev = await loop.run_in_executor(self._executor, self._scatter_blocks, local_ids,
+                                            arr, wire, after)
+            if sync and ev is not None:
+                await loop.run_in_executor(None, ev.synchronize)
         except BaseException:
             self.allocator.release(local_ids)
             raise
         for bid, h in zip(local_ids, hashes):
             self.allocator.commit(bid, h)
         self.allocator.release(local_ids)
+        if n and self.kv_commits is not None:
+            self.kv_commits.fire()
         return n
 
     async def _onboard_from_kvbm(self, st: _Seq) -> None:

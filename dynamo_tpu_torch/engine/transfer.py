@@ -1,0 +1,960 @@
+"""KV block transfer between engines: disaggregated prefill/decode.
+
+The port's copy of the reference package's engine/transfer.py, without its
+KVBM tier stream, native agent and multihost branches (ROADMAP Queue 1
+item 5). A prefill engine serves its pages by sequence hash; a decode
+engine pulls them and imports them as content-addressed cached pages, so
+that admission finds them as a cached prefix. Three paths move the bytes:
+
+1. **The wire (inline):** the serving engine gathers the pages into one
+   device buffer in the wire's layer-major layout ``[L, 2, n, bs, kvh, d]``
+   (ops/block_copy.gather_layers_wire: ONE page-copy launch), copies it to
+   pinned host memory in one piece, and ships its bytes in a request-plane
+   frame; the client uploads them and scatters them with ONE launch
+   (scatter_layers_wire). The frame is the reference's, byte for byte: a
+   port server answers a reference client, and a reference server a port
+   client.
+2. **In process (``LOCAL_SERVERS``):** when the address names a server in
+   this process, the source engine's gather feeds the destination
+   engine's scatter on the card, with no host hop (``LocalKvMover``, the
+   reference's ``IciKvMover``).
+3. **The device path between processes on one card (CUDA IPC):** the
+   counterpart of the reference's PJRT device pulls. The server owns one
+   staging arena (ops/cuda_ipc.IpcArena: a cudaMalloc of its own, its IPC
+   handle exported once). An offer leases a contiguous run of arena slots,
+   gathers into it with the same kernel, waits for the gather to finish and
+   replies ``{"matched", "device": {uuid, address, shape, dtype, shards,
+   ipc}}``; the client opens the arena once per server (the mapping is
+   closed when that address offers another handle or falls out of the most
+   recent), scatters straight out of it, waits for the scatter and frees
+   the lease (``free_pull``).
+   Leases expire after ``SLOT_LEASE_S``; an offer that expires unpulled is
+   reclaimed and counted, and past ``_DEVICE_LEAK_BUDGET`` of them the
+   server stops offering the device path. ``DTPU_DEVICE_TRANSFER=0`` turns
+   it off.
+
+Wire protocol (served as an endpoint of its own):
+    request : {"hashes": [u64...], "native_ok": bool, "device_ok": bool}
+    response: one item, either
+      inline:  {"matched": n, "shape": [L, 2, n, bs, kvh, d], "dtype": name,
+                "data": bytes} (int8: plus "scales" [L, 2, n, kvh] f32)
+      device:  {"matched": n, "device": {...}}
+
+Streamed protocol (same endpoint):
+    request : {"hashes", "stream": true, "window": W, "wait_s": S, ...}
+    response: window items {"offset": k, "matched": m <= W, "wait_s": t,
+              + the inline or device body}, then {"eof": true, "served": n}.
+    The server serves whatever prefix the engine has committed so far and
+    waits on the engine's commit signal (``kv_commits``, fired per prefill
+    chunk) for more, so the pull overlaps the prefill's compute; ``wait_s``
+    is that window's commit wait, which the client subtracts when it
+    estimates the wire's bandwidth. A client that loses the stream resumes
+    from its first un-imported block. The port's windows may take the
+    device path too (the reference's streamed windows are inline or
+    native).
+
+Two fallbacks are the reference's semantics and are kept: from a device
+path to the wire, and from a failed or short transfer to a local
+recompute. Each is logged and counted (``transfer_stats``: the
+``dtpu_kv_transfer_fallbacks_total`` counter on the worker's /metrics and
+a flight event on the request's timeline); no kernel or build failure
+falls back to a plain version.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import collections
+import itertools
+import os
+import threading
+import time
+from typing import Any, AsyncIterator, Deque, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..kvbm.layout import (
+    dtype_from_name,
+    dtype_name,
+    storage_dtype,
+    to_host,
+    torch_dtype_from_name,
+)
+from ..ops import block_copy as bc
+from ..ops.quant import SCALE_DTYPE, QuantizedKV
+from ..runtime import metrics as M
+from ..runtime.config import (
+    ENV_DEVICE_TRANSFER,
+    ENV_ICI_TRANSFER,
+    ENV_STREAM_WAIT_S,
+    ENV_STREAM_WINDOW,
+)
+from ..runtime.engine import Context
+from ..runtime.faults import FAULTS
+from ..runtime.logging import get_logger
+from ..runtime.request_plane.tcp import NoResponders, TcpClient
+from ..runtime.resilience import RETRYABLE_DEFAULT, retry_policy
+from ..runtime.tracing import get_tracer
+
+log = get_logger("engine.transfer")
+
+SLOT_LEASE_S = 30.0
+# streamed block-window protocol: the window in blocks, the commit-wait
+# budget of a streamed fetch, the commit signal's re-check tick, and the
+# progress-less resumes before the client gives the suffix up
+STREAM_WINDOW_BLOCKS = int(os.environ.get(ENV_STREAM_WINDOW, "8"))
+STREAM_WAIT_S = float(os.environ.get(ENV_STREAM_WAIT_S, "30.0"))
+_STREAM_POLL_S = 1.0
+STREAM_MAX_RESUMES = 3
+# outstanding un-pulled device offers per server, and expired-unpulled
+# offers after which the server stops offering the device path
+_DEVICE_PULL_CAP = 32
+_DEVICE_LEAK_BUDGET = 128
+# how long a streamed window waits for its client's frees when the arena
+# (or the offer cap) is full before it goes inline: a stream serves ahead
+# of its client, which frees each window once it has scattered it
+_ARENA_WAIT_S = 5.0
+# recent pulls a client keeps for /debug/worker
+_PULL_LOG = 64
+
+
+class KvCommitSignal:
+    """Broadcast wakeup: "new blocks were content-addressed on this engine".
+
+    The engine fires it from ``_commit_prefilled_blocks`` (once per landed
+    prefill chunk) and ``import_blocks``; streaming fetch handlers wait on
+    it instead of polling the allocator. One shared future serves every
+    waiter (``shield`` keeps one waiter's timeout from cancelling the
+    others' wakeup); ``gen`` is a commit generation, so a fire between two
+    ``wait`` calls is never lost."""
+
+    def __init__(self) -> None:
+        self.gen = 0
+        self._fut: Optional[asyncio.Future] = None
+
+    def fire(self) -> None:
+        self.gen += 1
+        fut = self._fut
+        if fut is not None and not fut.done():
+            fut.set_result(None)
+
+    async def wait(self, seen: int, timeout: float) -> int:
+        """The current generation, blocking up to ``timeout`` only while it
+        still equals ``seen``."""
+        if self.gen != seen:
+            return self.gen
+        if self._fut is None or self._fut.done():
+            self._fut = asyncio.get_running_loop().create_future()
+        try:
+            await asyncio.wait_for(asyncio.shield(self._fut), timeout)
+        except asyncio.TimeoutError:
+            pass
+        return self.gen
+
+
+# process-local registry: transfer address -> KvTransferServer. A client
+# whose target lives here moves the pages on the card (LocalKvMover).
+LOCAL_SERVERS: Dict[str, "KvTransferServer"] = {}
+
+_pull_uuids = itertools.count(int(time.time()) << 20)
+
+
+def device_transfer_available() -> bool:
+    return os.environ.get(ENV_DEVICE_TRANSFER, "1") != "0"
+
+
+def card_uuid(device: torch.device) -> str:
+    """The card's UUID: two processes share device memory only on one card."""
+    return str(torch.cuda.get_device_properties(device).uuid)
+
+
+class TransferStats:
+    """The process's transfer fallbacks by kind (``device_to_wire``,
+    ``recompute``) and reason, on /metrics once a worker attaches its
+    scope. Every count is also a log line and a flight event where a
+    request is known."""
+
+    def __init__(self) -> None:
+        self.counts: Dict[str, int] = {"device_to_wire": 0, "recompute": 0}
+        self.reasons: Dict[str, int] = {}
+        self._counter = None
+        self._lock = threading.Lock()
+
+    def attach_metrics(self, metrics: M.MetricsScope) -> None:
+        self._counter = metrics.counter(
+            M.KV_TRANSFER_FALLBACKS_TOTAL,
+            "KV transfers that fell back (device path to the wire, or a local recompute)",
+            extra_labels=("kind", "reason"))
+
+    def count(self, kind: str, reason: str) -> None:
+        with self._lock:
+            self.counts[kind] = self.counts.get(kind, 0) + 1
+            key = f"{kind}:{reason}"
+            self.reasons[key] = self.reasons.get(key, 0) + 1
+        if self._counter is not None:
+            self._counter.inc(kind=kind, reason=reason)
+
+    def snapshot(self) -> Dict[str, Any]:
+        with self._lock:
+            return {"counts": dict(self.counts), "reasons": dict(self.reasons)}
+
+
+transfer_stats = TransferStats()
+
+
+def _wire_block_shape(engine) -> List[int]:
+    m = engine.mcfg
+    return [m.num_layers, 2, engine.cfg.block_size, m.num_kv_heads, m.head_dim]
+
+
+def _cache_dtype(engine) -> torch.dtype:
+    return torch.int8 if engine.kv_quantized else engine.mcfg.dtype
+
+
+def wire_pages_from_item(item: Dict[str, Any]):
+    """An inline item's (pages, scales or None) as host arrays in the wire's
+    ``[L, 2, n, ...]`` layout (bf16 as bit patterns)."""
+    dtype = dtype_from_name(item.get("dtype", "float32"))
+    arr = np.frombuffer(item.get("data", b""), dtype).reshape(item.get("shape", []))
+    scales = None
+    if "scales" in item:
+        L, _, n = arr.shape[:3]
+        scales = np.frombuffer(item["scales"], SCALE_DTYPE).reshape(L, 2, n, arr.shape[4])
+    return arr, scales
+
+
+class KvTransferServer:
+    """Serves this engine's KV pages by sequence hash."""
+
+    def __init__(self, engine, host: str = "127.0.0.1", arena_slots: Optional[int] = None):
+        self.engine = engine   # TorchEngine (duck-typed: allocator, caches, executor)
+        self.host = host
+        self._block_shape = _wire_block_shape(engine)
+        self._quantized = bool(engine.kv_quantized)
+        self._block_nbytes = int(engine.kv_bytes_per_block)
+        # the device plane: the staging arena (two of the longest prompts
+        # by default), its slot leases {slot: (expiry, token)} and the
+        # outstanding offers {uuid: (expiry, slots)}
+        self._arena_slots = int(arena_slots or 2 * engine.cfg.max_blocks_per_seq)
+        self._arena = None
+        self._card = None
+        self._slot_lease: Dict[int, Tuple[float, int]] = {}
+        self._pull_pending: Dict[int, Tuple[float, List[int]]] = {}
+        self._pull_leaked = 0
+        self.device_address = f"cuda-ipc://{os.getpid()}/{id(self):x}"
+        # recent streamed fetches: blocks asked, served, committed when the
+        # first window went out (fewer than asked: it went out while the
+        # prefill still ran), each window's commit wait
+        self.streams: Deque[Dict[str, Any]] = collections.deque(maxlen=_PULL_LOG)
+        # set whenever leases are dropped, for windows waiting for room
+        self._freed: Optional[asyncio.Event] = None
+
+    # -- device plane --------------------------------------------------------
+    def _ensure_device(self) -> bool:
+        """The arena, allocated and exported on the first device-capable
+        fetch (hundreds of MiB for a large model)."""
+        if self._arena is not None:
+            return True
+        if not device_transfer_available() or self.engine.device.type != "cuda":
+            return False
+        from ..ops.cuda_ipc import IpcArena
+
+        self._arena = IpcArena(self.engine.device, self._arena_slots * self._block_nbytes)
+        self._card = card_uuid(self.engine.device)
+        log.info("device transfer arena: %d slots, %.0f MiB", self._arena_slots,
+                 self._arena.nbytes / 2**20)
+        return True
+
+    def _reclaim_leases(self, leases: List[Tuple[int, int]]) -> None:
+        """Drop every (slot, token) lease the client never freed; the token
+        match keeps re-leased slots untouched."""
+        for slot, token in leases:
+            lease = self._slot_lease.get(slot)
+            if lease is not None and lease[1] == token:
+                self._slot_lease.pop(slot, None)
+        for token in {t for _, t in leases}:
+            self._pull_pending.pop(token, None)
+        if self._freed is not None:
+            self._freed.set()
+
+    def _reclaim_expired(self) -> None:
+        """Offers past their lease, never pulled: reclaimed and counted
+        toward the leak budget."""
+        now = time.monotonic()
+        expired = [u for u, (t, _) in self._pull_pending.items() if t <= now]
+        if not expired:
+            return
+        self._pull_leaked += len(expired)
+        log.warning("%d device offer(s) expired unpulled (%d lifetime)", len(expired),
+                    self._pull_leaked)
+        for u in expired:
+            _, slots = self._pull_pending.pop(u)
+            self._reclaim_leases([(s, u) for s in slots])
+
+    def _lease_slots(self, n: int) -> Optional[Tuple[List[int], int]]:
+        """A contiguous run of ``n`` free slots (a slot whose lease expired
+        is free) under a new token, or None."""
+        now = time.monotonic()
+        run = 0
+        for s in range(self._arena_slots):
+            run = run + 1 if self._slot_lease.get(s, (0.0, 0))[0] < now else 0
+            if run == n:
+                slots = list(range(s - n + 1, s + 1))
+                token = next(_pull_uuids)
+                for t in slots:
+                    self._slot_lease[t] = (now + SLOT_LEASE_S, token)
+                return slots, token
+        return None
+
+    def _arena_pages(self, slot0: int, n: int):
+        """Views of the arena at ``slot0`` in the wire's layout: the pages
+        [L, 2, n, bs, kvh, d], and for int8 the scales after them."""
+        off = slot0 * self._block_nbytes
+        L, _, bs, kvh, d = self._block_shape
+        dt = _cache_dtype(self.engine)
+        pages = self._arena.view(off, dt, (L, 2, n, bs, kvh, d))
+        if not self._quantized:
+            return pages, off, None
+        s_off = off + pages.numel()
+        scales = self._arena.view(s_off, torch.float32, (L, 2, n, kvh))
+        return QuantizedKV(pages, scales), off, s_off
+
+    async def _offer_device(self, block_ids: List[int],
+                            wait_s: float = 0.0) -> Optional[Dict[str, Any]]:
+        """Gather the pages into leased arena slots and return the offer, or
+        None (leak budget spent; at the offer cap or with no run of free
+        slots, after waiting up to ``wait_s`` for leases to be freed). A
+        gather that fails to launch raises, its lease reclaimed."""
+        n = len(block_ids)
+        deadline = time.monotonic() + wait_s
+        while True:
+            self._reclaim_expired()
+            if self._pull_leaked >= _DEVICE_LEAK_BUDGET:
+                return None
+            leased = (self._lease_slots(n) if len(self._pull_pending) < _DEVICE_PULL_CAP
+                      else None)
+            left = deadline - time.monotonic()
+            if leased is not None or left <= 0:
+                break
+            if self._freed is None:
+                self._freed = asyncio.Event()
+            self._freed.clear()
+            try:
+                await asyncio.wait_for(self._freed.wait(), left)
+            except asyncio.TimeoutError:
+                pass
+        if leased is None:
+            log.warning("device offer: %d offers pending, no run of %d free arena slots",
+                        len(self._pull_pending), n)
+            return None
+        slots, uuid = leased
+        # reserved before the gather await: concurrent fetches must not all
+        # pass the cap check together; the infinite expiry keeps the
+        # reservation out of the expiry scan
+        self._pull_pending[uuid] = (float("inf"), slots)
+        eng = self.engine
+        pages, off, s_off = self._arena_pages(slots[0], n)
+
+        def gather():
+            ids = eng._t(block_ids, torch.int32)
+            bc.gather_layers_wire(eng.k_caches, eng.v_caches, ids, out=pages)
+            if eng.device.type != "cuda":
+                return None
+            ev = torch.cuda.Event()
+            ev.record()
+            return ev
+
+        loop = asyncio.get_running_loop()
+        try:
+            ev = await loop.run_in_executor(eng._executor, gather)
+            if ev is not None:
+                # the gather must finish before the offer goes out: the
+                # client reads the arena on its own stream, in its process
+                await loop.run_in_executor(None, ev.synchronize)
+        except BaseException:
+            self._reclaim_leases([(s, uuid) for s in slots])
+            raise
+        expiry = time.monotonic() + SLOT_LEASE_S
+        self._pull_pending[uuid] = (expiry, slots)
+        for s in slots:
+            self._slot_lease[s] = (expiry, uuid)
+        L, _, bs, kvh, d = self._block_shape
+        ipc = {"handle": self._arena.handle, "offset": off, "pid": os.getpid(),
+               "card": self._card, "slots": slots}
+        if s_off is not None:
+            ipc["scales_offset"] = s_off
+        return {"uuid": uuid, "address": self.device_address, "shape": [L, n, bs, kvh, d],
+                "dtype": "int8" if self._quantized else dtype_name(
+                    storage_dtype(eng.mcfg.dtype)), "shards": 1, "ipc": ipc}
+
+    def _trace_serve(self, request: Any, start_ns: int, wire: str, matched: int,
+                     nbytes: int) -> None:
+        """The span of one served fetch, parented on the traceparent the
+        client shipped, so the decode-side pull and this serve share a
+        trace."""
+        tracer = get_tracer()
+        if tracer.enabled:
+            tracer.emit("kv.transfer.serve", start_ns, time.time_ns(),
+                        traceparent=request.get("traceparent"), wire=wire,
+                        blocks=matched, bytes=nbytes)
+
+    async def handle(self, request: Any, context: Context) -> AsyncIterator[Dict]:
+        if "free_slots" in request:
+            token = request.get("token")
+            self._reclaim_leases([(int(s), token) for s in request["free_slots"]])
+            yield {"ok": True}
+            return
+        if "free_pull" in request:
+            uuid = int(request["free_pull"])
+            pending = self._pull_pending.get(uuid)
+            if pending is not None:
+                self._reclaim_leases([(s, uuid) for s in pending[1]])
+            yield {"ok": True}
+            return
+        if request.get("stream"):
+            async for item in self._handle_stream(request):
+                yield item
+            return
+        t_serve = time.time_ns()
+        hashes = [int(h) for h in request.get("hashes", [])]
+        device_ok = bool(request.get("device_ok")) and self._ensure_device()
+        alloc = self.engine.allocator
+        # pin the matched prefix so eviction cannot race the gather
+        block_ids = alloc.acquire_prefix(hashes)
+        try:
+            n = len(block_ids)
+            if n == 0:
+                self._trace_serve(request, t_serve, "none", 0, 0)
+                yield {"matched": 0, "data": b"", "shape": []}
+                return
+            if device_ok:
+                offer = await self._offer_device(block_ids)
+                if offer is not None:
+                    self._trace_serve(request, t_serve, "device", n, n * self._block_nbytes)
+                    yield {"matched": n, "device": offer}
+                    return
+            item, nbytes = await self._inline_item(block_ids)
+            self._trace_serve(request, t_serve, "inline", n, nbytes)
+            yield item
+        finally:
+            alloc.release(block_ids)
+
+    async def _inline_item(self, block_ids: List[int]) -> Tuple[Dict[str, Any], int]:
+        data, shape, dtype_name_, scales = await self._gather(block_ids)
+        item: Dict[str, Any] = {"matched": len(block_ids), "data": data, "shape": shape,
+                                "dtype": dtype_name_}
+        nbytes = len(data)
+        if scales is not None:
+            item["scales"] = scales   # f32 [L, 2, n, kvh] raw bytes
+            nbytes += len(scales)
+        return item, nbytes
+
+    async def _window_item(self, ids: List[int], device_ok: bool,
+                           stream_leases: List[Tuple[int, int]]
+                           ) -> Tuple[Dict[str, Any], int]:
+        """ONE window of blocks as a response item: a device offer when the
+        client can take one and the arena has room, else inline."""
+        if device_ok:
+            offer = await self._offer_device(ids, wait_s=_ARENA_WAIT_S)
+            if offer is not None:
+                stream_leases.extend((s, offer["uuid"]) for s in offer["ipc"]["slots"])
+                return {"matched": len(ids), "device": offer}, len(ids) * self._block_nbytes
+        return await self._inline_item(ids)
+
+    async def _handle_stream(self, request: Any) -> AsyncIterator[Dict]:
+        """Block-window streaming fetch: serve committed blocks as windows,
+        waiting on the engine's commit signal for blocks whose prefill
+        chunk has not landed yet.
+
+        A client that disappears mid-stream (GeneratorExit, a transport
+        error) gets every lease it never freed dropped at once; after a
+        clean eof the client's own ``free_pull`` (or expiry) frees the last
+        windows."""
+        t_serve = time.time_ns()
+        hashes = [int(h) for h in request.get("hashes", [])]
+        n = len(hashes)
+        window = max(1, int(request.get("window") or STREAM_WINDOW_BLOCKS))
+        wait_budget = float(request.get("wait_s") or STREAM_WAIT_S)
+        device_ok = bool(request.get("device_ok")) and self._ensure_device()
+        alloc = self.engine.allocator
+        sig = getattr(self.engine, "kv_commits", None)
+        served = 0
+        nbytes_total = 0
+        wire = "none"
+        stream_leases: List[Tuple[int, int]] = []
+        clean_exit = False
+        record: Dict[str, Any] = {"blocks": n, "served": 0, "committed_at_first_window": None,
+                                  "waits": []}
+        self.streams.append(record)
+        try:
+            gen = sig.gen if sig is not None else 0
+            t_window = time.monotonic()   # when the wait for the next window began
+            while served < n:
+                block_ids = alloc.acquire_prefix(hashes)
+                avail = len(block_ids)
+                if avail <= served:
+                    alloc.release(block_ids)
+                    waited = time.monotonic() - t_window
+                    if waited >= wait_budget or sig is None:
+                        break   # no more commits coming: eof with what shipped
+                    gen = await sig.wait(gen, min(_STREAM_POLL_S, wait_budget - waited))
+                    continue
+                take = min(avail - served, window)
+                waited = time.monotonic() - t_window
+                if record["committed_at_first_window"] is None:
+                    record["committed_at_first_window"] = avail
+                try:
+                    item, nbytes = await self._window_item(
+                        block_ids[served:served + take], device_ok, stream_leases)
+                finally:
+                    alloc.release(block_ids)
+                item["offset"] = served
+                item["wait_s"] = round(waited, 6)
+                wire = "device" if "device" in item else "inline"
+                yield item
+                served += take
+                nbytes_total += nbytes
+                record["served"] = served
+                record["waits"].append(item["wait_s"])
+                t_window = time.monotonic()
+            self._trace_serve(request, t_serve, f"stream-{wire}", served, nbytes_total)
+            clean_exit = True
+            yield {"eof": True, "served": served, "of": n}
+        finally:
+            if not clean_exit:
+                self._reclaim_leases(stream_leases)
+
+    async def _gather(self, block_ids: List[int]):
+        """The inline payload: (data bytes, shape, dtype name, scales bytes
+        or None), scales present exactly when the payload is int8. ONE
+        gather launch on the engine's step thread, then one copy to pinned
+        host memory, waited for off the step thread."""
+        eng = self.engine
+        loop = asyncio.get_running_loop()
+
+        def launch():
+            ids = eng._t(block_ids, torch.int32)
+            pages = bc.gather_layers_wire(eng.k_caches, eng.v_caches, ids)
+            parts = [pages.data, pages.scale] if self._quantized else [pages]
+            if eng.device.type != "cuda":
+                return parts, None
+            host = [torch.empty(p.shape, dtype=p.dtype, pin_memory=True) for p in parts]
+            for h, p in zip(host, parts):
+                h.copy_(p, non_blocking=True)
+            ev = torch.cuda.Event()
+            ev.record()
+            return host, ev
+
+        host, ev = await loop.run_in_executor(eng._executor, launch)
+
+        def to_bytes():
+            if ev is not None:
+                ev.synchronize()
+            arrs = [to_host(h) for h in host]
+            payload = arrs[0]
+            return (payload.tobytes(), list(payload.shape),
+                    "int8" if self._quantized else dtype_name(payload.dtype),
+                    arrs[1].tobytes() if self._quantized else None)
+
+        return await loop.run_in_executor(None, to_bytes)
+
+    def snapshot(self) -> Dict[str, Any]:
+        return {"arena_slots": self._arena_slots if self._arena is not None else 0,
+                "leased_slots": len(self._slot_lease),
+                "pending_offers": len(self._pull_pending),
+                "leaked_offers": self._pull_leaked, "streams": list(self.streams)}
+
+    def close(self) -> None:
+        if self._arena is not None:
+            self._arena.close()
+            self._arena = None
+
+
+class LocalKvMover:
+    """Page movement between two engines of one process, on the card: the
+    reference's ``IciKvMover``. The source engine's gather (on its step
+    thread) feeds the destination engine's scatter (on its own), in the
+    wire's layout, with no host hop; the destination's stream waits for
+    the gather's event. The source blocks stay pinned across the gather so
+    that eviction cannot rewrite them."""
+
+    def __init__(self, src_engine, dst_engine):
+        assert src_engine is not dst_engine
+        self.src = src_engine
+        self.dst = dst_engine
+
+    async def move(self, hashes: List[int]) -> Optional[int]:
+        """Copy the blocks for ``hashes``; returns blocks imported (0 when
+        the destination has no room), or None on failure (the caller
+        takes the wire)."""
+        src, dst = self.src, self.dst
+        src_ids = src.allocator.acquire_prefix(hashes)
+        if not src_ids:
+            return 0
+        try:
+            n = len(src_ids)
+            if not dst.allocator.can_allocate(n):
+                # no source gather (prefill step time) for a move that
+                # cannot land
+                log.warning("local move: no room for %d blocks on the destination", n)
+                return 0
+
+            def gather():
+                ids = src._t(src_ids, torch.int32)
+                pages = bc.gather_layers_wire(src.k_caches, src.v_caches, ids)
+                ev = None
+                if src.device.type == "cuda":
+                    ev = torch.cuda.Event()
+                    ev.record()
+                return pages, ev
+
+            loop = asyncio.get_running_loop()
+            try:
+                pages, ev = await loop.run_in_executor(src._executor, gather)
+            except Exception:
+                log.exception("local move's gather failed; taking the wire")
+                return None
+            return await dst.import_blocks(list(hashes[:n]), pages, wire=True, after=ev)
+        finally:
+            src.allocator.release(src_ids)
+
+
+class KvTransferClient:
+    """Fetches remote pages and imports them into a local engine's cache."""
+
+    def __init__(self, engine, tcp_client: Optional[TcpClient] = None):
+        self.engine = engine
+        self._tcp = tcp_client or TcpClient()
+        # recent pulls (wire, bytes, seconds, blocks, windows' commit waits)
+        self.pulls: Deque[Dict[str, Any]] = collections.deque(maxlen=_PULL_LOG)
+
+    async def _fetch_item(self, address: str, req: Dict[str, Any]) -> Dict[str, Any]:
+        """One wire fetch (request + drained single-item stream), replayed
+        through the shared policy (scope transfer.pull): the protocol is
+        content-addressed and idempotent, so a dropped connection retries
+        safely; exhausted retries surface to the caller, whose engine then
+        recomputes the prefill. The attempt timeout bounds a hung server."""
+        async def once() -> Dict[str, Any]:
+            await FAULTS.ainject("transfer.pull")
+            stream = await self._tcp.call(address, req)
+            item: Dict[str, Any] = {}
+            async for it in stream:
+                item = it
+            return item
+
+        return await retry_policy(
+            "transfer.pull", max_attempts=3, base_delay_s=0.05, max_delay_s=1.0,
+            attempt_timeout_s=30.0, retryable=RETRYABLE_DEFAULT + (NoResponders,),
+        ).acall(once)
+
+    def _block_nbytes(self) -> int:
+        return int(self.engine.kv_bytes_per_block)
+
+    async def fetch_and_import(self, address: str, hashes: List[int],
+                               traceparent: Optional[str] = None, stream: bool = False,
+                               request_id: Optional[str] = None) -> int:
+        """Pull blocks for ``hashes`` from ``address``; returns the tokens
+        now cached locally (already-cached blocks are skipped, only the
+        missing suffix is fetched). Imported blocks are committed
+        content-addressed, so admission picks them up as a cached prefix.
+
+        ``stream`` takes the block-window protocol. ``traceparent``
+        continues the request's trace (a ``kv.transfer.pull`` span, shipped
+        in the handshake so that the serving side's span joins it). The
+        observed (bytes, seconds) feed the process's bandwidth estimator
+        and the ``wire_collapse`` detector. A pull that leaves blocks to
+        recompute, or raises, counts a ``recompute`` fallback."""
+        from ..runtime.bandwidth import get_bandwidth_estimator
+        from ..runtime.health import get_health_monitor
+
+        tracer = get_tracer()
+        info: Dict[str, Any] = {"wire": "none", "bytes": 0, "blocks": 0, "xfer_s": 0.0,
+                                "waits": [], "request_id": request_id}
+        t0 = time.time_ns()
+        status = "OK"
+        tokens = 0
+        want_tokens = len(hashes) * self.engine.allocator.block_size
+        try:
+            tokens = await self._pull(address, [int(h) for h in hashes], traceparent, info,
+                                      stream)
+            if tokens < want_tokens:
+                self._fallback("recompute", "zero_progress" if tokens == 0 else "partial",
+                               request_id)
+            return tokens
+        except Exception as e:
+            status = "ERROR"
+            self._fallback("recompute", type(e).__name__, request_id)
+            raise
+        finally:
+            # streamed pulls add wire-active time per window (the server's
+            # commit waits taken out); blocking pulls are wire-active for
+            # the whole call
+            xfer_s = info["xfer_s"] or (time.time_ns() - t0) / 1e9
+            est = get_bandwidth_estimator()
+            est.observe(info["wire"], info["bytes"], xfer_s)
+            if info["bytes"] > 0:
+                get_health_monitor().observe_wire(info["wire"], est.bandwidth(info["wire"]))
+            self.pulls.append({"wire": info["wire"], "bytes": info["bytes"],
+                               "seconds": xfer_s, "blocks": info["blocks"],
+                               "tokens": tokens, "want_tokens": want_tokens,
+                               "streamed": bool(stream), "waits": info["waits"]})
+            if tracer.enabled:
+                tracer.emit("kv.transfer.pull", t0, time.time_ns(), traceparent=traceparent,
+                            status=status, address=address, wire=info["wire"],
+                            bytes=info["bytes"], blocks=info["blocks"], tokens=tokens,
+                            streamed=bool(stream))
+
+    def _fallback(self, kind: str, reason: str, request_id: Optional[str]) -> None:
+        from ..runtime.flight_recorder import get_flight_recorder
+
+        transfer_stats.count(kind, reason)
+        log.warning("kv transfer fallback: %s (%s)", kind, reason)
+        if request_id is not None:
+            get_flight_recorder().record(request_id, "transfer_fallback", fallback=kind,
+                                         reason=reason)
+
+    def _device_ok(self, n: int) -> bool:
+        """Ask for a device offer only when the pull could land: a CUDA
+        engine with room to allocate (the offer costs the serving engine
+        a gather)."""
+        return (device_transfer_available() and self.engine.device.type == "cuda"
+                and self.engine.allocator.can_allocate(n))
+
+    async def _pull(self, address: str, hashes: List[int], traceparent: Optional[str],
+                    info: Dict[str, Any], stream: bool = False) -> int:
+        alloc = self.engine.allocator
+        have = len(alloc.match_prefix(hashes))
+        want = hashes[have:]
+        if not want:
+            return have * alloc.block_size
+        # a server in this process: pages move on the card
+        local = (LOCAL_SERVERS.get(address)
+                 if os.environ.get(ENV_ICI_TRANSFER, "1") != "0" else None)
+        if local is not None and local.engine is not self.engine:
+            if stream:
+                moved = await self._local_stream(local.engine, want, info)
+            else:
+                t_move = time.monotonic()
+                moved = await LocalKvMover(local.engine, self.engine).move(list(want))
+                if moved:
+                    info.update(bytes=moved * self._block_nbytes(),
+                                xfer_s=time.monotonic() - t_move)
+            if moved is not None:
+                info.update(wire="ici", blocks=moved)
+                return (have + moved) * alloc.block_size
+            self._fallback("device_to_wire", "local_move_failed", info.get("request_id"))
+        device_ok = self._device_ok(len(want))
+        if stream:
+            imported = await self._pull_stream(address, want, traceparent, info, device_ok)
+            return (have + imported) * alloc.block_size
+        req: Dict[str, Any] = {"hashes": [int(h) for h in want], "native_ok": False}
+        if traceparent:
+            req["traceparent"] = traceparent
+        if device_ok:
+            req["device_ok"] = True
+            req["device_shards"] = 1
+        t_pull = time.monotonic()
+        item = await self._fetch_item(address, req)
+        matched = item.get("matched", 0)
+        if matched == 0:
+            return have * alloc.block_size
+        if "device" in item:
+            got = await self._device_pull(address, item, list(want[:matched]))
+            if got is not None:
+                info.update(wire="device", blocks=got, bytes=matched * self._block_nbytes(),
+                            xfer_s=time.monotonic() - t_pull)
+                return (have + got) * alloc.block_size
+            # the device pull failed: one retry over the wire
+            self._fallback("device_to_wire", "pull_failed", info.get("request_id"))
+            req.pop("device_ok", None)
+            item = await self._fetch_item(address, req)
+            matched = item.get("matched", 0)
+            if matched == 0 or "device" in item:
+                return have * alloc.block_size
+        elif device_ok:
+            self._fallback("device_to_wire", "not_offered", info.get("request_id"))
+        pages, scales = wire_pages_from_item(item)
+        info.update(wire="inline",
+                    bytes=len(item.get("data", b"")) + len(item.get("scales", b"")))
+        imported = await self.engine.import_blocks(
+            list(want[:matched]), pages if scales is None else (pages, scales), wire=True)
+        info["blocks"] = imported
+        return (have + imported) * alloc.block_size
+
+    async def _local_stream(self, src_engine, want: List[int],
+                            info: Dict[str, Any]) -> Optional[int]:
+        """Streamed in-process transfer: move the committed prefix window
+        by window, waiting on the source engine's commit signal while its
+        later prefill chunks compute. Returns blocks moved, or None when
+        the first move fails outright (the caller takes the wire)."""
+        mover = LocalKvMover(src_engine, self.engine)
+        sig = getattr(src_engine, "kv_commits", None)
+        moved_total = 0
+        active_s = 0.0
+        failed = False
+        gen = sig.gen if sig is not None else 0
+        t_window = time.monotonic()
+        while moved_total < len(want):
+            t_move = time.monotonic()
+            moved = await mover.move(list(want[moved_total:]))
+            if moved is None:
+                failed = True
+                break
+            if moved:
+                active_s += time.monotonic() - t_move
+                moved_total += moved
+                t_window = time.monotonic()
+                continue
+            waited = time.monotonic() - t_window
+            if waited >= STREAM_WAIT_S or sig is None:
+                break   # nothing more coming: the engine recomputes the rest
+            gen = await sig.wait(gen, min(_STREAM_POLL_S, STREAM_WAIT_S - waited))
+        info.update(bytes=moved_total * self._block_nbytes(), xfer_s=active_s)
+        if failed and not moved_total:
+            return None
+        return moved_total
+
+    async def _pull_stream(self, address: str, want: List[int], traceparent: Optional[str],
+                           info: Dict[str, Any], device_ok: bool = False) -> int:
+        """Consume the block-window protocol: import each window as it
+        arrives, resume from the first un-imported block on any mid-stream
+        loss (content addressing makes the re-request safe), and give the
+        remaining suffix up after STREAM_MAX_RESUMES progress-less attempts:
+        the engine then recomputes only the lost blocks. A device window
+        that fails ends the device path for the rest of the pull."""
+        n = len(want)
+        imported = 0
+        resumes = 0
+        inline_counted = False   # device windows asked for, one came inline
+        while imported < n:
+            req: Dict[str, Any] = {"hashes": [int(h) for h in want[imported:]],
+                                   "stream": True, "window": STREAM_WINDOW_BLOCKS,
+                                   "wait_s": STREAM_WAIT_S, "native_ok": False}
+            if device_ok:
+                req["device_ok"] = True
+            if traceparent:
+                req["traceparent"] = traceparent
+            eof = False
+            progressed = False
+            try:
+                await FAULTS.ainject("transfer.pull")
+                stream = await self._tcp.call(address, req)
+                t_prev = time.monotonic()
+                async for item in stream:
+                    if item.get("eof"):
+                        eof = True
+                        break
+                    # an armed mid-stream window fault drops the stream
+                    # through the real resume path (a no-op unarmed)
+                    await FAULTS.ainject("transfer.stream_window")
+                    m = int(item.get("matched", 0))
+                    if m <= 0:
+                        continue
+                    w_hashes = list(want[imported:imported + m])
+                    if "device" in item:
+                        got = await self._device_pull(address, item, w_hashes)
+                        if got is None:
+                            device_ok = False
+                            self._fallback("device_to_wire", "pull_failed", info.get("request_id"))
+                            raise ConnectionError("device window pull failed mid-stream")
+                        wire, nbytes = "device", m * self._block_nbytes()
+                    else:
+                        pages, scales = wire_pages_from_item(item)
+                        nbytes = len(item.get("data", b"")) + len(item.get("scales", b""))
+                        got = await self.engine.import_blocks(
+                            w_hashes, pages if scales is None else (pages, scales), wire=True)
+                        wire = "inline"
+                        if device_ok and not inline_counted:
+                            inline_counted = True
+                            self._fallback("device_to_wire", "not_offered", info.get("request_id"))
+                    # wire-active seconds: the gap between items less the
+                    # server's commit wait for this window
+                    wait_s = float(item.get("wait_s", 0.0))
+                    leg = max(time.monotonic() - t_prev - wait_s, 1e-9)
+                    info["wire"] = wire
+                    info["bytes"] += nbytes
+                    info["xfer_s"] += leg
+                    info["waits"].append(wait_s)
+                    imported += got
+                    progressed = progressed or got > 0
+                    if got < m:
+                        # the local pool is full: serve with what landed
+                        info["blocks"] = imported
+                        return imported
+                    t_prev = time.monotonic()
+            except asyncio.CancelledError:
+                raise
+            except Exception as e:
+                log.warning("kv stream from %s lost after %d/%d blocks (%r); resuming from "
+                            "the first missing block", address, imported, n, e)
+            if eof:
+                break
+            if progressed:
+                resumes = 0
+            else:
+                resumes += 1
+                if resumes > STREAM_MAX_RESUMES:
+                    log.warning("kv stream from %s exhausted %d resume attempts at %d/%d "
+                                "blocks; recomputing the remaining suffix", address,
+                                STREAM_MAX_RESUMES, imported, n)
+                    break
+                await asyncio.sleep(min(0.05 * resumes, 0.5))
+        info["blocks"] = imported
+        return imported
+
+    async def _device_pull(self, address: str, item: Dict[str, Any],
+                           hashes: List[int]) -> Optional[int]:
+        """Scatter offered pages straight out of the serving process's
+        arena (CUDA IPC), wait for the scatter, then free the lease.
+        Returns blocks imported, or None on failure (the caller takes the
+        wire; the lease is left to expire, so the server counts it)."""
+        from ..ops import cuda_ipc
+
+        dev = item["device"]
+        ipc = dev.get("ipc")
+        eng = self.engine
+        if (ipc is None or eng.device.type != "cuda" or ipc.get("pid") == os.getpid()
+                or ipc.get("card") != card_uuid(eng.device)):
+            log.warning("device offer from %s is not on this card or not IPC", address)
+            return None
+        L, n, bs, kvh, d = dev["shape"]
+        loop = asyncio.get_running_loop()
+        handle = bytes(ipc["handle"])
+        try:
+            base = await loop.run_in_executor(None, cuda_ipc.open_arena, handle, eng.device,
+                                              address)
+        except Exception:
+            log.exception("device pull from %s failed; taking the wire", address)
+            return None
+        try:
+            if dev["dtype"] == "int8":
+                pages = QuantizedKV(
+                    cuda_ipc.device_view(base + int(ipc["offset"]), eng.device, torch.int8,
+                                         (L, 2, n, bs, kvh, d)),
+                    cuda_ipc.device_view(base + int(ipc["scales_offset"]), eng.device,
+                                         torch.float32, (L, 2, n, kvh)))
+            else:
+                pages = cuda_ipc.device_view(base + int(ipc["offset"]), eng.device,
+                                             torch_dtype_from_name(dev["dtype"]),
+                                             (L, 2, n, bs, kvh, d))
+            got = await eng.import_blocks(hashes, pages, wire=True, sync=True)
+        except Exception:
+            log.exception("device pull from %s failed; taking the wire", address)
+            cuda_ipc.release_arena(handle, failed=True)
+            return None
+        cuda_ipc.release_arena(handle)
+        try:
+            stream = await self._tcp.call(address, {"free_pull": int(dev["uuid"])})
+            async for _ in stream:
+                pass
+        except Exception:
+            pass   # the server's lease expiry reclaims the slots
+        return got
+
+    def snapshot(self) -> Dict[str, Any]:
+        return {"pulls": list(self.pulls)}
+
+    async def close(self) -> None:
+        await self._tcp.close()
+

@@ -191,7 +191,13 @@ class KvRouter:
 
     async def _event_loop(self, sub: Subscription) -> None:
         assert isinstance(self.indexer, KvIndexer)
-        async for _topic, payload in sub:
+        topic = events_topic(self.namespace, self.component)
+        async for got, payload in sub:
+            # subscriptions match by prefix: a prefill pool's component
+            # (``backend_prefill``) extends the decode pool's (``backend``),
+            # and its events are not this pool's (ROADMAP Queue 3)
+            if got != topic:
+                continue
             try:
                 obj = codec.unpackb(payload)
                 self.indexer.apply(RouterEvent.from_obj(obj))
@@ -201,7 +207,10 @@ class KvRouter:
                 log.exception("bad router event")
 
     async def _metrics_loop(self, sub: Subscription) -> None:
-        async for _topic, payload in sub:
+        topic = metrics_topic(self.namespace, self.component)
+        async for got, payload in sub:
+            if got != topic:   # another pool's, whose component extends ours
+                continue
             try:
                 m = WorkerMetrics.from_obj(codec.unpackb(payload))
                 self.scheduler.update_metrics(m)
@@ -227,7 +236,10 @@ class KvRouter:
         t.add_done_callback(lambda t: self._tasks.remove(t) if t in self._tasks else None)
 
     async def _sync_loop(self, sub: Subscription) -> None:
-        async for _topic, payload in sub:
+        topic = sync_topic(self.namespace, self.component)
+        async for got, payload in sub:
+            if got != topic:   # another pool's, whose component extends ours
+                continue
             try:
                 obj = codec.unpackb(payload)
                 if obj.get("router") == self.router_id:

@@ -56,6 +56,14 @@ def dtype_from_name(name: str) -> np.dtype:
     return BF16_BITS if name == "bfloat16" else np.dtype(name)
 
 
+def torch_dtype_from_name(name: str) -> torch.dtype:
+    """The torch dtype of a block dtype name (a G3 header's or the KV
+    transfer wire's, engine/transfer.py): ``bfloat16`` included."""
+    if name == "bfloat16":
+        return torch.bfloat16
+    return torch.from_numpy(np.zeros(0, np.dtype(name))).dtype
+
+
 def to_host(t: torch.Tensor) -> np.ndarray:
     """A CPU tensor as its host storage array (bf16 as bit patterns)."""
     if t.dtype == torch.bfloat16:

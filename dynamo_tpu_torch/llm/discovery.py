@@ -17,8 +17,19 @@ Each worker has a circuit breaker (runtime/resilience.py, scope
 that ends without a finish, with an error finish or on a lost connection
 count against it, a clean finish for it. Routing steers new requests and
 migration retries around open circuits, round-robin and KV alike, unless
-that would leave no worker at all. The reference's prefill router, global
-KV directory and draining-worker steering wait for ROADMAP item 5.
+that would leave no worker at all.
+
+Disaggregation: the watcher also tracks each model's prefill pool (cards
+of ``model_type`` ``prefill``) and attaches a ``PrefillRouter``
+(llm/prefill_router.py) to the model's pipeline while the pool has a
+member, detaching it when the last one goes. A request then takes the
+hop: deflected (the decode worker prefills it), streamed (the prefill
+clone fires and the decode request ships at once with a streamed
+``kv_transfer`` handshake) or sequential (the prefill's first token
+streams, then the decode request pulls the finished prefill's pages).
+A typed terminal error of the prefill pool reaches the client; any other
+prefill failure takes the aggregated path. The reference's global KV
+directory and draining-worker steering wait for ROADMAP item 5.
 """
 
 from __future__ import annotations
@@ -41,7 +52,13 @@ from ..runtime.tasks import spawn_bg
 from ..runtime.tracing import get_tracer
 from .migration import Migration
 from .model_card import MDC_PREFIX, MODEL_TYPE_PREFILL, ModelDeploymentCard
-from .preprocessor import ANNOTATION_CACHED_TOKENS, ANNOTATION_WORKER_ID, OpenAIPreprocessor
+from ..tokens import compute_sequence_hashes
+from .preprocessor import (
+    ANNOTATION_CACHED_TOKENS,
+    ANNOTATION_PREFILL_WORKER_ID,
+    ANNOTATION_WORKER_ID,
+    OpenAIPreprocessor,
+)
 from .protocols.common import BackendOutput, PreprocessedRequest
 
 log = get_logger("llm.discovery")
@@ -118,6 +135,8 @@ class ModelPipeline:
         # seen would grow /metrics without bound under churn (the per-model
         # frontend breaker stays on /metrics)
         self._worker_breakers: Dict[int, CircuitBreaker] = {}
+        # disaggregation: set while a prefill pool is registered for the model
+        self.prefill_router = None
         self._worker_cb_metrics = M.MetricsScope()
         # router-universe reconcile throttle (_prune_dead_workers): the
         # full sweep is O(fleet), so it runs on instance-count change or
@@ -181,6 +200,8 @@ class ModelPipeline:
         return self
 
     async def stop(self) -> None:
+        if self.prefill_router is not None:
+            await self.prefill_router.stop()
         if self.kv_router is not None:
             await self.kv_router.stop()
         if self.client is not None:
@@ -333,16 +354,107 @@ class ModelPipeline:
         cb.allow()  # as above: this stream IS the half-open probe
         return _RecordedStream(stream, cb.record)
 
+    def _decode_overlap(self, req: PreprocessedRequest, hashes=None) -> int:
+        """Prompt blocks the DECODE pool's radix tree already holds (the
+        radix-hit deflection signal); 0 when KV routing is off. A
+        stateless peek: no load charge, no index update. ``hashes`` shares
+        a caller's hash pass (at this router's block size)."""
+        if self.kv_router is None or self.client is None or not self.client.instances:
+            return 0
+        try:
+            return self.kv_router.score_tokens(req.token_ids, self._candidates([]),
+                                               hashes=hashes).overlap_blocks
+        except Exception:
+            return 0
+
+    def _candidates(self, excluded: List[int]) -> List[WorkerWithDpRank]:
+        assert self.client is not None
+        cands: List[WorkerWithDpRank] = []
+        for iid, inst in self.client.instances.items():
+            if iid in excluded:
+                continue
+            dp = int(inst.metadata.get("data_parallel_size", 1) or 1)
+            cands.extend(WorkerWithDpRank(iid, r) for r in range(dp))
+        return cands
+
     async def generate_tokens(
         self, req: PreprocessedRequest, context: Context
     ) -> AsyncIterator[BackendOutput]:
-        """The full internal stream: migration-wrapped routed generation;
-        the request's annotations ride on the first output."""
+        """The full internal stream: [the prefill hop ->] migration-wrapped
+        routed generation; the request's annotations ride on the first
+        output. With no prefill pool (or a prefill failure) the aggregated
+        path serves the request unchanged."""
+        offset = 0
         if req.annotations.get("op") == "embed":
+            # pooled forwards never split across prefill and decode pools
             async for out in self.migration.generate(req, context):
                 yield out
             return
-        first = True
+        if self.prefill_router is not None and self.prefill_router.has_workers:
+            plan = None
+            try:
+                # ONE hash pass serves the decode-overlap peek, the plan's
+                # scoring and the streamed handshake when both pools share
+                # a block size (the normal deployment)
+                bs_p = self.prefill_router.card.kv_block_size
+                shared = (compute_sequence_hashes(req.token_ids, bs_p)
+                          if self.kv_router is None or self.kv_router.block_size == bs_p
+                          else None)
+                plan = self.prefill_router.plan(
+                    req, decode_overlap_blocks=self._decode_overlap(req, shared),
+                    hashes=shared)
+            except Exception:
+                log.exception("disagg planning failed; taking the sequential prefill path")
+            if plan is not None and plan.deflected:
+                # deflected: the aggregated path below prefills on the
+                # decode worker
+                pre_out = None
+            elif plan is not None and plan.streamed:
+                # streamed: fire the prefill clone and ship the decode
+                # request now, its block-window pull overlapping the prefill
+                self.prefill_router.start_streamed_prefill(req, context, plan)
+                bs = self.prefill_router.card.kv_block_size
+                req = PreprocessedRequest.from_obj(req.to_obj())
+                req.kv_transfer = {
+                    "address": plan.transfer_address,
+                    "hashes": list(plan.hashes),
+                    "num_tokens": plan.query_blocks * bs,
+                    "stream": True,
+                }
+                req.annotations[ANNOTATION_PREFILL_WORKER_ID] = plan.worker_id
+                pre_out = None
+            else:
+                pre_out = await self.prefill_router.run_prefill(req, context, plan)
+            if pre_out is not None and pre_out.token_ids:
+                merged = dict(req.annotations)
+                merged.update(pre_out.annotations)
+                if req.stop.max_tokens == 1:
+                    pre_out.annotations = merged
+                    yield pre_out
+                    return
+                # the first token streams now, with its text and logprob
+                # entries (the reference's first output carries the ids
+                # alone, so its frontend never shows the first token's
+                # text); decode continues from it
+                first_tok = pre_out.token_ids[-1]
+                yield BackendOutput(token_ids=list(pre_out.token_ids), text=pre_out.text,
+                                    cumulative_tokens=1, logprobs=pre_out.logprobs,
+                                    top_logprobs=pre_out.top_logprobs,
+                                    logprob_entries=pre_out.logprob_entries,
+                                    annotations=merged)
+                offset = 1
+                req = PreprocessedRequest.from_obj(req.to_obj())
+                req.prior_token_ids = [first_tok]
+                req.kv_transfer = pre_out.kv_transfer
+                if req.kv_transfer:
+                    # sequential: the prefill is complete, so the one-shot
+                    # blocking pull (which may take the device path) beats
+                    # the window protocol
+                    req.kv_transfer = dict(req.kv_transfer)
+                    req.kv_transfer.pop("stream", None)
+                if req.stop.max_tokens is not None:
+                    req.stop.max_tokens -= 1
+        first = offset == 0
         try:
             async for out in self.migration.generate(req, context):
                 if first:
@@ -350,6 +462,8 @@ class ModelPipeline:
                     merged = dict(req.annotations)
                     merged.update(out.annotations)
                     out.annotations = merged
+                if offset:
+                    out.cumulative_tokens += offset
                 yield out
         finally:
             if self.kv_router is not None:
@@ -399,6 +513,9 @@ class ModelWatcher:
         # mdc store key -> model name (for DELETE handling)
         self._key_model: Dict[str, str] = {}
         self._model_keys: Dict[str, set] = {}
+        # disaggregation: prefill pool cards and their keys by model name
+        self._prefill_cards: Dict[str, ModelDeploymentCard] = {}
+        self._prefill_keys: Dict[str, set] = {}
 
     async def start(self) -> "ModelWatcher":
         self._watcher = await self.runtime.store.watch(MDC_PREFIX + "/")
@@ -420,11 +537,14 @@ class ModelWatcher:
 
     async def _handle_put(self, key: str, value: bytes) -> None:
         card = ModelDeploymentCard.from_obj(codec.unpackb(value))
-        if MODEL_TYPE_PREFILL in card.model_type:
-            log.warning("prefill pool card for %s ignored: disaggregation is ROADMAP "
-                        "item 5", card.name)
-            return
         self._key_model[key] = card.name
+        if MODEL_TYPE_PREFILL in card.model_type:
+            self._prefill_keys.setdefault(card.name, set()).add(key)
+            if card.name not in self._prefill_cards:
+                self._prefill_cards[card.name] = card
+                log.info("prefill pool for %s appeared", card.name)
+            await self._sync_prefill(card.name)
+            return
         self._model_keys.setdefault(card.name, set()).add(key)
         if self.manager.get(card.name) is None:
             log.info("model %s appeared (card at %s)", card.name, key)
@@ -432,10 +552,39 @@ class ModelWatcher:
                 self.runtime, card, self.router_mode, self.kv_router_config
             ).start()
             self.manager.add(card.name, pipeline)
+        await self._sync_prefill(card.name)
+
+    async def _sync_prefill(self, model: str) -> None:
+        """Attach or detach the model's PrefillRouter as its prefill pool
+        comes and goes."""
+        pipe = self.manager.get(model)
+        if pipe is None:
+            return
+        has_pool = bool(self._prefill_keys.get(model))
+        if has_pool and pipe.prefill_router is None:
+            from .prefill_router import PrefillRouter
+
+            pipe.prefill_router = await PrefillRouter(
+                self.runtime, self._prefill_cards[model],
+                self.kv_router_config if self.router_mode == RouterMode.KV else None,
+            ).start()
+            log.info("disaggregation enabled for %s", model)
+        elif not has_pool and pipe.prefill_router is not None:
+            router, pipe.prefill_router = pipe.prefill_router, None
+            await router.stop()
+            log.info("disaggregation disabled for %s (prefill pool empty)", model)
 
     async def _handle_delete(self, key: str) -> None:
         model = self._key_model.pop(key, None)
         if model is None:
+            return
+        pkeys = self._prefill_keys.get(model)
+        if pkeys is not None and key in pkeys:
+            pkeys.discard(key)
+            if not pkeys:
+                self._prefill_cards.pop(model, None)
+                self._prefill_keys.pop(model, None)
+            await self._sync_prefill(model)
             return
         keys = self._model_keys.get(model, set())
         keys.discard(key)

@@ -485,6 +485,12 @@ class HttpService:
             n_tokens = 0
             try:
                 async for out in stream:
+                    if "prefill_worker_id" in (out.annotations or {}):
+                        # disaggregation: the prefill router stamps the
+                        # remote prefill worker on its output
+                        get_flight_recorder().record(
+                            request_id, "prefill_done",
+                            prefill_worker_id=out.annotations["prefill_worker_id"])
                     if out.token_ids:
                         now = time.monotonic()
                         n_tokens += len(out.token_ids)

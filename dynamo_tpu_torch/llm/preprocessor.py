@@ -42,6 +42,7 @@ def _image_executor() -> concurrent.futures.ThreadPoolExecutor:
 ANNOTATION_INPUT_TOKENS = "input_tokens"
 ANNOTATION_CACHED_TOKENS = "cached_tokens"
 ANNOTATION_WORKER_ID = "worker_id"
+ANNOTATION_PREFILL_WORKER_ID = "prefill_worker_id"
 
 
 class OpenAIPreprocessor:

@@ -12,9 +12,11 @@ parallelism with redundant experts (ROADMAP Queue 1 item 6).
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 from ..runtime.component import ServedEndpoint
+from ..runtime.config import ENV_KV_WIRE
 from ..runtime.distributed import DistributedRuntime
 from ..runtime.engine import AsyncEngine
 from .backend import Backend
@@ -43,6 +45,18 @@ async def register_llm(
         "data_parallel_size": card.runtime_config.data_parallel_size,
         "total_kv_blocks": card.runtime_config.total_kv_blocks,
     }
+    # disaggregation: a worker serving KV transfer advertises its fetch
+    # address (a streamed hop dispatches the decode request before the
+    # prefill ends, so the frontend needs it when it routes) and a wire
+    # class for transfer-cost-aware routing; the card carries the bytes of
+    # one KV block
+    transfer_address = getattr(engine, "transfer_address", None)
+    if transfer_address:
+        md["transfer_address"] = transfer_address
+        md["kv_wire"] = os.environ.get(ENV_KV_WIRE, "inline")
+    bpb = int(getattr(engine, "kv_bytes_per_block", 0) or 0)
+    if bpb and not card.runtime_config.kv_bytes_per_block:
+        card.runtime_config.kv_bytes_per_block = bpb
     served = await endpoint.serve(handler, instance_id=instance_id, metadata=md)
     key = mdc_key(card.namespace, card.slug, served.instance_id)
     await served.publish_extra(key, card.to_obj())

@@ -20,6 +20,12 @@ move here is ONE launch:
   back. Their table is built once per set of caches (``layer_moves``, pure
   Python) and kept on the device; only the ids and the stacked buffer
   change per call.
+- ``gather_layers_wire`` / ``scatter_layers_wire``: the same move in the
+  KV transfer wire's layer-major order ``[L, 2, n, bs, kvh, d]`` (int8:
+  plus scales ``[L, 2, n, kvh]``), engine/transfer.py's one gather per
+  pull and one scatter per import. Their table (``wire_moves``: one entry
+  per layer and K or V, the block index from the ids) depends on n, so it
+  is kept per (caches, n).
 
 Each has a plain version beside it (``*_ref``). On CPU tensors each
 wrapper runs its plain version; on CUDA tensors it launches the kernel or
@@ -115,6 +121,22 @@ def layer_moves(arrays: Sequence[Tuple[int, int]], num_blocks: int, gather: bool
     return moves
 
 
+def wire_moves(arrays: Sequence[Tuple[int, int]], num_blocks: int, n: int, gather: bool,
+               buffer: int) -> List[Move]:
+    """The moves between per-layer caches and one layer-major buffer
+    (launch buffer ``buffer``): ``arrays`` as in ``layer_moves``, and page m
+    of array i at byte ``(i * n + m) * page`` of the buffer: the layout of
+    a contiguous ``[L, 2, n, *page]`` tensor, the transfer wire's."""
+    moves = []
+    for i, (addr, pb) in enumerate(arrays):
+        off = i * n * pb
+        if gather:
+            moves.append(Move(addr, off, pb, pb, pb, num_blocks, 0, SRC_IDS | rel_dst(buffer)))
+        else:
+            moves.append(Move(off, addr, pb, pb, pb, 0, num_blocks, DST_IDS | rel_src(buffer)))
+    return moves
+
+
 # ----------------------------------------------------------- plain versions
 def gather_blocks_ref(cache: torch.Tensor, block_ids: torch.Tensor) -> torch.Tensor:
     return cache[block_ids.long()]
@@ -170,6 +192,25 @@ def scatter_layers_ref(k_caches: Caches, v_caches: Caches, ids: torch.Tensor,
     for grp, stacked in zip(groups, _split(pages, len(groups) == 2)):
         for i, c in enumerate(grp):
             scatter_blocks_ref(c, ids, stacked[:, i // 2, i % 2])
+
+
+def gather_layers_wire_ref(k_caches: Caches, v_caches: Caches, ids: torch.Tensor) -> Pages:
+    """gather_layers_ref permuted to the wire's ``[L, 2, n, ...]`` (int8:
+    payload and scales ``[L, 2, n, kvh]``), contiguous."""
+    got = gather_layers_ref(k_caches, v_caches, ids)
+    out = [t.permute(1, 2, 0, *range(3, t.dim())).contiguous()
+           for t in _split(got, isinstance(got, QuantizedKV))]
+    return QuantizedKV(*out) if len(out) == 2 else out[0]
+
+
+def scatter_layers_wire_ref(k_caches: Caches, v_caches: Caches, ids: torch.Tensor,
+                            pages: Pages) -> None:
+    """scatter_layers_ref of wire-order ``pages`` (gather_layers_wire's
+    layout), permuted back to ``[n, L, 2, ...]``."""
+    parts = [t.permute(2, 0, 1, *range(3, t.dim()))
+             for t in _split(pages, len(_groups(k_caches, v_caches)) == 2)]
+    scatter_layers_ref(k_caches, v_caches, ids,
+                       QuantizedKV(*parts) if len(parts) == 2 else parts[0])
 
 
 # ----------------------------------------------------------------- wrappers
@@ -324,19 +365,24 @@ def layer_table_key(groups: List[List[torch.Tensor]], gather: bool) -> tuple:
             tuple(c.data_ptr() for grp in groups for c in grp))
 
 
-def _layer_table(groups: List[List[torch.Tensor]], gather: bool):
-    key = layer_table_key(groups, gather)
+def _layer_table(groups: List[List[torch.Tensor]], gather: bool, wire_n: int = 0):
+    """The device table of a layer-batched move: the stacked layout, or
+    with ``wire_n`` the wire's layer-major layout of that many pages."""
+    key = (layer_table_key(groups, gather), wire_n)
     hit = _layer_tables.get(key)
     if hit is None:
         moves = []
         for i, grp in enumerate(groups):
             if any(c.shape != grp[0].shape or c.dtype != grp[0].dtype for c in grp):
                 raise ValueError("every layer cache must have one shape and dtype")
-            moves += layer_moves([(c.data_ptr(), _page_bytes(c)) for c in grp],
-                                 grp[0].shape[0], gather, i + 1)
+            arrays = [(c.data_ptr(), _page_bytes(c)) for c in grp]
+            moves += (wire_moves(arrays, grp[0].shape[0], wire_n, gather, i + 1) if wire_n
+                      else layer_moves(arrays, grp[0].shape[0], gather, i + 1))
         table, W = move_table(moves)
-        dev = torch.from_numpy(table.view(np.uint8)).to(groups[0][0].device)
-        if len(_layer_tables) >= 16:   # caches of engines long gone
+        # through pinned memory: the upload does not wait for the device
+        dev = torch.from_numpy(table.view(np.uint8)).pin_memory().to(
+            groups[0][0].device, non_blocking=True)
+        if len(_layer_tables) >= 64:   # caches of engines long gone, old n
             _layer_tables.clear()
         hit = _layer_tables[key] = (dev, len(moves), W)
     return hit
@@ -376,13 +422,69 @@ def scatter_layers(k_caches: Caches, v_caches: Caches, ids: torch.Tensor,
     _check_ids("ids", ids)
     bufs = _split(pages, len(groups) == 2)
     n, L = ids.shape[0], len(k_caches)
+    _check_stacked(groups, bufs, _stacked_shape, n, L)
+    if n:
+        table, count, W = _layer_table(groups, gather=False)
+        SCATTER.launch([None, ids, table, None, *bufs, *[None] * (2 - len(bufs))],
+                       [count, W, n])
+
+
+def _wire_shape(c: torch.Tensor, n: int, L: int) -> tuple:
+    return (L, 2, n, *c.shape[1:])
+
+
+def _check_stacked(groups, bufs, shape_of, n: int, L: int) -> None:
     for g, b in zip(groups, bufs):
-        want = _stacked_shape(g[0], n, L)
+        want = shape_of(g[0], n, L)
         if b.dtype != g[0].dtype or tuple(b.shape) != want:
             raise ValueError(f"pages {b.dtype} {tuple(b.shape)} are not {g[0].dtype} {want}")
         if not b.is_contiguous() or b.device != g[0].device:
             raise ValueError("pages: must be contiguous on the caches' device")
+
+
+def gather_layers_wire(k_caches: Caches, v_caches: Caches, ids: torch.Tensor,
+                       out: Pages = None) -> Pages:
+    """Pages ``ids`` of every layer's K and V cache in ONE launch, in the
+    transfer wire's layer-major layout ``[L, 2, n, bs, kvh, d]`` (int8: a
+    QuantizedKV of that payload and the scales ``[L, 2, n, kvh]``), into
+    ``out`` when given (a staging buffer of that layout) or a fresh
+    buffer. Plain version: gather_layers_wire_ref."""
+    groups = _groups(k_caches, v_caches)
+    if groups[0][0].device.type == "cpu":
+        got = gather_layers_wire_ref(k_caches, v_caches, ids)
+        if out is None:
+            return got
+        for o, g in zip(_split(out, len(groups) == 2), _split(got, len(groups) == 2)):
+            o.copy_(g)
+        return out
+    _check_ids("ids", ids)
+    n, L = ids.shape[0], len(k_caches)
+    if out is None:
+        bufs = [torch.empty(_wire_shape(g[0], n, L), dtype=g[0].dtype, device=g[0].device)
+                for g in groups]
+    else:
+        bufs = _split(out, len(groups) == 2)
+        _check_stacked(groups, bufs, _wire_shape, n, L)
     if n:
-        table, count, W = _layer_table(groups, gather=False)
+        table, count, W = _layer_table(groups, gather=True, wire_n=n)
+        GATHER.launch([ids, None, table, None, *bufs, *[None] * (2 - len(bufs))],
+                      [count, W, n])
+    return QuantizedKV(*bufs) if len(bufs) == 2 else bufs[0]
+
+
+def scatter_layers_wire(k_caches: Caches, v_caches: Caches, ids: torch.Tensor,
+                        pages: Pages) -> None:
+    """``cache[ids] = pages[layer, k-or-v]`` for every layer's K and V cache
+    in ONE launch, in place; ``pages`` in gather_layers_wire's layout, on
+    the caches' device. Plain version: scatter_layers_wire_ref."""
+    groups = _groups(k_caches, v_caches)
+    if groups[0][0].device.type == "cpu":
+        return scatter_layers_wire_ref(k_caches, v_caches, ids, pages)
+    _check_ids("ids", ids)
+    bufs = _split(pages, len(groups) == 2)
+    n, L = ids.shape[0], len(k_caches)
+    _check_stacked(groups, bufs, _wire_shape, n, L)
+    if n:
+        table, count, W = _layer_table(groups, gather=False, wire_n=n)
         SCATTER.launch([None, ids, table, None, *bufs, *[None] * (2 - len(bufs))],
                        [count, W, n])

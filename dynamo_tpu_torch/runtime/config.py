@@ -59,6 +59,19 @@ ENV_FLEET_FANOUT = "DTPU_FLEET_FANOUT"                # /debug/fleet concurrent 
 ENV_FLEET_TIMEOUT_S = "DTPU_FLEET_TIMEOUT_S"          # per-worker snapshot fetch timeout (s)
 ENV_HEALTH_MIN_INTERVAL_S = "DTPU_HEALTH_MIN_INTERVAL_S"  # min s between health events per subject
 ENV_HEALTH_DRIFT_RATIO = "DTPU_HEALTH_DRIFT_RATIO"    # measured/predicted step-time trip ratio
+# disaggregated prefill/decode (engine/transfer.py, llm/prefill_router.py)
+ENV_STREAM_WINDOW = "DTPU_STREAM_WINDOW"              # streamed fetch window (blocks)
+ENV_STREAM_WAIT_S = "DTPU_STREAM_WAIT_S"              # streamed fetch commit-wait budget
+ENV_DEVICE_TRANSFER = "DTPU_DEVICE_TRANSFER"          # device (CUDA IPC) pull path on/off
+ENV_ICI_TRANSFER = "DTPU_ICI_TRANSFER"                # same-process device move on/off
+ENV_KV_WIRE = "DTPU_KV_WIRE"                          # advertised kv wire class
+ENV_STREAM_KV = "DTPU_STREAM_KV"                      # streamed (vs sequential) disagg dispatch
+ENV_DEFLECT = "DTPU_DEFLECT"                          # prefill deflection valve on/off
+ENV_DEFLECT_MAX_TOKENS = "DTPU_DEFLECT_MAX_TOKENS"    # short-prompt deflection bound
+ENV_DEFLECT_OVERLAP = "DTPU_DEFLECT_OVERLAP"          # decode-pool radix-hit deflection share
+ENV_DEFLECT_MARGIN = "DTPU_DEFLECT_MARGIN"            # load-skew deflection margin
+ENV_PREFILL_BLOCK_MS = "DTPU_PREFILL_BLOCK_MS"        # per-block prefill cost prior
+ENV_KV_BYTES_PER_BLOCK = "DTPU_KV_BYTES_PER_BLOCK"    # wire-cost bytes/block override
 # DTPU_RETRY_* / DTPU_CB_* (runtime/resilience.py) and DTPU_FAULTS
 # (runtime/faults.py) are read where they apply
 

@@ -51,6 +51,10 @@ SLO_BURN_RATE = f"{PREFIX}_slo_burn_rate"
 GOODPUT_TOKENS = f"{PREFIX}_goodput_tokens_total"
 REQUEST_PHASE_SECONDS = f"{PREFIX}_request_phase_seconds"
 HEALTH_EVENTS_TOTAL = f"{PREFIX}_health_events_total"
+# disaggregation (runtime/bandwidth.py, engine/transfer.py, llm/prefill_router.py)
+KV_WIRE_BANDWIDTH = f"{PREFIX}_kv_wire_bandwidth_bytes_per_s"
+KV_TRANSFER_FALLBACKS_TOTAL = f"{PREFIX}_kv_transfer_fallbacks_total"
+PREFILL_DEFLECTED_TOTAL = f"{PREFIX}_prefill_deflected_total"
 
 LABEL_NAMESPACE = "dtpu_namespace"
 LABEL_COMPONENT = "dtpu_component"

@@ -72,7 +72,9 @@ async def _read_frame(reader: asyncio.StreamReader) -> Optional[Dict[str, Any]]:
 
 def _write_frame(writer: asyncio.StreamWriter, msg: Dict[str, Any]) -> None:
     payload = codec.packb(msg)
-    writer.write(_LEN.pack(len(payload)) + payload)
+    # two writes, not a concatenation: a KV transfer frame is hundreds of MiB
+    writer.write(_LEN.pack(len(payload)))
+    writer.write(payload)
 
 
 Handler = Callable[[Any, Context], AsyncIterator[Any]]
