@@ -414,7 +414,7 @@ Phases, in order; any failure raises and the exit code is not 0:
    ``scatter_layers_wire_ref``'s on clones taken before the kernel, and
    the in-process mover leaves a third
    engine's pages equal to the source's; both copies timed at 32 layers on
-   188 pages against their byte bound. Then the netstore, a ``--disagg
+   188 pages against their byte bound and their plain versions. Then the netstore, a ``--disagg
    prefill`` and a ``--disagg decode`` llama3-8b worker (32 layers, random
    bf16 weights from seed 0, the prefill worker advertising
    ``DTPU_KV_WIRE=device``), a ``--router-mode kv`` frontend (streamed
@@ -448,7 +448,53 @@ Phases, in order; any failure raises and the exit code is not 0:
    each pull, the decode workers' bandwidth EWMA per wire, and each side's
    page-copy launches, which the report adds to the gather_layers /
    scatter_layers rows.
-16. report: one JSON line with every kernel's numbers, the nvidia-smi line,
+16. global_kv: fleet-wide KV reuse on one card (kvbm/remote.py,
+   kvbm/distributed.py, kvbm/directory.py, the tier stream of
+   engine/transfer.py, llm/prefill_router.GlobalKvFetchPlanner). The
+   netstore, two G4 block stores (``python -m dynamo_tpu_torch.kvbm
+   --store``, members of the sharded fleet), llama3-8b worker A (32
+   layers, random bf16 weights from seed 0, an 8 GiB G2 and
+   ``--kvbm-remote`` on the first store) and worker B (the same weights as
+   model ``llama3-8b-b``, an 8 GiB G2, no G4), two frontends; every process
+   with ``DTPU_GLOBAL_KV=1``, one frontend at the port's default priors
+   and one with ``DTPU_GLOBAL_KV_FETCH_MARGIN`` raised so that every plan
+   fetches. The 8-prompt lengths as greedy streamed chat of 32 tokens, one
+   request at a time (prompts of one byte a letter, ``gk_prompt``). A
+   serves them first: each written through to G2 and the first store
+   (which then holds every block A offloaded) and advertised. (b) peer
+   tier: the same prompts sent to B through the default-prior frontend
+   (the plans, each naming A: their verdicts and priced seconds; a
+   recompute run doubles as the cold measurement, else one more run
+   through a frontend whose plans all recompute), B's caches cleared, and
+   sent again through the fetching frontend: each request one whole tier
+   pull from A's transfer address (``_pull_tier``), ``cached_tokens`` the
+   fetched prefix, no fetch lease open, no transfer fallback; per prompt
+   fetch and recompute seconds, GB/s and windows. (a) G4: A's G1 and G2
+   cleared (``POST /clear_kv_blocks``), the prompts again: every full-block
+   prefix comes back from G4 (``cached_tokens``); TTFT first and repeat.
+   (c) dead holder: A stopped, its advertisements put back at its gone
+   address, two of the prompts sent to B (cleared again) through the
+   fetching frontend: each plan ends in a recompute (a zero-token tier
+   pull at A's address, the recompute counter), the lease aborted. Every
+   stream of (a)-(c) equals A's first run's or, where one side restored
+   its prefix from a tier and computed only the suffix, is within the tie
+   rule (phase 14's tie control, run once the workers stopped, while (d)
+   runs). (d) the sharded fleet: from this process a
+   ``DistributedBlockPool`` stores 256 2 MiB blocks: each on the member
+   the port's ring names, both members holding some (the split printed),
+   every get bit-exact; the second store killed, once its lease expires
+   its shard misses and the first's hits bit for bit. Gates too: worker
+   A's scatter launches equal its 8 G4 onboards and B's its tier windows
+   (one page-copy launch a window), both workers gathered their offloads,
+   no ERROR record. Prints the priors measured on the card (recompute
+   seconds a block from A's cold first run, and from B's cold run, whose
+   plans looked up every block: the planner's lookup cost; the tier
+   stream's G2 read; the tier wire's GB/s) and, per prompt, the planner's
+   verdict under the port's defaults, the reference's priors and the
+   measured ones beside the measured fetch and recompute; the report adds
+   the phase's page-copy launches to the gather_layers / scatter_layers
+   rows.
+17. report: one JSON line with every kernel's numbers, the nvidia-smi line,
    and last the device line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without printing a result when no CUDA device is present or
@@ -8573,6 +8619,8 @@ def dg_page_checks(torch, timer) -> dict:
     t = {"gather_ms": timer(lambda: bc.gather_layers_wire(ks, vs, ids, out=pages), reps=5),
          "scatter_ms": timer(lambda: bc.scatter_layers_wire(ks, vs, ids, pages), reps=5),
          "gather_plain_ms": timer(lambda: bc.gather_layers_wire_ref(ks, vs, ids), reps=3),
+         "scatter_plain_ms": timer(lambda: bc.scatter_layers_wire_ref(ks, vs, ids, pages),
+                                   reps=3),
          "bytes": nbytes, "bound_ms": bound(2 * nbytes, 0)[0]}
     out["timed"] = t
     del ks, vs, pages
@@ -8818,7 +8866,8 @@ def disagg_summary(dg: dict, smi: str) -> list:
         + f", the in-process mover's pages equal the source's (bf16 and int8); at 32 layers "
         f"on {DG_TIME_BLOCKS} pages ({t['bytes'] / 2**20:.0f} MiB): gather "
         f"{t['gather_ms']:.4f} ms, scatter {t['scatter_ms']:.4f} ms, bound "
-        f"{t['bound_ms']:.4f} ms (bytes), plain gather {t['gather_plain_ms']:.4f} ms")
+        f"{t['bound_ms']:.4f} ms (bytes), plain gather {t['gather_plain_ms']:.4f} ms, plain "
+        f"scatter {t['scatter_plain_ms']:.4f} ms")
     for tag, name in (("a", "streamed, device (IPC)"), ("b", "sequential, device (IPC)"),
                       ("c", "streamed, inline wire"), ("d", "aggregated control")):
         r = dg["runs"][tag]
@@ -8853,8 +8902,600 @@ def disagg_summary(dg: dict, smi: str) -> list:
     return lines
 
 
+GK_PROMPTS = FE_PROMPTS  # the 8-prompt lengths, 100-6000 tokens
+GK_TOKENS = 32           # greedy tokens each
+GK_B = "llama3-8b-b"     # worker B's model name: the same weights, its own pipeline
+# every process of the phase: the directory on, entries that outlive the phase
+GK_ENV = {"DTPU_GLOBAL_KV": "1", "DTPU_GLOBAL_KV_TTL_S": "3600"}
+GK_STORE_ENV = {"DTPU_LEASE_TTL_S": "3"}   # a killed G4 store leaves the ring in ~3 s
+GK_HOST_GB = "8"         # each worker's G2 (A's holds two prompt sets twice over)
+GK_DEAD = (2, 7)         # the prompts of (c), by index
+GK_FLEET_BLOCKS = 256    # (d): real 2 MiB llama3-8b bf16 blocks
+GK_BLOCK_SHAPE = (32, 2, 16, 8, 128)   # [L, 2, bs, kvh, d]
+GK_READ_BLOCKS = 256     # blocks of the G2 read timing
+
+
+def gk_prompt(n: int, seed: int) -> str:
+    """``n`` characters of random lowercase words: one byte a letter (the
+    other phases' ``fe_prompt`` spells each letter with seven NUL bytes, so
+    two of its prompts share a first block one time in a few hundred,
+    which the directory's single-holder runs would trip on)."""
+    rng = np.random.default_rng(seed)
+    text = rng.integers(97, 123, size=n).astype(np.uint8)
+    text[rng.integers(2, 9, size=n).cumsum()[:n // 2].clip(max=n - 1)] = 32   # spaces
+    return text.tobytes().decode()
+
+
+def gk_bodies(model: str, seed: int) -> list:
+    """The 8-prompt lengths as streamed greedy chat of GK_TOKENS tokens for
+    ``model``, with DG_TOP top logprobs a token (the tie rule reads them)."""
+    return [("/v1/chat/completions", dict(
+        model=model, messages=[{"role": "user", "content": gk_prompt(n, seed + i)}],
+        max_tokens=GK_TOKENS, temperature=0.0, ignore_eos=True, stream=True,
+        logprobs=True, top_logprobs=DG_TOP, stream_options={"include_usage": True}))
+        for i, n in enumerate(GK_PROMPTS)]
+
+
+def gk_compare(tag: str, run: list, ref: list, bodies: list, divergences: list) -> int:
+    """Streams of ``run`` equal to ``ref``'s; the rest go to ``divergences``
+    for the tie control (in the drill's form, the body as the workers'
+    model's). A stream that restored its prefix from a tier computes only
+    its suffix, and one computed whole may differ from it where bf16
+    logits tie."""
+    equal, div = dg_divergences(tag, run, ref, [(p, dict(b, model=FE_MODEL))
+                                                for p, b in bodies])
+    divergences.extend(div)
+    return equal
+
+
+async def gk_run(port: int, bodies: list, settle=None) -> list:
+    """The bodies through the frontend on ``port``, one at a time: per
+    request its stats (TTFT, usage) and tokens. ``settle``: a worker's
+    status port whose offloads must reach its tiers before the next
+    request (the offload queue sheds what it cannot hold)."""
+    out = []
+    for i, (path, body) in enumerate(bodies):
+        if settle is not None and i:
+            await gk_settle(settle)
+        t_sub = time.perf_counter()
+        status, events = await asyncio.wait_for(http_call(port, "POST", path, body), 120)
+        if status != 200:
+            raise AssertionError(f"global_kv request {i}: HTTP {status}: {str(events)[:300]}")
+        st = fe_stream_stats(t_sub, events, True)
+        st["tokens_lp"] = dg_stream_tokens(events)
+        if st["tokens"] != GK_TOKENS or len(st["tokens_lp"]) != GK_TOKENS:
+            raise AssertionError(f"global_kv request {i}: {st['tokens']} tokens")
+        out.append(st)
+    return out
+
+
+def gk_reusable(st: dict) -> int:
+    """The tokens a request can take from a cache: its full blocks strictly
+    before its last prompt token (what admission reuses)."""
+    return (st["usage"]["prompt_tokens"] - 1) // 16 * 16
+
+
+async def gk_settle(status_port: int) -> dict:
+    """A worker's /debug/worker once its offloads have all reached the tiers
+    and its directory upkeep has caught up: the offload queue empty and the
+    offloaded and published counts unchanged over 0.25 s (the parked
+    loop's upkeep runs every 0.5 s: the published count is read twice)."""
+    prev = prev2 = None
+    for _ in range(480):
+        doc = await dg_worker_doc(status_port)
+        kv = doc["engine"]["kvbm"]
+        cur = (kv["offloaded"], doc.get("global_kv", {}).get("published"))
+        if kv["queue_depth"] == 0 and cur == prev and cur == prev2:
+            if kv["queue_shed"] or kv["errors"]:
+                raise AssertionError(f"a worker's KVBM shed or failed offloads: {kv}")
+            return doc
+        prev2, prev = prev, cur
+        await asyncio.sleep(0.25)
+    raise AssertionError(f"a worker's offloads never settled: {doc['engine']['kvbm']}")
+
+
+async def gk_clear(port: int, model: str, status_port: int) -> None:
+    """Empty one model's worker's G1 and G2 (``POST /clear_kv_blocks``) and
+    wait until its directory upkeep withdrew every advertisement."""
+    status, body = await http_call(port, "POST", "/clear_kv_blocks",
+                                   {"model": model, "levels": ["g1", "g2"]})
+    if status != 200 or not body["cleared"].get(model):
+        raise AssertionError(f"POST /clear_kv_blocks {model}: HTTP {status}: {body}")
+    for _ in range(100):
+        doc = await dg_worker_doc(status_port)
+        if (doc["global_kv"]["published"] == 0 and doc["engine"]["cached_blocks"] == 0
+                and doc["engine"]["kvbm"]["host_blocks"] == 0):
+            return
+        await asyncio.sleep(0.1)
+    raise AssertionError(f"{model}'s advertisements outlived its clear: {doc['global_kv']}")
+
+
+async def gk_plans(port: int, n: int) -> list:
+    """The global_kv_plan flight event of each of the frontend's last ``n``
+    requests, oldest first (None: no plan event)."""
+    status, doc = await http_call(port, "GET", f"/debug/requests?limit={n}")
+    if status != 200:
+        raise AssertionError(f"/debug/requests: HTTP {status}")
+    return [next((e["event"] for e in r["events"] if e["event"]["kind"] == "global_kv_plan"),
+                 None) for r in reversed(doc["requests"])]
+
+
+def gk_g2_read() -> dict:
+    """The tier stream's server-side read, timed on this host: per window
+    of 8 llama3-8b bf16 blocks, 8 ``get_block`` calls on a G2 host tier,
+    the window's ``np.stack``, its bytes and a crc32 a block (what
+    ``_handle_tier_stream`` does before the frame goes out). Warm: the
+    blocks were just written."""
+    import zlib
+
+    from dynamo_tpu_torch.kvbm.pool import KvbmTiers
+
+    rng = np.random.default_rng(11)
+    nbytes = int(np.prod(GK_BLOCK_SHAPE)) * 2
+    tiers = KvbmTiers(nbytes, host_capacity_bytes=(GK_READ_BLOCKS + 8) * nbytes)
+    for h in range(GK_READ_BLOCKS):
+        tiers.store(h + 1, rng.integers(0, 1 << 16, GK_BLOCK_SHAPE, dtype=np.uint16))
+    t0 = time.perf_counter()
+    for w in range(0, GK_READ_BLOCKS, 8):
+        blocks = [tiers.get_block(h + 1)[0] for h in range(w, w + 8)]
+        arr = np.stack(blocks)
+        arr.tobytes()
+        [zlib.crc32(np.ascontiguousarray(b).view(np.uint8)) for b in blocks]
+    s = (time.perf_counter() - t0) / GK_READ_BLOCKS
+    tiers.close()
+    return {"s_per_block": s, "blocks": GK_READ_BLOCKS, "block_bytes": nbytes}
+
+
+def gk_slope(xs: list, ys: list) -> float:
+    """The least-squares slope of ys over xs."""
+    mx, my = statistics.mean(xs), statistics.mean(ys)
+    return (sum((x - mx) * (y - my) for x, y in zip(xs, ys))
+            / sum((x - mx) ** 2 for x in xs))
+
+
+async def gk_fleet(store_addr: str, members: list, s2: "Proc") -> dict:
+    """(d): a DistributedBlockPool in this process on the netstore shards
+    GK_FLEET_BLOCKS real-size blocks over the two registered G4 stores;
+    then the second store is killed and its lease expires."""
+    from dynamo_tpu_torch.kvbm.distributed import DistributedBlockPool, HashRing
+    from dynamo_tpu_torch.kvbm.remote import RemoteBlockPool
+    from dynamo_tpu_torch.runtime.discovery.store import make_store
+
+    store = make_store("tcp", store_addr)
+    pool = await DistributedBlockPool(store, "dynamo").start()
+    loop = asyncio.get_running_loop()
+
+    def off(fn, *a):
+        return loop.run_in_executor(None, fn, *a)
+
+    out = {}
+    try:
+        for _ in range(200):
+            if pool.members() == sorted(members):
+                break
+            await asyncio.sleep(0.05)
+        if pool.members() != sorted(members):
+            raise AssertionError(f"the G4 fleet: members {pool.members()}, want {members}")
+        ring = HashRing()
+        for a in members:
+            ring.add(a)
+        rng = np.random.default_rng(13)
+        hashes = [int(h) for h in rng.integers(1, 2**63, GK_FLEET_BLOCKS, dtype=np.int64)]
+        blocks = {h: rng.integers(0, 1 << 16, GK_BLOCK_SHAPE, dtype=np.uint16) for h in hashes}
+        t0 = time.perf_counter()
+        for h in hashes:
+            await off(pool.store, h, blocks[h])
+        out["store_s"] = time.perf_counter() - t0
+        owners = {h: ring.owner(h) for h in hashes}
+        split = {}
+        for a in members:
+            probe = RemoteBlockPool(a)
+            have = await off(probe.contains_many, hashes)
+            probe.close()
+            mine = [h for h, ok in zip(hashes, have) if ok]
+            if sorted(mine) != sorted(h for h in hashes if owners[h] == a):
+                raise AssertionError(f"G4 member {a} holds blocks the ring does not name, "
+                                     "or lacks some it names")
+            split[a] = len(mine)
+        if min(split.values()) == 0:
+            raise AssertionError(f"a G4 member holds no block: {split}")
+        out["split"] = [split[a] for a in members]
+        t0 = time.perf_counter()
+        got = [await off(pool.get, h) for h in hashes]
+        out["get_s"] = time.perf_counter() - t0
+        bad = [h for h, g in zip(hashes, got) if g is None or not np.array_equal(g, blocks[h])]
+        if bad:
+            raise AssertionError(f"{len(bad)} G4 fleet gets not bit-exact")
+        # the second member dies: at its lease's expiry its shard misses
+        # and the first's still hits, bit for bit
+        s2.proc.kill()
+        s2.proc.wait()
+        t0 = time.perf_counter()
+        for _ in range(300):
+            if pool.members() == [members[0]]:
+                break
+            await asyncio.sleep(0.05)
+        if pool.members() != [members[0]]:
+            raise AssertionError(f"the killed store never left the ring: {pool.members()}")
+        out["expiry_s"] = time.perf_counter() - t0
+        got = [await off(pool.get, h) for h in hashes]
+        lost = [h for h in hashes if owners[h] == members[1]]
+        if any(got[i] is not None for i, h in enumerate(hashes) if owners[h] == members[1]):
+            raise AssertionError("a dead member's block came back")
+        if any(got[i] is None or not np.array_equal(got[i], blocks[h])
+               for i, h in enumerate(hashes) if owners[h] == members[0]):
+            raise AssertionError("the surviving member's shard did not hit bit for bit")
+        out.update(missed=len(lost), hit=len(hashes) - len(lost))
+    finally:
+        await pool.stop()
+        await store.close()
+    return out
+
+
+def global_kv_phase(torch, smi: str) -> dict:
+    """Phase 16 (module docstring): fleet-wide KV reuse on one card. The
+    netstore, two G4 stores of the fleet, worker A (G2 + G4 write-through)
+    and worker B (G2), two frontends with the directory on: runs (a)-(d)
+    with their gates; returns the phase's numbers and each worker's
+    page-copy launches."""
+    import tempfile
+
+    procs = []
+    tmp = tempfile.TemporaryDirectory()
+    t0 = time.perf_counter()
+    try:
+        store = Proc("netstore", "dynamo_tpu_torch.runtime.discovery.netstore",
+                     "--host", "127.0.0.1", "--port", "0")
+        procs.append(store)
+        addr = store.wait_line("KVSTORE_READY", 30).split()[1]
+        common = ("--store", "tcp", "--store-path", addr)
+        s1 = Proc("G4 store 1", "dynamo_tpu_torch.kvbm", "--host", "127.0.0.1", "--port", "0",
+                  "--capacity-gb", "8", *common, env=GK_STORE_ENV)
+        s2 = Proc("G4 store 2", "dynamo_tpu_torch.kvbm", "--host", "127.0.0.1", "--port", "0",
+                  "--capacity-gb", "1", *common, env=GK_STORE_ENV)
+        procs += [s1, s2]
+        g4 = [s.wait_line("KVBM_REMOTE_READY", 60).split()[1] for s in (s1, s2)]
+        for s, a in zip((s1, s2), g4):
+            if s.wait_line("KVBM_FLEET_MEMBER", 5).split()[1] != a:
+                raise AssertionError(f"{s.name} registered another address than it serves")
+        wa = Proc("worker A", "dynamo_tpu_torch.engine", *common, *FE_WORKER, "--system-port",
+                  "0", "--kvbm-host-gb", GK_HOST_GB, "--kvbm-remote", g4[0], env=GK_ENV)
+        wb = Proc("worker B", "dynamo_tpu_torch.engine", *common, *FE_WORKER, "--model", GK_B,
+                  "--component", "backend_b", "--system-port", "0", "--kvbm-host-gb",
+                  GK_HOST_GB, env=GK_ENV)
+        fd = Proc("global kv frontend", "dynamo_tpu_torch.frontend", *common, "--host",
+                  "127.0.0.1", "--port", "0", env=GK_ENV)
+        ff = Proc("global kv frontend (fetch)", "dynamo_tpu_torch.frontend", *common, "--host",
+                  "127.0.0.1", "--port", "0",
+                  env={**GK_ENV, "DTPU_GLOBAL_KV_FETCH_MARGIN": "1e9"})
+        procs += [wa, wb, fd, ff]
+        # host work while the workers build
+        out = {"g2_read": gk_g2_read()}
+        port = int(fd.wait_line("TORCH_FRONTEND_READY", 60).rsplit(":", 1)[1])
+        fport = int(ff.wait_line("TORCH_FRONTEND_READY", 60).rsplit(":", 1)[1])
+        for w in (wa, wb):
+            w.wait_line("TORCH_ENGINE_READY")
+        a_status = int(wa.wait_line("TORCH_STATUS_ADDRESS").rsplit(":", 1)[1])
+        b_status = int(wb.wait_line("TORCH_STATUS_ADDRESS").rsplit(":", 1)[1])
+        a_transfer = wa.wait_line("KV_TRANSFER at").split()[-1]
+        wb.wait_line("KV_TRANSFER at")
+
+        async def models():
+            for p in (port, fport):
+                for _ in range(600):
+                    status, body = await http_call(p, "GET", "/v1/models")
+                    if status == 200 and sorted(m["id"] for m in body["data"]) == sorted(
+                            [FE_MODEL, GK_B]):
+                        break
+                    await asyncio.sleep(0.05)
+                else:
+                    raise AssertionError(f"/v1/models on :{p} never listed both workers")
+
+        asyncio.run(models())
+        divergences, equal = [], {}
+        a_holder = f"worker/{int(asyncio.run(dg_worker_doc(a_status))['instance_id'], 16)}"
+        out["ready_s"] = time.perf_counter() - t0
+        res = {}
+        bodies_a = gk_bodies(FE_MODEL, 2100)
+        bodies_b = gk_bodies(GK_B, 2100)   # the same prompts, to worker B
+
+        async def run_a1():
+            # (a) G4, first half: A serves the prompts, each written through
+            # to G2 and G4 and advertised in the directory
+            t1 = time.perf_counter()
+            first = await gk_run(port, bodies_a, settle=a_status)
+            doc = await gk_settle(a_status)
+            loop = asyncio.get_running_loop()
+            from dynamo_tpu_torch.kvbm.remote import RemoteBlockPool
+            from dynamo_tpu_torch.runtime.discovery.store import make_store
+
+            probe = RemoteBlockPool(g4[0])
+            st = await loop.run_in_executor(None, probe.stats)
+            probe.close()
+            kv0 = doc["engine"]["kvbm"]
+            if st.get("blocks") != kv0["offloaded"]:
+                raise AssertionError(f"G4 holds {st.get('blocks')} blocks, A offloaded "
+                                     f"{kv0['offloaded']}")
+            # A's advertisements, for (c)
+            store_c = make_store("tcp", addr)
+            try:
+                raw = await store_c.list_prefix("kvdir/")
+            finally:
+                await store_c.close()
+            res["a"] = {"first": first, "kv0": kv0, "g4_blocks": st["blocks"],
+                        "published": doc["global_kv"]["published"],
+                        "seconds": time.perf_counter() - t1}
+            res["entries"] = {k: v for k, v in raw.items() if k.endswith("/" + a_holder)}
+
+        async def run_b():
+            # (b) peer tier: the prompts A served, sent to B
+            t1 = time.perf_counter()
+            on_a = res["a"]["first"]
+            doc0 = await dg_worker_doc(b_status)
+            dflt = await gk_run(port, bodies_b)
+            plans = await gk_plans(port, len(bodies_b))
+            doc1 = await gk_settle(b_status)
+            pulls_dflt = dg_new_pulls(doc0, doc1)
+            if None in plans or any(p["holder"] != a_holder for p in plans):
+                raise AssertionError(f"(b): the plans do not all name A: {plans}")
+            fetched = [p["fetch_wins"] for p in plans]
+            if len(pulls_dflt) != sum(fetched):
+                raise AssertionError(f"(b) default priors: {sum(fetched)} fetch verdicts, "
+                                     f"{len(pulls_dflt)} pulls")
+            cold = dflt
+            if any(fetched):
+                # the recompute needs a run of its own: B cold, every plan
+                # priced to recompute
+                fc = Proc("global kv frontend (recompute)", "dynamo_tpu_torch.frontend",
+                          *common, "--host", "127.0.0.1", "--port", "0",
+                          env={**GK_ENV, "DTPU_GLOBAL_KV_FETCH_MARGIN": "0"})
+                procs.append(fc)
+                cport = int(fc.wait_line("TORCH_FRONTEND_READY", 60).rsplit(":", 1)[1])
+                await gk_clear(port, GK_B, b_status)
+                cold = await gk_run(cport, bodies_b)
+                await gk_settle(b_status)
+            await gk_clear(port, GK_B, b_status)
+            doc2 = await dg_worker_doc(b_status)
+            fetch = await gk_run(fport, bodies_b)
+            doc3 = await gk_settle(b_status)
+            pulls = dg_new_pulls(doc2, doc3)
+            if len(pulls) != len(bodies_b):
+                raise AssertionError(f"(b) fetch: {len(pulls)} pulls for {len(bodies_b)}")
+            for i, (p, st) in enumerate(zip(pulls, fetch)):
+                if not p["tier"] or p["wire"] != "tier" or p["tokens"] != p["want_tokens"]:
+                    raise AssertionError(f"(b) fetch {i}: not a whole tier pull: {p}")
+                if p["address"] != a_transfer:
+                    raise AssertionError(f"(b) fetch {i}: pulled from {p['address']}, not A")
+                if p["want_tokens"] != st["usage"]["prompt_tokens"] // 16 * 16:
+                    raise AssertionError(f"(b) fetch {i}: the plan missed full blocks: {p}")
+                if st["usage"].get("cached_tokens") != min(p["tokens"], gk_reusable(st)):
+                    raise AssertionError(f"(b) fetch {i}: cached {st['usage']}, pulled {p}")
+            equal["b_fetch"] = gk_compare("b_fetch", fetch, on_a, bodies_b, divergences)
+            equal["b_default"] = gk_compare("b_default", dflt, on_a, bodies_b, divergences)
+            if doc3["global_kv"]["inflight_fetches"]:
+                raise AssertionError(f"(b): fetch leases open: {doc3['global_kv']}")
+            fb = doc3["transfer"]["fallbacks"]["counts"]
+            if any(fb.values()):
+                raise AssertionError(f"(b): transfer fallbacks {fb}")
+            res["b"] = {
+                "plans": plans, "prompt_tokens": [st["usage"]["prompt_tokens"] for st in fetch],
+                "fetch_ttft_s": [st["ttft_s"] for st in fetch],
+                "recompute_ttft_s": [st["ttft_s"] for st in cold],
+                "default_ttft_s": [st["ttft_s"] for st in dflt],
+                "pulls": pulls, "default_pulls": pulls_dflt,
+                "bandwidth": doc3["bandwidth"], "seconds": time.perf_counter() - t1}
+
+        async def run_a2():
+            # (a) G4, second half: A's G1 and G2 cleared, the prompts again
+            t1 = time.perf_counter()
+            first = res["a"]["first"]
+            await gk_clear(port, FE_MODEL, a_status)
+            again = await gk_run(port, bodies_a)
+            doc = await gk_settle(a_status)
+            for i, y in enumerate(again):
+                if y["usage"].get("cached_tokens") != gk_reusable(y):
+                    raise AssertionError(f"(a) repeat {i}: cached {y['usage']}, want "
+                                         f"{gk_reusable(y)} from G4")
+            equal["a"] = gk_compare("a", again, first, bodies_a, divergences)
+            res["a"].update(
+                first_ttft_s=[x["ttft_s"] for x in first],
+                repeat_ttft_s=[y["ttft_s"] for y in again],
+                cached_tokens=[y["usage"]["cached_tokens"] for y in again],
+                prompt_tokens=[y["usage"]["prompt_tokens"] for y in again],
+                onboarded_blocks=doc["engine"]["kvbm"]["onboarded"]
+                - res["a"]["kv0"]["onboarded"],
+                onboards=len(again), seconds=res["a"]["seconds"] + time.perf_counter() - t1)
+
+        async def run_c(entries):
+            # (c) dead holder: A's advertisements again, at A's gone address
+            from dynamo_tpu_torch.runtime.discovery.store import make_store
+
+            t1 = time.perf_counter()
+            st = make_store("tcp", addr)
+            lease = await st.create_lease(3600.0)
+            for k, v in entries.items():
+                await st.put(k, v, lease.id)
+            await gk_clear(port, GK_B, b_status)
+            doc0 = await dg_worker_doc(b_status)
+            got = await gk_run(fport, [bodies_b[i] for i in GK_DEAD])
+            doc1 = await gk_settle(b_status)
+            await st.revoke_lease(lease.id)
+            await st.close()
+            pulls = dg_new_pulls(doc0, doc1)
+            if len(pulls) != len(GK_DEAD) or any(
+                    not p["tier"] or p["tokens"] != 0 or p["address"] != a_transfer
+                    for p in pulls):
+                raise AssertionError(f"(c): the pulls of the dead holder's plans: {pulls}")
+            if doc1["global_kv"]["inflight_fetches"]:
+                raise AssertionError(f"(c): fetch leases open: {doc1['global_kv']}")
+            rc = (doc1["transfer"]["fallbacks"]["counts"]["recompute"]
+                  - doc0["transfer"]["fallbacks"]["counts"]["recompute"])
+            if rc != len(GK_DEAD):
+                raise AssertionError(f"(c): {rc} recomputes counted for {len(GK_DEAD)}")
+            equal["c"] = gk_compare("c", got, [res["a"]["first"][i] for i in GK_DEAD],
+                                    [bodies_b[i] for i in GK_DEAD], divergences)
+            res["c"] = {"ttft_s": [x["ttft_s"] for x in got], "entries": len(entries),
+                        "seconds": time.perf_counter() - t1}
+
+        asyncio.run(run_a1())
+        if not res["entries"]:
+            raise AssertionError("(c): worker A advertised nothing")
+        asyncio.run(run_b())
+        b = res["b"]
+        log(f"global_kv (b) peer tier on {smi}: per prompt (tokens: fetch s / recompute s, "
+            "GB/s, windows; default-prior verdict fetch_s/recompute_s priced): " + "; ".join(
+                f"{n}: {f:.4f}/{r:.4f} s, {p['bytes'] / p['seconds'] / 1e9:.3f} GB/s, "
+                f"{p['windows']} w; {'fetch' if v['fetch_wins'] else 'recompute'} "
+                f"{v['fetch_s']:.4f}/{v['recompute_s']:.4f}"
+                for n, f, r, p, v in zip(b["prompt_tokens"], b["fetch_ttft_s"],
+                                         b["recompute_ttft_s"], b["pulls"], b["plans"]))
+            + f"; streams equal to A's: fetched {equal['b_fetch']}, default "
+            f"{equal['b_default']} [{b['seconds']:.1f} s]")
+        asyncio.run(run_a2())
+        log(f"global_kv (a) G4 on {smi}: {len(GK_PROMPTS)} prompts served, A's G1 and G2 "
+            f"cleared, served again: every full-block prefix from G4 "
+            f"({res['a']['onboarded_blocks']} blocks, {res['a']['g4_blocks']} in the store), "
+            f"streams equal to the first run's: {equal['a']} of {len(GK_PROMPTS)} (the rest "
+            f"to the tie rule); TTFT first / repeat (ms): " + ", ".join(
+                f"{x * 1e3:.1f}/{y * 1e3:.1f}" for x, y in zip(
+                    res["a"]["first_ttft_s"], res["a"]["repeat_ttft_s"]))
+            + f" [{res['a']['seconds']:.1f} s]")
+        if wa.stop() != 0:
+            raise AssertionError(f"worker A exited {wa.proc.returncode}")
+        exits = {"a": json.loads(wa.wait_line("TORCH_ENGINE_EXIT", 10).split(" ", 1)[1])}
+        asyncio.run(run_c(res.pop("entries")))
+        log(f"global_kv (c) dead holder on {smi}: {len(GK_DEAD)} plans naming A at its "
+            f"gone address ({res['c']['entries']} re-advertised entries) recomputed, leases "
+            f"aborted; streams equal to A's: {equal['c']}; TTFT (ms) " + ", ".join(
+                f"{x * 1e3:.1f}" for x in res["c"]["ttft_s"])
+            + f" [{res['c']['seconds']:.1f} s]")
+        for p in (fd, ff) + tuple(p for p in procs if p.name.endswith("(recompute)")):
+            if p.stop() != 0:
+                raise AssertionError(f"the {p.name} exited {p.proc.returncode}")
+        if wb.stop() != 0:
+            raise AssertionError(f"worker B exited {wb.proc.returncode}")
+        exits["b"] = json.loads(wb.wait_line("TORCH_ENGINE_EXIT", 10).split(" ", 1)[1])
+        control = None
+        if divergences:
+            # the streams that differ, held to the tie rule on the workers'
+            # weights (phase 14's tie control) with the card free, while (d)
+            # runs on the host
+            path = os.path.join(tmp.name, "divergences.json")
+            with open(path, "w") as f:
+                json.dump(divergences, f)
+            control = Proc("tie control", "chip_smoke", "--tie-control", path)
+            procs.append(control)
+        t1 = time.perf_counter()
+        res["d"] = asyncio.run(gk_fleet(addr, g4, s2))
+        res["d"]["seconds"] = time.perf_counter() - t1
+        d = res["d"]
+        log(f"global_kv (d) sharded G4 fleet on {smi}: {GK_FLEET_BLOCKS} blocks of "
+            f"{int(np.prod(GK_BLOCK_SHAPE)) * 2 / 2**20:.0f} MiB, split {d['split']} as the "
+            f"port's ring names, stored in {d['store_s']:.3f} s, got back bit-exact in "
+            f"{d['get_s']:.3f} s; store 2 killed, gone from the ring after "
+            f"{d['expiry_s']:.1f} s: {d['missed']} misses, {d['hit']} hits bit-exact "
+            f"[{d['seconds']:.1f} s]")
+        for p in (s1, store):
+            if p.stop() != 0:
+                raise AssertionError(f"the {p.name} exited {p.proc.returncode}")
+        gaps = []
+        if control is not None:
+            gaps = json.loads(control.wait_line("TIE_CONTROL").split(" ", 1)[1])
+            if control.join() != 0:
+                raise AssertionError(f"the tie control exited {control.proc.returncode}")
+    finally:
+        for p in procs:
+            p.stop()
+        tmp.cleanup()
+    errors = [f"{p.name}: {ln}" for p in procs for ln in p.errors()]
+    if errors:
+        raise AssertionError("ERROR records in the global_kv phase's logs:\n"
+                             + "\n".join(errors[:20]))
+    # the page copies: A's onboards from G4 one scatter each, B's tier
+    # windows one scatter each (B onboards nothing from its own tiers)
+    ea, eb = exits["a"]["launches"], exits["b"]["launches"]
+    if ea["scatter"] != res["a"]["onboards"]:
+        raise AssertionError(f"worker A: {ea['scatter']} scatter launches for "
+                             f"{res['a']['onboards']} onboards")
+    windows = sum(p["windows"] for p in res["b"]["pulls"] + res["b"]["default_pulls"])
+    if eb["scatter"] != windows:
+        raise AssertionError(f"worker B: {eb['scatter']} scatter launches for {windows} "
+                             "tier windows")
+    if ea["gather"] <= 0 or eb["gather"] <= 0:
+        raise AssertionError(f"a worker never gathered an offload: {ea} {eb}")
+    b = res["b"]
+    blocks = [n // 16 for n in b["prompt_tokens"]]
+    for k in ("first", "kv0"):
+        res["a"].pop(k)
+    out.update(res, equal=equal, tie_gaps=gaps)
+    prefill = gk_slope([n // 16 for n in res["a"]["prompt_tokens"]], res["a"]["first_ttft_s"])
+    planned = gk_slope(blocks, b["recompute_ttft_s"])
+    out["priors"] = {
+        # the recompute: the TTFT slope over the prompts' blocks of A's cold
+        # first run (each plan's lookup ends at the first block: nobody
+        # holds it); B's cold run pays the planner's lookups of every block
+        # A holds on top
+        "prefill_s_per_block": prefill,
+        "planned_recompute_s_per_block": planned,
+        "lookup_s_per_block": planned - prefill,
+        "g2_read_s_per_block": out["g2_read"]["s_per_block"],
+        "tier_bytes_s": sum(p["bytes"] for p in b["pulls"])
+        / sum(p["seconds"] for p in b["pulls"]),
+    }
+    out["launches"] = {"gather": ea["gather"] + eb["gather"],
+                       "scatter": ea["scatter"] + eb["scatter"], "a": ea, "b": eb}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def global_kv_summary(gk: dict, smi: str) -> list:
+    """The priors measured on the card, and per prompt the planner's verdict
+    under the reference's priors and under the measured ones beside what
+    the card measured (fetch TTFT against the cold recompute TTFT)."""
+    from dynamo_tpu_torch.ops.costs import fetch_vs_recompute
+
+    pr, b = gk["priors"], gk["b"]
+    nbytes = gk["g2_read"]["block_bytes"]
+
+    def verdict(n, bw, block_s, read_s):
+        return fetch_vs_recompute(n, block_size=16, kv_bytes_per_block=nbytes,
+                                  bandwidth_bytes_s=bw, prefill_base_s=0.0,
+                                  prefill_per_token_s=block_s / 16, tier="g2",
+                                  tier_read_s_per_block=read_s)["fetch_wins"]
+
+    def word(wins):
+        return "fetch" if wins else "recompute"
+
+    rows = []
+    for p, f, r, v in zip(b["pulls"], b["fetch_ttft_s"], b["recompute_ttft_s"], b["plans"]):
+        n = p["tokens"] // 16
+        rows.append(f"{n} blocks: fetch {f:.4f} s vs recompute {r:.4f} s "
+                    f"({'fetch' if f <= r else 'recompute'} faster); the port's defaults "
+                    f"{word(v['fetch_wins'])}, the reference's priors "
+                    f"{word(verdict(n, 5e8, 0.010, 2e-4))}, this run's "
+                    f"{word(verdict(n, pr['tier_bytes_s'], pr['prefill_s_per_block'], pr['g2_read_s_per_block']))}")
+    return [
+        f"global_kv priors on {smi}: recompute {pr['prefill_s_per_block'] * 1e3:.4f} ms a "
+        f"16-token block (worker A's cold TTFT slope over the 8 prompts' blocks, 2048-token "
+        f"chunks; B's cold run, whose plans looked up every block, "
+        f"{pr['planned_recompute_s_per_block'] * 1e3:.4f} ms: the lookups "
+        f"{pr['lookup_s_per_block'] * 1e3:.4f} ms a block), G2 read "
+        f"{pr['g2_read_s_per_block'] * 1e3:.4f} ms a block (get_block, stack, bytes and "
+        f"crc32 of 8-block windows of {nbytes / 2**20:.0f} MiB, warm), tier wire "
+        f"{pr['tier_bytes_s'] / 1e9:.4f} GB/s ((b)'s pulls)",
+        "global_kv verdicts on " + smi + ": " + "; ".join(rows),
+        f"global_kv phase on {smi}: ready {gk['ready_s']:.1f} s, (a) {gk['a']['seconds']:.1f} "
+        f"s, (b) {b['seconds']:.1f} s, (c) {gk['c']['seconds']:.1f} s, (d) "
+        f"{gk['d']['seconds']:.1f} s; streams equal to their reference run's "
+        f"{gk['equal']} (each of 8, (c) of {len(GK_DEAD)}), the rest within the tie rule "
+        f"{gk['tie_gaps']}; page-copy launches: gather {gk['launches']['gather']}, "
+        f"scatter {gk['launches']['scatter']} (A: {gk['launches']['a']['scatter']} G4 "
+        f"onboards, B: {gk['launches']['b']['scatter']} tier windows)",
+    ]
+
+
 PHASES = ("kernels", "model", "serve", "horizon", "gptoss", "moe_mla", "vision", "spec",
-          "checkpoint", "features", "shapes", "frontend", "kv_router", "disagg")
+          "checkpoint", "features", "shapes", "frontend", "kv_router", "disagg", "global_kv")
 
 
 def main() -> int:
@@ -9123,6 +9764,14 @@ def main() -> int:
         for line in disagg_summary(dg, smi):
             log(line)
         log(f"disagg phase [{time.perf_counter() - t0:.1f} s]")
+    gk = None
+    if "global_kv" in phases:
+        t0 = time.perf_counter()
+        gk = global_kv_phase(torch, smi)
+        log("global_kv: " + json.dumps(gk))
+        for line in global_kv_summary(gk, smi):
+            log(line)
+        log(f"global_kv phase [{time.perf_counter() - t0:.1f} s]")
     log(f"all phases [{time.perf_counter() - t_start:.1f} s]")
     if phases != set(PHASES):
         log("partial run (--phases): no report")
@@ -9142,9 +9791,11 @@ def main() -> int:
     kernels = []
     # the disagg phase's page copies are the same kernel's layer-batched
     # moves: its prefill worker's gathers and its decode workers' scatters
-    # are added to the gather_layers / scatter_layers rows
-    extra = {"gather_layers": dg["launches"]["gather"],
-             "scatter_layers": dg["launches"]["scatter"]}
+    # are added to the gather_layers / scatter_layers rows,
+    # and so are the global_kv phase's: its workers' offload gathers, worker
+    # A's G4 onboards and worker B's tier windows
+    extra = {"gather_layers": dg["launches"]["gather"] + gk["launches"]["gather"],
+             "scatter_layers": dg["launches"]["scatter"] + gk["launches"]["scatter"]}
     for name, key, run in (
             ("paged_decode_attention", "decode", serving),
             ("flash_extend_attention", "flash_extend", serving),

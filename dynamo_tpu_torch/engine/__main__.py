@@ -60,6 +60,15 @@ move pages through the card's memory (CUDA IPC) unless
 in its ``transfer`` section; each pull's EWMA feeds the ``wire_collapse``
 detector.
 
+KVBM: ``--kvbm-host-gb`` / ``--kvbm-disk-gb`` give the engine its G2 / G3
+tiers, and ``--kvbm-remote HOST:PORT`` (``DTPU_KVBM_REMOTE``) writes sealed
+blocks through to a G4 block store (``python -m dynamo_tpu_torch.kvbm``)
+and onboards from it. With ``DTPU_GLOBAL_KV=1`` a KVBM worker serves the
+transfer endpoint in aggregated mode too, advertises its G2/G3 blocks in
+the global KV directory (kvbm/directory.py) under a lease of its own,
+revoked at shutdown, and reports them in ``/debug/worker``'s ``global_kv``
+section (published entries, fetch leases open, dedupe skips).
+
 Beside ``generate`` the worker serves ``clear_kv_blocks`` under the same
 instance id (llm/serve.py ``serve_clear_endpoint``; the frontend's ``POST
 /clear_kv_blocks`` fans out to it). A vision preset (``--preset tiny-vl``)
@@ -102,6 +111,7 @@ from ..llm.model_card import (
     ModelDeploymentCard,
     ModelRuntimeConfig,
 )
+from ..kvbm.directory import GlobalKvDirectory, directory_enabled
 from ..llm.serve import register_llm, serve_clear_endpoint
 from ..models.registry import PRESETS, is_gptoss
 from ..parsers import get_reasoning_parser, get_tool_parser
@@ -111,6 +121,7 @@ from ..runtime.config import (
     ENV_KVBM_DISK_CACHE_GB,
     ENV_KVBM_DISK_PATH,
     ENV_KVBM_HOST_CACHE_GB,
+    ENV_KVBM_REMOTE,
     ENV_MIGRATION_LIMIT,
     ENV_NAMESPACE,
     RuntimeConfig,
@@ -191,6 +202,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                    default=env_float(ENV_KVBM_DISK_CACHE_GB, 0.0),
                    help="disk KV tier size (G3)")
     p.add_argument("--kvbm-disk-path", default=env_str(ENV_KVBM_DISK_PATH, "") or None)
+    p.add_argument("--kvbm-remote", default=env_str(ENV_KVBM_REMOTE, "") or None,
+                   help="G4 remote block store host:port (python -m dynamo_tpu_torch.kvbm): "
+                        "sealed blocks write through to it and onboard from it")
     p.add_argument("--decode-steps", type=int, default=None,
                    help="decode steps per dispatch (default: auto-tuned)")
     p.add_argument("--decode-pipeline", type=int, default=None,
@@ -273,7 +287,8 @@ def build_worker_engine(args: argparse.Namespace):
     engine = build_engine(
         out, args.device, args.max_context, args.seed, kv_dtype=args.kv_dtype,
         kvbm_host_gb=args.kvbm_host_gb, kvbm_disk_gb=args.kvbm_disk_gb,
-        kvbm_disk_path=args.kvbm_disk_path, decode_steps=args.decode_steps,
+        kvbm_disk_path=args.kvbm_disk_path, kvbm_remote=args.kvbm_remote,
+        decode_steps=args.decode_steps,
         decode_pipeline=args.decode_pipeline, spec_draft=args.spec_draft,
         spec_k=args.spec_k, spec_draft_path=args.spec_draft_path,
         warm_cache=not args.no_warm_cache, num_blocks=args.num_blocks, block_size=bs,
@@ -400,10 +415,11 @@ async def serve_status(args, runtime, engine, served, instance_id, telemetry, mo
 
     def worker_snapshot() -> dict:
         """What the frontend's /debug/fleet merges from this worker: host
-        counters only (the drain, restore and KV directory sections come
-        with ROADMAP Queue 1 items 5-6)."""
+        counters only, with the global KV directory's section when the
+        worker advertises in it (the drain and restore sections wait for
+        ROADMAP Queue 1 item 5.6)."""
         snap = engine.snapshot()
-        return {
+        doc = {
             "instance_id": f"{instance_id:016x}", "model": args.model, "tp": 1, "dp": 1,
             "engine": snap, "telemetry": [telemetry.snapshot()],
             "slo": debug_slo_payload(get_slo_accountant()),
@@ -417,6 +433,12 @@ async def serve_status(args, runtime, engine, served, instance_id, telemetry, mo
                    "total_blocks": engine.cfg.num_blocks,
                    "cached_blocks": snap["cached_blocks"]},
         }
+        directory = engine.kv_directory
+        if directory is not None:
+            doc["global_kv"] = {"published": directory.published_count,
+                                "inflight_fetches": directory.inflight_fetches,
+                                "dedupe_skipped": directory.dedupe_skipped}
+        return doc
 
     server = StatusServer(
         health, metrics_scope=runtime.metrics, pre_expose=refresh_gauges,
@@ -519,6 +541,19 @@ async def main(argv: Optional[List[str]] = None) -> None:
         # dispatches the decode request before the prefill ends
         addr = await engine.serve_transfer(host=cfg.host_ip)
         print(f"KV_TRANSFER at {addr}", flush=True)
+    directory = None
+    if engine.kvbm is not None and directory_enabled():
+        # fleet-wide KV reuse (kvbm/directory.py): advertise the sealed
+        # blocks of the host and disk tiers under a store lease and serve
+        # peers' pulls on the transfer endpoint, in aggregated mode too
+        if engine.transfer_address is None:
+            addr = await engine.serve_transfer(host=cfg.host_ip)
+            print(f"KV_TRANSFER at {addr}", flush=True)
+        directory = GlobalKvDirectory(runtime.store, f"worker/{instance_id}",
+                                      address=engine.transfer_address,
+                                      metrics=runtime.metrics)
+        await directory.start()
+        engine.kv_directory = directory
     # step telemetry on the runtime's metrics, under the component's labels,
     # and the drift detector fed from the same hook
     scope = runtime.metrics.child(dtpu_namespace=args.namespace,
@@ -589,6 +624,9 @@ async def main(argv: Optional[List[str]] = None) -> None:
     for s in lora_served + [clear_served]:
         await s.stop()
     engine.stop()
+    if directory is not None:
+        # revoke the lease: every advertisement of this worker goes at once
+        await directory.close()
     await runtime.shutdown()
     get_tracer().shutdown()
     report = {"launches": kernel_launches(), "steps": dict(engine.step_counts),

@@ -33,9 +33,17 @@ llama, gemma, gpt-oss, Qwen3-MoE and DeepSeek (MLA) families on one GPU
 - KVBM (``kvbm=KvbmTiers(...)``, kvbm/pool.py): sealed blocks are gathered
   off the device by the block-copy kernel, one launch per offload batch
   for every layer, and written through to the host (G2) and disk (G3)
-  tiers on an offload thread; a prompt whose prefix missed the device
-  cache onboards it from the tiers before admission, by one scatter
-  launch of the block-copy kernel;
+  tiers and the shared G4 remote store (kvbm/remote.py) on an offload
+  thread; a prompt whose prefix missed the device cache onboards it from
+  the tiers before admission, by one scatter launch of the block-copy
+  kernel;
+- fleet-wide KV reuse (``kv_directory``, kvbm/directory.py): every tick
+  advertises the blocks newly offloaded to a local tier in the global KV
+  directory and withdraws the ones no tier holds any more; a request whose
+  ``kv_transfer`` plan says ``tier`` pulls the planned blocks from the
+  holder's G2/G3 over the tier stream (engine/transfer.py, one scatter
+  launch a window) under a directory fetch lease, committed on any import
+  and aborted (a recompute) otherwise;
 - KV events (``kv_publisher=`` / ``metrics_publisher=``, kv_router/
   publisher.py): every loop tick drains the allocator's stored / removed
   events and publishes them and the load (with a LoRA engine's adapter
@@ -110,7 +118,7 @@ a fetch thread.
 Not in this slice (ROADMAP.md): LoRA on families other than dense llama,
 gpt-oss and MLA drafts, vision on Qwen3-MoE or with a spec draft, on the
 card a llama or Qwen3-MoE model at a head_dim outside {64, 128} or a group
-size above 8, the G4 remote KVBM tier and parallelism. A request that asks for one of those is
+size above 8, and parallelism. A request that asks for one of those is
 refused with ``UnsupportedRequestError`` (a 400 at the frontend); an engine configuration that
 does, with ``ValueError``. The engine serves behind the port's serving plane as the reference's
 does (``python -m dynamo_tpu_torch.engine``: the Backend operator, the TCP request plane and
@@ -127,6 +135,8 @@ to the prefix cache and published as stored KV events, as the prefill's
 own blocks are. A transfer that fails or falls short leaves the rest to
 the local prefill (logged, counted, a flight event). ``kv_commits`` wakes
 streamed fetches per committed prefill chunk and per import.
+The native transfer agent, the evacuation plan, drain and checkpoint are
+not ported yet (ROADMAP Queue 1 items 5.4-5.6).
 
 Health and observability hooks, all host-side bookkeeping on the loop
 thread (never inside a graph capture, never a device sync): ``healthy``
@@ -708,6 +718,10 @@ class TorchEngine:
 
         # --- KVBM (kvbm/pool.py): sealed blocks write through to host/disk ---
         self.kvbm = kvbm
+        # fleet-wide KV reuse (kvbm/directory.py): the serving glue attaches
+        # a GlobalKvDirectory when DTPU_GLOBAL_KV is on; _publish_events
+        # keeps its advertisements up to date
+        self.kv_directory = None
         # (block id, sequence hash, priority) whose KV is written and that
         # wait for the next offload batch: 0 = prompt blocks (highest reuse
         # odds), 1 = decode-sealed blocks
@@ -844,16 +858,34 @@ class TorchEngine:
         """Pull a ``kv_transfer`` plan's pages before admission, with the
         fetch's flight events (fetch_started, then fetch_committed or
         fetch_aborted, and transfer). A failure leaves the prefix to the
-        local prefill (counted by the client as a recompute)."""
+        local prefill (counted by the client as a recompute).
+
+        A ``tier`` plan (the global KV directory's) pulls from the holder's
+        KVBM G2/G3 instead of its device cache, under a directory fetch
+        lease that every path out discharges: a commit on any import, an
+        abort (the recompute) on zero progress or a failure. A plan whose
+        holder is this worker is dropped: its own tiers hold the blocks,
+        and the KVBM onboard imports them with no loopback copy."""
         plan = req.kv_transfer
+        directory = self.kv_directory
+        is_tier = bool(plan.get("tier"))
+        if is_tier and directory is not None and plan.get("holder") == directory.holder:
+            return
         flight = get_flight_recorder()
         hashes = [int(h) for h in plan.get("hashes", [])]
-        flight.record(req.request_id, "fetch_started", holder="", tier=False,
-                      blocks=len(hashes))
+        lease = (directory.begin_fetch(plan.get("holder", ""), hashes)
+                 if is_tier and directory is not None else None)
+        flight.record(req.request_id, "fetch_started", holder=plan.get("holder", ""),
+                      tier=is_tier, blocks=len(hashes))
         try:
             got = await self._get_transfer_client().fetch_and_import(
                 plan["address"], hashes, traceparent=(req.annotations or {}).get("traceparent"),
-                stream=bool(plan.get("stream")), request_id=req.request_id)
+                stream=bool(plan.get("stream")), request_id=req.request_id, tier=is_tier)
+            if lease is not None:
+                if got > 0:
+                    directory.commit_fetch(lease, got)
+                else:
+                    directory.abort_fetch(lease)
             if got > 0:
                 flight.record(req.request_id, "fetch_committed", tokens=got)
             else:
@@ -861,6 +893,8 @@ class TorchEngine:
             log.debug("imported %d transferred kv tokens for %s", got, req.request_id[:8])
             flight.record(req.request_id, "transfer", tokens=got, address=plan["address"])
         except Exception as e:
+            if lease is not None:
+                directory.abort_fetch(lease)
             log.exception("kv transfer failed; recomputing the prefill locally")
             flight.record(req.request_id, "fetch_aborted", reason=str(e)[:200])
             flight.record(req.request_id, "transfer", tokens=0, error=str(e)[:200],
@@ -1153,7 +1187,7 @@ class TorchEngine:
                         and all(s is None for s in self._slots)):
                     self._wake.clear()
                     self._idle = True
-                    await self._wake.wait()
+                    await self._park()
                     self._idle = False
                 # chaos drill hook: an armed engine.step fault crashes the
                 # loop through the real crash path below (the requests
@@ -1301,12 +1335,49 @@ class TorchEngine:
         never waits on the network."""
         stored, removed = self.allocator.drain_events()
         evicted = self.kvbm.drain_evicted() if self.kvbm is not None else []
+        if self.kv_directory is not None and self.kvbm is not None:
+            await self._directory_upkeep(evicted)
         if self.kv_publisher is not None:
             removed = await self._publish_kv_events(stored, removed, evicted)
         # on KV events AND whenever the load changed: releases emit no
         # events, and a stale active-block report would leave the router
         # seeing phantom load on an idle worker
         await self.publish_load(force=bool(stored or removed))
+
+    async def _park(self) -> None:
+        """Wait for work. With a KV directory attached, the offloads that
+        reach the tiers after the last tick (the offload thread finishes
+        behind the loop) are advertised twice a second while the loop is
+        parked, not at the next request's first tick."""
+        while self.kv_directory is not None and self.kvbm is not None:
+            try:
+                await asyncio.wait_for(self._wake.wait(), 0.5)
+                return
+            except asyncio.TimeoutError:
+                await self._publish_events()
+        await self._wake.wait()
+
+    async def _directory_upkeep(self, evicted: List[int]) -> None:
+        """The global KV directory on the tick's consolidated events:
+        advertise the blocks newly offloaded to a local tier, by tier, and
+        withdraw the evicted ones no device page holds either. A directory
+        fault (an armed ``directory.publish`` too) never stalls the loop:
+        the entries' TTL and lease age out what a failed withdraw left."""
+        by_hash = self.allocator._by_hash
+        gone = [h for h in evicted if by_hash.get(h) is None]
+        try:
+            by_tier: Dict[str, List[int]] = {}
+            for h in self.kvbm.drain_stored():
+                t = self.kvbm.tier_of(h)
+                if t is not None:
+                    by_tier.setdefault(t, []).append(h)
+            fmt = "int8" if self.kv_quantized else "model"
+            for t, hs in sorted(by_tier.items()):
+                await self.kv_directory.publish(hs, t, fmt)
+            if gone:
+                await self.kv_directory.unpublish(gone)
+        except Exception:
+            log.warning("kv directory upkeep failed (continuing)", exc_info=True)
 
     async def publish_load(self, force: bool = False) -> None:
         """Publish the load, and a LoRA engine's adapter keys, when they

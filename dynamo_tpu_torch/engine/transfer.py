@@ -1,10 +1,12 @@
-"""KV block transfer between engines: disaggregated prefill/decode.
+"""KV block transfer between engines: disaggregated prefill/decode and
+fleet-wide KV reuse.
 
-The port's copy of the reference package's engine/transfer.py, without its
-KVBM tier stream, native agent and multihost branches (ROADMAP Queue 1
-item 5). A prefill engine serves its pages by sequence hash; a decode
-engine pulls them and imports them as content-addressed cached pages, so
-that admission finds them as a cached prefix. Three paths move the bytes:
+The port's copy of the reference package's engine/transfer.py, with its
+KVBM tier stream and without its native agent and multihost branches
+(ROADMAP Queue 1 items 5.4 and 6). A prefill engine serves its pages by
+sequence hash; a decode engine pulls them and imports them as
+content-addressed cached pages, so that admission finds them as a cached
+prefix. Three paths move the bytes:
 
 1. **The wire (inline):** the serving engine gathers the pages into one
    device buffer in the wire's layer-major layout ``[L, 2, n, bs, kvh, d]``
@@ -53,6 +55,25 @@ Streamed protocol (same endpoint):
     device path too (the reference's streamed windows are inline or
     native).
 
+Tier stream (same endpoint; fleet-wide KV reuse, kvbm/directory.py):
+    request : {"tier": true, "hashes", "window": W}
+    response: window items {"offset": k, "matched": m <= W, "data": bytes,
+              "dtype", "shape": [m, ...], "fmt": "model" | "int8", "tier":
+              "g2" | "g3", "crc32": [per block], + "block_shape" for int8},
+              then {"eof": true, "served": n, "of": N}.
+    The server reads sealed blocks from its KVBM host and disk tiers
+    (``KvbmTiers.get_block``) in their storage format, which is already
+    block-major: model-dtype ``[m, L, 2, bs, kvh, d]`` pages or the flat
+    int8 codec buffers, bit-exact on the wire. The run ends at the first
+    hash no local tier holds. The client (``_pull_tier``) checks each
+    block's crc32, imports each window as it lands with ONE page-copy
+    launch (the engine's ``import_blocks``, the KVBM onboard's route:
+    ``scatter_layers``), resumes a lost stream from its first un-imported
+    block, and after ``STREAM_MAX_RESUMES`` attempts without progress
+    leaves the rest to the recompute. A float window at an int8 cache
+    quantises on the way in, an int8 window at a float cache dequantises.
+    The pull observes into the bandwidth EWMA under the wire class ``tier``.
+
 Two fallbacks are the reference's semantics and are kept: from a device
 path to the wire, and from a failed or short transfer to a local
 recompute. Each is logged and counted (``transfer_stats``: the
@@ -69,12 +90,15 @@ import itertools
 import os
 import threading
 import time
+import zlib
 from typing import Any, AsyncIterator, Deque, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..kvbm.layout import (
+    BlockShape,
+    QuantizedBlockCodec,
     dtype_from_name,
     dtype_name,
     storage_dtype,
@@ -412,6 +436,10 @@ class KvTransferServer:
                 self._reclaim_leases([(s, uuid) for s in pending[1]])
             yield {"ok": True}
             return
+        if request.get("tier"):
+            async for item in self._handle_tier_stream(request):
+                yield item
+            return
         if request.get("stream"):
             async for item in self._handle_stream(request):
                 yield item
@@ -461,6 +489,59 @@ class KvTransferServer:
                 stream_leases.extend((s, offer["uuid"]) for s in offer["ipc"]["slots"])
                 return {"matched": len(ids), "device": offer}, len(ids) * self._block_nbytes
         return await self._inline_item(ids)
+
+    async def _handle_tier_stream(self, request: Any) -> AsyncIterator[Dict]:
+        """Serve sealed blocks straight from the KVBM host and disk tiers as
+        block windows, in their storage format, with a crc32 a block (the
+        client rejects a torn disk read). There is no commit to wait for
+        and no lease to reclaim: the run ends at the first hash no local
+        tier holds, and the client recomputes the rest."""
+        t_serve = time.time_ns()
+        hashes = [int(h) for h in request.get("hashes", [])]
+        n = len(hashes)
+        window = max(1, int(request.get("window") or STREAM_WINDOW_BLOCKS))
+        kvbm = getattr(self.engine, "kvbm", None)
+        served = 0
+        nbytes_total = 0
+        loop = asyncio.get_running_loop()
+        while kvbm is not None and served < n:
+            blocks: List[np.ndarray] = []
+            tier = "g2"
+            for h in hashes[served:served + window]:
+                # a disk read blocks: keep it off the event loop
+                got = await loop.run_in_executor(None, kvbm.get_block, h)
+                if got is None:
+                    break
+                b, b_tier = got
+                if blocks and (b.shape != blocks[0].shape or b.dtype != blocks[0].dtype):
+                    break   # mixed storage formats: end the run, never mix
+                blocks.append(b)
+                tier = b_tier if b_tier == "g3" or tier == "g2" else tier
+            if not blocks:
+                break
+            arr = np.stack(blocks)
+            data = arr.tobytes()
+            item = {
+                "matched": len(blocks),
+                "offset": served,
+                "data": data,
+                "dtype": dtype_name(arr.dtype),
+                "shape": list(arr.shape),
+                "fmt": "int8" if arr.ndim == 2 else "model",
+                "tier": tier,
+                "crc32": [zlib.crc32(np.ascontiguousarray(b).view(np.uint8)) for b in blocks],
+            }
+            if arr.ndim == 2:
+                # flat int8 codec buffers: the logical block shape, so that
+                # a peer (a float cache too) can build the decode codec
+                item["block_shape"] = _wire_block_shape(self.engine)
+            yield item
+            served += len(blocks)
+            nbytes_total += len(data)
+            if len(blocks) < window:
+                break   # the run ended mid-window: nothing further is held
+        self._trace_serve(request, t_serve, "tier", served, nbytes_total)
+        yield {"eof": True, "served": served, "of": n}
 
     async def _handle_stream(self, request: Any) -> AsyncIterator[Dict]:
         """Block-window streaming fetch: serve committed blocks as windows,
@@ -626,7 +707,8 @@ class KvTransferClient:
     def __init__(self, engine, tcp_client: Optional[TcpClient] = None):
         self.engine = engine
         self._tcp = tcp_client or TcpClient()
-        # recent pulls (wire, bytes, seconds, blocks, windows' commit waits)
+        # recent pulls (wire, bytes, seconds, blocks, windows' commit waits, tier
+        # windows, the address)
         self.pulls: Deque[Dict[str, Any]] = collections.deque(maxlen=_PULL_LOG)
 
     async def _fetch_item(self, address: str, req: Dict[str, Any]) -> Dict[str, Any]:
@@ -653,13 +735,15 @@ class KvTransferClient:
 
     async def fetch_and_import(self, address: str, hashes: List[int],
                                traceparent: Optional[str] = None, stream: bool = False,
-                               request_id: Optional[str] = None) -> int:
+                               request_id: Optional[str] = None, tier: bool = False) -> int:
         """Pull blocks for ``hashes`` from ``address``; returns the tokens
         now cached locally (already-cached blocks are skipped, only the
         missing suffix is fetched). Imported blocks are committed
         content-addressed, so admission picks them up as a cached prefix.
 
-        ``stream`` takes the block-window protocol. ``traceparent``
+        ``stream`` takes the block-window protocol; ``tier`` pulls from the
+        peer's KVBM host and disk tiers instead of its device cache (the
+        tier stream, fleet-wide KV reuse). ``traceparent``
         continues the request's trace (a ``kv.transfer.pull`` span, shipped
         in the handshake so that the serving side's span joins it). The
         observed (bytes, seconds) feed the process's bandwidth estimator
@@ -676,8 +760,12 @@ class KvTransferClient:
         tokens = 0
         want_tokens = len(hashes) * self.engine.allocator.block_size
         try:
-            tokens = await self._pull(address, [int(h) for h in hashes], traceparent, info,
-                                      stream)
+            if tier:
+                tokens = await self._pull_tier(address, [int(h) for h in hashes], traceparent,
+                                               info)
+            else:
+                tokens = await self._pull(address, [int(h) for h in hashes], traceparent,
+                                          info, stream)
             if tokens < want_tokens:
                 self._fallback("recompute", "zero_progress" if tokens == 0 else "partial",
                                request_id)
@@ -698,7 +786,9 @@ class KvTransferClient:
             self.pulls.append({"wire": info["wire"], "bytes": info["bytes"],
                                "seconds": xfer_s, "blocks": info["blocks"],
                                "tokens": tokens, "want_tokens": want_tokens,
-                               "streamed": bool(stream), "waits": info["waits"]})
+                               "streamed": bool(stream), "waits": info["waits"],
+                               "tier": bool(tier), "address": address,
+                               "windows": info.get("windows", 0)})
             if tracer.enabled:
                 tracer.emit("kv.transfer.pull", t0, time.time_ns(), traceparent=traceparent,
                             status=status, address=address, wire=info["wire"],
@@ -902,6 +992,97 @@ class KvTransferClient:
                 await asyncio.sleep(min(0.05 * resumes, 0.5))
         info["blocks"] = imported
         return imported
+
+    async def _pull_tier(self, address: str, hashes: List[int], traceparent: Optional[str],
+                         info: Dict[str, Any]) -> int:
+        """Onboard blocks from a PEER's KVBM host and disk tiers (the tier
+        stream): each window is checked and imported as it lands (ONE
+        scatter_layers launch a window, through ``import_blocks``); a lost
+        stream is asked again from the first un-imported block, and after
+        STREAM_MAX_RESUMES attempts without progress the rest is left to
+        the recompute. A checksum mismatch ends the fetch there (a torn
+        read is never imported under a valid content hash)."""
+        alloc = self.engine.allocator
+        have = len(alloc.match_prefix(hashes))
+        want = list(hashes[have:])
+        n = len(want)
+        if n == 0:
+            return have * alloc.block_size
+        imported = 0
+        resumes = 0
+        while imported < n:
+            req: Dict[str, Any] = {"tier": True, "hashes": [int(h) for h in want[imported:]],
+                                   "window": STREAM_WINDOW_BLOCKS}
+            if traceparent:
+                req["traceparent"] = traceparent
+            eof = False
+            progressed = False
+            try:
+                await FAULTS.ainject("fetch.peer_tier")
+                stream = await self._tcp.call(address, req)
+                t_prev = time.monotonic()
+                async for item in stream:
+                    if item.get("eof"):
+                        eof = True
+                        break
+                    # an armed window fault drops the stream through the
+                    # real resume path (a no-op unarmed)
+                    await FAULTS.ainject("fetch.peer_tier")
+                    m = int(item.get("matched", 0))
+                    if m <= 0:
+                        continue
+                    raw = np.frombuffer(item.get("data", b""),
+                                        dtype_from_name(item.get("dtype", "float32"))
+                                        ).reshape(item.get("shape", []))
+                    crcs = item.get("crc32")
+                    if crcs is not None and any(
+                            zlib.crc32(np.ascontiguousarray(raw[i]).view(np.uint8)) != crcs[i]
+                            for i in range(m)):
+                        log.warning("peer-tier window checksum mismatch from %s; abandoning "
+                                    "the fetch at %d/%d blocks", address, imported, n)
+                        info["blocks"] = imported
+                        return (have + imported) * alloc.block_size
+                    if item.get("fmt") == "int8":
+                        L, _, bs, kvh, d = item["block_shape"]
+                        codec = QuantizedBlockCodec(BlockShape(
+                            num_layers=L, block_size=bs, num_kv_heads=kvh, head_dim=d,
+                            dtype=np.dtype(np.int8)))
+                        block_major = codec.decode_many(raw)
+                    else:
+                        block_major = raw   # the storage format is block-major
+                    leg = max(time.monotonic() - t_prev, 1e-9)
+                    got = await self.engine.import_blocks(list(want[imported:imported + m]),
+                                                          block_major)
+                    info["wire"] = "tier"
+                    info["bytes"] += len(item.get("data", b""))
+                    info["xfer_s"] += leg
+                    info["windows"] = info.get("windows", 0) + 1
+                    imported += got
+                    progressed = progressed or got > 0
+                    if got < m:
+                        # the local pool is full: serve with what landed
+                        info["blocks"] = imported
+                        return (have + imported) * alloc.block_size
+                    t_prev = time.monotonic()
+            except asyncio.CancelledError:
+                raise
+            except Exception as e:
+                log.warning("peer-tier fetch from %s lost after %d/%d blocks (%r); resuming "
+                            "from the first missing block", address, imported, n, e)
+            if eof:
+                break
+            if progressed:
+                resumes = 0
+            else:
+                resumes += 1
+                if resumes > STREAM_MAX_RESUMES:
+                    log.warning("peer-tier fetch from %s exhausted %d resume attempts at "
+                                "%d/%d blocks; recomputing the remaining suffix", address,
+                                STREAM_MAX_RESUMES, imported, n)
+                    break
+                await asyncio.sleep(min(0.05 * resumes, 0.5))
+        info["blocks"] = imported
+        return (have + imported) * alloc.block_size
 
     async def _device_pull(self, address: str, item: Dict[str, Any],
                            hashes: List[int]) -> Optional[int]:

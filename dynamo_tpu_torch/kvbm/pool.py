@@ -1,10 +1,12 @@
-"""Multi-tier KV block pools: G2 host DRAM and G3 local disk.
+"""Multi-tier KV block pools: G2 host DRAM, G3 local disk, G4 remote.
 
-Counterpart of the reference package's kvbm/pool.py (the G4 remote tier,
-the global directory and the distributed planes come in a later slice).
-Sealed device blocks are written through to the host pool asynchronously;
+Counterpart of the reference package's kvbm/pool.py. Sealed device blocks
+are written through to the host pool (and to the G4 remote store,
+kvbm/remote.py or the sharded fleet of kvbm/distributed.py) asynchronously;
 host overflow spills to disk; a prefix lookup that misses device memory
-onboards from host or disk back into device pages before prefill.
+onboards from host, disk or the remote store back into device pages before
+prefill. The hashes newly written to a local tier feed the global KV
+directory (kvbm/directory.py, ``drain_stored``).
 
 Offloads enqueue with a priority: lower values transfer first, FIFO within
 a priority, and the bounded queue sheds the lowest-priority work under
@@ -249,8 +251,9 @@ class OffloadQueue:
 
 
 class KvbmTiers:
-    """G2 + G3 stack with prioritized write-through offload and prefix
-    onboarding."""
+    """G2 + G3 + G4 stack with prioritized write-through offload and prefix
+    onboarding (G4: kvbm/remote.RemoteBlockPool, or anything with its
+    store / get / contains_many surface)."""
 
     def __init__(
         self,
@@ -258,6 +261,7 @@ class KvbmTiers:
         host_capacity_bytes: int = 1 << 30,
         disk_capacity_bytes: int = 0,
         disk_path: Optional[str] = None,   # default: <tmpdir>/dtpu_kvbm
+        remote=None,
         offload_queue_depth: int = 512,
     ):
         self.host = HostBlockPool(host_capacity_bytes, block_nbytes)
@@ -267,6 +271,7 @@ class KvbmTiers:
             DiskBlockPool(disk_path, disk_capacity_bytes, block_nbytes)
             if disk_capacity_bytes > 0 else None
         )
+        self.remote = remote
         self.offloaded = 0
         self.onboarded = 0
         # blocks whose tier write raised on the offload worker
@@ -277,7 +282,12 @@ class KvbmTiers:
         # turns these into router 'removed' events so the index stays honest)
         self._evicted: List[SequenceHash] = []
         self._evicted_lock = threading.Lock()
+        # hashes newly written to a local tier since the last drain: the
+        # engine advertises them in the global KV directory
+        self._stored: List[SequenceHash] = []
 
+    # LOCAL tiers only: a remote round trip a hash would put RPCs on whatever
+    # thread asks; remote membership is batched (match_prefix, filter_servable)
     def __contains__(self, h: SequenceHash) -> bool:
         return h in self.host or (self.disk is not None and h in self.disk)
 
@@ -292,9 +302,13 @@ class KvbmTiers:
                 self._evicted.extend(gone)
 
     def store(self, h: SequenceHash, block: np.ndarray) -> None:
-        """Synchronous write-through. Prefer ``offload``."""
+        """Synchronous write-through (host and remote). Prefer ``offload``."""
         self._insert_host(h, block)
+        if self.remote is not None:
+            self.remote.store(h, block)
         self.offloaded += 1
+        with self._evicted_lock:
+            self._stored.append(h)
 
     # -- prioritized async offload -------------------------------------------
     def offload(self, h: SequenceHash, block: np.ndarray, priority: int = 1) -> None:
@@ -341,6 +355,13 @@ class KvbmTiers:
             out, self._evicted = self._evicted, []
         return out
 
+    def drain_stored(self) -> List[SequenceHash]:
+        """Hashes newly offloaded to a local tier since the last drain (the
+        directory's advertisement feed)."""
+        with self._evicted_lock:
+            out, self._stored = self._stored, []
+        return out
+
     def clear(self, host: bool = True, disk: bool = True) -> Dict[str, int]:
         """Reset the local tiers; returns the blocks dropped per tier. The
         dropped hashes feed the consolidated event path (drain_evicted)."""
@@ -359,31 +380,67 @@ class KvbmTiers:
                 self._evicted.extend(gone)
         return counts
 
+    def tier_of(self, h: SequenceHash) -> Optional[str]:
+        """The LOCAL tier that holds ``h`` ("g2" host, "g3" disk), or None
+        (the directory's tier advertisements)."""
+        if h in self.host:
+            return "g2"
+        if self.disk is not None and h in self.disk:
+            return "g3"
+        return None
+
+    def get_block(self, h: SequenceHash) -> Optional[Tuple[np.ndarray, str]]:
+        """ONE block from a local tier, with no G3 -> G2 promotion (serving a
+        peer's fetch must not churn this worker's host LRU); returns
+        (block, tier) or None."""
+        b = self.host.get(h)
+        if b is not None:
+            return b, "g2"
+        if self.disk is not None:
+            b = self.disk.get(h)
+            if b is not None:
+                return b, "g3"
+        return None
+
     def filter_servable(self, hashes: List[SequenceHash]) -> List[SequenceHash]:
-        """Subset of ``hashes`` still servable from a tier. Used to
-        consolidate router 'removed' events."""
-        return [h for h in hashes if h in self]
+        """Subset of ``hashes`` still servable from a tier (the remote one
+        asked in one batch). Used to consolidate router 'removed' events."""
+        local = [h for h in hashes if h in self]
+        rest = [h for h in hashes if h not in self]
+        if rest and self.remote is not None:
+            have = self.remote.contains_many(rest)
+            local.extend(h for h, ok in zip(rest, have) if ok)
+        return local
 
     def match_prefix(self, hashes: List[SequenceHash]) -> int:
-        """Length of the leading run of ``hashes`` that some tier holds."""
+        """Length of the leading run of ``hashes`` that some tier holds
+        (the remote one extends the local run in one batched query)."""
         n = 0
         for h in hashes:
             if h not in self:
                 break
             n += 1
+        if n < len(hashes) and self.remote is not None:
+            for ok in self.remote.contains_many(hashes[n:]):
+                if not ok:
+                    break
+                n += 1
         return n
 
     def load_prefix(self, hashes: List[SequenceHash]) -> Optional[np.ndarray]:
         """Contiguous blocks [n, L, 2, bs, kvh, d] (or [n, nbytes] codec
         buffers) for a matched prefix. The run stops at the first block
         whose shape or dtype differs from the first: a restart-surviving
-        disk tier can hold blocks written under another kv_dtype for the
-        same content hashes (the engine's format guard vets what remains)."""
+        disk tier or a shared remote store can hold blocks written under
+        another kv_dtype for the same content hashes (the engine's format
+        guard vets what remains). A G3 or G4 block is promoted to G2."""
         blocks: List[np.ndarray] = []
         for h in hashes:
             b = self.host.get(h)
             if b is None and self.disk is not None:
                 b = self.disk.get(h)
+            if b is None and self.remote is not None:
+                b = self.remote.get(h)
             if b is None:
                 break
             if blocks and (b.shape != blocks[0].shape or b.dtype != blocks[0].dtype):
@@ -392,7 +449,7 @@ class KvbmTiers:
                             blocks[0].shape)
                 break
             if h not in self.host:
-                self._insert_host(h, b)  # promote G3 -> G2 (with spill)
+                self._insert_host(h, b)  # promote G3 / G4 -> G2 (with spill)
             blocks.append(b)
         if not blocks:
             return None

@@ -28,8 +28,16 @@ clone fires and the decode request ships at once with a streamed
 ``kv_transfer`` handshake) or sequential (the prefill's first token
 streams, then the decode request pulls the finished prefill's pages).
 A typed terminal error of the prefill pool reaches the client; any other
-prefill failure takes the aggregated path. The reference's global KV
-directory and draining-worker steering wait for ROADMAP item 5.
+prefill failure takes the aggregated path. The reference's
+draining-worker steering waits for ROADMAP item 5.6.
+
+Fleet-wide KV reuse (``DTPU_GLOBAL_KV=1``): each pipeline keeps a
+lookup-only client of the global KV directory (kvbm/directory.py; the
+frontend never publishes) and a ``GlobalKvFetchPlanner``. A request on the
+aggregated or deflected path whose missing prefix another worker's G2/G3
+holds, and whose fetch prices cheaper than its recompute, carries a
+``tier`` ``kv_transfer`` plan to its worker. A failure in planning means
+no plan.
 """
 
 from __future__ import annotations
@@ -137,6 +145,8 @@ class ModelPipeline:
         self._worker_breakers: Dict[int, CircuitBreaker] = {}
         # disaggregation: set while a prefill pool is registered for the model
         self.prefill_router = None
+        # fleet-wide KV reuse: the directory's fetch planner (DTPU_GLOBAL_KV)
+        self.global_kv = None
         self._worker_cb_metrics = M.MetricsScope()
         # router-universe reconcile throttle (_prune_dead_workers): the
         # full sweep is O(fleet), so it runs on instance-count change or
@@ -197,6 +207,19 @@ class ModelPipeline:
                 config=self.kv_router_config,
                 metrics=self.runtime.metrics,
             ).start()
+        from ..kvbm.directory import GlobalKvDirectory, directory_enabled
+
+        if directory_enabled():
+            # a lookup-only client: the frontend resolves misses and never
+            # publishes (no lease)
+            from .prefill_router import DisaggConfig, GlobalKvFetchPlanner
+
+            directory = GlobalKvDirectory(self.runtime.store, f"frontend/{self.card.name}",
+                                          metrics=self.runtime.metrics)
+            self.global_kv = GlobalKvFetchPlanner(
+                directory, block_size=self.card.kv_block_size,
+                kv_bytes_per_block=int(self.card.runtime_config.kv_bytes_per_block or 0),
+                prefill_block_time_s=DisaggConfig.from_env().prefill_block_time_s)
         return self
 
     async def stop(self) -> None:
@@ -454,6 +477,23 @@ class ModelPipeline:
                     req.kv_transfer.pop("stream", None)
                 if req.stop.max_tokens is not None:
                     req.stop.max_tokens -= 1
+        if self.global_kv is not None and not req.kv_transfer:
+            # fleet-wide KV reuse: the aggregated or deflected path would
+            # recompute its whole miss, unless another worker's G2/G3 holds
+            # the sealed blocks and fetching them prices cheaper
+            try:
+                bs = self.global_kv.block_size
+                hashes = compute_sequence_hashes(req.token_ids, bs)
+                fetch = await self.global_kv.plan_fetch(
+                    req, hashes, overlap_blocks=self._decode_overlap(req, (
+                        hashes if self.kv_router is not None
+                        and self.kv_router.block_size == bs else None)))
+                if fetch is not None:
+                    req = PreprocessedRequest.from_obj(req.to_obj())
+                    req.kv_transfer = fetch
+            except Exception:
+                log.warning("global kv fetch planning failed; recomputing locally",
+                            exc_info=True)
         first = offset == 0
         try:
             async for out in self.migration.generate(req, context):

@@ -1,8 +1,8 @@
-"""PrefillRouter: disaggregated prefill/decode orchestration on the frontend.
+"""PrefillRouter: disaggregated prefill/decode orchestration on the
+frontend, and the global KV directory's fetch planner.
 
-The port's copy of the reference package's llm/prefill_router.py, without
-``GlobalKvFetchPlanner`` (the global KV directory, ROADMAP Queue 1 item
-5). When a prefill pool is registered for a model, each request is first
+The port's copy of the reference package's llm/prefill_router.py. When a
+prefill pool is registered for a model, each request is first
 sent to a prefill worker as a clone with ``max_tokens=1``; the decode
 request carries the prefill worker's KV-transfer plan (its transfer
 address and the prompt's block hashes). With no prefill pool the request
@@ -23,6 +23,14 @@ takes the aggregated path (pools scale to zero).
   transfer address, the decode request ships at once with a streamed
   ``kv_transfer`` handshake, so its block-window pull overlaps the
   prefill's compute.
+
+``GlobalKvFetchPlanner`` (fleet-wide KV reuse, kvbm/directory.py) prices a
+fetch of a request's missing prefix from a peer's G2/G3 tier against its
+recompute and returns a ``tier`` plan when the fetch wins.
+
+The recompute prior (``DTPU_PREFILL_BLOCK_MS``) defaults to the port's own
+measurement on the card, 0.9 ms a block, not to the reference's 10 ms
+(``PREFILL_BLOCK_MS`` below; ROADMAP Queue 3).
 """
 
 from __future__ import annotations
@@ -61,6 +69,13 @@ log = get_logger("llm.prefill_router")
 # the KV footprint of a block when neither the config nor the card
 # advertises one: the estimate only has to rank wires
 _DEFAULT_KV_BYTES_PER_BLOCK = 256 * 1024
+# milliseconds to prefill one 16-token KV block, the default of
+# DTPU_PREFILL_BLOCK_MS: llama3-8b at 32 layers, bf16, 2048-token chunks,
+# on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py phase global_kv: the
+# slope of a cold worker's TTFT over its prompts' blocks). The reference's
+# 10 ms would price a peer-tier fetch of the same blocks, several times
+# slower on that card, as the cheaper path.
+PREFILL_BLOCK_MS = 0.9
 
 
 def _env_f(name: str, default: float) -> float:
@@ -88,7 +103,7 @@ class DisaggConfig:
     # units) exceeds (1 + margin) x the local prefill's
     deflect_margin: float = 1.0
     # seconds to prefill one KV block: turns wire seconds into block units
-    prefill_block_time_s: float = 0.010
+    prefill_block_time_s: float = PREFILL_BLOCK_MS / 1e3
     # the per-block wire bytes (0: the card's advertised value)
     kv_bytes_per_block: int = 0
 
@@ -100,7 +115,7 @@ class DisaggConfig:
             deflect_max_tokens=int(_env_f(ENV_DEFLECT_MAX_TOKENS, cls.deflect_max_tokens)),
             deflect_overlap_frac=_env_f(ENV_DEFLECT_OVERLAP, cls.deflect_overlap_frac),
             deflect_margin=_env_f(ENV_DEFLECT_MARGIN, cls.deflect_margin),
-            prefill_block_time_s=_env_f(ENV_PREFILL_BLOCK_MS, 10.0) / 1e3,
+            prefill_block_time_s=_env_f(ENV_PREFILL_BLOCK_MS, PREFILL_BLOCK_MS) / 1e3,
             kv_bytes_per_block=int(_env_f(ENV_KV_BYTES_PER_BLOCK, 0)),
         )
 
@@ -126,6 +141,80 @@ class PrefillPlan:
     @property
     def deflected(self) -> bool:
         return self.deflect_reason is not None
+
+
+class GlobalKvFetchPlanner:
+    """Fleet-wide KV reuse planning on the frontend (kvbm/directory.py).
+
+    On a local radix miss the missing prefix may be sealed in ANOTHER
+    worker's G2/G3 tier. The planner looks the miss up in the global
+    directory, prices a fetch from the holder's tier against the recompute
+    (``ops/costs.fetch_vs_recompute``, fed by the wire-bandwidth EWMA of
+    the ``tier`` class and the holder tier's read prior) and, when the
+    fetch wins, returns a ``kv_transfer`` plan (``tier: true``) that
+    streams the blocks from the holder over the block-window protocol. A
+    stale entry, a dead holder or a lost stream end in a recompute on the
+    worker: the plan is advisory, never load-bearing for correctness."""
+
+    # the wire class the tier pull observes into the bandwidth EWMA
+    # (engine/transfer.py _pull_tier); unseen, it prices at the inline prior
+    WIRE = "tier"
+
+    def __init__(self, directory, *, block_size: int, kv_bytes_per_block: int = 0,
+                 prefill_block_time_s: float = PREFILL_BLOCK_MS / 1e3,
+                 prefill_base_s: float = 0.0, margin: Optional[float] = None,
+                 min_run_blocks: int = 1, bandwidth=None):
+        from ..kvbm.directory import fetch_margin
+
+        self.directory = directory
+        self.block_size = int(block_size)
+        self.kv_bytes_per_block = int(kv_bytes_per_block or _DEFAULT_KV_BYTES_PER_BLOCK)
+        self.prefill_block_time_s = float(prefill_block_time_s)
+        self.prefill_base_s = float(prefill_base_s)
+        self.margin = float(margin if margin is not None else fetch_margin())
+        self.min_run_blocks = max(1, int(min_run_blocks))
+        self.bandwidth = bandwidth or get_bandwidth_estimator()
+
+    def price(self, num_blocks: int, tier: str = "g2") -> Dict:
+        """The fetch-vs-recompute verdict for ``num_blocks`` missing blocks."""
+        from ..ops.costs import fetch_vs_recompute
+
+        return fetch_vs_recompute(
+            num_blocks, block_size=self.block_size,
+            kv_bytes_per_block=self.kv_bytes_per_block,
+            bandwidth_bytes_s=self.bandwidth.bandwidth(self.WIRE),
+            prefill_base_s=self.prefill_base_s,
+            prefill_per_token_s=self.prefill_block_time_s / self.block_size,
+            tier=tier, margin=self.margin)
+
+    async def plan_fetch(self, req: PreprocessedRequest, hashes: List[int],
+                         overlap_blocks: int,
+                         exclude_holder: Optional[str] = None) -> Optional[Dict]:
+        """A ``kv_transfer`` plan for the request's missing prefix, or None
+        to recompute. ``overlap_blocks`` is the decode pool's best local
+        radix overlap (those blocks never fetch); ``hashes`` are at this
+        planner's block size. The verdict goes on the request's timeline
+        as a ``global_kv_plan`` flight event."""
+        miss = [int(h) for h in hashes[overlap_blocks:]]
+        if len(miss) < self.min_run_blocks:
+            return None
+        run = await self.directory.lookup_run(miss, exclude_holder=exclude_holder)
+        if len(run) < self.min_run_blocks:
+            return None   # nobody (live) holds the prefix: a plain recompute
+        head = run[0]
+        verdict = self.price(len(run), tier=head.tier)
+        get_flight_recorder().record(
+            req.request_id, "global_kv_plan", holder=head.holder, tier=head.tier,
+            blocks=len(run), fetch_s=round(verdict["fetch_s"], 6),
+            recompute_s=round(verdict["recompute_s"], 6), fetch_wins=verdict["fetch_wins"])
+        if not verdict["fetch_wins"] or not head.address:
+            # the directory had the prefix but the recompute prices cheaper
+            # (or the holder advertises no fetch endpoint)
+            self.directory.record_outcome("recomputed")
+            return None
+        return {"address": head.address, "hashes": [e.hash for e in run],
+                "num_tokens": len(run) * self.block_size, "tier": True,
+                "holder": head.holder, "est_fetch_s": verdict["fetch_s"]}
 
 
 class PrefillRouter:

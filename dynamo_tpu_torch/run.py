@@ -137,13 +137,16 @@ def build_engine(out: str, device: Optional[str], max_context: int, seed: int,
                  warm_cache: bool = True,
                  num_blocks: Optional[int] = None, block_size: int = 16,
                  max_batch_size: int = 8, prefill_chunk: Optional[int] = None,
-                 guided_vocab=None, **features) -> TorchEngine:
+                 guided_vocab=None, kvbm_remote: Optional[str] = None,
+                 **features) -> TorchEngine:
     """The engine for ``out``, a preset (random weights from ``seed``) or
     a checkpoint directory / hub reference. ``num_blocks`` defaults to
     the context's worth of blocks (at least 512) and ``prefill_chunk``
     (the largest prefill dispatch) to ``max_context``; ``features`` are
     TorchEngineConfig's feature fields (guided caps, logits processors,
-    LoRA slots), ``guided_vocab`` the constructor's."""
+    LoRA slots), ``guided_vocab`` the constructor's. ``kvbm_remote``
+    (``host:port``) writes sealed blocks through to a G4 block store
+    (kvbm/remote.py) and onboards from it."""
     params = draft_params = None
     if is_preset(out):
         model = _model_of(out)
@@ -167,13 +170,18 @@ def build_engine(out: str, device: Optional[str], max_context: int, seed: int,
         vision=vision, spec_draft=draft, spec_k=spec_k, **features,
     )
     kvbm = None
-    if kvbm_host_gb > 0 or kvbm_disk_gb > 0:
+    if kvbm_host_gb > 0 or kvbm_disk_gb > 0 or kvbm_remote:
         # tiers sized in stored bytes per block (model dtype or int8 codec)
         block_nbytes = int(kv_bytes_per_token(cfg.model, cfg.block_size, cfg.kv_dtype)
                            * cfg.block_size)
+        remote = None
+        if kvbm_remote:
+            from .kvbm.remote import RemoteBlockPool
+
+            remote = RemoteBlockPool(kvbm_remote)
         kvbm = KvbmTiers(block_nbytes, host_capacity_bytes=int(kvbm_host_gb * (1 << 30)),
                          disk_capacity_bytes=int(kvbm_disk_gb * (1 << 30)),
-                         disk_path=kvbm_disk_path)
+                         disk_path=kvbm_disk_path, remote=remote)
     return TorchEngine(cfg, params=params, kvbm=kvbm, draft_params=draft_params,
                        guided_vocab=guided_vocab)
 

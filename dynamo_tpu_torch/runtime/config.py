@@ -33,6 +33,7 @@ ENV_ROUTER_POSTINGS_BUCKET = "DTPU_ROUTER_POSTINGS_BUCKET"  # per-block postings
 ENV_KVBM_HOST_CACHE_GB = "DTPU_KVBM_HOST_CACHE_GB"    # G2 host memory pool size
 ENV_KVBM_DISK_CACHE_GB = "DTPU_KVBM_DISK_CACHE_GB"    # G3 local disk pool size
 ENV_KVBM_DISK_PATH = "DTPU_KVBM_DISK_PATH"
+ENV_KVBM_REMOTE = "DTPU_KVBM_REMOTE"                  # G4 block store host:port
 ENV_HTTP_PORT = "DTPU_HTTP_PORT"
 ENV_BUSY_THRESHOLD = "DTPU_BUSY_THRESHOLD"
 ENV_CONFIG_FILE = "DTPU_CONFIG"                       # layered config file (json/toml)
@@ -72,6 +73,13 @@ ENV_DEFLECT_OVERLAP = "DTPU_DEFLECT_OVERLAP"          # decode-pool radix-hit de
 ENV_DEFLECT_MARGIN = "DTPU_DEFLECT_MARGIN"            # load-skew deflection margin
 ENV_PREFILL_BLOCK_MS = "DTPU_PREFILL_BLOCK_MS"        # per-block prefill cost prior
 ENV_KV_BYTES_PER_BLOCK = "DTPU_KV_BYTES_PER_BLOCK"    # wire-cost bytes/block override
+# fleet-wide KV reuse (kvbm/directory.py, llm/prefill_router.py): the global
+# content-addressed block directory over the discovery plane and the
+# fetch-vs-recompute decision (ops/costs.py)
+ENV_GLOBAL_KV = "DTPU_GLOBAL_KV"                      # global KV directory on/off
+ENV_GLOBAL_KV_TTL_S = "DTPU_GLOBAL_KV_TTL_S"          # directory entry ttl (s)
+ENV_GLOBAL_KV_DEDUPE = "DTPU_GLOBAL_KV_DEDUPE"        # max advertised holders per hash
+ENV_GLOBAL_KV_FETCH_MARGIN = "DTPU_GLOBAL_KV_FETCH_MARGIN"  # fetch <= margin*recompute gate
 # DTPU_RETRY_* / DTPU_CB_* (runtime/resilience.py) and DTPU_FAULTS
 # (runtime/faults.py) are read where they apply
 

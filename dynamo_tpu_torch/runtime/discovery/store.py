@@ -93,6 +93,18 @@ class KVStore:
         raw = await self.get(key)
         return None if raw is None else codec.unpackb(raw)
 
+    async def list_obj(self, prefix: str) -> Dict[str, object]:
+        """``list_prefix`` with the codec's decode; keys whose bytes do not
+        decode are skipped (a foreign writer under the prefix must not
+        break every scan: the global KV directory's lookup path)."""
+        out: Dict[str, object] = {}
+        for k, raw in (await self.list_prefix(prefix)).items():
+            try:
+                out[k] = codec.unpackb(raw)
+            except ValueError:   # CodecError, a bad utf-8 string
+                continue
+        return out
+
 
 class Watcher:
     """Async stream of WatchEvents with explicit cancel."""

@@ -54,6 +54,9 @@ HEALTH_EVENTS_TOTAL = f"{PREFIX}_health_events_total"
 # disaggregation (runtime/bandwidth.py, engine/transfer.py, llm/prefill_router.py)
 KV_WIRE_BANDWIDTH = f"{PREFIX}_kv_wire_bandwidth_bytes_per_s"
 KV_TRANSFER_FALLBACKS_TOTAL = f"{PREFIX}_kv_transfer_fallbacks_total"
+GLOBAL_KV_HITS_TOTAL = f"{PREFIX}_global_kv_hits_total"
+GLOBAL_KV_DIRECTORY_ENTRIES = f"{PREFIX}_global_kv_directory_entries"
+GLOBAL_KV_DEDUP_BLOCKS_TOTAL = f"{PREFIX}_global_kv_dedup_blocks_total"
 PREFILL_DEFLECTED_TOTAL = f"{PREFIX}_prefill_deflected_total"
 
 LABEL_NAMESPACE = "dtpu_namespace"

@@ -24,6 +24,7 @@ import torch
 from dynamo_tpu_torch.models import llama as tllama
 from test_torch_guided import BYTE_VOCAB, EOS, SMALL_SCHEMA
 from torch_feature_engines import Weights, collect, request, serve
+from torch_port_logging import port_logging_restored  # noqa: F401  # dtpu: ignore[UNUSED-IMPORT] — an autouse fixture, live by its name in this module
 
 # ------------------------------------------------------------ the engine
 MODEL = dict(vocab_size=260, hidden_size=64, num_layers=2, num_heads=4, num_kv_heads=2,

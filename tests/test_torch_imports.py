@@ -88,7 +88,8 @@ def test_the_walk_covers_every_module_of_the_port():
     in that walk (slice 2: int8 KV, block copy, KVBM; slice 3: the gemma
     family and the model registry; then the gpt-oss family; then the
     Qwen3-MoE and MLA families and the latent attention wrapper; then the
-    vision tower and the encoder cache)."""
+    vision tower and the encoder cache; then the G4 remote tier, its
+    service, the sharded fleet and the global KV directory)."""
     mods = set(_modules())
     assert {
         "dynamo_tpu_torch.ops.quant", "dynamo_tpu_torch.ops.block_copy",
@@ -100,6 +101,8 @@ def test_the_walk_covers_every_module_of_the_port():
         "dynamo_tpu_torch.models.mla", "dynamo_tpu_torch.models.experts",
         "dynamo_tpu_torch.ops.cuda_mla", "dynamo_tpu_torch.models.vision",
         "dynamo_tpu_torch.llm.encoder_cache",
+        "dynamo_tpu_torch.kvbm.remote", "dynamo_tpu_torch.kvbm.__main__",
+        "dynamo_tpu_torch.kvbm.distributed", "dynamo_tpu_torch.kvbm.directory",
     } <= mods
 
 

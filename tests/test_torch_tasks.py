@@ -18,6 +18,7 @@ from dynamo_tpu_torch.runtime import DistributedRuntime, MemKVStore, RuntimeConf
 from dynamo_tpu_torch.runtime.faults import FAULTS
 from dynamo_tpu_torch.runtime.health import HealthEvent
 from dynamo_tpu_torch.runtime.tasks import ErrorPolicy, TaskHandle, TaskTracker, spawn_bg
+from torch_port_logging import port_logging_restored  # noqa: F401  # dtpu: ignore[UNUSED-IMPORT] — an autouse fixture, live by its name in this module
 
 
 def test_spawn_and_metrics():

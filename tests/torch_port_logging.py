@@ -1,11 +1,14 @@
-"""An autouse fixture for the port's tests that start a DistributedRuntime.
+"""An autouse fixture for the port's tests that start a DistributedRuntime,
+or that read the port's log records through caplog.
 
 A DistributedRuntime initialises the port's logging: its own handler and
 no propagation to the root logger. A later test in the same process would
 then see none of the port's records in caplog. Import the fixture by name
-into such a test module to put the logging back after each test as it was
-when this helper was imported (before any test ran), so that a runtime a
-module-scoped fixture started before the test does not leak either.
+into such a test module: it puts the port's logging into its pristine
+state (as no ``init_logging`` call left it) before and after each test.
+The state is an explicit one, not a snapshot: a snapshot taken when this
+helper is first imported would take in a runtime that an earlier test
+module in the same process started and never cleaned up.
 """
 
 import logging
@@ -15,11 +18,18 @@ import pytest
 from dynamo_tpu_torch.runtime import logging as tlogging
 
 _ROOT = logging.getLogger(tlogging.ROOT)
-_PRISTINE = (tlogging._initialized, _ROOT.propagate, _ROOT.level, list(_ROOT.handlers))
+
+
+def _pristine() -> None:
+    tlogging._initialized = False
+    _ROOT.propagate = True
+    _ROOT.setLevel(logging.NOTSET)
+    for h in list(_ROOT.handlers):
+        _ROOT.removeHandler(h)
 
 
 @pytest.fixture(autouse=True)
 def port_logging_restored():
+    _pristine()
     yield
-    tlogging._initialized = _PRISTINE[0]
-    _ROOT.propagate, _ROOT.level, _ROOT.handlers[:] = _PRISTINE[1], _PRISTINE[2], _PRISTINE[3]
+    _pristine()
