@@ -16,8 +16,11 @@ It serves on the GPU unless ``--device cpu`` is given, and raises without
 one. Model selection: ``--model-path`` (an HF checkpoint directory or hub
 reference, as run.py's ``out=``) or ``--preset`` (random weights from
 ``--seed``). The engine flags are the reference worker's, with its
-defaults; flags of later slices (parallelism, drain and restore) are not
-defined, and argparse refuses them. ``--tool-parser`` and
+defaults; the parallelism flags (a later slice) are not defined, and
+argparse refuses them. ``--weight-service SOCK`` (``DTPU_WEIGHT_SERVICE``)
+with ``--model-path`` imports the checkpoint's weights from a weight owner
+(``python -m dynamo_tpu_torch.engine.weight_service``) instead of parsing
+it; the connection is the import's lease. ``--tool-parser`` and
 ``--reasoning-parser`` name the card's parsers (parsers/; gpt-oss presets
 default to ``harmony`` / ``gpt_oss``); an unknown name fails at start.
 
@@ -69,6 +72,24 @@ the global KV directory (kvbm/directory.py) under a lease of its own,
 revoked at shutdown, and reports them in ``/debug/worker``'s ``global_kv``
 section (published entries, fetch leases open, dedupe skips).
 
+Planned reclaims (engine/drain.py, engine/checkpoint.py): with
+``DTPU_CKPT_DIR`` the worker restores the sealed KV pages of the
+checkpoint there before it serves (``CHECKPOINT_RESTORE mode=... blocks=...
+windows=... scatter=... seconds=...``; its stored KV events go out at
+once, before any request; the mode on the
+``dtpu_checkpoint_restore_mode`` gauge and in ``/debug/worker``'s
+``restore_mode`` and ``restore``), and ``POST /drain`` (``{"deadline_s":
+30}``) runs the drain: discovery says ``state=draining``, the requests in
+flight finish inside the deadline, the sealed pages go to a checkpoint in
+``DTPU_CKPT_DIR``, and the worker exits (code 0). ``/debug/worker``'s
+``drain`` section says whether a drain runs and how the last one went. A
+worker whose engine loop dies serves its transfer endpoint until no pull
+came for a few seconds (at most ``--graceful-timeout``): the requests that
+died carry evacuation plans that point at its host tier. With
+``DTPU_FAULTS_ADMIN=1`` the status server also takes ``POST /debug/faults``
+(``{"spec": "engine.step:fail@1"}``): the spec's points are armed anew, their
+call counts from 0 (runtime/faults.py), for drills on a running worker.
+
 Beside ``generate`` the worker serves ``clear_kv_blocks`` under the same
 instance id (llm/serve.py ``serve_clear_endpoint``; the frontend's ``POST
 /clear_kv_blocks`` fans out to it). A vision preset (``--preset tiny-vl``)
@@ -81,14 +102,16 @@ the HTTP request plane (runtime/request_plane/http.py) instead of TCP, and
 Prints ``TORCH_ENGINE_READY <model> device=<device>`` once it serves. On
 SIGTERM or SIGINT it deletes its instance and card keys at once, drains the
 requests in flight for up to ``--graceful-timeout`` seconds, then prints
-``TORCH_ENGINE_EXIT {json}``: each kernel's launches since the process
-started, as ``ops/_build`` counts them (the engine's build and graph
+(a drained worker too) ``TORCH_ENGINE_EXIT {json}``: each kernel's
+launches since the process started, as ``ops/_build`` counts them (the
+engine's build and graph
 captures, and CUDA-graph replays, included), the engine's
 steps by kind, its busy slots and pinned KV blocks (both 0 once every
 request, a cancelled one too, has freed its slot), its prefix cache
 (``block_set_view`` of the allocator's hashes, which a KV router's view of
-this worker equals once both are idle) and the KV events it published by
-kind.
+this worker equals once both are idle), the KV events it published by
+kind, the transfer plane's counters, and the drain's and restore's
+summaries.
 """
 
 from __future__ import annotations
@@ -116,7 +139,9 @@ from ..llm.serve import register_llm, serve_clear_endpoint
 from ..models.registry import PRESETS, is_gptoss
 from ..parsers import get_reasoning_parser, get_tool_parser
 from ..runtime.component import new_instance_id
+from ..runtime import metrics as M
 from ..runtime.config import (
+    ENV_CKPT_DIR,
     ENV_SYSTEM_PORT,
     ENV_KVBM_DISK_CACHE_GB,
     ENV_KVBM_DISK_PATH,
@@ -124,7 +149,9 @@ from ..runtime.config import (
     ENV_KVBM_REMOTE,
     ENV_MIGRATION_LIMIT,
     ENV_NAMESPACE,
+    ENV_WEIGHT_SERVICE,
     RuntimeConfig,
+    env_bool,
     env_float,
     env_int,
     env_str,
@@ -137,6 +164,8 @@ from ..runtime.health import EndpointCanary, HealthState, StatusServer, get_heal
 from ..runtime.logging import get_logger, init_logging
 from ..runtime.slo import debug_slo_payload, get_slo_accountant
 from ..runtime.tracing import get_tracer
+from .checkpoint import restore_engine, weights_ref_for
+from .drain import DrainCoordinator
 from .monitor import EngineWatchdog
 from .telemetry import EngineTelemetry
 
@@ -145,6 +174,11 @@ EXIT = "TORCH_ENGINE_EXIT"
 STATUS = "TORCH_STATUS_ADDRESS"
 # the drift predictor's memory rate: the H100's HBM3, as PERF.md's bounds
 HBM_BYTES_S = 3.35e12
+# a worker whose loop died serves evacuation pulls until its transfer
+# endpoint has been idle this long (at most --graceful-timeout)
+EVACUATION_IDLE_S = 3.0
+# DTPU_FAULTS_ADMIN=1: POST /debug/faults arms fault points on a running worker
+ENV_FAULTS_ADMIN = "DTPU_FAULTS_ADMIN"
 
 
 log = get_logger("engine.worker")
@@ -211,6 +245,11 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                    help="decode horizons in flight (default: auto-tuned)")
     p.add_argument("--no-warm-cache", action="store_true",
                    help="parse the checkpoint on every start")
+    p.add_argument("--weight-service", default=env_str(ENV_WEIGHT_SERVICE, "") or None,
+                   metavar="SOCK",
+                   help="unix socket of a weight owner (engine/weight_service.py): import "
+                        "--model-path's weights from its shared memory instead of parsing "
+                        "the checkpoint (default: DTPU_WEIGHT_SERVICE)")
     p.add_argument("--spec-draft", default=None, choices=presets,
                    help="speculative decoding with a draft of this preset")
     p.add_argument("--spec-draft-path", default=None,
@@ -297,6 +336,7 @@ def build_worker_engine(args: argparse.Namespace):
         guided_max_classes=args.guided_max_classes,
         logits_processors=build_logits_processors(args.logits_processors),
         lora_max_adapters=args.lora_max_adapters, lora_rank=args.lora_rank,
+        weight_service=args.weight_service if args.model_path else None,
     )
     return engine, tok_ref
 
@@ -366,6 +406,17 @@ def kernel_launches() -> dict:
     return out
 
 
+def metric_values(metrics, prefix: str) -> dict:
+    """The values of ``metrics``' series named ``prefix...``, by name (the
+    sum over their labels)."""
+    out: dict = {}
+    for line in metrics.expose().decode().splitlines():
+        if line.startswith(prefix):
+            name, value = line.split("{", 1)[0].split(" ", 1)[0], line.rsplit(" ", 1)[1]
+            out[name] = out.get(name, 0.0) + float(value)
+    return out
+
+
 def step_predictor(engine, args):
     """StepStats -> the roofline floor of the step's forward passes
     (ops/costs.py): every active row at the occupancy-mean context, its
@@ -396,10 +447,12 @@ def step_predictor(engine, args):
 
 
 async def serve_status(args, runtime, engine, served, instance_id, telemetry, monitor,
-                       health, canary, drift):
-    """The status server and its ``/debug/worker`` document; advertises its
-    address in the discovery metadata. Returns the server. ``drift``:
-    {phase: recent measured / predicted step ratios}."""
+                       health, canary, drift, drain: Optional[DrainCoordinator] = None,
+                       restored: Optional[dict] = None):
+    """The status server (``POST /drain`` runs ``drain`` when given) and its
+    ``/debug/worker`` document; advertises its address in the discovery
+    metadata. Returns the server. ``drift``: {phase: recent measured /
+    predicted step ratios}; ``restored``: the start's restore, or None."""
     gauges = {name: runtime.metrics.gauge(f"dtpu_engine_{name}", doc) for name, doc in (
         ("running_seqs", "active sequences"), ("waiting_seqs", "queued sequences"),
         ("free_blocks", "free KV blocks"), ("cached_blocks", "prefix-cached KV blocks"))}
@@ -416,8 +469,7 @@ async def serve_status(args, runtime, engine, served, instance_id, telemetry, mo
     def worker_snapshot() -> dict:
         """What the frontend's /debug/fleet merges from this worker: host
         counters only, with the global KV directory's section when the
-        worker advertises in it (the drain and restore sections wait for
-        ROADMAP Queue 1 item 5.6)."""
+        worker advertises in it and the restore's when it restored."""
         snap = engine.snapshot()
         doc = {
             "instance_id": f"{instance_id:016x}", "model": args.model, "tp": 1, "dp": 1,
@@ -433,6 +485,11 @@ async def serve_status(args, runtime, engine, served, instance_id, telemetry, mo
                    "total_blocks": engine.cfg.num_blocks,
                    "cached_blocks": snap["cached_blocks"]},
         }
+        if drain is not None:
+            doc["drain"] = {"draining": drain.ledger.draining, "last": drain.last}
+        if restored is not None:
+            doc["restore_mode"] = restored["mode"]
+            doc["restore"] = {k: v for k, v in restored.items() if k != "queue"}
         directory = engine.kv_directory
         if directory is not None:
             doc["global_kv"] = {"published": directory.published_count,
@@ -447,13 +504,34 @@ async def serve_status(args, runtime, engine, served, instance_id, telemetry, mo
                              "canary_rtt_s": canary.last_rtt},
         port=args.system_port,
         loras_fn=(engine.lora.list_adapters if engine.lora is not None else None),
+        drain_fn=drain.begin if drain is not None else None,
         worker_snapshot_fn=worker_snapshot,
     )
+    if env_bool(ENV_FAULTS_ADMIN):
+        server.server.add_route("POST", "/debug/faults", arm_faults)
     await server.start()
     address = f"{runtime.config.host_ip}:{server.port}"
     await served.update_metadata({"status_address": address})
     print(f"{STATUS} {address}", flush=True)
     return server
+
+
+async def arm_faults(request):
+    """``POST /debug/faults`` ``{"spec": "point:action[@n]; ..."}``: each
+    point the spec names is disarmed (its call count back to 0) and armed
+    with the spec's rules; answers with the points' call counts."""
+    from ..llm.http.server import json_response
+    from ..runtime.faults import FAULTS, parse_faults
+
+    try:
+        rules = parse_faults(str((request.json() or {}).get("spec", "")))
+    except (ValueError, AttributeError) as e:
+        return json_response({"error": str(e)}, status=400)
+    for point in {r.point for r in rules}:
+        FAULTS.disarm(point)
+    for r in rules:
+        FAULTS.arm_rule(r)
+    return json_response({"armed": [f"{r.point}:{r.action}" for r in rules]})
 
 
 def health_publisher(runtime: DistributedRuntime, loop: asyncio.AbstractEventLoop):
@@ -596,6 +674,27 @@ async def main(argv: Optional[List[str]] = None) -> None:
                                                  [engine])
     stop = asyncio.Event()
     health = HealthState()
+    # planned reclaims: the warm state a drain left in DTPU_CKPT_DIR first,
+    # then the coordinator that POST /drain runs (it ends the process)
+    ckpt_dir = env_str(ENV_CKPT_DIR, "") or None
+    restored = None
+    if ckpt_dir:
+        scatters = kernel_launches()["scatter"]
+        restored = await restore_engine(engine, ckpt_dir)
+        restored["scatter"] = kernel_launches()["scatter"] - scatters
+        # the restored blocks go to KV routers now, not at the loop's first
+        # tick: a follow-up is routed to them before any request arrives
+        await engine._publish_events()
+        scope.gauge(M.CHECKPOINT_RESTORE_MODE, "1 for the restore mode this worker booted with",
+                    extra_labels=("mode",)).set(1, mode=restored["mode"])
+        print(f"CHECKPOINT_RESTORE mode={restored['mode']} blocks={restored['blocks']} "
+              f"windows={restored['windows']} scatter={restored['scatter']} "
+              f"seconds={restored['seconds']:.3f}", flush=True)
+    drain = DrainCoordinator(engine, served, ckpt_dir=ckpt_dir,
+                             weights_ref=weights_ref_for(args.model_path or args.preset,
+                                                         engine.mcfg),
+                             metrics_scope=scope, on_drained=stop.set)
+
     async def on_down() -> None:
         stop.set()   # the watchdog deregistered: exit, so a supervisor restarts
 
@@ -605,13 +704,18 @@ async def main(argv: Optional[List[str]] = None) -> None:
     status_server = None
     if args.system_port >= 0:
         status_server = await serve_status(args, runtime, engine, served, instance_id,
-                                           telemetry, monitor, health, canary, drift)
+                                           telemetry, monitor, health, canary, drift, drain,
+                                           restored)
     loop = asyncio.get_running_loop()
     health_sub = monitor.subscribe(health_publisher(runtime, loop))
     for sig in (signal.SIGINT, signal.SIGTERM):
         loop.add_signal_handler(sig, stop.set)
     print(f"{READY} {args.model} device={engine.device}", flush=True)
     await stop.wait()
+    if watchdog.fired and engine._kv_transfer_srv is not None:
+        # the requests that died with the loop carry evacuation plans that
+        # point at this worker's host tier: serve their pulls first
+        await engine._kv_transfer_srv.wait_idle(EVACUATION_IDLE_S, args.graceful_timeout)
     # graceful drain: deregister first (discovery stops routing here), then
     # the request server waits out in-flight streams before closing
     await watchdog.stop()
@@ -629,13 +733,18 @@ async def main(argv: Optional[List[str]] = None) -> None:
         await directory.close()
     await runtime.shutdown()
     get_tracer().shutdown()
+    if engine.weight_lease is not None:
+        engine.weight_lease.close()
     report = {"launches": kernel_launches(), "steps": dict(engine.step_counts),
               "busy_slots": sum(s is not None for s in engine._slots),
               "active_blocks": engine.allocator.active_blocks,
               "worker_id": f"{instance_id:016x}",
               "prefix_cache": block_set_view(engine.allocator._by_hash),
               "kv_events": dict(engine.kv_publisher.counts),
-              "transfer": engine.transfer_snapshot()}
+              "transfer": engine.transfer_snapshot(), "drain": drain.last,
+              "drain_metrics": metric_values(runtime.metrics, "dtpu_drain_"),
+              "restore": ({k: v for k, v in restored.items() if k != "queue"}
+                          if restored is not None else None)}
     print(f"{EXIT} {json.dumps(report)}", flush=True)
 
 

@@ -135,8 +135,13 @@ to the prefix cache and published as stored KV events, as the prefill's
 own blocks are. A transfer that fails or falls short leaves the rest to
 the local prefill (logged, counted, a flight event). ``kv_commits`` wakes
 streamed fetches per committed prefill chunk and per import.
-The native transfer agent, the evacuation plan, drain and checkpoint are
-not ported yet (ROADMAP Queue 1 items 5.4-5.6).
+Between hosts the pages move over the native agent (transfer/native.py)
+when both sides can. A request that dies with the loop carries an
+evacuation plan on its error frame (``_evacuation_plan``: a tier pull of
+its full blocks from this worker), which the frontend's Migration replays
+on another worker. ``checkpoint.checkpoint_engine`` / ``restore_engine``
+save the prefix cache's sealed pages to a G3 checkpoint and import them
+into a fresh engine (engine/drain.py drains a worker into one).
 
 Health and observability hooks, all host-side bookkeeping on the loop
 thread (never inside a graph capture, never a device sync): ``healthy``
@@ -722,6 +727,9 @@ class TorchEngine:
         # a GlobalKvDirectory when DTPU_GLOBAL_KV is on; _publish_events
         # keeps its advertisements up to date
         self.kv_directory = None
+        # the weight owner's connection when the weights were imported from
+        # one (engine/weight_service.py): the import's lease
+        self.weight_lease = None
         # (block id, sequence hash, priority) whose KV is written and that
         # wait for the next offload batch: 0 = prompt blocks (highest reuse
         # odds), 1 = decode-sealed blocks
@@ -814,10 +822,15 @@ class TorchEngine:
         address, also registered in ``transfer.LOCAL_SERVERS`` for clients
         in this process."""
         from ..runtime.request_plane.tcp import TcpRequestServer
+        from ..transfer import ensure_native
         from .transfer import LOCAL_SERVERS, KvCommitSignal, KvTransferServer
 
         if self.kv_commits is None:
             self.kv_commits = KvCommitSignal()
+        # the native agent's library, built now (a few seconds, once per
+        # source) so that no fetch waits for a compiler; a failure is
+        # logged and the plane answers inline
+        await asyncio.get_running_loop().run_in_executor(None, ensure_native)
         srv = KvTransferServer(self, host=host)
         self._kv_transfer_srv = srv
         self._transfer_server = TcpRequestServer(srv.handle, host=host)
@@ -841,6 +854,24 @@ class TorchEngine:
         kv_dtype = "int8" if self.kv_quantized else "model"
         return int(kv_bytes_per_token(self.mcfg, self.cfg.block_size, kv_dtype)
                    * self.cfg.block_size)
+
+    def _evacuation_plan(self, st: _Seq) -> Optional[Dict[str, Any]]:
+        """The evacuation reference an error-finish frame carries: the
+        frontend's Migration replays it as the retry's ``kv_transfer`` (a
+        tier pull: the holder's KVBM host tier outlives its engine loop),
+        and routing prices destinations by the pull. None when the request
+        has nothing fetchable (no transfer server, ``no_cache``, or no full
+        block computed yet)."""
+        if self.transfer_address is None or st.no_cache:
+            return None
+        hashes = [int(h) for h in st.seq.sequence_hashes()]
+        n_tokens = len(st.req.token_ids) + int(st.produced)
+        blocks = min(len(hashes), n_tokens // self.cfg.block_size)
+        if blocks <= 0:
+            return None
+        return {"address": self.transfer_address, "hashes": hashes[:blocks],
+                "num_tokens": blocks * self.cfg.block_size, "tier": True,
+                "bytes_per_block": int(self.kv_bytes_per_block)}
 
     def transfer_snapshot(self) -> Dict[str, Any]:
         """The transfer plane's host counters (``/debug/worker``)."""
@@ -1313,8 +1344,10 @@ class TorchEngine:
                 spawn_bg(self.on_crash(crash))
             for st in list(self._waiting) + [s for s in self._slots if s]:
                 st.done = True
+                evac = self._evacuation_plan(st)
                 st.out_queue.put_nowait(BackendOutput(
                     finish_reason=FINISH_ERROR, cumulative_tokens=st.produced,
+                    annotations={"evacuation": evac} if evac else {},
                 ))
                 if st.block_ids:
                     self.allocator.release(st.block_ids)
@@ -2622,18 +2655,24 @@ class TorchEngine:
             with torch.inference_mode(), torch.cuda.stream(self._offload_stream):
                 if ready is not None:
                     self._offload_stream.wait_event(ready)
-                if self.kv_quantized:
-                    pay = gathered.data.cpu().numpy()
-                    scl = gathered.scale.cpu().numpy()
-                    blocks = [self._codec.encode(pay[i], scl[i]) for i in range(len(pending))]
-                else:
-                    arr = to_host(gathered.cpu())
-                    blocks = [arr[i].copy() for i in range(len(pending))]
+                blocks = self._storage_blocks(gathered, len(pending))
             for (_, h, prio), block in zip(pending, blocks):
                 self.kvbm.offload(h, block, priority=prio)
         except Exception:
             self.offload_errors += 1
             log.exception("kv offload of %d blocks failed", len(pending))
+
+    def _storage_blocks(self, gathered, n: int) -> List[np.ndarray]:
+        """A gather_layers buffer of ``n`` blocks copied to the host, one
+        array a block in the storage format (kvbm/layout): the int8 codec
+        buffer, or model-dtype pages (bf16 as bit patterns). The bytes of
+        a KVBM tier block and of a checkpoint's block file."""
+        if self.kv_quantized:
+            pay = gathered.data.cpu().numpy()
+            scl = gathered.scale.cpu().numpy()
+            return [self._codec.encode(pay[i], scl[i]) for i in range(n)]
+        arr = to_host(gathered.cpu())
+        return [arr[i].copy() for i in range(n)]
 
     def _device_pages(self, a) -> torch.Tensor:
         """A host storage array or a tensor, on this engine's device. A

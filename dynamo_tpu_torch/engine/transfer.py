@@ -2,11 +2,11 @@
 fleet-wide KV reuse.
 
 The port's copy of the reference package's engine/transfer.py, with its
-KVBM tier stream and without its native agent and multihost branches
-(ROADMAP Queue 1 items 5.4 and 6). A prefill engine serves its pages by
-sequence hash; a decode engine pulls them and imports them as
-content-addressed cached pages, so that admission finds them as a cached
-prefix. Three paths move the bytes:
+native agent and KVBM tier stream and without its multihost branches
+(ROADMAP Queue 1 item 6). A prefill engine serves its pages by sequence
+hash; a decode engine pulls them and imports them as content-addressed
+cached pages, so that admission finds them as a cached prefix. Four paths
+move the bytes:
 
 1. **The wire (inline):** the serving engine gathers the pages into one
    device buffer in the wire's layer-major layout ``[L, 2, n, bs, kvh, d]``
@@ -34,6 +34,19 @@ prefix. Three paths move the bytes:
    reclaimed and counted, and past ``_DEVICE_LEAK_BUDGET`` of them the
    server stops offering the device path. ``DTPU_DEVICE_TRANSFER=0`` turns
    it off.
+4. **The native wire between hosts (the C++ agent, transfer/native.py):**
+   the reference's bulk path. A request that says ``native_ok`` (its
+   client loaded the agent) is answered with leased slots of the server's
+   native arena, a pinned host buffer of one block a slot registered with
+   the agent: ONE page-copy launch (``gather_layers_packed``: each block
+   in its storage format, the int8 codec's bytes for an int8 cache) and
+   ONE copy fill a contiguous run of slots, then a crc32 a block. The
+   client reads the slots over the agent's TCP wire into pinned memory on
+   an executor thread, frees them (``free_slots`` with the lease's token),
+   checks every crc32 (a lease that expired mid-read is torn: recomputed,
+   never imported) and imports with ONE scatter launch. The slots' bytes
+   are the reference's arena's, so either package's client reads either
+   agent. A device offer still wins when the client can take one.
 
 Wire protocol (served as an endpoint of its own):
     request : {"hashes": [u64...], "native_ok": bool, "device_ok": bool}
@@ -41,6 +54,10 @@ Wire protocol (served as an endpoint of its own):
       inline:  {"matched": n, "shape": [L, 2, n, bs, kvh, d], "dtype": name,
                 "data": bytes} (int8: plus "scales" [L, 2, n, kvh] f32)
       device:  {"matched": n, "device": {...}}
+      native:  {"matched": n, "block_shape": [L, 2, bs, kvh, d], "dtype",
+                "kv_dtype": "model" | "int8", "block_bytes", "native":
+                {"host", "port", "region", "slots", "token", "crc32"}}
+    then, for a native item, {"free_slots": [...], "token": t}.
 
 Streamed protocol (same endpoint):
     request : {"hashes", "stream": true, "window": W, "wait_s": S, ...}
@@ -51,9 +68,8 @@ Streamed protocol (same endpoint):
     chunk) for more, so the pull overlaps the prefill's compute; ``wait_s``
     is that window's commit wait, which the client subtracts when it
     estimates the wire's bandwidth. A client that loses the stream resumes
-    from its first un-imported block. The port's windows may take the
-    device path too (the reference's streamed windows are inline or
-    native).
+    from its first un-imported block. A window is inline or native, as in
+    the reference, or in the port a device offer too.
 
 Tier stream (same endpoint; fleet-wide KV reuse, kvbm/directory.py):
     request : {"tier": true, "hashes", "window": W}
@@ -74,18 +90,20 @@ Tier stream (same endpoint; fleet-wide KV reuse, kvbm/directory.py):
     quantises on the way in, an int8 window at a float cache dequantises.
     The pull observes into the bandwidth EWMA under the wire class ``tier``.
 
-Two fallbacks are the reference's semantics and are kept: from a device
-path to the wire, and from a failed or short transfer to a local
-recompute. Each is logged and counted (``transfer_stats``: the
-``dtpu_kv_transfer_fallbacks_total`` counter on the worker's /metrics and
-a flight event on the request's timeline); no kernel or build failure
-falls back to a plain version.
+Three fallbacks are the reference's semantics and are kept: from a device
+path to the wire, from the native wire to the inline one (an agent whose
+library failed to build or start: logged at ERROR, counted once), and
+from a failed or short transfer to a local recompute. Each is logged and
+counted (``transfer_stats``: the ``dtpu_kv_transfer_fallbacks_total``
+counter on the worker's /metrics and a flight event on the request's
+timeline); no kernel failure falls back to a plain version.
 """
 
 from __future__ import annotations
 
 import asyncio
 import collections
+import contextlib
 import itertools
 import os
 import threading
@@ -120,9 +138,11 @@ from ..runtime.logging import get_logger
 from ..runtime.request_plane.tcp import NoResponders, TcpClient
 from ..runtime.resilience import RETRYABLE_DEFAULT, retry_policy
 from ..runtime.tracing import get_tracer
+from ..transfer.native import native_available, native_fetch
 
 log = get_logger("engine.transfer")
 
+NATIVE_REGION = 1
 SLOT_LEASE_S = 30.0
 # streamed block-window protocol: the window in blocks, the commit-wait
 # budget of a streamed fetch, the commit signal's re-check tick, and the
@@ -195,12 +215,13 @@ def card_uuid(device: torch.device) -> str:
 
 class TransferStats:
     """The process's transfer fallbacks by kind (``device_to_wire``,
-    ``recompute``) and reason, on /metrics once a worker attaches its
+    ``native_to_inline``, ``recompute``) and reason, on /metrics once a worker attaches its
     scope. Every count is also a log line and a flight event where a
     request is known."""
 
     def __init__(self) -> None:
-        self.counts: Dict[str, int] = {"device_to_wire": 0, "recompute": 0}
+        self.counts: Dict[str, int] = {"device_to_wire": 0, "native_to_inline": 0,
+                                       "recompute": 0}
         self.reasons: Dict[str, int] = {}
         self._counter = None
         self._lock = threading.Lock()
@@ -225,6 +246,33 @@ class TransferStats:
 
 
 transfer_stats = TransferStats()
+
+
+def _lease_run(table: Dict[int, Tuple[float, int]], slots: int,
+               n: int) -> Optional[Tuple[List[int], int]]:
+    """A contiguous run of ``n`` free slots of an arena of ``slots`` (a
+    slot whose lease expired is free), leased in ``table`` {slot: (expiry,
+    token)} under a new token, or None."""
+    now = time.monotonic()
+    run = 0
+    for s in range(slots):
+        run = run + 1 if table.get(s, (0.0, 0))[0] < now else 0
+        if run == n:
+            got = list(range(s - n + 1, s + 1))
+            token = next(_pull_uuids)
+            for t in got:
+                table[t] = (now + SLOT_LEASE_S, token)
+            return got, token
+    return None
+
+
+def _drop_leases(table: Dict[int, Tuple[float, int]], leases: List[Tuple[int, int]]) -> None:
+    """Drop every (slot, token) lease of ``table``; the token match keeps
+    slots leased again since untouched."""
+    for slot, token in leases:
+        lease = table.get(slot)
+        if lease is not None and lease[1] == token:
+            table.pop(slot, None)
 
 
 def _wire_block_shape(engine) -> List[int]:
@@ -267,12 +315,142 @@ class KvTransferServer:
         self._pull_pending: Dict[int, Tuple[float, List[int]]] = {}
         self._pull_leaked = 0
         self.device_address = f"cuda-ipc://{os.getpid()}/{id(self):x}"
+        # the native plane: the C++ agent, its arena of as many slots in
+        # pinned host memory (the blocks' storage format, one block a slot)
+        # and the arena's leases {slot: (expiry, token)}
+        self._agent = None
+        self._native_arena: Optional[torch.Tensor] = None
+        self._native_lease: Dict[int, Tuple[float, int]] = {}
+        self._native_lock: Optional[asyncio.Lock] = None
+        self._native_failed = False
+        # the native plane's host work: windows gathered, bytes, and the
+        # seconds of the device gather + copy and of the crc32s
+        self.native_stats = {"leases": 0, "blocks": 0, "bytes": 0, "gather_s": 0.0,
+                             "crc_s": 0.0}
+        # requests in flight and when the last one came: a worker whose
+        # loop died serves evacuation pulls until the endpoint goes idle
+        self._active = 0
+        self._last_request = time.monotonic()
         # recent streamed fetches: blocks asked, served, committed when the
         # first window went out (fewer than asked: it went out while the
         # prefill still ran), each window's commit wait
         self.streams: Deque[Dict[str, Any]] = collections.deque(maxlen=_PULL_LOG)
         # set whenever leases are dropped, for windows waiting for room
         self._freed: Optional[asyncio.Event] = None
+
+    # -- native plane --------------------------------------------------------
+    async def _ensure_native(self) -> bool:
+        """The agent and its pinned arena, made on the first native-capable
+        fetch (GiB-scale for a large model). The library itself is built
+        when the server starts (``TorchEngine.serve_transfer``), so this
+        never waits for a compiler; a failed build or start answers inline,
+        counted once as a fallback."""
+        if self._agent is not None:
+            return True
+        if self._native_failed:
+            return False
+        if not native_available():
+            self._native_failed = True
+            transfer_stats.count("native_to_inline", "no_library")
+            return False
+        if self._native_lock is None:
+            self._native_lock = asyncio.Lock()
+        async with self._native_lock:
+            if self._agent is None and not self._native_failed:
+                try:
+                    await asyncio.get_running_loop().run_in_executor(None, self._start_native)
+                except Exception:
+                    log.exception("native transfer agent unavailable; answering inline")
+                    self._native_failed = True
+                    transfer_stats.count("native_to_inline", "agent_failed")
+        return self._agent is not None
+
+    def _start_native(self) -> None:
+        from ..transfer import NativeAgent
+
+        arena = torch.empty(self._arena_slots * self._block_nbytes, dtype=torch.uint8,
+                            pin_memory=self.engine.device.type == "cuda")
+        agent = NativeAgent(host=self.host)
+        agent.register(NATIVE_REGION, arena, self._block_nbytes)
+        self._native_arena, self._agent = arena, agent
+        log.info("native transfer agent serving on %s:%d (%d slots, %.0f MiB pinned arena)",
+                 self.host, agent.port, self._arena_slots, arena.numel() / 2**20)
+
+    async def _native_item(self, block_ids: List[int],
+                           leases: List[Tuple[int, int]]) -> Optional[Dict[str, Any]]:
+        """Gather the blocks into leased slots of the native arena and return
+        the item that names them, or None when no run of free slots is left
+        (the caller answers inline). The leases are appended to ``leases``;
+        a gather that fails raises, its lease reclaimed."""
+        n = len(block_ids)
+        leased = _lease_run(self._native_lease, self._arena_slots, n)
+        if leased is None:
+            return None
+        slots, token = leased
+        try:
+            crcs = await self._gather_into_arena(block_ids, slots[0])
+        except BaseException:
+            _drop_leases(self._native_lease, [(s, token) for s in slots])
+            raise
+        leases.extend((s, token) for s in slots)
+        return {
+            "matched": n,
+            "block_shape": self._block_shape,
+            "dtype": "uint8" if self._quantized else dtype_name(
+                storage_dtype(self.engine.mcfg.dtype)),
+            "kv_dtype": "int8" if self._quantized else "model",
+            "block_bytes": self._block_nbytes,
+            "native": {
+                "host": self.host, "port": self._agent.port, "region": NATIVE_REGION,
+                "slots": slots, "token": token,
+                # the client checks what it read: a lease that expired
+                # mid-read and was gathered again for another fetch gives
+                # torn bytes, which must never be imported under a valid
+                # content hash
+                "crc32": crcs,
+            },
+        }
+
+    async def _gather_into_arena(self, block_ids: List[int], slot0: int) -> List[int]:
+        """The blocks into the arena's slots from ``slot0`` on: ONE page-copy
+        launch (gather_layers_packed: the storage format, the int8 codec's
+        bytes for an int8 cache) on the engine's step thread, ONE copy to
+        the pinned arena, then a crc32 a block, off the step thread."""
+        eng = self.engine
+        n, nbytes = len(block_ids), self._block_nbytes
+        dst = self._native_arena[slot0 * nbytes:(slot0 + n) * nbytes].view(n, nbytes)
+        loop = asyncio.get_running_loop()
+        t0 = time.perf_counter()
+
+        def launch():
+            ids = eng._t(block_ids, torch.int32)
+            packed = bc.gather_layers_packed(eng.k_caches, eng.v_caches, ids)
+            if eng.device.type != "cuda":
+                dst.copy_(packed)
+                return None
+            dst.copy_(packed, non_blocking=True)
+            ev = torch.cuda.Event()
+            ev.record()
+            return ev
+
+        ev = await loop.run_in_executor(eng._executor, launch)
+
+        def checksums():
+            if ev is not None:
+                ev.synchronize()
+            t1 = time.perf_counter()
+            host = dst.numpy()
+            crcs = [zlib.crc32(host[i]) for i in range(n)]
+            return crcs, t1
+
+        crcs, t1 = await loop.run_in_executor(None, checksums)
+        st = self.native_stats
+        st["leases"] += 1
+        st["blocks"] += n
+        st["bytes"] += n * nbytes
+        st["gather_s"] += t1 - t0
+        st["crc_s"] += time.perf_counter() - t1
+        return crcs
 
     # -- device plane --------------------------------------------------------
     def _ensure_device(self) -> bool:
@@ -291,12 +469,9 @@ class KvTransferServer:
         return True
 
     def _reclaim_leases(self, leases: List[Tuple[int, int]]) -> None:
-        """Drop every (slot, token) lease the client never freed; the token
-        match keeps re-leased slots untouched."""
-        for slot, token in leases:
-            lease = self._slot_lease.get(slot)
-            if lease is not None and lease[1] == token:
-                self._slot_lease.pop(slot, None)
+        """Drop every (slot, token) device lease the client never freed,
+        and their offers."""
+        _drop_leases(self._slot_lease, leases)
         for token in {t for _, t in leases}:
             self._pull_pending.pop(token, None)
         if self._freed is not None:
@@ -315,21 +490,6 @@ class KvTransferServer:
         for u in expired:
             _, slots = self._pull_pending.pop(u)
             self._reclaim_leases([(s, u) for s in slots])
-
-    def _lease_slots(self, n: int) -> Optional[Tuple[List[int], int]]:
-        """A contiguous run of ``n`` free slots (a slot whose lease expired
-        is free) under a new token, or None."""
-        now = time.monotonic()
-        run = 0
-        for s in range(self._arena_slots):
-            run = run + 1 if self._slot_lease.get(s, (0.0, 0))[0] < now else 0
-            if run == n:
-                slots = list(range(s - n + 1, s + 1))
-                token = next(_pull_uuids)
-                for t in slots:
-                    self._slot_lease[t] = (now + SLOT_LEASE_S, token)
-                return slots, token
-        return None
 
     def _arena_pages(self, slot0: int, n: int):
         """Views of the arena at ``slot0`` in the wire's layout: the pages
@@ -356,8 +516,8 @@ class KvTransferServer:
             self._reclaim_expired()
             if self._pull_leaked >= _DEVICE_LEAK_BUDGET:
                 return None
-            leased = (self._lease_slots(n) if len(self._pull_pending) < _DEVICE_PULL_CAP
-                      else None)
+            leased = (_lease_run(self._slot_lease, self._arena_slots, n)
+                      if len(self._pull_pending) < _DEVICE_PULL_CAP else None)
             left = deadline - time.monotonic()
             if leased is not None or left <= 0:
                 break
@@ -423,10 +583,33 @@ class KvTransferServer:
                         traceparent=request.get("traceparent"), wire=wire,
                         blocks=matched, bytes=nbytes)
 
+    async def wait_idle(self, idle_s: float, timeout_s: float) -> None:
+        """Return once no request is in flight and none came for ``idle_s``
+        seconds since the call, or after ``timeout_s``."""
+        start = time.monotonic()
+        while time.monotonic() - start < timeout_s:
+            since = time.monotonic() - max(self._last_request, start)
+            if not self._active and since >= idle_s:
+                return
+            await asyncio.sleep(0.05)
+
     async def handle(self, request: Any, context: Context) -> AsyncIterator[Dict]:
+        self._active += 1
+        self._last_request = time.monotonic()
+        try:
+            # aclosing: a client gone mid-stream closes the inner generator
+            # at once, which reclaims its leases
+            async with contextlib.aclosing(self._serve(request)) as items:
+                async for item in items:
+                    yield item
+        finally:
+            self._active -= 1
+            self._last_request = time.monotonic()
+
+    async def _serve(self, request: Any) -> AsyncIterator[Dict]:
         if "free_slots" in request:
             token = request.get("token")
-            self._reclaim_leases([(int(s), token) for s in request["free_slots"]])
+            _drop_leases(self._native_lease, [(int(s), token) for s in request["free_slots"]])
             yield {"ok": True}
             return
         if "free_pull" in request:
@@ -447,6 +630,7 @@ class KvTransferServer:
         t_serve = time.time_ns()
         hashes = [int(h) for h in request.get("hashes", [])]
         device_ok = bool(request.get("device_ok")) and self._ensure_device()
+        native_ok = bool(request.get("native_ok")) and await self._ensure_native()
         alloc = self.engine.allocator
         # pin the matched prefix so eviction cannot race the gather
         block_ids = alloc.acquire_prefix(hashes)
@@ -461,6 +645,14 @@ class KvTransferServer:
                 if offer is not None:
                     self._trace_serve(request, t_serve, "device", n, n * self._block_nbytes)
                     yield {"matched": n, "device": offer}
+                    return
+            if native_ok:
+                # the client frees the slots (free_slots) once it has read
+                # them; they expire after SLOT_LEASE_S otherwise
+                item = await self._native_item(block_ids, [])
+                if item is not None:
+                    self._trace_serve(request, t_serve, "native", n, n * self._block_nbytes)
+                    yield item
                     return
             item, nbytes = await self._inline_item(block_ids)
             self._trace_serve(request, t_serve, "inline", n, nbytes)
@@ -478,16 +670,22 @@ class KvTransferServer:
             nbytes += len(scales)
         return item, nbytes
 
-    async def _window_item(self, ids: List[int], device_ok: bool,
-                           stream_leases: List[Tuple[int, int]]
+    async def _window_item(self, ids: List[int], device_ok: bool, native_ok: bool,
+                           stream_leases: List[Tuple[int, int]],
+                           native_leases: List[Tuple[int, int]]
                            ) -> Tuple[Dict[str, Any], int]:
         """ONE window of blocks as a response item: a device offer when the
-        client can take one and the arena has room, else inline."""
+        client can take one and the arena has room, else native slots when
+        the client reads the agent and its arena has room, else inline."""
         if device_ok:
             offer = await self._offer_device(ids, wait_s=_ARENA_WAIT_S)
             if offer is not None:
                 stream_leases.extend((s, offer["uuid"]) for s in offer["ipc"]["slots"])
                 return {"matched": len(ids), "device": offer}, len(ids) * self._block_nbytes
+        if native_ok:
+            item = await self._native_item(ids, native_leases)
+            if item is not None:
+                return item, len(ids) * self._block_nbytes
         return await self._inline_item(ids)
 
     async def _handle_tier_stream(self, request: Any) -> AsyncIterator[Dict]:
@@ -558,12 +756,14 @@ class KvTransferServer:
         window = max(1, int(request.get("window") or STREAM_WINDOW_BLOCKS))
         wait_budget = float(request.get("wait_s") or STREAM_WAIT_S)
         device_ok = bool(request.get("device_ok")) and self._ensure_device()
+        native_ok = bool(request.get("native_ok")) and await self._ensure_native()
         alloc = self.engine.allocator
         sig = getattr(self.engine, "kv_commits", None)
         served = 0
         nbytes_total = 0
         wire = "none"
         stream_leases: List[Tuple[int, int]] = []
+        native_leases: List[Tuple[int, int]] = []
         clean_exit = False
         record: Dict[str, Any] = {"blocks": n, "served": 0, "committed_at_first_window": None,
                                   "waits": []}
@@ -587,12 +787,14 @@ class KvTransferServer:
                     record["committed_at_first_window"] = avail
                 try:
                     item, nbytes = await self._window_item(
-                        block_ids[served:served + take], device_ok, stream_leases)
+                        block_ids[served:served + take], device_ok, native_ok,
+                        stream_leases, native_leases)
                 finally:
                     alloc.release(block_ids)
                 item["offset"] = served
                 item["wait_s"] = round(waited, 6)
-                wire = "device" if "device" in item else "inline"
+                wire = ("device" if "device" in item else
+                        "native" if "native" in item else "inline")
                 yield item
                 served += take
                 nbytes_total += nbytes
@@ -605,6 +807,7 @@ class KvTransferServer:
         finally:
             if not clean_exit:
                 self._reclaim_leases(stream_leases)
+                _drop_leases(self._native_lease, native_leases)
 
     async def _gather(self, block_ids: List[int]):
         """The inline payload: (data bytes, shape, dtype name, scales bytes
@@ -644,12 +847,19 @@ class KvTransferServer:
         return {"arena_slots": self._arena_slots if self._arena is not None else 0,
                 "leased_slots": len(self._slot_lease),
                 "pending_offers": len(self._pull_pending),
-                "leaked_offers": self._pull_leaked, "streams": list(self.streams)}
+                "leaked_offers": self._pull_leaked, "streams": list(self.streams),
+                "native": {"port": self._agent.port if self._agent is not None else None,
+                           "leased_slots": len(self._native_lease), **self.native_stats}}
 
     def close(self) -> None:
         if self._arena is not None:
             self._arena.close()
             self._arena = None
+        if self._agent is not None:
+            # a leaked teardown parks the arena (transfer/native.py)
+            self._agent.close()
+            self._agent = None
+            self._native_arena = None
 
 
 class LocalKvMover:
@@ -788,7 +998,8 @@ class KvTransferClient:
                                "tokens": tokens, "want_tokens": want_tokens,
                                "streamed": bool(stream), "waits": info["waits"],
                                "tier": bool(tier), "address": address,
-                               "windows": info.get("windows", 0)})
+                               "windows": info.get("windows", 0),
+                               "crc_s": info.get("crc_s", 0.0)})
             if tracer.enabled:
                 tracer.emit("kv.transfer.pull", t0, time.time_ns(), traceparent=traceparent,
                             status=status, address=address, wire=info["wire"],
@@ -838,7 +1049,8 @@ class KvTransferClient:
         if stream:
             imported = await self._pull_stream(address, want, traceparent, info, device_ok)
             return (have + imported) * alloc.block_size
-        req: Dict[str, Any] = {"hashes": [int(h) for h in want], "native_ok": False}
+        req: Dict[str, Any] = {"hashes": [int(h) for h in want],
+                               "native_ok": native_available()}
         if traceparent:
             req["traceparent"] = traceparent
         if device_ok:
@@ -864,11 +1076,18 @@ class KvTransferClient:
                 return have * alloc.block_size
         elif device_ok:
             self._fallback("device_to_wire", "not_offered", info.get("request_id"))
-        pages, scales = wire_pages_from_item(item)
-        info.update(wire="inline",
-                    bytes=len(item.get("data", b"")) + len(item.get("scales", b"")))
-        imported = await self.engine.import_blocks(
-            list(want[:matched]), pages if scales is None else (pages, scales), wire=True)
+        if "native" in item:
+            block_major = await self._native_fetch(address, item, matched, info, t_pull)
+            if block_major is None:
+                return have * alloc.block_size
+            info.update(wire="native", bytes=matched * int(item["block_bytes"]))
+            imported = await self.engine.import_blocks(list(want[:matched]), block_major)
+        else:
+            pages, scales = wire_pages_from_item(item)
+            info.update(wire="inline",
+                        bytes=len(item.get("data", b"")) + len(item.get("scales", b"")))
+            imported = await self.engine.import_blocks(
+                list(want[:matched]), pages if scales is None else (pages, scales), wire=True)
         info["blocks"] = imported
         return (have + imported) * alloc.block_size
 
@@ -920,7 +1139,7 @@ class KvTransferClient:
         while imported < n:
             req: Dict[str, Any] = {"hashes": [int(h) for h in want[imported:]],
                                    "stream": True, "window": STREAM_WINDOW_BLOCKS,
-                                   "wait_s": STREAM_WAIT_S, "native_ok": False}
+                                   "wait_s": STREAM_WAIT_S, "native_ok": native_available()}
             if device_ok:
                 req["device_ok"] = True
             if traceparent:
@@ -949,6 +1168,12 @@ class KvTransferClient:
                             self._fallback("device_to_wire", "pull_failed", info.get("request_id"))
                             raise ConnectionError("device window pull failed mid-stream")
                         wire, nbytes = "device", m * self._block_nbytes()
+                    elif "native" in item:
+                        block_major = await self._native_fetch(address, item, m, info)
+                        if block_major is None:
+                            raise ConnectionError("native window fetch failed mid-stream")
+                        got = await self.engine.import_blocks(w_hashes, block_major)
+                        wire, nbytes = "native", m * int(item["block_bytes"])
                     else:
                         pages, scales = wire_pages_from_item(item)
                         nbytes = len(item.get("data", b"")) + len(item.get("scales", b""))
@@ -966,6 +1191,7 @@ class KvTransferClient:
                     info["bytes"] += nbytes
                     info["xfer_s"] += leg
                     info["waits"].append(wait_s)
+                    info["windows"] = info.get("windows", 0) + 1
                     imported += got
                     progressed = progressed or got > 0
                     if got < m:
@@ -1132,6 +1358,78 @@ class KvTransferClient:
         except Exception:
             pass   # the server's lease expiry reclaims the slots
         return got
+
+    async def _native_fetch(self, address: str, item: Dict[str, Any], matched: int,
+                            info: Dict[str, Any], t0: Optional[float] = None):
+        """Read leased slots from the serving agent into a host buffer
+        (pinned for a card's upload) on an executor thread, free the slots
+        (beside the checks), and check every block's crc32. Returns the
+        blocks in the server's storage format, ready for ``import_blocks``
+        (ONE scatter_layers launch): pages ``[n, L, 2, bs, kvh, d]`` (a view
+        of the buffer), or for an int8 server the codec's (payload, scales)
+        pair; None on a failed read or a torn block (the caller recomputes,
+        counted). With ``t0`` the pull's wire seconds run from ``t0`` to the
+        end of the read (``info["xfer_s"]``)."""
+        nat = item["native"]
+        block_bytes = int(item["block_bytes"])
+        slots = list(nat["slots"])[:matched]
+        buf = torch.empty(matched * block_bytes, dtype=torch.uint8,
+                          pin_memory=self.engine.device.type == "cuda")
+        loop = asyncio.get_running_loop()
+
+        async def free() -> None:
+            try:
+                stream = await self._tcp.call(
+                    address, {"free_slots": nat["slots"], "token": nat.get("token")})
+                async for _ in stream:
+                    pass
+            except Exception:
+                pass   # the lease's expiry reclaims the slots
+
+        try:
+            await loop.run_in_executor(None, native_fetch, nat["host"], int(nat["port"]),
+                                       int(nat["region"]), slots, block_bytes, buf)
+        except Exception:
+            log.exception("native kv fetch from %s:%s failed; recomputing the prefill "
+                          "locally", nat["host"], nat["port"])
+            await free()
+            return None
+        if t0 is not None:
+            info["xfer_s"] = time.monotonic() - t0
+        freeing = asyncio.ensure_future(free())
+        try:
+            return await self._checked_blocks(item, buf, matched, slots, address, info)
+        finally:
+            await freeing
+
+    async def _checked_blocks(self, item: Dict[str, Any], buf: torch.Tensor, matched: int,
+                              slots: List[int], address: str, info: Dict[str, Any]):
+        """``_native_fetch``'s crc32 checks and decode of the read buffer."""
+        block_shape = item["block_shape"]
+        raw = buf.view(matched, int(item["block_bytes"])).numpy()
+        expected = item["native"].get("crc32")
+
+        def torn() -> Optional[int]:
+            t0 = time.perf_counter()
+            try:
+                return next((i for i in range(matched) if expected is not None
+                             and zlib.crc32(raw[i]) != expected[i]), None)
+            finally:
+                info["crc_s"] = info.get("crc_s", 0.0) + time.perf_counter() - t0
+
+        bad = await asyncio.get_running_loop().run_in_executor(None, torn)
+        if bad is not None:
+            # the lease expired mid-read and the slots were gathered again
+            # for another fetch: never import torn bytes under a valid hash
+            log.warning("kv transfer checksum mismatch on slot %s from %s (a stale lease "
+                        "overwritten?); recomputing the prefill locally", slots[bad], address)
+            return None
+        if item.get("kv_dtype") == "int8":
+            L, _, bs, kvh, d = block_shape
+            return QuantizedBlockCodec(BlockShape(
+                num_layers=L, block_size=bs, num_kv_heads=kvh, head_dim=d,
+                dtype=np.dtype(np.int8))).decode_many(raw)
+        return buf.view(torch_dtype_from_name(item["dtype"])).view(matched, *block_shape)
 
     def snapshot(self) -> Dict[str, Any]:
         return {"pulls": list(self.pulls)}

@@ -28,8 +28,15 @@ clone fires and the decode request ships at once with a streamed
 ``kv_transfer`` handshake) or sequential (the prefill's first token
 streams, then the decode request pulls the finished prefill's pages).
 A typed terminal error of the prefill pool reaches the client; any other
-prefill failure takes the aggregated path. The reference's
-draining-worker steering waits for ROADMAP item 5.6.
+prefill failure takes the aggregated path.
+
+Planned reclaims (engine/drain.py): a worker whose discovery record says
+``state=draining`` gets no new work and no migration retry, unless every
+worker is draining (a draining worker still serves until its deadline).
+A migration that carries an evacuation plan is routed, in KV mode, by the
+cost of pulling the plan's blocks over each candidate's advertised wire
+(``_evacuation_costs``: the bandwidth EWMA of runtime/bandwidth.py, in
+units of the recompute prior ``DTPU_PREFILL_BLOCK_MS``).
 
 Fleet-wide KV reuse (``DTPU_GLOBAL_KV=1``): each pipeline keeps a
 lookup-only client of the global KV directory (kvbm/directory.py; the
@@ -179,15 +186,61 @@ class ModelPipeline:
             for iid in list(self._worker_breakers):
                 if iid not in inst:
                     self._worker_breakers.pop(iid, None)
-        avoid = [iid for iid, cb in self._worker_breakers.items()
-                 if iid not in excluded and iid in inst and cb.state == OPEN]
-        if not avoid:
-            return []
+        return self._unless_none_left(excluded, [
+            iid for iid, cb in self._worker_breakers.items()
+            if iid not in excluded and iid in inst and cb.state == OPEN])
+
+    def _unless_none_left(self, excluded: List[int], avoid: List[int]) -> List[int]:
+        """``avoid``, unless avoiding it beside ``excluded`` would leave no
+        live instance (counts over live instances)."""
+        inst = self.client.instances
         shun_live = sum(1 for iid in set(excluded) if iid in inst)
-        # would avoiding empty the pool? (all counts over live instances)
-        if len(inst) - shun_live - len(avoid) <= 0:
+        if not avoid or len(inst) - shun_live - len(avoid) <= 0:
             return []
         return avoid
+
+    def _draining(self, excluded: List[int]) -> List[int]:
+        """Workers whose discovery record advertises a planned reclaim
+        (``state=draining``): new work and migration retries steer around
+        them (a retry that lands on a worker seconds from death migrates
+        twice), unless that would leave no candidate: a draining worker
+        beats none, as it serves until its deadline."""
+        assert self.client is not None
+        return self._unless_none_left(excluded, [
+            iid for iid, rec in self.client.instances.items()
+            if iid not in excluded and rec.metadata.get("state") == "draining"])
+
+    def _evacuation_costs(self, req: PreprocessedRequest, inst_map,
+                          shun: List[int]) -> Optional[Dict[WorkerWithDpRank, float]]:
+        """Destination costs of an evacuation replay: a request that carries
+        a plan's blocks in ``kv_transfer`` charges every candidate the time
+        to pull them over its advertised wire class (``kv_wire``; the
+        per-wire bandwidth EWMA), in block units of the recompute prior (the
+        KV scheduler's ``extra_costs`` currency). None for other requests:
+        the common path pays nothing."""
+        hashes = (req.kv_transfer or {}).get("hashes") or ()
+        if not hashes:
+            return None
+        from ..runtime.bandwidth import get_bandwidth_estimator
+        from ..runtime.config import ENV_PREFILL_BLOCK_MS, env_float
+        from .prefill_router import PREFILL_BLOCK_MS
+
+        bw = get_bandwidth_estimator()
+        bpb = int(req.kv_transfer.get("bytes_per_block", 0) or 0) or (
+            int(getattr(self.card.runtime_config, "kv_bytes_per_block", 0) or 0)
+            or 256 * 1024)
+        move_bytes = len(hashes) * bpb
+        block_time_s = env_float(ENV_PREFILL_BLOCK_MS, PREFILL_BLOCK_MS) / 1e3
+        shun_set = set(shun)
+        costs: Dict[WorkerWithDpRank, float] = {}
+        for iid, inst in inst_map.items():
+            if iid in shun_set:
+                continue
+            wire = str(inst.metadata.get("kv_wire") or "inline")
+            cost = bw.transfer_seconds(wire, move_bytes) / block_time_s
+            for r in range(int(inst.metadata.get("data_parallel_size", 1) or 1)):
+                costs[WorkerWithDpRank(iid, r)] = cost
+        return costs or None
 
     async def start(self) -> "ModelPipeline":
         endpoint = (
@@ -290,7 +343,8 @@ class ModelPipeline:
                 excl.add(WorkerWithDpRank(iid, r))
         decision = self.kv_router.schedule_tokens(
             req.token_ids, excluded=excl, request_id=req.request_id,
-            lora=req.annotations.get("lora"))
+            lora=req.annotations.get("lora"),
+            extra_costs=self._evacuation_costs(req, inst_map, excluded))
         instance_id = decision.worker.worker_id
         req.annotations[ANNOTATION_CACHED_TOKENS] = (
             decision.overlap_blocks * self.card.kv_block_size)
@@ -315,9 +369,12 @@ class ModelPipeline:
             span.__enter__()
             req.annotations["traceparent"] = span.traceparent()
         try:
-            # per-request exclusions (migration) plus cross-request tripped
-            # circuits, steered around the same way
+            # per-request exclusions (migration), cross-request tripped
+            # circuits and draining workers, all steered around the same
+            # way; _draining sees the combined set, so that its empty-pool
+            # fallback counts the workers already shunned
             shun = list(excluded) + self._tripped(excluded)
+            shun += self._draining(shun)
             # pooled forwards touch no KV pages: the KV scheduler would
             # charge them phantom blocks that nothing frees
             use_kv = self.kv_router is not None and req.annotations.get("op") != "embed"

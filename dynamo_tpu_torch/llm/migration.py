@@ -5,13 +5,18 @@ dies before or during generation (NoResponders / dropped stream / an error
 finish), re-send the request to a different worker carrying the tokens
 already generated (``prior_token_ids``) so decode resumes where it stopped,
 bounded by ``migration_limit`` attempts; each migration lands on the
-request's flight-recorder timeline. The reference's evacuation plans (KV
-pulled from a draining worker) wait for the port's KV transfer.
+request's flight-recorder timeline. A worker whose engine died attaches an
+evacuation plan to the request's error frame (``TorchEngine.
+_evacuation_plan``: its transfer address and the request's full-block
+hashes); the retry carries it as its ``kv_transfer``, so that the next
+worker pulls those pages from the dying worker's host tier instead of
+recomputing them, and routing prices destinations by that pull
+(llm/discovery.py ``_evacuation_costs``).
 """
 
 from __future__ import annotations
 
-from typing import Any, AsyncIterator, Awaitable, Callable, List, Optional
+from typing import Any, AsyncIterator, Awaitable, Callable, Dict, List, Optional
 
 from ..runtime.engine import Context
 from ..runtime.flight_recorder import get_flight_recorder
@@ -39,10 +44,12 @@ class Migration:
         attempts_left = self.migration_limit
         accumulated: List[int] = list(request.prior_token_ids)
         excluded: List[int] = []
+        # the evacuation plan of the last failed worker's error frame
+        evacuation: Optional[Dict[str, Any]] = None
 
         while True:
             req = request
-            if accumulated != list(request.prior_token_ids):
+            if accumulated != list(request.prior_token_ids) or evacuation is not None:
                 # re-issue with progress so the new worker resumes decode
                 req = PreprocessedRequest.from_obj(request.to_obj())
                 req.prior_token_ids = list(accumulated)
@@ -50,6 +57,8 @@ class Migration:
                     req.stop.max_tokens = max(
                         1, req.stop.max_tokens - (len(accumulated) - len(request.prior_token_ids))
                     )
+                if evacuation is not None:
+                    req.kv_transfer = dict(evacuation)
             try:
                 stream = await self.send(req, context, excluded)
                 async for item in stream:
@@ -63,6 +72,9 @@ class Migration:
                         iid = getattr(stream, "instance_id", None)
                         if iid is not None:
                             err.instance_id = iid  # type: ignore[attr-defined]
+                        evac = out.kv_transfer or out.annotations.get("evacuation")
+                        if evac:
+                            err.evacuation = evac  # type: ignore[attr-defined]
                         raise err
                     accumulated.extend(out.token_ids)
                     # a resumed worker counts only ITS OWN tokens: normalize
@@ -99,11 +111,14 @@ class Migration:
                 worker_id: Optional[int] = getattr(e, "instance_id", None)
                 if worker_id is not None and worker_id not in excluded:
                     excluded.append(worker_id)
+                evac = getattr(e, "evacuation", None)
+                if evac:
+                    evacuation = dict(evac)
                 get_flight_recorder().record(
                     request.request_id, "migration",
                     tokens_so_far=len(accumulated), attempts_left=attempts_left,
                     from_worker=(f"{worker_id:016x}" if worker_id is not None else "unknown"),
-                    evacuated=False, error=str(e)[:200],
+                    evacuated=bool(evac), error=str(e)[:200],
                 )
                 log.info(
                     "migrating request %s (%d tokens so far, %d attempts left): %s",

@@ -8,6 +8,9 @@ source and header and the flags, so an edited source rebuilds and an
 unchanged checkout reuses its libraries. Only the CUDA toolkit is needed
 (``$CUDA_HOME/bin/nvcc``, default ``/usr/local/cuda``).
 
+The host code of csrc/ (``*.cpp``: the KV transfer agent) builds with
+``g++`` into the same directory (``build_host``), on the CPU machines too.
+
 Nothing here runs at import: the tests import every module on machines
 without ``nvcc`` or a GPU.
 """
@@ -33,6 +36,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+GXX_FLAGS = ("-O2", "-std=c++17", "-fPIC", "-shared", "-pthread", "-Wall", "-Wextra")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -43,9 +47,9 @@ def _sources() -> List[str]:
 
 
 def source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + GXX_FLAGS).encode())
     for name in sorted(os.listdir(CSRC)):
-        if name.endswith((".cu", ".cuh")):
+        if name.endswith((".cu", ".cuh", ".cpp")):
             h.update(name.encode())
             with open(os.path.join(CSRC, name), "rb") as f:
                 h.update(f.read())
@@ -106,6 +110,31 @@ def build_all() -> str:
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     return out_dir
+
+
+def build_host(source: str) -> str:
+    """Compile the host source ``csrc/<source>`` (C++, a plain C interface)
+    with ``g++`` into the build directory unless it is there; returns the
+    library's path. Raises with the compiler's output when it fails."""
+    out_dir = build_dir()
+    path = os.path.join(out_dir, _lib_name(source))
+    if os.path.exists(path):
+        return path
+    os.makedirs(out_dir, exist_ok=True)
+    gxx = os.environ.get("CXX") or shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError("g++ not found (set CXX): the host libraries of csrc/ need it")
+    # a temporary name, then a rename, as build_all
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+    os.close(fd)
+    proc = subprocess.run([gxx, *GXX_FLAGS, "-o", tmp, os.path.join(CSRC, source)],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                          timeout=300)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"g++ failed on {source} (exit {proc.returncode}):\n{proc.stdout}")
+    os.replace(tmp, path)
+    return path
 
 
 def _lib_name(source: str) -> str:

@@ -20,6 +20,11 @@ move here is ONE launch:
   back. Their table is built once per set of caches (``layer_moves``, pure
   Python) and kept on the device; only the ids and the stacked buffer
   change per call.
+- ``gather_layers_packed``: gather_layers' move into ONE byte buffer
+  ``[n, block_bytes]`` in the blocks' storage format (kvbm/layout): the
+  stacked pages of a float cache, and for int8 each block's payload bytes
+  then its scale bytes (``QuantizedBlockCodec``'s buffer), the native
+  transfer arena's slots (engine/transfer.py);
 - ``gather_layers_wire`` / ``scatter_layers_wire``: the same move in the
   KV transfer wire's layer-major order ``[L, 2, n, bs, kvh, d]`` (int8:
   plus scales ``[L, 2, n, kvh]``), engine/transfer.py's one gather per
@@ -182,6 +187,16 @@ def gather_layers_ref(k_caches: Caches, v_caches: Caches, ids: torch.Tensor) -> 
     out = [torch.stack([gather_blocks_ref(c, ids) for c in grp], 1).unflatten(1, (-1, 2))
            for grp in _groups(k_caches, v_caches)]
     return QuantizedKV(*out) if len(out) == 2 else out[0]
+
+
+def gather_layers_packed_ref(k_caches: Caches, v_caches: Caches,
+                             ids: torch.Tensor) -> torch.Tensor:
+    """gather_layers_ref as one uint8 buffer ``[n, block_bytes]``: each
+    block's payload bytes, then (int8) its scale bytes."""
+    got = gather_layers_ref(k_caches, v_caches, ids)
+    n = ids.shape[0]
+    return torch.cat([t.contiguous().reshape(n, -1).view(torch.uint8)
+                      for t in _split(got, isinstance(got, QuantizedKV))], 1)
 
 
 def scatter_layers_ref(k_caches: Caches, v_caches: Caches, ids: torch.Tensor,
@@ -365,19 +380,26 @@ def layer_table_key(groups: List[List[torch.Tensor]], gather: bool) -> tuple:
             tuple(c.data_ptr() for grp in groups for c in grp))
 
 
-def _layer_table(groups: List[List[torch.Tensor]], gather: bool, wire_n: int = 0):
-    """The device table of a layer-batched move: the stacked layout, or
-    with ``wire_n`` the wire's layer-major layout of that many pages."""
-    key = (layer_table_key(groups, gather), wire_n)
+def _layer_table(groups: List[List[torch.Tensor]], gather: bool, wire_n: int = 0,
+                 packed: bool = False):
+    """The device table of a layer-batched move: the stacked layout, with
+    ``wire_n`` the wire's layer-major layout of that many pages, or
+    ``packed``: every group's arrays in one row of one buffer."""
+    key = (layer_table_key(groups, gather), wire_n, packed)
     hit = _layer_tables.get(key)
     if hit is None:
-        moves = []
-        for i, grp in enumerate(groups):
+        for grp in groups:
             if any(c.shape != grp[0].shape or c.dtype != grp[0].dtype for c in grp):
                 raise ValueError("every layer cache must have one shape and dtype")
-            arrays = [(c.data_ptr(), _page_bytes(c)) for c in grp]
-            moves += (wire_moves(arrays, grp[0].shape[0], wire_n, gather, i + 1) if wire_n
-                      else layer_moves(arrays, grp[0].shape[0], gather, i + 1))
+        if packed:
+            moves = layer_moves([(c.data_ptr(), _page_bytes(c)) for grp in groups
+                                 for c in grp], groups[0][0].shape[0], gather, 1)
+        else:
+            moves = []
+            for i, grp in enumerate(groups):
+                arrays = [(c.data_ptr(), _page_bytes(c)) for c in grp]
+                moves += (wire_moves(arrays, grp[0].shape[0], wire_n, gather, i + 1)
+                          if wire_n else layer_moves(arrays, grp[0].shape[0], gather, i + 1))
         table, W = move_table(moves)
         # through pinned memory: the upload does not wait for the device
         dev = torch.from_numpy(table.view(np.uint8)).pin_memory().to(
@@ -409,6 +431,32 @@ def gather_layers(k_caches: Caches, v_caches: Caches, ids: torch.Tensor) -> Page
         GATHER.launch([ids, None, table, None, *bufs, *[None] * (2 - len(bufs))],
                       [count, W, n])
     return QuantizedKV(*bufs) if len(bufs) == 2 else bufs[0]
+
+
+def gather_layers_packed(k_caches: Caches, v_caches: Caches, ids: torch.Tensor,
+                         out: torch.Tensor = None) -> torch.Tensor:
+    """gather_layers' pages in ONE launch as one uint8 buffer ``[n,
+    block_bytes]`` in the blocks' storage format: a float block's stacked
+    pages, an int8 block's payload bytes then its scale bytes (the
+    QuantizedBlockCodec buffer), into ``out`` when given. Plain version:
+    gather_layers_packed_ref."""
+    groups = _groups(k_caches, v_caches)
+    n = ids.shape[0]
+    if groups[0][0].device.type == "cpu":
+        got = gather_layers_packed_ref(k_caches, v_caches, ids)
+        return got if out is None else out.copy_(got)
+    _check_ids("ids", ids)
+    # every cache of a group has one page (the table checks it)
+    row = sum(len(grp) * _page_bytes(grp[0]) for grp in groups)
+    if out is None:
+        out = torch.empty((n, row), dtype=torch.uint8, device=groups[0][0].device)
+    elif (out.dtype != torch.uint8 or tuple(out.shape) != (n, row) or not out.is_contiguous()
+          or out.device != groups[0][0].device):
+        raise ValueError(f"out: expected contiguous uint8 {(n, row)} on the caches' device")
+    if n:
+        table, count, W = _layer_table(groups, gather=True, packed=True)
+        GATHER.launch([ids, None, table, None, out, None], [count, W, n])
+    return out
 
 
 def scatter_layers(k_caches: Caches, v_caches: Caches, ids: torch.Tensor,

@@ -115,15 +115,26 @@ def _model_of(preset: str) -> LlamaConfig:
     return PRESETS[name]()
 
 
-def load_checkpoint(ref: str, device: Optional[str], warm: bool = True):
-    """(directory, config, parameters on ``device``) of a checkpoint
-    directory or hub reference, through the warm cache unless ``warm`` is
-    off."""
+def load_checkpoint(ref: str, device: Optional[str], warm: bool = True,
+                    weight_service: Optional[str] = None):
+    """(directory, config, parameters on ``device``, the weight owner's
+    lease or None) of a checkpoint directory or hub reference: imported
+    from the weight owner on the unix socket ``weight_service``
+    (engine/weight_service.py) when it answers, else through the warm cache
+    unless ``warm`` is off."""
     path = resolve_model_path(ref)
     cfg = config_from_hf(path)
-    params = load_params_warm(path, cfg, device=device) if warm else load_params(
-        path, cfg, device)
-    return path, cfg, params
+    lease = None
+    if weight_service:
+        from .engine.weight_service import load_params_served
+
+        params, lease = load_params_served(path, cfg, weight_service, warm_fallback=warm,
+                                           device=device)
+    elif warm:
+        params = load_params_warm(path, cfg, device=device)
+    else:
+        params = load_params(path, cfg, device)
+    return path, cfg, params, lease
 
 
 def build_engine(out: str, device: Optional[str], max_context: int, seed: int,
@@ -138,7 +149,7 @@ def build_engine(out: str, device: Optional[str], max_context: int, seed: int,
                  num_blocks: Optional[int] = None, block_size: int = 16,
                  max_batch_size: int = 8, prefill_chunk: Optional[int] = None,
                  guided_vocab=None, kvbm_remote: Optional[str] = None,
-                 **features) -> TorchEngine:
+                 weight_service: Optional[str] = None, **features) -> TorchEngine:
     """The engine for ``out``, a preset (random weights from ``seed``) or
     a checkpoint directory / hub reference. ``num_blocks`` defaults to
     the context's worth of blocks (at least 512) and ``prefill_chunk``
@@ -146,16 +157,18 @@ def build_engine(out: str, device: Optional[str], max_context: int, seed: int,
     TorchEngineConfig's feature fields (guided caps, logits processors,
     LoRA slots), ``guided_vocab`` the constructor's. ``kvbm_remote``
     (``host:port``) writes sealed blocks through to a G4 block store
-    (kvbm/remote.py) and onboards from it."""
-    params = draft_params = None
+    (kvbm/remote.py) and onboards from it. ``weight_service`` (a unix
+    socket) imports a checkpoint's weights from a weight owner; the
+    engine's ``weight_lease`` then holds the connection, its lease."""
+    params = draft_params = lease = None
     if is_preset(out):
         model = _model_of(out)
     else:
-        _, model, params = load_checkpoint(out, device, warm_cache)
+        _, model, params, lease = load_checkpoint(out, device, warm_cache, weight_service)
     vision = VISION_PRESETS[out][1](model) if out in VISION_PRESETS else None
     draft = _model_of(spec_draft) if spec_draft else None
     if spec_draft_path:
-        _, draft, draft_params = load_checkpoint(spec_draft_path, device, warm_cache)
+        _, draft, draft_params, _ = load_checkpoint(spec_draft_path, device, warm_cache)
     if max_context > model.max_position:
         raise SystemExit(f"--max-context {max_context} exceeds {out}'s max_position "
                          f"{model.max_position}")
@@ -182,8 +195,10 @@ def build_engine(out: str, device: Optional[str], max_context: int, seed: int,
         kvbm = KvbmTiers(block_nbytes, host_capacity_bytes=int(kvbm_host_gb * (1 << 30)),
                          disk_capacity_bytes=int(kvbm_disk_gb * (1 << 30)),
                          disk_path=kvbm_disk_path, remote=remote)
-    return TorchEngine(cfg, params=params, kvbm=kvbm, draft_params=draft_params,
-                       guided_vocab=guided_vocab)
+    engine = TorchEngine(cfg, params=params, kvbm=kvbm, draft_params=draft_params,
+                         guided_vocab=guided_vocab)
+    engine.weight_lease = lease
+    return engine
 
 
 def prompt_ids(tok: Tokenizer, prompt: str) -> List[int]:

@@ -80,6 +80,14 @@ ENV_GLOBAL_KV = "DTPU_GLOBAL_KV"                      # global KV directory on/o
 ENV_GLOBAL_KV_TTL_S = "DTPU_GLOBAL_KV_TTL_S"          # directory entry ttl (s)
 ENV_GLOBAL_KV_DEDUPE = "DTPU_GLOBAL_KV_DEDUPE"        # max advertised holders per hash
 ENV_GLOBAL_KV_FETCH_MARGIN = "DTPU_GLOBAL_KV_FETCH_MARGIN"  # fetch <= margin*recompute gate
+# planned reclaims + checkpoint/restore (engine/drain.py, engine/checkpoint.py)
+ENV_DRAIN_DEADLINE_S = "DTPU_DRAIN_DEADLINE_S"        # default reclaim deadline (s)
+ENV_DRAIN_MARGIN_S = "DTPU_DRAIN_MARGIN_S"            # stop evacuating this early (s)
+ENV_CKPT_DIR = "DTPU_CKPT_DIR"                        # G3 checkpoint directory
+ENV_CKPT_MAX_BLOCKS = "DTPU_CKPT_MAX_BLOCKS"          # sealed blocks per checkpoint cap
+# weights that outlive a worker (engine/weight_service.py)
+ENV_WEIGHT_SERVICE = "DTPU_WEIGHT_SERVICE"            # the weight owner's unix socket
+ENV_WEIGHT_SHM = "DTPU_WEIGHT_SHM"                    # the owner's shared-memory directory
 # DTPU_RETRY_* / DTPU_CB_* (runtime/resilience.py) and DTPU_FAULTS
 # (runtime/faults.py) are read where they apply
 

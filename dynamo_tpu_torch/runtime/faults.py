@@ -57,8 +57,8 @@ log = get_logger("runtime.faults")
 
 ENV_FAULTS = "DTPU_FAULTS"
 
-# the reference's catalog of fault points (the port wires the first five
-# and engine.step; the rest wait for their modules)
+# the reference's catalog of fault points (the port wires every one but
+# controller.spawn: the deploy controller is not ported)
 FAULT_POINTS = (
     "request_plane.send",        # tcp client, before the request goes out
     "request_plane.connect",     # tcp client connection establishment

@@ -560,9 +560,8 @@ class StatusServer:
                  snapshot, step telemetry, SLO ledger, attribution windows,
                  health events): the unit the frontend's ``/debug/fleet``
                  fan-out merges (llm/fleet.py)
-      POST /drain  planned-reclaim notice, body ``{"deadline_s": 30}``: 409
-                 when no drain handler is wired (the port's workers wire
-                 none yet)
+      POST /drain  planned-reclaim notice, body ``{"deadline_s": 30}``
+                 (engine/drain.py): 409 when no drain handler is wired
 
     Handlers run on the worker's event loop and read host counters only.
     """

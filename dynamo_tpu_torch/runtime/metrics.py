@@ -58,6 +58,10 @@ GLOBAL_KV_HITS_TOTAL = f"{PREFIX}_global_kv_hits_total"
 GLOBAL_KV_DIRECTORY_ENTRIES = f"{PREFIX}_global_kv_directory_entries"
 GLOBAL_KV_DEDUP_BLOCKS_TOTAL = f"{PREFIX}_global_kv_dedup_blocks_total"
 PREFILL_DEFLECTED_TOTAL = f"{PREFIX}_prefill_deflected_total"
+# planned reclaims (engine/drain.py, engine/checkpoint.py)
+DRAIN_EVACUATED_BLOCKS = f"{PREFIX}_drain_evacuated_blocks_total"
+DRAIN_DEADLINE_MARGIN = f"{PREFIX}_drain_deadline_margin_seconds"
+CHECKPOINT_RESTORE_MODE = f"{PREFIX}_checkpoint_restore_mode"
 
 LABEL_NAMESPACE = "dtpu_namespace"
 LABEL_COMPONENT = "dtpu_component"

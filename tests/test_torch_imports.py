@@ -277,3 +277,23 @@ def test_the_walk_covers_the_frontend_planes():
         "dynamo_tpu_torch.runtime.http_client", "dynamo_tpu_torch.runtime.discovery.etcd",
         "dynamo_tpu_torch.runtime.request_plane.http",
     } <= set(_modules())
+
+
+def test_the_walk_covers_the_planned_reclaim_modules():
+    """The native agent's binding, checkpoint and restore, the drain and the
+    weight owner are in both walks."""
+    assert {
+        "dynamo_tpu_torch.transfer", "dynamo_tpu_torch.transfer.native",
+        "dynamo_tpu_torch.engine.checkpoint", "dynamo_tpu_torch.engine.drain",
+        "dynamo_tpu_torch.engine.weight_service",
+    } <= set(_modules())
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: os.path.relpath(p, REPO))
+def test_the_port_builds_its_own_agent(path):
+    """The native agent builds from the port's csrc/transfer_agent.cpp: no
+    module names the reference's library or its Makefile."""
+    with open(path) as f:
+        src = f.read()
+    assert "libdtpu_transfer" not in src and "native/build" not in src, path
+    assert '"make"' not in src and "'make'" not in src, path

@@ -52,6 +52,7 @@ from dynamo_tpu_torch.runtime import bandwidth as tbandwidth
 from dynamo_tpu_torch.runtime import health as thealth
 from dynamo_tpu_torch.runtime.faults import FAULTS
 from dynamo_tpu_torch.tokens import compute_sequence_hashes
+from dynamo_tpu_torch.transfer import native_available
 from torch_feature_engines import collect, request, tokens
 from torch_port_logging import port_logging_restored  # noqa: F401  # dtpu: ignore[UNUSED-IMPORT] — an autouse fixture, live by its name in this module
 
@@ -476,7 +477,9 @@ def test_the_local_mover_is_bit_equal_to_the_wire(monkeypatch, kv):
             monkeypatch.setenv("DTPU_ICI_TRANSFER", "0")
             client = via_wire._get_transfer_client()
             assert await client.fetch_and_import(addr, HASHES) == len(HASHES) * BS
-            assert client.pulls[-1]["wire"] == "inline"
+            # between two port engines the wire is the native agent's
+            # (inline where its library could not be built)
+            assert client.pulls[-1]["wire"] == ("native" if native_available() else "inline")
             assert port_pages(via_mover, HASHES) == port_pages(src, HASHES)
             assert port_pages(via_wire, HASHES) == port_pages(src, HASHES)
         finally:
@@ -562,8 +565,9 @@ def test_a_drop_on_every_attempt_ends_in_the_recompute():
 
 
 def test_collapsed_pulls_trip_the_wire_collapse_detector(monkeypatch):
-    """Fast inline pulls arm the detector's reference; pulls slowed by a
-    delay fault collapse the wire's EWMA under its collapse fraction."""
+    """Fast pulls (over the native agent, or inline without its library)
+    arm the detector's reference; pulls slowed by a delay fault collapse
+    the wire's EWMA under its collapse fraction."""
     monitor = thealth.HealthMonitor(min_interval_s=0.0)
     monkeypatch.setattr(thealth, "get_health_monitor", lambda: monitor)
     monkeypatch.setattr(tbandwidth, "_estimator", tbandwidth.WireBandwidthEstimator())
@@ -591,7 +595,8 @@ def test_collapsed_pulls_trip_the_wire_collapse_detector(monkeypatch):
 
     asyncio.run(main())
     tripped = [e for e in events if e.detector == "wire_collapse"]
-    assert tripped and tripped[0].subject == "wire/inline" and tripped[0].ratio <= 0.3
+    wire = "native" if native_available() else "inline"
+    assert tripped and tripped[0].subject == f"wire/{wire}" and tripped[0].ratio <= 0.3
 
 
 class _FakeIpcLib:
