@@ -529,7 +529,31 @@ Phases, in order; any failure raises and the exit code is not 0:
    measured ones beside the measured fetch and recompute; the report adds
    the phase's page-copy launches to the gather_layers / scatter_layers
    rows.
-17. report: one JSON line with every kernel's numbers, the nvidia-smi line,
+17. tp: tensor parallelism on the one card. (a) the decode, flash-extend
+   and unified kernels against their plain versions at one rank's heads
+   of llama3-8b at tp = 2 (16 query heads over 4 kv heads, d 128; the
+   ``_tp2`` rows of the report). (b) a ``--tp 2`` worker's group (the
+   worker's own ``join_tp_group`` and ``build_worker_engine``: this
+   process leads, one follower process of ``python -m
+   dynamo_tpu_torch.engine`` replays), llama3-8b at full width on 8 of
+   its 32 layers (random bf16 weights from seed 0), both ranks on cuda:0:
+   NCCL refuses two ranks on one device, so the collectives are gloo on
+   CUDA tensors (copied through the host, the backend printed) and the
+   horizons run eagerly; 4 greedy prompts (one past the 2048-token chunk)
+   and one seeded sampled prompt of 32 tokens, all queued at once, top-5
+   logprobs. Then a tp = 1 engine on the same weights and depth, eager too,
+   serves the same traffic. Gates: the greedy tp = 2 streams equal the
+   tp = 1 ones or leave them at a bf16 near-tie (phase 9's tie rule); the
+   follower sampled exactly the leader's tokens (each rank's digest of
+   every op's samples); the three kernels launched on each rank (the
+   follower's exit report) as often as on the leader, at its 16 / 4 heads;
+   the run went through chunked prefill, fused mixed steps and horizons;
+   the all-reduces per forward pass equal 2 x layers on each rank.
+   Observations, with the card's name and power limit: TTFT and ITL at
+   tp = 2 and tp = 1 (one shared card: the ranks' kernels time-slice and
+   their collectives cross the host, so these are not TP's numbers), and
+   the seconds of one [8, 4096] bf16 all-reduce and of one logits gather.
+18. report: one JSON line with every kernel's numbers, the nvidia-smi line,
    and last the device line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without printing a result when no CUDA device is present or
@@ -550,6 +574,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -5962,11 +5987,14 @@ def features_phase(torch, smi: str) -> dict:
     first_logits = {}
     first_token = engine._first_token
 
-    def spy(st, hidden):
-        if st.req.request_id in ("c1", "c2"):
+    def spy(hidden, first):
+        # the op's first-token arguments name the slot; the sequence is
+        # resident there while its last chunk runs
+        st = engine._slots[int(first[0])]
+        if st is not None and st.req.request_id in ("c1", "c2"):
             first_logits[st.req.request_id] = engine._lm_logits(
                 engine.params, mcfg, hidden)[0].float()
-        return first_token(st, hidden)
+        return first_token(hidden, first)
 
     async def serve_features():
         res = {"compile_s": []}
@@ -9965,8 +9993,166 @@ def global_kv_summary(gk: dict, smi: str) -> list:
     ]
 
 
+# ---------------------------------------------------------------- phase 17
+TP_MODEL = "llama3-8b"
+TP_LAYERS = 8                    # of llama3-8b's 32: the phase's time budget
+TP_SHAPE = (16, 4, 128)          # one rank's heads at tp = 2 (32 / 2 over 8 / 2)
+TP_PROMPTS = (300, 2600, 700, 1200)   # greedy; 2600 past the 2048-token chunk
+TP_SAMPLED = (500, dict(temperature=0.8, top_p=0.95, seed=7))
+TP_TOKENS = 32
+TP_WORKER = ("--preset", TP_MODEL, "--num-layers", str(TP_LAYERS), "--tp", "2",
+             "--max-context", "4096", "--num-blocks", "1024", "--max-batch-size", "8",
+             "--decode-steps", "8", "--decode-pipeline", "1", "--seed", "0",
+             "--kv-dtype", "model")
+TP_KERNELS = ("decode", "flash_extend", "unified")
+
+
+def tp_requests(tag: str) -> tuple:
+    """The phase's greedy and sampled requests (top-5 logprobs each) and
+    their prompts."""
+    rng = np.random.default_rng(23)
+    prompts = [rng.integers(0, 128000, size=n).tolist() for n in TP_PROMPTS]
+    n, samp = TP_SAMPLED
+    prompts.append(rng.integers(0, 128000, size=n).tolist())
+    reqs = [preq(f"{tag}{i}", p, TP_TOKENS, logprobs=5) for i, p in enumerate(prompts[:-1])]
+    reqs.append(preq(f"{tag}s", prompts[-1], TP_TOKENS, logprobs=5, **dict(samp)))
+    return reqs, prompts
+
+
+def tp_serve(engine, tag: str) -> dict:
+    reqs, prompts = tp_requests(tag)
+    stats, wall = asyncio.run(run_requests(engine, reqs))
+    for s in stats:
+        if s["finish"] != "length" or len(s["tokens"]) != TP_TOKENS:
+            raise AssertionError(f"tp {tag}: request {s['i']} ended {s['finish']} after "
+                                 f"{len(s['tokens'])} tokens")
+    return {"requests": stats, "prompts": prompts, **latency_summary(stats, wall)}
+
+
+def tp_phase(torch, gen, smi: str, timer) -> tuple:
+    """Tensor parallelism at tp = 2 on one card (module docstring, phase 17)."""
+    from dynamo_tpu_torch.engine.__main__ import (FOLLOWER_EXIT, build_worker_engine,
+                                                  join_tp_group, parse_args)
+    from dynamo_tpu_torch.run import build_engine
+    from dynamo_tpu_torch.runtime.multihost import reap
+
+    results = {}
+    for check in (check_decode, check_flash, check_unified):
+        kw = dict(case_names=("check batch",), fill=()) if check is check_decode else {}
+        r = check(torch, gen, timer, shape=TP_SHAPE, tag="_tp2", **kw)
+        results[r["name"]] = r
+        log(f"kernel {r['name']} at one rank's heads {TP_SHAPE}: max abs err "
+            f"{r['max_abs_err']:.3g}; {r['ms']:.4f} ms kernel, {r['plain_ms']:.4f} ms plain, "
+            f"{r['library_ms']:.4f} ms library, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    gc.collect()
+    torch.cuda.empty_cache()
+    out: dict = {"card": smi, "layers": TP_LAYERS}
+    t0 = time.perf_counter()
+    argv = list(TP_WORKER)
+    args = parse_args(argv)
+    # the follower's output (its exit report) to a file of its own
+    with tempfile.NamedTemporaryFile("w", prefix="tp_follower_", suffix=".log",
+                                     delete=False) as flog:
+        log_path = flog.name
+        mh, followers = join_tp_group(args, argv, stdout=flog)
+    try:
+        out["backend"] = mh.comm.backend
+        log(f"tp group: backend {mh.comm.backend} on {args.device} (host-staged "
+            f"{mh.comm.host_staged}), follower pid {followers[0].pid} "
+            f"[{time.perf_counter() - t0:.1f} s]")
+        if mh.comm.backend != "gloo" or (args.device.startswith("cuda")
+                                         and not mh.comm.host_staged):
+            raise AssertionError(f"tp: two ranks on one card must share it through gloo on "
+                                 f"CUDA tensors, got {mh.comm.backend}")
+        engine, _ = build_worker_engine(args, mh)
+        if (engine.mcfg.num_heads, engine.mcfg.num_kv_heads, engine.mcfg.head_dim) != TP_SHAPE:
+            raise AssertionError(f"tp: a rank's heads are {engine.mcfg}, not {TP_SHAPE}")
+        if engine._horizon.capture:
+            raise AssertionError("tp: the shared card's horizons must run eagerly")
+        log(f"tp engine built [{time.perf_counter() - t0:.1f} s]")
+        reset_launches()
+        mh.comm.reset_counts()
+        run = tp_serve(engine, "tp2-")
+        launches = read_launches()
+        counts = dict(mh.comm.counts)
+        steps = dict(engine.step_counts)
+        out["collectives"] = counts
+        out["steps"] = steps
+        out["launches"] = {k: launches[k] for k in TP_KERNELS}
+        out["probe"] = engine.probe_collectives()
+        engine.stop()
+        codes = reap(followers, 60.0)
+        digest = engine.sampled_digest()
+    finally:
+        for p in followers:
+            if p.poll() is None:
+                p.kill()
+        mh.close()
+        mh.shutdown()
+    with open(log_path) as f:
+        exits = [json.loads(line.split(" ", 1)[1]) for line in f
+                 if line.startswith(FOLLOWER_EXIT)]
+    if codes != [0] or len(exits) != 1:
+        raise AssertionError(f"tp: the follower exited {codes} with {len(exits)} exit reports "
+                             f"(its log: {log_path})")
+    os.remove(log_path)
+    follower = exits[0]
+    out["follower"] = {"launches": {k: follower["launches"][k] for k in TP_KERNELS},
+                       "steps": follower["steps"], "collectives": follower["collectives"]}
+    if follower["sampled"] != digest:
+        raise AssertionError(f"tp: the follower sampled {follower['sampled']}, the leader "
+                             f"{digest}")
+    out["sampled_digest"] = digest
+    for k in TP_KERNELS:
+        if not launches[k] or follower["launches"][k] != launches[k]:
+            raise AssertionError(f"tp: kernel {k} launched {launches[k]} times on the leader "
+                                 f"and {follower['launches'][k]} on the follower")
+    if not (steps["prefill"] and steps["mixed"] and steps["horizon"]):
+        raise AssertionError(f"tp: the run missed a step kind: {steps}")
+    if follower["steps"] != steps:
+        raise AssertionError(f"tp: the follower ran {follower['steps']}, the leader {steps}")
+    per_pass = 2 * TP_LAYERS * counts["forwards"]
+    if counts["all_reduce"] != per_pass or counts["forwards"] == 0:
+        raise AssertionError(f"tp: {counts['all_reduce']} all-reduces over "
+                             f"{counts['forwards']} forward passes, not 2 x {TP_LAYERS} each")
+    if follower["collectives"]["forwards"] != counts["forwards"]:
+        raise AssertionError(f"tp: the follower ran {follower['collectives']} collectives, "
+                             f"the leader {counts}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the twin: tp = 1 on the same weights and depth (the seed's draws of
+    # the same model), eager horizons too
+    twin = build_engine(TP_MODEL, args.device, args.max_context, args.seed, kv_dtype="model",
+                        decode_steps=8, decode_pipeline=1, num_blocks=args.num_blocks,
+                        max_batch_size=args.max_batch_size, num_layers=TP_LAYERS,
+                        prefill_chunk=args.prefill_chunk, cuda_graphs=False)
+    plain = tp_serve(twin, "tp1-")
+    greedy = len(TP_PROMPTS)
+    cut = lambda r: {**r, "requests": r["requests"][:greedy]}  # noqa: E731
+    out["tie_gaps"] = tie_rule(torch, "tp2 vs tp1", cut(run), cut(plain),
+                               plain["prompts"][:greedy], twin.params, twin.mcfg)
+    out["equal_streams"] = sum(a["tokens"] == b["tokens"]
+                               for a, b in zip(run["requests"], plain["requests"]))
+    twin.stop()
+    for tag, r in (("tp2", run), ("tp1", plain)):
+        out[tag] = {k: r[k] for k in ("wall_s", "output_tok_s", "ttft_s_median", "ttft_s_max",
+                                      "itl_s_median", "itl_s_max")}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"tp on {smi}: backend gloo on CUDA tensors (two ranks on one card); tp=2 TTFT median "
+        f"{run['ttft_s_median'] * 1e3:.0f} ms, ITL median {run['itl_s_median'] * 1e3:.1f} ms; "
+        f"tp=1 TTFT median {plain['ttft_s_median'] * 1e3:.0f} ms, ITL median "
+        f"{plain['itl_s_median'] * 1e3:.1f} ms (the shared card's, not TP's); one [8, 4096] "
+        f"bf16 all-reduce {out['probe']['all_reduce_s'] * 1e3:.3f} ms, one logits gather "
+        f"{out['probe']['logits_gather_s'] * 1e3:.3f} ms; {counts['all_reduce']} all-reduces "
+        f"over {counts['forwards']} forward passes; launches per rank {out['launches']}; "
+        f"streams equal to tp=1: {out['equal_streams']} of {len(TP_PROMPTS) + 1}, the rest "
+        f"within the tie rule {out['tie_gaps']}")
+    return results, out
+
+
 PHASES = ("kernels", "model", "serve", "horizon", "gptoss", "moe_mla", "vision", "spec",
-          "checkpoint", "features", "shapes", "frontend", "kv_router", "disagg", "global_kv")
+          "checkpoint", "features", "shapes", "frontend", "kv_router", "disagg", "global_kv",
+          "tp")
 
 
 def main() -> int:
@@ -10243,6 +10429,15 @@ def main() -> int:
         for line in global_kv_summary(gk, smi):
             log(line)
         log(f"global_kv phase [{time.perf_counter() - t0:.1f} s]")
+    tp = None
+    if "tp" in phases:
+        t0 = time.perf_counter()
+        tp_results, tp = tp_phase(torch, gen, smi, Timer(torch))
+        results.update(tp_results)
+        log("tp: " + json.dumps(tp))
+        log(f"tp phase [{time.perf_counter() - t0:.1f} s]")
+        gc.collect()
+        torch.cuda.empty_cache()
     log(f"all phases [{time.perf_counter() - t_start:.1f} s]")
     if phases != set(PHASES):
         log("partial run (--phases): no report")
@@ -10298,6 +10493,14 @@ def main() -> int:
     for name in ["ragged_paged_attention_verify", "ragged_paged_attention_verify_int8",
                  *shape_rows]:
         r = dict(results[name])
+        r["max_err"], r["kernel_ms"] = r["max_abs_err"], r["ms"]
+        kernels.append(r)
+    # the tp = 2 rows: one rank's heads; launches are the leader's in the
+    # phase's run (the follower's equal them, a gate of the phase)
+    for name, key in (("paged_decode_attention_tp2", "decode"),
+                      ("flash_extend_attention_tp2", "flash_extend"),
+                      ("ragged_paged_attention_tp2", "unified")):
+        r = dict(results[name], launches=tp["launches"][key])
         r["max_err"], r["kernel_ms"] = r["max_abs_err"], r["ms"]
         kernels.append(r)
     print(json.dumps({"kernels": kernels}), flush=True)

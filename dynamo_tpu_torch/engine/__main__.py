@@ -16,8 +16,9 @@ It serves on the GPU unless ``--device cpu`` is given, and raises without
 one. Model selection: ``--model-path`` (an HF checkpoint directory or hub
 reference, as run.py's ``out=``) or ``--preset`` (random weights from
 ``--seed``). The engine flags are the reference worker's, with its
-defaults; the parallelism flags (a later slice) are not defined, and
-argparse refuses them. ``--weight-service SOCK`` (``DTPU_WEIGHT_SERVICE``)
+defaults; of the parallelism flags ``--tp`` (and the followers'
+``--multihost``) are defined (the others are queued in ROADMAP.md, and
+argparse refuses them). ``--weight-service SOCK`` (``DTPU_WEIGHT_SERVICE``)
 with ``--model-path`` imports the checkpoint's weights from a weight owner
 (``python -m dynamo_tpu_torch.engine.weight_service``) instead of parsing
 it; the connection is the import's lease. ``--tool-parser`` and
@@ -99,6 +100,25 @@ parts (llm/media.py). ``DTPU_REQUEST_PLANE=http`` serves the endpoints on
 the HTTP request plane (runtime/request_plane/http.py) instead of TCP, and
 ``--store etcd --store-path http://host:2379`` discovers through etcd.
 
+Tensor parallelism (``--tp N``, the dense llama family): the worker is
+the leader of a TP group of N processes on this host. It starts N-1
+follower processes of this module (the same flags plus ``--multihost
+coord:port,N,rank,control:port`` on free ports); each joins the group
+(``torch.distributed``: gloo on the CPU, NCCL when every rank has its own
+card, gloo on CUDA tensors when ranks share one, printed as
+``TP_GROUP ...``), holds its shard of the weights (``--num-layers`` cuts
+a preset's depth) and replays the leader's device ops; only the leader
+serves, registers and publishes. Ranks that share a card run their
+horizons eagerly (``cuda_graphs`` off, printed). A follower that dies
+takes the worker out of discovery (the engine is marked unhealthy and
+the watchdog deregisters it); at exit each follower prints
+``TORCH_TP_FOLLOWER_EXIT {json}`` (its launches, steps, collectives and a
+digest of the tokens its ops sampled) and the leader's exit report
+carries its own. Guided decoding is off by default at ``--tp`` > 1, and
+the combinations a TP group does not serve yet (ROADMAP.md Queue 1 item
+6: ``--disagg``, KVBM tiers, ``DTPU_CKPT_DIR`` and ``POST /drain``,
+spec decoding, LoRA, processors, a weight owner) are refused at start.
+
 Prints ``TORCH_ENGINE_READY <model> device=<device>`` once it serves. On
 SIGTERM or SIGINT it deletes its instance and card keys at once, drains the
 requests in flight for up to ``--graceful-timeout`` seconds, then prints
@@ -120,8 +140,10 @@ import argparse
 import asyncio
 import collections
 import json
+import os
 import signal
 import statistics
+import sys
 from typing import List, Optional
 
 from ..kv_router import KvEventPublisher, WorkerMetricsPublisher
@@ -166,11 +188,13 @@ from ..runtime.slo import debug_slo_payload, get_slo_accountant
 from ..runtime.tracing import get_tracer
 from .checkpoint import restore_engine, weights_ref_for
 from .drain import DrainCoordinator
+from ..runtime.multihost import reap
 from .monitor import EngineWatchdog
 from .telemetry import EngineTelemetry
 
 READY = "TORCH_ENGINE_READY"
 EXIT = "TORCH_ENGINE_EXIT"
+FOLLOWER_EXIT = "TORCH_TP_FOLLOWER_EXIT"
 STATUS = "TORCH_STATUS_ADDRESS"
 # the drift predictor's memory rate: the H100's HBM3, as PERF.md's bounds
 HBM_BYTES_S = 3.35e12
@@ -255,8 +279,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--spec-draft-path", default=None,
                    help="speculative decoding with a draft from this checkpoint")
     p.add_argument("--spec-k", type=int, default=4)
-    p.add_argument("--guided-max-states", type=int, default=1024,
-                   help="guided decoding automaton cap; 0 disables guided decoding")
+    p.add_argument("--guided-max-states", type=int, default=None,
+                   help="guided decoding automaton cap; 0 disables guided decoding "
+                        "(default: 1024, and 0 at --tp > 1)")
     p.add_argument("--guided-max-classes", type=int, default=320)
     p.add_argument("--logits-processors", default=None,
                    help="named processors to register, e.g. "
@@ -268,7 +293,19 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--disagg", choices=["none", "prefill", "decode"], default="none",
                    help="prefill: join the prefill pool and serve kv_fetch; decode: serve "
                         "decode with remote-KV import (also serves kv_fetch for peers)")
-    return p.parse_args(argv)
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel ranks: the worker leads a group of this many "
+                        "processes on this host (dense llama family)")
+    p.add_argument("--multihost", default=None, metavar="COORD:PORT,N,RANK[,CTRL:PORT]",
+                   help="this process's place in a TP group (the leader passes it to the "
+                        "followers it starts)")
+    p.add_argument("--num-layers", type=int, default=None,
+                   help="serve a preset's first N layers (random weights at the preset's "
+                        "width)")
+    args = p.parse_args(argv)
+    if args.guided_max_states is None:
+        args.guided_max_states = 1024 if args.tp == 1 else 0
+    return args
 
 
 def build_logits_processors(spec: Optional[str]):
@@ -310,13 +347,66 @@ def guided_vocab_for(tokenizer_ref: str, max_states: int):
         return None
 
 
-def build_worker_engine(args: argparse.Namespace):
-    """(engine, tokenizer reference) from the worker's flags."""
+def join_tp_group(args: argparse.Namespace, argv: Optional[List[str]] = None,
+                  stdout=None):
+    """(multihost context, follower processes) of a ``--tp`` > 1 worker,
+    (None, []) at ``--tp 1``. Without ``--multihost`` this process is the
+    leader of a group on this host and starts its N-1 followers (this
+    module, ``argv`` plus their specs; their output to ``stdout``, a file,
+    or this process's); either way it joins the group,
+    opens the control channel, and points ``args.device`` at its rank's
+    device. Refuses, at ``--tp`` > 1, the worker's paths a group does not
+    serve yet."""
+    from ..parallel.mesh import QUEUE
+    from ..runtime.multihost import join_group
+
+    if args.tp == 1:
+        if args.multihost:
+            raise SystemExit("--multihost is a rank of a --tp > 1 group")
+        return None, []
+    refused = [flag for flag, on in (
+        ("--disagg", args.disagg != "none"),
+        ("--kvbm-host-gb/--kvbm-disk-gb/--kvbm-remote",
+         args.kvbm_host_gb > 0 or args.kvbm_disk_gb > 0 or bool(args.kvbm_remote)),
+        (ENV_CKPT_DIR + " (drain and checkpoint)", bool(env_str(ENV_CKPT_DIR, ""))),
+        ("--weight-service", bool(args.weight_service and args.model_path)),
+    ) if on]
+    if refused:
+        raise ValueError(f"--tp {args.tp} does not serve {', '.join(refused)} yet ({QUEUE})")
+    mh, device, followers = join_group(args.tp, args.multihost, "dynamo_tpu_torch.engine",
+                                       list(sys.argv[1:] if argv is None else argv),
+                                       args.device, stdout)
+    args.device = str(device)
+    log.info("tp rank %d of %d on %s (pid %d)", mh.spec.process_id, args.tp, device,
+             os.getpid())
+    return mh, followers
+
+
+def follow(engine, mh) -> dict:
+    """A follower's life: replay the leader's ops until it stops the group
+    (or its channel closes: the leader died), then leave the group.
+    Returns its exit report."""
+    try:
+        engine.follow()
+    except ConnectionError as e:
+        log.error("tp follower %d: %s", mh.spec.process_id, e)
+    report = {"rank": mh.spec.process_id, "launches": kernel_launches(),
+              "steps": dict(engine.step_counts), "collectives": dict(mh.comm.counts),
+              "sampled": engine.sampled_digest()}
+    mh.close()
+    mh.shutdown()
+    return report
+
+
+def build_worker_engine(args: argparse.Namespace, multihost=None):
+    """(engine, tokenizer reference) from the worker's flags; with
+    ``multihost`` (``join_tp_group``), this rank's engine of the group."""
     from ..device import resolve_device
     from ..llm.hub import resolve_model_path
     from ..run import build_engine
 
-    resolve_device(args.device)
+    if multihost is None:
+        resolve_device(args.device)
     bs = args.block_size
     args.max_context = -(-args.max_context // bs) * bs
     out = args.model_path or args.preset
@@ -337,6 +427,7 @@ def build_worker_engine(args: argparse.Namespace):
         logits_processors=build_logits_processors(args.logits_processors),
         lora_max_adapters=args.lora_max_adapters, lora_rank=args.lora_rank,
         weight_service=args.weight_service if args.model_path else None,
+        tp=args.tp, multihost=multihost, num_layers=args.num_layers,
     )
     return engine, tok_ref
 
@@ -422,7 +513,9 @@ def step_predictor(engine, args):
     (ops/costs.py): every active row at the occupancy-mean context, its
     pages and one stream of the model's weights over the card's memory
     rate, plus the engine's measured dispatch round trip, times the passes
-    (a horizon of N decode steps is N)."""
+    (a horizon of N decode steps is N). A rank of a TP group is priced by
+    its own share: ``engine.mcfg`` is its local config (its heads and kv
+    heads' pages) and its parameters are its shards."""
     from .engine import param_bytes
 
     m = engine.mcfg
@@ -472,7 +565,7 @@ async def serve_status(args, runtime, engine, served, instance_id, telemetry, mo
         worker advertises in it and the restore's when it restored."""
         snap = engine.snapshot()
         doc = {
-            "instance_id": f"{instance_id:016x}", "model": args.model, "tp": 1, "dp": 1,
+            "instance_id": f"{instance_id:016x}", "model": args.model, "tp": engine.tp, "dp": 1,
             "engine": snap, "telemetry": [telemetry.snapshot()],
             "slo": debug_slo_payload(get_slo_accountant()),
             "attribution": get_attribution().snapshot(),
@@ -500,7 +593,7 @@ async def serve_status(args, runtime, engine, served, instance_id, telemetry, mo
     server = StatusServer(
         health, metrics_scope=runtime.metrics, pre_expose=refresh_gauges,
         metadata_fn=lambda: {"model": args.model, "instance_id": f"{instance_id:016x}",
-                             "tp": 1, "engine": engine.snapshot(),
+                             "tp": engine.tp, "engine": engine.snapshot(),
                              "canary_rtt_s": canary.last_rtt},
         port=args.system_port,
         loras_fn=(engine.lora.list_adapters if engine.lora is not None else None),
@@ -592,9 +685,15 @@ async def main(argv: Optional[List[str]] = None) -> None:
     # would only warn and pass text through)
     get_tool_parser(args.tool_parser)
     get_reasoning_parser(args.reasoning_parser)
-    # the engine first: its build (weights, graph capture) blocks the loop,
-    # which must not hold a lease yet
-    engine, tok_ref = build_worker_engine(args)
+    # a TP group first (its followers start building at once), then the
+    # engine: its build (weights, graph capture) blocks the loop, which
+    # must not hold a lease yet
+    mh, followers = join_tp_group(args, argv)
+    engine, tok_ref = build_worker_engine(args, mh)
+    if mh is not None and not mh.is_leader:
+        # one write: the leader shares this output
+        print(f"{FOLLOWER_EXIT} {json.dumps(follow(engine, mh))}\n", end="", flush=True)
+        return
     # gpt-oss: the harmony dialect and its reasoning channels by default
     oss = is_gptoss(engine.mcfg)
     tool_parser = args.tool_parser if args.tool_parser is not None else (
@@ -690,15 +789,23 @@ async def main(argv: Optional[List[str]] = None) -> None:
         print(f"CHECKPOINT_RESTORE mode={restored['mode']} blocks={restored['blocks']} "
               f"windows={restored['windows']} scatter={restored['scatter']} "
               f"seconds={restored['seconds']:.3f}", flush=True)
-    drain = DrainCoordinator(engine, served, ckpt_dir=ckpt_dir,
-                             weights_ref=weights_ref_for(args.model_path or args.preset,
-                                                         engine.mcfg),
-                             metrics_scope=scope, on_drained=stop.set)
+    # (a TP group drains nowhere yet: no POST /drain)
+    drain = None if mh is not None else DrainCoordinator(
+        engine, served, ckpt_dir=ckpt_dir,
+        weights_ref=weights_ref_for(args.model_path or args.preset, engine.mcfg),
+        metrics_scope=scope, on_drained=stop.set)
 
     async def on_down() -> None:
         stop.set()   # the watchdog deregistered: exit, so a supervisor restarts
 
     watchdog = EngineWatchdog(engine, [served], state=health, on_down=on_down).start()
+    if mh is not None:
+        # a dead follower leaves the group unusable: the engine is marked
+        # unhealthy, and the watchdog takes the worker out of discovery
+        def on_follower_death() -> None:
+            engine.healthy = False
+
+        mh.watch_followers(on_follower_death)
     canary = EndpointCanary({f"{card.component}/{card.endpoint}": served.address},
                             state=health).start()
     status_server = None
@@ -735,16 +842,25 @@ async def main(argv: Optional[List[str]] = None) -> None:
     get_tracer().shutdown()
     if engine.weight_lease is not None:
         engine.weight_lease.close()
+    tp = None
+    if mh is not None:
+        # engine.stop() told the followers to stop: wait for them
+        codes = reap(followers, args.graceful_timeout + 20.0)
+        tp = {"rank": 0, "collectives": dict(mh.comm.counts),
+              "sampled": engine.sampled_digest(), "follower_exit_codes": codes}
+        mh.shutdown()
     report = {"launches": kernel_launches(), "steps": dict(engine.step_counts),
+              "drain": None if drain is None else drain.last,
               "busy_slots": sum(s is not None for s in engine._slots),
               "active_blocks": engine.allocator.active_blocks,
               "worker_id": f"{instance_id:016x}",
               "prefix_cache": block_set_view(engine.allocator._by_hash),
               "kv_events": dict(engine.kv_publisher.counts),
-              "transfer": engine.transfer_snapshot(), "drain": drain.last,
+              "transfer": engine.transfer_snapshot(),
               "drain_metrics": metric_values(runtime.metrics, "dtpu_drain_"),
               "restore": ({k: v for k, v in restored.items() if k != "queue"}
-                          if restored is not None else None)}
+                          if restored is not None else None),
+              "tp": tp}
     print(f"{EXIT} {json.dumps(report)}", flush=True)
 
 

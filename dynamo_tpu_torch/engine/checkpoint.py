@@ -254,7 +254,9 @@ async def checkpoint_engine(engine, ckpt_dir: str, *, queue: Sequence[Dict[str, 
     """Write a live engine's sealed prefix-cache pages (LRU order, oldest
     first; past the cap the newest) and ``queue`` to ``ckpt_dir``; returns
     the manifest. ONE gather launch on the engine's step thread, then the
-    copy to the host and the file writes off the event loop."""
+    copy to the host and the file writes off the event loop. A rank of a
+    TP group refuses (ROADMAP.md Queue 1 item 6)."""
+    engine._refuse_at_tp("drain and checkpoint")
     alloc = engine.allocator
     pending = [(bid, alloc._hash_of[bid], 0) for bid in alloc._lru if bid in alloc._hash_of]
     cap = env_int(ENV_CKPT_MAX_BLOCKS, 4096) if max_blocks is None else max_blocks
@@ -297,7 +299,9 @@ async def restore_engine(engine, ckpt_dir: str) -> Dict[str, Any]:
     "partial" | "cold", "blocks": n, "queue": [...], "windows": w,
     "seconds": s}``; ``partial`` means a torn block cut the import short
     (the content-addressed prefix before it is live). The outcome is also
-    a ``checkpoint_restore`` event on the ``restore`` flight timeline."""
+    a ``checkpoint_restore`` event on the ``restore`` flight timeline.
+    A rank of a TP group refuses (ROADMAP.md Queue 1 item 6)."""
+    engine._refuse_at_tp("drain and checkpoint")
     loop = asyncio.get_running_loop()
     t0 = time.perf_counter()
     try:

@@ -36,7 +36,9 @@ one CUDA graph per key and replays it.
   which the engine's fetch thread waits on.
 
 On the CPU, and on the card when the engine runs the eager horizon, the
-same body runs eagerly on the same buffers.
+same body runs eagerly on the same buffers. A rank of a tensor-parallel
+group captures its horizon only over NCCL, whose collectives a graph
+can hold (``capture_allowed``); ranks that share a card run it eagerly.
 """
 
 from __future__ import annotations
@@ -126,6 +128,16 @@ class HorizonState:
         if window:
             extra["windows"] = self.windows[window]
         return extra
+
+
+def capture_allowed(device: torch.device, cuda_graphs: bool, comm=None) -> bool:
+    """Whether the horizon is captured: on CUDA with ``cuda_graphs`` on,
+    and for a rank of a TP group (``comm``, parallel/comm.TpComm) only
+    over NCCL: gloo copies each collective through the host, which no
+    graph can hold."""
+    if device.type != "cuda" or not cuda_graphs:
+        return False
+    return comm is None or comm.backend == "nccl"
 
 
 def seq_len_buckets(max_context: int, unit: int) -> List[int]:

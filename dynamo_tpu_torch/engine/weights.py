@@ -22,6 +22,15 @@ into the port's parameter dictionary: the layouts are identical (weights
 ``[in, out]``), so each array only changes framework, device and dtype.
 ``vision_params_from_numpy`` does the same for the vision tower's tree
 (``TpuEngine.vision_params``).
+
+Tensor parallelism (parallel/mesh.py): ``shard_params`` takes rank ``r``'s
+part of a whole parameter tree (the reference's numpy pytree, or the
+port's tensors after ``load_params``), laid out as the reference's
+``NamedSharding`` over its ``tp`` axis lays them out; a checkpoint is
+loaded whole and then sliced. ``init_sharded_params`` draws random
+weights one layer at a time and keeps rank ``r``'s part of each, so that
+every rank of a group holds a shard of the same model as ``init_params``
+with the same generator seed.
 """
 
 from __future__ import annotations
@@ -35,7 +44,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
-from ..models import registry
+from ..models import llama, registry
 from ..models.gemma import GemmaConfig
 from ..models.gptoss import GptOssConfig
 from ..models.llama import LlamaConfig, Params
@@ -89,6 +98,52 @@ def params_from_numpy(
                        for name, w in lp.items()})
     out["layers"] = layers
     return out
+
+
+def shard_params(params: Dict[str, Any], cfg: LlamaConfig, rank: int, tp: int) -> Dict[str, Any]:
+    """Rank ``rank``'s part of a whole dense-llama parameter tree of numpy
+    arrays or tensors (each a contiguous copy; the rest replicated), for
+    the local config ``parallel.mesh.local_config(cfg, tp)``."""
+    from ..parallel import mesh as meshlib
+
+    if registry.family(cfg) is not llama:
+        raise ValueError(f"tensor parallelism covers the dense llama family only "
+                         f"({meshlib.QUEUE})")
+    meshlib.check_tp(cfg, tp)
+
+    def part(x, dim):
+        y = meshlib.shard(x, dim, rank, tp)
+        return y.contiguous() if isinstance(y, torch.Tensor) else np.ascontiguousarray(y)
+
+    out: Dict[str, Any] = {name: part(w, meshlib.param_dim(name, layer=False))
+                           for name, w in params.items() if name != "layers"}
+    out["layers"] = [{name: part(w, meshlib.param_dim(name, layer=True))
+                      for name, w in lp.items()} for lp in params["layers"]]
+    return out
+
+
+def init_sharded_params(cfg: LlamaConfig, generator: torch.Generator, device: DeviceLike,
+                        rank: int, tp: int) -> Params:
+    """Rank ``rank``'s shard of ``llama.init_params(cfg, generator,
+    device)``: the same draws in the same order, each layer drawn whole on
+    ``device`` and cut to its part before the next, so the device holds
+    one whole layer at most beside the shards."""
+    device = resolve_device(device)
+    whole = {"embed": llama._normal((cfg.vocab_size, cfg.hidden_size), 0.02, generator,
+                                    device, cfg.dtype),
+             "final_norm": torch.ones(cfg.hidden_size, device=device, dtype=cfg.dtype),
+             "layers": []}
+    if not cfg.tie_embeddings:
+        whole["lm_head"] = llama._normal((cfg.hidden_size, cfg.vocab_size), 0.02, generator,
+                                         device, cfg.dtype)
+    params = shard_params(whole, cfg, rank, tp)
+    del whole
+    for _ in range(cfg.num_layers):
+        layer = llama.init_layer_params(cfg, generator, device)
+        params["layers"].append(
+            shard_params({"layers": [layer]}, cfg, rank, tp)["layers"][0])
+        del layer
+    return params
 
 
 _VISION_TOP = ("patch_embed", "pos_embed", "final_norm", "proj_up", "proj_down")

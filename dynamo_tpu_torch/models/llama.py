@@ -13,6 +13,16 @@ Attention is pluggable through the same hook as the reference:
 ``attend(q, k_new, v_new, layer_idx) -> [..., n_heads, head_dim]``, so one
 block stack serves contiguous prefill, paged decode and the fused mixed
 step (engine/engine.py).
+
+Tensor parallelism (``tp``: a rank's collectives, parallel/comm.py): the
+parameters are the rank's shards (parallel/mesh.py) and ``cfg`` its local
+config (``num_heads / tp`` over ``num_kv_heads / tp``). Each rank attends
+over its own heads; the row-parallel products ``attn_out @ wo`` and
+``gu @ w_down`` are summed over the ranks (one all-reduce each, the
+reference's GSPMD ``psum``s) before their residual adds; the embedding,
+sharded on hidden, is gathered after the lookup; and ``lm_logits`` gathers
+the vocabulary shards (or, for tied embeddings, sums the partial products
+over the hidden shards), so every rank holds the same logits.
 """
 
 from __future__ import annotations
@@ -213,6 +223,7 @@ def layer_forward(
     attend: AttendFn,
     layer_idx: int,
     lora: Optional[Callable] = None,
+    tp: Optional[Any] = None,
 ) -> torch.Tensor:
     # optional batched LoRA (lora/adapters.make_lora_fn): its delta is added
     # to a projection's output; it returns None for targets without tables
@@ -238,11 +249,13 @@ def layer_forward(
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     attn_out = attend(q, k, v, layer_idx).reshape(*lead, cfg.q_size)
-    x = x + _lora("wo", attn_out, attn_out @ p["wo"])
+    o = _lora("wo", attn_out, attn_out @ p["wo"])
+    x = x + (o if tp is None else tp.all_reduce(o))
     h = rms_norm(x, p["mlp_norm"], cfg.rms_norm_eps)
     gate = F.silu(_lora("w_gate", h, h @ p["w_gate"]).float()).to(x.dtype)
     gu = gate * _lora("w_up", h, h @ p["w_up"])
-    return x + _lora("w_down", gu, gu @ p["w_down"])
+    down = _lora("w_down", gu, gu @ p["w_down"])
+    return x + (down if tp is None else tp.all_reduce(down))
 
 
 def forward(
@@ -253,21 +266,39 @@ def forward(
     attend: AttendFn,
     inputs_embeds: Optional[torch.Tensor] = None,   # [..., S, hidden]
     lora: Optional[Callable] = None,
+    tp: Optional[Any] = None,
 ) -> torch.Tensor:
     """Full stack -> final hidden states [..., S, hidden] (pre-lm_head).
 
     ``inputs_embeds`` replaces the embedding gather when given: the
     multimodal path splices vision soft tokens in (models/vision.py).
-    ``lora``: the batched LoRA deltas (lora/adapters.make_lora_fn)."""
-    x = F.embedding(token_ids.long(), params["embed"]) if inputs_embeds is None else inputs_embeds
+    ``lora``: the batched LoRA deltas (lora/adapters.make_lora_fn).
+    ``tp``: the rank's collectives when the parameters are its TP shards."""
+    if inputs_embeds is not None:
+        x = inputs_embeds
+    else:
+        x = F.embedding(token_ids.long(), params["embed"])
+        if tp is not None:
+            x = tp.all_gather(x)     # the hidden shards, in rank order
+    if tp is not None:
+        tp.note_forward()
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
     cos, sin = cos[..., None, :], sin[..., None, :]   # broadcast over heads
     for i, layer in enumerate(params["layers"]):
-        x = layer_forward(layer, cfg, x, cos, sin, attend, i, lora=lora)
+        x = layer_forward(layer, cfg, x, cos, sin, attend, i, lora=lora, tp=tp)
     return rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
 
 
-def lm_logits(params: Params, cfg: LlamaConfig, hidden: torch.Tensor) -> torch.Tensor:
+def lm_logits(params: Params, cfg: LlamaConfig, hidden: torch.Tensor,
+              tp: Optional[Any] = None) -> torch.Tensor:
+    """Float32 logits over the whole vocabulary; at ``tp`` the same on
+    every rank."""
     if cfg.tie_embeddings:
-        return (hidden @ params["embed"].T).float()
-    return (hidden @ params["lm_head"]).float()
+        if tp is None:
+            return (hidden @ params["embed"].T).float()
+        # the embedding holds this rank's hidden columns: a partial product
+        n = params["embed"].shape[1]
+        part = hidden[..., tp.rank * n:(tp.rank + 1) * n] @ params["embed"].T
+        return tp.all_reduce(part.float())
+    logits = (hidden @ params["lm_head"]).float()
+    return logits if tp is None else tp.all_gather(logits)

@@ -73,19 +73,29 @@ weights from ``--seed`` (gpt-oss-20b: 41.8 GB in bf16, deepseek-v2-lite
 ``max_position``. An MLA model takes no ``--kv-dtype int8``. Serves on the GPU by default; ``--device
 cpu`` runs the plain PyTorch path on the CPU.
 ``batch:`` reads one prompt per line and prints one JSON line per prompt.
+
+``--tp N`` serves a dense llama-family model from a tensor-parallel group
+of N processes on this host (runtime/multihost.py): this process leads and
+starts N-1 followers of this module (the same arguments plus
+``--multihost``), each holding its shard of the weights and replaying the
+leader's device ops; ranks that share a card run their horizons eagerly.
+
+    python -m dynamo_tpu_torch.run in=text:hi out=llama3-8b --tp 2
+    python -m dynamo_tpu_torch.run in=text:hi out=tiny --tp 2 --device cpu
 """
 
 from __future__ import annotations
 
 import argparse
 import asyncio
+import dataclasses
 import json
 import sys
 from typing import List, Optional
 
 from .engine.engine import TorchEngine, TorchEngineConfig
 from .engine.warm import load_params_warm
-from .engine.weights import config_from_hf, load_params
+from .engine.weights import config_from_hf, load_params, shard_params
 from .kvbm.layout import kv_bytes_per_token
 from .kvbm.pool import KvbmTiers
 from .llm.hub import resolve_model_path
@@ -149,7 +159,8 @@ def build_engine(out: str, device: Optional[str], max_context: int, seed: int,
                  num_blocks: Optional[int] = None, block_size: int = 16,
                  max_batch_size: int = 8, prefill_chunk: Optional[int] = None,
                  guided_vocab=None, kvbm_remote: Optional[str] = None,
-                 weight_service: Optional[str] = None, **features) -> TorchEngine:
+                 weight_service: Optional[str] = None, tp: int = 1, multihost=None,
+                 num_layers: Optional[int] = None, **features) -> TorchEngine:
     """The engine for ``out``, a preset (random weights from ``seed``) or
     a checkpoint directory / hub reference. ``num_blocks`` defaults to
     the context's worth of blocks (at least 512) and ``prefill_chunk``
@@ -159,10 +170,30 @@ def build_engine(out: str, device: Optional[str], max_context: int, seed: int,
     (``host:port``) writes sealed blocks through to a G4 block store
     (kvbm/remote.py) and onboards from it. ``weight_service`` (a unix
     socket) imports a checkpoint's weights from a weight owner; the
-    engine's ``weight_lease`` then holds the connection, its lease."""
+    engine's ``weight_lease`` then holds the connection, its lease.
+    ``num_layers`` cuts a preset to its first layers.
+
+    ``tp`` > 1 builds this process's rank of a joined TP group
+    (``multihost``, runtime/multihost.py): a preset draws the rank's shard
+    of the seed's weights; a checkpoint is loaded whole on the host and
+    sliced to the rank's shard (engine/weights.shard_params) before it
+    goes to ``device``. Ranks that share a card (collectives through the
+    host) run their horizons eagerly, which is printed."""
     params = draft_params = lease = None
     if is_preset(out):
         model = _model_of(out)
+        if num_layers:
+            model = dataclasses.replace(model, num_layers=num_layers)
+    elif num_layers:
+        raise SystemExit("--num-layers cuts a preset, not a checkpoint")
+    elif tp > 1:
+        if weight_service:
+            raise ValueError(f"--tp {tp} does not import from a weight owner yet "
+                             "(ROADMAP.md Queue 1 item 6)")
+        _, model, whole, _ = load_checkpoint(out, "cpu", warm_cache)
+        rank = multihost.spec.process_id if multihost is not None else 0
+        params = _to_device(shard_params(whole, model, rank, tp), device)
+        del whole
     else:
         _, model, params, lease = load_checkpoint(out, device, warm_cache, weight_service)
     vision = VISION_PRESETS[out][1](model) if out in VISION_PRESETS else None
@@ -174,8 +205,13 @@ def build_engine(out: str, device: Optional[str], max_context: int, seed: int,
                          f"{model.max_position}")
     chunk = min(prefill_chunk or max_context, max_context)
     buckets = tuple(b for b in (64, 128, 256, 512, 1024, 2048) if b < chunk)
+    if tp > 1 and multihost is not None and multihost.comm is not None \
+            and multihost.comm.host_staged:
+        features.setdefault("cuda_graphs", False)
+        print(f"tp {tp}: ranks share a card ({multihost.comm.backend} copies each collective "
+              "through the host): horizons run eagerly (cuda_graphs off)\n", end="", flush=True)
     cfg = TorchEngineConfig(
-        model=model, max_context=max_context, seed=seed, device=device,
+        model=model, max_context=max_context, seed=seed, device=device, tp=tp,
         num_blocks=num_blocks or max(512, (max_context // 16) * 16),
         block_size=block_size, max_batch_size=max_batch_size,
         prefill_buckets=buckets + (chunk,), kv_dtype=kv_dtype,
@@ -196,9 +232,18 @@ def build_engine(out: str, device: Optional[str], max_context: int, seed: int,
                          disk_capacity_bytes=int(kvbm_disk_gb * (1 << 30)),
                          disk_path=kvbm_disk_path, remote=remote)
     engine = TorchEngine(cfg, params=params, kvbm=kvbm, draft_params=draft_params,
-                         guided_vocab=guided_vocab)
+                         guided_vocab=guided_vocab, multihost=multihost)
     engine.weight_lease = lease
     return engine
+
+
+def _to_device(params, device):
+    """A parameter tree's tensors moved to ``device``."""
+    if isinstance(params, dict):
+        return {k: _to_device(v, device) for k, v in params.items()}
+    if isinstance(params, list):
+        return [_to_device(v, device) for v in params]
+    return params.to(device)
 
 
 def prompt_ids(tok: Tokenizer, prompt: str) -> List[int]:
@@ -230,7 +275,7 @@ async def generate_text(engine: TorchEngine, tok: Tokenizer, prompt: str,
     return "".join(parts)
 
 
-async def run(args) -> None:
+async def run(args, mh=None) -> None:
     kind, _, val = args.input.partition(":")
     if kind not in ("text", "batch"):
         raise SystemExit(f"unknown input {args.input!r} (text:<prompt> | batch:<file>)")
@@ -238,7 +283,10 @@ async def run(args) -> None:
                           args.kv_dtype, args.kvbm_host_gb, args.kvbm_disk_gb,
                           args.kvbm_disk_path, args.decode_steps, args.decode_pipeline,
                           args.spec_draft, args.spec_k, args.spec_draft_path,
-                          not args.no_warm_cache)
+                          not args.no_warm_cache, tp=args.tp, multihost=mh)
+    if mh is not None and not mh.is_leader:
+        engine.follow()
+        return
     tok_ref = args.tokenizer or ("byte" if is_preset(args.out) else resolve_model_path(args.out))
     tok = load_tokenizer(tok_ref)
     try:
@@ -303,12 +351,30 @@ def main(argv: Optional[List[str]] = None) -> None:
     p.add_argument("--spec-k", type=int, default=4,
                    help="draft tokens per speculative round (capped at the "
                         "decode steps)")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel ranks: a group of this many processes on this "
+                        "host (dense llama family)")
+    p.add_argument("--multihost", default=None, help=argparse.SUPPRESS)
     args = p.parse_args(argv)
     spec = dict(part.partition("=")[::2] for part in args.io)
     if "in" not in spec or "out" not in spec:
         p.error("need both in=<input> and out=<preset|checkpoint>")
     args.input, args.out = spec["in"], spec["out"]
-    asyncio.run(run(args))
+    if args.tp == 1:
+        asyncio.run(run(args))
+        return
+    from .runtime.multihost import join_group, reap
+
+    mh, device, followers = join_group(args.tp, args.multihost, "dynamo_tpu_torch.run",
+                                       list(sys.argv[1:] if argv is None else argv),
+                                       args.device)
+    args.device = str(device)
+    try:
+        asyncio.run(run(args, mh))
+    finally:
+        mh.close()
+        reap(followers)
+        mh.shutdown()
 
 
 if __name__ == "__main__":

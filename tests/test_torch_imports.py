@@ -3,8 +3,8 @@ imports jax or anything of the dynamo_tpu package (not even its modules
 that are free of JAX). Checked twice: statically over every import
 statement, and by importing every module in a fresh interpreter and looking
 at sys.modules. serve_compare.py and stream_compare.py (GPU scripts that
-run on import), latent_probe.py and spec_tie_probe.py (GPU scripts) are
-checked statically."""
+run on import), latent_probe.py, spec_tie_probe.py and tp_probe.py (GPU
+scripts) are checked statically."""
 
 import ast
 import os
@@ -28,7 +28,8 @@ def _sources():
 def _static_sources():
     return sorted(_sources() + [os.path.join(REPO, f)
                                 for f in ("serve_compare.py", "latent_probe.py",
-                                          "spec_tie_probe.py", "stream_compare.py")])
+                                          "spec_tie_probe.py", "stream_compare.py",
+                                          "tp_probe.py")])
 
 
 def _forbidden(name: str) -> bool:

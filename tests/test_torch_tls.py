@@ -41,6 +41,11 @@ def _strip(body: dict) -> dict:
     return {k: v for k, v in body.items() if k not in ("id", "created")}
 
 
+# how long a stack may take to see its model (discovery catching up, the
+# service answering), under the test runner's parallel load
+READY_S = 30.0
+
+
 async def _echo_stack(service_cls, manager_cls, watcher_cls, register, card_cls, echo_cls,
                       runtime_parts, **svc_kw):
     rt_cls, cfg_cls, store_cls = runtime_parts
@@ -51,13 +56,36 @@ async def _echo_stack(service_cls, manager_cls, watcher_cls, register, card_cls,
                                                          context_length=512))
     manager = manager_cls()
     watcher = await watcher_cls(rts[1], manager).start()
-    for _ in range(200):
-        if manager.get("echo-model") and manager.get("echo-model").client.instances:
-            break
+    deadline = time.monotonic() + READY_S
+    while not (manager.get("echo-model") and manager.get("echo-model").client.instances):
+        if time.monotonic() > deadline:
+            raise AssertionError(f"{service_cls.__module__}: echo-model's instance not "
+                                 f"discovered in {READY_S} s")
         await asyncio.sleep(0.02)
     svc = service_cls(manager, host="127.0.0.1", port=0, **svc_kw)
     await svc.start()
     return svc, (watcher, served, rts)
+
+
+async def _ready(port, scheme, ctx=None):
+    """Wait until the stack's service answers /v1/models with the model."""
+    http = HttpClient(ssl=ctx)
+    deadline = time.monotonic() + READY_S
+    last = None
+    try:
+        while time.monotonic() < deadline:
+            try:
+                r = await http.request("GET", f"{scheme}://localhost:{port}/v1/models")
+                last = (r.status, json.loads(await r.read()))
+                if r.status == 200 and [m["id"] for m in last[1].get("data", [])] == [
+                        "echo-model"]:
+                    return
+            except OSError as e:
+                last = repr(e)
+            await asyncio.sleep(0.05)
+    finally:
+        await http.close()
+    raise AssertionError(f"{scheme} service on {port} not ready in {READY_S} s: {last}")
 
 
 async def _stop(svc, handles):
@@ -107,8 +135,9 @@ async def test_https_serves_what_plain_and_the_reference_serve():
         kw = dict(tls_cert=CERT, tls_key=KEY) if tls else {}
         svc, handles = await _echo_stack(*parts, **kw)
         try:
-            got[name] = await _exchange(svc.port, "https" if tls else "http",
-                                        _client_ctx() if tls else None)
+            scheme, ctx = ("https", _client_ctx()) if tls else ("http", None)
+            await _ready(svc.port, scheme, ctx)
+            got[name] = await _exchange(svc.port, scheme, ctx)
             if tls:
                 # a plain-text client is refused by the TLS listener
                 with pytest.raises(Exception):
